@@ -1,0 +1,116 @@
+"""`python -m pio_tpu_torch <verb>` — the port's command line.
+
+Verbs ported so far:
+
+  deploy   serve the latest COMPLETED engine instance (or
+           --engine-instance-id) of the engine in --engine-dir over
+           REST, on the CUDA device unless --device cpu. Storage comes
+           from the PIO_STORAGE_* environment, as for `pio deploy`.
+
+Counterpart of ``cmd_deploy`` in ``pio_tpu.tools.cli``; its fleet, canary,
+TLS, feedback, batching and warm-query options are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import sys
+
+from pio_tpu_torch.data.storage import get_storage
+
+
+def _load_variant(engine_dir: str) -> dict:
+    path = os.path.join(engine_dir, "engine.json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} not found. Run inside an engine directory or pass "
+            "--engine-dir."
+        )
+    with open(path) as f:
+        return json.load(f)
+
+
+def _load_factory(class_path: str, engine_dir: str | None = None):
+    """'pkg.module.ClassName' -> class. With engine_dir, the directory
+    joins sys.path first so user-code engines next to engine.json
+    resolve."""
+    module_name, _, cls_name = class_path.rpartition(".")
+    if not module_name:
+        raise ValueError(f"invalid class path {class_path!r}")
+    if engine_dir:
+        d = os.path.abspath(engine_dir)
+        if d not in sys.path:
+            sys.path.insert(0, d)
+    mod = importlib.import_module(module_name)
+    return getattr(mod, cls_name)
+
+
+def _engine_from_variant(variant: dict, engine_dir: str | None = None):
+    factory = _load_factory(variant["engineFactory"], engine_dir)
+    engine = factory.apply()
+    return engine, engine.engine_params_from_variant(variant)
+
+
+def _engine_ids(variant: dict, engine_dir: str) -> tuple[str, str, str]:
+    engine_id = variant.get("id") or os.path.basename(
+        os.path.abspath(engine_dir)
+    )
+    return engine_id, variant.get("engineVersion", "1"), "default"
+
+
+def cmd_deploy(args) -> int:
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    variant = _load_variant(args.engine_dir)
+    engine, ep = _engine_from_variant(variant, args.engine_dir)
+    engine_id, engine_version, engine_variant = _engine_ids(
+        variant, args.engine_dir)
+    storage = get_storage()
+    ctx = create_workflow_context(storage, device=args.device)
+    config = ServingConfig(
+        ip=args.ip, port=args.port, engine_id=engine_id,
+        engine_version=engine_version, engine_variant=engine_variant,
+    )
+    http, qs = create_query_server(
+        engine, ep, storage, config, ctx=ctx,
+        instance_id=args.engine_instance_id,
+    )
+    http.start()
+    print(f"Engine instance {qs.instance.id} deployed on "
+          f"http://{args.ip}:{http.port} ({ctx.device})", flush=True)
+    try:
+        http.wait()
+    except KeyboardInterrupt:
+        http.stop()
+    finally:
+        qs.close()
+    print("Server stopped.")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m pio_tpu_torch")
+    sub = p.add_subparsers(dest="verb", required=True)
+    x = sub.add_parser("deploy", help="serve an engine instance over REST")
+    x.add_argument("--engine-dir", default=".")
+    x.add_argument("--ip", default="0.0.0.0")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--engine-instance-id")
+    x.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="serving device (default cuda; cpu must be asked "
+                        "for)")
+    x.set_defaults(fn=cmd_deploy)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

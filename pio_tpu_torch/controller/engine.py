@@ -1,0 +1,234 @@
+"""Engine — the concrete DASE orchestrator.
+
+Mirrors reference controller/Engine.scala:80-829: named class-maps per stage,
+the train loop (read -> sanity -> prepare -> per-algo train, Engine.scala:622-709),
+the eval cross-product (per-fold train + batch-predict + per-query serve,
+Engine.scala:727-817), and engine-variant JSON -> EngineParams extraction
+(jValueToEngineParams, Engine.scala:354-417).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+from pio_tpu_torch.controller.base import (
+    Doer,
+    TrainingInterruption,
+    params_from_dict,
+    params_to_dict,
+    sanity_check,
+)
+
+
+@dataclass
+class EngineParams:
+    """Named (stage-name, params) per stage + a list for algorithms
+    (reference EngineParams.scala:10-64). Params may be dataclasses or raw
+    dicts (converted lazily by Doer)."""
+
+    datasource: tuple[str, Any] = ("", None)
+    preparator: tuple[str, Any] = ("", None)
+    algorithms: list[tuple[str, Any]] = field(default_factory=list)
+    serving: tuple[str, Any] = ("", None)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "dataSourceParams": {self.datasource[0]: params_to_dict(self.datasource[1])},
+                "preparatorParams": {self.preparator[0]: params_to_dict(self.preparator[1])},
+                "algorithmParamsList": [
+                    {"name": n, "params": params_to_dict(p)}
+                    for n, p in self.algorithms
+                ],
+                "servingParams": {self.serving[0]: params_to_dict(self.serving[1])},
+            },
+            sort_keys=True,
+        )
+
+
+def _single_class_map(x) -> dict[str, type]:
+    """Engine ctor accepts a single class or a name->class dict per stage."""
+    if isinstance(x, dict):
+        return x
+    return {"": x}
+
+
+class Engine:
+    """DASE engine (reference Engine.scala:80)."""
+
+    def __init__(
+        self,
+        datasource_classes,
+        preparator_classes,
+        algorithm_classes,
+        serving_classes,
+    ):
+        self.datasource_classes = _single_class_map(datasource_classes)
+        self.preparator_classes = _single_class_map(preparator_classes)
+        self.algorithm_classes = _single_class_map(algorithm_classes)
+        self.serving_classes = _single_class_map(serving_classes)
+
+    # -- stage instantiation ------------------------------------------------
+    def _stage(self, class_map: dict[str, type], name: str, params, kind: str):
+        if name not in class_map:
+            raise ValueError(
+                f"{kind} {name!r} is not defined; available: "
+                f"{sorted(class_map)}"
+            )
+        return Doer(class_map[name], params)
+
+    def _doers(self, engine_params: EngineParams):
+        ds = self._stage(
+            self.datasource_classes, *engine_params.datasource, "datasource"
+        )
+        prep = self._stage(
+            self.preparator_classes, *engine_params.preparator, "preparator"
+        )
+        algo_list = engine_params.algorithms or [("", None)]
+        algos = [
+            self._stage(self.algorithm_classes, n, p, "algorithm")
+            for n, p in algo_list
+        ]
+        serving = self._stage(
+            self.serving_classes, *engine_params.serving, "serving"
+        )
+        return ds, prep, algos, serving
+
+    # -- train (reference Engine.object.train, Engine.scala:622-709) --------
+    def train(
+        self,
+        ctx,
+        engine_params: EngineParams,
+        stop_after_read: bool = False,
+        stop_after_prepare: bool = False,
+    ) -> list[Any]:
+        ds, prep, algos, _ = self._doers(engine_params)
+        td = ds.read_training(ctx)
+        sanity_check(td)
+        if stop_after_read:
+            raise TrainingInterruption("read")
+        pd = prep.prepare(ctx, td)
+        sanity_check(pd)
+        if stop_after_prepare:
+            raise TrainingInterruption("prepare")
+        models = [algo.train(ctx, pd) for algo in algos]
+        for m in models:
+            sanity_check(m)
+        return models
+
+    # -- eval (reference Engine.object.eval, Engine.scala:727-817) ----------
+    def eval(
+        self, ctx, engine_params: EngineParams
+    ) -> list[tuple[Any, list[tuple[dict, Any, Any]]]]:
+        """-> per eval-set: (eval-info, [(query, prediction, actual)])."""
+        ds, prep, algos, serving = self._doers(engine_params)
+        eval_sets = ds.read_eval(ctx)
+        results = []
+        for td, eval_info, qa_pairs in eval_sets:
+            pd = prep.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algos]
+            queries = [serving.supplement(q) for q, _ in qa_pairs]
+            # per-algo bulk predict, then per-query serve combination
+            # (reference union+groupByKey at Engine.scala:787-793 — here a
+            # plain transpose, order-preserving)
+            per_algo = [
+                algo.batch_predict(model, queries)
+                for algo, model in zip(algos, models)
+            ]
+            qpa = [
+                (q, serving.serve(q, [preds[i] for preds in per_algo]), a)
+                for i, (q, a) in enumerate(qa_pairs)
+            ]
+            results.append((eval_info, qpa))
+        return results
+
+    def algorithm_model_kinds(self, engine_params: EngineParams) -> list[str]:
+        algo_list = engine_params.algorithms or [("", None)]
+        return [
+            getattr(self.algorithm_classes[n], "model_kind", "local")
+            for n, _ in algo_list
+        ]
+
+    # -- engine.json extraction (reference jValueToEngineParams) ------------
+    def engine_params_from_variant(self, variant: dict) -> EngineParams:
+        return engine_params_from_variant(
+            variant,
+            self.datasource_classes,
+            self.preparator_classes,
+            self.algorithm_classes,
+            self.serving_classes,
+        )
+
+
+class SimpleEngine(Engine):
+    """1-datasource/identity-prep/1-algo sugar (reference Engine.scala:66-70)."""
+
+    def __init__(self, datasource_class, algorithm_class, serving_class=None):
+        from pio_tpu_torch.controller.base import FirstServing, IdentityPreparator
+
+        super().__init__(
+            datasource_class,
+            IdentityPreparator,
+            algorithm_class,
+            serving_class or FirstServing,
+        )
+
+
+class EngineFactory:
+    """User entry point named in engine.json (reference EngineFactory.scala:8).
+    Subclass and implement apply()."""
+
+    @classmethod
+    def apply(cls) -> Engine:
+        raise NotImplementedError
+
+
+def _stage_params(variant: dict, key: str, class_map: dict[str, type]):
+    """Extract one stage's (name, params) from variant JSON. Accepts either
+    {"params": {...}} (unnamed) or {"name": ..., "params": {...}}."""
+    spec = variant.get(key) or {}
+    name = spec.get("name", "")
+    raw = spec.get("params", {})
+    if name not in class_map and name == "" and len(class_map) == 1:
+        name = next(iter(class_map))
+    cls = class_map.get(name)
+    params_class = getattr(cls, "params_class", None) if cls else None
+    return name, params_from_dict(params_class, raw)
+
+
+def engine_params_from_variant(
+    variant: dict,
+    datasource_classes,
+    preparator_classes,
+    algorithm_classes,
+    serving_classes,
+) -> EngineParams:
+    """engine.json variant -> EngineParams (reference Engine.scala:354-417).
+
+    Variant shape:
+      {"id": ..., "engineFactory": "pkg.module.Factory",
+       "datasource": {"params": {...}},
+       "preparator": {"params": {...}},
+       "algorithms": [{"name": "als", "params": {...}}, ...],
+       "serving": {"params": {...}}}
+    """
+    ds = _stage_params(variant, "datasource", _single_class_map(datasource_classes))
+    prep = _stage_params(variant, "preparator", _single_class_map(preparator_classes))
+    serving = _stage_params(variant, "serving", _single_class_map(serving_classes))
+    algo_map = _single_class_map(algorithm_classes)
+    algos = []
+    for spec in variant.get("algorithms", []):
+        name = spec.get("name", "")
+        if name not in algo_map and name == "" and len(algo_map) == 1:
+            name = next(iter(algo_map))
+        if name not in algo_map:
+            raise ValueError(
+                f"algorithm {name!r} not in engine (available: {sorted(algo_map)})"
+            )
+        params_class = getattr(algo_map[name], "params_class", None)
+        algos.append((name, params_from_dict(params_class, spec.get("params", {}))))
+    return EngineParams(
+        datasource=ds, preparator=prep, algorithms=algos, serving=serving
+    )

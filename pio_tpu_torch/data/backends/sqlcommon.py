@@ -1,0 +1,593 @@
+"""Shared SQL DAO bodies for relational backends (sqlite + PostgreSQL).
+
+The reference implements its JDBC DAO set once over scalikejdbc and runs
+it on PostgreSQL/MySQL (data/.../storage/jdbc/JDBCLEvents.scala:106,
+JDBCApps.scala, ...); the analogue here is one set of DAO bodies written
+against a tiny connection protocol (`SqlDb`) with the three dialect points
+that actually differ pulled into the connection:
+
+ * placeholders — DAO SQL uses '?'; the postgres connection rewrites to $n
+ * upsert — sqlite INSERT OR REPLACE vs postgres ON CONFLICT DO UPDATE
+ * null-safe equality — sqlite `IS ?` vs postgres `IS NOT DISTINCT FROM ?`
+ * auto-id inserts — sqlite lastrowid vs postgres RETURNING id
+
+Everything else (query shapes, JSON encodings, time handling, namespace
+semantics) is shared, which is the point: the DAO abstraction holds on a
+standard networked multi-writer store, not just the bespoke ones.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import replace
+from datetime import datetime
+from typing import Iterator, Protocol, Sequence
+
+from pio_tpu_torch.data import dao as d
+from pio_tpu_torch.data.backends.common import DEFAULT_FIND_LIMIT, new_event_id
+from pio_tpu_torch.data.datamap import DataMap
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.data.storage import StorageError
+from pio_tpu_torch.utils.time import format_time, millis, parse_time
+
+
+class SqlDb(Protocol):
+    """What a relational connection provides to the shared DAO bodies."""
+
+    nullsafe: str                      # e.g. "IS" / "IS NOT DISTINCT FROM"
+    # how the access_keys key column is spelled in SQL: "key" is a
+    # reserved word in MySQL, so its connection quotes it as `key`; sqlite
+    # and postgres use it bare
+    key_col: str
+
+    def exec(self, sql: str, params: tuple = ()) -> int:
+        """Run a write; -> affected rowcount."""
+        ...
+
+    def query(self, sql: str, params: tuple = ()) -> list[tuple]:
+        ...
+
+    def insert_auto_id(self, table: str, cols: tuple[str, ...],
+                       params: tuple) -> int | None:
+        """INSERT with auto-generated integer PK; -> new id, or None on
+        unique violation."""
+        ...
+
+    def try_exec(self, sql: str, params: tuple = ()) -> bool:
+        """Run a write; -> False (instead of raising) on unique violation."""
+        ...
+
+    def upsert_sql(self, table: str, cols: tuple[str, ...],
+                   conflict: tuple[str, ...]) -> str:
+        """INSERT-or-update statement with '?' placeholders for `cols`."""
+        ...
+
+    def sync_auto_id(self, table: str) -> None:
+        """After an EXPLICIT-id insert into an auto-id table, realign the
+        id generator past MAX(id) (postgres sequences do not observe
+        explicit inserts; sqlite rowid allocation does — no-op there)."""
+        ...
+
+    def exec_many(self, sql: str, params_seq: list[tuple]) -> None:
+        """Run one write statement over a parameter batch (sqlite:
+        executemany + ONE commit instead of a commit per row; wire
+        dialects: one connection checkout for the loop)."""
+        ...
+
+
+def _dt(s: str | None) -> datetime | None:
+    return parse_time(s) if s else None
+
+
+class SqlApps(d.AppsDAO):
+    def __init__(self, db: SqlDb):
+        self.db = db
+
+    def insert(self, app: d.App):
+        if app.id > 0:
+            ok = self.db.try_exec(
+                "INSERT INTO apps (id, name, description) VALUES (?,?,?)",
+                (app.id, app.name, app.description),
+            )
+            if ok:
+                self.db.sync_auto_id("apps")
+            return app.id if ok else None
+        return self.db.insert_auto_id(
+            "apps", ("name", "description"), (app.name, app.description)
+        )
+
+    def get(self, app_id):
+        rows = self.db.query(
+            "SELECT id, name, description FROM apps WHERE id=?", (app_id,)
+        )
+        return d.App(*rows[0]) if rows else None
+
+    def get_by_name(self, name):
+        rows = self.db.query(
+            "SELECT id, name, description FROM apps WHERE name=?", (name,)
+        )
+        return d.App(*rows[0]) if rows else None
+
+    def get_all(self):
+        return [d.App(*r) for r in self.db.query(
+            "SELECT id, name, description FROM apps")]
+
+    def update(self, app):
+        self.db.exec(
+            "UPDATE apps SET name=?, description=? WHERE id=?",
+            (app.name, app.description, app.id),
+        )
+
+    def delete(self, app_id):
+        self.db.exec("DELETE FROM apps WHERE id=?", (app_id,))
+
+
+class SqlAccessKeys(d.AccessKeysDAO):
+    def __init__(self, db: SqlDb):
+        self.db = db
+        self.kc = getattr(db, "key_col", "key")
+
+    def insert(self, k: d.AccessKey):
+        key = k.key or self.generate_key()
+        ok = self.db.try_exec(
+            f"INSERT INTO access_keys ({self.kc}, appid, events) "
+            "VALUES (?,?,?)",
+            (key, k.appid, json.dumps(list(k.events))),
+        )
+        return key if ok else None
+
+    def _row(self, r):
+        return d.AccessKey(r[0], r[1], tuple(json.loads(r[2])))
+
+    def get(self, key):
+        rows = self.db.query(
+            f"SELECT {self.kc}, appid, events FROM access_keys "
+            f"WHERE {self.kc}=?", (key,)
+        )
+        return self._row(rows[0]) if rows else None
+
+    def get_all(self):
+        return [self._row(r) for r in self.db.query(
+            f"SELECT {self.kc}, appid, events FROM access_keys")]
+
+    def get_by_appid(self, appid):
+        return [self._row(r) for r in self.db.query(
+            f"SELECT {self.kc}, appid, events FROM access_keys "
+            "WHERE appid=?", (appid,))]
+
+    def update(self, k):
+        self.db.exec(
+            f"UPDATE access_keys SET appid=?, events=? WHERE {self.kc}=?",
+            (k.appid, json.dumps(list(k.events)), k.key),
+        )
+
+    def delete(self, key):
+        self.db.exec(
+            f"DELETE FROM access_keys WHERE {self.kc}=?", (key,))
+
+
+class SqlChannels(d.ChannelsDAO):
+    def __init__(self, db: SqlDb):
+        self.db = db
+
+    def insert(self, channel: d.Channel):
+        if not d.Channel.is_valid_name(channel.name):
+            return None
+        if channel.id > 0:
+            ok = self.db.try_exec(
+                "INSERT INTO channels (id, name, appid) VALUES (?,?,?)",
+                (channel.id, channel.name, channel.appid),
+            )
+            if ok:
+                self.db.sync_auto_id("channels")
+            return channel.id if ok else None
+        return self.db.insert_auto_id(
+            "channels", ("name", "appid"), (channel.name, channel.appid)
+        )
+
+    def get(self, channel_id):
+        rows = self.db.query(
+            "SELECT id, name, appid FROM channels WHERE id=?", (channel_id,)
+        )
+        return d.Channel(*rows[0]) if rows else None
+
+    def get_by_appid(self, appid):
+        return [d.Channel(*r) for r in self.db.query(
+            "SELECT id, name, appid FROM channels WHERE appid=?", (appid,))]
+
+    def delete(self, channel_id):
+        self.db.exec("DELETE FROM channels WHERE id=?", (channel_id,))
+
+
+class SqlEngineInstances(d.EngineInstancesDAO):
+    COLS = (
+        "id,status,start_time,end_time,engine_id,engine_version,engine_variant,"
+        "engine_factory,batch,env,spark_conf,datasource_params,"
+        "preparator_params,algorithms_params,serving_params,progress"
+    )
+
+    def __init__(self, db: SqlDb):
+        self.db = db
+
+    def _to_row(self, i: d.EngineInstance):
+        return (
+            i.id, i.status, format_time(i.start_time), format_time(i.end_time),
+            i.engine_id, i.engine_version, i.engine_variant, i.engine_factory,
+            i.batch, json.dumps(i.env), json.dumps(i.spark_conf),
+            i.datasource_params, i.preparator_params, i.algorithms_params,
+            i.serving_params, json.dumps(i.progress),
+        )
+
+    def _from_row(self, r) -> d.EngineInstance:
+        return d.EngineInstance(
+            id=r[0], status=r[1], start_time=_dt(r[2]), end_time=_dt(r[3]),
+            engine_id=r[4], engine_version=r[5], engine_variant=r[6],
+            engine_factory=r[7], batch=r[8], env=json.loads(r[9] or "{}"),
+            spark_conf=json.loads(r[10] or "{}"), datasource_params=r[11],
+            preparator_params=r[12], algorithms_params=r[13],
+            serving_params=r[14], progress=json.loads(r[15] or "{}"),
+        )
+
+    def insert(self, i: d.EngineInstance):
+        iid = i.id or new_event_id()
+        i = replace(i, id=iid)
+        self.db.exec(
+            f"INSERT INTO engine_instances ({self.COLS}) VALUES "
+            f"({','.join('?' * 16)})",
+            self._to_row(i),
+        )
+        return iid
+
+    def get(self, instance_id):
+        rows = self.db.query(
+            f"SELECT {self.COLS} FROM engine_instances WHERE id=?",
+            (instance_id,),
+        )
+        return self._from_row(rows[0]) if rows else None
+
+    def get_all(self):
+        return [self._from_row(r) for r in self.db.query(
+            f"SELECT {self.COLS} FROM engine_instances")]
+
+    def update(self, i):
+        self.db.exec(
+            "UPDATE engine_instances SET status=?, start_time=?, end_time=?, "
+            "engine_id=?, engine_version=?, engine_variant=?, engine_factory=?, "
+            "batch=?, env=?, spark_conf=?, datasource_params=?, "
+            "preparator_params=?, algorithms_params=?, serving_params=?, "
+            "progress=? WHERE id=?",
+            self._to_row(i)[1:] + (i.id,),
+        )
+
+    def delete(self, instance_id):
+        self.db.exec(
+            "DELETE FROM engine_instances WHERE id=?", (instance_id,))
+
+
+class SqlEngineManifests(d.EngineManifestsDAO):
+    def __init__(self, db: SqlDb):
+        self.db = db
+
+    def insert(self, m: d.EngineManifest):
+        self.db.exec(
+            self.db.upsert_sql(
+                "engine_manifests",
+                ("id", "version", "name", "description", "files",
+                 "engine_factory"),
+                ("id", "version"),
+            ),
+            (m.id, m.version, m.name, m.description,
+             json.dumps(list(m.files)), m.engine_factory),
+        )
+
+    def _from_row(self, r):
+        return d.EngineManifest(
+            id=r[0], version=r[1], name=r[2], description=r[3],
+            files=tuple(json.loads(r[4] or "[]")), engine_factory=r[5],
+        )
+
+    def get(self, manifest_id, version):
+        rows = self.db.query(
+            "SELECT id, version, name, description, files, engine_factory "
+            "FROM engine_manifests WHERE id=? AND version=?",
+            (manifest_id, version),
+        )
+        return self._from_row(rows[0]) if rows else None
+
+    def get_all(self):
+        return [self._from_row(r) for r in self.db.query(
+            "SELECT id, version, name, description, files, engine_factory "
+            "FROM engine_manifests")]
+
+    def update(self, m, upsert=False):
+        self.insert(m)
+
+    def delete(self, manifest_id, version):
+        self.db.exec(
+            "DELETE FROM engine_manifests WHERE id=? AND version=?",
+            (manifest_id, version),
+        )
+
+
+class SqlEvaluationInstances(d.EvaluationInstancesDAO):
+    COLS = (
+        "id,status,start_time,end_time,evaluation_class,"
+        "engine_params_generator_class,batch,env,evaluator_results,"
+        "evaluator_results_html,evaluator_results_json"
+    )
+
+    def __init__(self, db: SqlDb):
+        self.db = db
+
+    def _to_row(self, i: d.EvaluationInstance):
+        return (
+            i.id, i.status, format_time(i.start_time), format_time(i.end_time),
+            i.evaluation_class, i.engine_params_generator_class, i.batch,
+            json.dumps(i.env), i.evaluator_results, i.evaluator_results_html,
+            i.evaluator_results_json,
+        )
+
+    def _from_row(self, r):
+        return d.EvaluationInstance(
+            id=r[0], status=r[1], start_time=_dt(r[2]), end_time=_dt(r[3]),
+            evaluation_class=r[4], engine_params_generator_class=r[5],
+            batch=r[6], env=json.loads(r[7] or "{}"), evaluator_results=r[8],
+            evaluator_results_html=r[9], evaluator_results_json=r[10],
+        )
+
+    def insert(self, i: d.EvaluationInstance):
+        iid = i.id or new_event_id()
+        i = replace(i, id=iid)
+        self.db.exec(
+            f"INSERT INTO evaluation_instances ({self.COLS}) VALUES "
+            f"({','.join('?' * 11)})",
+            self._to_row(i),
+        )
+        return iid
+
+    def get(self, instance_id):
+        rows = self.db.query(
+            f"SELECT {self.COLS} FROM evaluation_instances WHERE id=?",
+            (instance_id,),
+        )
+        return self._from_row(rows[0]) if rows else None
+
+    def get_all(self):
+        return [self._from_row(r) for r in self.db.query(
+            f"SELECT {self.COLS} FROM evaluation_instances")]
+
+    def update(self, i):
+        self.db.exec(
+            "UPDATE evaluation_instances SET status=?, start_time=?, "
+            "end_time=?, evaluation_class=?, engine_params_generator_class=?, "
+            "batch=?, env=?, evaluator_results=?, evaluator_results_html=?, "
+            "evaluator_results_json=? WHERE id=?",
+            self._to_row(i)[1:] + (i.id,),
+        )
+
+    def delete(self, instance_id):
+        self.db.exec(
+            "DELETE FROM evaluation_instances WHERE id=?", (instance_id,))
+
+
+class SqlModels(d.ModelsDAO):
+    def __init__(self, db: SqlDb):
+        self.db = db
+
+    def insert(self, m: d.Model):
+        self.db.exec(
+            self.db.upsert_sql("models", ("id", "models"), ("id",)),
+            (m.id, m.models),
+        )
+
+    def get(self, model_id):
+        rows = self.db.query(
+            "SELECT id, models FROM models WHERE id=?", (model_id,))
+        if not rows:
+            return None
+        blob = rows[0][1]
+        if isinstance(blob, memoryview):
+            blob = bytes(blob)
+        return d.Model(rows[0][0], blob)
+
+    def delete(self, model_id):
+        self.db.exec("DELETE FROM models WHERE id=?", (model_id,))
+
+
+# explicit column list: the postgres events table carries an extra
+# generated channel_key column for its conflict target, so SELECT * is
+# not portable across the two schemas
+EVENT_COLS = (
+    "id,app_id,channel_id,event,entity_type,entity_id,target_entity_type,"
+    "target_entity_id,properties,event_time,event_time_ms,tags,pr_id,"
+    "creation_time"
+)
+
+
+class SqlEvents(d.EventsDAO):
+    def __init__(self, db: SqlDb, events_conflict: tuple[str, ...]):
+        self.db = db
+        self._events_conflict = events_conflict
+
+    def init(self, app_id, channel_id=None):
+        self.db.try_exec(
+            "INSERT INTO event_namespaces (app_id, channel_id) VALUES (?,?)",
+            (app_id, channel_id),
+        )
+        return True
+
+    def _check_ns(self, app_id, channel_id):
+        ns = self.db.nullsafe
+        rows = self.db.query(
+            f"SELECT 1 FROM event_namespaces WHERE app_id=? "
+            f"AND channel_id {ns} ?",
+            (app_id, channel_id),
+        )
+        if not rows:
+            raise StorageError(
+                f"events namespace not initialized for app {app_id} "
+                f"channel {channel_id} (call init first)"
+            )
+
+    def remove(self, app_id, channel_id=None):
+        ns = self.db.nullsafe
+        self.db.exec(
+            f"DELETE FROM events WHERE app_id=? AND channel_id {ns} ?",
+            (app_id, channel_id),
+        )
+        n = self.db.exec(
+            f"DELETE FROM event_namespaces WHERE app_id=? "
+            f"AND channel_id {ns} ?",
+            (app_id, channel_id),
+        )
+        return n > 0
+
+    def close(self):
+        pass
+
+    def insert(self, event: Event, app_id, channel_id=None):
+        self._check_ns(app_id, channel_id)
+        eid = event.event_id or new_event_id()
+        # upsert against the per-namespace unique key (app_id, channel, id):
+        # re-inserting an explicit event id upserts within its own namespace
+        # only, matching the memory backend and the reference's HBase
+        # Put-by-rowkey semantics (hbase/HBEventsUtil.scala:144) — and
+        # making migration re-runs idempotent.
+        self.db.exec(
+            self.db.upsert_sql(
+                "events",
+                ("id", "app_id", "channel_id", "event", "entity_type",
+                 "entity_id", "target_entity_type", "target_entity_id",
+                 "properties", "event_time", "event_time_ms", "tags",
+                 "pr_id", "creation_time"),
+                self._events_conflict,
+            ),
+            self._insert_row(event, eid, app_id, channel_id),
+        )
+        return eid
+
+    def _insert_row(self, event: Event, eid: str, app_id, channel_id) -> tuple:
+        return (
+            eid, app_id, channel_id, event.event, event.entity_type,
+            event.entity_id, event.target_entity_type,
+            event.target_entity_id, event.properties.to_json(),
+            format_time(event.event_time), millis(event.event_time),
+            json.dumps(list(event.tags)), event.pr_id,
+            format_time(event.creation_time),
+        )
+
+    def insert_batch(self, events, app_id, channel_id=None):
+        """Bulk upsert: one namespace check + one exec_many for the whole
+        batch (the default loop pays a namespace probe and a COMMIT per
+        event — the dominant cost of sqlite ingest)."""
+        self._check_ns(app_id, channel_id)
+        ids = [e.event_id or new_event_id() for e in events]
+        sql = self.db.upsert_sql(
+            "events",
+            ("id", "app_id", "channel_id", "event", "entity_type",
+             "entity_id", "target_entity_type", "target_entity_id",
+             "properties", "event_time", "event_time_ms", "tags",
+             "pr_id", "creation_time"),
+            self._events_conflict,
+        )
+        self.db.exec_many(sql, [
+            self._insert_row(e, eid, app_id, channel_id)
+            for e, eid in zip(events, ids)
+        ])
+        return ids
+
+    def _where_filters(
+        self, app_id, channel_id, start_time, until_time, entity_type,
+        entity_id, event_names, target_entity_type, target_entity_id,
+    ) -> tuple[str, list]:
+        """The events WHERE clause, built in this one place so that every
+        read path filters alike."""
+        ns = self.db.nullsafe
+        sql = f" WHERE app_id=? AND channel_id {ns} ?"
+        params: list = [app_id, channel_id]
+        if start_time is not None:
+            sql += " AND event_time_ms >= ?"
+            params.append(millis(start_time))
+        if until_time is not None:
+            sql += " AND event_time_ms < ?"
+            params.append(millis(until_time))
+        if entity_type is not None:
+            sql += " AND entity_type = ?"
+            params.append(entity_type)
+        if entity_id is not None:
+            sql += " AND entity_id = ?"
+            params.append(entity_id)
+        if event_names is not None:
+            sql += f" AND event IN ({','.join('?' * len(event_names))})"
+            params.extend(event_names)
+        if target_entity_type is not ...:
+            if target_entity_type is None:
+                sql += " AND target_entity_type IS NULL"
+            else:
+                sql += " AND target_entity_type = ?"
+                params.append(target_entity_type)
+        if target_entity_id is not ...:
+            if target_entity_id is None:
+                sql += " AND target_entity_id IS NULL"
+            else:
+                sql += " AND target_entity_id = ?"
+                params.append(target_entity_id)
+        return sql, params
+
+    def _from_row(self, r) -> Event:
+        return Event(
+            event_id=r[0], event=r[3], entity_type=r[4], entity_id=r[5],
+            target_entity_type=r[6], target_entity_id=r[7],
+            properties=DataMap.from_json(r[8]), event_time=parse_time(r[9]),
+            tags=tuple(json.loads(r[11] or "[]")), pr_id=r[12],
+            creation_time=parse_time(r[13]),
+        )
+
+    def get(self, event_id, app_id, channel_id=None):
+        self._check_ns(app_id, channel_id)
+        ns = self.db.nullsafe
+        rows = self.db.query(
+            f"SELECT {EVENT_COLS} FROM events WHERE id=? AND app_id=? "
+            f"AND channel_id {ns} ?",
+            (event_id, app_id, channel_id),
+        )
+        return self._from_row(rows[0]) if rows else None
+
+    def delete(self, event_id, app_id, channel_id=None):
+        self._check_ns(app_id, channel_id)
+        ns = self.db.nullsafe
+        n = self.db.exec(
+            f"DELETE FROM events WHERE id=? AND app_id=? "
+            f"AND channel_id {ns} ?",
+            (event_id, app_id, channel_id),
+        )
+        return n > 0
+
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+        limit: int | None = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        self._check_ns(app_id, channel_id)
+        where, params = self._where_filters(
+            app_id, channel_id, start_time, until_time, entity_type,
+            entity_id, event_names, target_entity_type, target_entity_id)
+        sql = f"SELECT {EVENT_COLS} FROM events{where}"
+        # push ordering + paging into SQL so the serve path stays O(limit)
+        sql += f" ORDER BY event_time_ms {'DESC' if reversed else 'ASC'}"
+        if limit is None:
+            limit = DEFAULT_FIND_LIMIT
+        if limit >= 0:
+            sql += " LIMIT ?"
+            params.append(limit)
+        rows = self.db.query(sql, tuple(params))
+        return iter(self._from_row(r) for r in rows)

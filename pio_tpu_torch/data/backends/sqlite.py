@@ -1,0 +1,231 @@
+"""SQLite storage backend — the default durable single-host backend.
+
+Plays the role of the reference's embedded/single-node JDBC deployments
+(data/.../storage/jdbc/*): full DAO set including the events store and
+model blobs, in one database file. Uses a single `events` table keyed by
+(app_id, channel_id) with a time index instead of the reference's
+table-per-app DDL (JDBCLEvents.scala:106) — same namespace semantics via an
+explicit namespaces table. The DAO bodies live in sqlcommon.py, shared
+with the PostgreSQL backend; this module provides the sqlite dialect
+(INSERT OR REPLACE upserts, `IS ?` null-safe equality, lastrowid) and
+the schema/migration.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sqlite3
+import threading
+
+from pio_tpu_torch.data.backends import sqlcommon as sc
+from pio_tpu_torch.data.storage import Backend
+
+_SCHEMA = """
+CREATE TABLE IF NOT EXISTS apps (
+  id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT UNIQUE NOT NULL,
+  description TEXT);
+CREATE TABLE IF NOT EXISTS access_keys (
+  key TEXT PRIMARY KEY, appid INTEGER NOT NULL, events TEXT NOT NULL);
+CREATE TABLE IF NOT EXISTS channels (
+  id INTEGER PRIMARY KEY AUTOINCREMENT, name TEXT NOT NULL,
+  appid INTEGER NOT NULL);
+CREATE TABLE IF NOT EXISTS engine_instances (
+  id TEXT PRIMARY KEY, status TEXT, start_time TEXT, end_time TEXT,
+  engine_id TEXT, engine_version TEXT, engine_variant TEXT,
+  engine_factory TEXT, batch TEXT, env TEXT, spark_conf TEXT,
+  datasource_params TEXT, preparator_params TEXT, algorithms_params TEXT,
+  serving_params TEXT, progress TEXT);
+CREATE TABLE IF NOT EXISTS engine_manifests (
+  id TEXT, version TEXT, name TEXT, description TEXT, files TEXT,
+  engine_factory TEXT, PRIMARY KEY (id, version));
+CREATE TABLE IF NOT EXISTS evaluation_instances (
+  id TEXT PRIMARY KEY, status TEXT, start_time TEXT, end_time TEXT,
+  evaluation_class TEXT, engine_params_generator_class TEXT, batch TEXT,
+  env TEXT, evaluator_results TEXT, evaluator_results_html TEXT,
+  evaluator_results_json TEXT);
+CREATE TABLE IF NOT EXISTS models (id TEXT PRIMARY KEY, models BLOB);
+CREATE TABLE IF NOT EXISTS event_namespaces (
+  app_id INTEGER NOT NULL, channel_id INTEGER,
+  PRIMARY KEY (app_id, channel_id));
+CREATE TABLE IF NOT EXISTS events (
+  id TEXT NOT NULL, app_id INTEGER NOT NULL, channel_id INTEGER,
+  event TEXT NOT NULL, entity_type TEXT NOT NULL, entity_id TEXT NOT NULL,
+  target_entity_type TEXT, target_entity_id TEXT, properties TEXT,
+  event_time TEXT NOT NULL, event_time_ms INTEGER NOT NULL, tags TEXT,
+  pr_id TEXT, creation_time TEXT NOT NULL);
+CREATE UNIQUE INDEX IF NOT EXISTS idx_events_ns_id
+  ON events (app_id, IFNULL(channel_id, -1), id);
+CREATE INDEX IF NOT EXISTS idx_events_app_time
+  ON events (app_id, channel_id, event_time_ms);
+CREATE INDEX IF NOT EXISTS idx_events_entity
+  ON events (app_id, channel_id, entity_type, entity_id);
+"""
+
+
+class _SqliteDb:
+    """sqlcommon.SqlDb over one serialized sqlite connection."""
+
+    nullsafe = "IS"
+
+    def __init__(self, conn: sqlite3.Connection, lock: threading.RLock):
+        self._conn = conn
+        self._lock = lock
+
+    def exec(self, sql: str, params: tuple = ()) -> int:
+        with self._lock:
+            cur = self._conn.execute(sql, params)
+            self._conn.commit()
+            return cur.rowcount
+
+    def query(self, sql: str, params: tuple = ()) -> list[tuple]:
+        with self._lock:
+            return list(self._conn.execute(sql, params))
+
+    def insert_auto_id(self, table, cols, params):
+        sql = (
+            f"INSERT INTO {table} ({','.join(cols)}) "
+            f"VALUES ({','.join('?' * len(cols))})"
+        )
+        try:
+            with self._lock:
+                cur = self._conn.execute(sql, params)
+                self._conn.commit()
+                return cur.lastrowid
+        except sqlite3.IntegrityError:
+            return None
+
+    def exec_many(self, sql: str, params_seq: list[tuple]) -> None:
+        # one executemany + ONE commit: per-row commits are the dominant
+        # cost of sqlite ingest (each is an fsync in non-WAL journals and
+        # a WAL frame flush here)
+        with self._lock:
+            self._conn.executemany(sql, params_seq)
+            self._conn.commit()
+
+    def try_exec(self, sql: str, params: tuple = ()) -> bool:
+        try:
+            self.exec(sql, params)
+            return True
+        except sqlite3.IntegrityError:
+            return False
+
+    def upsert_sql(self, table, cols, conflict):
+        # OR REPLACE keys on whichever unique index covers `conflict`
+        # (the expression index idx_events_ns_id for events)
+        return (
+            f"INSERT OR REPLACE INTO {table} ({','.join(cols)}) "
+            f"VALUES ({','.join('?' * len(cols))})"
+        )
+
+    def sync_auto_id(self, table):
+        pass  # sqlite rowid allocation is MAX(rowid)+1: always aligned
+
+
+class SqliteBackend(Backend):
+    def __init__(self, config):
+        super().__init__(config)
+        path = config.properties.get("PATH", "pio.db")
+        if config.test:
+            path = ":memory:"
+        if path != ":memory:":
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._path = path
+        self._conn = sqlite3.connect(path, check_same_thread=False)
+        self._conn.execute("PRAGMA journal_mode=WAL")
+        self._lock = threading.RLock()
+        self._db = _SqliteDb(self._conn, self._lock)
+        with self._lock:
+            self._migrate_events_pk()
+            self._conn.executescript(_SCHEMA)
+            self._migrate_add_progress()
+            self._conn.commit()
+
+    def _migrate_add_progress(self):
+        """Pre-lifecycle databases lack engine_instances.progress (the
+        training heartbeat column); CREATE TABLE IF NOT EXISTS does not
+        extend an existing table, so add it in place."""
+        cols = {
+            r[1] for r in self._conn.execute(
+                "PRAGMA table_info(engine_instances)")
+        }
+        if "progress" not in cols:
+            self._conn.execute(
+                "ALTER TABLE engine_instances ADD COLUMN progress TEXT")
+
+    def _migrate_events_pk(self):
+        """Rebuild pre-round-2 events tables whose PK was the global event id.
+
+        The old `id TEXT PRIMARY KEY` let an insert in one (app, channel)
+        namespace silently replace another namespace's event with the same
+        client-supplied id. Uniqueness is now per-namespace
+        (app_id, channel_id, id) — matching the memory backend's per-namespace
+        dicts and the reference's table-per-app layout
+        (data/.../storage/hbase/HBEventsUtil.scala tableName), where a
+        Put-by-rowkey can never cross namespaces.
+        """
+        row = self._conn.execute(
+            "SELECT sql FROM sqlite_master WHERE type='table' AND name='events'"
+        ).fetchone()
+        if not row or "id TEXT PRIMARY KEY" not in (row[0] or ""):
+            return
+        self._conn.executescript(
+            """
+            ALTER TABLE events RENAME TO events_v1;
+            CREATE TABLE events (
+              id TEXT NOT NULL, app_id INTEGER NOT NULL, channel_id INTEGER,
+              event TEXT NOT NULL, entity_type TEXT NOT NULL,
+              entity_id TEXT NOT NULL, target_entity_type TEXT,
+              target_entity_id TEXT, properties TEXT, event_time TEXT NOT NULL,
+              event_time_ms INTEGER NOT NULL, tags TEXT, pr_id TEXT,
+              creation_time TEXT NOT NULL);
+            INSERT INTO events SELECT * FROM events_v1;
+            DROP TABLE events_v1;
+            """
+        )
+        self._conn.commit()
+
+    def close(self):
+        with self._lock:
+            # fold the WAL back into the main db file so a plain file copy of
+            # PATH is a complete backup (operators expect that); sqlite
+            # reports BUSY via the result row, not an exception
+            try:
+                row = self._conn.execute(
+                    "PRAGMA wal_checkpoint(TRUNCATE)"
+                ).fetchone()
+                if row and row[0] == 1:
+                    logging.getLogger("pio_tpu_torch.storage").warning(
+                        "wal_checkpoint busy: %s-wal not merged; copy the "
+                        "-wal/-shm sidecars too when backing up",
+                        self._path,
+                    )
+            except sqlite3.Error:
+                pass
+            self._conn.close()
+
+    def apps(self):
+        return sc.SqlApps(self._db)
+
+    def access_keys(self):
+        return sc.SqlAccessKeys(self._db)
+
+    def channels(self):
+        return sc.SqlChannels(self._db)
+
+    def engine_instances(self):
+        return sc.SqlEngineInstances(self._db)
+
+    def engine_manifests(self):
+        return sc.SqlEngineManifests(self._db)
+
+    def evaluation_instances(self):
+        return sc.SqlEvaluationInstances(self._db)
+
+    def models(self):
+        return sc.SqlModels(self._db)
+
+    def events(self):
+        # sqlite's OR REPLACE resolves against the expression index
+        # idx_events_ns_id; the conflict tuple is informational here
+        return sc.SqlEvents(self._db, ("app_id", "channel_id", "id"))

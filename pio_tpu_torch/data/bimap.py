@@ -1,0 +1,153 @@
+"""BiMap / EntityIdIndex — bidirectional id-index maps.
+
+Reference data/.../storage/BiMap.scala:25-164 builds String<->Int maps from
+RDDs (`BiMap.stringInt(rdd)`); every engine template uses them to turn entity
+ids into dense matrix indices. The TPU-native version builds the map from
+numpy arrays / iterables on the host (there is no RDD — ingestion is
+host-side, then `device_put` sharded) and offers vectorized numpy transforms
+so index lookup never becomes a Python-loop hot spot.
+"""
+
+from __future__ import annotations
+
+from typing import Generic, Hashable, Iterable, Iterator, Mapping, Sequence, TypeVar
+
+import numpy as np
+
+K = TypeVar("K", bound=Hashable)
+V = TypeVar("V", bound=Hashable)
+
+
+class BiMap(Generic[K, V]):
+    """Immutable bidirectional map (reference BiMap.scala:25-106)."""
+
+    def __init__(self, forward: Mapping[K, V]):
+        self._fwd: dict[K, V] = dict(forward)
+        self._rev: dict[V, K] = {v: k for k, v in self._fwd.items()}
+        if len(self._rev) != len(self._fwd):
+            raise ValueError("BiMap values must be unique")
+
+    # -- lookups ------------------------------------------------------------
+    def __call__(self, k: K) -> V:
+        return self._fwd[k]
+
+    def __getitem__(self, k: K) -> V:
+        return self._fwd[k]
+
+    def get(self, k: K, default=None):
+        return self._fwd.get(k, default)
+
+    def contains(self, k: K) -> bool:
+        return k in self._fwd
+
+    def __contains__(self, k: K) -> bool:
+        return k in self._fwd
+
+    def inverse(self) -> "BiMap[V, K]":
+        inv = BiMap.__new__(BiMap)
+        inv._fwd = self._rev
+        inv._rev = self._fwd
+        return inv
+
+    def to_dict(self) -> dict[K, V]:
+        return dict(self._fwd)
+
+    def keys(self):
+        return self._fwd.keys()
+
+    def values(self):
+        return self._fwd.values()
+
+    def __len__(self) -> int:
+        return len(self._fwd)
+
+    def __iter__(self) -> Iterator[K]:
+        return iter(self._fwd)
+
+    def take(self, n: int) -> "BiMap[K, V]":
+        return BiMap(dict(list(self._fwd.items())[:n]))
+
+    # -- vectorized transforms (TPU-first addition) -------------------------
+    def map_array(self, keys: Sequence[K] | np.ndarray, dtype=np.int32) -> np.ndarray:
+        """Vectorized forward lookup of a key array -> index array."""
+        return np.fromiter((self._fwd[k] for k in keys), dtype=dtype, count=len(keys))
+
+    # -- constructors (reference BiMap.scala:108-164) -----------------------
+    @staticmethod
+    def string_int(keys: Iterable[str]) -> "BiMap[str, int]":
+        """Distinct keys -> dense [0, n) indices, insertion-ordered and
+        deterministic (reference stringInt, BiMap.scala:123)."""
+        fwd: dict[str, int] = {}
+        for k in keys:
+            if k not in fwd:
+                fwd[k] = len(fwd)
+        return BiMap(fwd)
+
+    string_long = string_int
+
+    @staticmethod
+    def string_double(keys: Iterable[str]) -> "BiMap[str, float]":
+        fwd: dict[str, float] = {}
+        for k in keys:
+            if k not in fwd:
+                fwd[k] = float(len(fwd))
+        return BiMap(fwd)
+
+
+class EntityIdIndex:
+    """Dense-index view over entity ids with vectorized encode/decode.
+
+    Replaces the reference's `EntityMap` (BiMap.scala / EntityMap.scala) for
+    the training path: `encode` turns a string-id column into an int32 numpy
+    array ready for `device_put`; `decode` inverts model output indices back
+    to entity ids (numpy fancy-indexing, O(n) not O(n) Python calls).
+    """
+
+    def __init__(self, ids: Iterable[str]):
+        self.bimap = BiMap.string_int(ids)
+        self._id_array = np.array(list(self.bimap.keys()), dtype=object)
+
+    def __len__(self) -> int:
+        return len(self.bimap)
+
+    def encode(self, ids: Sequence[str]) -> np.ndarray:
+        return self.bimap.map_array(ids)
+
+    def decode(self, indices: np.ndarray | Sequence[int]) -> list[str]:
+        return list(self._id_array[np.asarray(indices, dtype=np.int64)])
+
+    def id_of(self, index: int) -> str:
+        return self._id_array[index]
+
+    def ids(self) -> list[str]:
+        """All entity ids in dense-index order."""
+        return list(self._id_array)
+
+    def index_of(self, entity_id: str) -> int:
+        return self.bimap[entity_id]
+
+    def __contains__(self, entity_id: str) -> bool:
+        return entity_id in self.bimap
+
+    def extended(self, new_ids: Iterable[str]) -> "EntityIdIndex":
+        """A NEW index with `new_ids` appended after the existing dense
+        range (ids already present keep their index and are skipped).
+        Copy-on-write for the serving fold-in path: queries holding the
+        old index are never mutated under, and existing indices never
+        move — factor rows stay aligned."""
+        fwd = dict(self.bimap._fwd)
+        appended = []
+        for nid in new_ids:
+            if nid not in fwd:
+                fwd[nid] = len(fwd)
+                appended.append(nid)
+        if not appended:
+            return self
+        bm = BiMap.__new__(BiMap)
+        bm._fwd = fwd
+        bm._rev = {v: k for k, v in fwd.items()}
+        out = EntityIdIndex.__new__(EntityIdIndex)
+        out.bimap = bm
+        out._id_array = np.concatenate(
+            [self._id_array, np.array(appended, dtype=object)])
+        return out

@@ -1,0 +1,380 @@
+"""Metadata records + abstract DAO interfaces.
+
+Mirrors the reference's storage traits: Apps.scala:29-57, AccessKeys.scala:32-65,
+Channels.scala:29-78, EngineInstances.scala:43-94, EngineManifests.scala:34-62,
+EvaluationInstances.scala:39-78, Models.scala:30-48, LEvents.scala:37-489.
+Backends implement these; `pio_tpu_torch.data.storage` discovers backends by name.
+
+Copy of ``pio_tpu.data.dao`` without the columnar reads (``find_columnar``,
+``columnarize``, ``aggregate_properties``), which need ``data/columnar.py``.
+"""
+
+from __future__ import annotations
+
+import abc
+import random
+import re
+import string
+from dataclasses import dataclass, field, replace
+from datetime import datetime
+from typing import Iterator, Sequence
+
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.utils.time import utcnow
+
+
+# ---------------------------------------------------------------------------
+# records
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class App:
+    id: int
+    name: str
+    description: str | None = None
+
+
+@dataclass(frozen=True)
+class AccessKey:
+    key: str
+    appid: int
+    events: tuple[str, ...] = ()  # empty = all events allowed
+
+
+@dataclass(frozen=True)
+class Channel:
+    id: int
+    name: str
+    appid: int
+
+    NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
+
+    @staticmethod
+    def is_valid_name(s: str) -> bool:
+        """Reference Channels.scala isValidName: 1-16 alnum/dash chars."""
+        return bool(Channel.NAME_RE.match(s))
+
+
+@dataclass(frozen=True)
+class EngineInstance:
+    """One train run (reference EngineInstances.scala).
+
+    Status lifecycle: INIT -> TRAINING -> COMPLETED | FAILED |
+    INTERRUPTED (preempted with a checkpoint; resumable, like FAILED).
+    """
+
+    id: str
+    status: str  # INIT | TRAINING | COMPLETED | FAILED | INTERRUPTED
+    start_time: datetime
+    end_time: datetime
+    engine_id: str
+    engine_version: str
+    engine_variant: str
+    engine_factory: str
+    batch: str = ""
+    env: dict = field(default_factory=dict)
+    spark_conf: dict = field(default_factory=dict)  # kept for config parity
+    datasource_params: str = ""
+    preparator_params: str = ""
+    algorithms_params: str = ""
+    serving_params: str = ""
+    # training heartbeat/progress (workflow/lifecycle.py): {step,
+    # total_steps, heartbeat, pid, host, checkpoint_dir, ...}. Stale
+    # heartbeats are how the zombie sweep detects crashed runs.
+    progress: dict = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class EngineManifest:
+    id: str
+    version: str
+    name: str
+    description: str | None = None
+    files: tuple[str, ...] = ()
+    engine_factory: str = ""
+
+
+@dataclass(frozen=True)
+class EvaluationInstance:
+    id: str
+    status: str
+    start_time: datetime
+    end_time: datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: dict = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
+@dataclass(frozen=True)
+class Model:
+    """Serialized model blob (reference Models.scala:30-48)."""
+
+    id: str
+    models: bytes
+
+
+# ---------------------------------------------------------------------------
+# DAO interfaces
+# ---------------------------------------------------------------------------
+
+class AppsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, app: App) -> int | None: ...
+
+    @abc.abstractmethod
+    def get(self, app_id: int) -> App | None: ...
+
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> App | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> None: ...
+
+
+class AccessKeysDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, k: AccessKey) -> str | None:
+        """Insert; if k.key is empty, generate one (reference AccessKeys.scala:47)."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> AccessKey | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> list[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, k: AccessKey) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> None: ...
+
+    @staticmethod
+    def generate_key() -> str:
+        """64-char URL-safe random key (reference AccessKeys.scala:65).
+
+        First char is alphanumeric so the key is never mistaken for a CLI flag.
+        """
+        rng = random.SystemRandom()
+        alphabet = string.ascii_letters + string.digits + "-_"
+        head = rng.choice(string.ascii_letters + string.digits)
+        return head + "".join(rng.choice(alphabet) for _ in range(63))
+
+
+class ChannelsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> int | None: ...
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Channel | None: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> list[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> None: ...
+
+
+class EngineInstancesDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EngineInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> EngineInstance | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EngineInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, i: EngineInstance) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
+
+    def get_completed(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> list[EngineInstance]:
+        """COMPLETED instances, most recent startTime first
+        (reference EngineInstances.scala getCompleted)."""
+        out = [
+            i
+            for i in self.get_all()
+            if i.status == "COMPLETED"
+            and i.engine_id == engine_id
+            and i.engine_version == engine_version
+            and i.engine_variant == engine_variant
+        ]
+        return sorted(out, key=lambda i: i.start_time, reverse=True)
+
+    def get_latest_completed(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> EngineInstance | None:
+        """Reference EngineInstances.scala:79 getLatestCompleted."""
+        completed = self.get_completed(engine_id, engine_version, engine_variant)
+        return completed[0] if completed else None
+
+
+class EngineManifestsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, m: EngineManifest) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, manifest_id: str, version: str) -> EngineManifest | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def update(self, m: EngineManifest, upsert: bool = False) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, manifest_id: str, version: str) -> None: ...
+
+
+class EvaluationInstancesDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> EvaluationInstance | None: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> list[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
+
+    def get_completed(self) -> list[EvaluationInstance]:
+        out = [i for i in self.get_all() if i.status == "EVALCOMPLETED"]
+        return sorted(out, key=lambda i: i.start_time, reverse=True)
+
+
+class ModelsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, m: Model) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, model_id: str) -> Model | None: ...
+
+    @abc.abstractmethod
+    def delete(self, model_id: str) -> None: ...
+
+
+class EventsDAO(abc.ABC):
+    """Event CRUD + query + aggregation, per app with optional channels
+    (reference LEvents.scala:37-489). The reference's Future-based async API
+    becomes a plain synchronous API — callers needing concurrency use threads;
+    the training path reads bulk + columnarizes instead of an RDD."""
+
+    @abc.abstractmethod
+    def init(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Initialize storage for an app/channel namespace."""
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: int | None = None) -> bool:
+        """Drop storage for an app/channel namespace."""
+
+    @abc.abstractmethod
+    def close(self) -> None: ...
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int, channel_id: int | None = None) -> str:
+        """Insert one event, returns eventId."""
+
+    @abc.abstractmethod
+    def get(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> Event | None: ...
+
+    @abc.abstractmethod
+    def delete(
+        self, event_id: str, app_id: int, channel_id: int | None = None
+    ) -> bool: ...
+
+    def delete_many(
+        self,
+        event_ids: Sequence[str],
+        app_id: int,
+        channel_id: int | None = None,
+    ) -> int:
+        """Delete a batch of events, returning how many existed. Default =
+        per-id delete loop; backends with cheaper bulk primitives (e.g.
+        the eventlog's tombstone file) override."""
+        return sum(
+            1 for eid in event_ids if self.delete(eid, app_id, channel_id)
+        )
+
+    @abc.abstractmethod
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+        limit: int | None = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        """Query events (reference LEvents.futureFind). `target_entity_type`
+        / `target_entity_id` use `...` for "don't care" and None for
+        "must be absent" (the reference's Option[Option[String]]).
+        limit=None means 20 at the API layer; limit=-1 means all."""
+
+    # -- derived ------------------------------------------------------------
+    def insert_batch(
+        self, events: Sequence[Event], app_id: int, channel_id: int | None = None
+    ) -> list[str]:
+        """Insert a batch, returning ids in input order. Default = per-event
+        loop; backends override with bulk appends (one lock hold / one
+        transaction / one RPC) — the ingest hot path calls THIS, so the
+        override is what turns N guarded inserts into one."""
+        return [self.insert(e, app_id, channel_id) for e in events]
+
+    def find_single_entity(
+        self,
+        app_id: int,
+        entity_type: str,
+        entity_id: str,
+        channel_id: int | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        limit: int | None = None,
+        latest: bool = True,
+    ) -> Iterator[Event]:
+        """Serve-time read for one entity (reference LEvents.futureFind via
+        LEventStore.findByEntity)."""
+        return self.find(
+            app_id=app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            entity_id=entity_id,
+            event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id,
+            limit=limit,
+            reversed=latest,
+        )

@@ -1,0 +1,270 @@
+"""Recommendation engine template — ALS collaborative filtering, serving half.
+
+Counterpart of ``pio_tpu.models.recommendation``: the same params, query
+and result shapes (query {"user", "num", "whiteList"?, "blackList"?} ->
+{"itemScores": [...]}) and the same filtering semantics, with the factors
+held as f32 torch tensors on the serving device. Two-stage clustered
+retrieval (the engine.json ``retrieval`` block) runs the candidate scan
+of ``ops/retrieval.py``.
+
+Reading events and training come with the training slice: here they
+raise ``NotImplementedError``. A model reaches this engine through
+``workflow.train.persist_models`` (``convert.py`` carries one across from
+the JAX package).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from pio_tpu_torch.controller.base import (
+    DataSource,
+    FirstServing,
+    IdentityPreparator,
+    PAlgorithm,
+    Params,
+)
+from pio_tpu_torch.controller.engine import Engine, EngineFactory
+from pio_tpu_torch.data.bimap import EntityIdIndex
+from pio_tpu_torch.ops import als
+from pio_tpu_torch.ops import retrieval as rt
+
+_TRAINING_LATER = "training is ported in the next slice"
+
+
+@dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = ""
+    channel_name: str | None = None
+    event_names: tuple[str, ...] = ("rate", "buy")
+    rating_event: str = "rate"      # events carrying an explicit rating
+    implicit_value: float = 4.0     # value assigned to non-rating events
+    eval_k: int = 0                 # >0 -> read_eval produces k folds
+    eval_num: int = 10              # ranking depth of each fold query
+    eval_exclude_seen: bool = True
+
+
+class RecommendationDataSource(DataSource):
+    """Reads rate/buy events into interactions (training slice)."""
+
+    params_class = DataSourceParams
+
+    def __init__(self, params: DataSourceParams):
+        self.params = params
+
+    def read_training(self, ctx):
+        raise NotImplementedError(_TRAINING_LATER)
+
+    def read_eval(self, ctx):
+        raise NotImplementedError(_TRAINING_LATER)
+
+
+def _rank_candidates(cand: list, scores, num: int) -> dict:
+    """Candidate ids + their scores -> top-`num` PredictedResult shape
+    (shared by the single-query and batched whitelist paths)."""
+    order = np.argsort(-np.asarray(scores))[:num]
+    return {
+        "itemScores": [
+            {"item": cand[i], "score": float(scores[i])} for i in order
+        ]
+    }
+
+
+@dataclass(frozen=True)
+class ALSAlgorithmParams(Params):
+    rank: int = 10
+    num_iterations: int = 10
+    lambda_: float = 0.01
+    alpha: float = 1.0
+    implicit_prefs: bool = False
+    seed: int | None = None
+    chunk: int = 65536
+    cg_iters: int = -1
+    cg_warm_iters: int = 6
+    cg_warm_sweeps: int = 2
+    validation_fraction: float = 0.0
+    # two-stage retrieval: the engine.json `retrieval` block. None/absent
+    # = exact mode. whiteList queries always stay on predict_pairs.
+    retrieval: dict | None = None
+
+
+@dataclass
+class RecommendationModel:
+    """ALS factors + id indexes. ``validation`` carries the JAX package's
+    ALSValidation trajectory when a model was trained with
+    validation_fraction > 0; serving never reads it."""
+
+    factors: als.ALSModel
+    users: EntityIdIndex
+    items: EntityIdIndex
+    validation: Any = None
+
+
+class ALSAlgorithm(PAlgorithm):
+    params_class = ALSAlgorithmParams
+
+    def __init__(self, params: ALSAlgorithmParams):
+        self.params = params
+        # parse the retrieval block NOW so a typo'd knob fails engine
+        # construction (deploy time), never silently serves exact
+        self._rparams = rt.RetrievalParams.from_config(params.retrieval)
+
+    def _retrieval_index(self, model: RecommendationModel):
+        """The (RetrievalIndex, DeviceRetrievalIndex) pair for this
+        model's current item factors, cached on the model object and
+        keyed by item-table identity, so the k-means runs once per item
+        table."""
+        itf = model.factors.item_factors
+        cached = getattr(model, "_retrieval_cache", None)
+        if cached is not None and cached[0] is itf:
+            return cached[1]
+        idx = rt.build_index(itf.detach().cpu().numpy(), self._rparams)
+        pair = (idx, rt.build_device_index(idx, itf.device))
+        model._retrieval_cache = (itf, pair)
+        return pair
+
+    def _clustered(self, n_items: int) -> bool:
+        rp = self._rparams
+        return rp.mode == "clustered" and not rp.is_exhaustive(n_items)
+
+    def train(self, ctx, data):
+        raise NotImplementedError(_TRAINING_LATER)
+
+    def predict(self, model: RecommendationModel, query: dict) -> dict:
+        """query {"user": id, "num": k, "whiteList"?: [...], "blackList"?: [...]}
+        -> {"itemScores": [{"item": id, "score": s}]}."""
+        user = query["user"]
+        num = int(query.get("num", 10))
+        if user not in model.users:
+            return {"itemScores": []}
+        uidx = model.users.index_of(user)
+        white = query.get("whiteList")
+        black = set(query.get("blackList") or ())
+        if white:
+            cand = [i for i in white if i in model.items and i not in black]
+            if not cand:
+                return {"itemScores": []}
+            cidx = model.items.encode(cand)
+            scores = als.predict_pairs(
+                model.factors, np.full(len(cidx), uidx, dtype=np.int32),
+                cidx).cpu().numpy()
+            return _rank_candidates(cand, scores, num)
+        n_items = model.factors.item_factors.shape[0]
+        k = min(num + len(black), n_items)
+        if self._clustered(n_items):
+            _, didx = self._retrieval_index(model)
+            urow = model.factors.user_factors[uidx]
+            scores, idx = rt.candidate_topk(
+                didx, model.factors.item_factors, urow, k)
+            scores, idx = scores[0], idx[0]
+            keep = idx >= 0   # fewer real survivors than k: drop pads
+            scores, idx = scores[keep], idx[keep]
+        else:
+            scores, idx = als.recommend_topk(
+                model.factors, np.array([uidx]), k)
+            scores, idx = scores[0].cpu().numpy(), idx[0].cpu().numpy()
+        out = []
+        for item, score in zip(model.items.decode(idx), scores):
+            if item in black:
+                continue
+            out.append({"item": item, "score": float(score)})
+            if len(out) >= num:
+                break
+        return {"itemScores": out}
+
+    def batch_predict(self, model: RecommendationModel, queries) -> list:
+        """One top-k dispatch for all known-user queries (blackList
+        over-fetch k = num + max blacklist, filtered per row on the host);
+        whiteList queries flatten into one predict_pairs call."""
+        results: list[dict] = [{"itemScores": []} for _ in queries]
+        known = []
+        white_q = []   # (query_index, uidx, [candidate ids])
+        for i, q in enumerate(queries):
+            if q["user"] not in model.users:
+                continue
+            if q.get("whiteList"):
+                black = set(q.get("blackList") or ())
+                cand = [c for c in q["whiteList"]
+                        if c in model.items and c not in black]
+                if cand:
+                    white_q.append(
+                        (i, model.users.index_of(q["user"]), cand))
+            else:
+                known.append((i, model.users.index_of(q["user"])))
+        if white_q:
+            flat_u = np.concatenate([
+                np.full(len(cand), u, np.int32) for _, u, cand in white_q
+            ])
+            flat_i = np.concatenate([
+                model.items.encode(cand) for _, _, cand in white_q
+            ]).astype(np.int32)
+            flat_s = als.predict_pairs(
+                model.factors, flat_u, flat_i).cpu().numpy()
+            off = 0
+            for qi, _, cand in white_q:
+                s = flat_s[off:off + len(cand)]
+                off += len(cand)
+                results[qi] = _rank_candidates(
+                    cand, s, int(queries[qi].get("num", 10)))
+        if not known:
+            return results
+        n_items = model.factors.item_factors.shape[0]
+        rows = np.array([u for _, u in known], dtype=np.int64)
+        k = min(
+            max(int(queries[qi].get("num", 10))
+                + len(queries[qi].get("blackList") or ())
+                for qi, _ in known),
+            n_items,
+        )
+        if self._clustered(n_items):
+            _, didx = self._retrieval_index(model)
+            urows = model.factors.user_factors[
+                torch.as_tensor(rows, device=didx.device)]
+            scores, idx = rt.candidate_topk(
+                didx, model.factors.item_factors, urows, k)
+        else:
+            scores, idx = als.recommend_topk(model.factors, rows, k)
+            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        for row, (qi, _) in enumerate(known):
+            q = queries[qi]
+            n = int(q.get("num", 10))
+            black = set(q.get("blackList") or ())
+            keep = idx[row] >= 0
+            out = []
+            for it, s in zip(model.items.decode(idx[row][keep]),
+                             scores[row][keep]):
+                if it in black:
+                    continue
+                out.append({"item": it, "score": float(s)})
+                if len(out) >= n:
+                    break
+            results[qi] = {"itemScores": out}
+        return results
+
+    def prepare_model_for_deploy(self, ctx, model: RecommendationModel):
+        """Move the restored factors onto the serving device as f32."""
+        factors = als.ALSModel(
+            torch.as_tensor(model.factors.user_factors,
+                            dtype=torch.float32).to(ctx.device),
+            torch.as_tensor(model.factors.item_factors,
+                            dtype=torch.float32).to(ctx.device),
+        )
+        return RecommendationModel(
+            factors, model.users, model.items, model.validation)
+
+
+class RecommendationEngine(EngineFactory):
+    """engine.json engineFactory target."""
+
+    @classmethod
+    def apply(cls) -> Engine:
+        return Engine(
+            RecommendationDataSource,
+            IdentityPreparator,
+            {"als": ALSAlgorithm},
+            FirstServing,
+        )

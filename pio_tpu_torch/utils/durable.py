@@ -1,0 +1,371 @@
+"""Crash-consistent artifact persistence: CRC32C framing + atomic writes.
+
+The reference's model persistence inherits durability from its backends
+(HBase WAL, Postgres fsync); the localfs path (LocalFSModels.scala) has
+none — a crash mid-write leaves a truncated blob that deserialization
+happily misreads. This module is the shared durability floor for every
+file-shaped artifact this framework writes (model blobs, exported
+state):
+
+  * ``frame``/``unframe`` — a self-describing envelope
+    ``MAGIC | crc32c(payload) | len(payload) | payload`` so ANY storage
+    backend (file, SQL BLOB, wire) can detect truncation and bit-rot at
+    read time. Legacy (unframed) blobs pass through unverified, so
+    pre-existing stores keep working.
+  * ``durable_write`` — tmp file in the same directory + flush + fsync
+    + atomic ``os.replace`` + directory fsync: a reader sees either the
+    old complete file or the new complete file, never a prefix.
+  * ``durable_read`` — read + unframe; raises ``ModelIntegrityError``
+    with the offending path on any mismatch.
+
+CRC32C (Castagnoli) is computed by a table-based pure-Python routine —
+no external dependency, and the polynomial matches what GCS/HDFS record
+alongside objects, so checksums stay comparable if blobs ever move to
+such stores. The ``pio lint`` ``durable-write`` rule flags model/
+checkpoint artifact writers that bypass this module.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import threading
+
+
+class ModelIntegrityError(RuntimeError):
+    """A persisted artifact failed checksum/length verification.
+
+    Deliberately NOT a ConnectionError subclass: integrity failures are
+    permanent for that blob, so resilience retry predicates
+    (``is_transient``) must not retry them — callers fall back (serve
+    picks the previous COMPLETED instance) or fail loudly.
+    """
+
+
+# -- CRC32C (Castagnoli, polynomial 0x1EDC6F41, reflected 0x82F63B78) --------
+
+def _make_table() -> tuple[int, ...]:
+    table = []
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return tuple(table)
+
+
+_TABLE = _make_table()
+
+try:  # C-speed CRC32C when the wheel is present (GB/s vs the pure-
+    # Python table's ~MB/s — the fallback is correctness-equivalent but
+    # large model blobs want the accelerated path)
+    import google_crc32c as _gcrc32c
+except ImportError:  # pragma: no cover - depends on the image
+    _gcrc32c = None
+
+
+def crc32c(data: bytes, value: int = 0) -> int:
+    """CRC32C of ``data`` (optionally continuing from a prior value)."""
+    if _gcrc32c is not None:
+        return _gcrc32c.extend(value, data)
+    crc = value ^ 0xFFFFFFFF
+    for b in data:
+        crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+# -- framing -----------------------------------------------------------------
+
+MAGIC = b"PIOD\x01"       # content frame (models_to_bytes & friends)
+WRAP_MAGIC = b"PIOW\x01"  # file wrapper durable_write adds to raw payloads
+_HEADER = struct.Struct(">5sIQ")  # magic, crc32c, payload length
+
+
+def frame(payload: bytes, magic: bytes = MAGIC) -> bytes:
+    """Envelope ``payload`` with magic + CRC32C + length."""
+    return _HEADER.pack(magic, crc32c(payload), len(payload)) + payload
+
+
+def is_framed(blob: bytes, magic: bytes = MAGIC) -> bool:
+    return blob[:len(magic)] == magic
+
+
+def unframe(blob: bytes, source: str = "", magic: bytes = MAGIC) -> bytes:
+    """Verify and strip a ``frame`` envelope; unframed (legacy) blobs
+    pass through untouched. Raises ModelIntegrityError on a framed blob
+    whose length or checksum does not match — a truncated or bit-rotted
+    artifact must never reach the deserializer."""
+    if not is_framed(blob, magic):
+        return blob
+    where = f" in {source}" if source else ""
+    if len(blob) < _HEADER.size:
+        raise ModelIntegrityError(
+            f"framed blob{where} truncated inside its header "
+            f"({len(blob)} bytes)"
+        )
+    _, want_crc, want_len = _HEADER.unpack_from(blob)
+    payload = blob[_HEADER.size:]
+    if len(payload) != want_len:
+        raise ModelIntegrityError(
+            f"framed blob{where} truncated: header promises {want_len} "
+            f"bytes, found {len(payload)}"
+        )
+    got = crc32c(payload)
+    if got != want_crc:
+        raise ModelIntegrityError(
+            f"framed blob{where} corrupt: crc32c {got:#010x} != recorded "
+            f"{want_crc:#010x}"
+        )
+    return payload
+
+
+# -- atomic file persistence -------------------------------------------------
+
+def durable_write(path: str, payload: bytes) -> None:
+    """Atomically persist ``payload`` at ``path`` with an integrity frame.
+
+    Write order: tmp file (same directory, so the rename cannot cross
+    filesystems) -> flush -> fsync -> ``os.replace`` -> fsync of the
+    directory entry. A crash at ANY point leaves either the previous
+    complete file or the new complete file; a torn write inside the tmp
+    file is additionally caught by the frame checksum at read time.
+
+    An already content-framed payload (``models_to_bytes`` output) is
+    written as-is — its own CRC protects the file, and re-framing would
+    double the checksum cost on multi-GB blobs. Raw payloads get the
+    ``WRAP_MAGIC`` wrapper, which ``durable_read`` strips so bytes
+    round-trip exactly in both cases.
+    """
+    directory = os.path.dirname(os.path.abspath(path)) or "."
+    tmp = os.path.join(
+        directory, f".{os.path.basename(path)}.tmp.{os.getpid()}"
+    )
+    data = payload if is_framed(payload) else frame(payload, WRAP_MAGIC)
+    try:
+        with open(tmp, "wb") as f:  # pio: lint-ok[durable-write] this IS
+            # durable_write: the tmp+fsync+rename implementation itself
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        # never leave tmp litter behind a failed/interrupted write
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    _fsync_dir(directory)
+
+
+def durable_read(path: str) -> bytes:
+    """Read + verify a ``durable_write`` artifact, returning exactly the
+    bytes that were passed to ``durable_write``: the ``WRAP_MAGIC``
+    wrapper is verified and stripped; a content-framed (``MAGIC``) file
+    is verified and returned WITH its frame (the caller's deserializer
+    owns stripping it). Legacy unframed files pass through unverified
+    (back-compat with pre-durability stores)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if is_framed(data, WRAP_MAGIC):
+        return unframe(data, source=path, magic=WRAP_MAGIC)
+    if is_framed(data):
+        unframe(data, source=path)  # verify only; frame belongs to caller
+    return data
+
+
+# -- append-only frame log ---------------------------------------------------
+
+LOG_MAGIC = b"PIOL\x01"   # one FrameLog record
+
+
+class FrameLog:
+    """Durable append-only log of CRC32C-framed records.
+
+    The hinted-handoff log of the replicated event store
+    (data/backends/replicated.py) is the durability of every
+    acknowledged write a down replica missed, so it gets the same
+    treatment as model blobs: every record is a ``frame`` envelope
+    (``LOG_MAGIC | crc32c | len | payload``), appends are fsync'd, and
+    compaction rewrites through the tmp + fsync + atomic-rename dance.
+
+    Corruption contract (the reason this reader exists): ``scan`` SKIPS
+    and COUNTS damaged records instead of raising — a truncated tail
+    stops the scan, a bit-flipped header/payload resyncs by searching
+    for the next record magic — so one corrupt hint can never wedge the
+    drain or crash the process, and an intact record is either applied
+    whole or still in the log (never half-applied).
+
+    Thread-safe: one lock serializes appends against compaction; readers
+    take a consistent byte snapshot. ``depth`` is an in-memory count
+    (seeded by a scan at construction) so health surfaces can poll it
+    without re-reading the file.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.Lock()
+        # two corruption counters so repeated scans over the SAME
+        # still-on-disk damage cannot inflate the number an operator
+        # sees: `corrupt_pending` is the damaged-record count of the
+        # LAST scan (a gauge; re-scanning unchanged damage re-observes,
+        # not re-counts), `corrupt_total` counts damage FINALIZED — i.e.
+        # compacted out of the log by rewrite_prefix — exactly once.
+        self.corrupt_total = 0
+        payloads, corrupt, nbytes = self._scan_bytes(self._read_bytes())
+        self._depth = len(payloads)
+        self.corrupt_pending = corrupt
+
+    def _read_bytes(self) -> bytes:
+        try:
+            with open(self.path, "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return b""
+
+    @staticmethod
+    def _scan_bytes(data: bytes) -> tuple[list[bytes], int, int]:
+        """-> (intact payloads, corrupt records skipped, bytes scanned).
+
+        Resync-on-damage: a bad magic/length/CRC at offset o searches
+        for the next ``LOG_MAGIC`` occurrence past o and counts ONE
+        corrupt record per resync; a tail too short to hold the record
+        it promises is counted and ends the scan (torn final append).
+        """
+        out: list[bytes] = []
+        corrupt = 0
+        off = 0
+        n = len(data)
+        while off < n:
+            if data[off:off + len(LOG_MAGIC)] != LOG_MAGIC:
+                corrupt += 1
+                nxt = data.find(LOG_MAGIC, off + 1)
+                if nxt < 0:
+                    break
+                off = nxt
+                continue
+            if off + _HEADER.size > n:
+                corrupt += 1
+                break
+            _, want_crc, want_len = _HEADER.unpack_from(data, off)
+            end = off + _HEADER.size + want_len
+            if want_len > n - off - _HEADER.size:
+                # truncated tail OR a bit-flipped length: if another
+                # record magic follows, it was a flip — resync there
+                corrupt += 1
+                nxt = data.find(LOG_MAGIC, off + 1)
+                if nxt < 0:
+                    break
+                off = nxt
+                continue
+            payload = data[off + _HEADER.size:end]
+            if crc32c(payload) != want_crc:
+                corrupt += 1
+                nxt = data.find(LOG_MAGIC, off + 1)
+                if nxt < 0:
+                    break
+                off = nxt
+                continue
+            out.append(payload)
+            off = end
+        return out, corrupt, n
+
+    def append(self, payload: bytes) -> None:
+        """Durably append one record: frame + write + flush + fsync.
+        The record is on disk when this returns — a quorum ack that
+        depends on the hint must not outrun its durability."""
+        rec = frame(payload, magic=LOG_MAGIC)
+        with self._lock:
+            directory = os.path.dirname(os.path.abspath(self.path)) or "."
+            os.makedirs(directory, exist_ok=True)
+            with open(self.path, "ab") as f:  # pio: lint-ok[durable-write]
+                # FrameLog IS the sanctioned append-log implementation
+                # (per-record CRC32C frame + fsync; compaction goes
+                # through the tmp+rename dance below)
+                f.write(rec)
+                f.flush()
+                # pio: lint-ok[blocking-under-lock] fsync under the log
+                # lock IS the durability contract: the append is not
+                # ordered (and not durable) until it hits the platter
+                os.fsync(f.fileno())
+            self._depth += 1
+
+    def scan(self) -> tuple[list[bytes], int, int]:
+        """-> (intact payloads, corrupt skipped THIS scan, bytes
+        scanned). The byte count feeds ``rewrite_prefix`` so records
+        appended after the snapshot survive compaction."""
+        with self._lock:
+            data = self._read_bytes()
+        payloads, corrupt, nbytes = self._scan_bytes(data)
+        with self._lock:
+            self.corrupt_pending = corrupt
+        return payloads, corrupt, nbytes
+
+    def rewrite_prefix(self, keep: list[bytes], scanned_bytes: int,
+                       corrupt_dropped: int = 0) -> None:
+        """Atomically replace the first ``scanned_bytes`` of the log
+        with ``keep`` (re-framed), preserving any bytes appended since
+        the scan. tmp + fsync + rename, so a crash leaves either the
+        old or the new complete log. ``corrupt_dropped`` is the scan's
+        damaged-record count — the compaction removes those bytes, so
+        this is the one moment they are counted into ``corrupt_total``
+        (exactly once per damaged record)."""
+        with self._lock:
+            self.corrupt_total += corrupt_dropped
+            data = self._read_bytes()
+            tail = data[scanned_bytes:]
+            body = b"".join(frame(p, magic=LOG_MAGIC) for p in keep) + tail
+            if not body:
+                try:
+                    os.unlink(self.path)
+                except FileNotFoundError:
+                    pass
+                self._depth = 0
+                self.corrupt_pending = 0
+                return
+            directory = os.path.dirname(os.path.abspath(self.path)) or "."
+            tmp = os.path.join(
+                directory,
+                f".{os.path.basename(self.path)}.tmp.{os.getpid()}")
+            try:
+                with open(tmp, "wb") as f:  # pio: lint-ok[durable-write]
+                    # the compaction half of the FrameLog implementation
+                    f.write(body)
+                    f.flush()
+                    # pio: lint-ok[blocking-under-lock] compaction must
+                    # exclude appenders for its whole tmp+fsync+rename
+                    # span — a write that slips between scan and rename
+                    # would be silently dropped
+                    os.fsync(f.fileno())
+                os.replace(tmp, self.path)
+            except BaseException:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                raise
+            # pio: lint-ok[blocking-under-lock] same span as above: the
+            # rename is not durable until the directory entry is synced
+            _fsync_dir(directory)
+            tail_payloads, tail_corrupt, _ = self._scan_bytes(tail)
+            self._depth = len(keep) + len(tail_payloads)
+            self.corrupt_pending = tail_corrupt
+
+    def depth(self) -> int:
+        with self._lock:
+            return self._depth
+
+
+def _fsync_dir(directory: str) -> None:
+    """fsync the directory so the rename itself is durable; best-effort
+    on platforms/filesystems that refuse O_RDONLY directory fds."""
+    try:
+        fd = os.open(directory, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)

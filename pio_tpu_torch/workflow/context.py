@@ -1,0 +1,57 @@
+"""WorkflowContext — what every DASE stage receives.
+
+Counterpart of ``pio_tpu.workflow.context``: where the JAX package holds a
+device ``Mesh`` and a PRNG key, the port holds one ``torch.device`` and
+hands out seeded ``torch.Generator``s.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from pio_tpu_torch.data.storage import Storage, get_storage
+
+
+def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. Raises when CUDA is asked for (or defaulted to) and absent —
+    the port never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (--device cpu) to "
+            "run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
+
+
+@dataclass
+class WorkflowContext:
+    storage: Storage
+    device: torch.device
+    seed: int = 0
+    batch: str = ""
+    params: dict = field(default_factory=dict)  # runtime conf (sparkConf slot)
+
+    def rng(self) -> torch.Generator:
+        """A fresh generator seeded with ``seed`` (the reference's
+        ``PRNGKey(seed)``), on the context's device."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self.seed)
+        return g
+
+
+def create_workflow_context(
+    storage: Storage | None = None,
+    device: "str | torch.device | None" = None,
+    seed: int = 0,
+    batch: str = "",
+    params: dict | None = None,
+) -> WorkflowContext:
+    return WorkflowContext(
+        storage=storage or get_storage(), device=resolve_device(device),
+        seed=seed, batch=batch, params=dict(params or {}),
+    )

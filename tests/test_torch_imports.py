@@ -1,0 +1,74 @@
+"""The PyTorch port stands alone: it imports neither JAX nor ``pio_tpu``.
+
+Every module of ``pio_tpu_torch`` is imported in a fresh interpreter with
+``jax`` blocked; afterwards no ``jax*`` and no ``pio_tpu.*`` module may be
+loaded. The package source is also searched for such imports, which
+catches ones hidden inside functions. Importing must not build a kernel
+or need a card.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pio_tpu_torch")
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import pio_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(
+    pio_tpu_torch.__path__, "pio_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+from pio_tpu_torch.ops.kernels import build
+loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
+    k == "jax" or k.startswith(("jax.", "jaxlib", "pio_tpu."))
+    or k == "pio_tpu"))
+print(json.dumps({"modules": mods, "loaded": loaded,
+                  "built": sorted(build._LIBS)}))
+"""
+
+
+def test_every_module_imports_without_jax_or_pio_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        | {"PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["built"] == []          # importing builds no kernel
+    for mod in ("pio_tpu_torch.workflow.serve", "pio_tpu_torch.ops.retrieval",
+                "pio_tpu_torch.ops.kernels.quantized_scan",
+                "pio_tpu_torch.models.recommendation",
+                "pio_tpu_torch.__main__", "pio_tpu_torch.convert"):
+        assert mod in res["modules"]
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:from\s+(?:jax|jaxlib|pio_tpu)(?:\.|\s)"
+    r"|import\s+(?:jax|jaxlib|pio_tpu)\b(?!_torch))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, PKG))
+def test_source_has_no_jax_or_pio_tpu_import(path):
+    with open(path) as f:
+        src = f.read()
+    assert not _FORBIDDEN.findall(src)
+    # nor a module path handed to importlib as a string
+    assert not re.findall(r"""["'](?:jax|pio_tpu)[.:"']""", src)
