@@ -5,13 +5,22 @@
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, and then drives the
-port's main path once at the full width of the model the repository
+port's main paths once at the full width of the model the repository
 benchmarks: the ALS recommendation engine at the MovieLens-20M shape
-(138,493 users x 26,744 items, rank 64, ``bench.py``), with factors made
-from a seed, stored as a finished training run stores them, and served by
-``create_query_server`` (what ``python -m pio_tpu_torch deploy`` calls)
-with two-stage clustered retrieval and ``"impl": "pallas"``, over
-loopback HTTP.
+(138,493 users x 26,744 items, rank 64, ``bench.py``).
+
+- serve: factors made from a seed, stored as a finished training run
+  stores them, and served by ``create_query_server`` (what ``python -m
+  pio_tpu_torch deploy`` calls) with two-stage clustered retrieval and
+  ``"impl": "pallas"`` (the K7 scan kernel), over loopback HTTP;
+- train: ``als_train`` on ``bench.py``'s synthetic ratings (zipf 1.2,
+  seed 0, 20,000,263 ratings, implicit, reg 0.05, alpha 10) with
+  ``accum`` auto, which on the card is the segment-flush kernel (K2) on
+  every solve, held against the plain ``index_add_`` accumulation;
+- train_entry: seeded rate/buy events for every user and item in sqlite,
+  ``python -m pio_tpu_torch train`` (its ``main``, in process, so the
+  launch counters can be read), then the trained instance deployed and
+  queried over HTTP.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -26,6 +35,8 @@ is resident in L2 between queries, as in serving, and is not flushed.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -46,6 +57,9 @@ N_USERS, N_ITEMS, RANK = 138_493, 26_744, 64
 CENTRES = 256             # seeded Gaussian mixture (tests/test_retrieval.py)
 FACTORY = "pio_tpu_torch.models.recommendation.RecommendationEngine"
 RETRIEVAL = {"mode": "clustered", "dtype": "int8", "impl": "pallas"}
+NNZ = 20_000_263          # MovieLens-20M's rating count
+ITERS = 10                # bench.py's sweeps (the template's default)
+N_EVENTS = 1_000_000      # events written for the train entry point
 SCAN_BATCHES = (1, 16, 128)
 N_PLAIN_QUERIES = 40
 BATCH_QUERIES = 16
@@ -58,6 +72,22 @@ ATOL_OF_MAX = 1e-5        # atol = ATOL_OF_MAX * max |score|
 # nprobe 32 of C=64 clusters; this model has C=256, so nprobe 32 expands
 # an eighth of the catalog
 RECALL_FLOOR = 0.9
+# segment flush vs its plain version: both sum the same f32 blocks in
+# other orders (the plain version with atomics); held per row of A
+# against the plain version evaluated in f64, relative to the row's max
+FLUSH_RTOL = 1e-5
+# hybrid vs carry (the plain accumulation), each half from the same
+# inputs. The users half: A agrees to ~1e-6 (summation order), and CG's 16
+# iterations from the same start keep that close (relative to the norm and
+# to the max of the factors). The items half's systems are far worse
+# conditioned (item 1 holds 3.6M ratings): 16 CG iterations amplify A's
+# rounding into the factors, so both f32 paths are held against the same
+# half evaluated in f64, and the kernel's path must be no farther from it
+# than HALF_F64_RATIO times the plain path (plus HALF_F64_FLOOR).
+USERS_RTOL_NORM = 1e-4
+USERS_RTOL_MAX = 2e-3
+HALF_F64_RATIO = 2.0
+HALF_F64_FLOOR = 1e-6
 
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -112,7 +142,8 @@ def phase_device() -> dict:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     emit("device", nvidia_smi=card, torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0], **device)
+         cuda=torch.version.cuda, numpy=np.__version__,
+         python=sys.version.split()[0], **device)
     return device
 
 
@@ -477,6 +508,460 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
         raise AssertionError(f"recall@10 {recall} < {RECALL_FLOOR}")
     return result
 
+# -- phase 5: the segment flush kernel (K2) at the users half of ML-20M ------
+
+def synth_ratings():
+    """bench.py's ``synth``: zipf-1.2 users and items, ratings 1..5."""
+    rng = np.random.default_rng(SEED)
+    users = (rng.zipf(1.2, NNZ) % N_USERS).astype(np.int32)
+    items = (rng.zipf(1.2, NNZ) % N_ITEMS).astype(np.int32)
+    vals = rng.integers(1, 6, NNZ).astype(np.float32)
+    return users, items, vals
+
+
+def train_params(accum: str = "auto"):
+    from pio_tpu_torch.ops import als
+
+    # bench.py's bench_params at the full shape (cg_iters auto -> 16)
+    return als.ALSParams(rank=RANK, iterations=ITERS, reg=0.05, alpha=10.0,
+                         implicit=True, chunk=8192, accum=accum)
+
+
+def flush_bound(s_real: int, n_self: int, k: int) -> tuple[float, str]:
+    """Least time for one flush. Bytes: each real slot's block, rhs and
+    row id read once, A and b written once. Operations: one add per
+    element of each real block and rhs, on the f32 CUDA cores."""
+    nbytes = s_real * (k * k + k + 1) * 4 + n_self * (k * k + k) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = s_real * (k * k + k) / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flush_kernel(ratings, dev: torch.device) -> dict:
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
+
+    p = train_params()
+    u, i, v = als._prep_coo(*ratings, N_USERS, N_ITEMS, p, dev)
+    by_user, _, cs = als._build_layouts(u, i, v, N_USERS, N_ITEMS, p)
+    del u, i, v
+    users0, items0 = als._init_or(None, N_USERS, N_ITEMS, p, dev)
+    rows, idx, val, lens = by_user
+    S = rows.shape[0]
+    s_real = int((rows < N_USERS).sum())
+    # the layout holds every rating, in ceil(count / width) slots a row
+    counts = np.bincount(ratings[0], minlength=N_USERS)
+    want_real = int(np.ceil(counts / p.width).sum())
+    if int(lens.sum()) != NNZ or s_real != want_real:
+        raise AssertionError(f"users layout: {int(lens.sum())} ratings in "
+                             f"{s_real} slots, want {NNZ} in {want_real}")
+    # real blocks: the first sweep's users half, built as the hybrid path
+    # builds them (bf16 gather of the item factors, f32 products)
+    a_blk, b_blk = als._group_blocks(items0.to(torch.bfloat16), idx, val,
+                                     lens, 0, S, cs, True, p.alpha)
+    del by_user, idx, val, lens
+    got = sf.segment_flush(rows, a_blk, b_blk, N_USERS)
+    again = sf.segment_flush(rows, a_blk, b_blk, N_USERS)
+    torch.cuda.synchronize()
+    identical = (torch.equal(got[0], again[0])
+                 and torch.equal(got[1], again[1]))
+    del again
+    plain = sf.segment_flush_reference(rows, a_blk, b_blk, N_USERS)
+    max_abs_err = max(float((got[0] - plain[0]).abs().max()),
+                      float((got[1] - plain[1]).abs().max()))
+    want = sf.segment_flush_reference(rows, a_blk.double(), b_blk.double(),
+                                      N_USERS)
+    rel = {}
+    for name, g, w, pl in (("A", got[0], want[0], plain[0]),
+                           ("b", got[1], want[1], plain[1])):
+        scale = w.reshape(N_USERS, -1).abs().amax(1).clamp_min(1e-30)
+        rel[name] = float(((g.double() - w).reshape(N_USERS, -1).abs()
+                           .amax(1) / scale).max())
+        rel[name + "_plain"] = float(((pl.double() - w).reshape(
+            N_USERS, -1).abs().amax(1) / scale).max())
+    del want, plain
+    if not identical:
+        raise AssertionError("segment_flush: two launches differ")
+    if max(rel["A"], rel["b"]) > FLUSH_RTOL:
+        raise AssertionError(f"segment_flush disagrees with its plain "
+                             f"version: {rel}")
+    A_buf, b_buf = got
+    rows_long = rows.long()
+    A_lib = torch.zeros((N_USERS + 1, RANK, RANK), device=dev)
+    bound_ms, bound_by = flush_bound(s_real, N_USERS, RANK)
+    result = {
+        "S": S, "S_real": s_real, "n_self": N_USERS, "k": RANK,
+        "max_abs_err": max_abs_err, "max_row_rel_err": rel,
+        "bit_identical": identical,
+        "tolerance": {"rtol_of_row_max": FLUSH_RTOL},
+        # the call as the contract has it: A and b allocated zeroed
+        "ms": gpu_ms(lambda: sf.segment_flush(rows, a_blk, b_blk, N_USERS)),
+        # the same flush into buffers zeroed once (the hybrid path's form)
+        "ms_into_buffers": gpu_ms(lambda: sf.segment_flush(
+            rows, a_blk, b_blk, N_USERS, out=(A_buf, b_buf))),
+        "plain_ms": gpu_ms(lambda: sf.segment_flush_reference(
+            rows, a_blk, b_blk, N_USERS)),
+        "library_ms": gpu_ms(lambda: A_lib.index_add_(0, rows_long, a_blk)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "blocks_gb": a_blk.numel() * 4 / 1e9,
+    }
+    emit("segment_flush_kernel", **result)
+    return result
+
+
+# -- phase 6: ALS training at the ML-20M shape --------------------------------
+
+def expected_flush_launches(nnz: int, n_users: int, n_items: int,
+                            p) -> int:
+    """K2 launches of als_train: one per group of each half, both halves
+    every sweep, from the layout's slot counts and the group split."""
+    from pio_tpu_torch.ops import als
+
+    nnz_pad = nnz + (-nnz % p.chunk)
+    cs = min(p.chunk_slots, als._slots_for(nnz_pad, 0, p.width, 1))
+    groups = sum(len(als._group_bounds(
+        als._slots_for(nnz_pad, n, p.width, cs), p.rank, cs, p.group_slots))
+        for n in (n_users, n_items))
+    return groups * p.iterations
+
+
+def assert_f32_matmul() -> None:
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on during training")
+
+
+def profile_sweep(sweep, carry) -> dict:
+    """One sweep under torch.profiler: its wall time, the device time of
+    its kernels, and the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep(carry)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.key] = (us / 1e3, e.count)
+    device_ms = sum(ms for ms, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "top_kernels_ms_calls": {k: list(v) for k, v in top}}
+
+
+def _rel(g: torch.Tensor, w: torch.Tensor) -> dict:
+    g, w = g.double(), w.double()
+    return {"rel_norm": float((g - w).norm() / w.norm()),
+            "rel_max": float((g - w).abs().max() / w.abs().max())}
+
+
+def items_half_f64(by_item, users, x0, cs: int, cg_iters: int):
+    """The items half of a sweep in f64 from the same users (the same
+    bf16 gather): blocks, index_add_ sums, YᵀY, reg and CG all in f64."""
+    from pio_tpu_torch.ops import als
+
+    p = train_params()
+    rows, idx, val, lens = by_item
+    src = users.to(torch.bfloat16)
+    A = torch.zeros((N_ITEMS + 1, RANK, RANK), dtype=torch.float64,
+                    device=users.device)
+    b = torch.zeros((N_ITEMS + 1, RANK), dtype=torch.float64,
+                    device=users.device)
+    width = idx.shape[1]
+    for c0 in range(0, idx.shape[0], cs):
+        sl = slice(c0, c0 + cs)
+        y = src[idx[sl]].double()
+        mask = (torch.arange(width, device=users.device)[None, :]
+                < lens[sl, None]).double()
+        v = val[sl].double()
+        r = rows[sl].long()
+        A.index_add_(0, r, torch.bmm(
+            (y * (p.alpha * v * mask)[:, :, None]).transpose(1, 2), y))
+        b.index_add_(0, r, torch.bmm(
+            y.transpose(1, 2), ((1.0 + p.alpha * v) * mask)[:, :, None])[
+                :, :, 0])
+    A, b = A[:N_ITEMS], b[:N_ITEMS]
+    u64 = users.double()
+    A += (u64.T @ u64)[None, :, :]
+    A.diagonal(dim1=1, dim2=2).add_(p.reg)
+    if cg_iters > 0:
+        return als._cg_solve(A, b, x0.double(), cg_iters)
+    return torch.cholesky_solve(b[:, :, None],
+                                torch.linalg.cholesky(A))[:, :, 0]
+
+
+def hybrid_vs_carry(by_user, by_item, cs: int, init, cg_u: int,
+                    cg_i: int) -> dict:
+    """The kernel's accumulation against the plain one, one half at a
+    time from the same inputs (see USERS_RTOL_NORM)."""
+    from pio_tpu_torch.ops import als
+
+    p = train_params()
+
+    def half(layout, other, n, x0, cg, accum):
+        return als._solve_factors(
+            layout, other, n, p.reg, p.implicit, p.alpha, cs, x0=x0,
+            cg_iters=cg, bf16_gather=p.bf16_gather, accum=accum,
+            group_slots=p.group_slots)
+
+    users = {a: half(by_user, init[1], N_USERS, init[0], cg_u, a)
+             for a in ("hybrid", "carry")}
+    out = {"users": _rel(users["hybrid"], users["carry"])}
+    if (out["users"]["rel_norm"] > USERS_RTOL_NORM
+            or out["users"]["rel_max"] > USERS_RTOL_MAX):
+        raise AssertionError(f"users half: hybrid disagrees with carry: "
+                             f"{out}")
+    items = {a: half(by_item, users["carry"], N_ITEMS, init[1], cg_i, a)
+             for a in ("hybrid", "carry")}
+    exact = items_half_f64(by_item, users["carry"], init[1], cs, cg_i)
+    out["items"] = _rel(items["hybrid"], items["carry"])
+    out["items_hybrid_vs_f64"] = _rel(items["hybrid"], exact)
+    out["items_carry_vs_f64"] = _rel(items["carry"], exact)
+    for key in ("rel_norm", "rel_max"):
+        if (out["items_hybrid_vs_f64"][key] > HALF_F64_RATIO
+                * out["items_carry_vs_f64"][key] + HALF_F64_FLOOR):
+            raise AssertionError(f"items half: hybrid is farther from f64 "
+                                 f"than carry: {out}")
+    return out
+
+
+def phase_train(ratings, dev: torch.device) -> dict:
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
+
+    p = train_params()
+    if p.resolved_accum(dev) != "hybrid":
+        raise AssertionError(f"accum auto resolved to "
+                             f"{p.resolved_accum(dev)} on {dev}")
+    assert_f32_matmul()
+    want_launches = expected_flush_launches(NNZ, N_USERS, N_ITEMS, p)
+
+    # the entry point, twice: the first call also builds cuBLAS state
+    als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+    torch.cuda.synchronize()
+    # -- the main path: counts from 0, read right after ------------------
+    sf.launches.reset()
+    t0 = time.perf_counter()
+    model = als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = sf.launches.value
+    # ---------------------------------------------------------------------
+    assert_f32_matmul()
+    for name, f, n in (("users", model.user_factors, N_USERS),
+                       ("items", model.item_factors, N_ITEMS)):
+        if f.shape != (n, RANK) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{name} factors {tuple(f.shape)} not "
+                                 f"finite of shape ({n}, {RANK})")
+    if launches != want_launches:
+        raise AssertionError(f"segment_flush launched {launches} times, "
+                             f"the layout predicts {want_launches}")
+    del model
+
+    # the sweeps one by one, from the layout als_train builds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, i, v = als._prep_coo(*ratings, N_USERS, N_ITEMS, p, dev)
+    by_user, by_item, cs = als._build_layouts(u, i, v, N_USERS, N_ITEMS, p)
+    del u, i, v
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    s_real = {"users": int((by_user[0] < N_USERS).sum()),
+              "items": int((by_item[0] < N_ITEMS).sum())}
+    init = als._init_or(None, N_USERS, N_ITEMS, p, dev)
+    cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
+    n_full, n_warm, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
+    sweep_with = als._sweep_factory(by_user, by_item, N_USERS, N_ITEMS, cs, p)
+    carry, sweep_s = init, []
+    for n in range(ITERS):
+        sweep = sweep_with(cg_u, cg_i) if n < n_full else sweep_with(w_u, w_i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = sweep(carry)
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+    warm = profile_sweep(sweep_with(w_u, w_i), carry)
+    cold = profile_sweep(sweep_with(cg_u, cg_i), init)
+    del carry
+
+    agree = hybrid_vs_carry(by_user, by_item, cs, init, cg_u, cg_i)
+    assert_f32_matmul()
+    result = {
+        "nnz": NNZ, "users": N_USERS, "items": N_ITEMS, "rank": RANK,
+        "iterations": ITERS, "cg_iters": [cg_u, cg_i],
+        "cg_warm": [w_u, w_i, n_full], "accum": p.resolved_accum(dev),
+        "tf32": False,
+        "train_s": train_s, "ratings_per_s": NNZ * ITERS / train_s,
+        "layout_s": layout_s, "sweep_s": sweep_s,
+        "sweeps_ratings_per_s": NNZ * ITERS / sum(sweep_s),
+        "slots": {"users": by_user[0].shape[0], "items": by_item[0].shape[0],
+                  "real": s_real},
+        "segment_flush_launches": launches,
+        "segment_flush_launches_expected": want_launches,
+        "profile_warm_sweep": warm, "profile_cold_sweep": cold,
+        "hybrid_vs_carry": agree,
+        "tolerance": {"users_rel_norm": USERS_RTOL_NORM,
+                      "users_rel_max": USERS_RTOL_MAX,
+                      "items_f64_ratio": HALF_F64_RATIO,
+                      "items_f64_floor": HALF_F64_FLOOR},
+    }
+    emit("train", **result)
+    return result
+
+
+# -- phase 7: the train entry point, then deploy ------------------------------
+
+def write_events(storage, app_name: str) -> tuple[int, int]:
+    """Seeded rate (80 %, rating 1..5) and buy events: every user and
+    every item in at least one, the rest zipf-1.2 as bench.py draws.
+    Returns the events written and the (user, item) pairs among them
+    (the ratings training keeps: the later event of a pair wins)."""
+    from datetime import datetime, timedelta, timezone
+
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.event import Event
+
+    app_id = storage.get_metadata_apps().insert(App(0, app_name))
+    events = storage.get_events()
+    events.init(app_id)
+    rng = np.random.default_rng(SEED + 3)
+    u = (rng.zipf(1.2, N_EVENTS) % N_USERS).astype(np.int64)
+    i = (rng.zipf(1.2, N_EVENTS) % N_ITEMS).astype(np.int64)
+    u[:N_USERS] = np.arange(N_USERS)
+    i[:N_ITEMS] = np.arange(N_ITEMS)
+    rate = rng.random(N_EVENTS) < 0.8
+    stars = rng.integers(1, 6, N_EVENTS)
+    t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    step = 50_000
+    for lo in range(0, N_EVENTS, step):
+        events.insert_batch([
+            Event("rate" if rate[j] else "buy", "user", f"u{u[j]}", "item",
+                  f"i{i[j]}",
+                  {"rating": float(stars[j])} if rate[j] else {},
+                  t0 + timedelta(seconds=j))
+            for j in range(lo, min(N_EVENTS, lo + step))], app_id)
+    return N_EVENTS, int(np.unique(u * N_ITEMS + i).size)
+
+
+def phase_train_entry(dev: torch.device) -> dict:
+    from pio_tpu_torch.__main__ import (
+        _engine_from_variant,
+        _load_variant,
+        main as cli_main,
+    )
+    from pio_tpu_torch.data.storage import Storage, set_storage
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import quantized_scan as qscan
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    counters = {"quantized_scan": qscan.launches,
+                "segment_flush": sf.launches}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_train_") as tmp:
+        env = {
+            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_SQL_PATH": str(Path(tmp) / "pio.db"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
+        }
+        storage = Storage(env=env)
+        t0 = time.perf_counter()
+        n_events, n_pairs = write_events(storage, "ChipSmoke")
+        write_s = time.perf_counter() - t0
+        engine_dir = Path(tmp) / "engine"
+        engine_dir.mkdir()
+        (engine_dir / "engine.json").write_text(json.dumps({
+            "id": "chip-smoke-train", "engineFactory": FACTORY,
+            "datasource": {"params": {"app_name": "ChipSmoke"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "num_iterations": ITERS, "lambda_": 0.05,
+                "alpha": 10.0, "implicit_prefs": True}}],
+        }))
+        variant = _load_variant(str(engine_dir))
+        engine, ep = _engine_from_variant(variant, str(engine_dir))
+        want_launches = expected_flush_launches(
+            n_pairs, N_USERS, N_ITEMS,
+            engine.algorithm_classes["als"](ep.algorithms[0][1])
+            ._als_params())
+        set_storage(storage)
+        out = io.StringIO()
+        try:
+            # -- the main path: counts from 0, read right after ------------
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["train", "--engine-dir", str(engine_dir)])
+            train_s = time.perf_counter() - t0
+            train_launches = {n: c.value for n, c in counters.items()}
+            # -----------------------------------------------------------------
+        finally:
+            set_storage(None)
+        printed = out.getvalue().strip()
+        print(printed, flush=True)
+        if rc != 0 or train_launches["segment_flush"] != want_launches:
+            raise AssertionError(f"train: rc {rc}, launches {train_launches}"
+                                 f", the layout predicts {want_launches}")
+        iid = printed.rsplit(" ", 1)[-1]
+        latest = storage.get_metadata_engine_instances().get_latest_completed(
+            "chip-smoke-train", "1", "default")
+        if latest is None or latest.id != iid:
+            raise AssertionError(f"train printed {iid}, latest completed is "
+                                 f"{latest and latest.id}")
+
+        http, qs = create_query_server(
+            engine, ep, storage,
+            ServingConfig(ip="127.0.0.1", port=0,
+                          engine_id="chip-smoke-train"),
+            ctx=create_workflow_context(storage, device=dev))
+        http.start()
+        try:
+            model = qs.models[0]
+            picked = np.random.default_rng(SEED + 4).choice(
+                len(model.users), 8, replace=False)
+            latencies = []
+            for r in picked:
+                user = model.users.ids()[r]
+                status, body, dt = _post(http.port, "/queries.json",
+                                         {"user": user, "num": 10})
+                assert status == 200, body
+                latencies.append(dt)
+                scores, idx = als.recommend_topk(model.factors, [r], 10)
+                want = {"itemScores": [
+                    {"item": it, "score": float(sc)} for it, sc in zip(
+                        model.items.decode(idx[0].cpu().numpy()),
+                        scores[0].cpu().numpy())]}
+                _check_same(body, want, f"trained {user}")
+            uf = model.factors.user_factors
+            if uf.shape != (N_USERS, RANK) or model.factors.item_factors \
+                    .shape != (N_ITEMS, RANK):
+                raise AssertionError(f"trained model {tuple(uf.shape)}")
+            if not bool(torch.isfinite(uf).all()):
+                raise AssertionError("trained factors are not finite")
+            served_iid = qs.instance.id
+        finally:
+            http.stop()
+            qs.close()
+            storage.close()
+    if served_iid != iid:
+        raise AssertionError("deploy did not load the trained instance")
+    result = {
+        "events": n_events, "ratings": n_pairs, "write_s": write_s,
+        "train_s": train_s, "instance": iid, "launches": train_launches,
+        "segment_flush_launches_expected": want_launches,
+        "query_ms": [1e3 * t for t in latencies],
+    }
+    emit("train_entry", **result)
+    return result
+
 
 def main() -> int:
     device = phase_device()
@@ -486,6 +971,14 @@ def main() -> int:
     users, items = make_factors()
     scan = phase_scan_kernel(users, items, dev)
     serve = phase_serve(users, items, dev)
+    del users, items
+    ratings = synth_ratings()
+    flush = phase_flush_kernel(ratings, dev)
+    torch.cuda.empty_cache()
+    train = phase_train(ratings, dev)
+    del ratings
+    torch.cuda.empty_cache()
+    entry = phase_train_entry(dev)
 
     cases = scan["cases"]
     # headline: the shape a single /queries.json gives the kernel
@@ -504,6 +997,21 @@ def main() -> int:
                                        "k")},
         "ok": True,
         "cases": cases,
+    }, {
+        "name": "segment_flush", "route": "cuda",
+        "source": "pio_tpu_torch/ops/kernels/segment_flush.cu",
+        "replaces": "pio_tpu/ops/als_pallas.py:369",
+        # the main path: python -m pio_tpu_torch train
+        "launches": entry["launches"]["segment_flush"],
+        "launches_als_train": train["segment_flush_launches"],
+        "launches_als_train_expected":
+            train["segment_flush_launches_expected"],
+        "max_abs_err": flush["max_abs_err"],
+        "ms": flush["ms"], "plain_ms": flush["plain_ms"],
+        "bound_ms": flush["bound_ms"], "bound_by": flush["bound_by"],
+        "library_ms": flush["library_ms"],
+        "shape": {k: flush[k] for k in ("S", "S_real", "n_self", "k")},
+        "ok": True,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

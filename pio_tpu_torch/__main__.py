@@ -2,13 +2,18 @@
 
 Verbs ported so far:
 
+  train    read the engine's events, train it and store a COMPLETED engine
+           instance (printing its id), on the CUDA device unless --device
+           cpu.
   deploy   serve the latest COMPLETED engine instance (or
            --engine-instance-id) of the engine in --engine-dir over
            REST, on the CUDA device unless --device cpu. Storage comes
            from the PIO_STORAGE_* environment, as for `pio deploy`.
 
-Counterpart of ``cmd_deploy`` in ``pio_tpu.tools.cli``; its fleet, canary,
-TLS, feedback, batching and warm-query options are not ported yet.
+Counterparts of ``cmd_train`` and ``cmd_deploy`` in ``pio_tpu.tools.cli``.
+Not ported yet: train's resume, --from-eval, --stop-after-* and mesh
+options; deploy's fleet, canary, TLS, feedback, batching and warm-query
+options.
 """
 
 from __future__ import annotations
@@ -61,6 +66,26 @@ def _engine_ids(variant: dict, engine_dir: str) -> tuple[str, str, str]:
     return engine_id, variant.get("engineVersion", "1"), "default"
 
 
+def cmd_train(args) -> int:
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.train import run_train
+
+    variant = _load_variant(args.engine_dir)
+    engine, ep = _engine_from_variant(variant, args.engine_dir)
+    engine_id, engine_version, engine_variant = _engine_ids(
+        variant, args.engine_dir)
+    storage = get_storage()
+    ctx = create_workflow_context(storage, device=args.device)
+    instance_id = run_train(
+        engine, ep, storage, engine_id=engine_id,
+        engine_version=engine_version, engine_variant=engine_variant,
+        engine_factory=variant["engineFactory"], batch=args.batch or "",
+        ctx=ctx,
+    )
+    print(f"Training completed. Engine instance: {instance_id}", flush=True)
+    return 0
+
+
 def cmd_deploy(args) -> int:
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
@@ -95,6 +120,13 @@ def cmd_deploy(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m pio_tpu_torch")
     sub = p.add_subparsers(dest="verb", required=True)
+    x = sub.add_parser("train", help="train an engine instance")
+    x.add_argument("--engine-dir", default=".")
+    x.add_argument("--batch", default="")
+    x.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="training device (default cuda; cpu must be asked "
+                        "for)")
+    x.set_defaults(fn=cmd_train)
     x = sub.add_parser("deploy", help="serve an engine instance over REST")
     x.add_argument("--engine-dir", default=".")
     x.add_argument("--ip", default="0.0.0.0")

@@ -1,0 +1,225 @@
+"""Engine-facing event read API: events to COO interactions.
+
+Counterpart of ``pio_tpu.data.eventstore`` (a copy of its framework-neutral
+code): app-name-keyed reads for training (the reference's PEventStore),
+and ``to_interactions``, the bridge from ragged events to the numpy
+columns training takes.
+
+Trimmed: the port's DAOs have no ``columnarize`` (the columnar fold of
+``data/columnar.py`` is not ported), so ``EventStore.interactions`` always
+takes the reference's ``find`` + ``to_interactions`` branch, which gives
+the same interactions; ``aggregate_properties``, ``find_by_entity``,
+``columnarize_via_find`` and ``interactions_to_columns`` are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from datetime import datetime
+from typing import Callable, Iterable, Sequence
+
+import numpy as np
+
+from pio_tpu_torch.data.bimap import EntityIdIndex
+from pio_tpu_torch.data.dao import EventsDAO
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.data.storage import Storage, StorageError, get_storage
+
+
+class EventStore:
+    """App-name keyed event reads (PEventStore equivalent)."""
+
+    def __init__(self, storage: Storage | None = None):
+        self.storage = storage or get_storage()
+
+    def _resolve(self, app_name: str, channel_name: str | None) -> tuple[int, int | None]:
+        """App/channel name -> ids (reference Common.scala appNameToId)."""
+        app = self.storage.get_metadata_apps().get_by_name(app_name)
+        if app is None:
+            raise StorageError(f"App {app_name!r} does not exist")
+        if channel_name is None:
+            return app.id, None
+        for ch in self.storage.get_metadata_channels().get_by_appid(app.id):
+            if ch.name == channel_name:
+                return app.id, ch.id
+        raise StorageError(
+            f"Channel {channel_name!r} does not exist in app {app_name!r}"
+        )
+
+    def _dao(self) -> EventsDAO:
+        return self.storage.get_events()
+
+    def find(
+        self,
+        app_name: str,
+        channel_name: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+    ) -> list[Event]:
+        """Training read: all matching events (reference PEventStore.find)."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return list(
+            self._dao().find(
+                app_id=app_id,
+                channel_id=channel_id,
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id,
+                limit=-1,
+            )
+        )
+
+    def interactions(
+        self,
+        app_name: str,
+        channel_name: str | None = None,
+        entity_type: str | None = "user",
+        target_entity_type=...,
+        event_names: Sequence[str] | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        value_key: str | None = "rating",
+        default_value: float = 1.0,
+        value_event: str | None = None,
+        dedup: str = "last",
+    ) -> Interactions:
+        """Training read straight to COO interactions: find + fold.
+
+        `value_key` reads a numeric property (None = always
+        default_value); `value_event` restricts that read to one event
+        name (others take default_value) — the reference recommendation
+        template's rate-vs-buy rule.
+        """
+        events = self.find(
+            app_name=app_name,
+            channel_name=channel_name,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            target_entity_type=target_entity_type,
+            event_names=event_names,
+        )
+        return to_interactions(
+            events,
+            value_fn=make_value_fn(value_key, default_value, value_event),
+            dedup=dedup,
+        )
+
+
+@dataclass
+class Interactions:
+    """COO user-item interactions + the id indexes to decode them: numpy
+    columns, with EntityIdIndex handling string-id <-> dense-index."""
+
+    user_idx: np.ndarray   # int32 (n,)
+    item_idx: np.ndarray   # int32 (n,)
+    values: np.ndarray     # float32 (n,)
+    users: EntityIdIndex
+    items: EntityIdIndex
+
+    @property
+    def n_users(self) -> int:
+        return len(self.users)
+
+    @property
+    def n_items(self) -> int:
+        return len(self.items)
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def sanity_check(self):
+        if len(self.values) == 0:
+            raise ValueError(
+                "Interactions is empty. Please check if DataSource generates"
+                " TrainingData and eventWindow is set properly."
+            )
+
+
+def make_value_fn(value_key: str | None, default_value: float,
+                  value_event: str | None):
+    """The value-extraction semantics of the training read: `value_key`
+    reads a numeric property (None = always default), `value_event`
+    restricts that read to one event name (others take default)."""
+
+    def value_fn(e: Event) -> float:
+        if value_key is not None and (
+            value_event is None or e.event == value_event
+        ):
+            return float(e.properties.get_or_else(value_key, default_value))
+        return default_value
+
+    return value_fn
+
+
+def to_interactions(
+    events: Iterable[Event],
+    value_fn: Callable[[Event], float | None] = None,
+    users: EntityIdIndex | None = None,
+    items: EntityIdIndex | None = None,
+    dedup: str = "last",
+) -> Interactions:
+    """Events -> COO interactions.
+
+    value_fn maps an event to a float value (None = skip the event); default
+    reads properties["rating"] falling back to 1.0 (implicit). dedup: "last"
+    keeps the latest (u,i) value by eventTime (the MLRatings convention of
+    the reference templates), "sum" accumulates, "none" keeps duplicates.
+    """
+    evs = sorted(events, key=lambda e: e.event_time)
+    if value_fn is None:
+        def value_fn(e):  # noqa: F811 - documented default
+            return float(e.properties.get_or_else("rating", 1.0))
+
+    triples: dict[tuple[str, str], float] | list = (
+        {} if dedup in ("last", "sum") else []
+    )
+    for e in evs:
+        if e.target_entity_id is None:
+            continue
+        v = value_fn(e)
+        if v is None:
+            continue
+        key = (e.entity_id, e.target_entity_id)
+        if dedup == "last":
+            triples[key] = float(v)
+        elif dedup == "sum":
+            triples[key] = triples.get(key, 0.0) + float(v)
+        else:
+            triples.append((key, float(v)))
+
+    items_list = triples.items() if isinstance(triples, dict) else triples
+    pairs = [k for k, _ in items_list]
+    vals = np.array([v for _, v in items_list], dtype=np.float32)
+    if users is None:
+        users = EntityIdIndex(u for u, _ in pairs)
+    if items is None:
+        items = EntityIdIndex(i for _, i in pairs)
+    known = [
+        (ui, ii, v)
+        for (u, i), v in zip(pairs, vals)
+        if (ui := users.bimap.get(u, -1)) >= 0
+        and (ii := items.bimap.get(i, -1)) >= 0
+    ]
+    if known:
+        u_idx, i_idx, v = (np.array(x) for x in zip(*known))
+    else:
+        u_idx = np.zeros(0, np.int32)
+        i_idx = np.zeros(0, np.int32)
+        v = np.zeros(0, np.float32)
+    return Interactions(
+        user_idx=u_idx.astype(np.int32),
+        item_idx=i_idx.astype(np.int32),
+        values=v.astype(np.float32),
+        users=users,
+        items=items,
+    )

@@ -1,16 +1,18 @@
-"""Recommendation engine template — ALS collaborative filtering, serving half.
+"""Recommendation engine template — ALS collaborative filtering.
 
 Counterpart of ``pio_tpu.models.recommendation``: the same params, query
 and result shapes (query {"user", "num", "whiteList"?, "blackList"?} ->
 {"itemScores": [...]}) and the same filtering semantics, with the factors
-held as f32 torch tensors on the serving device. Two-stage clustered
-retrieval (the engine.json ``retrieval`` block) runs the candidate scan
-of ``ops/retrieval.py``.
+held as f32 torch tensors on the context's device. Training reads rate/buy
+events into interactions and runs ``ops/als.py``'s ``als_train`` on one
+device. Two-stage clustered retrieval (the engine.json ``retrieval``
+block) runs the candidate scan of ``ops/retrieval.py``.
 
-Reading events and training come with the training slice: here they
-raise ``NotImplementedError``. A model reaches this engine through
-``workflow.train.persist_models`` (``convert.py`` carries one across from
-the JAX package).
+Not ported yet, each raising ``NotImplementedError`` or absent:
+evaluation folds (``read_eval``), validated training
+(``validation_fraction > 0``, ``als_train_validated``) and the sharded
+multi-device trainer (``als_train_sharded``; the port's context holds one
+device).
 """
 
 from __future__ import annotations
@@ -30,10 +32,13 @@ from pio_tpu_torch.controller.base import (
 )
 from pio_tpu_torch.controller.engine import Engine, EngineFactory
 from pio_tpu_torch.data.bimap import EntityIdIndex
+from pio_tpu_torch.data.eventstore import Interactions
 from pio_tpu_torch.ops import als
 from pio_tpu_torch.ops import retrieval as rt
 
-_TRAINING_LATER = "training is ported in the next slice"
+_EVAL_LATER = "evaluation folds (read_eval) are ported in a later slice"
+_VALIDATED_LATER = ("validation_fraction > 0 (als_train_validated) is "
+                    "ported in a later slice")
 
 
 @dataclass(frozen=True)
@@ -49,18 +54,33 @@ class DataSourceParams(Params):
 
 
 class RecommendationDataSource(DataSource):
-    """Reads rate/buy events into interactions (training slice)."""
+    """Reads rate/buy events into Interactions: `rate` events use
+    properties.rating, other events a fixed implicit value."""
 
     params_class = DataSourceParams
 
     def __init__(self, params: DataSourceParams):
         self.params = params
 
-    def read_training(self, ctx):
-        raise NotImplementedError(_TRAINING_LATER)
+    def _read(self, ctx) -> Interactions:
+        p = self.params
+        return ctx.event_store.interactions(
+            app_name=p.app_name,
+            channel_name=p.channel_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=list(p.event_names),
+            value_key="rating",
+            default_value=p.implicit_value,
+            value_event=p.rating_event,
+            dedup="last",
+        )
+
+    def read_training(self, ctx) -> Interactions:
+        return self._read(ctx)
 
     def read_eval(self, ctx):
-        raise NotImplementedError(_TRAINING_LATER)
+        raise NotImplementedError(_EVAL_LATER)
 
 
 def _rank_candidates(cand: list, scores, num: int) -> dict:
@@ -131,8 +151,33 @@ class ALSAlgorithm(PAlgorithm):
         rp = self._rparams
         return rp.mode == "clustered" and not rp.is_exhaustive(n_items)
 
-    def train(self, ctx, data):
-        raise NotImplementedError(_TRAINING_LATER)
+    def _als_params(self) -> als.ALSParams:
+        p = self.params
+        return als.ALSParams(
+            rank=p.rank,
+            iterations=p.num_iterations,
+            reg=p.lambda_,
+            alpha=p.alpha,
+            implicit=p.implicit_prefs,
+            seed=p.seed if p.seed is not None else 3,
+            chunk=p.chunk,
+            cg_iters=p.cg_iters,
+            cg_warm_iters=p.cg_warm_iters,
+            cg_warm_sweeps=p.cg_warm_sweeps,
+        )
+
+    def train(self, ctx, data: Interactions) -> RecommendationModel:
+        """ALS on ``ctx.device``; the last sweep's factors are the model,
+        as in the reference without validation."""
+        data.sanity_check()
+        if self.params.validation_fraction > 0.0:
+            raise NotImplementedError(_VALIDATED_LATER)
+        factors = als.als_train(
+            data.user_idx, data.item_idx, data.values,
+            data.n_users, data.n_items, self._als_params(),
+            device=ctx.device,
+        )
+        return RecommendationModel(factors, data.users, data.items)
 
     def predict(self, model: RecommendationModel, query: dict) -> dict:
         """query {"user": id, "num": k, "whiteList"?: [...], "blackList"?: [...]}

@@ -1,21 +1,127 @@
-"""ALS serving half: the factor model and its scoring functions.
+"""ALS (alternating least squares) matrix factorization: training and the
+scoring functions of the factor model.
 
-Counterpart of the prediction/scoring section of ``pio_tpu.ops.als``
-(``ALSModel``, ``predict_pairs``, ``recommend_topk``, ``rmse``). The JAX
-package leaves this path to XLA (one matmul + top-k), so the port leaves
-it to ``torch.matmul``/``torch.topk``: there is no Pallas kernel here to
-translate. Training (``ALSParams``, ``als_train``) comes with the
-training slice.
+Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
+``_device_slot_layout``, ``_chunk_blocks``, ``_normal_equations``,
+``_cg_solve``, ``_solve_factors``, ``als_train``; ``predict_pairs``,
+``recommend_topk``, ``rmse``). The algorithm is the reference's:
+
+ * ratings sit in fixed-width slots sorted by row (``_device_slot_layout``,
+   built on the device from the COO arrays: one stable sort, cummax,
+   cumsum, one scatter);
+ * each slot's normal-equation block Yᵀdiag(w)Y and right-hand side Yᵀw
+   come from one batched matmul (``_chunk_blocks``), in true f32: the
+   reference asks XLA for Precision.HIGH because a one-pass bf16 product
+   loses ~3e-3 relative on A, which CG cannot recover, so the port never
+   turns on TF32 and refuses to train on CUDA when it is on;
+ * the blocks are summed into each row's system, A (n,k,k) and b (n,k),
+   by ``accum``: ``"carry"``/``"stacked"`` with ``index_add_``, or
+   ``"hybrid"`` with the segment-flush kernel (``ops/kernels/
+   segment_flush``, the port of the reference's Pallas K2);
+ * each side is solved by warm-started Jacobi-CG or a batched Cholesky.
+
+``accum="auto"`` is ``"hybrid"`` on a CUDA device and ``"carry"`` on the
+CPU: the port takes the card for the reference's accelerator, whose auto
+mode is hybrid. The accumulation and gather modes that need kernels not
+ported yet raise ``NotImplementedError``; none of them runs another mode
+in its place. JAX's ``jit``/``scan`` become plain Python loops over
+eagerly launched torch ops; the threefry init becomes a seeded
+``torch.Generator`` (the two give different numbers; tests pass ``init=``).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from pio_tpu_torch.ops.bucketing import pow2_bucket
+from pio_tpu_torch.ops.kernels.segment_flush import segment_flush
+from pio_tpu_torch.workflow.context import resolve_device
+
+# which slice of the port brings each mode that needs an unported kernel
+_NOT_PORTED = {
+    "pallas": "accum='pallas' needs the fused normal-equation kernel (K1), "
+              "ported in the next slice",
+    "stream": "accum='stream' needs the overlapped segment-flush kernel "
+              "(K3), ported after K1",
+    "packed": "packed_a=True needs the lane-packed flush and matvec kernels "
+              "(K3, K6), ported after K1",
+    "gather": "gather={!r} needs the Pallas gather kernels (K4, K5), ported "
+              "after K3 and K6; use 'auto' or 'xla'",
+}
+
+
+def _check_ported(accum: str, gather: str, packed: bool) -> None:
+    if accum in ("pallas", "stream"):
+        raise NotImplementedError(_NOT_PORTED[accum])
+    if packed:
+        raise NotImplementedError(_NOT_PORTED["packed"])
+    if gather not in ("auto", "xla"):
+        raise NotImplementedError(_NOT_PORTED["gather"].format(gather))
+
+
+@dataclass(frozen=True)
+class ALSParams:
+    """Same fields, defaults and meaning as ``pio_tpu.ops.als.ALSParams``
+    (whose comments carry the measurements behind each default)."""
+
+    rank: int = 16
+    iterations: int = 10
+    reg: float = 0.1
+    alpha: float = 1.0
+    implicit: bool = False
+    seed: int = 3
+    chunk: int = 65536        # nnz padding quantum
+    width: int = 128          # ratings per slot
+    chunk_slots: int = 8192   # slots per block build (bounds gather temp)
+    bf16_gather: bool = True
+    cg_iters: int = -1        # -1 auto per side, 0 Cholesky, >0 CG iters
+    auto_cg_rows: int = 8192
+    cg_warm_iters: int = 6
+    cg_warm_sweeps: int = 2
+    accum: str = "auto"
+    packed_a: bool = False
+    group_slots: int = 73728
+    gather: str = "auto"
+
+    _GATHER_MODES = ("auto", "xla", "pallas-copy", "pallas-take", "stream")
+    _ACCUM_MODES = ("auto", "carry", "stacked", "pallas", "hybrid", "stream")
+
+    def __post_init__(self):
+        if self.gather not in self._GATHER_MODES:
+            raise ValueError(
+                f"ALSParams.gather={self.gather!r}; "
+                f"expected one of {self._GATHER_MODES}")
+        if self.accum not in self._ACCUM_MODES:
+            raise ValueError(
+                f"ALSParams.accum={self.accum!r}; "
+                f"expected one of {self._ACCUM_MODES}")
+        _check_ported(self.accum, self.gather, self.packed_a)
+
+    def resolved_cg_iters(self, n_self: int | None = None) -> int:
+        """-1 (default) = auto, per factor side: exact Cholesky (0) for
+        sides of at most ``auto_cg_rows`` rows, else warm-started CG at
+        max(16, rank // 4) iterations. With n_self=None, the CG cap."""
+        if self.cg_iters >= 0:
+            return self.cg_iters
+        if n_self is not None and n_self <= self.auto_cg_rows:
+            return 0
+        return max(16, self.rank // 4)
+
+    def resolved_accum(self, device) -> str:
+        """The accumulation that runs on ``device``: "auto" is "hybrid"
+        on CUDA and "carry" on the CPU, and hybrid falls back to stacked
+        above rank 256 (the reference's limit for the flush kernel; keep
+        in sync with _normal_equations)."""
+        mode = self.accum
+        if mode == "auto":
+            mode = "hybrid" if _accelerator_backend(device) else "carry"
+        if mode == "hybrid" and self.rank > 256:
+            mode = "stacked"
+        return mode
 
 
 @dataclass
@@ -26,6 +132,389 @@ class ALSModel:
     user_factors: torch.Tensor
     item_factors: torch.Tensor
 
+
+def _accelerator_backend(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def blocks_group_budget_slots(k: int) -> int:
+    """Max slots whose (k,k) f32 blocks are materialized at once (1.2 GB
+    of blocks; the stacked and hybrid paths group by it)."""
+    return max(1, (1_200 * 2**20) // (k * k * 4))
+
+
+def _slots_for(nnz: int, n_self: int, width: int, chunk_slots: int) -> int:
+    """Static upper bound on slot count, padded to a chunk multiple: at
+    most min(n_self, nnz) non-empty rows plus nnz // width splits."""
+    s = nnz // width + 1 + min(n_self, nnz)
+    return math.ceil(s / chunk_slots) * chunk_slots
+
+
+def _device_slot_layout(u, o, v, n_self: int, width: int, slots_max: int):
+    """Build the slot layout on the device from (possibly sentinel-padded)
+    COO. u: (nnz,) int32 row ids, entries with u >= n_self are padding and
+    are dropped; o: opposing-side ids; v: values. Returns (rows (S,) int32,
+    idx (S,width) int32, val (S,width) f32, lens (S,) int32), element for
+    element the reference's: rows is non-decreasing, unused slots carry
+    the sentinel row n_self. Dropped entries land in one spare slot past
+    the end (the reference's mode="drop")."""
+    dev = u.device
+    nnz = u.shape[0]
+    u_s, perm = torch.sort(u, stable=True)
+    o_s, v_s = o[perm], v[perm]
+    t = torch.arange(nnz, device=dev)
+    newrow = torch.ones(nnz, dtype=torch.bool, device=dev)
+    newrow[1:] = u_s[1:] != u_s[:-1]
+    row_start = torch.cummax(torch.where(newrow, t, 0), 0).values
+    pos = t - row_start                       # position within the row
+    newslot = newrow | (pos % width == 0)     # heavy rows split every width
+    slot_id = torch.cumsum(newslot, 0) - 1
+    col = pos % width
+    keep = (u_s < n_self) & (slot_id < slots_max)
+    slot_id = torch.where(keep, slot_id, slots_max)
+
+    rows = torch.full((slots_max + 1,), n_self, dtype=torch.int32,
+                      device=dev)
+    rows.scatter_reduce_(0, slot_id, u_s.to(torch.int32), "amin")
+    lens = torch.bincount(slot_id, minlength=slots_max + 1).to(torch.int32)
+    flat = slot_id * width + col
+    idx = torch.zeros((slots_max + 1) * width, dtype=torch.int32,
+                      device=dev)
+    idx[flat] = o_s.to(torch.int32)
+    val = torch.zeros((slots_max + 1) * width, dtype=torch.float32,
+                      device=dev)
+    val[flat] = v_s.to(torch.float32)
+    return (rows[:slots_max],
+            idx.view(slots_max + 1, width)[:slots_max],
+            val.view(slots_max + 1, width)[:slots_max],
+            lens[:slots_max])
+
+
+def _chunk_blocks(src, i_c, v_c, l_c, implicit: bool, alpha: float,
+                  out=None):
+    """One slot chunk -> per-slot normal-equation blocks a_blk (C,k,k),
+    b_blk (C,k), by batched matmuls in f32 (the reference's "xla"
+    gather, the only one ported). ``out=(a, b)`` writes the blocks into
+    those buffers."""
+    W = i_c.shape[1]
+    mask = (torch.arange(W, device=i_c.device)[None, :]
+            < l_c[:, None]).to(torch.float32)
+    y = src[i_c].to(torch.float32)             # (C, W, k) gather
+    if implicit:
+        # c = 1 + alpha*v; A += (c-1) y y^T ; b += c * y   (p == 1)
+        w_outer = alpha * v_c * mask
+        w_rhs = (1.0 + alpha * v_c) * mask
+    else:
+        w_outer = mask
+        w_rhs = v_c * mask
+    a_out, b_out = out if out is not None else (None, None)
+    a_blk = torch.bmm((y * w_outer[:, :, None]).transpose(1, 2), y,
+                      out=a_out)
+    b_blk = torch.bmm(y.transpose(1, 2), w_rhs[:, :, None],
+                      out=None if b_out is None else b_out[:, :, None])
+    return a_blk, b_blk.reshape(b_blk.shape[0], -1)
+
+
+def _group_bounds(S: int, k: int, chunk_slots: int, group_slots: int):
+    """[lo, hi) slot bounds of the groups whose blocks the stacked and
+    hybrid accumulations materialize at once: whole chunks, at most
+    min(group_slots, blocks_group_budget_slots(k)) slots. The reference's
+    hybrid path pads S to lcm(kernel chunk, chunk_slots) first; its
+    kernel chunk is a power of two that divides chunk_slots, and S is a
+    multiple of chunk_slots already, so that pad is always empty."""
+    per_group = max(1, min(group_slots, blocks_group_budget_slots(k))
+                    // chunk_slots)
+    g_slots = per_group * chunk_slots
+    return [(lo, min(S, lo + g_slots)) for lo in range(0, S, g_slots)]
+
+
+def _group_blocks(src, idx, val, lens, lo: int, hi: int, chunk_slots: int,
+                  implicit: bool, alpha: float):
+    """The blocks of slots [lo, hi), built chunk by chunk into one buffer
+    (the reference's lax.scan with the blocks as outputs)."""
+    k = src.shape[1]
+    a_blks = torch.empty((hi - lo, k, k), dtype=torch.float32,
+                         device=src.device)
+    b_blks = torch.empty((hi - lo, k), dtype=torch.float32,
+                         device=src.device)
+    for c0 in range(lo, hi, chunk_slots):
+        c1 = min(hi, c0 + chunk_slots)
+        _chunk_blocks(src, idx[c0:c1], val[c0:c1], lens[c0:c1], implicit,
+                      alpha, out=(a_blks[c0 - lo:c1 - lo],
+                                  b_blks[c0 - lo:c1 - lo]))
+    return a_blks, b_blks
+
+
+def _normal_equations(layout, other_factors, n_self, implicit: bool,
+                      alpha: float, chunk_slots: int,
+                      bf16_gather: bool = False, accum: str = "auto",
+                      group_slots: int = 73728, gather: str = "auto",
+                      packed: bool = False):
+    """Accumulate per-row normal equations A (n_self,k,k), b (n_self,k)
+    (without the shared YᵀY and reg terms, which the solve adds).
+
+    "carry" adds each chunk's blocks into A with ``index_add_``;
+    "stacked" builds a group of chunks' blocks, then adds the group;
+    "hybrid" builds the same groups and flushes each with the segment
+    flush kernel, which writes each finished row once and folds a row
+    that runs across tiles and groups in slot order. Pad slots carry the
+    sentinel row n_self: the index_add_ paths drop them into one spare
+    row, the flush stops at them."""
+    _check_ported(accum, gather, packed)
+    rows, idx, val, lens = layout
+    k = other_factors.shape[1]
+    S = idx.shape[0]
+    dev = other_factors.device
+    src = (other_factors.to(torch.bfloat16) if bf16_gather
+           else other_factors)
+    if accum == "auto":
+        # keep in sync with ALSParams.resolved_accum
+        accum = "hybrid" if _accelerator_backend(dev) else "carry"
+    if S % chunk_slots:
+        raise ValueError(f"{S} slots is not a multiple of chunk_slots "
+                         f"{chunk_slots}")
+    if accum == "hybrid" and k > 256:
+        accum = "stacked"
+
+    if accum == "hybrid":
+        A = torch.zeros((n_self, k, k), dtype=torch.float32, device=dev)
+        b = torch.zeros((n_self, k), dtype=torch.float32, device=dev)
+        for lo, hi in _group_bounds(S, k, chunk_slots, group_slots):
+            a_blks, b_blks = _group_blocks(src, idx, val, lens, lo, hi,
+                                           chunk_slots, implicit, alpha)
+            segment_flush(rows[lo:hi], a_blks, b_blks, n_self, out=(A, b))
+        return A, b
+
+    # one spare row takes the sentinel slots
+    A = torch.zeros((n_self + 1, k, k), dtype=torch.float32, device=dev)
+    b = torch.zeros((n_self + 1, k), dtype=torch.float32, device=dev)
+    if accum == "carry":
+        for c0 in range(0, S, chunk_slots):
+            c1 = c0 + chunk_slots
+            a_blk, b_blk = _chunk_blocks(src, idx[c0:c1], val[c0:c1],
+                                         lens[c0:c1], implicit, alpha)
+            r = rows[c0:c1].long()
+            A.index_add_(0, r, a_blk)
+            b.index_add_(0, r, b_blk)
+    elif accum == "stacked":
+        for lo, hi in _group_bounds(S, k, chunk_slots, group_slots):
+            a_blks, b_blks = _group_blocks(src, idx, val, lens, lo, hi,
+                                           chunk_slots, implicit, alpha)
+            r = rows[lo:hi].long()
+            A.index_add_(0, r, a_blks)
+            b.index_add_(0, r, b_blks)
+    else:
+        raise ValueError(f"unknown accum mode {accum!r}")
+    return A[:n_self], b[:n_self]
+
+
+def _cg_body(mv, dinv, b, x0, n_iter: int):
+    """The Jacobi-CG iteration (the reference's fori_loop body)."""
+    x = x0
+    r = b - mv(x)
+    z = r * dinv
+    p = z
+    rz = torch.sum(r * z, -1)
+    for _ in range(n_iter):
+        ap = mv(p)
+        alpha = rz / torch.clamp(torch.sum(p * ap, -1), min=1e-30)
+        x = x + alpha[:, None] * p
+        r = r - alpha[:, None] * ap
+        z = r * dinv
+        rz_new = torch.sum(r * z, -1)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = z + beta[:, None] * p
+        rz = rz_new
+    return x
+
+
+def _cg_solve(A, b, x0, n_iter: int):
+    """Batched Jacobi-preconditioned conjugate gradient for SPD systems;
+    the matvec is one batched matmul in f32."""
+    dinv = 1.0 / torch.diagonal(A, dim1=1, dim2=2)
+
+    def mv(x):
+        return torch.bmm(A, x[:, :, None])[:, :, 0]
+
+    return _cg_body(mv, dinv, b, x0, n_iter)
+
+
+def _shared_yty(other_factors, yty):
+    """Shared YᵀY term (the confidence-1 part of implicit A)."""
+    if yty is not None:
+        return yty
+    return other_factors.T @ other_factors
+
+
+def _solve_factors(layout, other_factors, n_self, reg, implicit, alpha,
+                   chunk_slots, x0=None, cg_iters: int = 0,
+                   bf16_gather: bool = False, accum: str = "auto",
+                   group_slots: int = 73728, yty=None,
+                   gather: str = "auto", packed: bool = False):
+    A, b = _normal_equations(
+        layout, other_factors, n_self, implicit, alpha, chunk_slots,
+        bf16_gather=bf16_gather, accum=accum, group_slots=group_slots,
+        gather=gather, packed=packed,
+    )
+    # in place: A is this call's own buffer, and at the ML-20M shape a
+    # copy of it is 2.3 GB
+    if implicit:
+        A += _shared_yty(other_factors, yty)[None, :, :]
+    A.diagonal(dim1=1, dim2=2).add_(reg)
+    if cg_iters > 0:
+        if x0 is None:
+            x0 = torch.zeros_like(b)
+        return _cg_solve(A, b, x0, cg_iters)
+    chol = torch.linalg.cholesky(A)
+    return torch.cholesky_solve(b[:, :, None], chol)[:, :, 0]
+
+
+def init_factors(n: int, rank: int, generator: torch.Generator):
+    """MLlib-style init: |normal| / sqrt(rank), drawn on the generator's
+    device."""
+    return torch.abs(torch.randn(
+        (n, rank), generator=generator, dtype=torch.float32,
+        device=generator.device)) / math.sqrt(rank)
+
+
+def _cg_schedule(params: ALSParams, cg_u: int, cg_i: int):
+    """-> (n_full, n_warm, w_u, w_i): how many sweeps run at full CG
+    strength vs at the warm count, and the per-side warm iteration
+    counts (a side on the exact-Cholesky path, cg=0, stays exact)."""
+    n_full = params.iterations
+    n_warm = 0
+    # >= 1: cg_iters=0 is the exact-Cholesky sentinel
+    if 1 <= params.cg_warm_iters < max(cg_u, cg_i):
+        n_full = min(params.iterations, max(0, params.cg_warm_sweeps))
+        n_warm = params.iterations - n_full
+    w_u = params.cg_warm_iters if cg_u > 0 else cg_u
+    w_i = params.cg_warm_iters if cg_i > 0 else cg_i
+    return n_full, n_warm, w_u, w_i
+
+
+def _build_layouts(u, i, v, n_users: int, n_items: int, params: ALSParams):
+    """Slot layouts for both halves + the chunk size actually used."""
+    nnz = u.shape[0]
+    cs = min(params.chunk_slots, _slots_for(nnz, 0, params.width, 1))
+    su = _slots_for(nnz, n_users, params.width, cs)
+    si = _slots_for(nnz, n_items, params.width, cs)
+    by_user = _device_slot_layout(u, i, v, n_users, params.width, su)
+    by_item = _device_slot_layout(i, u, v, n_items, params.width, si)
+    return by_user, by_item, cs
+
+
+def _sweep_factory(by_user, by_item, n_users: int, n_items: int, cs: int,
+                   params: ALSParams):
+    """-> sweep_with(cg_u_n, cg_i_n) -> sweep((users, items)) -> (users,
+    items): one sweep solves the users against the items, then the items
+    against the new users."""
+    def sweep_with(cg_u_n: int, cg_i_n: int):
+        def sweep(carry):
+            users, items = carry
+            users = _solve_factors(
+                by_user, items, n_users, params.reg, params.implicit,
+                params.alpha, cs, x0=users, cg_iters=cg_u_n,
+                bf16_gather=params.bf16_gather, accum=params.accum,
+                group_slots=params.group_slots, gather=params.gather,
+                packed=params.packed_a,
+            )
+            items = _solve_factors(
+                by_item, users, n_items, params.reg, params.implicit,
+                params.alpha, cs, x0=items, cg_iters=cg_i_n,
+                bf16_gather=params.bf16_gather, accum=params.accum,
+                group_slots=params.group_slots, gather=params.gather,
+                packed=params.packed_a,
+            )
+            return users, items
+        return sweep
+    return sweep_with
+
+
+def _run_schedule(sweep_with, params: ALSParams, cg_u: int, cg_i: int,
+                  carry):
+    """Full-strength CG for the first sweeps, cg_warm_iters after."""
+    n_full, n_warm, w_u, w_i = _cg_schedule(params, cg_u, cg_i)
+    sweep = sweep_with(cg_u, cg_i)
+    for _ in range(n_full):
+        carry = sweep(carry)
+    sweep = sweep_with(w_u, w_i)
+    for _ in range(n_warm):
+        carry = sweep(carry)
+    return carry
+
+
+def _require_f32_matmul(device: torch.device) -> None:
+    """The normal equations need true f32 products: refuse to train on
+    CUDA with TF32 matmuls turned on."""
+    if device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "ALS training needs f32 matmuls: TF32 is on "
+            "(torch.backends.cuda.matmul.allow_tf32 / "
+            "torch.set_float32_matmul_precision); a 10-bit product loses "
+            "about 1e-3 relative on A, which the CG solve cannot recover")
+
+
+def als_train(user_idx, item_idx, values, n_users: int, n_items: int,
+              params: ALSParams, init: ALSModel | None = None,
+              device=None) -> ALSModel:
+    """Train on one device: CUDA unless ``device="cpu"`` is asked for.
+
+    Inputs are numpy arrays or torch tensors of dense ids and values.
+    ``init`` warm-starts from an existing model (any device; its factors
+    are copied to ``device`` as f32) in place of the seeded init."""
+    dev = resolve_device(device)
+    _require_f32_matmul(dev)
+    user0, item0 = _init_or(init, n_users, n_items, params, dev)
+    u, i, v = _prep_coo(user_idx, item_idx, values, n_users, n_items,
+                        params, dev)
+    by_user, by_item, cs = _build_layouts(u, i, v, n_users, n_items, params)
+    del u, i, v
+    cg_u = params.resolved_cg_iters(n_users)
+    cg_i = params.resolved_cg_iters(n_items)
+    sweep_with = _sweep_factory(by_user, by_item, n_users, n_items, cs,
+                                params)
+    users, items = _run_schedule(sweep_with, params, cg_u, cg_i,
+                                 (user0, item0))
+    return ALSModel(users, items)
+
+
+def _prep_coo(user_idx, item_idx, values, n_users, n_items,
+              params: ALSParams, device):
+    """COO arrays as int32/f32 tensors on ``device``, sentinel-padded to
+    a ``params.chunk`` multiple: padding entries carry the sentinel id on
+    both sides (u = n_users, i = n_items), so either layout drops them."""
+    def to(x, dtype):
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device, dtype)
+
+    u = to(user_idx, torch.int32)
+    i = to(item_idx, torch.int32)
+    v = to(values, torch.float32)
+    pad = -u.shape[0] % max(1, params.chunk)
+    if pad:
+        u = torch.cat([u, u.new_full((pad,), n_users)])
+        i = torch.cat([i, i.new_full((pad,), n_items)])
+        v = torch.cat([v, v.new_zeros(pad)])
+    return u, i, v
+
+
+def _init_or(init: ALSModel | None, n_users: int, n_items: int,
+             params: ALSParams, device):
+    if init is not None:
+        return (init.user_factors.to(device, torch.float32),
+                init.item_factors.to(device, torch.float32))
+    g = torch.Generator(device=device)
+    g.manual_seed(params.seed)
+    return (init_factors(n_users, params.rank, g),
+            init_factors(n_items, params.rank, g))
+
+
+# ---------------------------------------------------------------------------
+# prediction / scoring
+# ---------------------------------------------------------------------------
 
 def _index(idx, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(idx, np.int64), device=device)

@@ -8,9 +8,11 @@ hands out seeded ``torch.Generator``s.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
+from pio_tpu_torch.data.eventstore import EventStore
 from pio_tpu_torch.data.storage import Storage, get_storage
 
 
@@ -35,6 +37,13 @@ class WorkflowContext:
     seed: int = 0
     batch: str = ""
     params: dict = field(default_factory=dict)  # runtime conf (sparkConf slot)
+    # training supervision handle; the supervised lifecycle (heartbeats,
+    # preemption, resume) is not ported yet, so it stays None
+    lifecycle: Any = None
+
+    @property
+    def event_store(self) -> EventStore:
+        return EventStore(self.storage)
 
     def rng(self) -> torch.Generator:
         """A fresh generator seeded with ``seed`` (the reference's

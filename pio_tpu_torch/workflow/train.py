@@ -1,18 +1,23 @@
-"""Train workflow: persisting models and restoring them for deploy.
+"""Train workflow: training runs, persisting models, restoring them.
 
-Counterpart of ``pio_tpu.workflow.train``. ``persist_models`` is the
-persist-and-record tail of the reference's ``run_train``: it inserts the
-EngineInstance, writes the framed model blob into MODELDATA, and marks
-the instance COMPLETED, so deploy's latest-completed lookup finds the
-models exactly as after a finished training run. ``load_models`` is the
-deploy-side restore. Reading events and training (the head of
-``run_train``, with its supervised lifecycle) come with the training
-slice.
+Counterpart of ``pio_tpu.workflow.train``. ``run_train`` takes an engine
+instance INIT -> TRAINING -> COMPLETED (or FAILED, re-raising the error):
+it reads and trains through ``Engine.train``, frames the models and writes
+them to MODELDATA before the COMPLETED transition, so deploy's
+latest-completed lookup never finds an instance without models.
+``persist_models`` stores models made elsewhere (seeded factors, or a
+model carried across by ``convert.py``) as a COMPLETED instance the same
+way. ``load_models`` is the deploy-side restore.
+
+Not ported yet: the supervised lifecycle (``lifecycle.py`` heartbeats,
+preemption, the zombie sweep, resume), the ``train.persist`` chaos point,
+the persistent compile cache and the multi-host barrier.
 """
 
 from __future__ import annotations
 
 import logging
+import traceback
 from dataclasses import replace
 from typing import Any
 
@@ -26,19 +31,11 @@ from pio_tpu_torch.workflow.context import WorkflowContext, create_workflow_cont
 log = logging.getLogger("pio_tpu_torch.workflow")
 
 
-def persist_models(
-    models: list[Any],
-    engine_params: EngineParams,
-    storage: Storage,
-    engine_id: str,
-    engine_version: str = "1",
-    engine_variant: str = "default",
-    engine_factory: str = "",
-    batch: str = "",
-) -> str:
-    """Store trained models as a COMPLETED engine instance; returns its
-    id. The instance goes INIT -> COMPLETED only after the blob is
-    written, so deploy never sees a COMPLETED instance without models."""
+def _insert_instance(storage: Storage, engine_params: EngineParams,
+                     engine_id: str, engine_version: str,
+                     engine_variant: str, engine_factory: str,
+                     batch: str) -> EngineInstance:
+    """A new INIT engine instance, as stored."""
     instances = storage.get_metadata_engine_instances()
     now = utcnow()
     instance_id = instances.insert(EngineInstance(
@@ -56,13 +53,76 @@ def persist_models(
         algorithms_params=f"{engine_params.algorithms}",
         serving_params=f"{engine_params.serving}",
     ))
+    return instances.get(instance_id)
+
+
+def _set_status(storage: Storage, instance: EngineInstance,
+                status: str) -> EngineInstance:
+    instance = replace(instance, status=status, end_time=utcnow())
+    storage.get_metadata_engine_instances().update(instance)
+    return instance
+
+
+def persist_models(
+    models: list[Any],
+    engine_params: EngineParams,
+    storage: Storage,
+    engine_id: str,
+    engine_version: str = "1",
+    engine_variant: str = "default",
+    engine_factory: str = "",
+    batch: str = "",
+) -> str:
+    """Store trained models as a COMPLETED engine instance; returns its
+    id. The instance goes INIT -> COMPLETED only after the blob is
+    written, so deploy never sees a COMPLETED instance without models."""
+    instance = _insert_instance(storage, engine_params, engine_id,
+                                engine_version, engine_variant,
+                                engine_factory, batch)
     blob = models_to_bytes(models)
-    storage.get_model_data_models().insert(Model(instance_id, blob))
-    instance = instances.get(instance_id)
-    instances.update(replace(instance, status="COMPLETED", end_time=utcnow()))
+    storage.get_model_data_models().insert(Model(instance.id, blob))
+    _set_status(storage, instance, "COMPLETED")
     log.info("engine instance %s COMPLETED (%d bytes of models)",
-             instance_id, len(blob))
-    return instance_id
+             instance.id, len(blob))
+    return instance.id
+
+
+def run_train(
+    engine: Engine,
+    engine_params: EngineParams,
+    storage: Storage,
+    engine_id: str,
+    engine_version: str = "1",
+    engine_variant: str = "default",
+    engine_factory: str = "",
+    batch: str = "",
+    ctx: WorkflowContext | None = None,
+) -> str:
+    """Read, train and persist; returns the EngineInstance id (status
+    COMPLETED). On any error the instance is marked FAILED and the error
+    re-raised; if that status write fails too, the training error is
+    raised, chained to it."""
+    ctx = ctx or create_workflow_context(storage)
+    instance = _insert_instance(storage, engine_params, engine_id,
+                                engine_version, engine_variant,
+                                engine_factory, batch)
+    instance = _set_status(storage, instance, "TRAINING")
+    try:
+        models = engine.train(ctx, engine_params)
+        blob = models_to_bytes(models)
+        storage.get_model_data_models().insert(Model(instance.id, blob))
+    except Exception as train_error:
+        log.error("training %s FAILED:\n%s", instance.id,
+                  traceback.format_exc())
+        try:
+            _set_status(storage, instance, "FAILED")
+        except Exception as update_error:
+            raise train_error from update_error
+        raise
+    _set_status(storage, instance, "COMPLETED")
+    log.info("training %s COMPLETED (%d bytes of models)", instance.id,
+             len(blob))
+    return instance.id
 
 
 def load_models(

@@ -48,7 +48,10 @@ def test_every_module_imports_without_jax_or_pio_tpu():
     for mod in ("pio_tpu_torch.workflow.serve", "pio_tpu_torch.ops.retrieval",
                 "pio_tpu_torch.ops.kernels.quantized_scan",
                 "pio_tpu_torch.models.recommendation",
-                "pio_tpu_torch.__main__", "pio_tpu_torch.convert"):
+                "pio_tpu_torch.__main__", "pio_tpu_torch.convert",
+                "pio_tpu_torch.ops.als", "pio_tpu_torch.data.eventstore",
+                "pio_tpu_torch.ops.kernels.segment_flush",
+                "pio_tpu_torch.workflow.train"):
         assert mod in res["modules"]
 
 

@@ -136,11 +136,20 @@ def test_retrieval_index_cached_by_item_table(factors):
 
 
 def test_training_waits_for_its_slice():
+    """Training is ported; evaluation folds and validated training wait
+    for a later slice and raise rather than train another way."""
+    from pio_tpu_torch.data.eventstore import to_interactions
+    from pio_tpu_torch.data.event import Event
+
     ds = port_rec.RecommendationDataSource(port_rec.DataSourceParams())
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ds.read_training(None)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        port_rec.ALSAlgorithm(port_rec.ALSAlgorithmParams()).train(None, None)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ds.read_eval(None)
+    data = to_interactions([Event("rate", "user", "u0", "item", "i0",
+                                  {"rating": 3.0})])
+    algo = port_rec.ALSAlgorithm(port_rec.ALSAlgorithmParams(
+        validation_fraction=0.1))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        algo.train(None, data)
 
 
 def _storage_env(tmp_path):
