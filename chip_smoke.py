@@ -17,6 +17,14 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   seed 0, 20,000,263 ratings, implicit, reg 0.05, alpha 10) with
   ``accum`` auto, which on the card is the segment-flush kernel (K2) on
   every solve, held against the plain ``index_add_`` accumulation;
+- stream_kernels: the overlapped/packed flush (K3), the streaming and
+  resident row gathers (K5, K4 copy and take) and the packed matvec (K6)
+  against their plain versions at the users half of the same layout;
+- train_stream: ``als_train`` on the same ratings in the streaming
+  configuration (``accum="stream"``, ``gather="stream"``,
+  ``packed_a=True``: K3, K5, K6 on every sweep), each half held against
+  the hybrid path and f64, then one sweep each with ``gather`` "stream",
+  "pallas-copy" and "pallas-take" held bit for bit against "xla";
 - train_entry: seeded rate/buy events for every user and item in sqlite,
   ``python -m pio_tpu_torch train`` (its ``main``, in process, so the
   launch counters can be read), then the trained instance deployed and
@@ -76,6 +84,9 @@ RECALL_FLOOR = 0.9
 # other orders (the plain version with atomics); held per row of A
 # against the plain version evaluated in f64, relative to the row's max
 FLUSH_RTOL = 1e-5
+# packed matvec vs the f64 product: k f32 products summed in another
+# order; each output within MATVEC_RTOL of the sum of its terms' magnitudes
+MATVEC_RTOL = 1e-6
 # hybrid vs carry (the plain accumulation), each half from the same
 # inputs. The users half: A agrees to ~1e-6 (summation order), and CG's 16
 # iterations from the same start keep that close (relative to the norm and
@@ -102,6 +113,30 @@ TIMING_INNER = 10
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def counters() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    from pio_tpu_torch.ops.kernels import gather_rows as gr
+    from pio_tpu_torch.ops.kernels import packed_matvec as pm
+    from pio_tpu_torch.ops.kernels import quantized_scan as qscan
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
+
+    return {"quantized_scan": qscan.launches, "segment_flush": sf.launches,
+            "segment_flush_stream": sf.launches_stream,
+            "gather_rows_stream": gr.launches_stream,
+            "gather_rows_resident": gr.launches_resident,
+            "packed_matvec": pm.launches}
+
+
+def reset_counts() -> None:
+    """Every count to 0, just before a path is driven."""
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {name: c.value for name, c in counters().items()}
 
 
 def gpu_ms(fn) -> float:
@@ -345,12 +380,10 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     from pio_tpu_torch.models import recommendation as rec
     from pio_tpu_torch.ops import als
     from pio_tpu_torch.ops import retrieval as rt
-    from pio_tpu_torch.ops.kernels import quantized_scan as qscan
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
     from pio_tpu_torch.workflow.train import persist_models
 
-    counters = {"quantized_scan": qscan.launches}
     user_ids = [f"u{i}" for i in range(N_USERS)]
     item_ids = [f"i{i}" for i in range(N_ITEMS)]
     rng = np.random.default_rng(SEED + 2)
@@ -418,8 +451,7 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
                        + [black_q, ghost_q])
 
             # -- the main path: counts from 0, read right after --------
-            for c in counters.values():
-                c.reset()
+            reset_counts()
             answers, latencies = [], []
             for q in plain_q:
                 status, body, dt = _post(port, "/queries.json", q)
@@ -434,7 +466,7 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
             status, batch_body, batch_s = _post(port, "/batch/queries.json",
                                                 batch_q)
             assert status == 200, batch_body
-            launches = {name: c.value for name, c in counters.items()}
+            launches = read_counts()
             # ------------------------------------------------------------
 
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
@@ -450,7 +482,8 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     # one launch per known-user, non-whiteList /queries.json and one per
     # /batch/queries.json dispatch
     want_launches = len(plain_q) + 1 + 1
-    if launches["quantized_scan"] != want_launches:
+    if launches != {**dict.fromkeys(launches, 0),
+                    "quantized_scan": want_launches}:
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{want_launches} on the main path")
     if not server_status["device"].startswith(dev.type):
@@ -655,6 +688,27 @@ def profile_sweep(sweep, carry) -> dict:
             "top_kernels_ms_calls": {k: list(v) for k, v in top}}
 
 
+def time_sweeps(by_user, by_item, cs: int, p, init) -> tuple:
+    """The schedule's sweeps one by one from ``init`` (host-clock seconds
+    of each), then one warm and one cold sweep under the profiler."""
+    from pio_tpu_torch.ops import als
+
+    cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
+    n_full, _, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
+    sweep_with = als._sweep_factory(by_user, by_item, N_USERS, N_ITEMS, cs, p)
+    carry, sweep_s = init, []
+    for n in range(ITERS):
+        sweep = sweep_with(cg_u, cg_i) if n < n_full else sweep_with(w_u, w_i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = sweep(carry)
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+    warm = profile_sweep(sweep_with(w_u, w_i), carry)
+    cold = profile_sweep(sweep_with(cg_u, cg_i), init)
+    return sweep_s, warm, cold
+
+
 def _rel(g: torch.Tensor, w: torch.Tensor) -> dict:
     g, w = g.double(), w.double()
     return {"rel_norm": float((g - w).norm() / w.norm()),
@@ -733,7 +787,6 @@ def hybrid_vs_carry(by_user, by_item, cs: int, init, cg_u: int,
 
 def phase_train(ratings, dev: torch.device) -> dict:
     from pio_tpu_torch.ops import als
-    from pio_tpu_torch.ops.kernels import segment_flush as sf
 
     p = train_params()
     if p.resolved_accum(dev) != "hybrid":
@@ -746,12 +799,13 @@ def phase_train(ratings, dev: torch.device) -> dict:
     als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
     torch.cuda.synchronize()
     # -- the main path: counts from 0, read right after ------------------
-    sf.launches.reset()
+    reset_counts()
     t0 = time.perf_counter()
     model = als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = sf.launches.value
+    counts = read_counts()
+    launches = counts["segment_flush"]
     # ---------------------------------------------------------------------
     assert_f32_matmul()
     for name, f, n in (("users", model.user_factors, N_USERS),
@@ -759,9 +813,9 @@ def phase_train(ratings, dev: torch.device) -> dict:
         if f.shape != (n, RANK) or not bool(torch.isfinite(f).all()):
             raise AssertionError(f"{name} factors {tuple(f.shape)} not "
                                  f"finite of shape ({n}, {RANK})")
-    if launches != want_launches:
-        raise AssertionError(f"segment_flush launched {launches} times, "
-                             f"the layout predicts {want_launches}")
+    if counts != {**dict.fromkeys(counts, 0), "segment_flush": want_launches}:
+        raise AssertionError(f"launches {counts}: the layout predicts "
+                             f"{want_launches} of segment_flush, no other")
     del model
 
     # the sweeps one by one, from the layout als_train builds
@@ -776,19 +830,8 @@ def phase_train(ratings, dev: torch.device) -> dict:
               "items": int((by_item[0] < N_ITEMS).sum())}
     init = als._init_or(None, N_USERS, N_ITEMS, p, dev)
     cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
-    n_full, n_warm, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
-    sweep_with = als._sweep_factory(by_user, by_item, N_USERS, N_ITEMS, cs, p)
-    carry, sweep_s = init, []
-    for n in range(ITERS):
-        sweep = sweep_with(cg_u, cg_i) if n < n_full else sweep_with(w_u, w_i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry = sweep(carry)
-        torch.cuda.synchronize()
-        sweep_s.append(time.perf_counter() - t0)
-    warm = profile_sweep(sweep_with(w_u, w_i), carry)
-    cold = profile_sweep(sweep_with(cg_u, cg_i), init)
-    del carry
+    n_full, _, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
+    sweep_s, warm, cold = time_sweeps(by_user, by_item, cs, p, init)
 
     agree = hybrid_vs_carry(by_user, by_item, cs, init, cg_u, cg_i)
     assert_f32_matmul()
@@ -815,7 +858,332 @@ def phase_train(ratings, dev: torch.device) -> dict:
     return result
 
 
-# -- phase 7: the train entry point, then deploy ------------------------------
+# -- phase 7: the streaming configuration's kernels (K3, K4, K5, K6) ---------
+
+def gather_bound(m: int, n: int, k: int, esize: int) -> tuple[float, str]:
+    """Least time for one gather: M rows written, M indices and the
+    table read once; no arithmetic."""
+    nbytes = m * k * esize + m * 4 + n * k * esize
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def matvec_bound(n: int, k: int) -> tuple[float, str]:
+    """Least time for one packed matvec: A, x read once, out written
+    once; 2 flops per element of A on the f32 CUDA cores."""
+    t_bytes = (n * k * k + 2 * n * k) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n * k * k / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _gather_cases(table, i_c) -> dict:
+    """K5 and both K4 variants on one chunk's indices: equal to
+    ``table[idx]`` bit for bit, and timed beside ``src[i_c]`` (the xla
+    gather's call)."""
+    from pio_tpu_torch.ops.kernels import gather_rows as gr
+
+    flat = i_c.reshape(-1)
+    want = gr.gather_rows_reference(table, flat)
+    bound_ms, bound_by = gather_bound(flat.numel(), table.shape[0],
+                                      table.shape[1], table.element_size())
+    out = {}
+    for name, fn in (
+            ("stream", lambda: gr.gather_rows_stream(table, flat)),
+            ("copy", lambda: gr.gather_rows_resident(table, flat, "copy")),
+            ("take", lambda: gr.gather_rows_resident(table, flat, "take"))):
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather {name}: differs from table[idx]")
+        out[name] = {"equal": True, "max_abs_err": 0.0, "ms": gpu_ms(fn)}
+    plain_ms = gpu_ms(lambda: gr.gather_rows_reference(table, flat))
+    library_ms = gpu_ms(lambda: table[i_c])
+    for case in out.values():
+        case.update(plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+    return {"M": flat.numel(), "N": table.shape[0], "k": table.shape[1],
+            "dtype": str(table.dtype).split(".")[-1], "cases": out}
+
+
+def phase_stream_kernels(ratings, dev: torch.device) -> dict:
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import packed_matvec as pm
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
+
+    p = train_params()
+    u, i, v = als._prep_coo(*ratings, N_USERS, N_ITEMS, p, dev)
+    by_user, by_item, cs = als._build_layouts(u, i, v, N_USERS, N_ITEMS, p)
+    del u, i, v
+    users0, items0 = als._init_or(None, N_USERS, N_ITEMS, p, dev)
+
+    # K5, K4: one chunk of each half, as _chunk_blocks gathers it
+    gathers = {
+        "users_half": _gather_cases(items0.to(torch.bfloat16),
+                                    by_user[1][:cs]),
+        "items_half": _gather_cases(users0.to(torch.bfloat16),
+                                    by_item[1][:cs]),
+    }
+    del by_item
+
+    # K3 against K2 on the first sweep's users-half blocks
+    rows, idx, val, lens = by_user
+    S = rows.shape[0]
+    s_real = int((rows < N_USERS).sum())
+    a_blk, b_blk = als._group_blocks(items0.to(torch.bfloat16), idx, val,
+                                     lens, 0, S, cs, True, p.alpha)
+    del by_user, idx, val, lens
+    k2 = sf.segment_flush(rows, a_blk, b_blk, N_USERS)
+    k3 = sf.segment_flush_stream(rows, a_blk, b_blk, N_USERS)
+    k3p = sf.segment_flush_stream(rows, a_blk, b_blk, N_USERS, packed=True)
+    torch.cuda.synchronize()
+    k3_is_k2 = torch.equal(k3[0], k2[0]) and torch.equal(k3[1], k2[1])
+    packed_is_unpacked = (k3p[0].shape == (N_USERS, RANK * RANK)
+                          and torch.equal(k3p[0], k3[0].reshape(N_USERS, -1))
+                          and torch.equal(k3p[1], k3[1]))
+    del k3
+    plain = sf.segment_flush_reference(rows, a_blk, b_blk, N_USERS)
+    flush_err = max(float((k2[0] - plain[0]).abs().max()),
+                    float((k2[1] - plain[1]).abs().max()))
+    del plain
+    if not (k3_is_k2 and packed_is_unpacked):
+        raise AssertionError(f"segment_flush_stream: bit-identical to K2 "
+                             f"{k3_is_k2}, packed == unpacked "
+                             f"{packed_is_unpacked}")
+    A_buf, b_buf = k3p
+    rows_long = rows.long()
+    A_lib = torch.zeros((N_USERS + 1, RANK, RANK), device=dev)
+    bound_ms, bound_by = flush_bound(s_real, N_USERS, RANK)
+    flush = {
+        "S": S, "S_real": s_real, "n_self": N_USERS, "k": RANK,
+        "bit_identical_to_k2": k3_is_k2,
+        "packed_equals_unpacked": packed_is_unpacked,
+        "max_abs_err": flush_err,
+        "ms": gpu_ms(lambda: sf.segment_flush_stream(
+            rows, a_blk, b_blk, N_USERS, packed=True)),
+        "ms_into_buffers": gpu_ms(lambda: sf.segment_flush_stream(
+            rows, a_blk, b_blk, N_USERS, out=(A_buf, b_buf), packed=True)),
+        "k2_ms": gpu_ms(lambda: sf.segment_flush(rows, a_blk, b_blk,
+                                                 N_USERS)),
+        "plain_ms": gpu_ms(lambda: sf.segment_flush_reference(
+            rows, a_blk, b_blk, N_USERS)),
+        "library_ms": gpu_ms(lambda: A_lib.index_add_(0, rows_long, a_blk)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    del k2, A_lib, a_blk, b_blk, rows_long, b_buf
+
+    # K6 on the packed users-half A, x the users' init factors
+    a_packed, x = A_buf, users0
+    got = pm.packed_block_matvec(a_packed, x)
+    torch.cuda.synchronize()
+    a3 = a_packed.double().view(N_USERS, RANK, RANK)
+    want = torch.bmm(a3, x.double()[:, :, None])[:, :, 0]
+    scale = torch.bmm(a3.abs(), x.double().abs()[:, :, None])[:, :, 0]
+    del a3
+    plain = pm.packed_block_matvec_reference(a_packed, x)
+    err = (got.double() - want).abs()
+    rel = float((err / scale.clamp_min(1e-300)).max())
+    rel_plain = float(((plain.double() - want).abs()
+                       / scale.clamp_min(1e-300)).max())
+    if rel > MATVEC_RTOL:
+        raise AssertionError(f"packed_matvec: {rel} of the terms' magnitude "
+                             f"from the f64 product (limit {MATVEC_RTOL})")
+    a3f = a_packed.view(N_USERS, RANK, RANK)
+    a_items = a_packed[:N_ITEMS]
+    x_items = items0
+    bound_ms, bound_by = matvec_bound(N_USERS, RANK)
+    matvec = {
+        "n": N_USERS, "k": RANK, "max_abs_err": float(err.max()),
+        "max_rel_err_of_terms": rel, "plain_max_rel_err_of_terms": rel_plain,
+        "ms": gpu_ms(lambda: pm.packed_block_matvec(a_packed, x)),
+        "plain_ms": gpu_ms(lambda: pm.packed_block_matvec_reference(
+            a_packed, x)),
+        "library_ms": gpu_ms(lambda: torch.bmm(a3f, x[:, :, None])),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "items_side": {
+            "n": N_ITEMS,
+            "ms": gpu_ms(lambda: pm.packed_block_matvec(a_items, x_items)),
+            "library_ms": gpu_ms(lambda: torch.bmm(
+                a_items.view(N_ITEMS, RANK, RANK), x_items[:, :, None])),
+            "bound_ms": matvec_bound(N_ITEMS, RANK)[0]},
+    }
+    result = {"gathers": gathers, "segment_flush_stream": flush,
+              "packed_matvec": matvec,
+              "tolerance": {"gather": "bitwise", "flush": "bitwise vs K2",
+                            "matvec_rtol_of_terms": MATVEC_RTOL}}
+    emit("stream_kernels", **result)
+    return result
+
+
+# -- phase 8: ALS training in the streaming configuration -----------------------
+
+def stream_params(**over):
+    return replace(train_params(), accum="stream", gather="stream",
+                   packed_a=True, **over)
+
+
+def expected_stream_launches(nnz: int, p) -> dict:
+    """K3, K5 and K6 launches of als_train in the streaming
+    configuration, from the layout: K3 one per group of each half, K5
+    one per chunk of each half, K6 one per CG iteration plus one for
+    the first residual, on each side that runs CG."""
+    from pio_tpu_torch.ops import als
+
+    nnz_pad = nnz + (-nnz % p.chunk)
+    cs = min(p.chunk_slots, als._slots_for(nnz_pad, 0, p.width, 1))
+    chunks = sum(als._slots_for(nnz_pad, n, p.width, cs) // cs
+                 for n in (N_USERS, N_ITEMS))
+    cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
+    n_full, n_warm, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
+
+    def matvecs(*cgs):
+        return sum(c + 1 for c in cgs if c > 0)
+
+    return {"segment_flush_stream": expected_flush_launches(
+                nnz, N_USERS, N_ITEMS, p),
+            "gather_rows_stream": chunks * p.iterations,
+            "packed_matvec": (n_full * matvecs(cg_u, cg_i)
+                              + n_warm * matvecs(w_u, w_i))}
+
+
+def one_sweep(by_user, by_item, cs: int, init, p, cg_u: int,
+              cg_i: int) -> tuple[tuple, dict]:
+    """One sweep from ``init`` with params ``p``; its launches."""
+    from pio_tpu_torch.ops import als
+
+    sweep = als._sweep_factory(by_user, by_item, N_USERS, N_ITEMS, cs,
+                               p)(cg_u, cg_i)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = sweep(init)
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def phase_train_stream(ratings, dev: torch.device) -> dict:
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import gather_rows as gr
+
+    p = stream_params()
+    if p.resolved_accum(dev) != "stream" or not p.resolved_packed(dev):
+        raise AssertionError(f"stream config resolved to "
+                             f"{p.resolved_accum(dev)}, packed "
+                             f"{p.resolved_packed(dev)}")
+    assert_f32_matmul()
+    want = expected_stream_launches(NNZ, p)
+
+    als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+    torch.cuda.synchronize()
+    # -- the main path: counts from 0, read right after ------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    model = als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    # ---------------------------------------------------------------------
+    assert_f32_matmul()
+    for name, f, n in (("users", model.user_factors, N_USERS),
+                       ("items", model.item_factors, N_ITEMS)):
+        if f.shape != (n, RANK) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{name} factors {tuple(f.shape)} not "
+                                 f"finite of shape ({n}, {RANK})")
+    if launches != {**dict.fromkeys(launches, 0), **want}:
+        raise AssertionError(f"launches {launches}; the layout predicts "
+                             f"{want} and no other kernel")
+    del model
+
+    u, i, v = als._prep_coo(*ratings, N_USERS, N_ITEMS, p, dev)
+    by_user, by_item, cs = als._build_layouts(u, i, v, N_USERS, N_ITEMS, p)
+    del u, i, v
+    init = als._init_or(None, N_USERS, N_ITEMS, p, dev)
+    cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
+    n_full, _, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
+    sweep_s, warm, cold = time_sweeps(by_user, by_item, cs, p, init)
+
+    # each half against the hybrid path (K2, cuBLAS CG) and f64
+    base = train_params()
+
+    def half(layout, other, n, x0, cg, q):
+        return als._solve_factors(
+            layout, other, n, q.reg, q.implicit, q.alpha, cs, x0=x0,
+            cg_iters=cg, bf16_gather=q.bf16_gather, accum=q.accum,
+            group_slots=q.group_slots, gather=q.gather, packed=q.packed_a)
+
+    users = {"stream": half(by_user, init[1], N_USERS, init[0], cg_u, p),
+             "hybrid": half(by_user, init[1], N_USERS, init[0], cg_u, base)}
+    agree = {"users": _rel(users["stream"], users["hybrid"])}
+    if (agree["users"]["rel_norm"] > USERS_RTOL_NORM
+            or agree["users"]["rel_max"] > USERS_RTOL_MAX):
+        raise AssertionError(f"users half: stream disagrees with hybrid: "
+                             f"{agree}")
+    other = users["hybrid"]
+    items = {"stream": half(by_item, other, N_ITEMS, init[1], cg_i, p),
+             "hybrid": half(by_item, other, N_ITEMS, init[1], cg_i, base)}
+    exact = items_half_f64(by_item, other, init[1], cs, cg_i)
+    agree["items"] = _rel(items["stream"], items["hybrid"])
+    agree["items_stream_vs_f64"] = _rel(items["stream"], exact)
+    agree["items_hybrid_vs_f64"] = _rel(items["hybrid"], exact)
+    del users, items, exact, other
+    for key in ("rel_norm", "rel_max"):
+        if (agree["items_stream_vs_f64"][key] > HALF_F64_RATIO
+                * agree["items_hybrid_vs_f64"][key] + HALF_F64_FLOOR):
+            raise AssertionError(f"items half: stream is farther from f64 "
+                                 f"than hybrid: {agree}")
+
+    # one cold sweep with each kernel gather against the xla gather, from
+    # the same init on the hybrid path: the same bytes feed the same
+    # deterministic products, so the factors must be equal bit for bit
+    xla, _ = one_sweep(by_user, by_item, cs, init,
+                       replace(base, gather="xla"), cg_u, cg_i)
+    chunks_u = by_user[0].shape[0] // cs
+    gathers = {}
+    for g in ("stream", "pallas-copy", "pallas-take"):
+        got, counts = one_sweep(by_user, by_item, cs, init,
+                                replace(base, gather=g), cg_u, cg_i)
+        equal = (torch.equal(got[0], xla[0]) and torch.equal(got[1], xla[1]))
+        gathers[g] = {"equal_to_xla": equal, "launches": counts}
+        if not equal:
+            raise AssertionError(f"gather={g}: one sweep differs from "
+                                 f"gather='xla'")
+    chunks_i = by_item[0].shape[0] // cs
+    if gathers["stream"]["launches"]["gather_rows_stream"] != (
+            chunks_u + chunks_i):
+        raise AssertionError(f"gather=stream: {gathers['stream']}")
+    # the reference's table-size rule: at ML-20M the items table fits the
+    # budget (the users half launches), the users table does not (the
+    # items half takes src[i_c])
+    fits = {n: gr.gather_table_bytes(n, RANK, base.bf16_gather)
+            <= gr.GATHER_VMEM_TABLE_BUDGET for n in (N_ITEMS, N_USERS)}
+    want_resident = chunks_u * fits[N_ITEMS] + chunks_i * fits[N_USERS]
+    for g in ("pallas-copy", "pallas-take"):
+        if gathers[g]["launches"]["gather_rows_resident"] != want_resident:
+            raise AssertionError(f"gather={g}: {gathers[g]}, want "
+                                 f"{want_resident} resident launches")
+    assert_f32_matmul()
+    result = {
+        "nnz": NNZ, "users": N_USERS, "items": N_ITEMS, "rank": RANK,
+        "iterations": ITERS, "cg_iters": [cg_u, cg_i],
+        "cg_warm": [w_u, w_i, n_full], "accum": p.resolved_accum(dev),
+        "gather": p.gather, "packed": p.resolved_packed(dev), "tf32": False,
+        "train_s": train_s, "ratings_per_s": NNZ * ITERS / train_s,
+        "sweep_s": sweep_s,
+        "sweeps_ratings_per_s": NNZ * ITERS / sum(sweep_s),
+        "launches": launches, "launches_expected": want,
+        "profile_warm_sweep": warm, "profile_cold_sweep": cold,
+        "stream_vs_hybrid": agree, "gather_vs_xla": gathers,
+        "chunks": {"users": chunks_u, "items": chunks_i},
+        "resident_gather_table_fits": {"users_half": fits[N_ITEMS],
+                                       "items_half": fits[N_USERS]},
+        "tolerance": {"users_rel_norm": USERS_RTOL_NORM,
+                      "users_rel_max": USERS_RTOL_MAX,
+                      "items_f64_ratio": HALF_F64_RATIO,
+                      "items_f64_floor": HALF_F64_FLOOR,
+                      "gather_vs_xla": "bitwise"},
+    }
+    emit("train_stream", **result)
+    return result
+
+
+# -- phase 9: the train entry point, then deploy ------------------------------
 
 def write_events(storage, app_name: str) -> tuple[int, int]:
     """Seeded rate (80 %, rating 1..5) and buy events: every user and
@@ -857,13 +1225,9 @@ def phase_train_entry(dev: torch.device) -> dict:
     )
     from pio_tpu_torch.data.storage import Storage, set_storage
     from pio_tpu_torch.ops import als
-    from pio_tpu_torch.ops.kernels import quantized_scan as qscan
-    from pio_tpu_torch.ops.kernels import segment_flush as sf
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
 
-    counters = {"quantized_scan": qscan.launches,
-                "segment_flush": sf.launches}
     with tempfile.TemporaryDirectory(prefix="pio_chip_train_") as tmp:
         env = {
             "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
@@ -895,19 +1259,19 @@ def phase_train_entry(dev: torch.device) -> dict:
         out = io.StringIO()
         try:
             # -- the main path: counts from 0, read right after ------------
-            for c in counters.values():
-                c.reset()
+            reset_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 rc = cli_main(["train", "--engine-dir", str(engine_dir)])
             train_s = time.perf_counter() - t0
-            train_launches = {n: c.value for n, c in counters.items()}
+            train_launches = read_counts()
             # -----------------------------------------------------------------
         finally:
             set_storage(None)
         printed = out.getvalue().strip()
         print(printed, flush=True)
-        if rc != 0 or train_launches["segment_flush"] != want_launches:
+        if rc != 0 or train_launches != {**dict.fromkeys(train_launches, 0),
+                                         "segment_flush": want_launches}:
             raise AssertionError(f"train: rc {rc}, launches {train_launches}"
                                  f", the layout predicts {want_launches}")
         iid = printed.rsplit(" ", 1)[-1]
@@ -963,56 +1327,100 @@ def phase_train_entry(dev: torch.device) -> dict:
     return result
 
 
+def _kernel_entry(name: str, source: str, replaces: str, launches: int,
+                  case: dict, **extra) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+            **extra, "ok": True}
+
+
 def main() -> int:
     device = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    wall = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
     users, items = make_factors()
-    scan = phase_scan_kernel(users, items, dev)
-    serve = phase_serve(users, items, dev)
+    scan = timed("scan_kernel", phase_scan_kernel, users, items, dev)
+    serve = timed("serve", phase_serve, users, items, dev)
     del users, items
     ratings = synth_ratings()
-    flush = phase_flush_kernel(ratings, dev)
-    torch.cuda.empty_cache()
-    train = phase_train(ratings, dev)
+    flush = timed("segment_flush_kernel", phase_flush_kernel, ratings, dev)
+    train = timed("train", phase_train, ratings, dev)
+    stream = timed("stream_kernels", phase_stream_kernels, ratings, dev)
+    tstream = timed("train_stream", phase_train_stream, ratings, dev)
     del ratings
-    torch.cuda.empty_cache()
-    entry = phase_train_entry(dev)
+    entry = timed("train_entry", phase_train_entry, dev)
+    emit("wall", seconds=wall, total_s=sum(wall.values()))
 
     cases = scan["cases"]
     # headline: the shape a single /queries.json gives the kernel
     head = next(c for c in cases
                 if c["dtype"] == RETRIEVAL["dtype"] and c["B"] == 1)
-    kernels = [{
-        "name": "quantized_scan", "route": "cuda",
-        "source": "pio_tpu_torch/ops/kernels/quantized_scan.cu",
-        "replaces": "pio_tpu/ops/retrieval.py:550",
-        "launches": serve["launches"]["quantized_scan"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": {k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
-                                       "k")},
-        "ok": True,
-        "cases": cases,
-    }, {
-        "name": "segment_flush", "route": "cuda",
-        "source": "pio_tpu_torch/ops/kernels/segment_flush.cu",
-        "replaces": "pio_tpu/ops/als_pallas.py:369",
-        # the main path: python -m pio_tpu_torch train
-        "launches": entry["launches"]["segment_flush"],
-        "launches_als_train": train["segment_flush_launches"],
-        "launches_als_train_expected":
-            train["segment_flush_launches_expected"],
-        "max_abs_err": flush["max_abs_err"],
-        "ms": flush["ms"], "plain_ms": flush["plain_ms"],
-        "bound_ms": flush["bound_ms"], "bound_by": flush["bound_by"],
-        "library_ms": flush["library_ms"],
-        "shape": {k: flush[k] for k in ("S", "S_real", "n_self", "k")},
-        "ok": True,
-    }]
+    src = "pio_tpu_torch/ops/kernels/"
+    users_half = stream["gathers"]["users_half"]
+    flush3 = stream["segment_flush_stream"]
+    stream_launches = tstream["launches"]
+    resident = {g: tstream["gather_vs_xla"][g]["launches"][
+        "gather_rows_resident"] for g in ("pallas-copy", "pallas-take")}
+    kernels = [
+        _kernel_entry(
+            "quantized_scan", src + "quantized_scan.cu",
+            "pio_tpu/ops/retrieval.py:550",
+            serve["launches"]["quantized_scan"], head,
+            shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
+                                        "k")},
+            cases=cases),
+        _kernel_entry(
+            # the main path: python -m pio_tpu_torch train
+            "segment_flush", src + "segment_flush.cu",
+            "pio_tpu/ops/als_pallas.py:369",
+            entry["launches"]["segment_flush"], flush,
+            launches_als_train=train["segment_flush_launches"],
+            launches_als_train_expected=train[
+                "segment_flush_launches_expected"],
+            shape={k: flush[k] for k in ("S", "S_real", "n_self", "k")}),
+        _kernel_entry(
+            # the main path of this and the next two: als_train in the
+            # streaming configuration
+            "segment_flush_stream", src + "segment_flush.cu",
+            "pio_tpu/ops/als_pallas.py:369",
+            stream_launches["segment_flush_stream"], flush3,
+            bit_identical_to_segment_flush=flush3["bit_identical_to_k2"],
+            shape={k: flush3[k] for k in ("S", "S_real", "n_self", "k")}),
+        _kernel_entry(
+            "gather_rows_stream", src + "gather_rows.cu",
+            "pio_tpu/ops/als_pallas.py:865",
+            stream_launches["gather_rows_stream"],
+            users_half["cases"]["stream"],
+            shape={k: users_half[k] for k in ("M", "N", "k", "dtype")}),
+        _kernel_entry(
+            "packed_matvec", src + "packed_matvec.cu",
+            "pio_tpu/ops/als_pallas.py:953",
+            stream_launches["packed_matvec"], stream["packed_matvec"],
+            shape={"n": N_USERS, "k": RANK}),
+        _kernel_entry(
+            # the main path: one sweep each with gather="pallas-copy" and
+            # "pallas-take"; the headline numbers are the copy variant's
+            "gather_rows_resident", src + "gather_rows.cu",
+            "pio_tpu/ops/als_pallas.py:731", sum(resident.values()),
+            users_half["cases"]["copy"],
+            shape={k: users_half[k] for k in ("M", "N", "k", "dtype")},
+            variants={v: {**users_half["cases"][v],
+                          "launches": resident[f"pallas-{v}"]}
+                      for v in ("copy", "take")}),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -14,19 +14,28 @@ Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
    reference asks XLA for Precision.HIGH because a one-pass bf16 product
    loses ~3e-3 relative on A, which CG cannot recover, so the port never
    turns on TF32 and refuses to train on CUDA when it is on;
+ * the factor rows of a chunk are gathered by ``gather``: ``src[i_c]``
+   ("xla", what "auto" runs), the streaming gather kernel ("stream", K5)
+   or the table-resident one ("pallas-copy"/"pallas-take", K4, for a
+   table within the reference's budget; a larger table takes
+   ``src[i_c]``, as in the reference), all in ``ops/kernels/gather_rows``;
  * the blocks are summed into each row's system, A (n,k,k) and b (n,k),
-   by ``accum``: ``"carry"``/``"stacked"`` with ``index_add_``, or
-   ``"hybrid"`` with the segment-flush kernel (``ops/kernels/
-   segment_flush``, the port of the reference's Pallas K2);
- * each side is solved by warm-started Jacobi-CG or a batched Cholesky.
+   by ``accum``: ``"carry"``/``"stacked"`` with ``index_add_``,
+   ``"hybrid"`` with the segment-flush kernel (K2), or ``"stream"`` with
+   the overlapped flush (K3), both in ``ops/kernels/segment_flush``;
+   ``packed_a=True`` has K3 return A lane-packed, (n,k²);
+ * each side is solved by warm-started Jacobi-CG or a batched Cholesky;
+   on packed A, CG's matvec is the packed matvec kernel (K6,
+   ``ops/kernels/packed_matvec``).
 
 ``accum="auto"`` is ``"hybrid"`` on a CUDA device and ``"carry"`` on the
 CPU: the port takes the card for the reference's accelerator, whose auto
-mode is hybrid. The accumulation and gather modes that need kernels not
-ported yet raise ``NotImplementedError``; none of them runs another mode
-in its place. JAX's ``jit``/``scan`` become plain Python loops over
-eagerly launched torch ops; the threefry init becomes a seeded
-``torch.Generator`` (the two give different numbers; tests pass ``init=``).
+mode is hybrid; ``gather="auto"`` is "xla" everywhere, as in the
+reference. Only ``accum="pallas"`` (the fused kernel K1, not ported yet)
+raises ``NotImplementedError``; no mode runs another in its place. JAX's
+``jit``/``scan`` become plain Python loops over eagerly launched torch ops;
+the threefry init becomes a seeded ``torch.Generator`` (the two give
+different numbers; tests pass ``init=``).
 """
 
 from __future__ import annotations
@@ -38,29 +47,25 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.ops.bucketing import pow2_bucket
-from pio_tpu_torch.ops.kernels.segment_flush import segment_flush
+from pio_tpu_torch.ops.kernels.gather_rows import (
+    GATHER_VMEM_TABLE_BUDGET,
+    gather_rows_resident,
+    gather_rows_stream,
+    gather_table_bytes,
+)
+from pio_tpu_torch.ops.kernels.packed_matvec import packed_block_matvec
+from pio_tpu_torch.ops.kernels.segment_flush import (
+    segment_flush,
+    segment_flush_stream,
+)
 from pio_tpu_torch.workflow.context import resolve_device
 
-# which slice of the port brings each mode that needs an unported kernel
-_NOT_PORTED = {
-    "pallas": "accum='pallas' needs the fused normal-equation kernel (K1), "
-              "ported in the next slice",
-    "stream": "accum='stream' needs the overlapped segment-flush kernel "
-              "(K3), ported after K1",
-    "packed": "packed_a=True needs the lane-packed flush and matvec kernels "
-              "(K3, K6), ported after K1",
-    "gather": "gather={!r} needs the Pallas gather kernels (K4, K5), ported "
-              "after K3 and K6; use 'auto' or 'xla'",
-}
 
-
-def _check_ported(accum: str, gather: str, packed: bool) -> None:
-    if accum in ("pallas", "stream"):
-        raise NotImplementedError(_NOT_PORTED[accum])
-    if packed:
-        raise NotImplementedError(_NOT_PORTED["packed"])
-    if gather not in ("auto", "xla"):
-        raise NotImplementedError(_NOT_PORTED["gather"].format(gather))
+def _check_ported(accum: str) -> None:
+    if accum == "pallas":
+        raise NotImplementedError(
+            "accum='pallas' needs the fused normal-equation kernel (K1), "
+            "not ported yet; every other accum mode runs")
 
 
 @dataclass(frozen=True)
@@ -99,7 +104,7 @@ class ALSParams:
             raise ValueError(
                 f"ALSParams.accum={self.accum!r}; "
                 f"expected one of {self._ACCUM_MODES}")
-        _check_ported(self.accum, self.gather, self.packed_a)
+        _check_ported(self.accum)
 
     def resolved_cg_iters(self, n_self: int | None = None) -> int:
         """-1 (default) = auto, per factor side: exact Cholesky (0) for
@@ -113,15 +118,24 @@ class ALSParams:
 
     def resolved_accum(self, device) -> str:
         """The accumulation that runs on ``device``: "auto" is "hybrid"
-        on CUDA and "carry" on the CPU, and hybrid falls back to stacked
-        above rank 256 (the reference's limit for the flush kernel; keep
-        in sync with _normal_equations)."""
+        on CUDA and "carry" on the CPU, packed_a promotes hybrid to
+        stream (only the streaming flush writes packed rows), and hybrid
+        and stream fall back to stacked above rank 256 (the reference's
+        limit for the flush kernels; keep in sync with
+        _normal_equations)."""
         mode = self.accum
         if mode == "auto":
             mode = "hybrid" if _accelerator_backend(device) else "carry"
-        if mode == "hybrid" and self.rank > 256:
+        if self.packed_a and mode == "hybrid":
+            mode = "stream"
+        if mode in ("hybrid", "stream") and self.rank > 256:
             mode = "stacked"
         return mode
+
+    def resolved_packed(self, device) -> bool:
+        """True when A flows lane-packed on ``device``: packed_a asked for
+        and the streaming flush runs (the other paths give (n,k,k))."""
+        return self.packed_a and self.resolved_accum(device) == "stream"
 
 
 @dataclass
@@ -190,16 +204,34 @@ def _device_slot_layout(u, o, v, n_self: int, width: int, slots_max: int):
             lens[:slots_max])
 
 
+def _gather(src, i_c, gather: str):
+    """The factor rows of one chunk, (C, W, k) in src's dtype: the
+    reference's _chunk_blocks gather, mode by mode."""
+    C, W = i_c.shape
+    k = src.shape[1]
+    if gather == "stream":
+        return gather_rows_stream(src, i_c.reshape(-1)).view(C, W, k)
+    if gather.startswith("pallas"):
+        # the reference's table-size rule, decided before any launch
+        fits = gather_table_bytes(
+            src.shape[0], k,
+            src.dtype == torch.bfloat16) <= GATHER_VMEM_TABLE_BUDGET
+        if fits:
+            return gather_rows_resident(
+                src, i_c.reshape(-1),
+                variant=gather.split("-", 1)[1]).view(C, W, k)
+    return src[i_c]
+
+
 def _chunk_blocks(src, i_c, v_c, l_c, implicit: bool, alpha: float,
-                  out=None):
+                  out=None, gather: str = "xla"):
     """One slot chunk -> per-slot normal-equation blocks a_blk (C,k,k),
-    b_blk (C,k), by batched matmuls in f32 (the reference's "xla"
-    gather, the only one ported). ``out=(a, b)`` writes the blocks into
-    those buffers."""
+    b_blk (C,k), by batched matmuls in f32. ``out=(a, b)`` writes the
+    blocks into those buffers."""
     W = i_c.shape[1]
     mask = (torch.arange(W, device=i_c.device)[None, :]
             < l_c[:, None]).to(torch.float32)
-    y = src[i_c].to(torch.float32)             # (C, W, k) gather
+    y = _gather(src, i_c, gather).to(torch.float32)     # (C, W, k)
     if implicit:
         # c = 1 + alpha*v; A += (c-1) y y^T ; b += c * y   (p == 1)
         w_outer = alpha * v_c * mask
@@ -229,7 +261,7 @@ def _group_bounds(S: int, k: int, chunk_slots: int, group_slots: int):
 
 
 def _group_blocks(src, idx, val, lens, lo: int, hi: int, chunk_slots: int,
-                  implicit: bool, alpha: float):
+                  implicit: bool, alpha: float, gather: str = "xla"):
     """The blocks of slots [lo, hi), built chunk by chunk into one buffer
     (the reference's lax.scan with the blocks as outputs)."""
     k = src.shape[1]
@@ -241,7 +273,7 @@ def _group_blocks(src, idx, val, lens, lo: int, hi: int, chunk_slots: int,
         c1 = min(hi, c0 + chunk_slots)
         _chunk_blocks(src, idx[c0:c1], val[c0:c1], lens[c0:c1], implicit,
                       alpha, out=(a_blks[c0 - lo:c1 - lo],
-                                  b_blks[c0 - lo:c1 - lo]))
+                                  b_blks[c0 - lo:c1 - lo]), gather=gather)
     return a_blks, b_blks
 
 
@@ -257,10 +289,16 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
     "stacked" builds a group of chunks' blocks, then adds the group;
     "hybrid" builds the same groups and flushes each with the segment
     flush kernel, which writes each finished row once and folds a row
-    that runs across tiles and groups in slot order. Pad slots carry the
-    sentinel row n_self: the index_add_ paths drop them into one spare
-    row, the flush stops at them."""
-    _check_ported(accum, gather, packed)
+    that runs across tiles and groups in slot order; "stream" does the
+    same through the overlapped flush (bit-identical sums). Pad slots
+    carry the sentinel row n_self: the index_add_ paths drop them into
+    one spare row, the flush stops at them.
+
+    packed=True asks for A lane-packed, (n_self, k²): hybrid is promoted
+    to stream, the only flush that writes it, and the other paths return
+    (n,k,k) all the same (callers tell the form by A.ndim, see
+    _solve_factors)."""
+    _check_ported(accum)
     rows, idx, val, lens = layout
     k = other_factors.shape[1]
     S = idx.shape[0]
@@ -270,19 +308,31 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
     if accum == "auto":
         # keep in sync with ALSParams.resolved_accum
         accum = "hybrid" if _accelerator_backend(dev) else "carry"
+    if gather == "auto":
+        gather = "xla"
     if S % chunk_slots:
         raise ValueError(f"{S} slots is not a multiple of chunk_slots "
                          f"{chunk_slots}")
-    if accum == "hybrid" and k > 256:
+    if packed and accum == "hybrid":
+        accum = "stream"
+    if accum in ("hybrid", "stream") and k > 256:
         accum = "stacked"
 
-    if accum == "hybrid":
-        A = torch.zeros((n_self, k, k), dtype=torch.float32, device=dev)
+    if accum in ("hybrid", "stream"):
+        packed = packed and accum == "stream"
+        A = torch.zeros((n_self, k * k) if packed else (n_self, k, k),
+                        dtype=torch.float32, device=dev)
         b = torch.zeros((n_self, k), dtype=torch.float32, device=dev)
         for lo, hi in _group_bounds(S, k, chunk_slots, group_slots):
             a_blks, b_blks = _group_blocks(src, idx, val, lens, lo, hi,
-                                           chunk_slots, implicit, alpha)
-            segment_flush(rows[lo:hi], a_blks, b_blks, n_self, out=(A, b))
+                                           chunk_slots, implicit, alpha,
+                                           gather)
+            if accum == "hybrid":
+                segment_flush(rows[lo:hi], a_blks, b_blks, n_self,
+                              out=(A, b))
+            else:
+                segment_flush_stream(rows[lo:hi], a_blks, b_blks, n_self,
+                                     out=(A, b), packed=packed)
         return A, b
 
     # one spare row takes the sentinel slots
@@ -292,14 +342,16 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
         for c0 in range(0, S, chunk_slots):
             c1 = c0 + chunk_slots
             a_blk, b_blk = _chunk_blocks(src, idx[c0:c1], val[c0:c1],
-                                         lens[c0:c1], implicit, alpha)
+                                         lens[c0:c1], implicit, alpha,
+                                         gather=gather)
             r = rows[c0:c1].long()
             A.index_add_(0, r, a_blk)
             b.index_add_(0, r, b_blk)
     elif accum == "stacked":
         for lo, hi in _group_bounds(S, k, chunk_slots, group_slots):
             a_blks, b_blks = _group_blocks(src, idx, val, lens, lo, hi,
-                                           chunk_slots, implicit, alpha)
+                                           chunk_slots, implicit, alpha,
+                                           gather)
             r = rows[lo:hi].long()
             A.index_add_(0, r, a_blks)
             b.index_add_(0, r, b_blks)
@@ -339,11 +391,46 @@ def _cg_solve(A, b, x0, n_iter: int):
     return _cg_body(mv, dinv, b, x0, n_iter)
 
 
+def _cg_solve_packed(A, b, x0, n_iter: int):
+    """_cg_solve on lane-packed A (n, k²): the matvec is the packed
+    matvec kernel, and the Jacobi diagonal a strided view of the packed
+    rows, so A is never unpacked or copied."""
+    k = b.shape[1]
+    dinv = 1.0 / A[:, ::k + 1]
+
+    def mv(x):
+        return packed_block_matvec(A, x)
+
+    return _cg_body(mv, dinv, b, x0, n_iter)
+
+
 def _shared_yty(other_factors, yty):
     """Shared YᵀY term (the confidence-1 part of implicit A)."""
     if yty is not None:
         return yty
     return other_factors.T @ other_factors
+
+
+def _solve_packed(A, b, reg, implicit, other_factors, yty, x0,
+                  cg_iters: int):
+    """The solve on lane-packed A (n, k²) from the streaming flush. YᵀY
+    and reg are added in place in packed space (the diagonal of a packed
+    row is every (k+1)-th element). CG runs on the packed matvec; an
+    exact-Cholesky side (cg_iters 0) takes a free (n,k,k) view. The
+    reference pads n to its matvec's row block here; the port's kernel
+    takes any n, so A (2.3 GB at the ML-20M users side) is never
+    copied."""
+    n_self, k2 = A.shape
+    k = b.shape[1]
+    if implicit:
+        A += _shared_yty(other_factors, yty).reshape(1, k2)
+    A[:, ::k + 1].add_(reg)
+    if cg_iters <= 0:
+        chol = torch.linalg.cholesky(A.view(n_self, k, k))
+        return torch.cholesky_solve(b[:, :, None], chol)[:, :, 0]
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    return _cg_solve_packed(A, b, x0, cg_iters)
 
 
 def _solve_factors(layout, other_factors, n_self, reg, implicit, alpha,
@@ -356,6 +443,10 @@ def _solve_factors(layout, other_factors, n_self, reg, implicit, alpha,
         bf16_gather=bf16_gather, accum=accum, group_slots=group_slots,
         gather=gather, packed=packed,
     )
+    if A.ndim == 2:
+        # the streaming flush wrote lane-packed (n, k²) rows
+        return _solve_packed(A, b, reg, implicit, other_factors, yty, x0,
+                             cg_iters)
     # in place: A is this call's own buffer, and at the ML-20M shape a
     # copy of it is 2.3 GB
     if implicit:

@@ -30,6 +30,26 @@
 // Contract of one launch over slots [0, S): rows[0]'s sum is added onto
 // A[rows[0]], every other row touched is assigned. Callers pass A and b
 // zeroed at the rows this call assigns (ops/kernels/segment_flush.py).
+//
+// K3, the overlapped flush (`pio_segment_flush_stream`), replaces the Pallas
+// TPU kernel `_segment_kernel_stream` (same file, reached from
+// `normal_equations_hybrid(overlap=True[, packed=True])`, ALS
+// accum="stream"). Its algebra is K2's, add for add: the same tiles, the
+// same column chunks, the same slot order and the same fold, so its A and b
+// are bit-identical to K2's. What changes is how a finished row leaves the
+// CTA. The TPU kernel copies the row into one of two VMEM staging slots and
+// starts its HBM write without waiting; the wait comes when the slot is
+// next needed. Here the CTA's column chunk of the row is staged in one of
+// two shared-memory slots (2 x 4 KB) and written with one TMA bulk store
+// (`cp.async.bulk.global.shared::cta`, a bulk group per row); before a slot
+// is filled again, one thread waits until the store that read it two rows
+// back has read it (`cp.async.bulk.wait_group.read 1`). So the write of one
+// row overlaps the accumulation of the next, and a row leaves in one
+// transfer, not in 256 thread stores. Bulk copies need 16-byte-aligned
+// addresses and sizes: where k*k or k is not a multiple of 4 (odd k), or a
+// pointer is not aligned, K3 stores rows as K2 does. A packed A, (n, k*k),
+// is the same bytes as (n, k, k) here (the port never pads lanes), so
+// packing is the output's shape, not a kernel of its own.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -152,7 +172,95 @@ __device__ void flush_tile(const Chunk& c, const int32_t* rows_s, int n_real,
     store4<VEC>(dst + c.col, acc, rem);
 }
 
-// Grid (n_tiles, ya + yb): tile of kTile slots x column chunk.
+// -- K3's row stores: a two-slot staging ring and TMA bulk stores ----------
+
+__device__ __forceinline__ void bulk_store(float* gdst, const float* ssrc,
+                                           int bytes) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(ssrc));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        :: "l"(gdst), "r"(s), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read_one() {
+    asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// flush_tile<true> with each finished row's column chunk leaving through a
+// staging slot and one bulk store. Threads whose columns lie past D still
+// take part in the CTA's barriers. Row changes are the same for every
+// thread (rows_s is shared), so the whole CTA reaches each barrier.
+__device__ void flush_tile_staged(const Chunk& c, const int32_t* rows_s,
+                                  int n_real, bool head_is_partial, int tile,
+                                  int col0, float* stage) {
+    const int rem = c.D - c.col;
+    const bool active = rem > 0;
+    const int chunk_bytes = min(kCols, c.D - col0) * 4;
+    int n_flushed = 0;
+    auto emit = [&](int row, bool partial, const float4& acc) {
+        float* dst = partial ? c.part + static_cast<size_t>(tile) * c.D
+                             : c.out + static_cast<size_t>(row) * c.D;
+        float* slot = stage + (n_flushed & 1) * kCols;
+        if (threadIdx.x == 0) {
+            bulk_wait_read_one();   // the store two rows back has read slot
+        }
+        __syncthreads();
+        if (active) {
+            *reinterpret_cast<float4*>(slot + threadIdx.x * 4) = acc;
+        }
+        fence_proxy_async();        // the bulk copy reads through the async
+        __syncthreads();            // proxy: order the slot's writes first
+        if (threadIdx.x == 0) {
+            bulk_store(dst + col0, slot, chunk_bytes);
+        }
+        ++n_flushed;
+    };
+
+    int cur = rows_s[0];
+    bool partial = head_is_partial;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < n_real; s0 += kUnroll) {
+        float4 v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            v[u] = active && s0 + u < n_real
+                ? load4<true>(c.blk + static_cast<size_t>(s0 + u) * c.D
+                              + c.col, rem)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+            if (s0 + u < n_real) {
+                const int r = rows_s[s0 + u];
+                if (r != cur) {
+                    emit(cur, partial, acc);
+                    acc = make_float4(0.f, 0.f, 0.f, 0.f);
+                    cur = r;
+                    partial = false;
+                }
+                add4(acc, v[u]);
+            }
+        }
+    }
+    emit(cur, partial, acc);
+    if (threadIdx.x == 0) {
+        bulk_wait_all();            // every row written before the CTA ends
+    }
+}
+
+// Grid (n_tiles, ya + yb): tile of kTile slots x column chunk. STAGED (K3)
+// writes rows through flush_tile_staged where the chunk moves as float4, and
+// as K2 elsewhere.
+template <bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 segment_flush_kernel(const int32_t* __restrict__ rows,
                      const float* __restrict__ a_blk,
@@ -164,6 +272,7 @@ segment_flush_kernel(const int32_t* __restrict__ rows,
                      int vec_a, int vec_b) {
     __shared__ int32_t rows_s[kTile];
     __shared__ int n_real_s;
+    __shared__ __align__(128) float stage[STAGED ? 2 * kCols : 4];
     const int tile = blockIdx.x;
     const size_t s_begin = static_cast<size_t>(tile) * kTile;
     const int n = min(kTile, static_cast<int>(S - s_begin));
@@ -194,7 +303,11 @@ segment_flush_kernel(const int32_t* __restrict__ rows,
     Chunk c = chunk_of(blockIdx.y, ya, a_blk, b_blk, A, b, part_a, part_b,
                        Da, Db, vec_a, vec_b);
     c.blk += s_begin * c.D;   // this tile's first slot
-    if (c.vec) {
+    if (STAGED && c.vec) {
+        const int col0 = c.col - threadIdx.x * 4;   // the chunk's first
+        flush_tile_staged(c, rows_s, n_real, head_is_partial, tile, col0,
+                          stage);
+    } else if (c.vec) {
         flush_tile<true>(c, rows_s, n_real, head_is_partial, tile);
     } else {
         flush_tile<false>(c, rows_s, n_real, head_is_partial, tile);
@@ -256,23 +369,11 @@ segment_fold_kernel(const int32_t* __restrict__ part_row,
     }
 }
 
-}  // namespace
-
-extern "C" int pio_segment_flush_tile() { return kTile; }
-
-// Plain C entry point for ctypes. Every pointer is device memory on the
-// current device; `stream` is a cudaStream_t. Shapes: rows (S,) sorted,
-// a_blk (S, k*k), b_blk (S, k), A (n_self, k*k), b (n_self, k); scratch
-// part_row (n_tiles,), part_a (n_tiles, k*k), part_b (n_tiles, k) with
-// n_tiles = ceil(S / kTile). vec_a / vec_b: 1 when the A / b tensors'
-// rows can be read as float4 (k*k resp. k a multiple of 4, 16-byte aligned
-// pointers). Launches the flush and the fold on the stream; returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int pio_segment_flush(
-        const int32_t* rows, const float* a_blk, const float* b_blk,
-        float* A, float* b, int32_t* part_row, float* part_a,
-        float* part_b, int S, int n_self, int k, int vec_a, int vec_b,
-        void* stream) {
+template <bool STAGED>
+int launch_flush(const int32_t* rows, const float* a_blk, const float* b_blk,
+                 float* A, float* b, int32_t* part_row, float* part_a,
+                 float* part_b, int S, int n_self, int k, int vec_a,
+                 int vec_b, void* stream) {
     const int Da = k * k;
     const int Db = k;
     const int ya = (Da + kCols - 1) / kCols;
@@ -280,7 +381,7 @@ extern "C" int pio_segment_flush(
     const int n_tiles = (S + kTile - 1) / kTile;
     const dim3 grid(n_tiles, ya + yb);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    segment_flush_kernel<<<grid, kThreads, 0, st>>>(
+    segment_flush_kernel<STAGED><<<grid, kThreads, 0, st>>>(
         rows, a_blk, b_blk, A, b, part_row, part_a, part_b, S, n_self,
         Da, Db, ya, vec_a, vec_b);
     cudaError_t err = cudaGetLastError();
@@ -290,6 +391,40 @@ extern "C" int pio_segment_flush(
     segment_fold_kernel<<<grid, kThreads, 0, st>>>(
         part_row, part_a, part_b, A, b, n_tiles, Da, Db, ya, vec_a, vec_b);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int pio_segment_flush_tile() { return kTile; }
+
+// Plain C entry points for ctypes. Every pointer is device memory on the
+// current device; `stream` is a cudaStream_t. Shapes: rows (S,) sorted,
+// a_blk (S, k*k), b_blk (S, k), A (n_self, k*k), b (n_self, k); scratch
+// part_row (n_tiles,), part_a (n_tiles, k*k), part_b (n_tiles, k) with
+// n_tiles = ceil(S / kTile). vec_a / vec_b: 1 when the A / b tensors'
+// rows can be read as float4 (k*k resp. k a multiple of 4, 16-byte aligned
+// pointers; the same condition allows K3's bulk stores). Each launches the
+// flush and the fold on the stream and returns the cudaError_t of the
+// launches (0 on success).
+
+// K2, accum="hybrid".
+extern "C" int pio_segment_flush(
+        const int32_t* rows, const float* a_blk, const float* b_blk,
+        float* A, float* b, int32_t* part_row, float* part_a,
+        float* part_b, int S, int n_self, int k, int vec_a, int vec_b,
+        void* stream) {
+    return launch_flush<false>(rows, a_blk, b_blk, A, b, part_row, part_a,
+                               part_b, S, n_self, k, vec_a, vec_b, stream);
+}
+
+// K3, accum="stream": the same sums, rows written by bulk stores.
+extern "C" int pio_segment_flush_stream(
+        const int32_t* rows, const float* a_blk, const float* b_blk,
+        float* A, float* b, int32_t* part_row, float* part_a,
+        float* part_b, int S, int n_self, int k, int vec_a, int vec_b,
+        void* stream) {
+    return launch_flush<true>(rows, a_blk, b_blk, A, b, part_row, part_a,
+                              part_b, S, n_self, k, vec_a, vec_b, stream);
 }
 
 extern "C" const char* pio_cuda_error_string(int code) {

@@ -12,10 +12,18 @@ rows (S,) int32 non-decreasing, slots with ``rows == n_self`` are padding
 and are dropped; a_blk (S,k,k), b_blk (S,k) f32, k <= 256. Rows with no
 slot come out zero.
 
-``segment_flush`` launches ``segment_flush.cu`` for CUDA tensors and raises
-if it cannot; only for tensors on the CPU does it compute the plain
-version, ``segment_flush_reference``. The kernel uses no float atomics:
-two launches on the same inputs give bit-identical A and b.
+``segment_flush_stream`` is K3, the port of ``_segment_kernel_stream``
+(``normal_equations_hybrid(overlap=True[, packed=True])``, which
+``accum="stream"`` runs): the same sums, add for add, so its A and b are
+bit-identical to ``segment_flush``'s, with each finished row written by one
+TMA bulk store from a two-slot staging ring. With ``packed=True`` it
+returns A as (n_self, k²), the form the packed CG matvec (K6) consumes; the
+port never pads lanes, so that is the same bytes as (n_self, k, k).
+
+Each wrapper launches ``segment_flush.cu`` for CUDA tensors and raises if
+it cannot; only for tensors on the CPU does it compute the plain version,
+``segment_flush_reference``. The kernels use no float atomics: two launches
+on the same inputs give bit-identical A and b.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import torch
 
 from pio_tpu_torch.ops.kernels.build import LaunchCounter, load_library
 
-#: launches of the CUDA kernel (the CPU path does not count)
+#: launches of the K2 kernel (the CPU path does not count)
 launches = LaunchCounter()
+#: launches of the K3 kernel, ``segment_flush_stream``
+launches_stream = LaunchCounter()
 
 MAX_K = 256   # the reference's own limit for the flush (ops/als.py)
 
@@ -64,6 +74,8 @@ def _library() -> ctypes.CDLL:
         lib.pio_segment_flush.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.pio_segment_flush.restype = ctypes.c_int
+        lib.pio_segment_flush_stream.argtypes = lib.pio_segment_flush.argtypes
+        lib.pio_segment_flush_stream.restype = ctypes.c_int
         lib.pio_segment_flush_tile.argtypes = []
         lib.pio_segment_flush_tile.restype = ctypes.c_int
         lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
@@ -106,6 +118,40 @@ def _vec(width: int, *tensors) -> int:
                and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def _launch(symbol: str, rows, a_blk, b_blk, n_self: int, A,
+            b) -> bool:
+    """Launch one of the flush kernels; False when there is nothing to
+    flush (and nothing was launched)."""
+    _check(rows, a_blk, b_blk, n_self, A, b)
+    s, k = rows.shape[0], a_blk.shape[-1]
+    if s == 0 or n_self == 0:
+        return False
+    lib = _library()
+    n_tiles = -(-s // lib.pio_segment_flush_tile())
+    part_row = torch.empty(n_tiles, dtype=torch.int32, device=rows.device)
+    part_a = torch.empty((n_tiles, k * k), dtype=torch.float32,
+                         device=rows.device)
+    part_b = torch.empty((n_tiles, k), dtype=torch.float32,
+                         device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = getattr(lib, symbol)(
+            rows.data_ptr(), a_blk.data_ptr(), b_blk.data_ptr(),
+            A.data_ptr(), b.data_ptr(), part_row.data_ptr(),
+            part_a.data_ptr(), part_b.data_ptr(), s, n_self, k,
+            _vec(k * k, a_blk, A), _vec(k, b_blk, b), stream)
+    if err:
+        raise RuntimeError(
+            f"{symbol} launch failed: "
+            f"{lib.pio_cuda_error_string(err).decode()}")
+    return True
+
+
+def _on_cuda(name: str, rows: torch.Tensor) -> None:
+    if rows.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {rows.device}")
+
+
 def segment_flush(rows: torch.Tensor, a_blk: torch.Tensor,
                   b_blk: torch.Tensor, n_self: int,
                   out: "tuple[torch.Tensor, torch.Tensor] | None" = None,
@@ -122,36 +168,39 @@ def segment_flush(rows: torch.Tensor, a_blk: torch.Tensor,
     zeroed (A, b) give the sums over all of them."""
     if rows.device.type == "cpu":
         return segment_flush_reference(rows, a_blk, b_blk, n_self, out)
-    if rows.device.type != "cuda":
-        raise ValueError(f"segment_flush runs on cuda or cpu, not "
-                         f"{rows.device}")
+    _on_cuda("segment_flush", rows)
     k = a_blk.shape[-1]
     if out is None:
         A = a_blk.new_zeros((n_self, k, k))
         b = b_blk.new_zeros((n_self, k))
     else:
         A, b = out
-    _check(rows, a_blk, b_blk, n_self, A, b)
-    s = rows.shape[0]
-    if s == 0 or n_self == 0:
-        return A, b
-    lib = _library()
-    n_tiles = -(-s // lib.pio_segment_flush_tile())
-    part_row = torch.empty(n_tiles, dtype=torch.int32, device=rows.device)
-    part_a = torch.empty((n_tiles, k * k), dtype=torch.float32,
-                         device=rows.device)
-    part_b = torch.empty((n_tiles, k), dtype=torch.float32,
-                         device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.pio_segment_flush(
-            rows.data_ptr(), a_blk.data_ptr(), b_blk.data_ptr(),
-            A.data_ptr(), b.data_ptr(), part_row.data_ptr(),
-            part_a.data_ptr(), part_b.data_ptr(), s, n_self, k,
-            _vec(k * k, a_blk, A), _vec(k, b_blk, b), stream)
-    if err:
-        raise RuntimeError(
-            f"segment_flush launch failed: "
-            f"{lib.pio_cuda_error_string(err).decode()}")
-    launches.add()
+    if _launch("pio_segment_flush", rows, a_blk, b_blk, n_self, A, b):
+        launches.add()
     return A, b
+
+
+def segment_flush_stream(rows: torch.Tensor, a_blk: torch.Tensor,
+                         b_blk: torch.Tensor, n_self: int,
+                         out: "tuple[torch.Tensor, torch.Tensor] | None"
+                         = None, packed: bool = False,
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``segment_flush`` through the overlapped flush (K3): the same sums,
+    bit for bit, and the same ``out=`` chaining. With ``packed=True`` A is
+    (n_self, k²), and a given ``out`` A may be either shape. On a CUDA
+    device it launches the kernel (a build or launch failure raises)."""
+    k = a_blk.shape[-1]
+    if out is None:
+        A = a_blk.new_zeros((n_self, k * k) if packed else (n_self, k, k))
+        b = b_blk.new_zeros((n_self, k))
+    else:
+        A, b = out
+    A3 = A.view(n_self, k, k) if A.ndim == 2 else A
+    if rows.device.type == "cpu":
+        segment_flush_reference(rows, a_blk, b_blk, n_self, out=(A3, b))
+    else:
+        _on_cuda("segment_flush_stream", rows)
+        if _launch("pio_segment_flush_stream", rows, a_blk, b_blk, n_self,
+                   A3, b):
+            launches_stream.add()
+    return (A.view(n_self, k * k) if packed else A3), b

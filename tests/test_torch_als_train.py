@@ -67,9 +67,32 @@ def test_params_reject_unknown_modes_like_reference(kw):
     {"gather": "stream"},
 ])
 def test_unported_modes_raise_not_run_another(kw):
-    ref.ALSParams(**kw)    # the reference takes them
-    with pytest.raises(NotImplementedError, match="ported"):
-        port.ALSParams(**kw)
+    """Every mode the reference takes: accum="pallas", whose kernel (K1)
+    is not ported, raises; each other one resolves as the reference
+    resolves it and trains like it from a shared init. No mode runs
+    another in its place."""
+    r = ref.ALSParams(**kw)    # the reference takes them
+    if kw.get("accum") == "pallas":
+        with pytest.raises(NotImplementedError, match="ported"):
+            port.ALSParams(**kw)
+        return
+    p = port.ALSParams(**kw)
+    assert p.resolved_accum("cpu") == r.resolved_accum()
+    assert p.resolved_packed("cpu") == r.resolved_packed()
+    n_users, n_items = 30, 25
+    u, i, v = _coo(18, 500, n_users, n_items)
+    train = dict(rank=4, iterations=2, implicit=True, alpha=5.0, chunk=64,
+                 width=8, chunk_slots=16, group_slots=32, cg_iters=8,
+                 bf16_gather=False, **kw)
+    uf0, if0 = _shared_init(19, n_users, n_items, 4)
+    want = ref.als_train(u, i, v, n_users, n_items, ref.ALSParams(**train),
+                         init=ref.ALSModel(jnp.asarray(uf0),
+                                           jnp.asarray(if0)))
+    got = port.als_train(u, i, v, n_users, n_items, port.ALSParams(**train),
+                         init=als_model_from_numpy(uf0, if0, device="cpu"),
+                         device="cpu")
+    _close(got.user_factors, want.user_factors, RTOL_TRAIN)
+    _close(got.item_factors, want.item_factors, RTOL_TRAIN)
 
 
 def test_params_have_reference_fields_and_defaults():
@@ -202,10 +225,22 @@ def test_normal_equations_modes_agree_within_port():
 @pytest.mark.parametrize("kw", [{"accum": "pallas"}, {"accum": "stream"},
                                 {"packed": True}, {"gather": "stream"}])
 def test_normal_equations_refuse_unported_modes(kw):
-    _, got_l = _layout(9)
-    with pytest.raises(NotImplementedError):
-        port._normal_equations(got_l, torch.ones(25, 8), 30, False, 1.0, 16,
-                               **kw)
+    """accum="pallas" (K1, not ported) raises; the modes of the streaming
+    configuration give the reference's A and b, in its shape."""
+    want_l, got_l = _layout(9)
+    y = np.random.default_rng(20).standard_normal((25, 8)).astype(np.float32)
+    if kw.get("accum") == "pallas":
+        with pytest.raises(NotImplementedError):
+            port._normal_equations(got_l, torch.from_numpy(y), 30, False,
+                                   1.0, 16, **kw)
+        return
+    opts = dict(bf16_gather=False, group_slots=32, **kw)
+    A_r, b_r = ref._normal_equations(want_l, jnp.asarray(y), 30, False, 1.0,
+                                     16, **opts)
+    A_p, b_p = port._normal_equations(got_l, torch.from_numpy(y), 30, False,
+                                      1.0, 16, **opts)
+    _close(A_p, A_r, RTOL_BLOCKS)
+    _close(b_p, b_r, RTOL_BLOCKS)
 
 
 def test_group_bounds_match_reference_grouping():
@@ -311,24 +346,53 @@ TRAIN_CASES = [
 ]
 
 
+def _shared_init(seed, n_users, n_items, k):
+    rng = np.random.default_rng(seed)
+    uf0 = np.abs(rng.standard_normal((n_users, k))).astype(np.float32) / 3
+    if0 = np.abs(rng.standard_normal((n_items, k))).astype(np.float32) / 3
+    return uf0, if0
+
+
+def _train_both(case, n_users=60, n_items=35, **modes):
+    u, i, v = _coo(14, 1500, n_users, n_items)
+    kw = dict(chunk=256, width=16, chunk_slots=32, group_slots=64, **case,
+              **modes)
+    uf0, if0 = _shared_init(15, n_users, n_items, case["rank"])
+    want = ref.als_train(u, i, v, n_users, n_items, ref.ALSParams(**kw),
+                         init=ref.ALSModel(jnp.asarray(uf0),
+                                           jnp.asarray(if0)))
+    got = port.als_train(u, i, v, n_users, n_items, port.ALSParams(**kw),
+                         init=als_model_from_numpy(uf0, if0, device="cpu"),
+                         device="cpu")
+    return got, want
+
+
 @pytest.mark.parametrize("case", TRAIN_CASES)
 @pytest.mark.parametrize("accum", ["carry", "hybrid"])
 def test_als_train_matches_reference_from_shared_init(case, accum):
-    n_users, n_items = 60, 35
-    u, i, v = _coo(14, 1500, n_users, n_items)
-    kw = dict(chunk=256, width=16, chunk_slots=32, group_slots=64, **case)
-    rng = np.random.default_rng(15)
-    k = case["rank"]
-    uf0 = np.abs(rng.standard_normal((n_users, k))).astype(np.float32) / 3
-    if0 = np.abs(rng.standard_normal((n_items, k))).astype(np.float32) / 3
-    want = ref.als_train(u, i, v, n_users, n_items,
-                         ref.ALSParams(accum=accum, **kw),
-                         init=ref.ALSModel(jnp.asarray(uf0),
-                                           jnp.asarray(if0)))
-    got = port.als_train(u, i, v, n_users, n_items,
-                         port.ALSParams(accum=accum, **kw),
-                         init=als_model_from_numpy(uf0, if0, device="cpu"),
-                         device="cpu")
+    n_users = 60
+    got, want = _train_both(case, n_users=n_users, accum=accum)
+    _assert_same_model(got, want, n_users)
+
+
+# the streaming configuration (the reference's "round 6": overlapped flush,
+# streaming gather, packed A and packed CG) and the resident gathers
+STREAM_CONFIGS = [
+    dict(accum="stream", gather="stream", packed_a=True),
+    dict(accum="hybrid", gather="pallas-copy"),
+    dict(accum="hybrid", gather="pallas-take"),
+]
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+@pytest.mark.parametrize("config", STREAM_CONFIGS)
+def test_als_train_stream_config_matches_reference_from_shared_init(
+        case, config):
+    got, want = _train_both(case, **config)
+    _assert_same_model(got, want, 60)
+
+
+def _assert_same_model(got, want, n_users):
     _close(got.user_factors, want.user_factors, RTOL_TRAIN)
     _close(got.item_factors, want.item_factors, RTOL_TRAIN)
 

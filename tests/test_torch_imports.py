@@ -51,6 +51,8 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.__main__", "pio_tpu_torch.convert",
                 "pio_tpu_torch.ops.als", "pio_tpu_torch.data.eventstore",
                 "pio_tpu_torch.ops.kernels.segment_flush",
+                "pio_tpu_torch.ops.kernels.gather_rows",
+                "pio_tpu_torch.ops.kernels.packed_matvec",
                 "pio_tpu_torch.workflow.train"):
         assert mod in res["modules"]
 

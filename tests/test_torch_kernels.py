@@ -1,5 +1,6 @@
-"""The port's CUDA kernel wrappers, without JAX: the quantized scan (K7)
-and the segment flush (K2).
+"""The port's CUDA kernel wrappers, without JAX: the quantized scan (K7),
+the segment flush (K2) and its overlapped, packed form (K3), the row
+gathers (K5 stream, K4 resident copy/take) and the packed matvec (K6).
 
 On the CPU a wrapper computes its kernel's plain version and launches
 nothing; it refuses inputs its kernel does not take. On a card the kernel
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from pio_tpu_torch.ops import retrieval as rt
+from pio_tpu_torch.ops.kernels import gather_rows as gr
+from pio_tpu_torch.ops.kernels import packed_matvec as pm
 from pio_tpu_torch.ops.kernels import quantized_scan as qscan
 from pio_tpu_torch.ops.kernels import segment_flush as sf
 
@@ -206,3 +209,168 @@ def test_flush_kernel_runs_chain_into_one_buffer_on_card():
     wa, wb = sf.segment_flush_reference(rows, a.double(), b.double(), 50)
     _assert_rows_close(A, wa)
     _assert_rows_close(bb, wb)
+
+
+# -- the overlapped, packed flush (K3) ----------------------------------------
+
+def test_stream_flush_wrapper_on_cpu_is_the_plain_version():
+    rows, a, b = _flush_args(300, 6, 40, seed=4, heavy=80, pad=17)
+    before = sf.launches_stream.value
+    A, bb = sf.segment_flush_stream(rows, a, b, 40, packed=True)
+    assert sf.launches_stream.value == before
+    want = sf.segment_flush_reference(rows, a, b, 40)
+    assert A.shape == (40, 36)
+    assert torch.equal(A, want[0].reshape(40, 36)) and torch.equal(bb,
+                                                                   want[1])
+
+
+@pytest.mark.parametrize("k", [5, 16, 64, 128])
+@pytest.mark.parametrize("s,heavy,pad", [
+    (1, 0, 0), (999, 0, 0), (777, 500, 0), (1001, 200, 333), (130, 0, 130),
+])
+def test_stream_flush_kernel_is_bitwise_k2_on_card(k, s, heavy, pad):
+    """K3 adds what K2 adds in the same order: A and b bit-identical to
+    K2's, packed equal to unpacked reshaped, and both within the flush
+    tolerance of the f64 sums."""
+    dev = _cuda()
+    rows, a, b = _flush_args(s, k, 61, seed=k + s + 1, heavy=heavy, pad=pad,
+                             device=dev)
+    before = sf.launches_stream.value
+    A2, b2 = sf.segment_flush(rows, a, b, 61)
+    A3, b3 = sf.segment_flush_stream(rows, a, b, 61)
+    Ap, bp = sf.segment_flush_stream(rows, a, b, 61, packed=True)
+    torch.cuda.synchronize()
+    assert sf.launches_stream.value == before + 2
+    assert torch.equal(A3, A2) and torch.equal(b3, b2)
+    assert Ap.shape == (61, k * k)
+    assert torch.equal(Ap, A2.reshape(61, k * k)) and torch.equal(bp, b2)
+    wa, wb = sf.segment_flush_reference(rows, a.double(), b.double(), 61)
+    _assert_rows_close(A3, wa)
+    _assert_rows_close(b3, wb)
+
+
+def test_stream_flush_kernel_runs_chain_into_packed_buffer_on_card():
+    dev = _cuda()
+    rows, a, b = _flush_args(1500, 64, 50, seed=5, heavy=700, pad=100,
+                             device=dev)
+    A = torch.zeros(50, 64 * 64, device=dev)
+    bb = torch.zeros(50, 64, device=dev)
+    cut = int(torch.searchsorted(rows, 25)) + 3   # inside the long row
+    for lo, hi in ((0, 100), (100, cut), (cut, 1500)):
+        sf.segment_flush_stream(rows[lo:hi], a[lo:hi], b[lo:hi], 50,
+                                out=(A, bb), packed=True)
+    A2, b2 = torch.zeros(50, 64, 64, device=dev), torch.zeros(50, 64,
+                                                               device=dev)
+    for lo, hi in ((0, 100), (100, cut), (cut, 1500)):
+        sf.segment_flush(rows[lo:hi], a[lo:hi], b[lo:hi], 50, out=(A2, b2))
+    torch.cuda.synchronize()
+    assert torch.equal(A, A2.reshape(50, -1)) and torch.equal(bb, b2)
+
+
+# -- the row gathers (K5, K4) ------------------------------------------------
+
+def _gather_args(n, k, m, dtype, seed, device="cpu"):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(
+        rng.standard_normal((n, k)).astype(np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, n, m).astype(np.int32))
+    return table.to(device), idx.to(device)
+
+
+def test_gather_wrappers_on_cpu_are_the_plain_version():
+    table, idx = _gather_args(20, 6, 77, torch.bfloat16, seed=1)
+    before = (gr.launches_stream.value, gr.launches_resident.value)
+    want = table[idx.long()]
+    assert torch.equal(gr.gather_rows_stream(table, idx), want)
+    for variant in gr.VARIANTS:
+        assert torch.equal(gr.gather_rows_resident(table, idx, variant), want)
+    assert (gr.launches_stream.value, gr.launches_resident.value) == before
+
+
+@pytest.mark.parametrize("change, error", [
+    (lambda t, i: (t.half(), i), TypeError),
+    (lambda t, i: (t, i.long()), TypeError),
+    (lambda t, i: (t[None], i), ValueError),
+    (lambda t, i: (t.t(), i), ValueError),
+])
+def test_gather_checks_refuse_what_the_kernel_does_not_take(change, error):
+    table, idx = _gather_args(8, 4, 10, torch.float32, seed=2)
+    with pytest.raises(error):
+        gr._check(*change(table, idx))
+
+
+def test_gather_resident_refuses_unknown_variant():
+    table, idx = _gather_args(8, 4, 10, torch.float32, seed=3)
+    with pytest.raises(ValueError, match="variant"):
+        gr.gather_rows_resident(table, idx, "scan")
+
+
+@pytest.mark.parametrize("k", [5, 16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 511, 70_001])
+def test_gather_kernels_match_plain_version_on_card(k, dtype, m):
+    """K5 and both K4 variants move exactly the table's rows: equal to
+    ``table[idx]`` bit for bit, the ragged tail included."""
+    dev = _cuda()
+    table, idx = _gather_args(3000, k, m, dtype, seed=k + m, device=dev)
+    want = gr.gather_rows_reference(table, idx)
+    before = (gr.launches_stream.value, gr.launches_resident.value)
+    got = [gr.gather_rows_stream(table, idx)] + [
+        gr.gather_rows_resident(table, idx, v) for v in gr.VARIANTS]
+    torch.cuda.synchronize()
+    assert (gr.launches_stream.value, gr.launches_resident.value) == (
+        before[0] + 1, before[1] + 2)
+    for g in got:
+        assert g.dtype == dtype and torch.equal(g, want)
+
+
+# -- the packed matvec (K6) ----------------------------------------------------
+
+# the kernel and the plain version sum k f32 products in other orders;
+# each output is held against the f64 product, relative to the sum of the
+# magnitudes of its terms
+MATVEC_RTOL = 1e-6
+
+
+def _matvec_args(n, k, seed, device="cpu"):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, k, k)).astype(np.float32)
+    a = a + np.swapaxes(a, 1, 2)
+    x = rng.standard_normal((n, k)).astype(np.float32)
+    return (torch.from_numpy(a.reshape(n, k * k)).to(device),
+            torch.from_numpy(x).to(device))
+
+
+def _assert_matvec_close(got, a, x):
+    n, k = x.shape
+    a3 = a.double().view(n, k, k)
+    want = torch.bmm(a3, x.double()[:, :, None])[:, :, 0]
+    scale = torch.bmm(a3.abs(), x.double().abs()[:, :, None])[:, :, 0]
+    assert bool(((got.double() - want).abs() <= MATVEC_RTOL * scale).all())
+
+
+def test_matvec_wrapper_on_cpu_is_the_plain_version():
+    a, x = _matvec_args(9, 6, seed=1)
+    before = pm.launches.value
+    got = pm.packed_block_matvec(a, x)
+    assert pm.launches.value == before
+    assert torch.equal(got, pm.packed_block_matvec_reference(a, x))
+    _assert_matvec_close(got, a, x)
+
+
+def test_matvec_refuses_rank_above_256():
+    with pytest.raises(ValueError, match="256"):
+        pm._check(torch.zeros(1, 257 * 257), torch.zeros(1, 257))
+
+
+@pytest.mark.parametrize("k", [5, 16, 64, 128])
+@pytest.mark.parametrize("n", [1, 9, 4099])
+def test_matvec_kernel_matches_plain_version_on_card(k, n):
+    dev = _cuda()
+    a, x = _matvec_args(n, k, seed=k + n, device=dev)
+    before = pm.launches.value
+    got = pm.packed_block_matvec(a, x)
+    torch.cuda.synchronize()
+    assert pm.launches.value == before + 1
+    _assert_matvec_close(got, a, x)
+    _assert_matvec_close(pm.packed_block_matvec_reference(a, x), a, x)
