@@ -25,6 +25,11 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   ``packed_a=True``: K3, K5, K6 on every sweep), each half held against
   the hybrid path and f64, then one sweep each with ``gather`` "stream",
   "pallas-copy" and "pallas-take" held bit for bit against "xla";
+- fused_kernel: the fused normal-equation kernel (K1) against its plain
+  version (and f64) on each half of the same layout, timed beside what it
+  replaces there, the hybrid path's block build plus K2;
+- train_fused: ``als_train`` on the same ratings with ``accum="pallas"``
+  (K1 on every solve), each half held against the hybrid path and f64;
 - train_entry: seeded rate/buy events for every user and item in sqlite,
   ``python -m pio_tpu_torch train`` (its ``main``, in process, so the
   launch counters can be read), then the trained instance deployed and
@@ -82,7 +87,9 @@ ATOL_OF_MAX = 1e-5        # atol = ATOL_OF_MAX * max |score|
 RECALL_FLOOR = 0.9
 # segment flush vs its plain version: both sum the same f32 blocks in
 # other orders (the plain version with atomics); held per row of A
-# against the plain version evaluated in f64, relative to the row's max
+# against the plain version evaluated in f64, relative to the row's max.
+# The fused kernel (K1) is held to the same bound: it sums at most 64
+# products before they join the row, as a slot's block sums 128
 FLUSH_RTOL = 1e-5
 # packed matvec vs the f64 product: k f32 products summed in another
 # order; each output within MATVEC_RTOL of the sum of its terms' magnitudes
@@ -103,6 +110,7 @@ HALF_F64_FLOOR = 1e-6
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12         # the scan's FMAs run on the f32 CUDA cores
+TF32_FLOPS = 495e12       # tensor cores; an f32-accurate product takes 3
 
 # device-side sleep ahead of each timing window, long enough for the host
 # to queue the whole window (about 10 ms at H100 clocks)
@@ -124,6 +132,7 @@ def counters() -> dict:
 
     return {"quantized_scan": qscan.launches, "segment_flush": sf.launches,
             "segment_flush_stream": sf.launches_stream,
+            "normal_equations_fused": sf.launches_fused,
             "gather_rows_stream": gr.launches_stream,
             "gather_rows_resident": gr.launches_resident,
             "packed_matvec": pm.launches}
@@ -139,23 +148,23 @@ def read_counts() -> dict:
     return {name: c.value for name, c in counters().items()}
 
 
-def gpu_ms(fn) -> float:
-    """Median device time of one call, from CUDA events around windows of
-    TIMING_INNER back-to-back calls."""
+def gpu_ms(fn, reps: int = TIMING_REPS, inner: int = TIMING_INNER) -> float:
+    """Median device time of one call, from CUDA events around ``reps``
+    windows of ``inner`` back-to-back calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        for _ in range(TIMING_INNER):
+        for _ in range(inner):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / TIMING_INNER)
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -715,32 +724,16 @@ def _rel(g: torch.Tensor, w: torch.Tensor) -> dict:
             "rel_max": float((g - w).abs().max() / w.abs().max())}
 
 
-def items_half_f64(by_item, users, x0, cs: int, cg_iters: int):
+def items_half_f64(by_item, users, x0, cg_iters: int):
     """The items half of a sweep in f64 from the same users (the same
     bf16 gather): blocks, index_add_ sums, YᵀY, reg and CG all in f64."""
     from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
 
     p = train_params()
-    rows, idx, val, lens = by_item
-    src = users.to(torch.bfloat16)
-    A = torch.zeros((N_ITEMS + 1, RANK, RANK), dtype=torch.float64,
-                    device=users.device)
-    b = torch.zeros((N_ITEMS + 1, RANK), dtype=torch.float64,
-                    device=users.device)
-    width = idx.shape[1]
-    for c0 in range(0, idx.shape[0], cs):
-        sl = slice(c0, c0 + cs)
-        y = src[idx[sl]].double()
-        mask = (torch.arange(width, device=users.device)[None, :]
-                < lens[sl, None]).double()
-        v = val[sl].double()
-        r = rows[sl].long()
-        A.index_add_(0, r, torch.bmm(
-            (y * (p.alpha * v * mask)[:, :, None]).transpose(1, 2), y))
-        b.index_add_(0, r, torch.bmm(
-            y.transpose(1, 2), ((1.0 + p.alpha * v) * mask)[:, :, None])[
-                :, :, 0])
-    A, b = A[:N_ITEMS], b[:N_ITEMS]
+    A, b = sf.normal_equations_fused_reference(
+        *by_item, users.to(torch.bfloat16).double(), N_ITEMS, p.implicit,
+        p.alpha)
     u64 = users.double()
     A += (u64.T @ u64)[None, :, :]
     A.diagonal(dim1=1, dim2=2).add_(p.reg)
@@ -773,7 +766,7 @@ def hybrid_vs_carry(by_user, by_item, cs: int, init, cg_u: int,
                              f"{out}")
     items = {a: half(by_item, users["carry"], N_ITEMS, init[1], cg_i, a)
              for a in ("hybrid", "carry")}
-    exact = items_half_f64(by_item, users["carry"], init[1], cs, cg_i)
+    exact = items_half_f64(by_item, users["carry"], init[1], cg_i)
     out["items"] = _rel(items["hybrid"], items["carry"])
     out["items_hybrid_vs_f64"] = _rel(items["hybrid"], exact)
     out["items_carry_vs_f64"] = _rel(items["carry"], exact)
@@ -1058,6 +1051,45 @@ def one_sweep(by_user, by_item, cs: int, init, p, cg_u: int,
     return out, read_counts()
 
 
+def halves_vs_hybrid(by_user, by_item, cs: int, init, cg_u: int, cg_i: int,
+                     p, name: str) -> dict:
+    """One sweep's halves with params ``p`` against the hybrid path (K2,
+    cuBLAS CG) from the same inputs: the users half within USERS_RTOL_NORM
+    / USERS_RTOL_MAX of hybrid, the items half no farther from its f64
+    evaluation than HALF_F64_RATIO times hybrid's distance."""
+    from pio_tpu_torch.ops import als
+
+    base = train_params()
+
+    def half(layout, other, n, x0, cg, q):
+        return als._solve_factors(
+            layout, other, n, q.reg, q.implicit, q.alpha, cs, x0=x0,
+            cg_iters=cg, bf16_gather=q.bf16_gather, accum=q.accum,
+            group_slots=q.group_slots, gather=q.gather, packed=q.packed_a)
+
+    users = {name: half(by_user, init[1], N_USERS, init[0], cg_u, p),
+             "hybrid": half(by_user, init[1], N_USERS, init[0], cg_u, base)}
+    agree = {"users": _rel(users[name], users["hybrid"])}
+    if (agree["users"]["rel_norm"] > USERS_RTOL_NORM
+            or agree["users"]["rel_max"] > USERS_RTOL_MAX):
+        raise AssertionError(f"users half: {name} disagrees with hybrid: "
+                             f"{agree}")
+    other = users["hybrid"]
+    items = {name: half(by_item, other, N_ITEMS, init[1], cg_i, p),
+             "hybrid": half(by_item, other, N_ITEMS, init[1], cg_i, base)}
+    exact = items_half_f64(by_item, other, init[1], cg_i)
+    agree["items"] = _rel(items[name], items["hybrid"])
+    agree[f"items_{name}_vs_f64"] = _rel(items[name], exact)
+    agree["items_hybrid_vs_f64"] = _rel(items["hybrid"], exact)
+    del users, items, exact, other
+    for key in ("rel_norm", "rel_max"):
+        if (agree[f"items_{name}_vs_f64"][key] > HALF_F64_RATIO
+                * agree["items_hybrid_vs_f64"][key] + HALF_F64_FLOOR):
+            raise AssertionError(f"items half: {name} is farther from f64 "
+                                 f"than hybrid: {agree}")
+    return agree
+
+
 def phase_train_stream(ratings, dev: torch.device) -> dict:
     from pio_tpu_torch.ops import als
     from pio_tpu_torch.ops.kernels import gather_rows as gr
@@ -1099,35 +1131,9 @@ def phase_train_stream(ratings, dev: torch.device) -> dict:
     n_full, _, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
     sweep_s, warm, cold = time_sweeps(by_user, by_item, cs, p, init)
 
-    # each half against the hybrid path (K2, cuBLAS CG) and f64
+    agree = halves_vs_hybrid(by_user, by_item, cs, init, cg_u, cg_i, p,
+                             "stream")
     base = train_params()
-
-    def half(layout, other, n, x0, cg, q):
-        return als._solve_factors(
-            layout, other, n, q.reg, q.implicit, q.alpha, cs, x0=x0,
-            cg_iters=cg, bf16_gather=q.bf16_gather, accum=q.accum,
-            group_slots=q.group_slots, gather=q.gather, packed=q.packed_a)
-
-    users = {"stream": half(by_user, init[1], N_USERS, init[0], cg_u, p),
-             "hybrid": half(by_user, init[1], N_USERS, init[0], cg_u, base)}
-    agree = {"users": _rel(users["stream"], users["hybrid"])}
-    if (agree["users"]["rel_norm"] > USERS_RTOL_NORM
-            or agree["users"]["rel_max"] > USERS_RTOL_MAX):
-        raise AssertionError(f"users half: stream disagrees with hybrid: "
-                             f"{agree}")
-    other = users["hybrid"]
-    items = {"stream": half(by_item, other, N_ITEMS, init[1], cg_i, p),
-             "hybrid": half(by_item, other, N_ITEMS, init[1], cg_i, base)}
-    exact = items_half_f64(by_item, other, init[1], cs, cg_i)
-    agree["items"] = _rel(items["stream"], items["hybrid"])
-    agree["items_stream_vs_f64"] = _rel(items["stream"], exact)
-    agree["items_hybrid_vs_f64"] = _rel(items["hybrid"], exact)
-    del users, items, exact, other
-    for key in ("rel_norm", "rel_max"):
-        if (agree["items_stream_vs_f64"][key] > HALF_F64_RATIO
-                * agree["items_hybrid_vs_f64"][key] + HALF_F64_FLOOR):
-            raise AssertionError(f"items half: stream is farther from f64 "
-                                 f"than hybrid: {agree}")
 
     # one cold sweep with each kernel gather against the xla gather, from
     # the same init on the hybrid path: the same bytes feed the same
@@ -1183,7 +1189,203 @@ def phase_train_stream(ratings, dev: torch.device) -> dict:
     return result
 
 
-# -- phase 9: the train entry point, then deploy ------------------------------
+# -- phase 9: the fused normal-equation kernel (K1) ----------------------------
+
+def fused_bound(nnz: int, s_real: int, n_self: int, n_other: int,
+                k: int) -> dict:
+    """Least time for K1 on one half. Bytes: each real entry's index and
+    value and each real slot's row id and length read once, the bf16 table
+    read once, A and b written once. Operations: what the function needs,
+    not what K1 does: A is symmetric, so per entry the k(k+1)/2 products of
+    its upper triangle and the k of b, 2 flops each, as f32 FMAs on the
+    CUDA cores (the kernel's route), or as 3xTF32 on the tensor cores
+    (three passes for an f32-accurate product)."""
+    nbytes = (nnz * 8 + s_real * 8 + n_other * k * 2
+              + n_self * (k * k + k) * 4)
+    flops = float(k * (k + 1) + 2 * k) * nnz
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"bytes_ms": t_bytes}
+    for name, t_ops in (("f32", flops / F32_FLOPS * 1e3),
+                        ("3xtf32", 3 * flops / TF32_FLOPS * 1e3)):
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "operations_ms": t_ops}
+    return out
+
+
+def _row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest error of a row relative to that row's largest magnitude."""
+    n = want.shape[0]
+    g, w = got.double().reshape(n, -1), want.reshape(n, -1)
+    return float(((g - w).abs().amax(1)
+                  / w.abs().amax(1).clamp_min(1e-30)).max())
+
+
+def _fused_case(lay, other, n: int, cs: int, p) -> dict:
+    """K1 on one half of the layout: bit-identical repeats, against the
+    plain version and f64, and timed beside the plain version and the
+    hybrid path's block build plus K2 for the same half."""
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.kernels import segment_flush as sf
+
+    src = other.to(torch.bfloat16)
+    rows, idx, val, lens = lay
+    s_real = int((rows < n).sum())
+    nnz = int(lens.sum())
+
+    def k1():
+        return sf.normal_equations_fused(rows, idx, val, lens, src, n,
+                                         p.implicit, p.alpha)
+
+    got = k1()
+    again = k1()
+    torch.cuda.synchronize()
+    identical = (torch.equal(got[0], again[0])
+                 and torch.equal(got[1], again[1]))
+    del again
+    # every buffer fenced by poison: the fences hold and A, b are unchanged
+    fenced = sf.normal_equations_fused_fenced(rows, idx, val, lens, src, n,
+                                              p.implicit, p.alpha)
+    inside = (fenced[2] and torch.equal(got[0], fenced[0])
+              and torch.equal(got[1], fenced[1]))
+    del fenced
+    plain = sf.normal_equations_fused_reference(rows, idx, val, lens, src, n,
+                                                p.implicit, p.alpha)
+    max_abs_err = max(float((got[0] - plain[0]).abs().max()),
+                      float((got[1] - plain[1]).abs().max()))
+    want = sf.normal_equations_fused_reference(rows, idx, val, lens,
+                                               src.double(), n, p.implicit,
+                                               p.alpha)
+    rel = {"A": _row_rel(got[0], want[0]), "b": _row_rel(got[1], want[1]),
+           "A_plain": _row_rel(plain[0], want[0]),
+           "b_plain": _row_rel(plain[1], want[1])}
+    del got, plain, want
+    if not identical:
+        raise AssertionError("normal_equations_fused: two launches differ")
+    if not inside:
+        raise AssertionError("normal_equations_fused: the fenced launch "
+                             "touched a fence or changed A or b")
+    if max(rel["A"], rel["b"]) > FLUSH_RTOL:
+        raise AssertionError(f"normal_equations_fused disagrees with its "
+                             f"plain version in f64: {rel}")
+    bound = fused_bound(nnz, s_real, n, other.shape[0], RANK)
+    # each kernel's mean ms per launch over three calls (the profiler can
+    # miss the first kernels of a session; the zero-fill launches twice a
+    # call, for A and for b)
+    by_kernel = {name: ms / calls for name, (ms, calls) in profile_sweep(
+        lambda _: [k1() for _ in range(3)], None)[
+            "top_kernels_ms_calls"].items()}
+    return {
+        "S": rows.shape[0], "S_real": s_real, "nnz": nnz, "n_self": n,
+        "k": RANK, "W": idx.shape[1], "src": "bf16",
+        "bit_identical": identical, "fenced_launch_clean": inside,
+        "max_abs_err": max_abs_err,
+        "max_row_rel_err": rel,
+        "ms": gpu_ms(k1),
+        "ms_by_kernel": by_kernel,
+        "plain_ms": gpu_ms(lambda: sf.normal_equations_fused_reference(
+            rows, idx, val, lens, src, n, p.implicit, p.alpha), 5, 1),
+        # no single library call computes K1's function: its yardstick is
+        # what it replaces on the card, hybrid's block build plus K2
+        "library_ms": gpu_ms(lambda: als._normal_equations(
+            lay, other, n, p.implicit, p.alpha, cs, bf16_gather=True,
+            accum="hybrid", group_slots=p.group_slots), 5, 1),
+        "library_is": "hybrid block build (gather, cast, weights, bmm) + K2",
+        "bound_ms": bound["f32"]["bound_ms"],
+        "bound_by": bound["f32"]["bound_by"],
+        "bound_3xtf32_ms": bound["3xtf32"]["bound_ms"],
+        "bound_3xtf32_by": bound["3xtf32"]["bound_by"],
+        "bound_parts_ms": {"bytes": bound["bytes_ms"],
+                           "f32_fma": bound["f32"]["operations_ms"],
+                           "3xtf32": bound["3xtf32"]["operations_ms"]},
+    }
+
+
+def phase_fused_kernel(ratings, dev: torch.device) -> dict:
+    from pio_tpu_torch.ops import als
+
+    p = train_params()
+    u, i, v = als._prep_coo(*ratings, N_USERS, N_ITEMS, p, dev)
+    by_user, by_item, cs = als._build_layouts(u, i, v, N_USERS, N_ITEMS, p)
+    del u, i, v
+    users0, items0 = als._init_or(None, N_USERS, N_ITEMS, p, dev)
+    result = {
+        "users_half": _fused_case(by_user, items0, N_USERS, cs, p),
+        # item 1 holds 3.6M ratings: its slots span hundreds of tiles,
+        # whose partials the fold adds one after another
+        "items_half": _fused_case(by_item, users0, N_ITEMS, cs, p),
+        "tolerance": {"rtol_of_row_max_vs_f64": FLUSH_RTOL},
+    }
+    emit("fused_kernel", **result)
+    return result
+
+
+# -- phase 10: ALS training with the fused accumulation -------------------------
+
+def phase_train_fused(ratings, dev: torch.device) -> dict:
+    from pio_tpu_torch.ops import als
+
+    p = train_params(accum="pallas")
+    if p.resolved_accum(dev) != "pallas" or p.resolved_packed(dev):
+        raise AssertionError(f"fused config resolved to "
+                             f"{p.resolved_accum(dev)}, packed "
+                             f"{p.resolved_packed(dev)}")
+    assert_f32_matmul()
+    # one launch per half per sweep: K1 takes the whole layout
+    want = {"normal_equations_fused": 2 * p.iterations}
+
+    als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+    torch.cuda.synchronize()
+    # -- the main path: counts from 0, read right after ------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    model = als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    # ---------------------------------------------------------------------
+    assert_f32_matmul()
+    for name, f, n in (("users", model.user_factors, N_USERS),
+                       ("items", model.item_factors, N_ITEMS)):
+        if f.shape != (n, RANK) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{name} factors {tuple(f.shape)} not "
+                                 f"finite of shape ({n}, {RANK})")
+    if launches != {**dict.fromkeys(launches, 0), **want}:
+        raise AssertionError(f"launches {launches}; the layout predicts "
+                             f"{want} and no other kernel")
+    del model
+
+    u, i, v = als._prep_coo(*ratings, N_USERS, N_ITEMS, p, dev)
+    by_user, by_item, cs = als._build_layouts(u, i, v, N_USERS, N_ITEMS, p)
+    del u, i, v
+    init = als._init_or(None, N_USERS, N_ITEMS, p, dev)
+    cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
+    n_full, _, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
+    sweep_s, warm, cold = time_sweeps(by_user, by_item, cs, p, init)
+    agree = halves_vs_hybrid(by_user, by_item, cs, init, cg_u, cg_i, p,
+                             "fused")
+    assert_f32_matmul()
+    result = {
+        "nnz": NNZ, "users": N_USERS, "items": N_ITEMS, "rank": RANK,
+        "iterations": ITERS, "cg_iters": [cg_u, cg_i],
+        "cg_warm": [w_u, w_i, n_full], "accum": p.resolved_accum(dev),
+        "packed": p.resolved_packed(dev), "tf32": False,
+        "train_s": train_s, "ratings_per_s": NNZ * ITERS / train_s,
+        "sweep_s": sweep_s,
+        "sweeps_ratings_per_s": NNZ * ITERS / sum(sweep_s),
+        "launches": launches, "launches_expected": want,
+        "profile_warm_sweep": warm, "profile_cold_sweep": cold,
+        "fused_vs_hybrid": agree,
+        "tolerance": {"users_rel_norm": USERS_RTOL_NORM,
+                      "users_rel_max": USERS_RTOL_MAX,
+                      "items_f64_ratio": HALF_F64_RATIO,
+                      "items_f64_floor": HALF_F64_FLOOR},
+    }
+    emit("train_fused", **result)
+    return result
+
+
+# -- phase 11: the train entry point, then deploy -----------------------------
 
 def write_events(storage, app_name: str) -> tuple[int, int]:
     """Seeded rate (80 %, rating 1..5) and buy events: every user and
@@ -1360,6 +1562,8 @@ def main() -> int:
     train = timed("train", phase_train, ratings, dev)
     stream = timed("stream_kernels", phase_stream_kernels, ratings, dev)
     tstream = timed("train_stream", phase_train_stream, ratings, dev)
+    fused = timed("fused_kernel", phase_fused_kernel, ratings, dev)
+    tfused = timed("train_fused", phase_train_fused, ratings, dev)
     del ratings
     entry = timed("train_entry", phase_train_entry, dev)
     emit("wall", seconds=wall, total_s=sum(wall.values()))
@@ -1420,6 +1624,21 @@ def main() -> int:
             variants={v: {**users_half["cases"][v],
                           "launches": resident[f"pallas-{v}"]}
                       for v in ("copy", "take")}),
+        _kernel_entry(
+            # the main path: als_train with accum="pallas"; the headline
+            # numbers are the users half's
+            "normal_equations_fused", src + "segment_flush.cu",
+            "pio_tpu/ops/als_pallas.py:369",
+            tfused["launches"]["normal_equations_fused"],
+            fused["users_half"],
+            library_is=fused["users_half"]["library_is"],
+            bound_3xtf32_ms=fused["users_half"]["bound_3xtf32_ms"],
+            shape={k: fused["users_half"][k]
+                   for k in ("S", "S_real", "nnz", "n_self", "k", "W",
+                             "src")},
+            items_half={k: fused["items_half"][k]
+                        for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "max_abs_err")}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

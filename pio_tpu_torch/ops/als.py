@@ -22,8 +22,12 @@ Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
  * the blocks are summed into each row's system, A (n,k,k) and b (n,k),
    by ``accum``: ``"carry"``/``"stacked"`` with ``index_add_``,
    ``"hybrid"`` with the segment-flush kernel (K2), or ``"stream"`` with
-   the overlapped flush (K3), both in ``ops/kernels/segment_flush``;
-   ``packed_a=True`` has K3 return A lane-packed, (n,k²);
+   the overlapped flush (K3); ``packed_a=True`` has K3 return A
+   lane-packed, (n,k²). ``"pallas"`` skips the blocks: the fused kernel
+   (K1) gathers, weighs, multiplies and flushes in one pass, takes no
+   ``gather``, ``packed_a`` or ``group_slots`` and returns (n,k,k) at every
+   rank, as the reference's does. All three kernels are in
+   ``ops/kernels/segment_flush``;
  * each side is solved by warm-started Jacobi-CG or a batched Cholesky;
    on packed A, CG's matvec is the packed matvec kernel (K6,
    ``ops/kernels/packed_matvec``).
@@ -31,8 +35,8 @@ Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
 ``accum="auto"`` is ``"hybrid"`` on a CUDA device and ``"carry"`` on the
 CPU: the port takes the card for the reference's accelerator, whose auto
 mode is hybrid; ``gather="auto"`` is "xla" everywhere, as in the
-reference. Only ``accum="pallas"`` (the fused kernel K1, not ported yet)
-raises ``NotImplementedError``; no mode runs another in its place. JAX's
+reference. Every accum and gather mode of the reference runs, and no mode
+runs another in its place. JAX's
 ``jit``/``scan`` become plain Python loops over eagerly launched torch ops;
 the threefry init becomes a seeded ``torch.Generator`` (the two give
 different numbers; tests pass ``init=``).
@@ -55,17 +59,11 @@ from pio_tpu_torch.ops.kernels.gather_rows import (
 )
 from pio_tpu_torch.ops.kernels.packed_matvec import packed_block_matvec
 from pio_tpu_torch.ops.kernels.segment_flush import (
+    normal_equations_fused,
     segment_flush,
     segment_flush_stream,
 )
 from pio_tpu_torch.workflow.context import resolve_device
-
-
-def _check_ported(accum: str) -> None:
-    if accum == "pallas":
-        raise NotImplementedError(
-            "accum='pallas' needs the fused normal-equation kernel (K1), "
-            "not ported yet; every other accum mode runs")
 
 
 @dataclass(frozen=True)
@@ -104,7 +102,6 @@ class ALSParams:
             raise ValueError(
                 f"ALSParams.accum={self.accum!r}; "
                 f"expected one of {self._ACCUM_MODES}")
-        _check_ported(self.accum)
 
     def resolved_cg_iters(self, n_self: int | None = None) -> int:
         """-1 (default) = auto, per factor side: exact Cholesky (0) for
@@ -122,7 +119,8 @@ class ALSParams:
         stream (only the streaming flush writes packed rows), and hybrid
         and stream fall back to stacked above rank 256 (the reference's
         limit for the flush kernels; keep in sync with
-        _normal_equations)."""
+        _normal_equations). "pallas" stays itself at every rank and with
+        packed_a."""
         mode = self.accum
         if mode == "auto":
             mode = "hybrid" if _accelerator_backend(device) else "carry"
@@ -290,15 +288,15 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
     "hybrid" builds the same groups and flushes each with the segment
     flush kernel, which writes each finished row once and folds a row
     that runs across tiles and groups in slot order; "stream" does the
-    same through the overlapped flush (bit-identical sums). Pad slots
-    carry the sentinel row n_self: the index_add_ paths drop them into
-    one spare row, the flush stops at them.
+    same through the overlapped flush (bit-identical sums); "pallas"
+    runs the fused kernel on the layout itself, with no blocks, groups or
+    gather. Pad slots carry the sentinel row n_self: the index_add_ paths
+    drop them into one spare row, the kernels stop at them.
 
     packed=True asks for A lane-packed, (n_self, k²): hybrid is promoted
     to stream, the only flush that writes it, and the other paths return
     (n,k,k) all the same (callers tell the form by A.ndim, see
     _solve_factors)."""
-    _check_ported(accum)
     rows, idx, val, lens = layout
     k = other_factors.shape[1]
     S = idx.shape[0]
@@ -313,6 +311,11 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
     if S % chunk_slots:
         raise ValueError(f"{S} slots is not a multiple of chunk_slots "
                          f"{chunk_slots}")
+    if accum == "pallas":
+        # the fused kernel sizes its own work: it takes the whole layout and
+        # gives (n,k,k) whatever packed, gather or the rank ask
+        return normal_equations_fused(rows, idx, val, lens, src, n_self,
+                                      implicit, alpha)
     if packed and accum == "hybrid":
         accum = "stream"
     if accum in ("hybrid", "stream") and k > 256:

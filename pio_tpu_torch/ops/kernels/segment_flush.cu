@@ -50,6 +50,49 @@
 // pointer is not aligned, K3 stores rows as K2 does. A packed A, (n, k*k),
 // is the same bytes as (n, k, k) here (the port never pads lanes), so
 // packing is the output's shape, not a kernel of its own.
+//
+// K1, the fused normal equations (`pio_normal_equations_fused`), replaces
+// the Pallas TPU kernel `_segment_kernel` with `_ne_slot_fn` (same file,
+// reached from `normal_equations_pallas`, ALS accum="pallas"). It takes the
+// slot layout itself, not precomputed blocks: rows (S,) sorted with pad
+// slots at row n_self, idx/val (S, W), lens (S,), and the opposing factors
+// Y (n_other, k) in f32 or bf16. For every row r,
+//
+//   A[r] = sum over its slots s and entries w < lens[s] of
+//          w_outer[s,w] * y[idx[s,w]] (x) y[idx[s,w]]
+//   b[r] = the same sum of w_rhs[s,w] * y[idx[s,w]]
+//
+// with w_outer, w_rhs = alpha*v, 1 + alpha*v (implicit) or 1, v (explicit).
+// It gathers, weighs, multiplies and flushes in one pass: the gathered rows
+// and the per-slot blocks never reach device memory.
+//
+// Bound: operations. At the ML-20M users half (20.0 M ratings, k = 64) the
+// function needs, per entry, the k(k+1)/2 products of A's upper triangle (A
+// is symmetric) and the k of b: (k(k+1) + 2k)*nnz = 8.58e10 flop, 1.28 ms
+// at the f32 FMA rate (67 TFLOP/s), 0.52 ms as 3xTF32 on the tensor cores;
+// writing A is 2.27 GB, 0.74 ms at 3.35 TB/s. K1 computes the whole k x k
+// block, twice the products. They run as f32 FMAs on the CUDA cores (no
+// single-pass TF32 or bf16 MMA: that loses ~3e-3 relative on A, which the
+// CG solve cannot recover).
+//
+// Layout. K2's tiles: a CTA takes K2's tile of kTile consecutive slots and
+// one kBlk x kBlk block of A (grid.y walks the blocks); 256 threads each sum
+// a 4 x 4 micro-tile of the block in registers, and in the blocks of the
+// first block column a ninth warp sums the matching 64 entries of b. The
+// tile's entries are one stream, slot after slot (entries at or past
+// lens[s] are not in it), which the CTA stages kEnt at a time whatever
+// slots they come from, so a short slot costs no round trip of its own:
+// each entry's index, weights and row, with the next step's already loaded
+// into registers, then the kBlk columns of its row of Y on the block's row
+// side and (weighted) on its column side, as f32 in shared memory. A staged
+// entry then costs a thread two float4 reads for 16 FMAs. Each step is
+// summed apart and then added to the open row, so no f32 sum runs over more
+// than kEnt products. Rows leave as in K2: a row that starts in the tile is
+// written (`=`), the tile's head segment goes to the per-tile partial, and
+// K2's fold kernel adds the partials in tile order; no float atomics, so two
+// runs are bit-identical. Callers pass A and b zeroed (rows with no entry
+// are never written, and tile 0's head is folded onto its row). A CTA stops
+// at its first pad slot.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -257,23 +300,14 @@ __device__ void flush_tile_staged(const Chunk& c, const int32_t* rows_s,
     }
 }
 
-// Grid (n_tiles, ya + yb): tile of kTile slots x column chunk. STAGED (K3)
-// writes rows through flush_tile_staged where the chunk moves as float4, and
-// as K2 elsewhere.
-template <bool STAGED>
-__global__ void __launch_bounds__(kThreads)
-segment_flush_kernel(const int32_t* __restrict__ rows,
-                     const float* __restrict__ a_blk,
-                     const float* __restrict__ b_blk,
-                     float* __restrict__ A, float* __restrict__ b,
-                     int32_t* __restrict__ part_row,
-                     float* __restrict__ part_a, float* __restrict__ part_b,
-                     int S, int n_self, int Da, int Db, int ya,
-                     int vec_a, int vec_b) {
-    __shared__ int32_t rows_s[kTile];
+// Loads the row ids of tile `tile` into rows_s and returns how many of its
+// slots are real. Sets *head_is_partial when the tile's first row continues
+// from before it, and the CTA of grid row 0 records that row in part_row
+// (-1 when not). Every thread of the CTA calls it.
+__device__ int load_tile_rows(const int32_t* rows, int S, int n_self,
+                              int tile, int32_t* rows_s, int32_t* part_row,
+                              bool* head_is_partial) {
     __shared__ int n_real_s;
-    __shared__ __align__(128) float stage[STAGED ? 2 * kCols : 4];
-    const int tile = blockIdx.x;
     const size_t s_begin = static_cast<size_t>(tile) * kTile;
     const int n = min(kTile, static_cast<int>(S - s_begin));
     if (threadIdx.x < n) {
@@ -290,13 +324,36 @@ segment_flush_kernel(const int32_t* __restrict__ rows,
     }
     __syncthreads();
     const int n_real = n_real_s;
-    // the tile's first row continues from before it: from the slot before
-    // the tile, or, in tile 0, possibly from an earlier call
-    const bool head_is_partial =
+    // from the slot before the tile, or, in tile 0, possibly from an
+    // earlier call
+    *head_is_partial =
         n_real > 0 && (tile == 0 || rows[s_begin - 1] == rows_s[0]);
     if (blockIdx.y == 0 && threadIdx.x == 0) {
-        part_row[tile] = head_is_partial ? rows_s[0] : -1;
+        part_row[tile] = *head_is_partial ? rows_s[0] : -1;
     }
+    return n_real;
+}
+
+// Grid (n_tiles, ya + yb): tile of kTile slots x column chunk. STAGED (K3)
+// writes rows through flush_tile_staged where the chunk moves as float4, and
+// as K2 elsewhere.
+template <bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+segment_flush_kernel(const int32_t* __restrict__ rows,
+                     const float* __restrict__ a_blk,
+                     const float* __restrict__ b_blk,
+                     float* __restrict__ A, float* __restrict__ b,
+                     int32_t* __restrict__ part_row,
+                     float* __restrict__ part_a, float* __restrict__ part_b,
+                     int S, int n_self, int Da, int Db, int ya,
+                     int vec_a, int vec_b) {
+    __shared__ int32_t rows_s[kTile];
+    __shared__ __align__(128) float stage[STAGED ? 2 * kCols : 4];
+    const int tile = blockIdx.x;
+    const size_t s_begin = static_cast<size_t>(tile) * kTile;
+    bool head_is_partial;
+    const int n_real = load_tile_rows(rows, S, n_self, tile, rows_s, part_row,
+                                      &head_is_partial);
     if (n_real == 0) {
         return;
     }
@@ -393,6 +450,324 @@ int launch_flush(const int32_t* rows, const float* a_blk, const float* b_blk,
     return static_cast<int>(cudaGetLastError());
 }
 
+// -- K1: the fused normal equations -----------------------------------------
+
+constexpr int kBlk = 64;                     // a CTA's block of A: kBlk^2
+constexpr int kMicro = 4;                    // a thread's micro-tile: 4 x 4
+constexpr int kSide = kBlk / kMicro;         // threads along a block's side
+constexpr int kBlockThreads = kSide * kSide;
+constexpr int kNeThreads = kBlockThreads + 32;   // + the warp that sums b
+constexpr int kEnt = 64;                     // entries staged at a time
+// A step's new-row mask is two warps' ballots read as one 64-bit word. With
+// fewer entries its high word would not be written each step, and a stale
+// bit there could end a run past the staged entries: a row id read out of
+// bounds, then a store of A to that row.
+static_assert(kEnt == 64, "a step's new-row mask is one 64-bit word");
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+__device__ __forceinline__ float to_f32(uint16_t bf16_bits) {
+    return __uint_as_float(static_cast<uint32_t>(bf16_bits) << 16);
+}
+
+// The reference's weights, rounded as it rounds them: __fmul_rn keeps nvcc
+// from contracting 1 + alpha*v into one FMA.
+__device__ __forceinline__ float weight_outer(float v, int implicit,
+                                              float alpha) {
+    return implicit ? __fmul_rn(alpha, v) : 1.0f;
+}
+
+__device__ __forceinline__ float weight_rhs(float v, int implicit,
+                                            float alpha) {
+    return implicit ? __fadd_rn(1.0f, __fmul_rn(alpha, v)) : v;
+}
+
+// T: float, or uint16_t holding bf16 bits.
+template <typename T>
+struct NeArgs {
+    const int32_t* rows;
+    const int32_t* idx;
+    const float* val;
+    const int32_t* lens;
+    const T* src;
+    float* A;
+    float* b;
+    int32_t* part_row;
+    float* part_a;
+    float* part_b;
+    int S, W, n_self, k;
+    int n_blk;          // blocks of A along a side
+    int implicit;
+    float alpha;
+};
+
+// The tile's entries form one stream: slot by slot, entries [0, lens[s]).
+// Entry g lies in the last slot whose first entry is at or before it
+// (empty slots share their start with the next slot).
+__device__ __forceinline__ int slot_of(const int32_t* start_s, int n, int g) {
+    int lo = 0;
+    int hi = n - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (start_s[mid] <= g) {
+            lo = mid;
+        } else {
+            hi = mid - 1;
+        }
+    }
+    return lo;
+}
+
+using Micro = float[kMicro][kMicro];
+
+// acc += blk; blk = 0
+__device__ __forceinline__ void add_into(Micro& acc, Micro& blk) {
+#pragma unroll
+    for (int x = 0; x < kMicro; ++x) {
+#pragma unroll
+        for (int y = 0; y < kMicro; ++y) {
+            acc[x][y] += blk[x][y];
+            blk[x][y] = 0.f;
+        }
+    }
+}
+
+__device__ __forceinline__ void zero(Micro& acc) {
+#pragma unroll
+    for (int x = 0; x < kMicro; ++x) {
+#pragma unroll
+        for (int y = 0; y < kMicro; ++y) {
+            acc[x][y] = 0.f;
+        }
+    }
+}
+
+// Rows i..i+3, columns j..j+3 of the (k, k) row block at dst.
+__device__ __forceinline__ void store_micro(float* dst, int k, int i, int j,
+                                            const Micro& v, bool vec) {
+    if (j >= k) {
+        return;
+    }
+#pragma unroll
+    for (int x = 0; x < kMicro; ++x) {
+        if (i + x < k) {
+            float* row = dst + static_cast<size_t>(i + x) * k + j;
+            if (vec) {
+                *reinterpret_cast<float4*>(row) =
+                    make_float4(v[x][0], v[x][1], v[x][2], v[x][3]);
+            } else {
+#pragma unroll
+                for (int y = 0; y < kMicro; ++y) {
+                    if (j + y < k) {
+                        row[y] = v[x][y];
+                    }
+                }
+            }
+        }
+    }
+}
+
+// Grid (n_tiles, n_blk * n_blk): tile of kTile slots x block (ib, jb) of A.
+// Threads [0, kBlockThreads) sum the block's 4 x 4 micro-tiles; in the CTAs
+// with jb == 0, lanes [0, kSide) of the last warp sum b's entries
+// [ib * kBlk, (ib + 1) * kBlk) from the same staged rows, in the same
+// registers. Each step stages kEnt entries of the tile's stream, whatever
+// slots they belong to, with the next step's indices and values already in
+// flight, and walks them in runs of one row (a bit mask of the entries
+// where a new row starts), so the FMA loop has no branch. Every thread sums
+// a step's run in `blk` before adding it to the open row's `acc`, so no f32
+// sum runs over more than kEnt products.
+template <typename T>
+__global__ void __launch_bounds__(kNeThreads, 3)
+normal_equations_kernel(const NeArgs<T> p) {
+    __shared__ int32_t rows_s[kTile];
+    __shared__ int32_t start_s[kTile];
+    __shared__ int total_s;
+    __shared__ int32_t id_s[kEnt];
+    __shared__ int32_t row_s[kEnt];      // the row of each staged entry
+    __shared__ uint32_t new_row_s[kEnt / 32];   // bit e: row_s[e] starts a row
+    __shared__ float wo_s[kEnt];
+    __shared__ float wr_s[kEnt];
+    __shared__ __align__(16) float yi_s[kEnt][kBlk];   // y, the block's rows
+    __shared__ __align__(16) float yj_s[kEnt][kBlk];   // w_outer * y, columns
+    const int tile = blockIdx.x;
+    const size_t s_begin = static_cast<size_t>(tile) * kTile;
+    bool head_is_partial;
+    const int n_real = load_tile_rows(p.rows, p.S, p.n_self, tile, rows_s,
+                                      p.part_row, &head_is_partial);
+    if (n_real == 0) {
+        return;
+    }
+    if (threadIdx.x < n_real) {
+        start_s[threadIdx.x] = max(0, min(p.lens[s_begin + threadIdx.x],
+                                          p.W));
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {                 // lens -> first entry of each slot
+        int sum = 0;
+        for (int s = 0; s < n_real; ++s) {
+            const int len = start_s[s];
+            start_s[s] = sum;
+            sum += len;
+        }
+        total_s = sum;
+    }
+    __syncthreads();
+    const int total = total_s;
+
+    const int ib = blockIdx.y / p.n_blk;
+    const int jb = blockIdx.y % p.n_blk;
+    const int i0 = ib * kBlk;
+    const int j0 = jb * kBlk;
+    const bool block_thread = threadIdx.x < kBlockThreads;
+    const int lane = threadIdx.x - kBlockThreads;
+    const bool rhs_thread = !block_thread && jb == 0 && lane < kSide;
+    const int ti = block_thread ? threadIdx.x / kSide : lane;
+    const int tj = block_thread ? threadIdx.x % kSide : 0;
+    const size_t k2 = static_cast<size_t>(p.k) * p.k;
+
+    // one staged entry, fetched into registers a step ahead
+    int32_t id_r = 0;
+    int32_t row_r = 0;
+    float v_r = 0.f;
+    auto fetch = [&](int g) {
+        const int s = slot_of(start_s, n_real, g);
+        const size_t off = (s_begin + s) * p.W + (g - start_s[s]);
+        id_r = p.idx[off];
+        v_r = p.val[off];
+        row_r = rows_s[s];
+    };
+    if (threadIdx.x < min(kEnt, total)) {
+        fetch(threadIdx.x);
+    }
+
+    // block threads: the micro-tile; rhs threads: b in row 0
+    Micro acc = {};
+    Micro blk = {};
+    int cur = rows_s[0];
+    bool partial = head_is_partial;
+    auto flush = [&]() {
+        add_into(acc, blk);
+        if (block_thread) {
+            float* dst = partial ? p.part_a + tile * k2 : p.A + cur * k2;
+            store_micro(dst, p.k, i0 + ti * kMicro, j0 + tj * kMicro, acc,
+                        p.k % 4 == 0);
+        } else if (rhs_thread) {
+            float* dst = partial ? p.part_b + static_cast<size_t>(tile) * p.k
+                                 : p.b + static_cast<size_t>(cur) * p.k;
+            const int j = i0 + ti * kMicro;
+#pragma unroll
+            for (int y = 0; y < kMicro; ++y) {
+                if (j + y < p.k) {
+                    dst[j + y] = acc[0][y];
+                }
+            }
+        }
+        zero(acc);
+    };
+
+    for (int e0 = 0; e0 < total; e0 += kEnt) {
+        const int ne = min(kEnt, total - e0);
+        __syncthreads();                    // the step before read the stage
+        if (threadIdx.x < ne) {
+            id_s[threadIdx.x] = id_r;
+            row_s[threadIdx.x] = row_r;
+            wo_s[threadIdx.x] = weight_outer(v_r, p.implicit, p.alpha);
+            wr_s[threadIdx.x] = weight_rhs(v_r, p.implicit, p.alpha);
+        }
+        __syncthreads();
+        if (threadIdx.x < kEnt) {
+            const int t = threadIdx.x;
+            const uint32_t starts = __ballot_sync(
+                0xffffffffu, t > 0 && t < ne && row_s[t] != row_s[t - 1]);
+            if (t % 32 == 0) {
+                new_row_s[t / 32] = starts;
+            }
+            if (e0 + kEnt + t < total) {
+                fetch(e0 + kEnt + t);
+            }
+        }
+        for (int t = threadIdx.x; t < ne * kBlk; t += kNeThreads) {
+            const int e = t / kBlk;
+            const int c = t % kBlk;
+            const T* y = p.src + static_cast<size_t>(id_s[e]) * p.k;
+            const float yi = i0 + c < p.k ? to_f32(y[i0 + c]) : 0.f;
+            const float yj = ib == jb ? yi
+                : (j0 + c < p.k ? to_f32(y[j0 + c]) : 0.f);
+            yi_s[e][c] = yi;
+            yj_s[e][c] = __fmul_rn(yj, wo_s[e]);
+        }
+        __syncthreads();
+        if (!block_thread && !rhs_thread) {
+            continue;
+        }
+        const uint64_t starts = (static_cast<uint64_t>(new_row_s[1]) << 32)
+                                | new_row_s[0];
+        for (int e = 0; e < ne;) {
+            const uint64_t later = e + 1 < 64 ? starts >> (e + 1) : 0;
+            const int end = later ? e + __ffsll(later) : ne;
+            if (row_s[e] != cur) {
+                flush();
+                cur = row_s[e];
+                partial = false;
+            }
+            if (block_thread) {
+#pragma unroll 4
+                for (; e < end; ++e) {
+                    const float4 a = *reinterpret_cast<const float4*>(
+                        &yi_s[e][ti * kMicro]);
+                    const float4 c = *reinterpret_cast<const float4*>(
+                        &yj_s[e][tj * kMicro]);
+                    const float av[kMicro] = {a.x, a.y, a.z, a.w};
+                    const float cv[kMicro] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+                    for (int x = 0; x < kMicro; ++x) {
+#pragma unroll
+                        for (int y = 0; y < kMicro; ++y) {
+                            blk[x][y] = fmaf(av[x], cv[y], blk[x][y]);
+                        }
+                    }
+                }
+            } else {
+#pragma unroll 4
+                for (; e < end; ++e) {
+                    const float4 a = *reinterpret_cast<const float4*>(
+                        &yi_s[e][ti * kMicro]);
+                    const float w = wr_s[e];
+                    blk[0][0] = fmaf(a.x, w, blk[0][0]);
+                    blk[0][1] = fmaf(a.y, w, blk[0][1]);
+                    blk[0][2] = fmaf(a.z, w, blk[0][2]);
+                    blk[0][3] = fmaf(a.w, w, blk[0][3]);
+                }
+            }
+            add_into(acc, blk);
+        }
+    }
+    flush();
+}
+
+// A, b and the partials are the wrapper's own allocations, so their rows
+// move as float4 wherever the row length is a multiple of 4.
+template <typename T>
+int launch_fused(const NeArgs<T>& p, void* stream) {
+    const int n_tiles = (p.S + kTile - 1) / kTile;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    normal_equations_kernel<T>
+        <<<dim3(n_tiles, p.n_blk * p.n_blk), kNeThreads, 0, st>>>(p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) {
+        return static_cast<int>(err);
+    }
+    // K2's fold, over K2's column chunks of the same partials
+    const int Da = p.k * p.k;
+    const int ya = (Da + kCols - 1) / kCols;
+    const int yb = (p.k + kCols - 1) / kCols;
+    segment_fold_kernel<<<dim3(n_tiles, ya + yb), kThreads, 0, st>>>(
+        p.part_row, p.part_a, p.part_b, p.A, p.b, n_tiles, Da, p.k, ya,
+        Da % 4 == 0, p.k % 4 == 0);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int pio_segment_flush_tile() { return kTile; }
@@ -425,6 +800,30 @@ extern "C" int pio_segment_flush_stream(
         void* stream) {
     return launch_flush<true>(rows, a_blk, b_blk, A, b, part_row, part_a,
                               part_b, S, n_self, k, vec_a, vec_b, stream);
+}
+
+// K1, accum="pallas". rows (S,), idx (S, W) int32, val (S, W) f32, lens (S,)
+// int32; src (n_other, k) f32, or bf16 when src_bf16; A (n_self, k*k) and
+// b (n_self, k) zeroed; scratch as for K2. The wrapper checks the shapes
+// and 1 <= k <= 1024 (its MAX_K_FUSED).
+extern "C" int pio_normal_equations_fused(
+        const int32_t* rows, const int32_t* idx, const float* val,
+        const int32_t* lens, const void* src, float* A, float* b,
+        int32_t* part_row, float* part_a, float* part_b, int S, int W,
+        int n_self, int k, int src_bf16, int implicit, float alpha,
+        void* stream) {
+    const int n_blk = (k + kBlk - 1) / kBlk;
+    if (src_bf16) {
+        const NeArgs<uint16_t> p{rows, idx, val, lens,
+                                 static_cast<const uint16_t*>(src), A, b,
+                                 part_row, part_a, part_b, S, W, n_self, k,
+                                 n_blk, implicit, alpha};
+        return launch_fused(p, stream);
+    }
+    const NeArgs<float> p{rows, idx, val, lens, static_cast<const float*>(src),
+                          A, b, part_row, part_a, part_b, S, W, n_self, k,
+                          n_blk, implicit, alpha};
+    return launch_fused(p, stream);
 }
 
 extern "C" const char* pio_cuda_error_string(int code) {

@@ -267,9 +267,24 @@ def test_resolved_accum_and_packed_match_reference(accum, packed, rank):
 
 
 def test_pallas_accum_still_raises():
-    ref.ALSParams(accum="pallas")
-    with pytest.raises(NotImplementedError, match="K1"):
-        port.ALSParams(accum="pallas")
+    """accum="pallas" with the streaming configuration's packed_a and
+    gather="stream": the fused path (K1) ignores both, as the reference's
+    does, and gives the reference's unpacked A."""
+    kw = dict(accum="pallas", gather="stream", packed_a=True)
+    p, r = port.ALSParams(**kw), ref.ALSParams(**kw)
+    assert p.resolved_accum("cuda") == p.resolved_accum("cpu") == \
+        r.resolved_accum() == "pallas"
+    assert not p.resolved_packed("cuda") and not r.resolved_packed()
+    lay_r, lay_p, fac, _ = _zipf_layout(seed=12, nu=40, nnz=900, k=8)
+    opts = dict(accum="pallas", gather="stream", packed=True,
+                group_slots=128, bf16_gather=False)
+    A_r, b_r = ref._normal_equations(lay_r, jnp.asarray(fac), 40, True, 5.0,
+                                     64, **opts)
+    A_p, b_p = port._normal_equations(lay_p, torch.from_numpy(fac), 40,
+                                      True, 5.0, 64, **opts)
+    assert A_p.shape == (40, 8, 8)
+    assert _relerr(A_p, A_r) < RTOL_KERNEL
+    assert _relerr(b_p, b_r) < RTOL_KERNEL
 
 
 # -- the solve on packed A ----------------------------------------------------------

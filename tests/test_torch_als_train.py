@@ -67,15 +67,10 @@ def test_params_reject_unknown_modes_like_reference(kw):
     {"gather": "stream"},
 ])
 def test_unported_modes_raise_not_run_another(kw):
-    """Every mode the reference takes: accum="pallas", whose kernel (K1)
-    is not ported, raises; each other one resolves as the reference
-    resolves it and trains like it from a shared init. No mode runs
-    another in its place."""
+    """Every mode the reference takes, the fused accum="pallas" (K1)
+    included, resolves as the reference resolves it and trains like it
+    from a shared init. No mode runs another in its place."""
     r = ref.ALSParams(**kw)    # the reference takes them
-    if kw.get("accum") == "pallas":
-        with pytest.raises(NotImplementedError, match="ported"):
-            port.ALSParams(**kw)
-        return
     p = port.ALSParams(**kw)
     assert p.resolved_accum("cpu") == r.resolved_accum()
     assert p.resolved_packed("cpu") == r.resolved_packed()
@@ -225,15 +220,11 @@ def test_normal_equations_modes_agree_within_port():
 @pytest.mark.parametrize("kw", [{"accum": "pallas"}, {"accum": "stream"},
                                 {"packed": True}, {"gather": "stream"}])
 def test_normal_equations_refuse_unported_modes(kw):
-    """accum="pallas" (K1, not ported) raises; the modes of the streaming
-    configuration give the reference's A and b, in its shape."""
+    """The fused accum="pallas" (K1, the reference's kernel in interpret
+    mode) and the modes of the streaming configuration give the
+    reference's A and b, in its shape."""
     want_l, got_l = _layout(9)
     y = np.random.default_rng(20).standard_normal((25, 8)).astype(np.float32)
-    if kw.get("accum") == "pallas":
-        with pytest.raises(NotImplementedError):
-            port._normal_equations(got_l, torch.from_numpy(y), 30, False,
-                                   1.0, 16, **kw)
-        return
     opts = dict(bf16_gather=False, group_slots=32, **kw)
     A_r, b_r = ref._normal_equations(want_l, jnp.asarray(y), 30, False, 1.0,
                                      16, **opts)

@@ -1,6 +1,7 @@
 """The port's CUDA kernel wrappers, without JAX: the quantized scan (K7),
-the segment flush (K2) and its overlapped, packed form (K3), the row
-gathers (K5 stream, K4 resident copy/take) and the packed matvec (K6).
+the segment flush (K2) and its overlapped, packed form (K3), the fused
+normal equations (K1), the row gathers (K5 stream, K4 resident copy/take)
+and the packed matvec (K6).
 
 On the CPU a wrapper computes its kernel's plain version and launches
 nothing; it refuses inputs its kernel does not take. On a card the kernel
@@ -374,3 +375,170 @@ def test_matvec_kernel_matches_plain_version_on_card(k, n):
     assert pm.launches.value == before + 1
     _assert_matvec_close(got, a, x)
     _assert_matvec_close(pm.packed_block_matvec_reference(a, x), a, x)
+
+
+# -- the fused normal equations (K1) --------------------------------------------
+
+def _ne_args(s, w, k, n_self, seed, heavy=0, pad=0, dtype=torch.float32,
+             n_other=37, device="cpu"):
+    """A slot layout: sorted rows over [0, n_self) (the last two and
+    others empty, one row `heavy` slots long), `pad` sentinel slots at the
+    end, lens from 0 to w (pads 0), and valid indices and values past each
+    slot's lens too, which the kernel must not read and the plain version
+    masks."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(np.concatenate([rng.integers(0, n_self - 2,
+                                                s - pad - heavy),
+                                   np.full(heavy, n_self // 2)]))
+    rows = np.concatenate([rows, np.full(pad, n_self)]).astype(np.int32)
+    lens = rng.integers(1, w + 1, s).astype(np.int32)
+    lens[rng.random(s) < 0.3] = w
+    lens[rng.random(s) < 0.05] = 0      # empty slots, which K1 must skip
+    lens[s - pad:] = 0
+    idx = rng.integers(0, n_other, (s, w)).astype(np.int32)
+    val = rng.integers(1, 6, (s, w)).astype(np.float32)
+    src = (0.5 * rng.standard_normal((n_other, k))).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        rows, idx, val, lens)) + (torch.from_numpy(src).to(dtype).to(device),)
+
+
+def _ne_f64(args, n_self, implicit, alpha):
+    rows, idx, val, lens, src = args
+    return sf.normal_equations_fused_reference(rows, idx, val, lens,
+                                               src.double(), n_self,
+                                               implicit, alpha)
+
+
+def test_fused_wrapper_on_cpu_is_the_plain_version():
+    args = _ne_args(90, 8, 6, 12, seed=1, heavy=30, pad=7)
+    before = sf.launches_fused.value
+    A, b = sf.normal_equations_fused(*args, 12, True, 2.5)
+    assert sf.launches_fused.value == before
+    want = sf.normal_equations_fused_reference(*args, 12, True, 2.5)
+    assert torch.equal(A, want[0]) and torch.equal(b, want[1])
+    _assert_rows_close(A, _ne_f64(args, 12, True, 2.5)[0])
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_fused_plain_version_weighs_masks_and_drops_pads(implicit):
+    """Two slots of row 0 (the second one entry long), one pad slot."""
+    rows = torch.tensor([0, 0, 2], dtype=torch.int32)
+    idx = torch.tensor([[0, 1], [1, 0], [0, 1]], dtype=torch.int32)
+    val = torch.tensor([[2.0, 3.0], [4.0, 9.0], [5.0, 5.0]])
+    lens = torch.tensor([2, 1, 2], dtype=torch.int32)
+    src = torch.tensor([[1.0, 2.0], [3.0, -1.0]])
+    A, b = sf.normal_equations_fused_reference(rows, idx, val, lens, src, 2,
+                                               implicit, 0.5)
+    y = src[[0, 1, 1]]
+    v = torch.tensor([2.0, 3.0, 4.0])
+    wo, wr = (0.5 * v, 1 + 0.5 * v) if implicit else (torch.ones(3), v)
+    assert torch.allclose(A[0], (y.T * wo) @ y)
+    assert torch.allclose(b[0], y.T @ wr)
+    assert not A[1].any() and not b[1].any()
+
+
+@pytest.mark.parametrize("change, error", [
+    (lambda r, i, v, l, s: (r.long(), i, v, l, s), TypeError),
+    (lambda r, i, v, l, s: (r, i.long(), v, l, s), TypeError),
+    (lambda r, i, v, l, s: (r, i, v.double(), l, s), TypeError),
+    (lambda r, i, v, l, s: (r, i, v, l.long(), s), TypeError),
+    (lambda r, i, v, l, s: (r, i, v, l, s.half()), TypeError),
+    (lambda r, i, v, l, s: (r[:-1], i, v, l, s), ValueError),
+    (lambda r, i, v, l, s: (r, i, v[:, :-1], l, s), ValueError),
+    (lambda r, i, v, l, s: (r, i.t().contiguous().t(), v, l, s), ValueError),
+    (lambda r, i, v, l, s: (r, i[:, :0], v[:, :0], l, s), ValueError),
+    (lambda r, i, v, l, s: (r, i, v, l, torch.zeros(37, 1025)), ValueError),
+    (lambda r, i, v, l, s: (r, i, v, l, s[:, :0]), ValueError),
+])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fused_refuses_what_the_kernel_does_not_take(change, error, device):
+    """On the CPU and on the card alike: wrong types, shapes, strides,
+    W = 0, and k outside 1..MAX_K_FUSED (1025 here)."""
+    if device == "cuda":
+        _cuda()
+    args = change(*_ne_args(20, 4, 6, 9, seed=2, device=device))
+    before = sf.launches_fused.value
+    with pytest.raises(error):
+        sf.normal_equations_fused(*[a.to(device) for a in args], 9, True,
+                                  1.0)
+    assert sf.launches_fused.value == before
+
+
+@pytest.mark.parametrize("k", [5, 16, 64, 128, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w", [8, 128])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_fused_kernel_matches_plain_version_on_card(k, dtype, w, implicit):
+    """K1 against the plain version evaluated in f64, per row of A and b
+    relative to the row's largest magnitude (the flush tolerance: each
+    slot's block sums at most W products, then slots and tiles add as in
+    K2); two launches bit-identical."""
+    dev = _cuda()
+    s = 150 if k < 256 else 70
+    args = _ne_args(s, w, k, 23, seed=k + w, heavy=s // 3, pad=11,
+                    dtype=dtype, device=dev)
+    before = sf.launches_fused.value
+    A1, b1 = sf.normal_equations_fused(*args, 23, implicit, 2.5)
+    A2, b2 = sf.normal_equations_fused(*args, 23, implicit, 2.5)
+    torch.cuda.synchronize()
+    assert sf.launches_fused.value == before + 2
+    assert torch.equal(A1, A2) and torch.equal(b1, b2)
+    wa, wb = _ne_f64(args, 23, implicit, 2.5)
+    _assert_rows_close(A1, wa)
+    _assert_rows_close(b1, wb)
+    plain = sf.normal_equations_fused_reference(*args, 23, implicit, 2.5)
+    _assert_rows_close(plain[0], wa)
+
+
+@pytest.mark.parametrize("k", [5, 64, 128])
+def test_fused_kernel_heavy_row_odd_slots_pad_tail_on_card(k):
+    """One row 1,500 slots long (across 24 tiles of 64, folded in tile
+    order), an odd slot count and a pad tail; rows with no slot zero."""
+    dev = _cuda()
+    args = _ne_args(2001, 32, k, 40, seed=k, heavy=1500, pad=301,
+                    dtype=torch.bfloat16, device=dev)
+    A1, b1 = sf.normal_equations_fused(*args, 40, True, 10.0)
+    A2, b2 = sf.normal_equations_fused(*args, 40, True, 10.0)
+    torch.cuda.synchronize()
+    assert torch.equal(A1, A2) and torch.equal(b1, b2)
+    wa, wb = _ne_f64(args, 40, True, 10.0)
+    _assert_rows_close(A1, wa)
+    _assert_rows_close(b1, wb)
+    empty = sorted(set(range(40)) - set(args[0].tolist()))
+    assert empty and not A1[empty].any() and not b1[empty].any()
+
+
+def test_fused_fenced_launch_refuses_cpu_tensors():
+    args = _ne_args(20, 4, 6, 9, seed=2)
+    before = sf.launches_fused.value
+    with pytest.raises(ValueError, match="CUDA"):
+        sf.normal_equations_fused_fenced(*args, 9, True, 1.0)
+    assert sf.launches_fused.value == before
+
+
+@pytest.mark.parametrize("k", [5, 64, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w", [8, 128])
+def test_fused_kernel_stays_inside_its_buffers_on_card(k, dtype, w):
+    """K1 with every buffer fenced by poison and every entry past its
+    slot's lens poisoned: the fences hold, and A and b equal the unfenced
+    launch's bit for bit, so no read strayed (a memory check that needs no
+    sanitizer)."""
+    dev = _cuda()
+    args = _ne_args(1001, w, k, 40, seed=k + w, heavy=600, pad=101,
+                    dtype=dtype, device=dev)
+    A1, b1 = sf.normal_equations_fused(*args, 40, True, 10.0)
+    A2, b2, intact = sf.normal_equations_fused_fenced(*args, 40, True, 10.0)
+    torch.cuda.synchronize()
+    assert intact
+    assert torch.equal(A1, A2) and torch.equal(b1, b2)
+
+
+def test_fused_kernel_empty_layout_on_card():
+    dev = _cuda()
+    rows, idx, val, lens, src = _ne_args(10, 4, 8, 5, seed=3, device=dev)
+    before = sf.launches_fused.value
+    A, b = sf.normal_equations_fused(rows[:0], idx[:0], val[:0], lens[:0],
+                                     src, 5, True, 1.0)
+    assert sf.launches_fused.value == before
+    assert A.shape == (5, 8, 8) and not A.any() and not b.any()
