@@ -33,7 +33,20 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - train_entry: seeded rate/buy events for every user and item in sqlite,
   ``python -m pio_tpu_torch train`` (its ``main``, in process, so the
   launch counters can be read), then the trained instance deployed and
-  queried over HTTP.
+  queried over HTTP;
+- attention_kernel: the flash-attention kernel (K8) against its plain
+  version at the shapes the repository runs: the sequence template's
+  serving call, the serving call at ``eval/neural_throughput.py``'s
+  sequence widths, and that file's long-context cases (B 4, H 8, D 64,
+  causal, bf16, S 2048 to 32768), timed beside one
+  ``scaled_dot_product_attention`` call;
+- sequence_train: ``train_sequence_model`` at ``eval/neural_throughput
+  .py``'s sequence cell (8,192 sequences of 128, 20,000 items, embed
+  128), with ``attention="flash"`` (K8 forward) and ``"auto"``;
+- sequence_entry: the sequence template end to end at
+  ``examples/sequence/engine.json``'s widths: seeded view/buy events in
+  sqlite, ``python -m pio_tpu_torch train``, ``create_query_server``
+  answering over HTTP from live histories, K8 in every scored batch.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -63,6 +76,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 # the ALS cell of bench.py: MovieLens-20M shape, rank 64
@@ -111,6 +125,50 @@ HALF_F64_FLOOR = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12         # the scan's FMAs run on the f32 CUDA cores
 TF32_FLOPS = 495e12       # tensor cores; an f32-accurate product takes 3
+BF16_FLOPS = 989e12
+
+# flash attention (K8) vs its plain version. f32: f32 FMAs in another
+# order than the plain version in f64, within the reference's own bound
+# for its flash kernel (tests/test_attention.py: 2e-5). bf16: the output
+# is rounded to bf16 (8 significant bits, half an ulp = 2^-9 of it; 2^-8
+# allowed) against the plain version in f32 on the same bf16 inputs
+ATTN_F32_ATOL = 2e-5
+ATTN_BF16_RTOL = 2 ** -8
+ATTN_BF16_ATOL = 1e-5
+# (B, S, H, D, dtype, timing windows; None: gpu_ms's default) of each
+# case: the template's serving call (examples/sequence/engine.json:
+# max_len 64, embed 64, 2 heads), the serving call and a training step at
+# eval/neural_throughput.py's sequence widths (max_len 128, embed 128, 4
+# heads) and that file's long-context kernel cases
+ATTN_CASES = (
+    (1, 63, 2, 32, torch.float32, None),
+    (16, 63, 2, 32, torch.float32, None),
+    (1, 127, 4, 32, torch.float32, None),
+    (16, 127, 4, 32, torch.float32, None),
+    (256, 127, 4, 32, torch.float32, None),
+    (4, 2048, 8, 64, torch.bfloat16, 10),
+    (4, 8192, 8, 64, torch.bfloat16, 5),
+    (4, 32768, 8, 64, torch.bfloat16, 3),
+)
+# eval/neural_throughput.py's sequence cell, unchanged
+SEQ_TRAIN_DATA = dict(n_seqs=8_192, max_len=128, n_items=20_000)
+SEQ_TRAIN = dict(max_len=128, embed_dim=128, num_heads=4, num_layers=2,
+                 ffn_dim=256, batch_size=256, steps=120, seed=0)
+# final losses of attention "flash" and "auto" (the plain attention at
+# this length): the same init and batches, attention forwards that differ
+# by f32 rounding, carried through 120 Adam steps
+SEQ_LOSS_RTOL = 1e-3
+SEQ_FACTORY = "pio_tpu_torch.models.sequence.SequenceEngine"
+# examples/sequence/engine.json's widths; the app name turns on the
+# serve-time live history read
+SEQ_ALGO = {"max_len": 64, "embed_dim": 64, "num_heads": 2, "num_layers": 2,
+            "ffn_dim": 128, "steps": 300, "batch_size": 128,
+            "learning_rate": 0.001, "app_name": "ChipSeq"}
+SEQ_USERS, SEQ_ITEMS, SEQ_MAX_EVENTS = 2_000, 3_000, 64
+# served scores of the sequence model with K8 against the same model with
+# the plain attention: f32 rounding of the attention, carried through two
+# layers and the tied head
+SEQ_SCORE_RTOL = 1e-4
 
 # device-side sleep ahead of each timing window, long enough for the host
 # to queue the whole window (about 10 ms at H100 clocks)
@@ -125,6 +183,7 @@ def emit(phase: str, **fields) -> None:
 
 def counters() -> dict:
     """Every kernel's launch counter, by kernel name."""
+    from pio_tpu_torch.ops.kernels import flash_attention as k8
     from pio_tpu_torch.ops.kernels import gather_rows as gr
     from pio_tpu_torch.ops.kernels import packed_matvec as pm
     from pio_tpu_torch.ops.kernels import quantized_scan as qscan
@@ -135,7 +194,8 @@ def counters() -> dict:
             "normal_equations_fused": sf.launches_fused,
             "gather_rows_stream": gr.launches_stream,
             "gather_rows_resident": gr.launches_resident,
-            "packed_matvec": pm.launches}
+            "packed_matvec": pm.launches,
+            "flash_attention": k8.launches}
 
 
 def reset_counts() -> None:
@@ -362,19 +422,53 @@ def profile_queries(qs, queries: list) -> dict:
         for q in queries:
             qs.query(q)
     torch.cuda.synchronize()
-    per_kernel = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            per_kernel[e.key] = us / 1e3 / len(queries)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    device_ms = sum(per_kernel.values()) if per_kernel else None
+    device_ms, top = device_ms_by_kernel(prof, len(queries))
     return {
         "wall_ms_per_query": wall_ms,
         "device_ms_per_query": device_ms,
         "device_busy_share": (device_ms / wall_ms) if device_ms else None,
-        "top_kernels_ms_per_query": dict(top),
+        "top_kernels_ms_per_query": top,
     }
+
+
+def device_ms_by_kernel(prof, n: int) -> tuple:
+    """(device ms, the eight largest kernels' ms) per one of the ``n``
+    units a ``torch.profiler`` window covered."""
+    per_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            per_kernel[e.key] = us / 1e3 / n
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return (sum(per_kernel.values()) if per_kernel else None), dict(top)
+
+
+def tie_order_ab(port: int, qs, queries: list) -> dict:
+    """The serving top-k with ``torch.topk`` (no order among ties, as
+    before the tie-order repair) and with ``topk_lowest_index`` (the
+    reference's order), in turns on the same warm server: p50 of the
+    queries over HTTP and the in-process ms per query, each measured
+    twice. ``torch.topk`` is swapped in here for the measurement only."""
+    from pio_tpu_torch.ops import topk
+
+    ordered = topk.topk_lowest_index
+    out = {"torch_topk": [], "lowest_index": []}
+    for name in ("torch_topk", "lowest_index", "lowest_index",
+                 "torch_topk"):
+        if name == "torch_topk":
+            topk.topk_lowest_index = torch.topk
+        try:
+            lat = sorted(1e3 * _post(port, "/queries.json", q)[2]
+                         for q in queries)
+            t0 = time.perf_counter()
+            for q in queries:
+                qs.query(q)
+            inproc_ms = 1e3 * (time.perf_counter() - t0) / len(queries)
+        finally:
+            topk.topk_lowest_index = ordered
+        out[name].append({"p50_ms": statistics.median(lat),
+                          "in_process_ms_per_query": inproc_ms})
+    return out
 
 
 def phase_serve(users: np.ndarray, items: np.ndarray,
@@ -483,6 +577,7 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
                 server_status = json.loads(r.read())
             model = qs.models[0]
             inproc = profile_queries(qs, plain_q[:20])
+            tie_ab = tie_order_ab(port, qs, plain_q)
         finally:
             http.stop()
             qs.close()
@@ -543,7 +638,7 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
         "p90_ms": lat_ms[int(0.9 * (len(lat_ms) - 1))],
         "max_ms": lat_ms[-1], "batch_ms": 1e3 * batch_s,
         "first_query_s": first_s, "persist_s": persist_s, "load_s": load_s,
-        "in_process": inproc,
+        "in_process": inproc, "tie_order_ab": tie_ab,
     }
     emit("serve", **result)
     if recall < RECALL_FLOOR:
@@ -1528,6 +1623,396 @@ def phase_train_entry(dev: torch.device) -> dict:
     emit("train_entry", **result)
     return result
 
+# -- phase 12: the flash-attention kernel (K8) ---------------------------------
+
+def attn_bound(b: int, sq: int, sk: int, h: int, d: int, causal: bool,
+               dtype: torch.dtype) -> tuple[float, str, float]:
+    """Least time for one attention forward. Operations: the (q, k) pairs
+    the masks keep, 4*d flops each (q.k and p*v), at the card's rate for
+    the input type (f32 FMA for f32; dense bf16 for bf16). Bytes: q, k, v
+    read once, o written once. Returns (ms, what bounds it, and for f32
+    the operations at the 3xTF32 rate)."""
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk) * b * h
+    flops = 4.0 * d * pairs
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    t_ops = flops / rate * 1e3
+    t_3x = max(flops / (TF32_FLOPS / 3) * 1e3, t_bytes)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_3x
+    return t_ops, "operations", t_3x
+
+
+def _qkv_views(b: int, s: int, h: int, d: int, dtype: torch.dtype,
+               dev: torch.device, seed: int):
+    """q, k, v as the transformer block hands them to attention: views of
+    one (B, S, 3, H, D) projection."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device=dev).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def _attn_err(got, q, k, v, causal: bool) -> float:
+    """Max abs error of K8's output against the plain version (f64 for
+    f32 inputs, f32 for bf16), raising past the stated tolerance."""
+    from pio_tpu_torch.ops.kernels import flash_attention as k8
+
+    if got.dtype == torch.float32:
+        want = k8.flash_attention_reference(q.double(), k.double(),
+                                            v.double(), causal)
+        tol = torch.full_like(want, ATTN_F32_ATOL)
+    else:
+        want = k8.flash_attention_reference(q.float(), k.float(), v.float(),
+                                            causal).double()
+        tol = ATTN_BF16_RTOL * want.abs() + ATTN_BF16_ATOL
+    err = (got.double() - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        raise AssertionError(
+            f"flash_attention {tuple(q.shape)} {q.dtype} causal={causal}: "
+            f"max abs err {float(err.max())} past the tolerance")
+    return float(err.max())
+
+
+def phase_attention_kernel(dev: torch.device) -> dict:
+    from pio_tpu_torch.ops.kernels import flash_attention as k8
+
+    cases = []
+    for i, (b, s, h, d, dtype, reps) in enumerate(ATTN_CASES):
+        q, k, v = _qkv_views(b, s, h, d, dtype, dev, SEED + 10 + i)
+        got = k8.flash_attention(q, k, v, causal=True)
+        again = k8.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        identical = torch.equal(got, again)
+        del again
+        err = _attn_err(got, q, k, v, True)
+        del got
+        timing = {} if reps is None else {"reps": reps, "inner": 1}
+        # SDPA takes (B, H, S, D): the same tensors, transposed views
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound_ms, bound_by, bound_3x = attn_bound(b, s, s, h, d, True, dtype)
+        cases.append({
+            "B": b, "S": s, "H": h, "D": d, "dtype": str(dtype)[6:],
+            "causal": True, "max_abs_err": err,
+            "bit_identical_launches": identical,
+            "ms": gpu_ms(lambda: k8.flash_attention(q, k, v, causal=True),
+                         **timing),
+            "plain_ms": gpu_ms(lambda: k8.flash_attention_reference(
+                q, k, v, True), **({"reps": 1, "inner": 1}
+                                   if s > 4096 else timing)),
+            "library_ms": gpu_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), **timing),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"bound_3xtf32_ms": bound_3x} if dtype == torch.float32
+               else {}),
+        })
+        if not identical:
+            raise AssertionError(f"two K8 launches differ at {cases[-1]}")
+        emit("attention_kernel", **cases[-1])
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # the masks' corners: no keys at all (every row fully masked: zeros),
+    # and Sq != Sk under each mask (top-left causal alignment)
+    edges = {}
+    q, k, v = _qkv_views(2, 70, 2, 64, torch.float32, dev, SEED + 20)
+    empty = k8.flash_attention(q, k[:, :0], v[:, :0], causal=True)
+    torch.cuda.synchronize()
+    if not bool((empty == 0).all()):
+        raise AssertionError("rows without keys are not zeros")
+    edges["no_keys"] = {"Sq": 70, "Sk": 0, "all_zero": True}
+    for sq, sk, causal in ((200, 77, True), (50, 300, False), (200, 77, False),
+                           (50, 300, True)):
+        q, _, _ = _qkv_views(2, sq, 2, 64, torch.float32, dev, SEED + sq)
+        _, k, v = _qkv_views(2, sk, 2, 64, torch.float32, dev, SEED + sk)
+        got = k8.flash_attention(q, k, v, causal=causal)
+        edges[f"Sq{sq}_Sk{sk}_{'causal' if causal else 'full'}"] = {
+            "max_abs_err": _attn_err(got, q, k, v, causal)}
+    emit("attention_kernel_edges", cases=edges,
+         tolerance={"f32_atol_vs_f64": ATTN_F32_ATOL,
+                    "bf16_rtol_vs_f32": ATTN_BF16_RTOL,
+                    "bf16_atol_vs_f32": ATTN_BF16_ATOL})
+    return {"cases": cases, "edges": edges}
+
+
+# -- phase 13: sequence training at eval/neural_throughput.py's cell ------------
+
+def _ids(prefix: str, n: int):
+    from pio_tpu_torch.data.bimap import EntityIdIndex
+
+    return EntityIdIndex([f"{prefix}{j}" for j in range(n)])
+
+
+def phase_sequence_train(dev: torch.device) -> dict:
+    from pio_tpu_torch.models import sequence as seq
+
+    cell = SEQ_TRAIN_DATA
+    rng = np.random.default_rng(SEED)
+    seqs = (rng.zipf(1.3, (cell["n_seqs"], cell["max_len"]))
+            % (cell["n_items"] - 1) + 1).astype(np.int32)
+    data = seq.SequenceData(seqs, _ids("u", cell["n_seqs"]),
+                            _ids("i", cell["n_items"]))
+    tokens = SEQ_TRAIN["steps"] * SEQ_TRAIN["batch_size"] * (
+        SEQ_TRAIN["max_len"] - 1)
+    runs = {}
+    for attention in ("flash", "auto"):
+        p = seq.SequenceParams(**SEQ_TRAIN, attention=attention)
+        # three steps first: cuBLAS handles, the allocator, K8's build
+        seq.train_sequence_model(data, replace(p, steps=3), device=dev)
+        torch.cuda.synchronize()
+        # -- the main path: counts from 0, read right after ----------------
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, loss = seq.train_sequence_model(data, p, device=dev)
+        wall = time.perf_counter() - t0      # float(loss) synchronized
+        launches = read_counts()
+        # ---------------------------------------------------------------------
+        # device time of three steps (and the model's set-up) by kernel
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            seq.train_sequence_model(data, replace(p, steps=3), device=dev)
+            torch.cuda.synchronize()
+        device_ms, top = device_ms_by_kernel(prof, 3)
+        runs[attention] = {"loss": loss, "train_s": wall,
+                           "tokens_per_s": tokens / wall,
+                           "ms_per_step": 1e3 * wall / p.steps,
+                           "device_ms_per_step": device_ms,
+                           "top_kernels_ms_per_step": top,
+                           "launches": launches}
+        torch.cuda.empty_cache()
+    want = {"flash": SEQ_TRAIN["num_layers"] * SEQ_TRAIN["steps"], "auto": 0}
+    for attention, run in runs.items():
+        n = {**dict.fromkeys(run["launches"], 0),
+             "flash_attention": want[attention]}
+        if run["launches"] != n or not np.isfinite(run["loss"]):
+            raise AssertionError(f"{attention}: launches {run['launches']} "
+                                 f"(want {want[attention]} of K8), loss "
+                                 f"{run['loss']}")
+    rel = abs(runs["flash"]["loss"] - runs["auto"]["loss"]) / abs(
+        runs["auto"]["loss"])
+    result = {**cell, **SEQ_TRAIN, "tokens": tokens, "runs": runs,
+              "loss_rel_diff": rel, "loss_rtol": SEQ_LOSS_RTOL}
+    emit("sequence_train", **result)
+    if rel > SEQ_LOSS_RTOL:
+        raise AssertionError(f"flash and auto losses differ by {rel}")
+    return result
+
+
+# -- phase 14: the sequence template end to end ---------------------------------
+
+def write_sequence_events(storage, app_name: str, t0) -> int:
+    """Seeded view (80 %) and buy events: each of SEQ_USERS users has 1 to
+    SEQ_MAX_EVENTS time-ordered events over SEQ_ITEMS items (zipf 1.3).
+    Returns the number written."""
+    from datetime import timedelta
+
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.event import Event
+
+    app_id = storage.get_metadata_apps().insert(App(0, app_name))
+    events = storage.get_events()
+    events.init(app_id)
+    rng = np.random.default_rng(SEED + 5)
+    lens = rng.integers(1, SEQ_MAX_EVENTS + 1, SEQ_USERS)
+    batch = []
+    for u, n in enumerate(lens):
+        items = rng.zipf(1.3, n) % SEQ_ITEMS
+        views = rng.random(n) < 0.8
+        batch += [Event("view" if views[t] else "buy", "user", f"u{u}",
+                        "item", f"i{items[t]}", {},
+                        t0 + timedelta(seconds=int(u) * 100 + t))
+                  for t in range(n)]
+    for lo in range(0, len(batch), 50_000):
+        events.insert_batch(batch[lo:lo + 50_000], app_id)
+    return len(batch)
+
+
+def phase_sequence_entry(dev: torch.device) -> dict:
+    from datetime import datetime, timedelta, timezone
+    from functools import partial
+
+    from pio_tpu_torch.__main__ import (
+        _engine_from_variant,
+        _load_variant,
+        main as cli_main,
+    )
+    from pio_tpu_torch.data.event import Event
+    from pio_tpu_torch.data.storage import Storage, set_storage
+    from pio_tpu_torch.ops.attention import (
+        attention_reference,
+        flash_attention,
+    )
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    t_events = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    with tempfile.TemporaryDirectory(prefix="pio_chip_seq_") as tmp:
+        env = {
+            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_SQL_PATH": str(Path(tmp) / "pio.db"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
+        }
+        storage = Storage(env=env)
+        t0 = time.perf_counter()
+        n_events = write_sequence_events(storage, SEQ_ALGO["app_name"],
+                                         t_events)
+        write_s = time.perf_counter() - t0
+        engine_dir = Path(tmp) / "engine"
+        engine_dir.mkdir()
+        (engine_dir / "engine.json").write_text(json.dumps({
+            "id": "chip-smoke-seq", "engineFactory": SEQ_FACTORY,
+            "datasource": {"params": {"app_name": SEQ_ALGO["app_name"],
+                                      "event_names": ["view", "buy"],
+                                      "max_len": SEQ_ALGO["max_len"]}},
+            "algorithms": [{"name": "sasrec", "params": SEQ_ALGO}],
+        }))
+        variant = _load_variant(str(engine_dir))
+        engine, ep = _engine_from_variant(variant, str(engine_dir))
+        set_storage(storage)
+        out = io.StringIO()
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["train", "--engine-dir", str(engine_dir)])
+            train_s = time.perf_counter() - t0
+            train_launches = read_counts()
+        finally:
+            set_storage(None)
+        printed = out.getvalue().strip()
+        print(printed, flush=True)
+        # attention "auto" at max_len 64 trains with the plain attention
+        if rc != 0 or any(train_launches.values()):
+            raise AssertionError(f"train: rc {rc}, launches {train_launches}")
+        iid = printed.rsplit(" ", 1)[-1]
+
+        http, qs = create_query_server(
+            engine, ep, storage,
+            ServingConfig(ip="127.0.0.1", port=0,
+                          engine_id="chip-smoke-seq"),
+            ctx=create_workflow_context(storage, device=dev))
+        http.start()
+        try:
+            port = http.port
+            model = qs.models[0]
+            algo = qs.algorithms[0]
+            users = model.users.ids()
+            picked = np.random.default_rng(SEED + 6).choice(
+                len(users), N_PLAIN_QUERIES + BATCH_QUERIES, replace=False)
+            status, warm, first_s = _post(port, "/queries.json",
+                                          {"user": users[picked[0]],
+                                           "num": 10})
+            assert status == 200, warm
+            plain_q = [{"user": users[i], "num": 10}
+                       for i in picked[:N_PLAIN_QUERIES - 4]]
+            plain_q += [{"user": users[i], "num": 10, "blackList": [
+                s["item"] for s in algo.predict(
+                    model, {"user": users[i], "num": 3})["itemScores"]]}
+                for i in picked[N_PLAIN_QUERIES - 4:N_PLAIN_QUERIES - 1]]
+            plain_q.append({"user": "no-such-user", "num": 10})
+            batch_q = [{"user": users[i], "num": 10}
+                       for i in picked[N_PLAIN_QUERIES:]]
+            # a user unseen in training, with events written after it
+            storage.get_events().insert_batch(
+                [Event("view", "user", "fresh-user", "item", f"i{j}", {},
+                       t_events + timedelta(days=30, seconds=n))
+                 for n, j in enumerate((5, 1, 9, 2))],
+                storage.get_metadata_apps().get_by_name(
+                    SEQ_ALGO["app_name"]).id)
+            live_q = {"user": "fresh-user", "num": 10}
+
+            # -- the main path: counts from 0, read right after --------
+            reset_counts()
+            answers, latencies = [], []
+            for q in plain_q:
+                status, body, dt = _post(port, "/queries.json", q)
+                assert status == 200, body
+                answers.append(body)
+                latencies.append(dt)
+            status, batch_body, batch_s = _post(port, "/batch/queries.json",
+                                                batch_q)
+            assert status == 200, batch_body
+            status, live_body, _ = _post(port, "/queries.json", live_q)
+            assert status == 200, live_body
+            launches = read_counts()
+            # ------------------------------------------------------------
+
+            # the same queries in process, on the same model
+            for q, got in zip(plain_q, answers):
+                _check_same(got, algo.predict(model, q), q["user"])
+            for i, (got, want) in enumerate(zip(
+                    batch_body, algo.batch_predict(model, batch_q))):
+                _check_same(got, want, f"batch[{i}]")
+            _check_same(live_body, algo.predict(model, live_q), "live")
+            live_row = algo.history_row(model, live_q)
+            # K8 against the plain attention on the batch's histories
+            rows = np.stack([algo.history_row(model, q) for q in batch_q])
+            enc = algo._encoder(model)
+            inp = torch.as_tensor(rows[:, 1:], dtype=torch.long, device=dev)
+            with torch.inference_mode():
+                s_k8 = enc(inp, partial(flash_attention, causal=True))[1]
+                s_plain = enc(inp, partial(attention_reference,
+                                           causal=True))[1]
+            score_err = float((s_k8 - s_plain).abs().max())
+            score_max = float(s_plain.abs().max())
+            # in process: a query's whole time, its device time, and the
+            # live-history read alone
+            inproc = profile_queries(qs, plain_q[:20])
+            t0 = time.perf_counter()
+            for q in plain_q[:20]:
+                algo.history_row(model, q)
+            inproc["history_read_ms_per_query"] = 1e3 * (
+                time.perf_counter() - t0) / 20
+            served_iid = qs.instance.id
+        finally:
+            http.stop()
+            qs.close()
+            storage.close()
+    if served_iid != iid:
+        raise AssertionError("deploy did not load the trained instance")
+    ghost = answers[-1]
+    scored = len(plain_q) - 1 + 1 + 1       # known users, the batch, live
+    if ghost != {"itemScores": []}:
+        raise AssertionError("unknown user got items")
+    for q, got in zip(plain_q[:-1], answers[:-1]):
+        items = [s["item"] for s in got["itemScores"]]
+        if len(items) != q["num"] or set(items) & set(q.get("blackList",
+                                                             ())):
+            raise AssertionError(f"{q}: {items}")
+    fresh = [model.items.decode([i - 1])[0] for i in live_row if i]
+    if fresh != ["i5", "i1", "i9", "i2"] or not live_body["itemScores"]:
+        raise AssertionError(f"live history {fresh}: {live_body}")
+    if score_err > SEQ_SCORE_RTOL * score_max:
+        raise AssertionError(f"K8 scores {score_err} from the plain "
+                             f"attention's (max {score_max})")
+    want = {**dict.fromkeys(launches, 0),
+            "flash_attention": SEQ_ALGO["num_layers"] * scored}
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, want {want}")
+    lat_ms = sorted(1e3 * t for t in latencies)
+    result = {
+        "users": len(model.users), "items": len(model.items),
+        "events": n_events, "write_s": write_s, "train_s": train_s,
+        "instance": iid, "train_launches": train_launches,
+        "launches": launches, "scored_batches": scored,
+        "queries": len(plain_q) + 1, "batch": len(batch_q),
+        "p50_ms": statistics.median(lat_ms),
+        "p90_ms": lat_ms[int(0.9 * (len(lat_ms) - 1))],
+        "max_ms": lat_ms[-1], "batch_ms": 1e3 * batch_s,
+        "first_query_s": first_s,
+        "score_max_abs_err_vs_plain_attention": score_err,
+        "score_max_abs": score_max, "score_rtol": SEQ_SCORE_RTOL,
+        "in_process": inproc,
+    }
+    emit("sequence_entry", **result)
+    return result
+
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
                   case: dict, **extra) -> dict:
@@ -1566,6 +2051,9 @@ def main() -> int:
     tfused = timed("train_fused", phase_train_fused, ratings, dev)
     del ratings
     entry = timed("train_entry", phase_train_entry, dev)
+    attn = timed("attention_kernel", phase_attention_kernel, dev)
+    timed("sequence_train", phase_sequence_train, dev)
+    seq_entry = timed("sequence_entry", phase_sequence_entry, dev)
     emit("wall", seconds=wall, total_s=sum(wall.values()))
 
     cases = scan["cases"]
@@ -1639,6 +2127,17 @@ def main() -> int:
             items_half={k: fused["items_half"][k]
                         for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                   "max_abs_err")}),
+        _kernel_entry(
+            # the main path: the sequence template's deploy answering
+            # queries; the headline numbers are its B = 1 serving call
+            "flash_attention", src + "flash_attention.cu",
+            "pio_tpu/ops/attention.py:219",
+            seq_entry["launches"]["flash_attention"], attn["cases"][0],
+            library_is="torch.nn.functional.scaled_dot_product_attention",
+            bound_3xtf32_ms=attn["cases"][0]["bound_3xtf32_ms"],
+            shape={k: attn["cases"][0][k]
+                   for k in ("B", "S", "H", "D", "dtype", "causal")},
+            cases=attn["cases"], edges=attn["edges"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

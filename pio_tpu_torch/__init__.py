@@ -7,9 +7,11 @@ any module of ``pio_tpu``: framework-neutral modules it needs are kept as
 its own copies, under the same module names, so each module's counterpart
 in ``pio_tpu`` is found by its path.
 
-Ported so far: the recommendation engine's deploy/query path (exact and
-two-stage clustered retrieval), with the candidate-scan kernel in
-``ops/kernels/quantized_scan.cu``. Entry points run on the CUDA device
+Ported so far: the recommendation engine's train → deploy → query path
+(ALS in every accumulation mode of the reference; exact and two-stage
+clustered retrieval) and the sequence engine's (SASRec on one device),
+with every Pallas kernel of ``pio_tpu`` as a CUDA kernel under
+``ops/kernels/``. Entry points run on the CUDA device
 unless the caller passes ``device="cpu"`` (``--device cpu``); without a
 card and without that request they raise.
 """

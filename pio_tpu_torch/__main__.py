@@ -4,7 +4,8 @@ Verbs ported so far:
 
   train    read the engine's events, train it and store a COMPLETED engine
            instance (printing its id), on the CUDA device unless --device
-           cpu.
+           cpu. The engine.json's engineFactory picks the template
+           (recommendation or sequence).
   deploy   serve the latest COMPLETED engine instance (or
            --engine-instance-id) of the engine in --engine-dir over
            REST, on the CUDA device unless --device cpu. Storage comes

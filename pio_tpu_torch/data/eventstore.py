@@ -1,15 +1,16 @@
 """Engine-facing event read API: events to COO interactions.
 
 Counterpart of ``pio_tpu.data.eventstore`` (a copy of its framework-neutral
-code): app-name-keyed reads for training (the reference's PEventStore),
-and ``to_interactions``, the bridge from ragged events to the numpy
-columns training takes.
+code): app-name-keyed reads for training (the reference's PEventStore)
+and for serving one entity (its LEventStore), and ``to_interactions``, the
+bridge from ragged events to the numpy columns training takes.
 
 Trimmed: the port's DAOs have no ``columnarize`` (the columnar fold of
 ``data/columnar.py`` is not ported), so ``EventStore.interactions`` always
 takes the reference's ``find`` + ``to_interactions`` branch, which gives
-the same interactions; ``aggregate_properties``, ``find_by_entity``,
-``columnarize_via_find`` and ``interactions_to_columns`` are not ported.
+the same interactions; ``aggregate_properties``, ``columnarize_via_find``
+and ``interactions_to_columns`` are not ported. ``find_by_entity`` (the
+serve-time read of one entity) is copied as it is.
 """
 
 from __future__ import annotations
@@ -112,6 +113,33 @@ class EventStore:
             events,
             value_fn=make_value_fn(value_key, default_value, value_event),
             dedup=dedup,
+        )
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        limit: int | None = None,
+        latest: bool = True,
+    ) -> list[Event]:
+        """Serve-time read for one entity (reference LEventStore.findByEntity,
+        used by the ecommerce template's business rules)."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return list(
+            self._dao().find_single_entity(
+                app_id=app_id,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                channel_id=channel_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                limit=limit,
+                latest=latest,
+            )
         )
 
 

@@ -1,0 +1,540 @@
+"""Sequential recommendation template (SASRec): self-attentive next-item
+prediction over user event histories.
+
+Counterpart of ``pio_tpu.models.sequence`` on one device: the same params,
+sequences, model and query/result shapes. Training runs a causal
+transformer over time-ordered per-user item sequences (next-item
+cross-entropy, output head tied to the item embedding) with
+``torch.optim.Adam``; serving encodes the user's recent history (a live
+event-store read when ``app_name`` is set) with the flash-attention kernel
+(K8, ``ops/kernels/flash_attention.cu``) on the card, the plain attention
+on the CPU, as the reference does, then ranks on the host.
+
+Two flax defaults are kept where torch's differ: LayerNorm's epsilon is
+1e-6, and the FFN's GELU is the tanh approximation.
+
+Not ported yet, each raising or absent: the mesh path (data x sequence
+parallelism with ``ring``/``ulysses`` attention), the mixture-of-experts
+FFN (``moe_experts > 0``), step checkpoints (``checkpoint_dir``), the
+supervised lifecycle and step-chaos spans, and evaluation folds
+(``read_eval``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import partial
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pio_tpu_torch.controller.base import (
+    DataSource,
+    FirstServing,
+    IdentityPreparator,
+    PAlgorithm,
+    Params,
+)
+from pio_tpu_torch.controller.engine import Engine, EngineFactory
+from pio_tpu_torch.data.bimap import EntityIdIndex
+from pio_tpu_torch.ops.attention import (
+    attention_reference,
+    chunked_attention,
+    flash_attention,
+    flash_attention_trainable,
+)
+from pio_tpu_torch.ops.bucketing import pow2_bucket
+from pio_tpu_torch.workflow.context import resolve_device
+
+PAD = 0  # item index 0 is reserved as padding; real items start at 1
+POS_HEADROOM = 16
+LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
+
+_MOE_LATER = "moe_experts > 0 (the MoE FFN) is ported in a later slice"
+_CKPT_LATER = ("step checkpoints (checkpoint_dir) are ported in a later "
+               "slice")
+_EVAL_LATER = "evaluation folds (read_eval) are ported in a later slice"
+
+
+@dataclass(frozen=True)
+class SequenceParams(Params):
+    max_len: int = 64          # sequence length (pad/truncate buckets)
+    embed_dim: int = 64
+    num_heads: int = 2
+    num_layers: int = 2
+    ffn_dim: int = 128
+    dropout: float = 0.0       # kept 0; eval-mode determinism
+    learning_rate: float = 1e-3
+    batch_size: int = 128
+    steps: int = 300
+    seed: int = 0
+    # "auto" | "reference" | "chunked" | "flash" | "ring" | "ulysses" —
+    # "flash" trains with K8's forward and chunked attention's backward;
+    # on one device "auto" is chunked at max_len >= chunked_threshold and
+    # the plain attention below it. "ring"/"ulysses" need a mesh with a
+    # sequence axis, which the port does not have yet: they raise.
+    attention: str = "auto"
+    chunked_threshold: int = 1024
+    moe_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    unseen_only: bool = True   # serve-time: drop items already in history
+    # serve-time live history read (empty app_name = training snapshot only)
+    app_name: str = ""
+    event_names: tuple[str, ...] = ("view", "buy")
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 100
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block: a bias-free qkv projection, attention
+    through ``attn_fn``, a bias-free output projection, and a dense GELU
+    FFN with biases."""
+
+    def __init__(self, embed_dim: int, num_heads: int, head_dim: int,
+                 ffn_dim: int):
+        super().__init__()
+        self.num_heads, self.head_dim = num_heads, head_dim
+        hd = num_heads * head_dim
+        self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.qkv = nn.Linear(embed_dim, 3 * hd, bias=False)
+        self.out = nn.Linear(hd, embed_dim, bias=False)
+        self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.ffn_in = nn.Linear(embed_dim, ffn_dim)
+        self.ffn_out = nn.Linear(ffn_dim, embed_dim)
+
+    def forward(self, x, attn_fn):
+        b, s, _ = x.shape
+        h, d = self.num_heads, self.head_dim
+        qkv = self.qkv(self.ln1(x)).reshape(b, s, 3, h, d)
+        o = attn_fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        x = x + self.out(o.reshape(b, s, h * d))
+        y = F.gelu(self.ffn_in(self.ln2(x)), approximate="tanh")
+        return x + self.ffn_out(y)
+
+
+class SeqEncoder(nn.Module):
+    """Item-id sequence -> per-position hidden states; logits are tied to
+    the item embedding table (SASRec-style)."""
+
+    def __init__(self, vocab: int, max_len: int, embed_dim: int,
+                 num_heads: int, num_layers: int, ffn_dim: int):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.item_emb = nn.Parameter(torch.empty(vocab, embed_dim))
+        self.pos_emb = nn.Parameter(torch.empty(max_len, embed_dim))
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, embed_dim // num_heads, ffn_dim)
+            for _ in range(num_layers))
+        self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
+
+    def hidden(self, ids, attn_fn, pos_offset: int = 0):
+        """(B, S) item ids -> (B, S, E) states after the final LayerNorm."""
+        s = ids.shape[1]
+        x = self.item_emb[ids] * math.sqrt(self.embed_dim)
+        x = x + self.pos_emb[pos_offset:pos_offset + s][None]
+        for block in self.blocks:
+            x = block(x, attn_fn)
+        return self.ln_f(x)
+
+    def forward(self, ids, attn_fn, pos_offset: int = 0):
+        x = self.hidden(ids, attn_fn, pos_offset)
+        return x, x @ self.item_emb.T                  # weight-tied head
+
+
+def init_encoder_(encoder: SeqEncoder, seed: int) -> SeqEncoder:
+    """Draw the encoder's params in place from ``seed`` with flax's
+    initializers (torch cannot draw flax's numbers, only its
+    distributions): normal(0.02) for both embedding tables, truncated
+    lecun-normal for the dense kernels, zero biases, LayerNorm ones and
+    zeros."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in encoder.named_parameters():
+            if name in ("item_emb", "pos_emb"):
+                p.normal_(0.0, 0.02, generator=g)
+            elif p.ndim == 2:
+                # variance 1/fan_in after truncation at two std devs
+                std = math.sqrt(1.0 / p.shape[1]) / .87962566103423978
+                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+            elif name.endswith("weight"):               # LayerNorm scale
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    return encoder
+
+
+def user_histories(events):
+    """-> ({user id: time-ordered item-id list}, items EntityIdIndex
+    over EVERY item seen). The ONE event-grouping/ordering
+    implementation behind read_training (build_sequences) and
+    read_eval's rolling folds — so the two reads cannot drift on event
+    filtering or ordering."""
+    by_user: dict[str, list[tuple[Any, str]]] = {}
+    item_ids: dict[str, None] = {}
+    for e in events:
+        if not e.target_entity_id:
+            continue
+        by_user.setdefault(e.entity_id, []).append(
+            (e.event_time, e.target_entity_id)
+        )
+        item_ids.setdefault(e.target_entity_id, None)
+    items = EntityIdIndex(item_ids.keys())
+    hists = {}
+    for uid, evs in by_user.items():
+        evs.sort(key=lambda t: t[0])
+        hists[uid] = [i for _, i in evs]
+    return hists, items
+
+
+def build_sequences(events, max_len: int):
+    """Time-ordered per-user item sequences from user->item events.
+
+    Returns (seqs int32 (N, max_len) right-aligned & PAD-left-padded,
+    users EntityIdIndex over sequence owners, items EntityIdIndex with ids
+    offset by 1 for PAD). Users with < 2 interactions are dropped (no
+    next-item target exists)."""
+    hists, items = user_histories(events)
+    users, rows = [], []
+    for uid, ids in hists.items():
+        if len(ids) < 2:
+            continue
+        seq = [items.index_of(i) + 1 for i in ids][-max_len:]  # +1: PAD=0
+        rows.append(np.pad(seq, (max_len - len(seq), 0)))
+        users.append(uid)
+    if not rows:
+        raise ValueError("no user has >= 2 interactions; cannot train")
+    return (
+        np.stack(rows).astype(np.int32),
+        EntityIdIndex(users),
+        items,
+    )
+
+
+@dataclass
+class SequenceData:
+    seqs: np.ndarray            # (N, max_len) int32, PAD-left
+    users: EntityIdIndex
+    items: EntityIdIndex
+
+    def sanity_check(self):
+        assert self.seqs.ndim == 2 and self.seqs.shape[0] > 0
+
+
+def make_encoder(n_items: int, p: SequenceParams) -> SeqEncoder:
+    """The encoder for ``n_items`` items (plus PAD) under ``p``, its
+    params not yet drawn. The position table has POS_HEADROOM rows beyond
+    max_len, as the reference's, so either package's params fit it."""
+    if p.moe_experts > 0:
+        raise NotImplementedError(_MOE_LATER)
+    return SeqEncoder(
+        vocab=n_items + 1, max_len=p.max_len + POS_HEADROOM,
+        embed_dim=p.embed_dim, num_heads=p.num_heads,
+        num_layers=p.num_layers, ffn_dim=p.ffn_dim,
+    )
+
+
+def local_attention(p: SequenceParams):
+    """The training attention ``p.attention`` names on one device."""
+    if p.attention not in ("auto", "reference", "chunked", "flash",
+                           "ring", "ulysses"):
+        raise ValueError(
+            f"unknown attention mode {p.attention!r}: expected "
+            "'auto' | 'reference' | 'chunked' | 'flash' | 'ring' | "
+            "'ulysses'"
+        )
+    if p.attention in ("ring", "ulysses"):
+        raise ValueError(
+            f"attention={p.attention!r} requires a mesh with a seq axis > 1"
+        )
+    if p.attention == "flash":
+        return partial(flash_attention_trainable, causal=True)
+    use_chunked = p.attention == "chunked" or (
+        p.attention == "auto" and p.max_len >= p.chunked_threshold
+    )
+    return partial(chunked_attention if use_chunked else attention_reference,
+                   causal=True)
+
+
+def _loss(encoder, attn, inp, tgt):
+    """Mean next-item cross-entropy over the non-PAD targets."""
+    _, logits = encoder(inp, attn)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         tgt.reshape(-1), reduction="none")
+    mask = (tgt.reshape(-1) != PAD).to(ce.dtype)
+    return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def train_sequence_model(data: SequenceData, p: SequenceParams, *,
+                         device, init: dict | None = None):
+    """Single-device train loop: Adam on the masked next-item loss, one
+    batch per step drawn as the reference draws it
+    (``default_rng((seed, step))``), so both packages see the same batch
+    stream. ``init`` (a state dict, e.g. ``convert.sequence_params_from_
+    numpy`` of the reference's initial params) replaces the seeded draw.
+    Returns (params state dict on ``device``, encoder, the last step's
+    loss before its update)."""
+    if p.checkpoint_dir:
+        raise NotImplementedError(_CKPT_LATER)
+    attn = local_attention(p)
+    dev = resolve_device(device)
+    encoder = make_encoder(len(data.items), p)
+    if init is None:
+        init_encoder_(encoder, p.seed)
+    else:
+        encoder.load_state_dict({k: torch.as_tensor(v)
+                                 for k, v in init.items()})
+    encoder.to(dev)
+    optimizer = torch.optim.Adam(encoder.parameters(), lr=p.learning_rate)
+
+    seqs = data.seqs
+    inp_all = np.ascontiguousarray(seqs[:, :-1], np.int64)
+    tgt_all = np.ascontiguousarray(seqs[:, 1:], np.int64)
+    n = inp_all.shape[0]
+    size = min(p.batch_size, max(8, n))
+
+    def batch(step: int):
+        idx = np.random.default_rng((p.seed, step)).integers(0, n,
+                                                             size=size)
+        return (torch.from_numpy(inp_all[idx]).to(dev),
+                torch.from_numpy(tgt_all[idx]).to(dev))
+
+    loss = None
+    for step in range(p.steps):
+        inp, tgt = batch(step)
+        step_loss = _loss(encoder, attn, inp, tgt)
+        optimizer.zero_grad(set_to_none=True)
+        step_loss.backward()
+        optimizer.step()
+        loss = step_loss.detach()
+    if loss is None:
+        # no step taken: the loss at the initial params on step 0's batch
+        with torch.no_grad():
+            loss = _loss(encoder, attn, *batch(0))
+    params = {k: v.detach() for k, v in encoder.state_dict().items()}
+    return params, encoder, float(loss)
+
+
+# ---------------------------------------------------------------------------
+# DASE wrapper
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SequenceDataSourceParams(Params):
+    app_name: str = ""
+    event_names: tuple[str, ...] = ("view", "buy")
+    max_len: int = 64
+    eval_k: int = 0
+    eval_num: int = 10              # ranking depth of each fold query
+
+
+class SequenceDataSource(DataSource):
+    params_class = SequenceDataSourceParams
+
+    def __init__(self, params: SequenceDataSourceParams):
+        self.params = params
+
+    def read_training(self, ctx) -> SequenceData:
+        events = ctx.event_store.find(
+            app_name=self.params.app_name,
+            entity_type="user",
+            target_entity_type="item",
+            event_names=list(self.params.event_names),
+        )
+        seqs, users, items = build_sequences(events, self.params.max_len)
+        return SequenceData(seqs, users, items)
+
+    def read_eval(self, ctx):
+        raise NotImplementedError(_EVAL_LATER)
+
+
+@dataclass
+class SequenceModel:
+    """Encoder params (a state dict: tensors on the device, numpy after
+    ``host_copy``), the training-time sequences for serve lookup, and the
+    id indexes."""
+
+    params: dict
+    seqs: np.ndarray
+    users: EntityIdIndex
+    items: EntityIdIndex
+    config: SequenceParams
+
+
+class SequenceAlgorithm(PAlgorithm):
+    params_class = SequenceParams
+
+    def __init__(self, params: SequenceParams = SequenceParams()):
+        self.params = params
+        self._event_store = None
+
+    def train(self, ctx, data: SequenceData) -> SequenceModel:
+        data.sanity_check()
+        # max_len lives in BOTH the datasource and the algorithm params;
+        # adapt rather than explode on a mismatch: right-aligned truncate
+        # (keep the most recent items) or left-pad
+        s = data.seqs
+        if s.shape[1] != self.params.max_len:
+            if s.shape[1] > self.params.max_len:
+                s = s[:, -self.params.max_len:]
+            else:
+                s = np.pad(s, ((0, 0), (self.params.max_len - s.shape[1], 0)))
+            data = SequenceData(
+                seqs=np.ascontiguousarray(s), users=data.users,
+                items=data.items,
+            )
+        device = ctx.device if ctx is not None else resolve_device(None)
+        params, _, _ = train_sequence_model(data, self.params, device=device)
+        if ctx is not None:
+            self._event_store = getattr(ctx, "event_store", None)
+        return SequenceModel(
+            params=params, seqs=data.seqs, users=data.users,
+            items=data.items, config=self.params,
+        )
+
+    def prepare_model_for_deploy(self, ctx, model: SequenceModel):
+        """Put the restored params back on the serving device."""
+        self._event_store = ctx.event_store
+        return SequenceModel(
+            params={k: torch.as_tensor(v).to(ctx.device)
+                    for k, v in model.params.items()},
+            seqs=model.seqs, users=model.users, items=model.items,
+            config=model.config,
+        )
+
+    def _live_history(self, model: SequenceModel, user: str):
+        """The user's recent item sequence from a live event-store read
+        (the ecommerce template's serve-time pattern) — catches events that
+        happened after training and users unseen at training time. Returns
+        a PAD-left (max_len,) int32 row, or None when unavailable."""
+        p = model.config
+        if not p.app_name or self._event_store is None:
+            return None
+        try:
+            events = self._event_store.find_by_entity(
+                app_name=p.app_name,
+                entity_type="user",
+                entity_id=user,
+                event_names=list(p.event_names),
+                target_entity_type="item",
+                limit=p.max_len,
+                latest=True,
+            )
+        except Exception:  # noqa: BLE001 - storage outage must not kill serving
+            return None
+        seq = [
+            model.items.index_of(e.target_entity_id) + 1
+            for e in reversed(events)  # newest-first -> time order
+            if e.target_entity_id in model.items
+        ][-p.max_len:]
+        if not seq:
+            return None
+        return np.pad(
+            np.asarray(seq, np.int32), (p.max_len - len(seq), 0)
+        )
+
+    @staticmethod
+    def _encoder(model: SequenceModel) -> SeqEncoder:
+        """The model's encoder over its params (no copy), built once per
+        model object and cached on it."""
+        enc = getattr(model, "_encoder_cache", None)
+        if enc is None:
+            with torch.device("meta"):
+                enc = make_encoder(len(model.items), model.config)
+            enc.load_state_dict(model.params, assign=True)
+            model._encoder_cache = enc.eval()
+        return enc
+
+    def _score_last_batch(self, model: SequenceModel, rows: np.ndarray):
+        """Forward the last max_len-1 items of a (B, max_len) batch of
+        history rows; return next-item scores (B, vocab) from the tied
+        head at the final position. Training consumes inputs of length
+        max_len-1, so serving must too. The batch dim is bucketed to a
+        power of two, as in the reference. Attention: K8 on the card, the
+        plain attention on the CPU."""
+        p = model.config
+        encoder = self._encoder(model)
+        dev = encoder.item_emb.device
+        attn = partial(attention_reference if dev.type == "cpu"
+                       else flash_attention, causal=True)
+        b = rows.shape[0]
+        bucket = pow2_bucket(b)
+        inp = rows[:, -(p.max_len - 1):]
+        if bucket != b:
+            inp = np.concatenate(
+                [inp, np.zeros((bucket - b, inp.shape[1]), inp.dtype)])
+        with torch.inference_mode():
+            x = encoder.hidden(torch.as_tensor(inp, dtype=torch.long,
+                                               device=dev), attn)
+            # the head at the last position only: the same logits as
+            # (x @ emb.T)[:, -1]
+            return x[:b, -1] @ encoder.item_emb.T
+
+    def history_row(self, model: SequenceModel, query: dict):
+        """The (max_len,) PAD-left row predict actually scores from: the
+        live event-store history when app_name is configured (including
+        post-training events), else the training snapshot; None for an
+        unknown user with no live history."""
+        user = query.get("user", "")
+        row = self._live_history(model, user)
+        if row is None and user in model.users:
+            row = model.seqs[model.users.index_of(user)]
+        return row
+
+    def predict(self, model: SequenceModel, query: dict) -> dict:
+        return self.batch_predict(model, [query])[0]
+
+    def batch_predict(self, model: SequenceModel, queries) -> list:
+        """The history rows of every resolvable user in the batch encode in
+        ONE transformer forward; per-query seen/blackList masking and
+        ranking happen on host over the (B, vocab) score matrix."""
+        results: list[dict] = [{"itemScores": []} for _ in queries]
+        resolved = []
+        for i, q in enumerate(queries):
+            row = self.history_row(model, q)
+            if row is not None:
+                resolved.append((i, row))
+        if not resolved:
+            return results
+        rows = np.stack([r for _, r in resolved])
+        all_scores = self._score_last_batch(model, rows).float().cpu().numpy()
+        for b, (qi, row) in enumerate(resolved):
+            q = queries[qi]
+            num = int(q.get("num", 10))
+            scores = all_scores[b]   # view into all_scores: masked IN
+            # PLACE — each row is consumed exactly once, here
+            scores[PAD] = -np.inf
+            seen = (
+                set(int(i) for i in row if i != PAD)
+                if model.config.unseen_only else set()
+            )
+            black = {
+                model.items.index_of(x) + 1
+                for x in (q.get("blackList") or ())
+                if x in model.items
+            }
+            for i in seen | black:
+                scores[i] = -np.inf
+            order = np.argsort(-scores)[:num]
+            results[qi] = {"itemScores": [
+                {"item": model.items.decode([i - 1])[0],
+                 "score": float(scores[i])}
+                for i in order if np.isfinite(scores[i])
+            ]}
+        return results
+
+
+class SequenceEngine(EngineFactory):
+    @classmethod
+    def apply(cls) -> Engine:
+        return Engine(
+            SequenceDataSource,
+            IdentityPreparator,
+            {"sasrec": SequenceAlgorithm},
+            FirstServing,
+        )

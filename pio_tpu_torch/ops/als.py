@@ -50,6 +50,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pio_tpu_torch.ops import topk
 from pio_tpu_torch.ops.bucketing import pow2_bucket
 from pio_tpu_torch.ops.kernels.gather_rows import (
     GATHER_VMEM_TABLE_BUDGET,
@@ -639,7 +640,8 @@ def recommend_topk(model: ALSModel, user_idx, k: int):
         user_idx = np.concatenate(
             [user_idx, np.zeros(b_bucket - b, user_idx.dtype)])
     rows = model.user_factors[_index(user_idx, model.user_factors.device)]
-    scores, idx = torch.topk(rows @ model.item_factors.T, k_bucket)
+    scores, idx = topk.topk_lowest_index(rows @ model.item_factors.T,
+                                         k_bucket)
     return scores[:b, :k], idx[:b, :k]
 
 

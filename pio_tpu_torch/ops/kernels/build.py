@@ -20,7 +20,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 #: every kernel source of the port, by name (``<name>.cu`` in this folder)
-KERNELS = ("quantized_scan", "segment_flush", "gather_rows", "packed_matvec")
+KERNELS = ("quantized_scan", "segment_flush", "gather_rows", "packed_matvec",
+           "flash_attention")
 
 _KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pio_tpu_torch.ops import topk
 from pio_tpu_torch.ops.bucketing import pow2_bucket
 from pio_tpu_torch.ops.kernels.quantized_scan import (
     quantized_scan,
@@ -449,18 +450,18 @@ def _clustered_topk(u, centroids, table, scales, gidx, item_factors,
     b = u.shape[0]
     lmax = table.shape[1]
     cs = torch.einsum("bk,ck->bc", u, centroids)
-    _, top_c = torch.topk(cs, nprobe)                      # (B, nprobe)
+    _, top_c = topk.topk_lowest_index(cs, nprobe)          # (B, nprobe)
     top_c = top_c.to(torch.int32)
     scan = quantized_scan if impl == "pallas" else quantized_scan_reference
     qs = scan(table, scales, gidx, top_c, u)                # (B, P*Lmax)
     flat_g = gidx[top_c].reshape(b, nprobe * lmax)
-    _, cpos = torch.topk(qs, rerank)                       # (B, rerank)
+    _, cpos = topk.topk_lowest_index(qs, rerank)           # (B, rerank)
     cand_g = torch.gather(flat_g, 1, cpos).to(torch.int64)
     rows = item_factors[cand_g.clamp(min=0)]               # (B, rerank, kf)
     exact = torch.einsum("brk,bk->br", rows, u)
     exact = torch.where(cand_g >= 0, exact,
                         torch.full_like(exact, -math.inf))
-    scores, pos = torch.topk(exact, k)
+    scores, pos = topk.topk_lowest_index(exact, k)
     out_g = torch.gather(cand_g, 1, pos)
     return scores, torch.where(torch.isfinite(scores), out_g,
                                torch.full_like(out_g, -1))

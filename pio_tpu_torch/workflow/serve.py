@@ -97,6 +97,10 @@ class QueryServer:
             if instance is None:
                 raise ValueError(f"Engine instance {instance_id} not found")
             candidates = [instance]
+        # the instances that serve are the ones deploy prep runs on (the
+        # reference prepares one set and serves with another, which drops
+        # what prep binds to an algorithm, e.g. a live event store)
+        _, _, algorithms, serving = self.engine._doers(self.engine_params)
         # a corrupt blob (CRC32C mismatch) on the latest instance falls
         # back to the previous COMPLETED one: integrity failures are
         # permanent for that blob, and an older good model beats none.
@@ -107,7 +111,7 @@ class QueryServer:
             try:
                 models = load_models(
                     self.storage, self.engine, self.engine_params,
-                    candidate.id, ctx=self.ctx,
+                    candidate.id, ctx=self.ctx, algorithms=algorithms,
                 )
                 instance = candidate
                 break
@@ -119,7 +123,6 @@ class QueryServer:
                 last_integrity_error = e
         if models is None:
             raise last_integrity_error
-        _, _, algorithms, serving = self.engine._doers(self.engine_params)
         with self._lock:
             self.instance = instance
             self.models = models

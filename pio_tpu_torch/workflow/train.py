@@ -131,8 +131,13 @@ def load_models(
     engine_params: EngineParams,
     instance_id: str,
     ctx: WorkflowContext | None = None,
+    algorithms: list[Any] | None = None,
 ) -> list[Any]:
-    """Restore an instance's models and run per-algorithm deploy prep.
+    """Restore an instance's models and run per-algorithm deploy prep on
+    ``algorithms`` (the instances that will serve them; new ones from the
+    engine params when None). Deploy prep may bind serve-time state to
+    its algorithm (the sequence template's live event store), so the
+    server passes its own.
 
     Raises ModelIntegrityError (utils/durable.py) when the stored blob
     fails its CRC32C frame — a truncated or bit-rotted artifact never
@@ -143,7 +148,9 @@ def load_models(
     if record is None:
         raise ValueError(f"no models stored for engine instance {instance_id}")
     models = models_from_bytes(record.models)
-    _, _, algos, _ = engine._doers(engine_params)
+    algos = algorithms
+    if algos is None:
+        _, _, algos, _ = engine._doers(engine_params)
     if len(models) != len(algos):
         raise ValueError(
             f"instance {instance_id} has {len(models)} models but engine "

@@ -1,0 +1,175 @@
+"""Attention in the PyTorch port against the JAX package, on the CPU.
+
+The plain version of the flash kernel (K8) is held against the
+reference's Pallas ``flash_attention`` run in interpret mode, at the cases
+of ``tests/test_attention.py``: causal and not, ragged Sq > Sk and
+Sq < Sk under both masks, K/V in several segments, and a row whose causal
+view holds one key. ``chunked_attention`` and
+``flash_attention_trainable`` are held against the reference's, forward
+and gradients. Inputs are numpy arrays from a seed, handed to both.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pio_tpu.ops import attention as ref
+from pio_tpu_torch.ops import attention as port
+from pio_tpu_torch.ops.kernels import flash_attention as k8
+
+# the reference's own tolerances (tests/test_attention.py): f32 sums in
+# other orders for forwards, and through a softmax's Jacobian for
+# gradients
+FWD_ATOL = 2e-5
+GRAD_ATOL = 2e-4
+
+
+def _qkv(seed, b, sq, sk, h, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d)).astype(np.float32)
+                 for s in (sq, sk, sk))
+
+
+def _t(arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _j(arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+@pytest.mark.parametrize("sq, sk", [(64, 64), (50, 37), (23, 50), (1, 9),
+                                    (63, 63)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_version_matches_pallas_interpret(sq, sk, causal):
+    q, k, v = _qkv(0, 2, sq, sk, 4, 16)
+    want = ref.flash_attention(*_j((q, k, v)), causal=causal, block_q=16,
+                               block_k=16, interpret=True)
+    got = port.flash_attention(*_t((q, k, v)), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (2, sq, 4, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_ATOL)
+    oracle = ref.attention_reference(*_j((q, k, v)), causal=causal)
+    np.testing.assert_allclose(
+        port.attention_reference(*_t((q, k, v)), causal=causal).numpy(),
+        np.asarray(oracle), rtol=0, atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("sq, sk", [(128, 128), (128, 100)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_version_matches_multi_segment_pallas(sq, sk, causal):
+    """The reference's segmented K/V path (4 KB segments: 4 of 32 keys)."""
+    q, k, v = _qkv(3, 2, sq, sk, 2, 32)
+    want = ref.flash_attention(*_j((q, k, v)), causal=causal, block_q=32,
+                               block_k=32, max_seg_bytes=4096,
+                               interpret=True)
+    got = port.flash_attention(*_t((q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_ATOL)
+
+
+def test_flash_plain_version_scale_and_single_key_rows():
+    """Row 0 of a causal block sees one key (the reference's "fully
+    masked" block case): finite, and equal to v's row 0; an explicit
+    scale is honoured."""
+    q, k, v = _qkv(1, 1, 8, 8, 1, 8)
+    want = ref.flash_attention(*_j((q, k, v)), causal=True, scale=0.3,
+                               block_q=8, block_k=8, interpret=True)
+    got = port.flash_attention(*_t((q, k, v)), causal=True, scale=0.3)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_ATOL)
+    np.testing.assert_allclose(got[0, 0].numpy(), v[0, 0], atol=1e-6)
+
+
+def test_flash_plain_version_with_no_keys_is_zeros():
+    """Every row fully masked (no keys at all) gives zeros, not NaN."""
+    q, k, v = _t(_qkv(2, 2, 5, 0, 2, 32))
+    for causal in (False, True):
+        got = k8.flash_attention_reference(q, k, v, causal=causal)
+        assert got.shape == (2, 5, 2, 32)
+        assert bool((got == 0).all())
+
+
+def test_flash_plain_version_in_row_blocks(monkeypatch):
+    """Scoring q in blocks of rows gives the single-block answer."""
+    q, k, v = _t(_qkv(4, 2, 70, 70, 2, 16))
+    whole = k8.flash_attention_reference(q, k, v, causal=True)
+    monkeypatch.setattr(k8, "_SCORE_BLOCK_BYTES", 2 * 2 * 70 * 4 * 9)
+    blocked = k8.flash_attention_reference(q, k, v, causal=True)
+    np.testing.assert_allclose(blocked.numpy(), whole.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def test_flash_plain_version_bf16_keeps_the_type():
+    q, k, v = (t.to(torch.bfloat16) for t in _t(_qkv(5, 1, 16, 16, 2, 32)))
+    got = port.flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    want = port.attention_reference(q.float(), k.float(), v.float(),
+                                    causal=True)
+    # the output rounded to bf16 (8 significant bits)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               rtol=2 ** -8, atol=1e-6)
+
+
+def _grads(fn, arrays):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    (out ** 2).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _ref_grads(fn, arrays):
+    out = fn(*_j(arrays))
+    g = jax.grad(lambda a, b, c: jnp.sum(fn(a, b, c) ** 2),
+                 argnums=(0, 1, 2))(*_j(arrays))
+    return np.asarray(out), [np.asarray(x) for x in g]
+
+
+@pytest.mark.parametrize("sq, sk", [(96, 96), (96, 70)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_chunked_attention_matches_reference_fwd_and_grad(sq, sk, causal):
+    arrays = _qkv(5, 2, sq, sk, 2, 16)
+    got, g_got = _grads(
+        lambda a, b, c: port.chunked_attention(a, b, c, causal=causal,
+                                               chunk=32), arrays)
+    want, g_want = _ref_grads(
+        lambda a, b, c: ref.chunked_attention(a, b, c, causal=causal,
+                                              chunk=32), arrays)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FWD_ATOL)
+    for a, b in zip(g_got, g_want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=GRAD_ATOL)
+
+
+def test_chunked_attention_checkpoints_each_chunk(monkeypatch):
+    """The backward recomputes every chunk's statistics: 2 forward calls
+    of each chunk in all."""
+    calls = []
+    real = port._chunk_stats
+    monkeypatch.setattr(port, "_chunk_stats",
+                        lambda *a: calls.append(a[3]) or real(*a))
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(6, 1, 40, 40, 2, 8))
+    port.chunked_attention(q, k, v, causal=True, chunk=16).sum().backward()
+    assert sorted(calls) == [0, 0, 16, 16, 32, 32]
+
+
+def test_flash_trainable_matches_reference_fwd_and_grad():
+    arrays = _qkv(9, 2, 64, 64, 2, 16)
+    got, g_got = _grads(
+        lambda a, b, c: port.flash_attention_trainable(a, b, c, True, None,
+                                                       32), arrays)
+    want, g_want = _ref_grads(
+        lambda a, b, c: ref.flash_attention_trainable(a, b, c, True, None,
+                                                      32), arrays)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FWD_ATOL)
+    for a, b in zip(g_got, g_want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=GRAD_ATOL)
+    # and its gradients are chunked attention's
+    _, g_chunk = _grads(
+        lambda a, b, c: port.chunked_attention(a, b, c, causal=True,
+                                               chunk=32), arrays)
+    for a, b in zip(g_got, g_chunk):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)

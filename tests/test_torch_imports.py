@@ -53,6 +53,9 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.ops.kernels.segment_flush",
                 "pio_tpu_torch.ops.kernels.gather_rows",
                 "pio_tpu_torch.ops.kernels.packed_matvec",
+                "pio_tpu_torch.ops.kernels.flash_attention",
+                "pio_tpu_torch.ops.attention", "pio_tpu_torch.ops.topk",
+                "pio_tpu_torch.models.sequence",
                 "pio_tpu_torch.workflow.train"):
         assert mod in res["modules"]
 

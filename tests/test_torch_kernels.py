@@ -1,7 +1,8 @@
 """The port's CUDA kernel wrappers, without JAX: the quantized scan (K7),
 the segment flush (K2) and its overlapped, packed form (K3), the fused
-normal equations (K1), the row gathers (K5 stream, K4 resident copy/take)
-and the packed matvec (K6).
+normal equations (K1), the row gathers (K5 stream, K4 resident copy/take),
+the packed matvec (K6) and flash attention (K8); and the serving top-k's
+tie order on the card.
 
 On the CPU a wrapper computes its kernel's plain version and launches
 nothing; it refuses inputs its kernel does not take. On a card the kernel
@@ -15,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from pio_tpu_torch.ops import als
 from pio_tpu_torch.ops import retrieval as rt
+from pio_tpu_torch.ops.kernels import flash_attention as k8
 from pio_tpu_torch.ops.kernels import gather_rows as gr
 from pio_tpu_torch.ops.kernels import packed_matvec as pm
 from pio_tpu_torch.ops.kernels import quantized_scan as qscan
@@ -542,3 +545,148 @@ def test_fused_kernel_empty_layout_on_card():
                                      src, 5, True, 1.0)
     assert sf.launches_fused.value == before
     assert A.shape == (5, 8, 8) and not A.any() and not b.any()
+
+
+# -- flash attention (K8) -----------------------------------------------------
+
+# f32: the kernel's f32 FMAs against the plain version in f64 (the
+# reference holds its flash kernel within 2e-5 of the plain attention);
+# bf16: the output rounded to bf16 (2^-8 of it) against the plain version
+# in f32 on the same bf16 inputs
+K8_F32_ATOL = 2e-5
+K8_BF16_RTOL = 2 ** -8
+K8_BF16_ATOL = 1e-5
+
+
+def _k8_args(b, sq, sk, h, d, seed, dtype=torch.float32, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((b, s, h, d), generator=g).to(device, dtype)
+                 for s in (sq, sk, sk))
+
+
+def _k8_assert_close(got, q, k, v, causal, scale=None):
+    if got.dtype == torch.float32:
+        want = k8.flash_attention_reference(q.double(), k.double(),
+                                            v.double(), causal, scale)
+        torch.testing.assert_close(got.double(), want, rtol=0,
+                                   atol=K8_F32_ATOL)
+    else:
+        want = k8.flash_attention_reference(q.float(), k.float(), v.float(),
+                                            causal, scale)
+        torch.testing.assert_close(got.float(), want, rtol=K8_BF16_RTOL,
+                                   atol=K8_BF16_ATOL)
+
+
+def test_flash_wrapper_on_cpu_is_the_plain_version():
+    q, k, v = _k8_args(2, 9, 7, 2, 24, seed=1)    # D 24: no kernel for it
+    before = k8.launches.value
+    got = k8.flash_attention(q, k, v, causal=True)
+    assert k8.launches.value == before
+    assert torch.equal(got, k8.flash_attention_reference(q, k, v, True))
+
+
+@pytest.mark.parametrize("change, error", [
+    (lambda q, k, v: (q.double(), k.double(), v.double()), TypeError),
+    (lambda q, k, v: (q.half(), k.half(), v.half()), TypeError),
+    (lambda q, k, v: (q, k.bfloat16(), v), TypeError),
+    (lambda q, k, v: (q[0], k[0], v[0]), ValueError),
+    (lambda q, k, v: (q, k, v[:, :-1]), ValueError),
+    (lambda q, k, v: (q, k[:, :, :1], v[:, :, :1]), ValueError),
+    (lambda q, k, v: (q[..., :48], k[..., :48], v[..., :48]), ValueError),
+    (lambda q, k, v: (q[..., :16], k[..., :16], v[..., :16]), ValueError),
+])
+def test_flash_checks_refuse_what_the_kernel_does_not_take(change, error):
+    q, k, v = change(*_k8_args(2, 5, 6, 2, 64, seed=2))
+    with pytest.raises(error):
+        k8._check(q, k, v)
+
+
+def test_flash_refuses_other_devices():
+    q, k, v = (t.to("meta") for t in _k8_args(1, 4, 4, 1, 32, seed=3))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        k8.flash_attention(q, k, v)
+    q, k, v = _k8_args(1, 4, 4, 1, 32, seed=3)
+    with pytest.raises(ValueError, match="is on meta"):
+        k8._check(q, k.to("meta"), v)
+
+
+def test_flash_kernel_view_copies_only_what_it_cannot_stride():
+    qkv = torch.zeros(2, 7, 3, 2, 32)
+    q = qkv[:, :, 1]                           # a view into qkv: no copy
+    assert k8._kernel_view(q).data_ptr() == q.data_ptr()
+    odd = torch.zeros(2, 7, 2, 33)[..., 1:]    # stride 33: copied
+    assert not k8._kernel_view(odd).data_ptr() == odd.data_ptr()
+    assert k8._kernel_view(odd).is_contiguous()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,sk,h", [
+    (1, 63, 63, 2),       # the template's serving call
+    (3, 1, 1, 1),         # one row, one key
+    (2, 130, 130, 3),     # ragged tiles
+    (2, 200, 77, 2),      # Sq > Sk: later rows see every key
+    (2, 50, 300, 2),      # Sq < Sk: causal skips the upper tiles
+])
+def test_flash_kernel_matches_plain_version_on_card(d, dtype, causal, b, sq,
+                                                    sk, h):
+    dev = _cuda()
+    q, k, v = _k8_args(b, sq, sk, h, d, seed=d + sq, dtype=dtype, device=dev)
+    before = k8.launches.value
+    got = k8.flash_attention(q, k, v, causal=causal)
+    again = k8.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k8.launches.value == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    _k8_assert_close(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_qkv_views_on_card(dtype):
+    """q, k, v as the transformer block hands them over: views of one
+    (B, S, 3, H, D) tensor; an explicit scale."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(8)
+    qkv = torch.randn((4, 127, 3, 4, 32), generator=g).to(dev, dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = k8.flash_attention(q, k, v, causal=True, scale=0.2)
+    _k8_assert_close(got, q, k, v, True, 0.2)
+
+
+def test_flash_kernel_without_keys_gives_zeros_on_card():
+    dev = _cuda()
+    q, k, v = _k8_args(2, 70, 0, 2, 64, seed=9, device=dev)
+    before = k8.launches.value
+    got = k8.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert k8.launches.value == before + 1
+    assert bool((got == 0).all())
+
+
+# -- the serving top-k's tie order on the card ---------------------------------
+
+def test_topk_tie_order_on_card():
+    """tests/test_torch_topk_ties.py's inputs on the card: 100 items
+    share the best factor row, so the top 10 is a cut inside a tie, and
+    the lowest indices must win it, in order, in exact mode and in
+    clustered mode with the plain scan and with K7."""
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    users = np.abs(rng.standard_normal((16, 8))).astype(np.float32)
+    items = rng.standard_normal((300, 8)).astype(np.float32)
+    items[200:] = 4.0
+    want = list(range(200, 210))
+    model = als.ALSModel(torch.from_numpy(users).to(dev),
+                         torch.from_numpy(items).to(dev))
+    _, idx = als.recommend_topk(model, np.arange(16), 10)
+    assert idx.cpu().tolist() == [want] * 16
+    for impl in ("xla", "pallas"):
+        for dtype in ("int8", "bf16"):
+            params = rt.RetrievalParams(mode="clustered", dtype=dtype,
+                                        n_clusters=16, nprobe=4,
+                                        rerank_k=64, impl=impl)
+            didx = rt.build_device_index(rt.build_index(items, params), dev)
+            _, got = rt.candidate_topk(didx, model.item_factors, users, 10)
+            assert got.tolist() == [want] * 16, (impl, dtype)

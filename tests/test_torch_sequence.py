@@ -1,0 +1,490 @@
+"""The sequence template (SASRec) in the PyTorch port against the JAX
+package, on the CPU.
+
+Both packages build the same sequences from the same events; from the
+reference's initial params (carried across by
+``convert.sequence_params_from_numpy``) the port's encoder gives the same
+logits under every attention, and N Adam steps on the same batch stream
+give the same loss; a model trained by the reference and carried across
+serves the same items. Then the port's own paths: ``max_len``
+adaptation, blackList, unknown users, live history through
+``EventStore.find_by_entity`` on sqlite, the train and deploy verbs with
+``--device cpu``, and the parts not ported yet, which raise.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import types
+import urllib.request
+from datetime import datetime, timedelta, timezone
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pio_tpu.data.eventstore import EventStore as RefEventStore
+from pio_tpu.data.storage import Storage as RefStorage
+from pio_tpu.models import sequence as ref
+from pio_tpu.ops import attention as ref_attn
+from pio_tpu_torch.__main__ import main as port_main
+from pio_tpu_torch.convert import (
+    sequence_model_from_numpy,
+    sequence_params_from_numpy,
+)
+from pio_tpu_torch.data.dao import App
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.data.eventstore import EventStore
+from pio_tpu_torch.data.storage import Storage
+from pio_tpu_torch.models import sequence as port
+from pio_tpu_torch.ops import attention as port_attn
+from pio_tpu_torch.workflow.checkpoint import models_from_bytes, models_to_bytes
+from pio_tpu_torch.workflow.context import create_workflow_context
+from pio_tpu_torch.workflow.train import load_models
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FACTORY = "pio_tpu_torch.models.sequence.SequenceEngine"
+APP = "SeqApp"
+# logits from the same params: f32 sums in other orders (measured ~3e-7)
+LOGITS_ATOL = 1e-5
+# the loss after N Adam steps from the same params and batches: rounding
+# of the two frameworks' kernels, carried through Adam (measured ~5e-7
+# relative after 50 steps)
+LOSS_RTOL = 1e-5
+# served scores of the same model: the same f32 forward, summed in other
+# orders; ids are compared wherever neighbouring scores differ by more
+SCORE_ATOL = 1e-5
+SMALL = dict(max_len=16, embed_dim=32, num_heads=2, num_layers=2,
+             ffn_dim=64, batch_size=16)
+# what train and prepare_model_for_deploy read of a context
+_CPU_CTX = types.SimpleNamespace(device=torch.device("cpu"),
+                                 event_store=None)
+
+
+class _Ev:
+    def __init__(self, u, i, t):
+        self.entity_id = u
+        self.target_entity_id = i
+        self.event_time = t
+
+
+def _cyclic_events(n_users=40, steps=8, n_items=12):
+    """The reference tests' learnable pattern: user u walks the item
+    cycle from u % 3."""
+    return [_Ev(f"u{u}", f"i{(u % 3 + t) % n_items}", t)
+            for u in range(n_users) for t in range(steps)]
+
+
+def _random_events(seed=0, n_users=40, n_items=30):
+    rng = np.random.default_rng(seed)
+    return [_Ev(f"u{u}", f"i{int(rng.integers(0, n_items))}",
+                int(rng.integers(0, 5)))    # time ties: order must hold
+            for u in range(n_users) for _ in range(int(rng.integers(1, 20)))]
+
+
+def _port_params(p):
+    return port.SequenceParams(**dataclasses.asdict(p))
+
+
+def _ref_init(n_items, p):
+    """The reference's initial params, drawn as its trainer draws them."""
+    enc = ref.make_encoder(n_items, p)
+    return jax.device_get(enc.init(
+        jax.random.PRNGKey(p.seed), jnp.zeros((1, p.max_len - 1), jnp.int32),
+        partial(ref_attn.attention_reference, causal=True))["params"])
+
+
+@pytest.mark.parametrize("events", [_cyclic_events, _random_events])
+def test_sequences_and_histories_equal_reference(events):
+    evs = events()
+    for max_len in (4, 16):
+        got = port.build_sequences(evs, max_len)
+        want = ref.build_sequences(evs, max_len)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[0].dtype == want[0].dtype
+        assert got[1].ids() == want[1].ids()
+        assert got[2].ids() == want[2].ids()
+    h_got, i_got = port.user_histories(evs)
+    h_want, i_want = ref.user_histories(evs)
+    assert h_got == h_want and i_got.ids() == i_want.ids()
+    with pytest.raises(ValueError, match=">= 2 interactions"):
+        port.build_sequences([_Ev("solo", "a", 1)], 4)
+
+
+@pytest.mark.parametrize("attention", ["reference", "chunked", "flash"])
+def test_logits_from_reference_params_equal_reference(attention):
+    seqs, users, items = ref.build_sequences(_random_events(), 16)
+    p = ref.SequenceParams(**SMALL)
+    init = _ref_init(len(items), p)
+    fns = {"reference": (ref_attn.attention_reference,
+                         port_attn.attention_reference),
+           "chunked": (ref_attn.chunked_attention,
+                       port_attn.chunked_attention),
+           "flash": (ref_attn.flash_attention, port_attn.flash_attention)}
+    ref_fn, port_fn = fns[attention]
+    inp = seqs[:, :-1]
+    x_want, want = ref.make_encoder(len(items), p).apply(
+        {"params": init}, jnp.asarray(inp), partial(ref_fn, causal=True))
+    enc = port.make_encoder(len(items), _port_params(p))
+    enc.load_state_dict(sequence_params_from_numpy(init, device="cpu"))
+    with torch.no_grad():
+        x_got, got = enc(torch.from_numpy(inp).long(),
+                         partial(port_fn, causal=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGITS_ATOL)
+    np.testing.assert_allclose(x_got.numpy(), np.asarray(x_want), rtol=0,
+                               atol=LOGITS_ATOL)
+
+
+@pytest.mark.parametrize("attention, steps", [
+    ("reference", 1), ("reference", 20), ("chunked", 20), ("flash", 20),
+    ("auto", 20), ("auto", 0)])
+def test_adam_steps_give_reference_loss(attention, steps):
+    seqs, users, items = ref.build_sequences(_random_events(), 16)
+    p = ref.SequenceParams(**SMALL, steps=steps, attention=attention)
+    _, _, want = ref.train_sequence_model(ref.SequenceData(seqs, users,
+                                                           items), p)
+    init = sequence_params_from_numpy(_ref_init(len(items), p),
+                                      device="cpu")
+    params, _, got = port.train_sequence_model(
+        port.SequenceData(seqs, users, items), _port_params(p),
+        device="cpu", init=init)
+    assert got == pytest.approx(want, rel=LOSS_RTOL)
+    assert set(params) == set(init)
+
+
+def test_seeded_init_draws_flax_distributions():
+    p = port.SequenceParams(embed_dim=64, num_heads=2, num_layers=1,
+                            ffn_dim=256)
+    enc = port.init_encoder_(port.make_encoder(4000, p), seed=3)
+    assert abs(float(enc.item_emb.detach().std()) - 0.02) < 1e-3
+    w = enc.blocks[0].ffn_in.weight.detach()  # (256, 64): fan_in 64
+    assert abs(float(w.std()) - 64 ** -0.5) < 0.05 * 64 ** -0.5
+    assert float(w.abs().max()) <= 2 * 64 ** -0.5 / .87962566103423978
+    assert bool((enc.blocks[0].ffn_in.bias == 0).all())
+    assert bool((enc.ln_f.weight == 1).all())
+    again = port.init_encoder_(port.make_encoder(4000, p), seed=3)
+    assert torch.equal(enc.item_emb, again.item_emb)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """A model trained by the reference on the cyclic pattern, and the
+    same model carried across into the port."""
+    seqs, users, items = ref.build_sequences(_cyclic_events(), 16)
+    p = ref.SequenceParams(**{**SMALL, "batch_size": 32}, steps=150)
+    params, _, _ = ref.train_sequence_model(
+        ref.SequenceData(seqs, users, items), p)
+    want = ref.SequenceModel(params=params, seqs=seqs, users=users,
+                             items=items, config=p)
+    got = sequence_model_from_numpy(
+        jax.device_get(params), seqs, users.ids(), items.ids(),
+        _port_params(p), device="cpu")
+    return want, got
+
+
+def _assert_same_ranking(got, want):
+    gi = [s["item"] for s in got["itemScores"]]
+    wi = [s["item"] for s in want["itemScores"]]
+    gs = [s["score"] for s in got["itemScores"]]
+    ws = [s["score"] for s in want["itemScores"]]
+    assert len(gi) == len(wi)
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=SCORE_ATOL)
+    for i, (a, b) in enumerate(zip(gi, wi)):
+        gaps = [abs(ws[i] - ws[j]) for j in (i - 1, i + 1)
+                if 0 <= j < len(ws)]
+        if a != b:
+            assert min(gaps) <= 2 * SCORE_ATOL, (i, got, want)
+
+
+def test_batch_predict_serves_reference_items(carried):
+    want_model, got_model = carried
+    queries = [{"user": u, "num": 5} for u in want_model.users.ids()[:12]]
+    queries += [{"user": "u1", "num": 4, "blackList": ["i9", "nope"]},
+                {"user": "ghost", "num": 3}, {"user": "u2", "num": 30}]
+    want = ref.SequenceAlgorithm(want_model.config).batch_predict(
+        want_model, queries)
+    algo = port.SequenceAlgorithm(got_model.config)
+    got = algo.batch_predict(got_model, queries)
+    for g, w in zip(got, want):
+        _assert_same_ranking(g, w)
+    for q, g in zip(queries, got):
+        _assert_same_ranking(algo.predict(got_model, q), g)
+    # the learned cycle: u0 saw i0..i7, so i8 comes next
+    assert got[0]["itemScores"][0]["item"] == "i8"
+    assert all(s["item"] not in ("i9", "nope")
+               for s in got[-3]["itemScores"])
+    assert got[-2] == {"itemScores": []}
+    # unseen_only: the 8 items of u2's history are not served
+    assert len(got[-1]["itemScores"]) == len(got_model.items) - 8
+
+
+def test_model_round_trips_through_the_model_blob(carried):
+    _, model = carried
+    [back] = models_from_bytes(models_to_bytes([model]))
+    assert isinstance(back.params["item_emb"], np.ndarray)
+    algo = port.SequenceAlgorithm(model.config)
+    ready = algo.prepare_model_for_deploy(_CPU_CTX, back)
+    assert ready.params["item_emb"].device.type == "cpu"
+    q = {"user": "u4", "num": 6}
+    assert algo.predict(ready, q) == algo.predict(model, q)
+
+
+def test_train_adapts_datasource_max_len():
+    seqs, users, items = port.build_sequences(_cyclic_events(), 64)
+    p = port.SequenceParams(max_len=16, embed_dim=16, num_heads=2,
+                            num_layers=1, ffn_dim=32, steps=3,
+                            batch_size=16)
+    model = port.SequenceAlgorithm(p).train(
+        _CPU_CTX, port.SequenceData(seqs, users, items))
+    assert model.seqs.shape[1] == 16
+    np.testing.assert_array_equal(model.seqs, seqs[:, -16:])
+    seqs8, users8, items8 = port.build_sequences(_cyclic_events(), 8)
+    model2 = port.SequenceAlgorithm(p).train(
+        _CPU_CTX, port.SequenceData(seqs8, users8, items8))
+    assert model2.seqs.shape[1] == 16
+    np.testing.assert_array_equal(model2.seqs[:, 8:], seqs8)
+    assert not model2.seqs[:, :8].any()
+
+
+@pytest.mark.parametrize("change, error", [
+    (dict(moe_experts=4), NotImplementedError),
+    (dict(checkpoint_dir="ck"), NotImplementedError),
+    (dict(attention="ring"), ValueError),
+    (dict(attention="ulysses"), ValueError),
+    (dict(attention="linear"), ValueError),
+])
+def test_parts_not_ported_raise(change, error):
+    seqs, users, items = port.build_sequences(_cyclic_events(), 8)
+    p = port.SequenceParams(max_len=8, embed_dim=16, num_heads=2,
+                            num_layers=1, ffn_dim=32, steps=2,
+                            batch_size=8, **change)
+    with pytest.raises(error):
+        port.train_sequence_model(port.SequenceData(seqs, users, items), p,
+                                  device="cpu")
+
+
+def test_not_ported_reads_and_no_cuda_raise(monkeypatch):
+    with pytest.raises(NotImplementedError):
+        port.SequenceDataSource(port.SequenceDataSourceParams()).read_eval(
+            None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seqs, users, items = port.build_sequences(_cyclic_events(), 8)
+    p = port.SequenceParams(max_len=8, embed_dim=16, num_heads=2,
+                            num_layers=1, ffn_dim=32, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.SequenceAlgorithm(p).train(
+            None, port.SequenceData(seqs, users, items))
+
+
+# -- on sqlite: live history, the train and deploy verbs ---------------------
+
+def _storage_env(tmp_path):
+    return {"PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+            "PIO_STORAGE_SOURCES_SQL_PATH": str(tmp_path / "pio.db"),
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL"}
+
+
+T0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+
+
+def _write_cyclic(storage, n_users=30, steps=8, start=0):
+    """view/buy events of the cyclic pattern, one second apart, plus
+    `rate` events the data source must skip."""
+    apps = storage.get_metadata_apps()
+    app = apps.get_by_name(APP)
+    app_id = app.id if app else apps.insert(App(0, APP))
+    events = storage.get_events()
+    events.init(app_id)
+    batch = []
+    for u in range(n_users):
+        for t in range(steps):
+            batch.append(Event(
+                "buy" if t % 3 == 2 else "view", "user", f"u{u}", "item",
+                f"i{(u % 3 + t) % 12}", {},
+                T0 + timedelta(seconds=start + u * steps + t)))
+        batch.append(Event("rate", "user", f"u{u}", "item", "i11",
+                           {"rating": 5.0}, T0 + timedelta(days=1)))
+    events.insert_batch(batch, app_id)
+    return app_id
+
+
+def test_live_history_reads_the_event_store(tmp_path, carried):
+    """With app_name set, serving scores the user's newest events from
+    sqlite (through find_by_entity), including a user unseen in training
+    and events written after it; the reference does the same on the same
+    database."""
+    want_model, got_model = carried
+    env = _storage_env(tmp_path)
+    storage = Storage(env=env)
+    app_id = _write_cyclic(storage, n_users=3)
+    # after training: a fresh user walks i3..i7, u0 moves on to i8, i9
+    storage.get_events().insert_batch(
+        [Event("view", "user", "fresh", "item", f"i{t}", {},
+               T0 + timedelta(days=2, seconds=t)) for t in range(3, 8)]
+        + [Event("view", "user", "u0", "item", f"i{t}", {},
+                 T0 + timedelta(days=2, seconds=t)) for t in (8, 9)],
+        app_id)
+    cfg = dataclasses.replace(got_model.config, app_name=APP)
+    ref_cfg = dataclasses.replace(want_model.config, app_name=APP)
+    algo = port.SequenceAlgorithm(cfg)
+    model = algo.prepare_model_for_deploy(
+        create_workflow_context(storage, device="cpu"),
+        dataclasses.replace(got_model, config=cfg))
+    ref_storage = RefStorage(env=env)
+    ref_algo = ref.SequenceAlgorithm(ref_cfg)
+    ref_algo._event_store = RefEventStore(ref_storage)
+    ref_model = dataclasses.replace(want_model, config=ref_cfg)
+    try:
+        queries = [{"user": "fresh", "num": 3}, {"user": "u0", "num": 3},
+                   {"user": "u1", "num": 3}, {"user": "ghost", "num": 3}]
+        got = algo.batch_predict(model, queries)
+        want = ref_algo.batch_predict(ref_model, queries)
+        rows = [algo.history_row(model, q) for q in queries]
+    finally:
+        storage.close()
+        ref_storage.close()
+    for g, w in zip(got, want):
+        _assert_same_ranking(g, w)
+    assert got[0]["itemScores"][0]["item"] == "i8"   # i3..i7 -> i8
+    assert got[3] == {"itemScores": []}
+    assert rows[3] is None
+
+    def history(row):
+        return [model.items.decode([i - 1])[0] for i in row if i]
+
+    assert history(rows[0]) == [f"i{t}" for t in range(3, 8)]
+    assert history(rows[1]) == [f"i{t}" for t in range(10)]
+    # u1 has no later events: its live history is its training row
+    np.testing.assert_array_equal(rows[2], model.seqs[
+        model.users.index_of("u1")])
+
+
+def _variant(**algo):
+    return {"id": "seq", "engineFactory": FACTORY,
+            "datasource": {"params": {"app_name": APP, "max_len": 16}},
+            "algorithms": [{"name": "sasrec", "params": {
+                **SMALL, "steps": 40, "seed": 5, **algo}}]}
+
+
+def _post(port_no, path, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port_no}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_train_then_deploy_on_cpu(tmp_path, monkeypatch):
+    """`train --device cpu` reads the reference's sequences from sqlite
+    and stores the model its own trainer gives; `deploy --device cpu`, a
+    real process, answers /queries.json and /batch/queries.json as the
+    loaded model does in process."""
+    env = _storage_env(tmp_path)
+    storage = Storage(env=env)
+    _write_cyclic(storage)
+    engine_dir = tmp_path / "engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps(_variant()))
+    monkeypatch.setattr("pio_tpu_torch.__main__.get_storage",
+                        lambda: storage)
+    ref_storage = RefStorage(env=env)
+    try:
+        assert port_main(["train", "--engine-dir", str(engine_dir),
+                          "--device", "cpu"]) == 0
+        inst = storage.get_metadata_engine_instances() \
+            .get_latest_completed("seq", "1", "default")
+        engine = port.SequenceEngine.apply()
+        ep = engine.engine_params_from_variant(_variant())
+        ctx = create_workflow_context(storage, device="cpu")
+        [model] = load_models(storage, engine, ep, inst.id, ctx)
+        data = port.SequenceDataSource(ep.datasource[1]).read_training(ctx)
+        ref_ds = ref.SequenceDataSource(ref.SequenceDataSourceParams(
+            app_name=APP, max_len=16))
+        want_data = ref_ds.read_training(type(
+            "Ctx", (), {"event_store": RefEventStore(ref_storage)})())
+    finally:
+        storage.close()
+        ref_storage.close()
+    np.testing.assert_array_equal(data.seqs, want_data.seqs)
+    assert data.users.ids() == want_data.users.ids()
+    np.testing.assert_array_equal(model.seqs, data.seqs)
+    params, _, _ = port.train_sequence_model(
+        data, ep.algorithms[0][1], device="cpu")
+    for k, v in params.items():
+        assert torch.equal(model.params[k], v), k
+
+    algo = port.SequenceAlgorithm(ep.algorithms[0][1])
+    queries = [{"user": "u0", "num": 3},
+               {"user": "u4", "num": 5, "blackList": ["i0"]},
+               {"user": "nobody", "num": 3}]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pio_tpu_torch", "deploy", "--engine-dir",
+         str(engine_dir), "--device", "cpu", "--port", "0",
+         "--ip", "127.0.0.1"],
+        cwd=REPO, env={**os.environ, **env}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert f"Engine instance {inst.id} deployed" in line, (
+            line + proc.stderr.read() if proc.poll() is not None else line)
+        port_no = int(line.split("127.0.0.1:")[1].split()[0])
+        for q in queries:
+            status, body = _post(port_no, "/queries.json", q)
+            assert status == 200
+            _assert_same_ranking(body, algo.predict(model, q))
+        status, body = _post(port_no, "/batch/queries.json", queries)
+        assert status == 200
+        for got, want in zip(body, algo.batch_predict(model, queries)):
+            _assert_same_ranking(got, want)
+    finally:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    # u4 walked i1..i8: of the 10 items, i9 is left once i0 is blacklisted
+    assert [s["item"] for s in body[1]["itemScores"]] == ["i9"]
+    assert body[2] == {"itemScores": []}
+
+
+def test_deployed_server_reads_live_history(tmp_path, carried):
+    """The algorithm that serves is the one deploy prep bound the event
+    store to, so a deployed engine with app_name set answers a user known
+    only from events written after training."""
+    from pio_tpu_torch.workflow.serve import QueryServer, ServingConfig
+    from pio_tpu_torch.workflow.train import persist_models
+
+    _, model = carried
+    cfg = dataclasses.replace(model.config, app_name=APP)
+    variant = {"id": "seq-live", "engineFactory": FACTORY,
+               "datasource": {"params": {"app_name": APP}},
+               "algorithms": [{"name": "sasrec",
+                               "params": dataclasses.asdict(cfg)}]}
+    engine = port.SequenceEngine.apply()
+    ep = engine.engine_params_from_variant(variant)
+    storage = Storage(env=_storage_env(tmp_path))
+    try:
+        app_id = _write_cyclic(storage, n_users=1)
+        persist_models([dataclasses.replace(model, config=cfg)], ep, storage,
+                       "seq-live")
+        qs = QueryServer(engine, ep, storage,
+                         ServingConfig(engine_id="seq-live"),
+                         ctx=create_workflow_context(storage, device="cpu"))
+        assert qs.query({"user": "fresh", "num": 3}) == {"itemScores": []}
+        storage.get_events().insert_batch(
+            [Event("view", "user", "fresh", "item", f"i{t}", {},
+                   T0 + timedelta(days=2, seconds=t)) for t in range(3, 8)],
+            app_id)
+        got = qs.query({"user": "fresh", "num": 3})
+    finally:
+        storage.close()
+    assert got["itemScores"][0]["item"] == "i8"
