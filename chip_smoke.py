@@ -37,9 +37,11 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - attention_kernel: the flash-attention kernel (K8) against its plain
   version at the shapes the repository runs: the sequence template's
   serving call, the serving call at ``eval/neural_throughput.py``'s
-  sequence widths, and that file's long-context cases (B 4, H 8, D 64,
-  causal, bf16, S 2048 to 32768), timed beside one
-  ``scaled_dot_product_attention`` call;
+  sequence widths, that file's long-context cases (B 4, H 8, D 64,
+  causal, bf16, S 2048 to 32768; the bf16 kernel on the tensor cores),
+  the same at D 32 and 128, and a step of its long-context training
+  cell in f32, timed beside one ``scaled_dot_product_attention`` call;
+  the masks' corners in both types;
 - sequence_train: ``train_sequence_model`` at ``eval/neural_throughput
   .py``'s sequence cell (8,192 sequences of 128, 20,000 items, embed
   128), with ``attention="flash"`` (K8 forward) and ``"auto"``;
@@ -126,6 +128,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12         # the scan's FMAs run on the f32 CUDA cores
 TF32_FLOPS = 495e12       # tensor cores; an f32-accurate product takes 3
 BF16_FLOPS = 989e12
+# exponentials a second on the SFUs: 132 SMs x 16 a clock x 1.83 GHz boost
+# (the Hopper architecture white paper's per-SM rate)
+SFU_EXPS_PER_S = 132 * 16 * 1.83e9
 
 # flash attention (K8) vs its plain version. f32: f32 FMAs in another
 # order than the plain version in f64, within the reference's own bound
@@ -139,7 +144,10 @@ ATTN_BF16_ATOL = 1e-5
 # case: the template's serving call (examples/sequence/engine.json:
 # max_len 64, embed 64, 2 heads), the serving call and a training step at
 # eval/neural_throughput.py's sequence widths (max_len 128, embed 128, 4
-# heads) and that file's long-context kernel cases
+# heads), that file's long-context kernel cases (bf16, D 64), the same at
+# D 32 and 128 (the bf16 kernel's other widths), and a step of its
+# long-context training cell (max_len 2048, embed 128, 4 heads, batch 16;
+# f32, as the trainer runs)
 ATTN_CASES = (
     (1, 63, 2, 32, torch.float32, None),
     (16, 63, 2, 32, torch.float32, None),
@@ -149,7 +157,12 @@ ATTN_CASES = (
     (4, 2048, 8, 64, torch.bfloat16, 10),
     (4, 8192, 8, 64, torch.bfloat16, 5),
     (4, 32768, 8, 64, torch.bfloat16, 3),
+    (4, 2048, 8, 32, torch.bfloat16, 10),
+    (4, 2048, 8, 128, torch.bfloat16, 10),
+    (16, 2047, 4, 32, torch.float32, 5),
 )
+# K8's kernel for each input type (flash_attention.cu)
+ATTN_PATHS = {torch.float32: "f32_fma", torch.bfloat16: "bf16_wgmma"}
 # eval/neural_throughput.py's sequence cell, unchanged
 SEQ_TRAIN_DATA = dict(n_seqs=8_192, max_len=128, n_items=20_000)
 SEQ_TRAIN = dict(max_len=128, embed_dim=128, num_heads=4, num_layers=2,
@@ -1625,16 +1638,21 @@ def phase_train_entry(dev: torch.device) -> dict:
 
 # -- phase 12: the flash-attention kernel (K8) ---------------------------------
 
+def attn_pairs(b: int, sq: int, sk: int, h: int, causal: bool) -> int:
+    """(q, k) pairs the masks keep."""
+    return (sum(min(i + 1, sk) for i in range(sq)) if causal
+            else sq * sk) * b * h
+
+
 def attn_bound(b: int, sq: int, sk: int, h: int, d: int, causal: bool,
                dtype: torch.dtype) -> tuple[float, str, float]:
     """Least time for one attention forward. Operations: the (q, k) pairs
     the masks keep, 4*d flops each (q.k and p*v), at the card's rate for
-    the input type (f32 FMA for f32; dense bf16 for bf16). Bytes: q, k, v
-    read once, o written once. Returns (ms, what bounds it, and for f32
-    the operations at the 3xTF32 rate)."""
-    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-             else sq * sk) * b * h
-    flops = 4.0 * d * pairs
+    the input type (f32 FMA for f32; dense bf16 for bf16; the bf16
+    kernel's split of p into two bf16 parts is its design, not more work).
+    Bytes: q, k, v read once, o written once. Returns (ms, what bounds it,
+    and for f32 the operations at the 3xTF32 rate)."""
+    flops = 4.0 * d * attn_pairs(b, sq, sk, h, causal)
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * esize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1656,19 +1674,30 @@ def _qkv_views(b: int, s: int, h: int, d: int, dtype: torch.dtype,
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _attn_err(got, q, k, v, causal: bool) -> float:
-    """Max abs error of K8's output against the plain version (f64 for
-    f32 inputs, f32 for bf16), raising past the stated tolerance."""
+def _attn_want(q, k, v, causal: bool, scale=None):
+    """The plain version K8 is held to: f64 for f32 inputs, f32 for
+    bf16 (on the same bf16 inputs), as f64."""
     from pio_tpu_torch.ops.kernels import flash_attention as k8
 
-    if got.dtype == torch.float32:
-        want = k8.flash_attention_reference(q.double(), k.double(),
-                                            v.double(), causal)
-        tol = torch.full_like(want, ATTN_F32_ATOL)
-    else:
-        want = k8.flash_attention_reference(q.float(), k.float(), v.float(),
-                                            causal).double()
-        tol = ATTN_BF16_RTOL * want.abs() + ATTN_BF16_ATOL
+    ct = torch.float64 if q.dtype == torch.float32 else torch.float32
+    return k8.flash_attention_reference(q.to(ct), k.to(ct), v.to(ct), causal,
+                                        scale).double()
+
+
+def _attn_tol(want, dtype: torch.dtype):
+    """The stated tolerance on each output: f32 ATTN_F32_ATOL; bf16 2^-8
+    of the value + ATTN_BF16_ATOL."""
+    if dtype == torch.float32:
+        return torch.full_like(want, ATTN_F32_ATOL)
+    return ATTN_BF16_RTOL * want.abs() + ATTN_BF16_ATOL
+
+
+def _attn_err(got, q, k, v, causal: bool, scale=None, want=None) -> float:
+    """Max abs error of K8's output against the plain version, raising
+    past the stated tolerance."""
+    if want is None:
+        want = _attn_want(q, k, v, causal, scale)
+    tol = _attn_tol(want, got.dtype)
     err = (got.double() - want).abs()
     if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
         raise AssertionError(
@@ -1677,37 +1706,59 @@ def _attn_err(got, q, k, v, causal: bool) -> float:
     return float(err.max())
 
 
+def _twice(q, k, v, causal: bool, scale=None):
+    """K8's output, and whether a second launch gave the same bits."""
+    from pio_tpu_torch.ops.kernels import flash_attention as k8
+
+    got = k8.flash_attention(q, k, v, causal=causal, scale=scale)
+    again = k8.flash_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    return got, torch.equal(got, again)
+
+
 def phase_attention_kernel(dev: torch.device) -> dict:
     from pio_tpu_torch.ops.kernels import flash_attention as k8
 
     cases = []
     for i, (b, s, h, d, dtype, reps) in enumerate(ATTN_CASES):
         q, k, v = _qkv_views(b, s, h, d, dtype, dev, SEED + 10 + i)
-        got = k8.flash_attention(q, k, v, causal=True)
-        again = k8.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        identical = torch.equal(got, again)
-        del again
-        err = _attn_err(got, q, k, v, True)
+        got, identical = _twice(q, k, v, True)
+        want = _attn_want(q, k, v, True)
+        err = _attn_err(got, q, k, v, True, want=want)
+        tol = _attn_tol(want, dtype)
+        tol_ratio = float(((got.double() - want).abs() / tol).max())
         del got
         timing = {} if reps is None else {"reps": reps, "inner": 1}
         # SDPA takes (B, H, S, D): the same tensors, transposed views
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_dev = (lib.transpose(1, 2).double() - want).abs()
+        lib_err = float(lib_dev.max())
+        lib_outside = float((lib_dev > tol).double().mean())
+        del lib, lib_dev, want, tol
         bound_ms, bound_by, bound_3x = attn_bound(b, s, s, h, d, True, dtype)
+        pairs = attn_pairs(b, s, s, h, True)
+        ms = gpu_ms(lambda: k8.flash_attention(q, k, v, causal=True),
+                    **timing)
         cases.append({
             "B": b, "S": s, "H": h, "D": d, "dtype": str(dtype)[6:],
-            "causal": True, "max_abs_err": err,
+            "causal": True, "path": ATTN_PATHS[dtype], "max_abs_err": err,
+            # the largest error as a share of its tolerance
+            "tol_ratio": tol_ratio,
             "bit_identical_launches": identical,
-            "ms": gpu_ms(lambda: k8.flash_attention(q, k, v, causal=True),
-                         **timing),
+            "ms": ms, "tflops_4d": 4.0 * d * pairs / (ms * 1e-3) / 1e12,
             "plain_ms": gpu_ms(lambda: k8.flash_attention_reference(
                 q, k, v, True), **({"reps": 1, "inner": 1}
                                    if s > 4096 else timing)),
             "library_ms": gpu_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), **timing),
+            # SDPA's error against the same plain version, and the share
+            # of its outputs past K8's tolerance: recorded, not checked
+            "library_max_abs_err": lib_err,
+            "library_outside_tol": lib_outside,
             "bound_ms": bound_ms, "bound_by": bound_by,
             **({"bound_3xtf32_ms": bound_3x} if dtype == torch.float32
-               else {}),
+               else {"bound_exp_ms": pairs / SFU_EXPS_PER_S * 1e3}),
         })
         if not identical:
             raise AssertionError(f"two K8 launches differ at {cases[-1]}")
@@ -1715,22 +1766,35 @@ def phase_attention_kernel(dev: torch.device) -> dict:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
-    # the masks' corners: no keys at all (every row fully masked: zeros),
-    # and Sq != Sk under each mask (top-left causal alignment)
+    # the masks' corners in both types: no keys at all (every row fully
+    # masked: zeros), Sq != Sk under each mask (top-left causal alignment;
+    # ragged Sk 77 and 300), and in bf16 the block's strided qkv views
+    # with an explicit scale
     edges = {}
-    q, k, v = _qkv_views(2, 70, 2, 64, torch.float32, dev, SEED + 20)
-    empty = k8.flash_attention(q, k[:, :0], v[:, :0], causal=True)
-    torch.cuda.synchronize()
-    if not bool((empty == 0).all()):
-        raise AssertionError("rows without keys are not zeros")
-    edges["no_keys"] = {"Sq": 70, "Sk": 0, "all_zero": True}
-    for sq, sk, causal in ((200, 77, True), (50, 300, False), (200, 77, False),
-                           (50, 300, True)):
-        q, _, _ = _qkv_views(2, sq, 2, 64, torch.float32, dev, SEED + sq)
-        _, k, v = _qkv_views(2, sk, 2, 64, torch.float32, dev, SEED + sk)
-        got = k8.flash_attention(q, k, v, causal=causal)
-        edges[f"Sq{sq}_Sk{sk}_{'causal' if causal else 'full'}"] = {
-            "max_abs_err": _attn_err(got, q, k, v, causal)}
+    for dtype in (torch.float32, torch.bfloat16):
+        pre = "" if dtype == torch.float32 else "bf16_"
+        q, k, v = _qkv_views(2, 70, 2, 64, dtype, dev, SEED + 20)
+        empty, identical = _twice(q, k[:, :0], v[:, :0], True)
+        if not bool((empty == 0).all()) or not identical:
+            raise AssertionError(f"{dtype} rows without keys are not zeros")
+        edges[pre + "no_keys"] = {"Sq": 70, "Sk": 0, "all_zero": True}
+        for sq, sk, causal in ((200, 77, True), (50, 300, False),
+                               (200, 77, False), (50, 300, True)):
+            q, _, _ = _qkv_views(2, sq, 2, 64, dtype, dev, SEED + sq)
+            _, k, v = _qkv_views(2, sk, 2, 64, dtype, dev, SEED + sk)
+            got, identical = _twice(q, k, v, causal)
+            if not identical:
+                raise AssertionError(f"two K8 launches differ at {dtype} "
+                                     f"Sq {sq} Sk {sk}")
+            edges[f"{pre}Sq{sq}_Sk{sk}_{'causal' if causal else 'full'}"] = {
+                "max_abs_err": _attn_err(got, q, k, v, causal)}
+    for d in (64, 128):
+        q, k, v = _qkv_views(3, 300, 4, d, torch.bfloat16, dev, SEED + d)
+        got, identical = _twice(q, k, v, True, 0.2)
+        if not identical:
+            raise AssertionError(f"two K8 launches differ at D {d} scale 0.2")
+        edges[f"bf16_strided_D{d}_scale0.2"] = {
+            "max_abs_err": _attn_err(got, q, k, v, True, 0.2)}
     emit("attention_kernel_edges", cases=edges,
          tolerance={"f32_atol_vs_f64": ATTN_F32_ATOL,
                     "bf16_rtol_vs_f32": ATTN_BF16_RTOL,

@@ -7,16 +7,21 @@ softmax:
     o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h]) @ v[b, :, h]
 
 q (B, Sq, H, D), k and v (B, Sk, H, D), f32 or bf16; the output has q's
-shape and type. The scale defaults to 1/sqrt(D) and multiplies q in f32
-before the products. ``causal`` lets row i see keys 0..i (aligned top-left,
-also when Sq != Sk); a row that sees no key is zeros, not NaN.
+shape and type. The scale defaults to 1/sqrt(D). ``causal`` lets row i see
+keys 0..i (aligned top-left, also when Sq != Sk); a row that sees no key is
+zeros, not NaN.
 
 ``flash_attention`` launches ``flash_attention.cu`` for CUDA tensors and
 raises if it cannot; only for tensors on the CPU does it compute the plain
-version, ``flash_attention_reference``. The kernel reads q, k and v through
-their strides: the transformer block hands it views of one qkv tensor,
-which are not copied. Only a view whose last dim is not contiguous, or
-whose strides or start are not a multiple of 4 elements, is copied first.
+version, ``flash_attention_reference``. Each type has its own kernel: f32
+runs f32 FMAs on the CUDA cores, q scaled in f32 before the products, as
+the reference computes; bf16 runs on the tensor cores (``wgmma``), the
+products of bf16 q and k exact in f32 and scaled afterwards, P split into
+bf16 hi and lo parts for P V, the output rounded to bf16. The kernels read
+q, k and v through their strides: the transformer block hands them views
+of one qkv tensor, which are not copied. Only a view whose last dim is not
+contiguous, or whose strides or start are not a multiple of 16 bytes (the
+f32 kernel's vector loads, the bf16 kernel's TMA copies), is copied first.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ NEG_INF = -1e30
 _SCORE_BLOCK_BYTES = 1 << 30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# strides and starts the kernels take as they are: the f32 kernel's 16-byte
+# vector loads, the bf16 kernel's TMA tensor maps
+_ALIGN_BYTES = 16
 _lib: "ctypes.CDLL | None" = None
 
 
@@ -117,12 +125,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where the kernel can read it through its strides,
-    else a contiguous copy."""
-    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
-            and t.data_ptr() % (4 * t.element_size()) == 0):
+    """``t`` itself where the kernel can read it through its strides (the
+    last dim contiguous, every stride and the start a multiple of 16
+    bytes), else a contiguous copy."""
+    esize = t.element_size()
+    if (t.stride(-1) == 1
+            and all(s * esize % _ALIGN_BYTES == 0 for s in t.stride()[:3])
+            and t.data_ptr() % _ALIGN_BYTES == 0):
         return t
-    return t.contiguous()
+    # a fresh allocation: contiguous() would hand back a contiguous tensor
+    # whose start is misaligned as it is
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -665,6 +665,89 @@ def test_flash_kernel_without_keys_gives_zeros_on_card():
     assert bool((got == 0).all())
 
 
+# the bf16 kernel (wgmma, TMA): key counts on both sides of a 64-key tile
+# and of two, with Sq on both sides of the 128-row CTA; the tensor maps'
+# swizzle must match the wgmma descriptors at every D, which a ragged edge
+# would show as wrong numbers
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(65, 65), (127, 127), (129, 129),
+                                   (300, 65), (300, 129), (40, 127)])
+def test_flash_bf16_kernel_ragged_key_tiles_on_card(d, causal, sq, sk):
+    dev = _cuda()
+    q, k, v = _k8_args(2, sq, sk, 3, d, seed=d + sk, dtype=torch.bfloat16,
+                       device=dev)
+    got = k8.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _k8_assert_close(got, q, k, v, causal)
+
+
+def test_flash_bf16_kernel_long_causal_rows_on_card():
+    """S 4096: 64 key tiles through the three-stage ring, 32 CTAs of 128
+    rows; two launches bit-identical."""
+    dev = _cuda()
+    q, k, v = _k8_args(1, 4096, 4096, 2, 64, seed=12, dtype=torch.bfloat16,
+                       device=dev)
+    got = k8.flash_attention(q, k, v, causal=True)
+    again = k8.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _k8_assert_close(got, q, k, v, True)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("scale", [-0.3, 0.05])
+def test_flash_bf16_kernel_takes_any_scale_on_card(d, scale):
+    """Tiles off the diagonal take the max of the raw scores (of their
+    negation for a negative scale) and fold the scale into the exp2."""
+    dev = _cuda()
+    q, k, v = _k8_args(2, 300, 300, 2, d, seed=d, dtype=torch.bfloat16,
+                       device=dev)
+    for causal in (False, True):
+        got = k8.flash_attention(q, k, v, causal=causal, scale=scale)
+        _k8_assert_close(got, q, k, v, causal, scale)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_kernel_without_keys_gives_zeros_on_card(d, causal):
+    dev = _cuda()
+    q, k, v = _k8_args(2, 70, 0, 2, d, seed=9, dtype=torch.bfloat16,
+                       device=dev)
+    before = k8.launches.value
+    got = k8.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k8.launches.value == before + 1
+    assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_kernel_reads_strided_views_on_card(d):
+    """Views of one (B, S, 3, H, D) projection with an explicit scale, as
+    the transformer block hands them over; (B, H, S, D) tensors seen as
+    (B, S, H, D); and a start 8 bytes off 16, which is copied first."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(d)
+    qkv = torch.randn((3, 200, 3, 4, d), generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert k8._kernel_view(q).data_ptr() == q.data_ptr()
+    got = k8.flash_attention(q, k, v, causal=True, scale=0.2)
+    _k8_assert_close(got, q, k, v, True, 0.2)
+    bhsd = [torch.randn((2, 3, 150, d), generator=g).to(dev, torch.bfloat16)
+            for _ in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in bhsd)
+    assert k8._kernel_view(q).data_ptr() == q.data_ptr()
+    got = k8.flash_attention(q, k, v, causal=False)
+    _k8_assert_close(got, q, k, v, False)
+    flat = torch.randn(2 * 90 * 2 * d + 4, generator=g).to(dev,
+                                                          torch.bfloat16)
+    q = flat[4:].view(2, 90, 2, d)
+    assert k8._kernel_view(q).data_ptr() != q.data_ptr()
+    got = k8.flash_attention(q, q, q, causal=True)
+    _k8_assert_close(got, q, q, q, True)
+
+
 # -- the serving top-k's tie order on the card ---------------------------------
 
 def test_topk_tie_order_on_card():
