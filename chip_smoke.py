@@ -27,7 +27,9 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   "pallas-copy" and "pallas-take" held bit for bit against "xla";
 - fused_kernel: the fused normal-equation kernel (K1) against its plain
   version (and f64) on each half of the same layout, timed beside what it
-  replaces there, the hybrid path's block build plus K2;
+  replaces there, the hybrid path's block build plus K2, with its device
+  time by part (the kernel, its zero-fill of rows without entries, the
+  fold);
 - train_fused: ``als_train`` on the same ratings with ``accum="pallas"``
   (K1 on every solve), each half held against the hybrid path and f64;
 - train_entry: seeded rate/buy events for every user and item in sqlite,
@@ -104,8 +106,9 @@ RECALL_FLOOR = 0.9
 # segment flush vs its plain version: both sum the same f32 blocks in
 # other orders (the plain version with atomics); held per row of A
 # against the plain version evaluated in f64, relative to the row's max.
-# The fused kernel (K1) is held to the same bound: it sums at most 64
-# products before they join the row, as a slot's block sums 128
+# The fused kernel (K1) is held to the same bound: it sums at most 32
+# products, each f32-accurate (3xTF32), before they join the row, as a
+# slot's block sums 128
 FLUSH_RTOL = 1e-5
 # packed matvec vs the f64 product: k f32 products summed in another
 # order; each output within MATVEC_RTOL of the sum of its terms' magnitudes
@@ -369,6 +372,10 @@ def phase_scan_kernel(users: np.ndarray, items: np.ndarray,
                 "library_ms": gpu_ms(lambda: torch.einsum(
                     "bplk,bk->bpl", gathered, u)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                # an empty kernel on the scan's grid: the practical floor
+                # of a launch of this shape, beside the byte bound
+                "empty_launch_ms": gpu_ms(lambda: qscan.empty_launch(
+                    b, nprobe, didx.pad_width, dev)),
             })
             emit("scan_kernel", **cases[-1])
     emit("scan_index", build_s=index_s, n_clusters=cases[0]["C"],
@@ -1306,8 +1313,9 @@ def fused_bound(nnz: int, s_real: int, n_self: int, n_other: int,
     read once, A and b written once. Operations: what the function needs,
     not what K1 does: A is symmetric, so per entry the k(k+1)/2 products of
     its upper triangle and the k of b, 2 flops each, as f32 FMAs on the
-    CUDA cores (the kernel's route), or as 3xTF32 on the tensor cores
-    (three passes for an f32-accurate product)."""
+    CUDA cores, or as 3xTF32 on the tensor cores (three passes for an
+    f32-accurate product; the kernel's route). The bound is the least
+    over the two routes."""
     nbytes = (nnz * 8 + s_real * 8 + n_other * k * 2
               + n_self * (k * k + k) * 4)
     flops = float(k * (k + 1) + 2 * k) * nnz
@@ -1318,7 +1326,15 @@ def fused_bound(nnz: int, s_real: int, n_self: int, n_other: int,
         out[name] = {"bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations", "operations_ms": t_ops}
+    out["least"] = min((out["f32"], out["3xtf32"]),
+                       key=lambda r: r["bound_ms"])
     return out
+
+
+# K1's launches by part: the profiler's kernel names (a substring each)
+FUSED_PARTS = {"k1": "normal_equations_kernel",
+               "zero_fill": "zero_unwritten_kernel",
+               "fold": "segment_fold_kernel"}
 
 
 def _row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1378,11 +1394,15 @@ def _fused_case(lay, other, n: int, cs: int, p) -> dict:
                              f"plain version in f64: {rel}")
     bound = fused_bound(nnz, s_real, n, other.shape[0], RANK)
     # each kernel's mean ms per launch over three calls (the profiler can
-    # miss the first kernels of a session; the zero-fill launches twice a
-    # call, for A and for b)
+    # miss the first kernels of a profile); each launches once a call
     by_kernel = {name: ms / calls for name, (ms, calls) in profile_sweep(
         lambda _: [k1() for _ in range(3)], None)[
             "top_kernels_ms_calls"].items()}
+    # the zero-fill apart: K1's own zero kernel; "other" is the wrapper's
+    # fill of the row flags
+    parts = {part: sum(ms for name, ms in by_kernel.items() if key in name)
+             for part, key in FUSED_PARTS.items()}
+    parts["other"] = sum(by_kernel.values()) - sum(parts.values())
     return {
         "S": rows.shape[0], "S_real": s_real, "nnz": nnz, "n_self": n,
         "k": RANK, "W": idx.shape[1], "src": "bf16",
@@ -1391,6 +1411,7 @@ def _fused_case(lay, other, n: int, cs: int, p) -> dict:
         "max_row_rel_err": rel,
         "ms": gpu_ms(k1),
         "ms_by_kernel": by_kernel,
+        "ms_by_part": parts,
         "plain_ms": gpu_ms(lambda: sf.normal_equations_fused_reference(
             rows, idx, val, lens, src, n, p.implicit, p.alpha), 5, 1),
         # no single library call computes K1's function: its yardstick is
@@ -1399,8 +1420,9 @@ def _fused_case(lay, other, n: int, cs: int, p) -> dict:
             lay, other, n, p.implicit, p.alpha, cs, bf16_gather=True,
             accum="hybrid", group_slots=p.group_slots), 5, 1),
         "library_is": "hybrid block build (gather, cast, weights, bmm) + K2",
-        "bound_ms": bound["f32"]["bound_ms"],
-        "bound_by": bound["f32"]["bound_by"],
+        "bound_ms": bound["least"]["bound_ms"],
+        "bound_by": bound["least"]["bound_by"],
+        "bound_f32_fma_ms": bound["f32"]["bound_ms"],
         "bound_3xtf32_ms": bound["3xtf32"]["bound_ms"],
         "bound_3xtf32_by": bound["3xtf32"]["bound_by"],
         "bound_parts_ms": {"bytes": bound["bytes_ms"],
@@ -2135,6 +2157,7 @@ def main() -> int:
             "quantized_scan", src + "quantized_scan.cu",
             "pio_tpu/ops/retrieval.py:550",
             serve["launches"]["quantized_scan"], head,
+            empty_launch_ms=head["empty_launch_ms"],
             shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
                                         "k")},
             cases=cases),
@@ -2184,7 +2207,8 @@ def main() -> int:
             tfused["launches"]["normal_equations_fused"],
             fused["users_half"],
             library_is=fused["users_half"]["library_is"],
-            bound_3xtf32_ms=fused["users_half"]["bound_3xtf32_ms"],
+            bound_f32_fma_ms=fused["users_half"]["bound_f32_fma_ms"],
+            ms_by_part=fused["users_half"]["ms_by_part"],
             shape={k: fused["users_half"][k]
                    for k in ("S", "S_real", "nnz", "n_self", "k", "W",
                              "src")},

@@ -9,8 +9,9 @@ pad mask that surround it in ``_clustered_topk_jit``:
 
 ``quantized_scan`` launches ``quantized_scan.cu`` for CUDA tensors and
 raises if it cannot; only for tensors on the CPU does it compute the plain
-version, ``quantized_scan_reference``. The kernel is bound by bytes (see
-the note in the ``.cu`` source).
+version, ``quantized_scan_reference``. The kernel is bound by latency, one
+thread per row with the row read as 16-byte vectors (see the note in the
+``.cu`` source); ``empty_launch`` times an empty kernel on its grid.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.pio_quantized_scan_empty.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        lib.pio_quantized_scan_empty.restype = ctypes.c_int
         lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pio_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -126,3 +130,15 @@ def quantized_scan(table: torch.Tensor, scales: torch.Tensor,
             f"{lib.pio_cuda_error_string(err).decode()}")
     launches.add()
     return out
+
+
+def empty_launch(b: int, p: int, lmax: int, device) -> None:
+    """An empty kernel on the scan's grid for (B, P, Lmax) on ``device``:
+    the launch floor of the scan's shape. Not counted in ``launches``."""
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.pio_quantized_scan_empty(
+            b, p, lmax, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"empty scan launch failed: "
+                           f"{lib.pio_cuda_error_string(err).decode()}")

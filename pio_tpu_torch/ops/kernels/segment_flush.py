@@ -30,7 +30,10 @@ products and K2's flush fused:
            over the entries w < lens[s] of the slots s with rows[s] == r
 
 y = src[idx[s, w]] in f32; w_outer, w_rhs = alpha*v, 1 + alpha*v for
-implicit data and 1, v for explicit (v = val[s, w]).
+implicit data and 1, v for explicit (v = val[s, w]). K1 runs its products
+on the tensor cores, split into TF32 hi and lo parts so they stay
+f32-accurate (three passes for f32 ``src``, two for bf16), and writes every
+row of A and b itself, zeros included.
 
 Each wrapper launches ``segment_flush.cu`` for CUDA tensors and raises if
 it cannot; only for tensors on the CPU does it compute the plain version
@@ -101,7 +104,7 @@ def _library() -> ctypes.CDLL:
         lib.pio_segment_flush_tile.argtypes = []
         lib.pio_segment_flush_tile.restype = ctypes.c_int
         lib.pio_normal_equations_fused.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_void_p])
         lib.pio_normal_equations_fused.restype = ctypes.c_int
         lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
@@ -328,19 +331,31 @@ def normal_equations_fused(rows: torch.Tensor, idx: torch.Tensor,
                                                 n_self, implicit, alpha)
     _on_cuda("normal_equations_fused", rows)
     s, k = idx.shape[0], src.shape[1]
-    A = torch.zeros((n_self, k, k), dtype=torch.float32, device=rows.device)
-    b = torch.zeros((n_self, k), dtype=torch.float32, device=rows.device)
-    if s and n_self:
-        _launch_fused(rows, idx, val, lens, src, n_self, implicit, alpha, A,
-                      b, _partials(_library(), s, k, rows.device))
+    if not (s and n_self):
+        return (torch.zeros((n_self, k, k), dtype=torch.float32,
+                            device=rows.device),
+                torch.zeros((n_self, k), dtype=torch.float32,
+                            device=rows.device))
+    # K1 writes every element of A and b, zeros included
+    A = torch.empty((n_self, k, k), dtype=torch.float32, device=rows.device)
+    b = torch.empty((n_self, k), dtype=torch.float32, device=rows.device)
+    _launch_fused(rows, idx, val, lens, src, n_self, implicit, alpha, A, b,
+                  (*_partials(_library(), s, k, rows.device),
+                   _written(n_self, rows.device)))
     return A, b
 
 
+def _written(n_self: int, device) -> torch.Tensor:
+    """K1's scratch: a zeroed flag per row, set where a CTA assigns it."""
+    return torch.zeros(n_self, dtype=torch.uint8, device=device)
+
+
 def _launch_fused(rows, idx, val, lens, src, n_self: int, implicit: bool,
-                  alpha: float, A, b, partials) -> None:
-    """Launch K1 into the zeroed (A, b) with the given partials scratch."""
+                  alpha: float, A, b, scratch) -> None:
+    """Launch K1 into (A, b), whatever they hold, with the given scratch:
+    the partials and the zeroed row flags."""
     lib = _library()
-    part_row, part_a, part_b = partials
+    part_row, part_a, part_b, written = scratch
     s, w = idx.shape
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
@@ -348,8 +363,9 @@ def _launch_fused(rows, idx, val, lens, src, n_self: int, implicit: bool,
             rows.data_ptr(), idx.data_ptr(), val.data_ptr(),
             lens.data_ptr(), src.data_ptr(), A.data_ptr(), b.data_ptr(),
             part_row.data_ptr(), part_a.data_ptr(), part_b.data_ptr(),
-            s, w, n_self, src.shape[1], int(src.dtype == torch.bfloat16),
-            int(implicit), float(alpha), stream)
+            written.data_ptr(), s, w, n_self, src.shape[1],
+            int(src.dtype == torch.bfloat16), int(implicit), float(alpha),
+            stream)
     _raise_on(lib, "pio_normal_equations_fused", err)
     launches_fused.add()
 
@@ -379,10 +395,12 @@ def normal_equations_fused_fenced(rows: torch.Tensor, idx: torch.Tensor,
     that needs no tool. Each input and output lies between ``FENCE``
     elements of poison: NaN for floats, an index of 2**30 for idx, lens
     and the partials' rows, row 0 for rows (a stray slot of row 0 changes
-    A[0]). Every entry at or past its slot's ``lens`` is poisoned too, and
-    the partials start as poison, so the fold may read only those the
-    kernel wrote. A read outside what the kernel may read then faults or
-    changes A or b, and a write outside A, b and the partials changes a
+    A[0]), 7 for the row flags. Every entry at or past its slot's ``lens``
+    is poisoned too, and A, b and the partials start as poison, so the
+    kernel must write every element of A and b (it owns their zero-fill)
+    and the fold may read only the partials the kernel wrote. A read
+    outside what the kernel may read then faults or changes A or b, and a
+    write outside A, b, the partials and the flags changes a
     fence. -> (A, b, fences intact); A and b equal
     ``normal_equations_fused``'s bit for bit when no read strays. CUDA
     tensors only."""
@@ -395,18 +413,24 @@ def normal_equations_fused_fenced(rows: torch.Tensor, idx: torch.Tensor,
     k = src.shape[1]
     past = (torch.arange(w, device=idx.device)[None, :]
             >= lens[:, None].clamp(0, w))
+    launch = bool(s and n_self)
+    # A and b start as poison where K1 runs (it must write all of them)
+    out_fill = nan if launch else 0.0
     fills = [(rows, 0), (idx.masked_fill(past, _BAD_INDEX), _BAD_INDEX),
              (val.masked_fill(past, nan), nan), (lens, _BAD_INDEX),
              (src, nan),
-             (rows.new_zeros((n_self, k, k), dtype=torch.float32), nan),
-             (rows.new_zeros((n_self, k), dtype=torch.float32), nan)]
+             (rows.new_full((n_self, k, k), out_fill, dtype=torch.float32),
+              nan),
+             (rows.new_full((n_self, k), out_fill, dtype=torch.float32),
+              nan)]
     part_row, part_a, part_b = _partials(_library(), max(s, 1), k,
                                          rows.device)
     fills += [(part_row.fill_(_BAD_INDEX), _BAD_INDEX),
-              (part_a.fill_(nan), nan), (part_b.fill_(nan), nan)]
+              (part_a.fill_(nan), nan), (part_b.fill_(nan), nan),
+              (_written(n_self, rows.device), 7)]
     fenced = [(*_fenced(t, fill), fill) for t, fill in fills]
     inner = [t for t, _, _ in fenced]
-    if s and n_self:
+    if launch:
         _launch_fused(*inner[:5], n_self, implicit, alpha, *inner[5:7],
                       inner[7:])
     intact = True

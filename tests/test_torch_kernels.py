@@ -99,6 +99,110 @@ def test_scan_kernel_matches_plain_version_on_card(dtype):
     torch.testing.assert_close(got[fin], want[fin], rtol=RTOL, atol=ATOL)
 
 
+def _scan_layout(dtype, k, b, p, seed, c=48, lmax=256, front=False,
+                 device="cpu"):
+    """A scan index made directly: each cluster holds a random number of
+    real rows (cluster 0 none), at random slots among the pads unless
+    ``front``; the probes include cluster 0 in every query."""
+    rng = np.random.default_rng(seed)
+    n_real = rng.integers(0, lmax + 1, c)
+    n_real[0] = 0
+    n_real[1] = lmax
+    gidx = np.full((c, lmax), -1, np.int32)
+    for ci in range(c):
+        pos = (np.arange(n_real[ci]) if front
+               else rng.choice(lmax, n_real[ci], replace=False))
+        gidx[ci, pos] = rng.integers(0, 10 ** 6, n_real[ci])
+    if dtype == "int8":
+        table = torch.from_numpy(
+            rng.integers(-127, 128, (c, lmax, k)).astype(np.int8))
+        scales = rng.uniform(0.5, 1.5, (c, lmax)) / 127
+    else:
+        table = torch.from_numpy(
+            rng.standard_normal((c, lmax, k)).astype(np.float32)).bfloat16()
+        scales = rng.uniform(0.5, 1.5, (c, lmax))
+    top_c = np.stack([np.concatenate([[0], rng.choice(
+        np.arange(1, c), p - 1, replace=False)]) for _ in range(b)])
+    u = rng.standard_normal((b, k)).astype(np.float32)
+    return (table.to(device),
+            torch.from_numpy(scales.astype(np.float32)).to(device),
+            torch.from_numpy(gidx).to(device),
+            torch.from_numpy(top_c.astype(np.int32)).to(device),
+            torch.from_numpy(u).to(device))
+
+
+def _assert_scan_close(got, want):
+    """The -inf pattern exactly; finite scores within RTOL of themselves
+    plus ATOL of the largest score (k f32 products in another order)."""
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert bool(torch.isfinite(got[fin]).all())
+    err = (got[fin] - want[fin]).abs()
+    tol = RTOL * want[fin].abs() + ATOL * want[fin].abs().max()
+    assert bool((err <= tol).all())
+
+
+def test_scan_layout_puts_pads_between_real_rows():
+    """The card tests' index: pads inside clusters, cluster 0 all pads
+    and probed by every query, and the plain version masks them all."""
+    table, scales, gidx, top_c, u = _scan_layout("int8", 24, 3, 32, seed=1)
+    real = gidx >= 0
+    first_pad = (~real).int().argmax(dim=1)
+    assert any(bool(real[ci, int(first_pad[ci]):].any())
+               for ci in range(gidx.shape[0]))
+    assert not real[0].any() and bool((top_c[:, 0] == 0).all())
+    want = qscan.quantized_scan_reference(table, scales, gidx, top_c, u)
+    assert torch.equal(torch.isneginf(want).reshape(3, 32, -1),
+                       ~real[top_c.long()])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("k", [5, 24, 64, 72])
+@pytest.mark.parametrize("b", [1, 16, 128])
+def test_scan_kernel_pads_anywhere_on_card(dtype, k, b):
+    """K7 at the main path's nprobe 32, B 1, 16 and 128: pads between real
+    rows and an all-pad cluster give the plain version's -inf pattern, k
+    off the 16-byte vector width (5, 24, 72 in int8; 5 in bf16) reads
+    rows element by element, and two launches are bit-identical."""
+    dev = _cuda()
+    args = _scan_layout(dtype, k, b, 32, seed=k + b, device=dev)
+    before = qscan.launches.value
+    got = qscan.quantized_scan(*args)
+    again = qscan.quantized_scan(*args)
+    torch.cuda.synchronize()
+    assert qscan.launches.value == before + 2
+    assert torch.equal(got, again)
+    _assert_scan_close(got, qscan.quantized_scan_reference(*args))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_scan_kernel_front_packed_and_misaligned_table_on_card(dtype):
+    """Real rows packed first, as ``build_device_index`` packs them; and
+    the same table at an offset that breaks 16-byte alignment, which the
+    kernel reads element by element."""
+    dev = _cuda()
+    table, scales, gidx, top_c, u = _scan_layout(
+        dtype, 64, 16, 32, seed=3, front=True, device=dev)
+    want = qscan.quantized_scan_reference(table, scales, gidx, top_c, u)
+    _assert_scan_close(qscan.quantized_scan(table, scales, gidx, top_c, u),
+                       want)
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype, device=dev)
+    shifted = flat[1:].view(table.shape)
+    shifted.copy_(table)
+    assert shifted.data_ptr() % 16 != 0
+    _assert_scan_close(qscan.quantized_scan(shifted, scales, gidx, top_c, u),
+                       want)
+
+
+def test_scan_empty_launch_on_card():
+    """The launch floor: an empty kernel on the scan's grid, not counted."""
+    dev = _cuda()
+    before = qscan.launches.value
+    qscan.empty_launch(128, 32, 1024, dev)
+    torch.cuda.synchronize()
+    assert qscan.launches.value == before
+
+
 # -- segment flush (K2) -------------------------------------------------------
 
 # the kernel and the plain version sum the same f32 blocks in other
@@ -509,6 +613,69 @@ def test_fused_kernel_heavy_row_odd_slots_pad_tail_on_card(k):
     _assert_rows_close(b1, wb)
     empty = sorted(set(range(40)) - set(args[0].tolist()))
     assert empty and not A1[empty].any() and not b1[empty].any()
+
+
+@pytest.mark.parametrize("k", [8, 64, 72])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_kernel_slot_lengths_off_the_fragment_width_on_card(k, dtype):
+    """Slot lengths that are not multiples of 8 (the tensor cores'
+    reduction step), so runs of one row start and end inside a fragment
+    and its other entries must be masked: against f64, bit-identical."""
+    dev = _cuda()
+    args = list(_ne_args(400, 128, k, 60, seed=k, heavy=150, pad=9,
+                         dtype=dtype, device=dev))
+    rng = np.random.default_rng(k)
+    odd = np.array([1, 3, 5, 7, 9, 13, 15, 31, 33, 63, 127])
+    lens = odd[rng.integers(0, len(odd), 400)].astype(np.int32)
+    lens[-9:] = 0
+    args[3] = torch.from_numpy(lens).to(dev)
+    A1, b1 = sf.normal_equations_fused(*args, 60, True, 10.0)
+    A2, b2 = sf.normal_equations_fused(*args, 60, True, 10.0)
+    torch.cuda.synchronize()
+    assert torch.equal(A1, A2) and torch.equal(b1, b2)
+    wa, wb = _ne_f64(args, 60, True, 10.0)
+    _assert_rows_close(A1, wa)
+    _assert_rows_close(b1, wb)
+    # A comes out exactly symmetric: each product is computed once
+    assert torch.equal(A1, A1.transpose(1, 2))
+
+
+@pytest.mark.parametrize("k", [5, 64, 130])
+def test_fused_kernel_owns_the_zero_fill_on_card(k):
+    """K1 writes every row of A and b: rows with no slot, and a row whose
+    slots in its first tile are all empty but whose entries come in the
+    next tile (its partial folds onto a row the kernel zeroed), come back
+    exactly zero, or the sum, from memory that held NaN before."""
+    dev = _cuda()
+    rows = np.sort(np.r_[np.arange(0, 40, 2).repeat(3), np.full(30, 41),
+                         np.arange(44, 60, 3).repeat(2)]).astype(np.int32)
+    s = rows.shape[0]
+    rng = np.random.default_rng(k)
+    lens = rng.integers(1, 17, s).astype(np.int32)
+    first41 = int(np.argmax(rows == 41))
+    assert first41 < 64 < first41 + 30       # row 41 crosses a tile
+    lens[first41:64] = 0                     # none in its first tile
+    idx = rng.integers(0, 37, (s, 16)).astype(np.int32)
+    val = rng.integers(1, 6, (s, 16)).astype(np.float32)
+    src = (0.5 * rng.standard_normal((37, k))).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (rows, idx, val, lens)]
+    args.append(torch.from_numpy(src).to(dev))
+    n_self = 70
+    # leave NaN in the memory the caching allocator hands out next
+    junk = torch.full((n_self * k * k + n_self * k + 4096,), float("nan"),
+                      device=dev)
+    del junk
+    A, b = sf.normal_equations_fused(*args, n_self, True, 3.0)
+    A2, b2, intact = sf.normal_equations_fused_fenced(*args, n_self, True,
+                                                      3.0)
+    torch.cuda.synchronize()
+    assert intact and torch.equal(A, A2) and torch.equal(b, b2)
+    empty = sorted(set(range(n_self)) - set(rows.tolist()))
+    assert not A[empty].any() and not b[empty].any()
+    wa, wb = _ne_f64(args, n_self, True, 3.0)
+    _assert_rows_close(A, wa)
+    _assert_rows_close(b, wb)
+    assert A[41].any()
 
 
 def test_fused_fenced_launch_refuses_cpu_tensors():
