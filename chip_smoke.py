@@ -37,13 +37,14 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   launch counters can be read), then the trained instance deployed and
   queried over HTTP;
 - attention_kernel: the flash-attention kernel (K8) against its plain
-  version at the shapes the repository runs: the sequence template's
-  serving call, the serving call at ``eval/neural_throughput.py``'s
-  sequence widths, that file's long-context cases (B 4, H 8, D 64,
-  causal, bf16, S 2048 to 32768; the bf16 kernel on the tensor cores),
+  version at the shapes the repository runs, each case with the kernel
+  it took (f32 inputs: 3xTF32 ``mma.sync``; bf16: ``wgmma``): the
+  sequence template's serving call, the serving call at
+  ``eval/neural_throughput.py``'s sequence widths, that file's
+  long-context cases (B 4, H 8, D 64, causal, bf16, S 2048 to 32768),
   the same at D 32 and 128, and a step of its long-context training
   cell in f32, timed beside one ``scaled_dot_product_attention`` call;
-  the masks' corners in both types;
+  the masks' corners and strided views in both types;
 - sequence_train: ``train_sequence_model`` at ``eval/neural_throughput
   .py``'s sequence cell (8,192 sequences of 128, 20,000 items, embed
   128), with ``attention="flash"`` (K8 forward) and ``"auto"``;
@@ -135,11 +136,12 @@ BF16_FLOPS = 989e12
 # (the Hopper architecture white paper's per-SM rate)
 SFU_EXPS_PER_S = 132 * 16 * 1.83e9
 
-# flash attention (K8) vs its plain version. f32: f32 FMAs in another
-# order than the plain version in f64, within the reference's own bound
-# for its flash kernel (tests/test_attention.py: 2e-5). bf16: the output
-# is rounded to bf16 (8 significant bits, half an ulp = 2^-9 of it; 2^-8
-# allowed) against the plain version in f32 on the same bf16 inputs
+# flash attention (K8) vs its plain version. f32: f32-accurate products
+# (3xTF32) summed in another order than the plain version in f64, within
+# the reference's own bound for its flash kernel (tests/test_attention.py:
+# 2e-5). bf16: the output is rounded to bf16 (8 significant bits, half an
+# ulp = 2^-9 of it; 2^-8 allowed) against the plain version in f32 on the
+# same bf16 inputs
 ATTN_F32_ATOL = 2e-5
 ATTN_BF16_RTOL = 2 ** -8
 ATTN_BF16_ATOL = 1e-5
@@ -164,8 +166,6 @@ ATTN_CASES = (
     (4, 2048, 8, 128, torch.bfloat16, 10),
     (16, 2047, 4, 32, torch.float32, 5),
 )
-# K8's kernel for each input type (flash_attention.cu)
-ATTN_PATHS = {torch.float32: "f32_fma", torch.bfloat16: "bf16_wgmma"}
 # eval/neural_throughput.py's sequence cell, unchanged
 SEQ_TRAIN_DATA = dict(n_seqs=8_192, max_len=128, n_items=20_000)
 SEQ_TRAIN = dict(max_len=128, embed_dim=128, num_heads=4, num_layers=2,
@@ -1667,23 +1667,29 @@ def attn_pairs(b: int, sq: int, sk: int, h: int, causal: bool) -> int:
 
 
 def attn_bound(b: int, sq: int, sk: int, h: int, d: int, causal: bool,
-               dtype: torch.dtype) -> tuple[float, str, float]:
+               dtype: torch.dtype) -> dict:
     """Least time for one attention forward. Operations: the (q, k) pairs
-    the masks keep, 4*d flops each (q.k and p*v), at the card's rate for
-    the input type (f32 FMA for f32; dense bf16 for bf16; the bf16
-    kernel's split of p into two bf16 parts is its design, not more work).
-    Bytes: q, k, v read once, o written once. Returns (ms, what bounds it,
-    and for f32 the operations at the 3xTF32 rate)."""
-    flops = 4.0 * d * attn_pairs(b, sq, sk, h, causal)
+    the masks keep, 4*d flops each (q.k and p*v), at the rate of the
+    kernel's route for the input type: for f32 the TF32 tensor cores at a
+    third of their rate (an f32-accurate product takes three), with the
+    f32 FMA route's bound beside it as ``bound_f32_fma_ms``; for bf16 the
+    dense bf16 rate (the bf16 kernel's split of p into two bf16 parts is
+    its design, not more work), with one exp2 a pair on the SFUs beside
+    it as ``bound_exp_ms``. Bytes: q, k, v read once, o written once."""
+    pairs = attn_pairs(b, sq, sk, h, causal)
+    flops = 4.0 * d * pairs
     esize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * sq * h * d + 2 * b * sk * h * d) * esize
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rate = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    rate = TF32_FLOPS / 3 if dtype == torch.float32 else BF16_FLOPS
     t_ops = flops / rate * 1e3
-    t_3x = max(flops / (TF32_FLOPS / 3) * 1e3, t_bytes)
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", t_3x
-    return t_ops, "operations", t_3x
+    out = ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+           else {"bound_ms": t_ops, "bound_by": "operations"})
+    if dtype == torch.float32:
+        out["bound_f32_fma_ms"] = max(flops / F32_FLOPS * 1e3, t_bytes)
+    else:
+        out["bound_exp_ms"] = pairs / SFU_EXPS_PER_S * 1e3
+    return out
 
 
 def _qkv_views(b: int, s: int, h: int, d: int, dtype: torch.dtype,
@@ -1758,13 +1764,12 @@ def phase_attention_kernel(dev: torch.device) -> dict:
         lib_err = float(lib_dev.max())
         lib_outside = float((lib_dev > tol).double().mean())
         del lib, lib_dev, want, tol
-        bound_ms, bound_by, bound_3x = attn_bound(b, s, s, h, d, True, dtype)
         pairs = attn_pairs(b, s, s, h, True)
         ms = gpu_ms(lambda: k8.flash_attention(q, k, v, causal=True),
                     **timing)
         cases.append({
             "B": b, "S": s, "H": h, "D": d, "dtype": str(dtype)[6:],
-            "causal": True, "path": ATTN_PATHS[dtype], "max_abs_err": err,
+            "causal": True, "path": k8.KERNELS[dtype], "max_abs_err": err,
             # the largest error as a share of its tolerance
             "tol_ratio": tol_ratio,
             "bit_identical_launches": identical,
@@ -1778,9 +1783,7 @@ def phase_attention_kernel(dev: torch.device) -> dict:
             # of its outputs past K8's tolerance: recorded, not checked
             "library_max_abs_err": lib_err,
             "library_outside_tol": lib_outside,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            **({"bound_3xtf32_ms": bound_3x} if dtype == torch.float32
-               else {"bound_exp_ms": pairs / SFU_EXPS_PER_S * 1e3}),
+            **attn_bound(b, s, s, h, d, True, dtype),
         })
         if not identical:
             raise AssertionError(f"two K8 launches differ at {cases[-1]}")
@@ -1790,33 +1793,36 @@ def phase_attention_kernel(dev: torch.device) -> dict:
 
     # the masks' corners in both types: no keys at all (every row fully
     # masked: zeros), Sq != Sk under each mask (top-left causal alignment;
-    # ragged Sk 77 and 300), and in bf16 the block's strided qkv views
-    # with an explicit scale
+    # ragged Sk 77 and 300, Sq 300 over Sk 77), and the block's strided
+    # qkv views with an explicit scale at each D the kernels take
     edges = {}
     for dtype in (torch.float32, torch.bfloat16):
         pre = "" if dtype == torch.float32 else "bf16_"
+        path = {"path": k8.KERNELS[dtype], "bit_identical_launches": True}
         q, k, v = _qkv_views(2, 70, 2, 64, dtype, dev, SEED + 20)
         empty, identical = _twice(q, k[:, :0], v[:, :0], True)
         if not bool((empty == 0).all()) or not identical:
             raise AssertionError(f"{dtype} rows without keys are not zeros")
-        edges[pre + "no_keys"] = {"Sq": 70, "Sk": 0, "all_zero": True}
+        edges[pre + "no_keys"] = {"Sq": 70, "Sk": 0, "all_zero": True, **path}
         for sq, sk, causal in ((200, 77, True), (50, 300, False),
-                               (200, 77, False), (50, 300, True)):
+                               (200, 77, False), (50, 300, True),
+                               (300, 77, True), (300, 77, False)):
             q, _, _ = _qkv_views(2, sq, 2, 64, dtype, dev, SEED + sq)
-            _, k, v = _qkv_views(2, sk, 2, 64, dtype, dev, SEED + sk)
+            _, k, v = _qkv_views(2, sk, 2, 64, dtype, dev, SEED + sk + 1)
             got, identical = _twice(q, k, v, causal)
             if not identical:
                 raise AssertionError(f"two K8 launches differ at {dtype} "
                                      f"Sq {sq} Sk {sk}")
             edges[f"{pre}Sq{sq}_Sk{sk}_{'causal' if causal else 'full'}"] = {
-                "max_abs_err": _attn_err(got, q, k, v, causal)}
-    for d in (64, 128):
-        q, k, v = _qkv_views(3, 300, 4, d, torch.bfloat16, dev, SEED + d)
-        got, identical = _twice(q, k, v, True, 0.2)
-        if not identical:
-            raise AssertionError(f"two K8 launches differ at D {d} scale 0.2")
-        edges[f"bf16_strided_D{d}_scale0.2"] = {
-            "max_abs_err": _attn_err(got, q, k, v, True, 0.2)}
+                "max_abs_err": _attn_err(got, q, k, v, causal), **path}
+        for d in (32, 64, 128):
+            q, k, v = _qkv_views(3, 300, 4, d, dtype, dev, SEED + d)
+            got, identical = _twice(q, k, v, True, 0.2)
+            if not identical:
+                raise AssertionError(f"two K8 launches differ at {dtype} D "
+                                     f"{d} scale 0.2")
+            edges[f"{pre}strided_D{d}_scale0.2"] = {
+                "max_abs_err": _attn_err(got, q, k, v, True, 0.2), **path}
     emit("attention_kernel_edges", cases=edges,
          tolerance={"f32_atol_vs_f64": ATTN_F32_ATOL,
                     "bf16_rtol_vs_f32": ATTN_BF16_RTOL,
@@ -2222,7 +2228,8 @@ def main() -> int:
             "pio_tpu/ops/attention.py:219",
             seq_entry["launches"]["flash_attention"], attn["cases"][0],
             library_is="torch.nn.functional.scaled_dot_product_attention",
-            bound_3xtf32_ms=attn["cases"][0]["bound_3xtf32_ms"],
+            bound_f32_fma_ms=attn["cases"][0]["bound_f32_fma_ms"],
+            path=attn["cases"][0]["path"],
             shape={k: attn["cases"][0][k]
                    for k in ("B", "S", "H", "D", "dtype", "causal")},
             cases=attn["cases"], edges=attn["edges"]),

@@ -19,21 +19,38 @@
 // atomics and no row split across CTAs: two launches are bit-identical.
 // Each input type has its own kernel.
 //
-// f32: `flash_attention_kernel`. One CTA of 256 threads takes one
-// (batch, head) and a tile of 64 query rows; the scaled q tile stays in
-// shared memory while the K/V tiles of 64 keys stream through it, so Sk is
-// bounded by nothing on chip (the reference's K/V segments are a VMEM
-// budget and have no counterpart here). Each tile: S = Q K^T as a 4x4
-// micro-tile per thread (thread (ty, tx) holds rows 4ty..4ty+3 and keys
-// tx, tx+16, tx+32, tx+48), the masks, the online-softmax update of
-// (m, l, acc), all in f32, with row maxima and sums reduced across the 16
-// threads of a row by shuffles; P goes to shared memory and acc += P V,
-// each thread owning D/16 output columns of its four rows. Shared-memory
-// rows are padded by 4 floats, so the 16-byte reads of a warp fall in
-// distinct banks. Every product is an f32 FMA on the CUDA cores, P kept in
-// f32 for P V, as the reference computes it (no TF32). Bound: the (q, k)
-// pairs the masks keep, 4 D flops each, at the f32 rate; at the serving
-// shapes (63 rows) a launch's latency.
+// f32: `flash_attention_f32_kernel`, on the tensor cores (`wgmma`) in
+// 3xTF32. A CTA of two warpgroups (one at D 128, for shared memory) takes
+// one (batch, head) and 64 query rows a warpgroup. One of its threads
+// loads the q tiles once and streams 64-key K and V tiles by TMA through
+// a ring of two stages (one at D 128), over the same strided views as
+// the bf16 kernel, in boxes of 32 f32 columns (128 B a row) swizzled
+// 128 B; rows past Sq or Sk arrive as zeros. Each tile:
+//   split       the CTA's threads split every f32 x into TF32 hi = x with
+//               its low 13 mantissa bits cleared and lo = x - hi (exact):
+//               q once a CTA and K in place (lo beside it), V into hi and
+//               lo tiles of v^T, because wgmma reads a TF32 B operand
+//               K-major only and TMA cannot transpose; shared by both
+//               warpgroups;
+//   S = Q K^T   wgmma m64n64k8 from shared memory, lo hi + hi lo + hi hi
+//               summed in f32 (lo lo, ~2^-22 of a product, dropped): each
+//               product f32-accurate; the scale (base 2) applied after;
+//   softmax     on the accumulator fragment, as in the bf16 kernel: masks
+//               only on the tiles at a warp's diagonal or past Sk, the
+//               scale folded into one FMA before each exp2 elsewhere;
+//   O += P V    register-A wgmma, p split into hi and lo in registers,
+//               the same three products. The A fragment takes the
+//               accumulator's registers as they are, which orders each
+//               group of 8 keys 0, 2, 4, 6, 1, 3, 5, 7; v^T is written in
+//               that order, so no shuffle is needed.
+// A barrier after each tile's split, and one before every split but the
+// first (q's split joins tile 0's), order the ring and the split tiles; a
+// warpgroup whose rows see no key of a tile (causal) skips its products.
+// One TF32 pass (10 mantissa bits) would put outputs ~2e-3 from the f32
+// attention, a hundred times the f32 tolerance (2e-5); the split keeps
+// each product to about 2^-21. Bound: 4 D flops a kept pair at the TF32
+// rate over 3 (each product is three), or q, k, v and o moved once; at
+// the serving shapes (63 rows, two CTAs) a launch's latency.
 //
 // bf16: `flash_attention_bf16_kernel`, on the tensor cores. A CTA of three
 // warpgroups takes one (batch, head) and 128 query rows: warpgroups 0 and
@@ -74,261 +91,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per CTA
-constexpr int kBK = 64;          // keys per K/V tile
-constexpr int kThreads = 256;    // 16 x 16 threads
-constexpr int kLDP = kBK + 4;    // padded row of P in shared memory
 constexpr float kNegInf = -1e30f;
-
-template <int D>
-struct Dims {
-    static constexpr int LD = D + 4;                 // padded row of Q, K, V
-    static constexpr int VEC = D >= 64 ? 4 : 2;      // output columns a run
-    static constexpr int NG = D / (16 * VEC);        // runs per thread
-    static constexpr size_t kSmem =
-        (static_cast<size_t>(kBQ + 2 * kBK) * LD + kBQ * kLDP) *
-        sizeof(float);
-};
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-// Rows [0, n_rows) of a 64 x D tile (row r at src + r * row_stride), times
-// `mul`, into shared memory as f32 with row pitch LD; rows past n_rows are
-// zeros.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int n_rows,
-                                          float mul) {
-    constexpr int kPerRow = D / 4;
-    for (int e = threadIdx.x; e < kBQ * kPerRow; e += kThreads) {
-        const int r = e / kPerRow;
-        const int c = (e - r * kPerRow) * 4;
-        float x[4] = {0.f, 0.f, 0.f, 0.f};
-        if (r < n_rows) {
-            load4(src + r * row_stride + c, x);
-        }
-        *reinterpret_cast<float4*>(dst + r * Dims<D>::LD + c) =
-            make_float4(x[0] * mul, x[1] * mul, x[2] * mul, x[3] * mul);
-    }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       int H, int Sq, int Sk,
-                       long long qsb, long long qss, long long qsh,
-                       long long ksb, long long kss, long long ksh,
-                       long long vsb, long long vss, long long vsh,
-                       float scale, int causal) {
-    using Dm = Dims<D>;
-    constexpr int LD = Dm::LD;
-    constexpr int VEC = Dm::VEC;
-    constexpr int NG = Dm::NG;
-    extern __shared__ float4 smem4[];
-    float* Qs = reinterpret_cast<float*>(smem4);
-    float* Ks = Qs + kBQ * LD;
-    float* Vs = Ks + kBK * LD;
-    float* Ps = Vs + kBK * LD;
-
-    const int b = blockIdx.x / H;
-    const int h = blockIdx.x - b * H;
-    const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-    const int tx = threadIdx.x % 16;
-    const int ty = threadIdx.x / 16;
-
-    // q is scaled in f32 before the products, as the reference scales it
-    load_tile<D>(Qs, q + b * qsb + q0 * qss + h * qsh, qss,
-                 min(kBQ, Sq - q0), scale);
-
-    // keys past the tile's last row are masked for all of its rows
-    const int kv_end = causal ? min(Sk, q0 + kBQ) : Sk;
-    const int n_tiles = (kv_end + kBK - 1) / kBK;
-
-    float m[4], l[4], acc[4][NG][VEC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = kNegInf;
-        l[i] = 0.f;
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-#pragma unroll
-            for (int c = 0; c < VEC; ++c) {
-                acc[i][g][c] = 0.f;
-            }
-        }
-    }
-
-    for (int t = 0; t < n_tiles; ++t) {
-        const int k0 = t * kBK;
-        const int n_keys = min(kBK, Sk - k0);
-        __syncthreads();   // the previous tile's K, V and P are consumed
-        load_tile<D>(Ks, k + b * ksb + k0 * kss + h * ksh, kss, n_keys, 1.f);
-        load_tile<D>(Vs, v + b * vsb + k0 * vss + h * vsh, vss, n_keys, 1.f);
-        __syncthreads();
-
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = 0.f;
-            }
-        }
-#pragma unroll 4
-        for (int d = 0; d < D; d += 4) {
-            float4 qa[4], kb[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                qa[i] = *reinterpret_cast<const float4*>(
-                    Qs + (4 * ty + i) * LD + d);
-                kb[i] = *reinterpret_cast<const float4*>(
-                    Ks + (tx + 16 * i) * LD + d);
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-                    s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-                    s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-                    s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-                }
-            }
-        }
-
-        // masks and the online-softmax update, row by row
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = q0 + 4 * ty + i;
-            bool keep[4];
-            float mx = kNegInf;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int col = k0 + tx + 16 * j;
-                keep[j] = col < Sk && (!causal || col <= row);
-                if (!keep[j]) {
-                    s[i][j] = kNegInf;
-                }
-                mx = fmaxf(mx, s[i][j]);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off /= 2) {
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            }
-            const float m_new = fmaxf(m[i], mx);
-            float rs = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-                Ps[(4 * ty + i) * kLDP + tx + 16 * j] = p;
-                rs += p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off /= 2) {
-                rs += __shfl_xor_sync(0xffffffffu, rs, off);
-            }
-            const float alpha = expf(m[i] - m_new);
-            l[i] = l[i] * alpha + rs;
-            m[i] = m_new;
-#pragma unroll
-            for (int g = 0; g < NG; ++g) {
-#pragma unroll
-                for (int c = 0; c < VEC; ++c) {
-                    acc[i][g][c] *= alpha;
-                }
-            }
-        }
-        __syncthreads();
-
-        // acc += P V over the tile's keys
-#pragma unroll 2
-        for (int kk = 0; kk < kBK; kk += 4) {
-            float4 pa[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                pa[i] = *reinterpret_cast<const float4*>(
-                    Ps + (4 * ty + i) * kLDP + kk);
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float* vrow = Vs + (kk + e) * LD + tx * VEC;
-#pragma unroll
-                for (int g = 0; g < NG; ++g) {
-                    float vv[VEC];
-                    if constexpr (VEC == 4) {
-                        const float4 x = *reinterpret_cast<const float4*>(
-                            vrow + g * 16 * VEC);
-                        vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
-                    } else {
-                        const float2 x = *reinterpret_cast<const float2*>(
-                            vrow + g * 16 * VEC);
-                        vv[0] = x.x; vv[1] = x.y;
-                    }
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float p = e == 0 ? pa[i].x
-                                      : e == 1 ? pa[i].y
-                                      : e == 2 ? pa[i].z : pa[i].w;
-#pragma unroll
-                        for (int c = 0; c < VEC; ++c) {
-                            acc[i][g][c] = fmaf(p, vv[c], acc[i][g][c]);
-                        }
-                    }
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = q0 + 4 * ty + i;
-        if (row >= Sq) {
-            continue;
-        }
-        const float den = fmaxf(l[i], 1e-30f);
-        T* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-#pragma unroll
-            for (int c = 0; c < VEC; ++c) {
-                store1(orow + g * 16 * VEC + tx * VEC + c,
-                       acc[i][g][c] / den);
-            }
-        }
-    }
-}
-
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int Sq, int Sk, const long long* st, float scale,
-           int causal, cudaStream_t stream) {
-    constexpr size_t smem = Dims<D>::kSmem;
-    static bool configured = false;   // idempotent: races are harmless
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            flash_attention_kernel<D, T>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) {
-            return static_cast<int>(err);
-        }
-        configured = true;
-    }
-    const dim3 grid(static_cast<unsigned>(B * H),
-                    static_cast<unsigned>((Sq + kBQ - 1) / kBQ));
-    flash_attention_kernel<D, T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), H, Sq, Sk,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-        scale, causal);
-    return static_cast<int>(cudaGetLastError());
-}
 
 // -- bf16: warp-specialized, TMA-fed, on wgmma -------------------------------
 
@@ -576,17 +339,17 @@ __device__ __forceinline__ void issue_scores(float (&sc)[kKeys / 2],
     wgmma_commit();
 }
 
-// The masks and the online-softmax update of one key tile starting at k0,
-// on the accumulator fragment: this thread's rows r0 and r0 + 8 hold 32
-// scores each, columns k0 + 8 j + c0 + {0, 1}. Turns `sc` into p (f32),
-// updates the running max m (base 2) and this thread's part of l, and
-// gives the factor by which each row's output is rescaled.
+// The masks and the online-softmax update of one key tile of N keys
+// starting at k0, on the accumulator fragment: this thread's rows r0 and
+// r0 + 8 hold N / 4 scores each, columns k0 + 8 j + c0 + {0, 1}. Turns
+// `sc` into p (f32), updates the running max m (base 2) and this thread's
+// part of l, and gives the factor by which each row's output is rescaled.
 // kMask: the tile holds keys past Sk or above some row's diagonal; only
 // such tiles pay for the masks, and scale their scores first. Other tiles
 // take the max of the raw scores (of their negation when kNeg, the scale
 // being negative) and fold the scale into one FMA a score.
-template <bool kMask, bool kNeg>
-__device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2],
+template <int N, bool kMask, bool kNeg>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int k0,
                                              int r0, int c0, int Sk,
@@ -601,7 +364,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2],
         };
         float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
 #pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j) {
+        for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 float& x = sc[4 * j + 2 * r + e];
@@ -620,7 +383,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kKeys / 2],
         const float m_new = fmaxf(m[r], m_tile);
         float rs[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j) {
+        for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 float& x = sc[4 * j + 2 * r + e];
@@ -792,14 +555,14 @@ flash_attention_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
         auto softmax = [&](int t, float (&alpha)[2]) {
             const int k0 = t * kKeys;
             if (k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > row_lo)) {
-                softmax_tile<true, false>(sc, m, l, alpha, k0, r0, c0, Sk,
-                                          causal, scale_log2);
+                softmax_tile<kKeys, true, false>(
+                    sc, m, l, alpha, k0, r0, c0, Sk, causal, scale_log2);
             } else if (scale_log2 >= 0.f) {
-                softmax_tile<false, false>(sc, m, l, alpha, k0, r0, c0, Sk,
-                                           causal, scale_log2);
+                softmax_tile<kKeys, false, false>(
+                    sc, m, l, alpha, k0, r0, c0, Sk, causal, scale_log2);
             } else {
-                softmax_tile<false, true>(sc, m, l, alpha, k0, r0, c0, Sk,
-                                          causal, scale_log2);
+                softmax_tile<kKeys, false, true>(
+                    sc, m, l, alpha, k0, r0, c0, Sk, causal, scale_log2);
             }
         };
         // acc rescaled, and p as the next P V's A fragments (once the last
@@ -887,6 +650,448 @@ flash_attention_bf16_kernel(__grid_constant__ const CUtensorMap qmap,
     }
 }
 
+// -- f32: 3xTF32 on wgmma, TMA-fed -------------------------------------------
+
+constexpr int kF32Keys = 64;                  // keys of a K/V tile
+constexpr uint32_t kTf32Hi = 0xffffe000u;     // sign, exponent, 10 mantissa
+
+// A CTA is one or two consumer warpgroups of 64 query rows (two share
+// each K/V tile's copy and split; one at D 128, for shared memory); one
+// thread of it issues the TMA copies. Shared memory, every tile in
+// 128-byte rows swizzled 128 B (the 16-byte chunk c of row r at chunk
+// c ^ (r % 8)), as TMA writes them and the wgmma descriptors read them;
+// tiles 1024-byte aligned:
+//  q      each warpgroup's q tile as TMA lands it (D / 32 boxes of 64 rows
+//         x 32 f32), then its hi parts in place; q_lo beside them;
+//  K, V   the ring (tiles of 64 keys, D / 32 boxes each); K's hi parts
+//         are written in place, the lo parts into k_lo;
+//  vt     v^T as hi and lo tiles, K-major for P V: D rows of keys, in
+//         atoms of 32 keys (128 B) a row. A key group of 8 keeps the
+//         order the accumulator fragment of S gives P's A fragment: key
+//         2 i at position i, key 2 i + 1 at position 4 + i.
+// 88 KB at D 32 (two CTAs an SM), 176 KB at D 64, 224 KB at D 128 with a
+// ring of one stage.
+template <int D>
+struct F32Tile {
+    static constexpr int kWgs = D == 128 ? 1 : 2;
+    static constexpr int kRows = kWgs * kWgRows;        // query rows of a CTA
+    static constexpr int kThreads = kWgs * kWgThreads;
+    static constexpr int kBoxes = D / 32;
+    static constexpr int kQBoxBytes = kWgRows * 128;
+    static constexpr int kQWgBytes = kBoxes * kQBoxBytes;   // a warpgroup's q
+    static constexpr int kQBytes = kWgs * kQWgBytes;
+    static constexpr int kBoxBytes = kF32Keys * 128;
+    static constexpr int kBytes = kBoxes * kBoxBytes;   // a K, V or vt tile
+    static constexpr int kVtAtom = D * 128;             // 32 keys of vt
+    static constexpr int kStages = D == 128 ? 1 : 2;    // K/V ring depth
+    static constexpr int kQLoOff = kQBytes;
+    static constexpr int kKOff = 2 * kQBytes;
+    static constexpr int kVOff = kKOff + kStages * kBytes;
+    static constexpr int kKLoOff = kVOff + kStages * kBytes;
+    static constexpr int kVtHiOff = kKLoOff + kBytes;
+    static constexpr int kVtLoOff = kVtHiOff + kBytes;
+    static constexpr int kBarOff = kVtLoOff + kBytes;
+    static constexpr size_t kSmem = 1024 + kBarOff + 8 * (kStages + 1);
+};
+
+// S (+)= A B^T, m64n64k8, TF32: A (64 x 8) and B (64 x 8) K-major in
+// shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A B, m64n32k8, TF32: A (64 x 8) in registers, B (8 x 32) K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n64k8, TF32: A (64 x 8) in registers, B (8 x 64) K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n128k8, TF32: A (64 x 8) in registers, B (8 x 128) K-major
+// in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+    if constexpr (N == 32) {
+        wgmma_tf32_rs_n32(d, a, b);
+    } else if constexpr (N == 64) {
+        wgmma_tf32_rs_n64(d, a, b);
+    } else {
+        wgmma_tf32_rs_n128(d, a, b);
+    }
+}
+
+// 128-byte swizzled, K-major: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t addr) {
+    return smem_desc(addr, 1, 16, 1024);
+}
+
+__device__ __forceinline__ float tf32_hi(float x) {
+    return __uint_as_float(__float_as_uint(x) & kTf32Hi);
+}
+
+// x as TF32 hi = x with its low 13 mantissa bits cleared and lo = x - hi
+// (exact in f32; the tensor core drops lo's own low bits, ~2^-21 of x)
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+    hi = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+    lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+    const float h = tf32_hi(x);
+    hi = __float_as_uint(h);
+    lo = __float_as_uint(x - h);
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` of f32 at `src` as hi in place and lo at `lo`, 16 bytes a
+// thread of the CTA at a time (a chunk keeps its swizzled place).
+template <int kThreads>
+__device__ __forceinline__ void split_in_place(uint8_t* src, uint8_t* lo,
+                                               int bytes, int tid) {
+    for (int c = 16 * tid; c < bytes; c += 16 * kThreads) {
+        float4 h, l;
+        split4(*reinterpret_cast<const float4*>(src + c), h, l);
+        *reinterpret_cast<float4*>(src + c) = h;
+        *reinterpret_cast<float4*>(lo + c) = l;
+    }
+}
+
+// A V tile (keys x D, as TMA lands it) into vt as hi and lo. Lane l of a
+// unit takes column d = 32 x + l and the four keys of one parity h of key
+// group j (keys 8 j + h + 2 i, i < 4), read along their rows (a warp
+// reads a whole row at once), and writes them as one 16-byte chunk of
+// vt's row d at positions 8 j + 4 h + i.
+template <int D>
+__device__ __forceinline__ void split_v(const uint8_t* vs, uint8_t* vth,
+                                        uint8_t* vtl, int warp, int lane) {
+    using T = F32Tile<D>;
+    constexpr int kPerBox = kF32Keys / 4;     // (group, parity) units
+#pragma unroll 2
+    for (int u = warp; u < T::kBoxes * kPerBox; u += T::kThreads / 32) {
+        const int x = u / kPerBox;
+        const int j = (u % kPerBox) / 2;
+        const int h = u % 2;
+        float4 v;
+        float* vv = &v.x;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int r = h + 2 * i;              // the key's row mod 8
+            vv[i] = *reinterpret_cast<const float*>(
+                vs + x * T::kBoxBytes + (8 * j + r) * 128
+                + (((lane / 4) ^ r) << 4) + 4 * (lane % 4));
+        }
+        float4 hi, lo;
+        split4(v, hi, lo);
+        const int d = 32 * x + lane;
+        const int off = (j / 4) * T::kVtAtom + d * 128
+                      + (((2 * (j % 4) + h) ^ (lane % 8)) << 4);
+        *reinterpret_cast<float4*>(vth + off) = hi;
+        *reinterpret_cast<float4*>(vtl + off) = lo;
+    }
+}
+
+// Issues S = Q K^T of one key tile into `sc` (not waited for), each
+// product as lo hi + hi lo + hi hi.
+template <int D>
+__device__ __forceinline__ void f32_issue_scores(float (&sc)[kF32Keys / 2],
+                                                 uint32_t q_hi, uint32_t q_lo,
+                                                 uint32_t k_hi,
+                                                 uint32_t k_lo) {
+    using T = F32Tile<D>;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int x = 0; x < T::kBoxes; ++x) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t oq = x * T::kQBoxBytes + kk * 32;
+            const uint32_t ok = x * T::kBoxBytes + kk * 32;
+            wgmma_tf32_ss_n64(sc, tf32_desc(q_lo + oq), tf32_desc(k_hi + ok),
+                              x + kk > 0);
+            wgmma_tf32_ss_n64(sc, tf32_desc(q_hi + oq), tf32_desc(k_lo + ok),
+                              1);
+            wgmma_tf32_ss_n64(sc, tf32_desc(q_hi + oq), tf32_desc(k_hi + ok),
+                              1);
+        }
+    }
+    wgmma_commit();
+}
+
+// Issues acc += P V of one key tile (not waited for): p as hi and lo A
+// fragments, one k-step of 8 keys each, vt as hi and lo.
+template <int D>
+__device__ __forceinline__ void f32_issue_pv(
+    float (&acc)[D / 2], const uint32_t (&ph)[kF32Keys / 8][4],
+    const uint32_t (&pl)[kF32Keys / 8][4], uint32_t vt_hi, uint32_t vt_lo) {
+    using T = F32Tile<D>;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kF32Keys / 8; ++j) {
+        const uint32_t o = (j / 4) * T::kVtAtom + (j % 4) * 32;
+        wgmma_tf32_rs<D>(acc, pl[j], tf32_desc(vt_hi + o));
+        wgmma_tf32_rs<D>(acc, ph[j], tf32_desc(vt_lo + o));
+        wgmma_tf32_rs<D>(acc, ph[j], tf32_desc(vt_hi + o));
+    }
+    wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32Tile<D>::kThreads)
+flash_attention_f32_kernel(__grid_constant__ const CUtensorMap qmap,
+                           __grid_constant__ const CUtensorMap kmap,
+                           __grid_constant__ const CUtensorMap vmap,
+                           float* __restrict__ o, int H, int Sq, int Sk,
+                           float scale_log2, int causal) {
+    using T = F32Tile<D>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_addr(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    uint8_t* sbase = smem_raw + (base - raw);   // generic, aligned
+    constexpr int kStages = T::kStages;
+    const uint32_t full = base + T::kBarOff;     // kStages barriers
+    const uint32_t qbar = full + 8 * kStages;
+
+    const int b = blockIdx.x / H;
+    const int h = blockIdx.x - b * H;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kRows;
+    // keys past the CTA's last row are masked for all of its rows
+    const int kv_end = causal ? min(Sk, min(Sq, q0 + T::kRows)) : Sk;
+    const int n_tiles = (kv_end + kF32Keys - 1) / kF32Keys;
+    const int tid = threadIdx.x;
+
+    // thread 0 issues every copy: q and the first tiles now, each later
+    // tile once the tile before it in its stage is done with
+    auto load_tile = [&](int t) {
+        const int s = t % kStages;
+        mbar_expect_tx(full + 8 * s, 2 * T::kBytes);
+        for (int x = 0; x < T::kBoxes; ++x) {
+            const uint32_t off = s * T::kBytes + x * T::kBoxBytes;
+            tma_load(base + T::kKOff + off, &kmap, 32 * x, h, t * kF32Keys,
+                     b, full + 8 * s);
+            tma_load(base + T::kVOff + off, &vmap, 32 * x, h, t * kF32Keys,
+                     b, full + 8 * s);
+        }
+    };
+    if (tid == 0) {
+        for (int s = 0; s < kStages; ++s) {
+            mbar_init(full + 8 * s, 1);
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        if (n_tiles > 0) {
+            mbar_expect_tx(qbar, T::kQBytes);
+            for (int g = 0; g < T::kWgs; ++g) {
+                for (int x = 0; x < T::kBoxes; ++x) {
+                    tma_load(base + g * T::kQWgBytes + x * T::kQBoxBytes,
+                             &qmap, 32 * x, h, q0 + g * kWgRows, b, qbar);
+                }
+            }
+            for (int t = 0; t < min(kStages, n_tiles); ++t) {
+                load_tile(t);
+            }
+        }
+    }
+    __syncthreads();
+
+    // warpgroup wg owns rows wg_lo.. and warp w of it rows row_lo..; the
+    // accumulator fragment gives this thread rows r0 and r0 + 8, columns
+    // c0, c0 + 1 of every group of 8
+    const int wg = tid / kWgThreads;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int wg_lo = q0 + wg * kWgRows;
+    const int wg_kv_end = causal ? min(Sk, min(Sq, wg_lo + kWgRows)) : Sk;
+    const int wg_tiles =
+        wg_lo < Sq ? (wg_kv_end + kF32Keys - 1) / kF32Keys : 0;
+    const int row_lo = wg_lo + 16 * (warp % 4);
+    const int r0 = row_lo + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const uint32_t q_hi = base + wg * T::kQWgBytes;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+        acc[i] = 0.f;
+    }
+    float m[2] = {kNegInf, kNegInf};   // running max, in base 2
+    float l[2] = {0.f, 0.f};           // this thread's part of the sum
+    float sc[kF32Keys / 2];            // a tile's scores, then p
+    uint32_t ph[kF32Keys / 8][4];      // p as hi and lo A fragments
+    uint32_t pl[kF32Keys / 8][4];
+    for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t == 0) {
+            mbar_wait(qbar, 0);
+            split_in_place<T::kThreads>(sbase, sbase + T::kQLoOff,
+                                        T::kQBytes, tid);
+        } else {
+            // every warpgroup's products of the last tile are in: its
+            // stage, k_lo and vt are free
+            __syncthreads();
+            if (tid == 0 && t - 1 + kStages < n_tiles) {
+                load_tile(t - 1 + kStages);
+            }
+        }
+        mbar_wait(full + 8 * s, (t / kStages) & 1);
+        split_in_place<T::kThreads>(sbase + T::kKOff + s * T::kBytes,
+                                    sbase + T::kKLoOff, T::kBytes, tid);
+        split_v<D>(sbase + T::kVOff + s * T::kBytes, sbase + T::kVtHiOff,
+                   sbase + T::kVtLoOff, warp, lane);
+        fence_proxy_async();
+        __syncthreads();
+        if (t >= wg_tiles) {
+            continue;   // keys past this warpgroup's rows (causal)
+        }
+        f32_issue_scores<D>(sc, q_hi, q_hi + T::kQLoOff,
+                            base + T::kKOff + s * T::kBytes,
+                            base + T::kKLoOff);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        // only tiles at the warp's diagonal or past Sk pay for the masks
+        const int k0 = t * kF32Keys;
+        float alpha[2];
+        if (k0 + kF32Keys > Sk || (causal && k0 + kF32Keys - 1 > row_lo)) {
+            softmax_tile<kF32Keys, true, false>(
+                sc, m, l, alpha, k0, r0, c0, Sk, causal, scale_log2);
+        } else if (scale_log2 >= 0.f) {
+            softmax_tile<kF32Keys, false, false>(
+                sc, m, l, alpha, k0, r0, c0, Sk, causal, scale_log2);
+        } else {
+            softmax_tile<kF32Keys, false, true>(
+                sc, m, l, alpha, k0, r0, c0, Sk, causal, scale_log2);
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+            acc[i] *= alpha[(i / 2) % 2];
+        }
+        // the accumulator's registers as P's A fragments: a0 (g, 2 t),
+        // a1 (g + 8, 2 t), a2 (g, 2 t + 1), a3 (g + 8, 2 t + 1), keys
+        // taken in vt's order
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+            split_tf32(sc[4 * j], ph[j][0], pl[j][0]);
+            split_tf32(sc[4 * j + 2], ph[j][1], pl[j][1]);
+            split_tf32(sc[4 * j + 1], ph[j][2], pl[j][2]);
+            split_tf32(sc[4 * j + 3], ph[j][3], pl[j][3]);
+        }
+        f32_issue_pv<D>(acc, ph, pl, base + T::kVtHiOff, base + T::kVtLoOff);
+        wgmma_wait<0>();
+        fence_regs(acc);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float sum = l[r];
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        const float den = fmaxf(sum, 1e-30f);
+        const int row = r0 + 8 * r;
+        if (row >= Sq) {
+            continue;
+        }
+        float* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+            *reinterpret_cast<float2*>(orow + 8 * n + c0) =
+                make_float2(acc[4 * n + 2 * r] / den,
+                            acc[4 * n + 2 * r + 1] / den);
+        }
+    }
+}
+
 using EncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -915,29 +1120,98 @@ EncodeTiled encoder() {
 }
 
 // A map over the (B, S, H, D) view at `ptr` with element strides (sb, ss,
-// sh), dims innermost first (D, H, S, B), box (box_cols, 1, box_rows, 1);
-// rows past S read as zeros.
-int encode_view(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D,
-                int H, int S, int B, long long sb, long long ss,
+// sh), elements of `esize` bytes (4: f32, 2: bf16), dims innermost first
+// (D, H, S, B), box (box_cols, 1, box_rows, 1); rows past S read as zeros.
+int encode_view(EncodeTiled fn, CUtensorMap* map, const void* ptr, int esize,
+                int D, int H, int S, int B, long long sb, long long ss,
                 long long sh, int box_cols, int box_rows,
                 CUtensorMapSwizzle swizzle) {
-    constexpr long long kEsize = 2;
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                                 static_cast<cuuint64_t>(H),
                                 static_cast<cuuint64_t>(S),
                                 static_cast<cuuint64_t>(B)};
-    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * kEsize),
-                                   static_cast<cuuint64_t>(ss * kEsize),
-                                   static_cast<cuuint64_t>(sb * kEsize)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * esize),
+                                   static_cast<cuuint64_t>(ss * esize),
+                                   static_cast<cuuint64_t>(sb * esize)};
     const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
                                static_cast<cuuint32_t>(box_rows), 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                          const_cast<void*>(ptr), dims, strides, box, elem,
+    const CUresult r = fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          4, const_cast<void*>(ptr), dims, strides, box, elem,
                           CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// The three maps of a launch: q in boxes of q_rows rows, k and v of
+// kv_rows. With no keys the maps of k and v are never read and are left
+// unencoded (a zero dim is refused).
+int encode_qkv(CUtensorMap (&maps)[3], const void* q, const void* k,
+               const void* v, int esize, int B, int H, int Sq, int Sk, int D,
+               const long long* st, int box_cols, int q_rows, int kv_rows,
+               CUtensorMapSwizzle swizzle) {
+    const EncodeTiled fn = encoder();
+    if (fn == nullptr) {
+        return kErrNoEncoder;
+    }
+    int err = encode_view(fn, &maps[0], q, esize, D, H, Sq, B, st[0], st[1],
+                          st[2], box_cols, q_rows, swizzle);
+    if (err == 0 && Sk > 0) {
+        err = encode_view(fn, &maps[1], k, esize, D, H, Sk, B, st[3], st[4],
+                          st[5], box_cols, kv_rows, swizzle);
+    }
+    if (err == 0 && Sk > 0) {
+        err = encode_view(fn, &maps[2], v, esize, D, H, Sk, B, st[6], st[7],
+                          st[8], box_cols, kv_rows, swizzle);
+    }
+    return err;
+}
+
+// Raises a kernel's dynamic shared-memory limit once; `done` is the
+// launch's own flag (idempotent: races are harmless).
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, size_t smem, bool& done) {
+    if (!done) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) {
+            return err;
+        }
+        done = true;
+    }
+    return cudaSuccess;
+}
+
+float log2_scale(float scale) {
+    return static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Sq, int Sk, const long long* st, float scale,
+               int causal, cudaStream_t stream) {
+    using T = F32Tile<D>;
+    static bool configured = false;
+    const cudaError_t cerr = configure(flash_attention_f32_kernel<D>,
+                                       T::kSmem, configured);
+    if (cerr != cudaSuccess) {
+        return static_cast<int>(cerr);
+    }
+    CUtensorMap maps[3] = {};
+    const int err = encode_qkv(maps, q, k, v, 4, B, H, Sq, Sk, D, st, 32,
+                               kWgRows, kF32Keys, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != 0) {
+        return err;
+    }
+    const dim3 grid(static_cast<unsigned>(B * H),
+                    static_cast<unsigned>((Sq + T::kRows - 1) / T::kRows));
+    flash_attention_f32_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<float*>(o), H, Sq, Sk,
+        log2_scale(scale), causal);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -945,45 +1219,25 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int Sq, int Sk, const long long* st, float scale,
                 int causal, cudaStream_t stream) {
     using T = Bf16Tile<D>;
-    static bool configured = false;   // idempotent: races are harmless
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            flash_attention_bf16_kernel<D>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(T::kSmem));
-        if (err != cudaSuccess) {
-            return static_cast<int>(err);
-        }
-        configured = true;
-    }
-    const EncodeTiled fn = encoder();
-    if (fn == nullptr) {
-        return kErrNoEncoder;
+    static bool configured = false;
+    const cudaError_t cerr = configure(flash_attention_bf16_kernel<D>,
+                                       T::kSmem, configured);
+    if (cerr != cudaSuccess) {
+        return static_cast<int>(cerr);
     }
     const CUtensorMapSwizzle swizzle = T::kRowBytes == 128
         ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-    // no keys: the maps of k and v are never read (a zero dim is refused)
     CUtensorMap maps[3] = {};
-    int err = encode_view(fn, &maps[0], q, D, H, Sq, B, st[0], st[1], st[2],
-                          T::kBox, kWgRows, swizzle);
-    if (err == 0 && Sk > 0) {
-        err = encode_view(fn, &maps[1], k, D, H, Sk, B, st[3], st[4], st[5],
-                          T::kBox, kKeys, swizzle);
-    }
-    if (err == 0 && Sk > 0) {
-        err = encode_view(fn, &maps[2], v, D, H, Sk, B, st[6], st[7], st[8],
-                          T::kBox, kKeys, swizzle);
-    }
+    const int err = encode_qkv(maps, q, k, v, 2, B, H, Sq, Sk, D, st,
+                               T::kBox, kWgRows, kKeys, swizzle);
     if (err != 0) {
         return err;
     }
     const dim3 grid(static_cast<unsigned>(B * H),
                     static_cast<unsigned>((Sq + kCtaRows - 1) / kCtaRows));
-    const float scale_log2 =
-        static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
     flash_attention_bf16_kernel<D><<<grid, kBf16Threads, T::kSmem, stream>>>(
         maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), H, Sq, Sk,
-        scale_log2, causal);
+        log2_scale(scale), causal);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -992,8 +1246,8 @@ int launch_typed(const void* q, const void* k, const void* v, void* o,
                  int B, int H, int Sq, int Sk, const long long* st,
                  float scale, int causal, cudaStream_t stream) {
     if constexpr (std::is_same<T, float>::value) {
-        return launch<D, float>(q, k, v, o, B, H, Sq, Sk, st, scale, causal,
-                                stream);
+        return launch_f32<D>(q, k, v, o, B, H, Sq, Sk, st, scale, causal,
+                             stream);
     } else {
         return launch_bf16<D>(q, k, v, o, B, H, Sq, Sk, st, scale, causal,
                               stream);
@@ -1023,12 +1277,11 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
 
 // Plain C entry point for ctypes. q (B, Sq, H, D), k and v (B, Sk, H, D) in
 // device memory, element strides (batch, position, head) in `strides` order
-// q, k, v (the last dim contiguous; for f32 every stride a multiple of 4
-// and every pointer aligned to 4 elements, for bf16 every stride a
-// multiple of 8 elements and every pointer 16-byte aligned, as TMA reads
-// them); o (B, Sq, H, D) contiguous. `dtype` 0 is f32, 1 bf16; D is 32, 64
-// or 128. `stream` is a cudaStream_t. Returns the cudaError_t of the
-// launch, or for bf16 a negative code of `pio_cuda_error_string`'s.
+// q, k, v (the last dim contiguous, every stride a multiple of 16 bytes and
+// every pointer 16-byte aligned, as TMA reads them); o (B, Sq, H, D)
+// contiguous. `dtype` 0 is f32, 1 bf16; D is 32, 64 or 128. `stream` is a
+// cudaStream_t. Returns the cudaError_t of the launch, or a negative code
+// of `pio_cuda_error_string`'s.
 extern "C" int pio_flash_attention(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int H, int Sq, int Sk, int D, long long qsb, long long qss,

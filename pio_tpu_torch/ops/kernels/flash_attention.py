@@ -13,15 +13,17 @@ zeros, not NaN.
 
 ``flash_attention`` launches ``flash_attention.cu`` for CUDA tensors and
 raises if it cannot; only for tensors on the CPU does it compute the plain
-version, ``flash_attention_reference``. Each type has its own kernel: f32
-runs f32 FMAs on the CUDA cores, q scaled in f32 before the products, as
-the reference computes; bf16 runs on the tensor cores (``wgmma``), the
-products of bf16 q and k exact in f32 and scaled afterwards, P split into
-bf16 hi and lo parts for P V, the output rounded to bf16. The kernels read
-q, k and v through their strides: the transformer block hands them views
-of one qkv tensor, which are not copied. Only a view whose last dim is not
-contiguous, or whose strides or start are not a multiple of 16 bytes (the
-f32 kernel's vector loads, the bf16 kernel's TMA copies), is copied first.
+version, ``flash_attention_reference``. Each type has its own kernel
+(``KERNELS``), both on the tensor cores and fed by TMA: f32 runs
+``mma.sync`` in 3xTF32 (each operand split into TF32 hi and lo parts,
+lo*lo dropped), so every product is f32-accurate; bf16 runs ``wgmma``, the
+products of bf16 q and k exact in f32, P split into bf16 hi and lo parts
+for P V, the output rounded to bf16. Both scale the scores after the
+products. The kernels read q, k and v through their strides: the
+transformer block hands them views of one qkv tensor, which are not
+copied. Only a view whose last dim is not contiguous, or whose strides or
+start are not a multiple of 16 bytes (as TMA reads them), is copied
+first.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ NEG_INF = -1e30
 _SCORE_BLOCK_BYTES = 1 << 30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# strides and starts the kernels take as they are: the f32 kernel's 16-byte
-# vector loads, the bf16 kernel's TMA tensor maps
+#: the kernel of ``flash_attention.cu`` that each input type takes
+KERNELS = {torch.float32: "f32_3xtf32_wgmma", torch.bfloat16: "bf16_wgmma"}
+# strides and starts the kernels take as they are (their TMA tensor maps)
 _ALIGN_BYTES = 16
 _lib: "ctypes.CDLL | None" = None
 

@@ -23,7 +23,11 @@
 //    the budget fits its 50 MB L2, so here "resident" means resident in L2,
 //    and both variants read the table straight from global memory:
 //      copy: one warp per group of 8 rows, lanes moving 16-byte pieces;
-//      take: one thread per output element.
+//      take: the output seen as one flat run of 16-byte vectors, a CTA
+//      per 1024 of them and four a thread, all four loads in flight before
+//      the first store; the CTA reads the row indices its vectors need
+//      once into shared memory (not once per element or vector), and
+//      consecutive threads store consecutive vectors.
 //
 // Bound: bytes. A gather does no arithmetic; the least it must move is the
 // output (M rows written), the indices, and the table read once. Rows are
@@ -42,6 +46,8 @@ constexpr int kGroupsPerCta = 16;     // stream: groups of rows one CTA walks
 constexpr int kMaxGroup = 64;         // stream: rows of one ring slot, at most
 constexpr int kMaxVecs = 1024;        // stream: widest row, 16 KB
 constexpr int kCopyGroup = 8;         // copy: rows per warp (the reference's)
+constexpr int kTakePer = 4;           // take: vectors a thread
+constexpr int kTakeVecs = kThreads * kTakePer;   // take: vectors a CTA
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -131,8 +137,47 @@ gather_copy_kernel(const uint4* __restrict__ table,
     }
 }
 
-// K4 take, and the K5/K4-copy path for rows that are not whole 16-byte
-// vectors: one thread per output element of `esize` bytes.
+// K4 take: CTA c takes vectors [c * kTakeVecs, (c + 1) * kTakeVecs) of
+// the flat output, whose rows are `vecs` 16-byte vectors each; thread i
+// moves vectors i, i + kThreads, ... of that run.
+__global__ void __launch_bounds__(kThreads)
+gather_take_kernel(const uint4* __restrict__ table,
+                   const int32_t* __restrict__ idx, uint4* __restrict__ out,
+                   long long total, int vecs) {
+    __shared__ int32_t rows_s[kTakeVecs + 1];
+    const long long v0 = static_cast<long long>(blockIdx.x) * kTakeVecs;
+    const long long row0 = v0 / vecs;
+    const int n_rows = static_cast<int>(
+        (min(v0 + kTakeVecs, total) - 1) / vecs - row0 + 1);
+    for (int r = threadIdx.x; r < n_rows; r += kThreads) {
+        rows_s[r] = __ldg(idx + row0 + r);
+    }
+    __syncthreads();
+    // the run starts `skip` vectors into row row0
+    const int skip = static_cast<int>(v0 - row0 * vecs);
+    const int n_vecs = static_cast<int>(min(static_cast<long long>(kTakeVecs),
+                                            total - v0));
+    uint4 x[kTakePer];
+#pragma unroll
+    for (int i = 0; i < kTakePer; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        if (e < n_vecs) {
+            const int r = (skip + e) / vecs;
+            const int col = skip + e - r * vecs;
+            x[i] = __ldg(table + static_cast<size_t>(rows_s[r]) * vecs + col);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kTakePer; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        if (e < n_vecs) {
+            out[v0 + e] = x[i];
+        }
+    }
+}
+
+// The K5/K4 path for rows that are not whole 16-byte vectors: one thread
+// per output element of `esize` bytes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gather_elems_kernel(const T* __restrict__ table,
@@ -194,15 +239,25 @@ extern "C" int pio_gather_stream(const void* table, const int32_t* idx,
     return static_cast<int>(cudaGetLastError());
 }
 
-// K4, gather="pallas-copy" (variant 0) or "pallas-take" (variant 1).
+// K4, gather="pallas-copy" (variant 0) or "pallas-take" (variant 1); rows
+// that are not whole 16-byte vectors take the element kernel in both.
 extern "C" int pio_gather_resident(const void* table, const int32_t* idx,
                                    void* out, int m, int k, int esize,
                                    int vec, int variant, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (variant == 1 || !vec) {
+    if (!vec) {
         return launch_elems(table, idx, out, m, k, esize, st);
     }
     const int vecs = k * esize / 16;
+    if (variant == 1) {
+        const long long total = static_cast<long long>(m) * vecs;
+        const unsigned blocks =
+            static_cast<unsigned>((total + kTakeVecs - 1) / kTakeVecs);
+        gather_take_kernel<<<blocks, kThreads, 0, st>>>(
+            static_cast<const uint4*>(table), idx, static_cast<uint4*>(out),
+            total, vecs);
+        return static_cast<int>(cudaGetLastError());
+    }
     const long long warps = (static_cast<long long>(m) + kCopyGroup - 1)
                             / kCopyGroup;
     const unsigned blocks =

@@ -135,7 +135,9 @@ def gather_rows_resident(table: torch.Tensor, idx: torch.Tensor,
                          variant: str = "copy") -> torch.Tensor:
     """``table[idx]`` with the table resident on chip (in L2 on this
     card); ``variant`` is ``"copy"`` (a warp per 8 rows, 16-byte pieces)
-    or ``"take"`` (a thread per element). The caller keeps it to tables
+    or ``"take"`` (the output as one run of 16-byte vectors, four a
+    thread, the row indices read once a CTA; a thread per element where
+    rows are not whole vectors, for both). The caller keeps it to tables
     within ``GATHER_VMEM_TABLE_BUDGET``, as the reference does. On a CUDA
     device it launches the kernel (a build or launch failure raises)."""
     if variant not in VARIANTS:

@@ -14,6 +14,13 @@ f32, the scale applied to the scores, an f32 online softmax over 128-key
 tiles, p split into bf16 hi and lo parts for P V, the output rounded to
 bf16. It must stay within 2^-8 of the value + 1e-5 of the reference on
 the same bf16 inputs; a single bf16 rounding of p does not.
+
+The f32 kernel's arithmetic is held the same way: TF32 emulated by
+clearing 13 mantissa bits, each operand of both products split into hi
+and lo = tf32(x - hi), each product summed as lo hi + hi lo + hi hi (lo lo
+dropped) in f32, the scale applied to the scores, an f32 online softmax
+over 64-key tiles. It must stay within FWD_ATOL of the f64 plain attention
+at the sequence template's widths; one TF32 pass does not.
 """
 
 import jax
@@ -289,3 +296,98 @@ def test_kernel_view_16_byte_rule_for_bf16():
     assert copied.data_ptr() % 16 == 0 and torch.equal(copied, off)
     f32 = torch.zeros(2 * 7 * 2 * 32 + 4)[4:].view(2, 7, 2, 32)
     assert k8._kernel_view(f32).data_ptr() == f32.data_ptr()
+
+
+# -- the f32 kernel's arithmetic ----------------------------------------------
+
+_TF32_HI = -8192          # 0xffffe000: sign, exponent, 10 mantissa bits
+
+
+def _tf32(x):
+    """x with its low 13 mantissa bits cleared, as the tensor core reads
+    an f32 operand."""
+    return (x.view(torch.int32) & _TF32_HI).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, split):
+    """einsum of TF32 operands summed in f32: three products of hi and lo
+    parts (lo = tf32(x - hi), lo lo dropped) with ``split``, else one."""
+    if not split:
+        return torch.einsum(eq, _tf32(a), _tf32(b))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _f32_kernel_emulation(q, k, v, causal, scale=None, split=True,
+                          tile=64):
+    """The f32 kernel (flash_attention.cu) as the CPU can compute it: each
+    64-key tile's scores are q k^T on the TF32 tensor cores (split: three
+    products, f32-accurate; else one pass), times the scale; the online
+    softmax runs in f32 with l summed from the f32 p; P V takes p and v
+    through the same products, accumulated in f32."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    m = torch.full((b, h, sq, 1), port.NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = _tf32_product("bqhd,bkhd->bhqk", q, kt, split) * np.float32(scale)
+        keep = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            keep = torch.arange(k0, k0 + kt.shape[1])[None, :] <= rows
+        s = s.masked_fill(~keep, port.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new).masked_fill(~keep, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + _tf32_product("bhqk,bkhd->bhqd", p, vt, split)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("sq, sk", [(64, 64), (50, 37), (23, 50), (1, 9),
+                                    (63, 63)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_kernel_arithmetic_matches_pallas_interpret(sq, sk, causal):
+    q, k, v = _qkv(0, 2, sq, sk, 4, 16)
+    want = ref.flash_attention(*_j((q, k, v)), causal=causal, block_q=16,
+                               block_k=16, interpret=True)
+    got = _f32_kernel_emulation(*_t((q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FWD_ATOL)
+
+
+# the sequence template's rows: eval/neural_throughput.py's training step
+# (S 127) and its long-context cell (S 2047), D 32
+@pytest.mark.parametrize("s, b, h", [(127, 2, 4), (2047, 1, 2)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_kernel_arithmetic_matches_plain_version_in_f64(s, b, h, causal):
+    q, k, v = _t(_qkv(s, b, s, s, h, 32))
+    want = k8.flash_attention_reference(q.double(), k.double(), v.double(),
+                                        causal)
+    got = _f32_kernel_emulation(q, k, v, causal)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0,
+                               atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("s, b, h", [(127, 2, 4), (2047, 1, 2)])
+def test_f32_single_tf32_pass_breaks_the_tolerance(s, b, h):
+    """Why the kernel splits every operand: one TF32 pass (10 mantissa
+    bits) puts most outputs outside FWD_ATOL of the f64 attention, where
+    the split keeps every one inside."""
+    q, k, v = _t(_qkv(s + 1, b, s, s, h, 32))
+    want = k8.flash_attention_reference(q.double(), k.double(), v.double(),
+                                        True)
+    once = _f32_kernel_emulation(q, k, v, True, split=False)
+    split = _f32_kernel_emulation(q, k, v, True)
+    err_once = (once.double() - want).abs()
+    err_split = (split.double() - want).abs()
+    assert float((err_once > FWD_ATOL).double().mean()) > 0.5
+    assert float(err_once.max()) > 10 * FWD_ATOL
+    assert float(err_split.max()) <= FWD_ATOL

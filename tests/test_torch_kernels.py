@@ -432,6 +432,31 @@ def test_gather_kernels_match_plain_version_on_card(k, dtype, m):
         assert g.dtype == dtype and torch.equal(g, want)
 
 
+# K4's take variant: the output as one run of 16-byte vectors, 1024 a CTA.
+# Rows of 1 to 125 vectors, widths that are not a power of two (so rows
+# straddle the CTAs' runs), M off a multiple of anything; and rows that
+# are not whole vectors (k 5 bf16, 10 B; k 6 f32, 24 B) or a table whose
+# start is not 16-byte aligned, which take the element kernel.
+@pytest.mark.parametrize("k,dtype", [
+    (8, torch.bfloat16), (24, torch.bfloat16), (64, torch.bfloat16),
+    (1000, torch.bfloat16), (4, torch.float32), (12, torch.float32),
+    (5, torch.bfloat16), (6, torch.float32)])
+@pytest.mark.parametrize("m", [1, 1023, 4097, 70_001])
+def test_gather_take_is_bitwise_table_rows_on_card(k, dtype, m):
+    dev = _cuda()
+    table, idx = _gather_args(3000, k, m, dtype, seed=k * m, device=dev)
+    before = gr.launches_resident.value
+    got = gr.gather_rows_resident(table, idx, "take")
+    torch.cuda.synchronize()
+    assert gr.launches_resident.value == before + 1
+    assert got.dtype == dtype and torch.equal(got, table[idx.long()])
+    flat = torch.empty(3000 * k + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(3000, k)          # start 2 or 4 bytes off 16
+    shifted.copy_(table)
+    assert torch.equal(gr.gather_rows_resident(shifted, idx, "take"),
+                       table[idx.long()])
+
+
 # -- the packed matvec (K6) ----------------------------------------------------
 
 # the kernel and the plain version sum k f32 products in other orders;
@@ -910,6 +935,97 @@ def test_flash_bf16_kernel_reads_strided_views_on_card(d):
     flat = torch.randn(2 * 90 * 2 * d + 4, generator=g).to(dev,
                                                           torch.bfloat16)
     q = flat[4:].view(2, 90, 2, d)
+    assert k8._kernel_view(q).data_ptr() != q.data_ptr()
+    got = k8.flash_attention(q, q, q, causal=True)
+    _k8_assert_close(got, q, q, q, True)
+
+
+def test_flash_kernels_name_each_type():
+    """``KERNELS`` names the kernel each input type takes, which
+    ``chip_smoke.py`` reports beside each case."""
+    assert set(k8.KERNELS) == set(k8._DTYPES)
+    assert k8.KERNELS[torch.float32] == "f32_3xtf32_wgmma"
+
+
+# the f32 kernel (3xTF32 mma.sync, TMA): the bf16 kernel's cases. Key
+# counts on both sides of a 64-key tile and of two, Sq on both sides of
+# the 64-row CTA and Sq != Sk; the tensor maps' swizzle must match the
+# fragment loads at every D, which a ragged edge would show as wrong
+# numbers. Every case twice: the launches must be bit-identical.
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(65, 65), (127, 127), (129, 129),
+                                   (300, 65), (300, 129), (40, 127),
+                                   (300, 77)])
+def test_flash_f32_kernel_ragged_key_tiles_on_card(d, causal, sq, sk):
+    dev = _cuda()
+    q, k, v = _k8_args(2, sq, sk, 3, d, seed=d + sk, device=dev)
+    got = k8.flash_attention(q, k, v, causal=causal)
+    again = k8.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, again)
+    _k8_assert_close(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [2047, 4096])
+def test_flash_f32_kernel_long_causal_rows_on_card(d, s):
+    """S 2047 (the long-context training cell) and 4096: 32 and 64 key
+    tiles through the two-stage ring; two launches bit-identical."""
+    dev = _cuda()
+    q, k, v = _k8_args(1, s, s, 2, d, seed=12, device=dev)
+    got = k8.flash_attention(q, k, v, causal=True)
+    again = k8.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _k8_assert_close(got, q, k, v, True)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("scale", [-0.3, 0.05])
+def test_flash_f32_kernel_takes_any_scale_on_card(d, scale):
+    """Tiles off the diagonal take the max of the raw scores (of their
+    negation for a negative scale) and fold the scale into the exp2."""
+    dev = _cuda()
+    q, k, v = _k8_args(2, 300, 300, 2, d, seed=d, device=dev)
+    for causal in (False, True):
+        got = k8.flash_attention(q, k, v, causal=causal, scale=scale)
+        _k8_assert_close(got, q, k, v, causal, scale)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f32_kernel_without_keys_gives_zeros_on_card(d, causal):
+    dev = _cuda()
+    q, k, v = _k8_args(2, 70, 0, 2, d, seed=9, device=dev)
+    before = k8.launches.value
+    got = k8.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k8.launches.value == before + 1
+    assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_f32_kernel_reads_strided_views_on_card(d):
+    """Views of one (B, S, 3, H, D) projection with an explicit scale, as
+    the transformer block hands them over; (B, H, S, D) tensors seen as
+    (B, S, H, D); and a start 8 bytes off 16, which is copied first."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(d)
+    qkv = torch.randn((3, 200, 3, 4, d), generator=g).to(dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert k8._kernel_view(q).data_ptr() == q.data_ptr()
+    got = k8.flash_attention(q, k, v, causal=True, scale=0.2)
+    _k8_assert_close(got, q, k, v, True, 0.2)
+    bhsd = [torch.randn((2, 3, 150, d), generator=g).to(dev)
+            for _ in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in bhsd)
+    assert k8._kernel_view(q).data_ptr() == q.data_ptr()
+    got = k8.flash_attention(q, k, v, causal=False)
+    _k8_assert_close(got, q, k, v, False)
+    flat = torch.randn(2 * 90 * 2 * d + 2, generator=g).to(dev)
+    q = flat[2:].view(2, 90, 2, d)
     assert k8._kernel_view(q).data_ptr() != q.data_ptr()
     got = k8.flash_attention(q, q, q, causal=True)
     _k8_assert_close(got, q, q, q, True)
