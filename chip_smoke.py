@@ -32,13 +32,22 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   fold);
 - train_fused: ``als_train`` on the same ratings with ``accum="pallas"``
   (K1 on every solve), each half held against the hybrid path and f64;
+- train_validated: ``als_train_validated`` on the same ratings with a
+  tenth held out (the template's seeded split), K2 on every sweep, timed
+  against ``als_train`` on the same triples; its factors bit for bit
+  those of a run stopped at the best sweep; then one
+  ``als_build_layouts`` and two trainings on it, the build's share of
+  the time;
 - train_entry: seeded rate/buy events for every user and item in sqlite,
   ``python -m pio_tpu_torch train`` (its ``main``, in process, so the
   launch counters can be read), then the trained instance deployed and
-  queried over HTTP;
+  queried over HTTP; then the verb's parts timed one by one on the same
+  store: the sqlite read plus the columnar fold, the row path it
+  replaced (``find`` + ``to_interactions``, held equal element for
+  element), the layout build, the sweeps and the persist;
 - attention_kernel: the flash-attention kernel (K8) against its plain
   version at the shapes the repository runs, each case with the kernel
-  it took (f32 inputs: 3xTF32 ``mma.sync``; bf16: ``wgmma``): the
+  it took (f32 inputs: 3xTF32 ``wgmma``; bf16: ``wgmma``): the
   sequence template's serving call, the serving call at
   ``eval/neural_throughput.py``'s sequence widths, that file's
   long-context cases (B 4, H 8, D 64, causal, bf16, S 2048 to 32768),
@@ -51,7 +60,15 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - sequence_entry: the sequence template end to end at
   ``examples/sequence/engine.json``'s widths: seeded view/buy events in
   sqlite, ``python -m pio_tpu_torch train``, ``create_query_server``
-  answering over HTTP from live histories, K8 in every scored batch.
+  answering over HTTP from live histories, K8 in every scored batch;
+- train_resume: on the same events, the template with ``"attention":
+  "flash"`` and a step checkpoint every 50 steps through ``python -m
+  pio_tpu_torch train`` uninterrupted, killed by ``PIO_TPU_CHAOS`` at
+  step 150 in a subprocess then ``--resume ID``, and SIGTERM'd in a
+  subprocess (exit 75) then ``--auto-resume``: the resumed models equal
+  the uninterrupted one bit for bit, K8 runs in every training forward,
+  and the resumed instance is deployed and answers with K8; the time of
+  a checkpoint save and of the heartbeat.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -69,11 +86,15 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
+import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 import urllib.error
 import urllib.request
 from dataclasses import replace
@@ -181,6 +202,17 @@ SEQ_ALGO = {"max_len": 64, "embed_dim": 64, "num_heads": 2, "num_layers": 2,
             "ffn_dim": 128, "steps": 300, "batch_size": 128,
             "learning_rate": 0.001, "app_name": "ChipSeq"}
 SEQ_USERS, SEQ_ITEMS, SEQ_MAX_EVENTS = 2_000, 3_000, 64
+# the resumed runs: the same widths, K8 in every training forward, a step
+# checkpoint every 50 steps; the chaos kill lands at step 150 (after the
+# step-100 save), the SIGTERM'd run stalls at step 120 (a chaos delay)
+# while the signal is sent, once its step-100 checkpoint is on disk
+SEQ_RESUME = {**SEQ_ALGO, "attention": "flash", "checkpoint_every": 50}
+RESUME_KILL_STEP = 150
+RESUME_SIGNAL_AFTER = 100
+RESUME_STALL_STEP, RESUME_STALL_S = 120, 5.0
+RESUME_QUERIES = 8
+# a train subprocess: the interpreter and the card come up in ~10 s
+SUBPROCESS_TIMEOUT_S = 600
 # served scores of the sequence model with K8 against the same model with
 # the plain attention: f32 rounding of the attention, carried through two
 # layers and the tied head
@@ -222,6 +254,17 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: c.value for name, c in counters().items()}
+
+
+def sqlite_env(tmp) -> dict:
+    """The PIO_STORAGE_* settings of a sqlite store in directory tmp."""
+    return {
+        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_SQL_PATH": str(Path(tmp) / "pio.db"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
+    }
 
 
 def gpu_ms(fn, reps: int = TIMING_REPS, inner: int = TIMING_INNER) -> float:
@@ -513,13 +556,7 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     picked = rng.choice(N_USERS, N_PLAIN_QUERIES + BATCH_QUERIES + 3,
                         replace=False)
     with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as tmp:
-        env = {
-            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
-            "PIO_STORAGE_SOURCES_SQL_PATH": str(Path(tmp) / "pio.db"),
-            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
-            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
-            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
-        }
+        env = sqlite_env(tmp)
         engine_dir = Path(tmp) / "engine"
         engine_dir.mkdir()
         (engine_dir / "engine.json").write_text(json.dumps({
@@ -963,6 +1000,107 @@ def phase_train(ratings, dev: torch.device) -> dict:
                       "items_f64_floor": HALF_F64_FLOOR},
     }
     emit("train", **result)
+    return result
+
+
+# -- phase 6b: validated training and reusable layouts at the ML-20M shape --
+
+VALIDATION_FRACTION = 0.1   # the heldout share, split as the template does
+
+
+def phase_train_validated(ratings, dev: torch.device) -> dict:
+    """``als_train_validated`` on the ML-20M shape with a tenth held out
+    (the recommendation template's seeded split), against ``als_train``
+    on the same training triples in the same call; the returned factors
+    bit for bit those of a run that stops at the best sweep; then one
+    ``als_build_layouts`` and two trainings on it."""
+    from pio_tpu_torch.ops import als
+
+    p = train_params()
+    if p.resolved_accum(dev) != "hybrid":
+        raise AssertionError("accum auto is not hybrid on the card")
+    assert_f32_matmul()
+    users, items, vals = ratings
+    perm = np.random.default_rng(p.seed).permutation(NNZ)
+    n_val = max(1, int(NNZ * VALIDATION_FRACTION))
+    va, tr = perm[:n_val], perm[n_val:]
+    train = (users[tr], items[tr], vals[tr])
+    val = (users[va], items[va], vals[va])
+    del perm, va, tr
+    nnz = len(train[0])
+    want = expected_flush_launches(nnz, N_USERS, N_ITEMS, p)
+    init = als.ALSModel(*als._init_or(None, N_USERS, N_ITEMS, p, dev))
+
+    def timed_train(fn, *args, **kw):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, read_counts()
+
+    # -- the main path: counts from 0, read right after ------------------
+    (best, curve), val_s, launches = timed_train(
+        als.als_train_validated, *train, N_USERS, N_ITEMS, p, *val,
+        init=init, device=dev)
+    # ---------------------------------------------------------------------
+    if launches != {**dict.fromkeys(launches, 0), "segment_flush": want}:
+        raise AssertionError(f"validated: launches {launches}, the layout "
+                             f"predicts {want} of segment_flush")
+    plain, train_s, _ = timed_train(als.als_train, *train, N_USERS, N_ITEMS,
+                                    p, init=init, device=dev)
+    short, _, short_launches = timed_train(
+        als.als_train, *train, N_USERS, N_ITEMS,
+        replace(p, iterations=curve.best_sweep), init=init, device=dev)
+    best_is_short = (torch.equal(best.user_factors, short.user_factors)
+                     and torch.equal(best.item_factors, short.item_factors))
+    if not best_is_short:
+        raise AssertionError(
+            f"the best sweep's factors ({curve.best_sweep}) differ from a "
+            "run that stops there")
+    final_is_plain = None
+    if curve.best_sweep == ITERS:
+        final_is_plain = (
+            torch.equal(best.user_factors, plain.user_factors)
+            and torch.equal(best.item_factors, plain.item_factors))
+    del short, best
+    for f in (plain.user_factors, plain.item_factors):
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError("als_train factors are not finite")
+
+    layouts, layout_s, _ = timed_train(als.als_build_layouts, *train,
+                                       N_USERS, N_ITEMS, p, device=dev)
+    on_layouts = []
+    for _ in range(2):
+        got, sweeps_s, counts = timed_train(
+            als.als_train, *train, N_USERS, N_ITEMS, p, init=init,
+            device=dev, layouts=layouts)
+        same = (torch.equal(got.user_factors, plain.user_factors)
+                and torch.equal(got.item_factors, plain.item_factors))
+        if not same or counts["segment_flush"] != want:
+            raise AssertionError(f"training on prebuilt layouts: bit-equal "
+                                 f"{same}, launches {counts}")
+        on_layouts.append(sweeps_s)
+    del layouts, plain, got
+    result = {
+        "nnz_train": nnz, "nnz_heldout": n_val, "users": N_USERS,
+        "items": N_ITEMS, "rank": RANK, "iterations": ITERS,
+        "accum": p.resolved_accum(dev), "implicit": p.implicit,
+        "validation_fraction": VALIDATION_FRACTION,
+        "curve": list(curve.curve), "best_sweep": curve.best_sweep,
+        "best_rmse": curve.best_rmse, "final_rmse": curve.final_rmse,
+        "validated_s": val_s, "als_train_s": train_s,
+        "validated_ratings_per_s": nnz * ITERS / val_s,
+        "als_train_ratings_per_s": nnz * ITERS / train_s,
+        "launches": launches, "segment_flush_launches_expected": want,
+        "short_run_launches": short_launches["segment_flush"],
+        "best_equals_run_stopped_there": best_is_short,
+        "final_equals_als_train": final_is_plain,
+        "layout_build_s": layout_s, "sweeps_on_layouts_s": on_layouts,
+        "layout_share": layout_s / (layout_s + min(on_layouts)),
+        "on_layouts_bit_equal_als_train": True,
+    }
+    emit("train_validated", **result)
     return result
 
 
@@ -1549,6 +1687,95 @@ def write_events(storage, app_name: str) -> tuple[int, int]:
     return N_EVENTS, int(np.unique(u * N_ITEMS + i).size)
 
 
+def split_train_verb(storage, engine, ep, dev: torch.device,
+                     want_launches: int) -> dict:
+    """The train verb's parts, each timed alone on the same store: the
+    sqlite read plus the columnar fold (what the verb reads through),
+    the row path it replaced (``find`` + ``to_interactions``, held equal
+    element for element), the layout build, the sweeps and the persist."""
+    from pio_tpu_torch.data.columnar import columnar_interactions
+    from pio_tpu_torch.data.dao import Model
+    from pio_tpu_torch.data.eventstore import (
+        EventStore,
+        make_value_fn,
+        to_interactions,
+    )
+    from pio_tpu_torch.models.recommendation import RecommendationModel
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.workflow.checkpoint import models_to_bytes
+
+    ds = ep.datasource[1]
+    fold = dict(value_key="rating", default_value=ds.implicit_value,
+                value_event=ds.rating_event, dedup="last")
+    where = dict(entity_type="user", target_entity_type="item",
+                 event_names=list(ds.event_names))
+    store = EventStore(storage)
+    app_id, channel_id = store._resolve(ds.app_name, ds.channel_name)
+    dao = storage.get_events()
+    out = {}
+    t0 = time.perf_counter()
+    cols = dao.find_columnar(app_id, channel_id, **where)
+    out["columnar_sqlite_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    columnar_interactions(cols, **fold)
+    out["columnar_fold_s"] = time.perf_counter() - t0
+    del cols
+    t0 = time.perf_counter()
+    inter = store.interactions(ds.app_name, ds.channel_name, **where, **fold)
+    out["read_columnar_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = list(store.find(ds.app_name, ds.channel_name, **where))
+    out["row_sqlite_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = to_interactions(events, value_fn=make_value_fn(
+        fold["value_key"], fold["default_value"], fold["value_event"]),
+        dedup="last")
+    out["row_fold_s"] = time.perf_counter() - t0
+    out["read_row_s"] = out["row_sqlite_read_s"] + out["row_fold_s"]
+    del events
+    if (inter.users.ids() != rows.users.ids()
+            or inter.items.ids() != rows.items.ids()
+            or any(not np.array_equal(getattr(inter, f), getattr(rows, f))
+                   or getattr(inter, f).dtype != getattr(rows, f).dtype
+                   for f in ("user_idx", "item_idx", "values"))):
+        raise AssertionError("the columnar read differs from find + fold")
+    out["reads_equal"] = True
+    del rows
+
+    algo = engine.algorithm_classes["als"](ep.algorithms[0][1])
+    p = algo._als_params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layouts = als.als_build_layouts(inter.user_idx, inter.item_idx,
+                                    inter.values, inter.n_users,
+                                    inter.n_items, p, device=dev)
+    torch.cuda.synchronize()
+    out["layout_s"] = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    factors = als.als_train(inter.user_idx, inter.item_idx, inter.values,
+                            inter.n_users, inter.n_items, p, device=dev,
+                            layouts=layouts)
+    torch.cuda.synchronize()
+    out["sweeps_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != {**dict.fromkeys(launches, 0),
+                    "segment_flush": want_launches}:
+        raise AssertionError(f"sweeps: launches {launches}, want "
+                             f"{want_launches} of segment_flush")
+    out["sweeps_launches"] = launches
+    del layouts
+    t0 = time.perf_counter()
+    blob = models_to_bytes([RecommendationModel(factors, inter.users,
+                                                inter.items)])
+    storage.get_model_data_models().insert(Model("split-persist", blob))
+    out["persist_s"] = time.perf_counter() - t0
+    out["persist_bytes"] = len(blob)
+    out["parts_s"] = sum(out[k] for k in ("read_columnar_s", "layout_s",
+                                          "sweeps_s", "persist_s"))
+    return out
+
+
 def phase_train_entry(dev: torch.device) -> dict:
     from pio_tpu_torch.__main__ import (
         _engine_from_variant,
@@ -1561,13 +1788,7 @@ def phase_train_entry(dev: torch.device) -> dict:
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
 
     with tempfile.TemporaryDirectory(prefix="pio_chip_train_") as tmp:
-        env = {
-            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
-            "PIO_STORAGE_SOURCES_SQL_PATH": str(Path(tmp) / "pio.db"),
-            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
-            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
-            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
-        }
+        env = sqlite_env(tmp)
         storage = Storage(env=env)
         t0 = time.perf_counter()
         n_events, n_pairs = write_events(storage, "ChipSmoke")
@@ -1646,6 +1867,9 @@ def phase_train_entry(dev: torch.device) -> dict:
         finally:
             http.stop()
             qs.close()
+        try:
+            split = split_train_verb(storage, engine, ep, dev, want_launches)
+        finally:
             storage.close()
     if served_iid != iid:
         raise AssertionError("deploy did not load the trained instance")
@@ -1653,7 +1877,7 @@ def phase_train_entry(dev: torch.device) -> dict:
         "events": n_events, "ratings": n_pairs, "write_s": write_s,
         "train_s": train_s, "instance": iid, "launches": train_launches,
         "segment_flush_launches_expected": want_launches,
-        "query_ms": [1e3 * t for t in latencies],
+        "query_ms": [1e3 * t for t in latencies], "split": split,
     }
     emit("train_entry", **result)
     return result
@@ -1923,8 +2147,8 @@ def write_sequence_events(storage, app_name: str, t0) -> int:
     return len(batch)
 
 
-def phase_sequence_entry(dev: torch.device) -> dict:
-    from datetime import datetime, timedelta, timezone
+def phase_sequence_entry(store, dev: torch.device) -> dict:
+    from datetime import timedelta
     from functools import partial
 
     from pio_tpu_torch.__main__ import (
@@ -1933,7 +2157,7 @@ def phase_sequence_entry(dev: torch.device) -> dict:
         main as cli_main,
     )
     from pio_tpu_torch.data.event import Event
-    from pio_tpu_torch.data.storage import Storage, set_storage
+    from pio_tpu_torch.data.storage import set_storage
     from pio_tpu_torch.ops.attention import (
         attention_reference,
         flash_attention,
@@ -1941,131 +2165,123 @@ def phase_sequence_entry(dev: torch.device) -> dict:
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
 
-    t_events = datetime(2024, 1, 1, tzinfo=timezone.utc)
-    with tempfile.TemporaryDirectory(prefix="pio_chip_seq_") as tmp:
-        env = {
-            "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
-            "PIO_STORAGE_SOURCES_SQL_PATH": str(Path(tmp) / "pio.db"),
-            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
-            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
-            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
-        }
-        storage = Storage(env=env)
+    t_events = store.t_events
+    tmp, storage = store.tmp, store.storage
+    t0 = time.perf_counter()
+    n_events = write_sequence_events(storage, SEQ_ALGO["app_name"],
+                                     t_events)
+    write_s = time.perf_counter() - t0
+    engine_dir = Path(tmp) / "engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": "chip-smoke-seq", "engineFactory": SEQ_FACTORY,
+        "datasource": {"params": {"app_name": SEQ_ALGO["app_name"],
+                                  "event_names": ["view", "buy"],
+                                  "max_len": SEQ_ALGO["max_len"]}},
+        "algorithms": [{"name": "sasrec", "params": SEQ_ALGO}],
+    }))
+    variant = _load_variant(str(engine_dir))
+    engine, ep = _engine_from_variant(variant, str(engine_dir))
+    set_storage(storage)
+    out = io.StringIO()
+    try:
+        reset_counts()
         t0 = time.perf_counter()
-        n_events = write_sequence_events(storage, SEQ_ALGO["app_name"],
-                                         t_events)
-        write_s = time.perf_counter() - t0
-        engine_dir = Path(tmp) / "engine"
-        engine_dir.mkdir()
-        (engine_dir / "engine.json").write_text(json.dumps({
-            "id": "chip-smoke-seq", "engineFactory": SEQ_FACTORY,
-            "datasource": {"params": {"app_name": SEQ_ALGO["app_name"],
-                                      "event_names": ["view", "buy"],
-                                      "max_len": SEQ_ALGO["max_len"]}},
-            "algorithms": [{"name": "sasrec", "params": SEQ_ALGO}],
-        }))
-        variant = _load_variant(str(engine_dir))
-        engine, ep = _engine_from_variant(variant, str(engine_dir))
-        set_storage(storage)
-        out = io.StringIO()
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                rc = cli_main(["train", "--engine-dir", str(engine_dir)])
-            train_s = time.perf_counter() - t0
-            train_launches = read_counts()
-        finally:
-            set_storage(None)
-        printed = out.getvalue().strip()
-        print(printed, flush=True)
-        # attention "auto" at max_len 64 trains with the plain attention
-        if rc != 0 or any(train_launches.values()):
-            raise AssertionError(f"train: rc {rc}, launches {train_launches}")
-        iid = printed.rsplit(" ", 1)[-1]
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["train", "--engine-dir", str(engine_dir),
+                           "--checkpoint-root", str(Path(tmp) / "ckpt")])
+        train_s = time.perf_counter() - t0
+        train_launches = read_counts()
+    finally:
+        set_storage(None)
+    printed = out.getvalue().strip()
+    print(printed, flush=True)
+    # attention "auto" at max_len 64 trains with the plain attention
+    if rc != 0 or any(train_launches.values()):
+        raise AssertionError(f"train: rc {rc}, launches {train_launches}")
+    iid = printed.rsplit(" ", 1)[-1]
 
-        http, qs = create_query_server(
-            engine, ep, storage,
-            ServingConfig(ip="127.0.0.1", port=0,
-                          engine_id="chip-smoke-seq"),
-            ctx=create_workflow_context(storage, device=dev))
-        http.start()
-        try:
-            port = http.port
-            model = qs.models[0]
-            algo = qs.algorithms[0]
-            users = model.users.ids()
-            picked = np.random.default_rng(SEED + 6).choice(
-                len(users), N_PLAIN_QUERIES + BATCH_QUERIES, replace=False)
-            status, warm, first_s = _post(port, "/queries.json",
-                                          {"user": users[picked[0]],
-                                           "num": 10})
-            assert status == 200, warm
-            plain_q = [{"user": users[i], "num": 10}
-                       for i in picked[:N_PLAIN_QUERIES - 4]]
-            plain_q += [{"user": users[i], "num": 10, "blackList": [
-                s["item"] for s in algo.predict(
-                    model, {"user": users[i], "num": 3})["itemScores"]]}
-                for i in picked[N_PLAIN_QUERIES - 4:N_PLAIN_QUERIES - 1]]
-            plain_q.append({"user": "no-such-user", "num": 10})
-            batch_q = [{"user": users[i], "num": 10}
-                       for i in picked[N_PLAIN_QUERIES:]]
-            # a user unseen in training, with events written after it
-            storage.get_events().insert_batch(
-                [Event("view", "user", "fresh-user", "item", f"i{j}", {},
-                       t_events + timedelta(days=30, seconds=n))
-                 for n, j in enumerate((5, 1, 9, 2))],
-                storage.get_metadata_apps().get_by_name(
-                    SEQ_ALGO["app_name"]).id)
-            live_q = {"user": "fresh-user", "num": 10}
+    http, qs = create_query_server(
+        engine, ep, storage,
+        ServingConfig(ip="127.0.0.1", port=0,
+                      engine_id="chip-smoke-seq"),
+        ctx=create_workflow_context(storage, device=dev))
+    http.start()
+    try:
+        port = http.port
+        model = qs.models[0]
+        algo = qs.algorithms[0]
+        users = model.users.ids()
+        picked = np.random.default_rng(SEED + 6).choice(
+            len(users), N_PLAIN_QUERIES + BATCH_QUERIES, replace=False)
+        status, warm, first_s = _post(port, "/queries.json",
+                                      {"user": users[picked[0]],
+                                       "num": 10})
+        assert status == 200, warm
+        plain_q = [{"user": users[i], "num": 10}
+                   for i in picked[:N_PLAIN_QUERIES - 4]]
+        plain_q += [{"user": users[i], "num": 10, "blackList": [
+            s["item"] for s in algo.predict(
+                model, {"user": users[i], "num": 3})["itemScores"]]}
+            for i in picked[N_PLAIN_QUERIES - 4:N_PLAIN_QUERIES - 1]]
+        plain_q.append({"user": "no-such-user", "num": 10})
+        batch_q = [{"user": users[i], "num": 10}
+                   for i in picked[N_PLAIN_QUERIES:]]
+        # a user unseen in training, with events written after it
+        storage.get_events().insert_batch(
+            [Event("view", "user", "fresh-user", "item", f"i{j}", {},
+                   t_events + timedelta(days=30, seconds=n))
+             for n, j in enumerate((5, 1, 9, 2))],
+            storage.get_metadata_apps().get_by_name(
+                SEQ_ALGO["app_name"]).id)
+        live_q = {"user": "fresh-user", "num": 10}
 
-            # -- the main path: counts from 0, read right after --------
-            reset_counts()
-            answers, latencies = [], []
-            for q in plain_q:
-                status, body, dt = _post(port, "/queries.json", q)
-                assert status == 200, body
-                answers.append(body)
-                latencies.append(dt)
-            status, batch_body, batch_s = _post(port, "/batch/queries.json",
-                                                batch_q)
-            assert status == 200, batch_body
-            status, live_body, _ = _post(port, "/queries.json", live_q)
-            assert status == 200, live_body
-            launches = read_counts()
-            # ------------------------------------------------------------
+        # -- the main path: counts from 0, read right after --------
+        reset_counts()
+        answers, latencies = [], []
+        for q in plain_q:
+            status, body, dt = _post(port, "/queries.json", q)
+            assert status == 200, body
+            answers.append(body)
+            latencies.append(dt)
+        status, batch_body, batch_s = _post(port, "/batch/queries.json",
+                                            batch_q)
+        assert status == 200, batch_body
+        status, live_body, _ = _post(port, "/queries.json", live_q)
+        assert status == 200, live_body
+        launches = read_counts()
+        # ------------------------------------------------------------
 
-            # the same queries in process, on the same model
-            for q, got in zip(plain_q, answers):
-                _check_same(got, algo.predict(model, q), q["user"])
-            for i, (got, want) in enumerate(zip(
-                    batch_body, algo.batch_predict(model, batch_q))):
-                _check_same(got, want, f"batch[{i}]")
-            _check_same(live_body, algo.predict(model, live_q), "live")
-            live_row = algo.history_row(model, live_q)
-            # K8 against the plain attention on the batch's histories
-            rows = np.stack([algo.history_row(model, q) for q in batch_q])
-            enc = algo._encoder(model)
-            inp = torch.as_tensor(rows[:, 1:], dtype=torch.long, device=dev)
-            with torch.inference_mode():
-                s_k8 = enc(inp, partial(flash_attention, causal=True))[1]
-                s_plain = enc(inp, partial(attention_reference,
-                                           causal=True))[1]
-            score_err = float((s_k8 - s_plain).abs().max())
-            score_max = float(s_plain.abs().max())
-            # in process: a query's whole time, its device time, and the
-            # live-history read alone
-            inproc = profile_queries(qs, plain_q[:20])
-            t0 = time.perf_counter()
-            for q in plain_q[:20]:
-                algo.history_row(model, q)
-            inproc["history_read_ms_per_query"] = 1e3 * (
-                time.perf_counter() - t0) / 20
-            served_iid = qs.instance.id
-        finally:
-            http.stop()
-            qs.close()
-            storage.close()
+        # the same queries in process, on the same model
+        for q, got in zip(plain_q, answers):
+            _check_same(got, algo.predict(model, q), q["user"])
+        for i, (got, want) in enumerate(zip(
+                batch_body, algo.batch_predict(model, batch_q))):
+            _check_same(got, want, f"batch[{i}]")
+        _check_same(live_body, algo.predict(model, live_q), "live")
+        live_row = algo.history_row(model, live_q)
+        # K8 against the plain attention on the batch's histories
+        rows = np.stack([algo.history_row(model, q) for q in batch_q])
+        enc = algo._encoder(model)
+        inp = torch.as_tensor(rows[:, 1:], dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            s_k8 = enc(inp, partial(flash_attention, causal=True))[1]
+            s_plain = enc(inp, partial(attention_reference,
+                                       causal=True))[1]
+        score_err = float((s_k8 - s_plain).abs().max())
+        score_max = float(s_plain.abs().max())
+        # in process: a query's whole time, its device time, and the
+        # live-history read alone
+        inproc = profile_queries(qs, plain_q[:20])
+        t0 = time.perf_counter()
+        for q in plain_q[:20]:
+            algo.history_row(model, q)
+        inproc["history_read_ms_per_query"] = 1e3 * (
+            time.perf_counter() - t0) / 20
+        served_iid = qs.instance.id
+    finally:
+        http.stop()
+        qs.close()
     if served_iid != iid:
         raise AssertionError("deploy did not load the trained instance")
     ghost = answers[-1]
@@ -2106,6 +2322,320 @@ def phase_sequence_entry(dev: torch.device) -> dict:
     return result
 
 
+# -- phase 15: the supervised train verb, killed and resumed -----------------
+
+REPO_ROOT = Path(__file__).resolve().parent
+
+
+@contextlib.contextmanager
+def sqlite_store(prefix: str):
+    """A sqlite store in a temporary directory, shared by the phases
+    that run inside the block."""
+    from datetime import datetime, timezone
+
+    from pio_tpu_torch.data.storage import Storage
+
+    with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
+        env = sqlite_env(tmp)
+        storage = Storage(env=env)
+        try:
+            yield types.SimpleNamespace(
+                tmp=Path(tmp), env=env, storage=storage,
+                t_events=datetime(2024, 1, 1, tzinfo=timezone.utc))
+        finally:
+            storage.close()
+
+
+class _Records(logging.Handler):
+    """The port's log records of a run, kept to read what they carry."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records: list[logging.LogRecord] = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def take(self, prefix: str) -> list[tuple]:
+        got = [r.args for r in self.records if r.msg.startswith(prefix)]
+        self.records = [r for r in self.records
+                        if not r.msg.startswith(prefix)]
+        return got
+
+
+def phase_train_resume(store, dev: torch.device) -> dict:
+    """The sequence template through ``python -m pio_tpu_torch train``
+    three times on ``sequence_entry``'s events: uninterrupted (in
+    process); killed by a ``train.step`` chaos fault in a subprocess,
+    then ``--resume ID`` (in process); SIGTERM'd in a subprocess (exit
+    75), then ``--auto-resume`` (in process). The resumed models must be
+    the uninterrupted one bit for bit, with the same final loss; K8 runs
+    in every training forward; the resumed instance is deployed and
+    answers with K8."""
+    from pio_tpu_torch.__main__ import (
+        _engine_from_variant,
+        _load_variant,
+        main as cli_main,
+    )
+    from pio_tpu_torch.data.dao import EngineInstance
+    from pio_tpu_torch.data.storage import set_storage
+    from pio_tpu_torch.utils.time import utcnow
+    from pio_tpu_torch.workflow.checkpoint import models_from_bytes
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.lifecycle import (
+        EXIT_PREEMPTED,
+        RESUMABLE_STATUSES,
+        TrainLifecycle,
+        find_resumable,
+        has_checkpoint,
+    )
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    storage, tmp = store.storage, store.tmp
+    engine_id, steps = "chip-smoke-resume", SEQ_RESUME["steps"]
+    every, layers = SEQ_RESUME["checkpoint_every"], SEQ_RESUME["num_layers"]
+    engine_dir = tmp / "resume_engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": engine_id, "engineFactory": SEQ_FACTORY,
+        "datasource": {"params": {"app_name": SEQ_ALGO["app_name"],
+                                  "event_names": ["view", "buy"],
+                                  "max_len": SEQ_ALGO["max_len"]}},
+        "algorithms": [{"name": "sasrec", "params": SEQ_RESUME}],
+    }))
+    ckpt_root = tmp / "resume_ckpt"
+    argv = ["train", "--engine-dir", str(engine_dir), "--checkpoint-root",
+            str(ckpt_root)]
+    instances = storage.get_metadata_engine_instances()
+    records = _Records()
+    port_log = logging.getLogger("pio_tpu_torch")
+    port_log.addHandler(records)
+    port_log.setLevel(logging.INFO)
+
+    def in_process(*extra) -> dict:
+        """One train verb in this process, the counts from 0."""
+        out = io.StringIO()
+        set_storage(storage)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(argv + list(extra))
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            set_storage(None)
+        printed = out.getvalue().strip()
+        print(printed, flush=True)
+        if rc != 0:
+            raise AssertionError(f"train {extra}: rc {rc}: {printed}")
+        [(_, loss)] = records.take("sequence model trained")
+        saves = records.take("step checkpoint")
+        return {"instance": printed.rsplit(" ", 1)[-1], "train_s": wall,
+                "launches": launches, "final_loss": loss,
+                "saves": [{"step": st, "ms": ms, "bytes": n}
+                          for st, ms, n in saves]}
+
+    def subprocess_run(env_extra: dict):
+        return subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", *argv], cwd=REPO_ROOT,
+            env={**os.environ, **store.env, **env_extra},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def new_instance(known: set) -> EngineInstance:
+        [inst] = [i for i in instances.get_all()
+                  if i.engine_id == engine_id and i.id not in known]
+        return inst
+
+    def k8_only(launches: dict, n: int) -> None:
+        want = {**dict.fromkeys(launches, 0), "flash_attention": n}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want}")
+
+    runs = {}
+    try:
+        # 1. uninterrupted
+        runs["uninterrupted"] = whole = in_process()
+        k8_only(whole["launches"], layers * steps)
+        known = {whole["instance"]}
+
+        # 2. a chaos fault at step RESUME_KILL_STEP, then --resume ID
+        proc = subprocess_run(
+            {"PIO_TPU_CHAOS": f"train.step.{RESUME_KILL_STEP}:error=1"})
+        out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+        killed = new_instance(known)
+        ckpt_dir = killed.progress.get("checkpoint_dir", "")
+        saved = (sorted(int(n) for n in os.listdir(ckpt_dir) if n.isdigit())
+                 if has_checkpoint(ckpt_dir) else [])
+        # the fault fires before step RESUME_KILL_STEP's own save
+        want_step = (RESUME_KILL_STEP - 1) // every * every
+        if (proc.returncode in (0, EXIT_PREEMPTED)
+                or "ChaosError" not in err
+                or killed.status not in RESUMABLE_STATUSES
+                or killed.status != "FAILED"
+                or not saved or saved[-1] != want_step):
+            raise AssertionError(
+                f"chaos kill: rc {proc.returncode}, {killed.status}, steps "
+                f"saved {saved}: {err[-2000:]}")
+        resumed = in_process("--resume", killed.id)
+        k8_only(resumed["launches"], layers * (steps - saved[-1] - 1))
+        if resumed["instance"] != killed.id or \
+                instances.get(killed.id).status != "COMPLETED":
+            raise AssertionError(f"--resume {killed.id}: {resumed}")
+        runs["chaos_then_resume"] = {
+            **resumed, "killed_rc": proc.returncode,
+            "killed_status": killed.status, "resumed_from_step": saved[-1]}
+        known.add(killed.id)
+
+        # 3. SIGTERM mid-run (exit 75), then --auto-resume
+        proc = subprocess_run({"PIO_TPU_CHAOS": (
+            f"train.step.{RESUME_STALL_STEP}:slow=1,"
+            f"slow_s={RESUME_STALL_S}")})
+        t0 = time.perf_counter()
+        try:
+            while proc.poll() is None and \
+                    time.perf_counter() - t0 < SUBPROCESS_TIMEOUT_S:
+                dirs = [ckpt_root / n for n in os.listdir(ckpt_root)
+                        if n not in known]
+                if any((d / str(RESUME_SIGNAL_AFTER)).exists()
+                       for d in dirs):
+                    break
+                time.sleep(0.01)
+            running = proc.poll() is None
+            if running:
+                proc.send_signal(signal.SIGTERM)
+            out, err = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        stopped = new_instance(known)
+        at = stopped.progress.get("preempted_at_step")
+        if (not running or proc.returncode != EXIT_PREEMPTED
+                or stopped.status != "INTERRUPTED"
+                or not stopped.progress.get("resumable")
+                or not RESUME_SIGNAL_AFTER <= (at or -1) <= RESUME_STALL_STEP
+                or find_resumable(instances, engine_id, "1",
+                                  "default").id != stopped.id):
+            raise AssertionError(
+                f"SIGTERM: running {running}, rc {proc.returncode}, "
+                f"{stopped.status} at {at}: {out[-1000:]} {err[-2000:]}")
+        auto = in_process("--auto-resume")
+        k8_only(auto["launches"], layers * (steps - at - 1))
+        if auto["instance"] != stopped.id or \
+                instances.get(stopped.id).status != "COMPLETED":
+            raise AssertionError(f"--auto-resume: {auto}")
+        runs["sigterm_then_auto_resume"] = {
+            **auto, "sigterm_rc": proc.returncode, "preempted_at_step": at,
+            "resume_hint_printed": "resume with" in out}
+    finally:
+        port_log.removeHandler(records)
+
+    # the resumed models against the uninterrupted one, bit for bit
+    def params(iid):
+        [m] = models_from_bytes(
+            storage.get_model_data_models().get(iid).models)
+        return m.params
+
+    want = params(whole["instance"])
+    for name in ("chaos_then_resume", "sigterm_then_auto_resume"):
+        got = params(runs[name]["instance"])
+        same = set(got) == set(want) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want)
+        runs[name]["params_bit_equal"] = same
+        runs[name]["final_loss_equal"] = (
+            runs[name]["final_loss"] == whole["final_loss"])
+        if not same or not runs[name]["final_loss_equal"]:
+            raise AssertionError(
+                f"{name}: params equal {same}, final loss "
+                f"{runs[name]['final_loss']} vs {whole['final_loss']}")
+
+    # deploy the --resume'd instance; K8 in every scored batch
+    variant = _load_variant(str(engine_dir))
+    engine, ep = _engine_from_variant(variant, str(engine_dir))
+    http, qs = create_query_server(
+        engine, ep, storage,
+        ServingConfig(ip="127.0.0.1", port=0, engine_id=engine_id),
+        ctx=create_workflow_context(storage, device=dev),
+        instance_id=runs["chaos_then_resume"]["instance"])
+    http.start()
+    try:
+        model, algo = qs.models[0], qs.algorithms[0]
+        users = model.users.ids()
+        picked = np.random.default_rng(SEED + 7).choice(
+            len(users), 2 * RESUME_QUERIES, replace=False)
+        plain_q = [{"user": users[i], "num": 10}
+                   for i in picked[:RESUME_QUERIES]]
+        batch_q = [{"user": users[i], "num": 10}
+                   for i in picked[RESUME_QUERIES:]]
+        # -- the main path: counts from 0, read right after --------------
+        reset_counts()
+        answers = []
+        for q in plain_q:
+            status, body, _ = _post(http.port, "/queries.json", q)
+            assert status == 200, body
+            answers.append(body)
+        status, batch_body, _ = _post(http.port, "/batch/queries.json",
+                                      batch_q)
+        assert status == 200, batch_body
+        serve_launches = read_counts()
+        # ----------------------------------------------------------------
+        for q, got in zip(plain_q, answers):
+            _check_same(got, algo.predict(model, q), q["user"])
+            if len(got["itemScores"]) != q["num"]:
+                raise AssertionError(f"{q}: {got}")
+        for i, (got, want_b) in enumerate(zip(
+                batch_body, algo.batch_predict(model, batch_q))):
+            _check_same(got, want_b, f"batch[{i}]")
+        served = qs.instance.id
+    finally:
+        http.stop()
+        qs.close()
+    if served != runs["chaos_then_resume"]["instance"]:
+        raise AssertionError("deploy did not load the resumed instance")
+    k8_only(serve_launches, layers * (RESUME_QUERIES + 1))
+
+    # the heartbeat's cost: a throttled call (most steps) and a store write
+    t = utcnow()
+    iid = instances.insert(EngineInstance(
+        id="", status="TRAINING", start_time=t, end_time=t,
+        engine_id="heartbeat-probe", engine_version="1",
+        engine_variant="default", engine_factory=""))
+    life = TrainLifecycle(instances, instances.get(iid),
+                          checkpoint_dir=str(ckpt_root / iid))
+    life.heartbeat(0, force=True)
+    n_calls = 2000
+    t0 = time.perf_counter()
+    wrote = sum(life.heartbeat(st, n_calls) for st in range(1, n_calls + 1))
+    throttled_us = 1e6 * (time.perf_counter() - t0) / n_calls
+    t0 = time.perf_counter()
+    for st in range(50):
+        life.heartbeat(st, force=True)
+    write_ms = 1e3 * (time.perf_counter() - t0) / 50
+    step_s = whole["train_s"] / steps
+    # a run writes at most once every 10 steps and every 2 s
+    writes_per_step = min(1 / 10, step_s / 2.0)
+    save_ms = [sv["ms"] for sv in whole["saves"]]
+    result = {
+        "widths": SEQ_RESUME, "runs": runs,
+        "serve_launches": serve_launches,
+        "scored_batches": RESUME_QUERIES + 1,
+        "checkpoint_save_ms": save_ms,
+        "checkpoint_save_ms_median": statistics.median(save_ms),
+        "checkpoint_bytes": whole["saves"][0]["bytes"],
+        "checkpoint_ms_per_step": sum(save_ms) / steps,
+        "heartbeat_throttled_us": throttled_us,
+        "heartbeat_writes_in_throttled_calls": wrote,
+        "heartbeat_write_ms": write_ms,
+        "heartbeat_ms_per_step": throttled_us / 1e3
+        + writes_per_step * write_ms,
+        "ms_per_step_uninterrupted": 1e3 * step_s,
+    }
+    emit("train_resume", **result)
+    return result
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
                   case: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -2141,11 +2671,14 @@ def main() -> int:
     tstream = timed("train_stream", phase_train_stream, ratings, dev)
     fused = timed("fused_kernel", phase_fused_kernel, ratings, dev)
     tfused = timed("train_fused", phase_train_fused, ratings, dev)
+    validated = timed("train_validated", phase_train_validated, ratings, dev)
     del ratings
     entry = timed("train_entry", phase_train_entry, dev)
     attn = timed("attention_kernel", phase_attention_kernel, dev)
     timed("sequence_train", phase_sequence_train, dev)
-    seq_entry = timed("sequence_entry", phase_sequence_entry, dev)
+    with sqlite_store("pio_chip_seq_") as store:
+        seq_entry = timed("sequence_entry", phase_sequence_entry, store, dev)
+        resume = timed("train_resume", phase_train_resume, store, dev)
     emit("wall", seconds=wall, total_s=sum(wall.values()))
 
     cases = scan["cases"]
@@ -2175,6 +2708,11 @@ def main() -> int:
             launches_als_train=train["segment_flush_launches"],
             launches_als_train_expected=train[
                 "segment_flush_launches_expected"],
+            launches_train_validated=validated["launches"]["segment_flush"],
+            launches_train_validated_expected=validated[
+                "segment_flush_launches_expected"],
+            launches_train_entry_sweeps=entry["split"][
+                "sweeps_launches"]["segment_flush"],
             shape={k: flush[k] for k in ("S", "S_real", "n_self", "k")}),
         _kernel_entry(
             # the main path of this and the next two: als_train in the
@@ -2232,7 +2770,12 @@ def main() -> int:
             path=attn["cases"][0]["path"],
             shape={k: attn["cases"][0][k]
                    for k in ("B", "S", "H", "D", "dtype", "causal")},
-            cases=attn["cases"], edges=attn["edges"]),
+            cases=attn["cases"], edges=attn["edges"],
+            launches_train_resume={
+                name: run["launches"]["flash_attention"]
+                for name, run in resume["runs"].items()},
+            launches_train_resume_deploy=resume["serve_launches"][
+                "flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

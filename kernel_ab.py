@@ -25,7 +25,13 @@ this, this, other. GROUPs (all when none is named):
   phase runs them;
 - ``seq``: ``train_sequence_model`` with ``attention="flash"`` at
   ``eval/neural_throughput.py``'s sequence cell, tokens per second of
-  120 steps on the host clock.
+  120 steps on the host clock;
+- ``seqverb``: the sequence template's train verb (``python -m
+  pio_tpu_torch train``, called in process) as ``chip_smoke.py``'s
+  ``sequence_entry`` phase runs it: its seeded events in a sqlite store,
+  its engine.json, a warm-up train of 3 steps, then the timed train on
+  the host clock, with the seconds spent in step-checkpoint saves where
+  the checkout has them.
 
 Kernel times are CUDA-event medians of the wrapper's call (the wrapper's
 own allocations and fills included), as ``chip_smoke.py`` times them.
@@ -47,6 +53,7 @@ SEED = 0
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 64
 CENTRES = 256
 NNZ = 20_000_263
+HERE = os.path.dirname(os.path.abspath(__file__))
 SCAN_BATCHES = (1, 16, 128)
 SLEEP_CYCLES = 20_000_000
 # (B, S, H, D) of the f32 attention cases
@@ -206,13 +213,83 @@ def sequence_cases(dev) -> dict:
     return {"flash_tokens_per_s": tokens / wall}
 
 
+def sequence_verb_cases(dev) -> dict:
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    import time
+    from datetime import datetime, timezone
+    from pathlib import Path
+
+    from pio_tpu_torch.__main__ import main as cli_main
+    from pio_tpu_torch.data.storage import Storage, set_storage
+
+    # the events, widths and store of this checkout's chip_smoke.py, for
+    # either checkout
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_defs", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    saves = []
+    try:
+        from pio_tpu_torch.workflow.step_checkpoint import StepCheckpointer
+    except ImportError:     # a checkout without step checkpoints
+        StepCheckpointer = None
+    if StepCheckpointer is not None:
+        save = StepCheckpointer.save
+
+        def timed_save(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return save(self, *args, **kwargs)
+            finally:
+                saves.append(time.perf_counter() - t0)
+
+        StepCheckpointer.save = timed_save
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_seq") as tmp:
+        os.environ["PIO_TPU_CKPT_ROOT"] = os.path.join(tmp, "ckpt")
+        storage = Storage(env=smoke.sqlite_env(tmp))
+        smoke.write_sequence_events(
+            storage, smoke.SEQ_ALGO["app_name"],
+            datetime(2024, 1, 1, tzinfo=timezone.utc))
+        set_storage(storage)
+        try:
+            for steps in (3, smoke.SEQ_ALGO["steps"]):  # warm-up, timed
+                engine_dir = Path(tmp) / f"engine{steps}"
+                engine_dir.mkdir()
+                (engine_dir / "engine.json").write_text(json.dumps({
+                    "id": "kernel-ab-seq",
+                    "engineFactory": smoke.SEQ_FACTORY,
+                    "datasource": {"params": {
+                        "app_name": smoke.SEQ_ALGO["app_name"],
+                        "event_names": ["view", "buy"],
+                        "max_len": smoke.SEQ_ALGO["max_len"]}},
+                    "algorithms": [{"name": "sasrec", "params": {
+                        **smoke.SEQ_ALGO, "steps": steps}}],
+                }))
+                saves.clear()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = cli_main(["train", "--engine-dir", str(engine_dir)])
+                train_s = time.perf_counter() - t0
+                if rc != 0:
+                    raise SystemExit(f"kernel_ab: train verb rc {rc}")
+        finally:
+            set_storage(None)
+            storage.close()
+    return {"train_s": train_s, "checkpoint_saves": len(saves),
+            "checkpoint_s": sum(saves)}
+
+
 GROUPS = {"k7": ("quantized_scan_ms", ("quantized_scan",), scan_cases),
           "k1": ("normal_equations_fused_ms", ("segment_flush",),
                  fused_cases),
           "k8": ("flash_attention_f32_ms", ("flash_attention",),
                  attention_cases),
           "k4": ("gather_rows_resident_ms", ("gather_rows",), gather_cases),
-          "seq": ("sequence_train", ("flash_attention",), sequence_cases)}
+          "seq": ("sequence_train", ("flash_attention",), sequence_cases),
+          "seqverb": ("sequence_verb", (), sequence_verb_cases)}
 
 
 def child(root: str, groups: list[str]) -> None:
@@ -244,13 +321,12 @@ def main() -> int:
         raise SystemExit(__doc__)
     groups = sys.argv[2:] or list(GROUPS)
     other = os.path.abspath(sys.argv[1])
-    here = os.path.dirname(os.path.abspath(__file__))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     runs = {"other": [], "this": []}
-    for who, root in (("other", other), ("this", here), ("this", here),
+    for who, root in (("other", other), ("this", HERE), ("this", HERE),
                       ("other", other)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", root,

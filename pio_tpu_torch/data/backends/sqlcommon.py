@@ -591,3 +591,31 @@ class SqlEvents(d.EventsDAO):
             params.append(limit)
         rows = self.db.query(sql, tuple(params))
         return iter(self._from_row(r) for r in rows)
+
+    def find_columnar(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+    ):
+        """Columnar bulk read straight from SQL rows: only the four
+        columns the training folds touch are decoded (one fixed-layout
+        ISO timestamp parse per row; property JSON rides as a lazy raw
+        sidecar) — no Event/DataMap objects, no tags/prId/creationTime
+        parsing. The same WHERE clause and ordering as find(limit=-1), so
+        fold tie-breaking is identical to the row path on this backend."""
+        from pio_tpu_torch.data.columnar import ColumnarEvents
+
+        self._check_ns(app_id, channel_id)
+        where, params = self._where_filters(
+            app_id, channel_id, start_time, until_time, entity_type,
+            entity_id, event_names, target_entity_type, target_entity_id)
+        sql = ("SELECT event, entity_id, target_entity_id, event_time, "
+               f"properties FROM events{where} ORDER BY event_time_ms ASC")
+        return ColumnarEvents.from_rows(self.db.query(sql, tuple(params)))

@@ -5,8 +5,7 @@ Channels.scala:29-78, EngineInstances.scala:43-94, EngineManifests.scala:34-62,
 EvaluationInstances.scala:39-78, Models.scala:30-48, LEvents.scala:37-489.
 Backends implement these; `pio_tpu_torch.data.storage` discovers backends by name.
 
-Copy of ``pio_tpu.data.dao`` without the columnar reads (``find_columnar``,
-``columnarize``, ``aggregate_properties``), which need ``data/columnar.py``.
+Copy of ``pio_tpu.data.dao``, imports rewritten to the port.
 """
 
 from __future__ import annotations
@@ -17,8 +16,9 @@ import re
 import string
 from dataclasses import dataclass, field, replace
 from datetime import datetime
-from typing import Iterator, Sequence
+from typing import Iterable, Iterator, Sequence
 
+from pio_tpu_torch.data.datamap import PropertyMap
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.utils.time import utcnow
 
@@ -348,6 +348,93 @@ class EventsDAO(abc.ABC):
         transaction / one RPC) — the ingest hot path calls THIS, so the
         override is what turns N guarded inserts into one."""
         return [self.insert(e, app_id, channel_id) for e in events]
+
+    def find_columnar(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        target_entity_id: str | None | type(...) = ...,
+    ):
+        """Bulk read as struct-of-arrays columns (data/columnar.py) — the
+        training-path alternative to ``find``'s per-event objects.
+        Default adapts ``find``; backends whose storage is already
+        row/columnar (SQL) override to decode straight from rows."""
+        from pio_tpu_torch.data.columnar import ColumnarEvents
+
+        return ColumnarEvents.from_events(self.find(
+            app_id=app_id, channel_id=channel_id,
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type, entity_id=entity_id,
+            event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id,
+            limit=-1,
+        ))
+
+    def columnarize(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type: str | None | type(...) = ...,
+        value_key: str | None = "rating",
+        default_value: float = 1.0,
+        dedup: str = "last",
+        value_event: str | None = None,
+    ):
+        """Training read -> COO interaction columns (``data.columnar.
+        Columns``): ``find_columnar`` + the vectorized fold — bit-identical
+        to the find+fold row path but without per-event Python objects.
+        The reference's native event-log backend overrides this with its
+        one-sweep C++ columnarizer; the port has no such backend, so every
+        DAO takes this default."""
+        from pio_tpu_torch.data.columnar import columnar_interactions
+
+        cols = self.find_columnar(
+            app_id=app_id, channel_id=channel_id,
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type, event_names=event_names,
+            target_entity_type=target_entity_type,
+        )
+        return columnar_interactions(
+            cols, value_key=value_key, default_value=default_value,
+            dedup=dedup, value_event=value_event,
+        )
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Iterable[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """Reference LEvents.futureAggregateProperties: replay special events
+        of one entityType into a PropertyMap per entity.  Runs on the
+        columnar read (one stable numpy sort, property JSON decoded only
+        for the special events the fold touches) — same contract as the
+        row fold in data/aggregator.py, which remains the parity oracle."""
+        from pio_tpu_torch.data.columnar import columnar_aggregate
+
+        cols = self.find_columnar(
+            app_id=app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=["$set", "$unset", "$delete"],
+        )
+        return columnar_aggregate(cols, required)
 
     def find_single_entity(
         self,

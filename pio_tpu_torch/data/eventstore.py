@@ -1,16 +1,11 @@
-"""Engine-facing event read API: events to COO interactions.
+"""Engine-facing event read API + columnarization.
 
-Counterpart of ``pio_tpu.data.eventstore`` (a copy of its framework-neutral
-code): app-name-keyed reads for training (the reference's PEventStore)
-and for serving one entity (its LEventStore), and ``to_interactions``, the
-bridge from ragged events to the numpy columns training takes.
-
-Trimmed: the port's DAOs have no ``columnarize`` (the columnar fold of
-``data/columnar.py`` is not ported), so ``EventStore.interactions`` always
-takes the reference's ``find`` + ``to_interactions`` branch, which gives
-the same interactions; ``aggregate_properties``, ``columnarize_via_find``
-and ``interactions_to_columns`` are not ported. ``find_by_entity`` (the
-serve-time read of one entity) is copied as it is.
+Counterpart of ``pio_tpu.data.eventstore`` (a copy, imports rewritten):
+app-name-keyed reads for training (the reference's PEventStore) and for
+serving one entity (its LEventStore). ``EventStore.interactions`` reads
+through the DAO's ``columnarize`` (the vectorized fold of
+``data/columnar.py``); ``to_interactions``, the row fold over ``find``,
+stays for DAOs without one and as the tests' oracle.
 """
 
 from __future__ import annotations
@@ -23,6 +18,7 @@ import numpy as np
 
 from pio_tpu_torch.data.bimap import EntityIdIndex
 from pio_tpu_torch.data.dao import EventsDAO
+from pio_tpu_torch.data.datamap import PropertyMap
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.data.storage import Storage, StorageError, get_storage
 
@@ -79,6 +75,26 @@ class EventStore:
             )
         )
 
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        channel_name: str | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        required: Iterable[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """Reference PEventStore.aggregateProperties."""
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        return self._dao().aggregate_properties(
+            app_id=app_id,
+            entity_type=entity_type,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
+        )
+
     def interactions(
         self,
         app_name: str,
@@ -93,13 +109,43 @@ class EventStore:
         value_event: str | None = None,
         dedup: str = "last",
     ) -> Interactions:
-        """Training read straight to COO interactions: find + fold.
+        """Training read straight to COO interactions.
 
+        Every EventsDAO carries a `columnarize` (dao.py): the vectorized
+        columnar fold (data/columnar.py), over the SQL backend's
+        four-column row read — per-event Python objects never
+        materialize on this path. The find + to_interactions row fold
+        below remains only for duck-typed third-party DAOs (and as the
+        parity oracle in tests).
         `value_key` reads a numeric property (None = always
         default_value); `value_event` restricts that read to one event
         name (others take default_value) — the reference recommendation
         template's rate-vs-buy rule.
         """
+        app_id, channel_id = self._resolve(app_name, channel_name)
+        dao = self._dao()
+        if hasattr(dao, "columnarize"):
+            cols = dao.columnarize(
+                app_id=app_id,
+                channel_id=channel_id,
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                value_key=value_key,
+                default_value=default_value,
+                dedup=dedup,
+                value_event=value_event,
+            )
+            return Interactions(
+                user_idx=cols.user_idx.astype(np.int32),
+                item_idx=cols.item_idx.astype(np.int32),
+                values=cols.values,
+                users=EntityIdIndex(cols.users),
+                items=EntityIdIndex(cols.items),
+            )
+
         events = self.find(
             app_name=app_name,
             channel_name=channel_name,
@@ -142,6 +188,10 @@ class EventStore:
             )
         )
 
+
+# ---------------------------------------------------------------------------
+# columnarization: ragged events -> static-shape arrays
+# ---------------------------------------------------------------------------
 
 @dataclass
 class Interactions:
@@ -187,6 +237,48 @@ def make_value_fn(value_key: str | None, default_value: float,
         return default_value
 
     return value_fn
+
+
+def columnarize_via_find(dao, app_id: int, channel_id: int | None = None,
+                         start_time: datetime | None = None,
+                         until_time: datetime | None = None,
+                         entity_type: str | None = None,
+                         event_names: Sequence[str] | None = None,
+                         target_entity_type=...,
+                         value_key: str | None = "rating",
+                         default_value: float = 1.0,
+                         dedup: str = "last",
+                         value_event: str | None = None) -> Interactions:
+    """Generic columnarize over a bare EventsDAO (by app_id, not app
+    name): find + fold. The reference's storage server and sharded
+    backend fall back to it; in the port it is the row-path oracle of
+    ``EventsDAO.columnarize``."""
+    events = dao.find(
+        app_id, channel_id,
+        start_time=start_time, until_time=until_time,
+        entity_type=entity_type, event_names=event_names,
+        target_entity_type=target_entity_type, limit=-1,
+    )
+    return to_interactions(
+        events,
+        value_fn=make_value_fn(value_key, default_value, value_event),
+        dedup=dedup,
+    )
+
+
+def interactions_to_columns(inter: Interactions):
+    """Interactions -> data.columnar.Columns (times_us empty: the
+    fold dedups before times could be aligned)."""
+    from pio_tpu_torch.data.columnar import Columns
+
+    return Columns(
+        user_idx=inter.user_idx.astype(np.uint32),
+        item_idx=inter.item_idx.astype(np.uint32),
+        values=inter.values,
+        times_us=np.empty(0, dtype=np.int64),
+        users=inter.users.ids(),
+        items=inter.items.ids(),
+    )
 
 
 def to_interactions(

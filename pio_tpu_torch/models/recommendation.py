@@ -8,11 +8,13 @@ events into interactions and runs ``ops/als.py``'s ``als_train`` on one
 device. Two-stage clustered retrieval (the engine.json ``retrieval``
 block) runs the candidate scan of ``ops/retrieval.py``.
 
+With ``validation_fraction > 0`` a seeded share of the interactions is
+held out and ``als_train_validated`` returns the best sweep's factors,
+with the heldout curve in ``RecommendationModel.validation``.
+
 Not ported yet, each raising ``NotImplementedError`` or absent:
-evaluation folds (``read_eval``), validated training
-(``validation_fraction > 0``, ``als_train_validated``) and the sharded
-multi-device trainer (``als_train_sharded``; the port's context holds one
-device).
+evaluation folds (``read_eval``) and the sharded multi-device trainer
+(``als_train_sharded``; the port's context holds one device).
 """
 
 from __future__ import annotations
@@ -37,8 +39,6 @@ from pio_tpu_torch.ops import als
 from pio_tpu_torch.ops import retrieval as rt
 
 _EVAL_LATER = "evaluation folds (read_eval) are ported in a later slice"
-_VALIDATED_LATER = ("validation_fraction > 0 (als_train_validated) is "
-                    "ported in a later slice")
 
 
 @dataclass(frozen=True)
@@ -114,9 +114,10 @@ class ALSAlgorithmParams(Params):
 
 @dataclass
 class RecommendationModel:
-    """ALS factors + id indexes. ``validation`` carries the JAX package's
+    """ALS factors + id indexes. ``validation`` carries the
     ALSValidation trajectory when a model was trained with
-    validation_fraction > 0; serving never reads it."""
+    validation_fraction > 0 (through the model blob too); serving never
+    reads it."""
 
     factors: als.ALSModel
     users: EntityIdIndex
@@ -167,15 +168,33 @@ class ALSAlgorithm(PAlgorithm):
         )
 
     def train(self, ctx, data: Interactions) -> RecommendationModel:
-        """ALS on ``ctx.device``; the last sweep's factors are the model,
-        as in the reference without validation."""
+        """ALS on ``ctx.device``. Without validation the last sweep's
+        factors are the model, as in the reference; with
+        ``validation_fraction > 0`` the reference's seeded split holds
+        out that share and the best sweep's factors are the model."""
         data.sanity_check()
-        if self.params.validation_fraction > 0.0:
-            raise NotImplementedError(_VALIDATED_LATER)
+        ap = self._als_params()
+        vf = self.params.validation_fraction
+        if vf > 0.0:
+            nnz = len(data.values)
+            n_val = max(1, int(nnz * vf))
+            if nnz < 10:
+                raise ValueError(
+                    "validation_fraction needs >=10 interactions")
+            rng = np.random.default_rng(ap.seed)
+            perm = rng.permutation(nnz)
+            va, tr = perm[:n_val], perm[n_val:]
+            factors, validation = als.als_train_validated(
+                data.user_idx[tr], data.item_idx[tr], data.values[tr],
+                data.n_users, data.n_items, ap,
+                data.user_idx[va], data.item_idx[va], data.values[va],
+                device=ctx.device,
+            )
+            return RecommendationModel(
+                factors, data.users, data.items, validation)
         factors = als.als_train(
             data.user_idx, data.item_idx, data.values,
-            data.n_users, data.n_items, self._als_params(),
-            device=ctx.device,
+            data.n_users, data.n_items, ap, device=ctx.device,
         )
         return RecommendationModel(factors, data.users, data.items)
 

@@ -13,15 +13,21 @@ on the CPU, as the reference does, then ranks on the host.
 Two flax defaults are kept where torch's differ: LayerNorm's epsilon is
 1e-6, and the FFN's GELU is the tanh approximation.
 
+Training is supervised as the reference's is: with ``checkpoint_dir``
+(or, under ``run_train``, the instance's checkpoint directory) the trainer
+saves a step checkpoint every ``checkpoint_every`` steps
+(``workflow/step_checkpoint.py``), resumes from the latest one, and after
+every step runs the ``train.step.<n>`` chaos point, the preemption check
+and the heartbeat (``workflow/spans.py``).
+
 Not ported yet, each raising or absent: the mesh path (data x sequence
 parallelism with ``ring``/``ulysses`` attention), the mixture-of-experts
-FFN (``moe_experts > 0``), step checkpoints (``checkpoint_dir``), the
-supervised lifecycle and step-chaos spans, and evaluation folds
-(``read_eval``).
+FFN (``moe_experts > 0``) and evaluation folds (``read_eval``).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 from functools import partial
@@ -49,14 +55,20 @@ from pio_tpu_torch.ops.attention import (
 )
 from pio_tpu_torch.ops.bucketing import pow2_bucket
 from pio_tpu_torch.workflow.context import resolve_device
+from pio_tpu_torch.workflow.spans import after_span, step_chaos_active
+from pio_tpu_torch.workflow.step_checkpoint import (
+    StepCheckpointConfig,
+    StepCheckpointer,
+    resume_or_init,
+)
 
 PAD = 0  # item index 0 is reserved as padding; real items start at 1
 POS_HEADROOM = 16
 LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
 
+log = logging.getLogger("pio_tpu_torch.models.sequence")
+
 _MOE_LATER = "moe_experts > 0 (the MoE FFN) is ported in a later slice"
-_CKPT_LATER = ("step checkpoints (checkpoint_dir) are ported in a later "
-               "slice")
 _EVAL_LATER = "evaluation folds (read_eval) are ported in a later slice"
 
 
@@ -135,7 +147,11 @@ class SeqEncoder(nn.Module):
     def hidden(self, ids, attn_fn, pos_offset: int = 0):
         """(B, S) item ids -> (B, S, E) states after the final LayerNorm."""
         s = ids.shape[1]
-        x = self.item_emb[ids] * math.sqrt(self.embed_dim)
+        # F.embedding, not item_emb[ids]: the indexing's backward
+        # (index_put_ with accumulate) sums duplicate ids in a thread-
+        # dependent order on the CPU, so a run would not reproduce itself
+        # bit for bit (and a resumed run could not reproduce it)
+        x = F.embedding(ids, self.item_emb) * math.sqrt(self.embed_dim)
         x = x + self.pos_emb[pos_offset:pos_offset + s][None]
         for block in self.blocks:
             x = block(x, attn_fn)
@@ -271,16 +287,25 @@ def _loss(encoder, attn, inp, tgt):
 
 
 def train_sequence_model(data: SequenceData, p: SequenceParams, *,
-                         device, init: dict | None = None):
+                         device, init: dict | None = None,
+                         checkpoint: StepCheckpointer | None = None,
+                         lifecycle=None):
     """Single-device train loop: Adam on the masked next-item loss, one
     batch per step drawn as the reference draws it
     (``default_rng((seed, step))``), so both packages see the same batch
     stream. ``init`` (a state dict, e.g. ``convert.sequence_params_from_
     numpy`` of the reference's initial params) replaces the seeded draw.
+
+    ``checkpoint`` (a StepCheckpointer, or None) saves every save_every
+    steps and resumes from the latest saved step, so a resumed run takes
+    the same steps on the same batches as an uninterrupted one.
+    ``lifecycle`` (a workflow.lifecycle.TrainLifecycle, or None) gets a
+    heartbeat after every step; a preemption request force-saves, then
+    raises TrainingPreempted.
+
     Returns (params state dict on ``device``, encoder, the last step's
-    loss before its update)."""
-    if p.checkpoint_dir:
-        raise NotImplementedError(_CKPT_LATER)
+    loss before its update; when no step is left to run, the loss at the
+    restored params on the last step's batch)."""
     attn = local_attention(p)
     dev = resolve_device(device)
     encoder = make_encoder(len(data.items), p)
@@ -304,18 +329,28 @@ def train_sequence_model(data: SequenceData, p: SequenceParams, *,
         return (torch.from_numpy(inp_all[idx]).to(dev),
                 torch.from_numpy(tgt_all[idx]).to(dev))
 
+    start = resume_or_init(checkpoint, encoder, optimizer)
+    every = (max(1, checkpoint.config.save_every) if checkpoint is not None
+             else None)
+    step_chaos = step_chaos_active()
     loss = None
-    for step in range(p.steps):
+    for step in range(start, p.steps):
         inp, tgt = batch(step)
         step_loss = _loss(encoder, attn, inp, tgt)
         optimizer.zero_grad(set_to_none=True)
         step_loss.backward()
         optimizer.step()
         loss = step_loss.detach()
+        after_span(step + 1, p.steps, encoder, optimizer,
+                   checkpoint=checkpoint, lifecycle=lifecycle,
+                   save_after=every is not None and step % every == 0,
+                   step_chaos=step_chaos)
     if loss is None:
-        # no step taken: the loss at the initial params on step 0's batch
+        # no step left (steps == 0, or the final step already
+        # checkpointed): the loss at the current params on the batch of
+        # the last step taken, as the reference reports it
         with torch.no_grad():
-            loss = _loss(encoder, attn, *batch(0))
+            loss = _loss(encoder, attn, *batch(max(start - 1, 0)))
     params = {k: v.detach() for k, v in encoder.state_dict().items()}
     return params, encoder, float(loss)
 
@@ -389,7 +424,23 @@ class SequenceAlgorithm(PAlgorithm):
                 items=data.items,
             )
         device = ctx.device if ctx is not None else resolve_device(None)
-        params, _, _ = train_sequence_model(data, self.params, device=device)
+        lifecycle = getattr(ctx, "lifecycle", None)
+        # explicit params win; otherwise run_train's per-instance dir
+        ckpt_dir = self.params.checkpoint_dir or (
+            lifecycle.checkpoint_dir if lifecycle is not None else "")
+        ckpt = None
+        if ckpt_dir:
+            ckpt = StepCheckpointer(StepCheckpointConfig(
+                ckpt_dir, save_every=self.params.checkpoint_every))
+        try:
+            params, _, loss = train_sequence_model(
+                data, self.params, device=device, checkpoint=ckpt,
+                lifecycle=lifecycle)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+        log.info("sequence model trained: %d steps, final loss %r",
+                 self.params.steps, loss)
         if ctx is not None:
             self._event_store = getattr(ctx, "event_store", None)
         return SequenceModel(

@@ -3,8 +3,9 @@ scoring functions of the factor model.
 
 Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
 ``_device_slot_layout``, ``_chunk_blocks``, ``_normal_equations``,
-``_cg_solve``, ``_solve_factors``, ``als_train``; ``predict_pairs``,
-``recommend_topk``, ``rmse``). The algorithm is the reference's:
+``_cg_solve``, ``_solve_factors``, ``als_train``, ``als_train_validated``,
+``als_build_layouts``; ``predict_pairs``, ``recommend_topk``, ``rmse``).
+The algorithm is the reference's:
 
  * ratings sit in fixed-width slots sorted by row (``_device_slot_layout``,
    built on the device from the COO arrays: one stable sort, cummax,
@@ -135,6 +136,42 @@ class ALSParams:
         """True when A flows lane-packed on ``device``: packed_a asked for
         and the streaming flush runs (the other paths give (n,k,k))."""
         return self.packed_a and self.resolved_accum(device) == "stream"
+
+
+@dataclass(frozen=True)
+class ALSValidation:
+    """Per-sweep heldout trajectory from ``als_train_validated`` (the
+    reference's ``ALSValidation``, same fields).
+
+    The reference's eval workflow picks the best PARAMS but always keeps
+    the LAST sweep's model; when the heldout RMSE curve bottoms early
+    and then climbs, "final" commits the worst point on its own curve.
+    So the trainer tracks the argmin sweep's factors (a copy, selected
+    on the device after every sweep) and returns the curve's minimum,
+    not its tail."""
+
+    curve: tuple          # heldout RMSE after each sweep, in order
+    best_sweep: int       # 1-based sweep index of the minimum
+    best_rmse: float
+    final_rmse: float     # last sweep's RMSE (what "no selection" returns)
+
+
+@dataclass(frozen=True)
+class ALSLayouts:
+    """Both slot layouts, resident on the device and reusable across
+    ``als_train`` calls (``als_train(..., layouts=)``): retrain loops,
+    per-sweep trajectory evaluations and warm-started continuations pay
+    the layout build once. About twice the COO bytes on the device (ids
+    and values padded to slot width), freed when the object is dropped.
+    ``chip_smoke.py`` times the build against the sweeps at the ML-20M
+    shape."""
+
+    by_user: tuple     # (rows, idx, val, lens) device tensors
+    by_item: tuple
+    cs: int
+    n_users: int
+    n_items: int
+    width: int         # layouts are rank-blind: any rank trains on them
 
 
 @dataclass
@@ -526,15 +563,17 @@ def _sweep_factory(by_user, by_item, n_users: int, n_items: int, cs: int,
 
 
 def _run_schedule(sweep_with, params: ALSParams, cg_u: int, cg_i: int,
-                  carry):
-    """Full-strength CG for the first sweeps, cg_warm_iters after."""
+                  carry, after_sweep=None):
+    """Full-strength CG for the first sweeps, cg_warm_iters after.
+    ``after_sweep(carry)`` runs after every sweep (the validated
+    trainer's heldout score)."""
     n_full, n_warm, w_u, w_i = _cg_schedule(params, cg_u, cg_i)
-    sweep = sweep_with(cg_u, cg_i)
-    for _ in range(n_full):
-        carry = sweep(carry)
-    sweep = sweep_with(w_u, w_i)
-    for _ in range(n_warm):
-        carry = sweep(carry)
+    for n, sweep in ((n_full, sweep_with(cg_u, cg_i)),
+                     (n_warm, sweep_with(w_u, w_i))):
+        for _ in range(n):
+            carry = sweep(carry)
+            if after_sweep is not None:
+                after_sweep(carry)
     return carry
 
 
@@ -551,28 +590,109 @@ def _require_f32_matmul(device: torch.device) -> None:
             "about 1e-3 relative on A, which the CG solve cannot recover")
 
 
+def als_build_layouts(user_idx, item_idx, values, n_users: int,
+                      n_items: int, params: ALSParams,
+                      device=None) -> ALSLayouts:
+    """Build both slot layouts on the device and return them for reuse
+    via ``als_train(..., layouts=...)``. Inputs as for ``als_train``."""
+    dev = resolve_device(device)
+    u, i, v = _prep_coo(user_idx, item_idx, values, n_users, n_items,
+                        params, dev)
+    by_user, by_item, cs = _build_layouts(u, i, v, n_users, n_items, params)
+    return ALSLayouts(by_user, by_item, cs, n_users, n_items, params.width)
+
+
+def _train_schedule(layouts: ALSLayouts, params: ALSParams, carry,
+                    after_sweep=None):
+    """Every sweep of the schedule over prebuilt layouts."""
+    cg_u = params.resolved_cg_iters(layouts.n_users)
+    cg_i = params.resolved_cg_iters(layouts.n_items)
+    sweep_with = _sweep_factory(layouts.by_user, layouts.by_item,
+                                layouts.n_users, layouts.n_items,
+                                layouts.cs, params)
+    return _run_schedule(sweep_with, params, cg_u, cg_i, carry,
+                         after_sweep)
+
+
 def als_train(user_idx, item_idx, values, n_users: int, n_items: int,
               params: ALSParams, init: ALSModel | None = None,
-              device=None) -> ALSModel:
+              device=None, layouts: ALSLayouts | None = None) -> ALSModel:
     """Train on one device: CUDA unless ``device="cpu"`` is asked for.
 
     Inputs are numpy arrays or torch tensors of dense ids and values.
     ``init`` warm-starts from an existing model (any device; its factors
-    are copied to ``device`` as f32) in place of the seeded init."""
+    are copied to ``device`` as f32) in place of the seeded init.
+    ``layouts`` (from ``als_build_layouts``, same data and params, on
+    ``device``) skips the layout build; the COO arguments are ignored
+    then (pass the same arrays for clarity)."""
+    dev = resolve_device(device)
+    _require_f32_matmul(dev)
+    if layouts is not None and (
+            layouts.n_users, layouts.n_items, layouts.width) != (
+            n_users, n_items, params.width):
+        raise ValueError(
+            f"layouts built for shape ({layouts.n_users}, "
+            f"{layouts.n_items}, width {layouts.width}), train called "
+            f"with ({n_users}, {n_items}, width {params.width})")
+    user0, item0 = _init_or(init, n_users, n_items, params, dev)
+    if layouts is None:
+        layouts = als_build_layouts(user_idx, item_idx, values, n_users,
+                                    n_items, params, dev)
+    users, items = _train_schedule(layouts, params, (user0, item0))
+    return ALSModel(users, items)
+
+
+def als_train_validated(user_idx, item_idx, values, n_users: int,
+                        n_items: int, params: ALSParams, val_user_idx,
+                        val_item_idx, val_values,
+                        init: ALSModel | None = None,
+                        device=None) -> tuple[ALSModel, ALSValidation]:
+    """Train with a heldout slice scored after every sweep; return the
+    BEST-sweep model plus the full trajectory (see ALSValidation). The
+    heldout slice must be disjoint from the training triples; for
+    implicit models the curve is RMSE of raw scores against the heldout
+    values — a proxy, but a monotone regression on it still flags
+    overfit sweeps.
+
+    The sweeps are ``als_train``'s. After each, the heldout RMSE is
+    computed on the device and the factors of the lowest one so far
+    (strict ``<``) are kept in a copy, selected on the device; the
+    returned ``best_sweep`` is the argmin of the unrounded curve, which
+    is then rounded to 6 places."""
     dev = resolve_device(device)
     _require_f32_matmul(dev)
     user0, item0 = _init_or(init, n_users, n_items, params, dev)
-    u, i, v = _prep_coo(user_idx, item_idx, values, n_users, n_items,
-                        params, dev)
-    by_user, by_item, cs = _build_layouts(u, i, v, n_users, n_items, params)
-    del u, i, v
-    cg_u = params.resolved_cg_iters(n_users)
-    cg_i = params.resolved_cg_iters(n_items)
-    sweep_with = _sweep_factory(by_user, by_item, n_users, n_items, cs,
-                                params)
-    users, items = _run_schedule(sweep_with, params, cg_u, cg_i,
-                                 (user0, item0))
-    return ALSModel(users, items)
+    layouts = als_build_layouts(user_idx, item_idx, values, n_users,
+                                n_items, params, dev)
+    vu, vi = _index(val_user_idx, dev), _index(val_item_idx, dev)
+    vv = torch.as_tensor(np.asarray(val_values, np.float32), device=dev)
+    best = [user0, item0, torch.full((), math.inf, device=dev)]
+    curve = []
+
+    def score(carry):
+        users, items = carry
+        # a product and a row sum: einsum runs it as a batched GEMM of
+        # one-element outputs, one per heldout pair
+        pred = (users[vu] * items[vi]).sum(dim=1)
+        r = torch.sqrt(torch.mean((pred - vv) ** 2))
+        better = r < best[2]
+        best[0] = torch.where(better, users, best[0])
+        best[1] = torch.where(better, items, best[1])
+        best[2] = torch.where(better, r, best[2])
+        curve.append(r)
+
+    _train_schedule(layouts, params, (user0, item0), after_sweep=score)
+    raw = torch.stack(curve).cpu().numpy()
+    # argmin on the UNROUNDED curve: the strict `r < best` keeps the
+    # truly-lowest sweep, and ties after rounding must not relabel it
+    best_sweep = int(np.argmin(raw)) + 1
+    curve_h = tuple(round(float(x), 6) for x in raw)
+    return ALSModel(best[0], best[1]), ALSValidation(
+        curve=curve_h,
+        best_sweep=best_sweep,
+        best_rmse=curve_h[best_sweep - 1],
+        final_rmse=curve_h[-1],
+    )
 
 
 def _prep_coo(user_idx, item_idx, values, n_users, n_items,

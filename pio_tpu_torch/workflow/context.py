@@ -37,8 +37,8 @@ class WorkflowContext:
     seed: int = 0
     batch: str = ""
     params: dict = field(default_factory=dict)  # runtime conf (sparkConf slot)
-    # training supervision handle; the supervised lifecycle (heartbeats,
-    # preemption, resume) is not ported yet, so it stays None
+    # training supervision handle (workflow/lifecycle.TrainLifecycle),
+    # set by run_train for the extent of a supervised run
     lifecycle: Any = None
 
     @property

@@ -56,7 +56,12 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.ops.kernels.flash_attention",
                 "pio_tpu_torch.ops.attention", "pio_tpu_torch.ops.topk",
                 "pio_tpu_torch.models.sequence",
-                "pio_tpu_torch.workflow.train"):
+                "pio_tpu_torch.workflow.train",
+                "pio_tpu_torch.workflow.lifecycle",
+                "pio_tpu_torch.workflow.spans",
+                "pio_tpu_torch.workflow.step_checkpoint",
+                "pio_tpu_torch.resilience.chaos",
+                "pio_tpu_torch.data.columnar"):
         assert mod in res["modules"]
 
 

@@ -1056,3 +1056,103 @@ def test_topk_tie_order_on_card():
             didx = rt.build_device_index(rt.build_index(items, params), dev)
             _, got = rt.candidate_topk(didx, model.item_factors, users, 10)
             assert got.tolist() == [want] * 16, (impl, dtype)
+
+
+# -- the supervised train workflow's paths on the card -------------------------
+
+def _expected_flush_launches(nnz: int, n_users: int, n_items: int, p) -> int:
+    """K2 launches of a training run: one per group of each half, both
+    halves every sweep (chip_smoke.py's expected_flush_launches)."""
+    nnz_pad = nnz + (-nnz % p.chunk)
+    cs = min(p.chunk_slots, als._slots_for(nnz_pad, 0, p.width, 1))
+    groups = sum(len(als._group_bounds(
+        als._slots_for(nnz_pad, n, p.width, cs), p.rank, cs, p.group_slots))
+        for n in (n_users, n_items))
+    return groups * p.iterations
+
+
+def test_validated_training_with_k2_matches_plain_path_on_card():
+    """``als_train_validated`` with ``accum`` auto (K2 on the card) against
+    the plain accumulation (``carry``) from the same init: the curve and
+    the best sweep's factors within FLUSH_RTOL of their max, the same best
+    sweep, and K2 launched once per group of each half every sweep."""
+    from dataclasses import replace
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    n_users, n_items = 300, 200
+    u_true = rng.standard_normal((n_users, 3))
+    i_true = rng.standard_normal((n_items, 3))
+    u, i = np.nonzero(rng.random((n_users, n_items)) < 0.3)
+    r = ((u_true[u] * i_true[i]).sum(1)
+         + 0.5 * rng.standard_normal(len(u))).astype(np.float32)
+    perm = rng.permutation(len(u))
+    va, tr = perm[:len(u) // 5], perm[len(u) // 5:]
+    p = als.ALSParams(rank=8, iterations=6, reg=0.1, implicit=False,
+                      seed=1, chunk=512, cg_warm_iters=-1,
+                      bf16_gather=False)
+    assert p.resolved_accum(dev) == "hybrid"
+    init = als.ALSModel(*als._init_or(None, n_users, n_items, p, dev))
+    args = (u[tr], i[tr], r[tr], n_users, n_items)
+    val = (u[va], i[va], r[va])
+    before = sf.launches.value
+    got, got_v = als.als_train_validated(*args, p, *val, init=init,
+                                         device=dev)
+    torch.cuda.synchronize()
+    assert sf.launches.value - before == _expected_flush_launches(
+        len(tr), n_users, n_items, p)
+    before = sf.launches.value
+    want, want_v = als.als_train_validated(*args, replace(p, accum="carry"),
+                                           *val, init=init, device=dev)
+    assert sf.launches.value == before
+    assert got_v.best_sweep == want_v.best_sweep
+    np.testing.assert_allclose(got_v.curve, want_v.curve, rtol=0,
+                               atol=FLUSH_RTOL * max(want_v.curve))
+    for g, w in ((got.user_factors, want.user_factors),
+                 (got.item_factors, want.item_factors)):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=FLUSH_RTOL * float(w.abs().max()))
+
+
+def test_resumed_sequence_run_equals_uninterrupted_on_card(tmp_path):
+    """The sequence template with K8 in its forward (``attention="flash"``)
+    on the card: a run stopped after 7 steps and resumed from its step-5
+    checkpoint ends with the uninterrupted run's params and loss, bit for
+    bit."""
+    from dataclasses import replace
+
+    from pio_tpu_torch.models import sequence as seq
+    from pio_tpu_torch.workflow.step_checkpoint import (
+        StepCheckpointConfig,
+        StepCheckpointer,
+    )
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    seqs = (rng.zipf(1.3, (64, 16)) % 99 + 1).astype(np.int32)
+    ids = [f"u{j}" for j in range(64)]
+    from pio_tpu_torch.data.bimap import EntityIdIndex
+
+    data = seq.SequenceData(seqs, EntityIdIndex(ids),
+                            EntityIdIndex(f"i{j}" for j in range(100)))
+    p = seq.SequenceParams(max_len=16, embed_dim=64, num_heads=2,
+                           num_layers=2, ffn_dim=64, batch_size=16,
+                           steps=12, attention="flash")
+    before = k8.launches.value
+    whole, _, whole_loss = seq.train_sequence_model(data, p, device=dev)
+    assert k8.launches.value - before == p.num_layers * p.steps
+
+    def ckpt():
+        return StepCheckpointer(StepCheckpointConfig(str(tmp_path),
+                                                     save_every=5))
+
+    seq.train_sequence_model(data, replace(p, steps=7), device=dev,
+                             checkpoint=ckpt())
+    before = k8.launches.value
+    params, _, loss = seq.train_sequence_model(data, p, device=dev,
+                                               checkpoint=ckpt())
+    assert k8.launches.value - before == p.num_layers * (p.steps - 6)
+    assert loss == whole_loss
+    for k, v in whole.items():
+        assert params[k].device.type == "cuda"
+        assert torch.equal(params[k], v), k

@@ -5,7 +5,8 @@ Both packages build the same sequences from the same events; from the
 reference's initial params (carried across by
 ``convert.sequence_params_from_numpy``) the port's encoder gives the same
 logits under every attention, and N Adam steps on the same batch stream
-give the same loss; a model trained by the reference and carried across
+give the same loss, also when the port's run is stopped and resumed from
+a step checkpoint; a model trained by the reference and carried across
 serves the same items. Then the port's own paths: ``max_len``
 adaptation, blackList, unknown users, live history through
 ``EventStore.find_by_entity`` on sqlite, the train and deploy verbs with
@@ -56,6 +57,11 @@ LOGITS_ATOL = 1e-5
 # of the two frameworks' kernels, carried through Adam (measured ~5e-7
 # relative after 50 steps)
 LOSS_RTOL = 1e-5
+# logits of the params after 20 Adam steps from the same init and
+# batches: Adam's normalized update carries the two frameworks' f32
+# gradient rounding into the params, so the logits drift past LOGITS_ATOL
+# (which holds at the same params); measured max 1.19e-5 over 18,600
+TRAINED_LOGITS_ATOL = 3e-5
 # served scores of the same model: the same f32 forward, summed in other
 # orders; ids are compared wherever neighbouring scores differ by more
 SCORE_ATOL = 1e-5
@@ -158,6 +164,54 @@ def test_adam_steps_give_reference_loss(attention, steps):
     assert set(params) == set(init)
 
 
+@pytest.mark.parametrize("stop_at", [6, 11, 20])
+def test_resumed_run_gives_reference_loss_and_logits(tmp_path, stop_at):
+    """The port's run from the reference's initial params, stopped after
+    ``stop_at`` steps (a step checkpoint every 5) and resumed in a new
+    trainer, ends with the params of the port's uninterrupted run, bit
+    for bit, and where the reference's uninterrupted run does: the same
+    final loss (LOSS_RTOL) and logits from the final params within
+    TRAINED_LOGITS_ATOL."""
+    from pio_tpu_torch.workflow.step_checkpoint import (
+        StepCheckpointConfig,
+        StepCheckpointer,
+    )
+
+    seqs, users, items = ref.build_sequences(_random_events(), 16)
+    p = ref.SequenceParams(**SMALL, steps=20, attention="reference")
+    want_params, _, want = ref.train_sequence_model(
+        ref.SequenceData(seqs, users, items), p)
+    init = sequence_params_from_numpy(_ref_init(len(items), p),
+                                      device="cpu")
+    data = port.SequenceData(seqs, users, items)
+
+    def ckpt():
+        return StepCheckpointer(StepCheckpointConfig(str(tmp_path / "ck"),
+                                                     save_every=5))
+
+    whole, _, whole_loss = port.train_sequence_model(
+        data, _port_params(p), device="cpu", init=init)
+    port.train_sequence_model(data, _port_params(
+        dataclasses.replace(p, steps=stop_at)), device="cpu", init=init,
+        checkpoint=ckpt())
+    params, enc, got = port.train_sequence_model(
+        data, _port_params(p), device="cpu", checkpoint=ckpt())
+    assert got == whole_loss
+    for k, v in whole.items():
+        assert torch.equal(params[k], v), k
+    assert got == pytest.approx(want, rel=LOSS_RTOL)
+    inp = seqs[:, :-1]
+    _, logits_want = ref.make_encoder(len(items), p).apply(
+        {"params": want_params}, jnp.asarray(inp),
+        partial(ref_attn.attention_reference, causal=True))
+    with torch.no_grad():
+        _, logits_got = enc(torch.from_numpy(inp).long(),
+                            partial(port_attn.attention_reference,
+                                    causal=True))
+    np.testing.assert_allclose(logits_got.numpy(), np.asarray(logits_want),
+                               rtol=0, atol=TRAINED_LOGITS_ATOL)
+
+
 def test_seeded_init_draws_flax_distributions():
     p = port.SequenceParams(embed_dim=64, num_heads=2, num_layers=1,
                             ffn_dim=256)
@@ -252,9 +306,26 @@ def test_train_adapts_datasource_max_len():
     assert not model2.seqs[:, :8].any()
 
 
+def test_checkpoint_dir_saves_and_a_second_train_resumes(tmp_path):
+    """``checkpoint_dir`` in the params: the trainer saves every
+    ``checkpoint_every`` steps (the newest three kept); training again on
+    the same directory restores the final step and takes no step, so the
+    params are the first run's."""
+    seqs, users, items = port.build_sequences(_cyclic_events(), 8)
+    p = port.SequenceParams(max_len=8, embed_dim=16, num_heads=2,
+                            num_layers=1, ffn_dim=32, steps=9, batch_size=8,
+                            checkpoint_dir=str(tmp_path / "ck"),
+                            checkpoint_every=2)
+    data = port.SequenceData(seqs, users, items)
+    first = port.SequenceAlgorithm(p).train(_CPU_CTX, data)
+    assert sorted(os.listdir(tmp_path / "ck"), key=int) == ["4", "6", "8"]
+    again = port.SequenceAlgorithm(p).train(_CPU_CTX, data)
+    for k, v in first.params.items():
+        assert torch.equal(again.params[k], v), k
+
+
 @pytest.mark.parametrize("change, error", [
     (dict(moe_experts=4), NotImplementedError),
-    (dict(checkpoint_dir="ck"), NotImplementedError),
     (dict(attention="ring"), ValueError),
     (dict(attention="ulysses"), ValueError),
     (dict(attention="linear"), ValueError),
@@ -395,6 +466,7 @@ def test_train_then_deploy_on_cpu(tmp_path, monkeypatch):
     (engine_dir / "engine.json").write_text(json.dumps(_variant()))
     monkeypatch.setattr("pio_tpu_torch.__main__.get_storage",
                         lambda: storage)
+    monkeypatch.setenv("PIO_TPU_CKPT_ROOT", str(tmp_path / "ckpt"))
     ref_storage = RefStorage(env=env)
     try:
         assert port_main(["train", "--engine-dir", str(engine_dir),

@@ -136,20 +136,23 @@ def test_retrieval_index_cached_by_item_table(factors):
 
 
 def test_training_waits_for_its_slice():
-    """Training is ported; evaluation folds and validated training wait
-    for a later slice and raise rather than train another way."""
+    """Training is ported; evaluation folds wait for a later slice and
+    raise rather than train another way. Validated training is ported
+    and, as the reference's, refuses fewer than 10 interactions."""
+    import types
+
     from pio_tpu_torch.data.eventstore import to_interactions
     from pio_tpu_torch.data.event import Event
 
     ds = port_rec.RecommendationDataSource(port_rec.DataSourceParams())
     with pytest.raises(NotImplementedError, match="later slice"):
         ds.read_eval(None)
-    data = to_interactions([Event("rate", "user", "u0", "item", "i0",
-                                  {"rating": 3.0})])
+    data = to_interactions([Event("rate", "user", f"u{j}", "item", "i0",
+                                  {"rating": 3.0}) for j in range(9)])
     algo = port_rec.ALSAlgorithm(port_rec.ALSAlgorithmParams(
         validation_fraction=0.1))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        algo.train(None, data)
+    with pytest.raises(ValueError, match=">=10 interactions"):
+        algo.train(types.SimpleNamespace(device=torch.device("cpu")), data)
 
 
 def _storage_env(tmp_path):

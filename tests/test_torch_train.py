@@ -199,12 +199,20 @@ def test_train_then_deploy_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("variant, error", [
-    (_variant(validation_fraction=0.2), NotImplementedError),
+    # a part not ported yet (the sequence template's MoE FFN)
+    ({"id": "rec", "engineFactory":
+      "pio_tpu_torch.models.sequence.SequenceEngine",
+      "datasource": {"params": {"app_name": APP}},
+      "algorithms": [{"name": "sasrec", "params": {
+          "max_len": 8, "embed_dim": 8, "num_heads": 2, "num_layers": 1,
+          "ffn_dim": 8, "steps": 2, "moe_experts": 4}}]},
+     NotImplementedError),
     ({**_variant(), "datasource": {"params": {"app_name": "NoSuchApp"}}},
      RuntimeError),
 ])
 def test_failed_training_marks_instance_failed(tmp_path, monkeypatch,
                                                variant, error):
+    monkeypatch.setenv("PIO_TPU_CKPT_ROOT", str(tmp_path / "ckpt"))
     storage = Storage(env=_storage_env(tmp_path))
     _write_events(storage, n=200)
     monkeypatch.setattr("pio_tpu_torch.__main__.get_storage",
