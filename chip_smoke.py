@@ -13,6 +13,17 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   stores them, and served by ``create_query_server`` (what ``python -m
   pio_tpu_torch deploy`` calls) with two-stage clustered retrieval and
   ``"impl": "pallas"`` (the K7 scan kernel), over loopback HTTP;
+- foldin: on the same seeded factors in a fresh sqlite store, served
+  behind a server key: a tail of rate/buy events of 4,096 users (a
+  quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
+  ``python -m pio_tpu_torch foldin`` runs) in four batches of 1,024 and
+  applied through ``/model/upsert_users`` over loopback HTTP; every
+  multi-slot user's served row (and a sample of the rest) equal bit for
+  bit to the user folded alone, in both modes, and to a second worker's,
+  and within the stated bound of an f64 solve; new users' queries
+  through K7 held to the recall floor; an item upsert re-encoding K7's
+  table, held against a fresh encoding and the plain scan; the sqlite
+  history read, the fold's parts and the model loads timed;
 - train: ``als_train`` on ``bench.py``'s synthetic ratings (zipf 1.2,
   seed 0, 20,000,263 ratings, implicit, reg 0.05, alpha 10) with
   ``accum`` auto, which on the card is the segment-flush kernel (K2) on
@@ -701,6 +712,596 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     if recall < RECALL_FLOOR:
         raise AssertionError(f"recall@10 {recall} < {RECALL_FLOOR}")
     return result
+
+# -- phase 4b: streaming fold-in on the serve phase's model ---------------
+
+SERVER_KEY = "chip-smoke-key"
+FOLDIN_USERS = 4_096       # users in the tail, a quarter of them new
+FOLDIN_NEW_SHARE = 0.25
+FOLDIN_BATCH = 1_024       # max_batch_users: four batches
+FOLDIN_MAX_LEN = 512       # history cap: up to four 128-wide slots
+FOLDIN_REG, FOLDIN_ALPHA = 0.05, 10.0   # bench.py's reg and alpha
+FOLDIN_SAMPLE = 64         # single-slot users checked beside every multi
+FOLDIN_QUERIES = 64        # /queries.json of new users after the cycle
+FOLDIN_ITEM_UPSERTS = 64
+FOLDIN_HISTORY_SAMPLE = 32  # history reads timed on the store as written
+# the f64 check: an f32 Cholesky solve's forward error is bounded by
+# cond(A) times its backward error, about (k + 1) unit roundoffs of |A|,
+# and A's entries are f32 sums of up to `width` products plus one add per
+# further slot; so each row is held within
+# (k + width + slots) * 2^-24 * cond(A) of its norm
+F32_UNIT = 2.0 ** -24
+
+
+def tail_events(users_known: int, rng) -> tuple[list, dict, int]:
+    """The fold-in tail: FOLDIN_USERS users (a quarter with new ids), each
+    a lognormal history length capped at FOLDIN_MAX_LEN of distinct items
+    drawn zipf-1.3 over the catalog, as rate (1..5 stars) and buy events;
+    then a re-rating of one item for a fifth of the users, written later
+    (the later value wins). Returns the events in write order, each as
+    (user, item, kind, stars), each user's final {item: value} (rate:
+    stars, buy: the template's 4.0) and the count before the re-ratings."""
+    n_new = int(FOLDIN_USERS * FOLDIN_NEW_SHARE)
+    old = rng.choice(users_known, FOLDIN_USERS - n_new, replace=False)
+    ids = [f"u{j}" for j in old] + [f"new{j}" for j in range(n_new)]
+    lens = np.minimum(FOLDIN_MAX_LEN, 1 + np.floor(np.exp(
+        rng.normal(3.3, 1.2, FOLDIN_USERS)))).astype(int)
+    zipf = 1.0 / np.arange(1, N_ITEMS + 1) ** 1.3
+    zipf /= zipf.sum()
+    first, later, truth = [], [], {}
+    for uid, n in zip(ids, lens):
+        items = rng.choice(N_ITEMS, min(n, N_ITEMS), replace=False, p=zipf)
+        final = truth[uid] = {}
+        for it in items:
+            kind = "rate" if rng.random() < 0.7 else "buy"
+            stars = float(rng.integers(1, 6)) if kind == "rate" else None
+            first.append((uid, f"i{it}", kind, stars))
+            final[f"i{it}"] = stars if kind == "rate" else 4.0
+        if rng.random() < 0.2:
+            it = f"i{items[0]}"
+            stars = float(rng.integers(1, 6))
+            later.append((uid, it, "rate", stars))
+            final[it] = stars
+    return first + later, truth, len(first)
+
+
+def write_tail(storage, app_id: int, events: list, n_first: int) -> None:
+    """The events in batches, each stamped with the time it is written
+    (real time: staleness is measured from it); the re-ratings go in
+    after the rest, in a later millisecond."""
+    from pio_tpu_torch.data.event import Event
+    from pio_tpu_torch.utils.time import utcnow
+
+    ev = storage.get_events()
+    step = 20_000
+    for lo, hi in [(lo, min(n_first, lo + step))
+                   for lo in range(0, n_first, step)] + [
+            (n_first, len(events))]:
+        time.sleep(0.002)
+        now = utcnow()
+        ev.insert_batch([
+            Event(kind, "user", uid, "item", it,
+                  {"rating": stars} if stars is not None else {}, now)
+            for uid, it, kind, stars in events[lo:hi]], app_id)
+
+
+def history_reads(store_path: str, source, user_ids) -> dict:
+    """LocalEventSource.history timed over a sample of users, and the
+    plan sqlite picks for its query."""
+    import sqlite3
+
+    t0 = time.perf_counter()
+    for uid in user_ids:
+        source.history(uid)
+    ms = 1e3 * (time.perf_counter() - t0) / len(user_ids)
+    con = sqlite3.connect(store_path)
+    try:
+        plan = con.execute(
+            "EXPLAIN QUERY PLAN SELECT * FROM events WHERE app_id = ? AND "
+            "channel_id IS NULL AND entity_type = ? AND entity_id = ? "
+            "ORDER BY event_time_ms ASC",
+            (source.app_id, "user", user_ids[0])).fetchall()
+    finally:
+        con.close()
+    detail = " | ".join(str(r[-1]) for r in plan)
+    return {"ms_per_user": ms, "plan": detail,
+            "walks_the_app": "idx_events_app_time" in detail}
+
+
+def foldin_parts(itf, u, i, v, n_users: int, p) -> tuple[dict, object]:
+    """``als_fold_in``'s pipeline piece by piece, each piece's device time
+    from CUDA events: the layout (COO to the card, pow2 padding, the slot
+    layout), the blocks (``_chunk_blocks`` over the fixed chunks), the
+    accumulation (``_add_blocks``), the solve (YᵀY, reg and
+    ``_solve_rows_invariant``). Returns (ms by part, rows)."""
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops.bucketing import pow2_bucket
+
+    fp = als.fold_in_params(p)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    n_bucket = pow2_bucket(n_users)
+    pad = pow2_bucket(len(v)) - len(v)
+    uu = np.concatenate([u, np.full(pad, n_bucket, np.int32)])
+    ii = np.concatenate([i, np.zeros(pad, np.int32)])
+    vv = np.concatenate([v, np.zeros(pad, np.float32)])
+    ut, it, vt = (torch.from_numpy(x).to(itf.device) for x in (uu, ii, vv))
+    cs = als.FOLD_IN_CHUNK_SLOTS
+    s = als._slots_for(len(vv), n_bucket, fp.width, cs)
+    rows, idx, val, lens = als._device_slot_layout(ut, it, vt, n_bucket,
+                                                   fp.width, s)
+    ev[1].record()
+    blocks = [als._chunk_blocks(itf, idx[c:c + cs], val[c:c + cs],
+                                lens[c:c + cs], fp.implicit, fp.alpha)
+              for c in range(0, s, cs)]
+    ev[2].record()
+    k = itf.shape[1]
+    A = torch.zeros((n_bucket + 1, k, k), device=itf.device)
+    b = torch.zeros((n_bucket + 1, k), device=itf.device)
+    for c, (a_blk, b_blk) in zip(range(0, s, cs), blocks):
+        als._add_blocks(A, b, rows[c:c + cs], a_blk, b_blk, n_bucket)
+    ev[3].record()
+    A, b = A[:n_users], b[:n_users]
+    if fp.implicit:
+        A += als._shared_yty(itf, None)[None, :, :]
+    A.diagonal(dim1=1, dim2=2).add_(fp.reg)
+    out = als._solve_rows_invariant(A, b)
+    ev[4].record()
+    ev[4].synchronize()
+    names = ("layout", "blocks", "accumulation", "solve")
+    return {n: ev[j].elapsed_time(ev[j + 1])
+            for j, n in enumerate(names)}, out
+
+
+def hazards(itf, batch: tuple, p) -> dict:
+    """What each design choice of the fold-in guards against, observed on
+    this card with one recorded batch: whether ``index_add_`` (the CPU's
+    carry) gives other bits on a second run, whether a slot's block
+    changes with the chunk size of the batched matmul, and whether a
+    batched Cholesky solves a row to other bits alone than in the batch.
+    Recorded, not required: the fold-in takes none of these paths."""
+    from pio_tpu_torch.ops import als
+
+    u, i, v, n = batch
+    dev = itf.device
+    fp = als.fold_in_params(p)
+    s = als._slots_for(len(v), n, fp.width, 1)
+    ut, it, vt = (torch.from_numpy(x).to(dev) for x in (u, i, v))
+    rows, idx, val, lens = als._device_slot_layout(ut, it, vt, n, fp.width,
+                                                   s)
+    a_blk, b_blk = als._chunk_blocks(itf, idx, val, lens, fp.implicit,
+                                     fp.alpha)
+    k = itf.shape[1]
+    runs = []
+    for _ in range(3):
+        A = torch.zeros((n + 1, k, k), device=dev)
+        A.index_add_(0, rows.long(), a_blk)
+        runs.append(A)
+    atomics_differ = not all(torch.equal(runs[0], r) for r in runs[1:])
+    by_c = {}
+    # every chunk size the reference's rule, min(chunk_slots, nnz // width
+    # + 1) over the pow2 event buckets, gives up to this batch's slots
+    sizes = {min(fp.chunk_slots, (1 << e) // fp.width + 1)
+             for e in range(24)} | {als.FOLD_IN_CHUNK_SLOTS}
+    for c in sorted(sizes):
+        c = min(c, s)
+        parts = [als._chunk_blocks(itf, idx[lo:lo + c], val[lo:lo + c],
+                                   lens[lo:lo + c], fp.implicit, fp.alpha)[0]
+                 for lo in range(0, s, c)]
+        by_c[c] = torch.cat(parts)
+    base = by_c[min(als.FOLD_IN_CHUNK_SLOTS, s)]
+    blocks_differ = {str(c): not torch.equal(t, base)
+                     for c, t in by_c.items()}
+    A = runs[0][:n] + 0.05 * torch.eye(k, device=dev)
+    A = A + als._shared_yty(itf, None)[None] if fp.implicit else A
+    batched = torch.linalg.cholesky(A)
+    alone = torch.stack([torch.linalg.cholesky(A[j:j + 1])[0]
+                         for j in range(min(n, 64))])
+    return {"index_add_differs_run_to_run": atomics_differ,
+            "blocks_differ_by_chunk_size": blocks_differ,
+            "batched_cholesky_differs_from_alone":
+                not torch.equal(batched[:len(alone)], alone)}
+
+
+def f64_check(itf64: np.ndarray, pairs: dict, rows: dict, p,
+              width: int) -> dict:
+    """Each row against the same system solved in f64 on the CPU, within
+    (k + width + slots) * 2^-24 * cond(A) of the f64 row's norm."""
+    k = itf64.shape[1]
+    yty = itf64.T @ itf64 if p.implicit else None
+    worst, worst_tol, max_tol = 0.0, 0.0, 0.0
+    for uid, (idx, val) in pairs.items():
+        y = itf64[idx]
+        val = val.astype(np.float64)
+        if p.implicit:
+            A = yty + (y * (p.alpha * val)[:, None]).T @ y
+            b = y.T @ (1.0 + p.alpha * val)
+        else:
+            A = y.T @ y
+            b = y.T @ val
+        A = A + p.reg * np.eye(k)
+        x = np.linalg.solve(A, b)
+        slots = -(-len(idx) // width)
+        tol = (k + width + slots) * F32_UNIT * np.linalg.cond(A)
+        err = np.linalg.norm(rows[uid].astype(np.float64) - x) / max(
+            np.linalg.norm(x), 1e-300)
+        if err / tol > worst:
+            worst, worst_tol = err / tol, tol
+        max_tol = max(max_tol, tol)
+    return {"rows": len(pairs), "worst_err_over_tol": worst,
+            "tol_of_worst_row": worst_tol, "max_tol": max_tol,
+            "tolerance": "(k + width + slots) * 2^-24 * cond(A), relative "
+                         "to the f64 row's norm"}
+
+
+def phase_foldin(users: np.ndarray, items: np.ndarray,
+                 dev: torch.device) -> dict:
+    """Streaming fold-in at the serve phase's width: the seeded factors
+    persisted in a fresh sqlite store and served by ``create_query_server``
+    behind a server key with clustered int8 retrieval (K7); a tail of
+    interaction events; ``FoldInWorker`` with ``ServingHttpApplier`` over
+    loopback HTTP (the worker ``python -m pio_tpu_torch foldin`` runs),
+    replaying the log in four batches; the served rows held bit for bit
+    to each user's solo fold, to a second worker's, and to f64; queries
+    of new users through K7; an item upsert re-encoding K7's table."""
+    import sqlite3
+
+    from pio_tpu_torch.__main__ import (
+        _engine_from_variant,
+        _engine_ids,
+        _load_variant,
+    )
+    from pio_tpu_torch.convert import recommendation_model_from_numpy
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.storage import Storage
+    from pio_tpu_torch.freshness import (
+        FoldInConfig,
+        FoldInWorker,
+        ServingHttpApplier,
+        user_pairs,
+    )
+    from pio_tpu_torch.freshness.tail import LocalEventSource
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.ops import retrieval as rt
+    from pio_tpu_torch.ops.kernels import quantized_scan as qscan
+    from pio_tpu_torch.utils import durable
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+    from pio_tpu_torch.workflow.train import persist_models
+
+    rng = np.random.default_rng(SEED + 11)
+    user_ids = [f"u{i}" for i in range(N_USERS)]
+    item_ids = [f"i{i}" for i in range(N_ITEMS)]
+    events, truth, n_first = tail_events(N_USERS, rng)
+    params = als.ALSParams(rank=RANK, reg=FOLDIN_REG, alpha=FOLDIN_ALPHA)
+    out: dict = {"users": FOLDIN_USERS, "events": len(events),
+                 "multi_slot_users": int(sum(
+                     len(t) > 128 for t in truth.values()))}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_foldin_") as tmp:
+        env = sqlite_env(tmp)
+        db_path = env["PIO_STORAGE_SOURCES_SQL_PATH"]
+        engine_dir = Path(tmp) / "engine"
+        engine_dir.mkdir()
+        (engine_dir / "engine.json").write_text(json.dumps({
+            "id": "chip-smoke-foldin", "engineFactory": FACTORY,
+            "datasource": {"params": {"app_name": "foldin"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": RANK, "lambda_": FOLDIN_REG, "alpha": FOLDIN_ALPHA,
+                "retrieval": RETRIEVAL}}],
+        }))
+        variant = _load_variant(str(engine_dir))
+        engine, ep = _engine_from_variant(variant, str(engine_dir))
+        engine_id, version, variant_name = _engine_ids(
+            variant, str(engine_dir))
+
+        # -- the store: factors, then the tail as written --------------
+        storage = Storage(env=env)
+        t0 = time.perf_counter()
+        model = recommendation_model_from_numpy(
+            users, items, user_ids, item_ids, device=dev)
+        iid = persist_models([model], ep, storage, engine_id, version,
+                             variant_name, engine_factory=FACTORY)
+        persist_s = time.perf_counter() - t0
+        del model
+        blob = storage.get_model_data_models().get(iid).models
+        t0 = time.perf_counter()
+        durable.crc32c(blob)
+        crc_s = time.perf_counter() - t0
+        app_id = storage.get_metadata_apps().insert(App(0, "foldin"))
+        storage.get_events().init(app_id)
+        t0 = time.perf_counter()
+        write_tail(storage, app_id, events, n_first)
+        out["write_s"] = time.perf_counter() - t0
+        sample = sorted(truth)[:FOLDIN_HISTORY_SAMPLE]
+        out["history_read_as_written"] = history_reads(
+            db_path, LocalEventSource(storage, "foldin"), sample)
+        storage.close()
+        # the planner's statistics, as an operator's ANALYZE writes them
+        con = sqlite3.connect(db_path)
+        try:
+            con.execute("ANALYZE")
+            con.commit()
+        finally:
+            con.close()
+        storage = Storage(env=env)
+        out["history_read_analyzed"] = history_reads(
+            db_path, LocalEventSource(storage, "foldin"), sample)
+
+        ctx = create_workflow_context(storage, device=dev)
+        t0 = time.perf_counter()
+        http, qs = create_query_server(
+            engine, ep, storage,
+            ServingConfig(ip="127.0.0.1", port=0, engine_id=engine_id,
+                          engine_version=version,
+                          engine_variant=variant_name,
+                          server_key=SERVER_KEY), ctx=ctx)
+        http.start()
+        deploy_load_s = time.perf_counter() - t0
+        try:
+            port = http.port
+            url = f"http://127.0.0.1:{port}"
+            # the first query builds the retrieval index (k-means) once
+            status, _, index_s = _post(port, "/queries.json",
+                                       {"user": "u0", "num": 10})
+            assert status == 200
+            status, body, _ = _post(port, "/model/upsert_users",
+                                    {"users": {"x": [0.0] * RANK}})
+            if status != 401:
+                raise AssertionError(f"upsert without the key: {status}")
+
+            config = FoldInConfig(
+                app_name="foldin", engine_id=engine_id,
+                engine_version=version, engine_variant=variant_name,
+                als_params=params, replay=True,
+                max_batch_users=FOLDIN_BATCH,
+                state_path=str(Path(tmp) / "cursor-1.bin"),
+                cycle_budget_s=0)
+            applier = ServingHttpApplier(url, SERVER_KEY, timeout=120)
+            applied = []
+
+            class Timed:
+                """The applier, each apply's host time and staleness kept."""
+
+                def apply(self, rows, staleness_s=None):
+                    t0 = time.perf_counter()
+                    res = applier.apply(rows, staleness_s)
+                    applied.append((1e3 * (time.perf_counter() - t0),
+                                    staleness_s, len(rows)))
+                    return res
+
+            solved = []
+            fold_in = als.als_fold_in
+
+            def recorded(itf, u, i, v, n, p):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                rows = fold_in(itf, u, i, v, n, p)
+                end.record()
+                end.synchronize()
+                solved.append(((u, i, v, n), rows,
+                               start.elapsed_time(end)))
+                return rows
+
+            t0 = time.perf_counter()
+            worker = FoldInWorker(storage, config, Timed(), device=dev)
+            worker._refresh_model()
+            folder_load_s = time.perf_counter() - t0
+            itf = worker._model.factors.item_factors
+            if itf.device != dev:
+                raise AssertionError(f"item factors on {itf.device}")
+
+            # -- the main path: counts from 0, read right after --------
+            als.als_fold_in = recorded
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                stats = worker.run_once()
+                cycle_s = time.perf_counter() - t0
+                new_users = [f"new{j}" for j in range(FOLDIN_QUERIES)]
+                answers = []
+                for uid in new_users:
+                    status, body, _ = _post(port, "/queries.json",
+                                            {"user": uid, "num": 10})
+                    assert status == 200, body
+                    answers.append(body)
+                launches_queries = read_counts()
+                queried = qs.models[0]     # the model those queries saw
+                # an item upsert: 64 existing items pointed hard at 64
+                # users, each item the unit direction of its user's row
+                # times 1000: the user scores its own item highest of all
+                # (Cauchy-Schwarz against the other upserted items), and
+                # the item's nearest centroid is one the user probes first
+                model = qs.models[0]
+                q_users = [user_ids[j] for j in rng.choice(
+                    N_USERS, FOLDIN_ITEM_UPSERTS, replace=False)]
+                up_items = [item_ids[j] for j in rng.choice(
+                    N_ITEMS, FOLDIN_ITEM_UPSERTS, replace=False)]
+                urows = model.factors.user_factors[torch.as_tensor(
+                    [model.users.index_of(x) for x in q_users],
+                    device=dev)].cpu().numpy()
+                new_rows = (1000.0 * urows / np.linalg.norm(
+                    urows, axis=1, keepdims=True)).astype(np.float32)
+                t0 = time.perf_counter()
+                status, body, _ = _post(
+                    port, f"/model/upsert_users?accessKey={SERVER_KEY}",
+                    {"items": {it: [float(x) for x in r]
+                               for it, r in zip(up_items, new_rows)}})
+                item_upsert_ms = 1e3 * (time.perf_counter() - t0)
+                assert status == 200 and body["itemsApplied"] == len(
+                    up_items), body
+                item_answers = []
+                for uid in q_users:
+                    status, body, _ = _post(port, "/queries.json",
+                                            {"user": uid, "num": 10})
+                    assert status == 200, body
+                    item_answers.append(body)
+                launches = read_counts()
+            finally:
+                als.als_fold_in = fold_in
+            # ------------------------------------------------------------
+
+            model = qs.models[0]
+            snap = worker.snapshot()
+            spans = worker.tracer.snapshot()
+        finally:
+            http.stop()
+            qs.close()
+
+        # -- checks -------------------------------------------------------
+        folded = {u for u in truth
+                  if any(it in model.items for it in truth[u])}
+        if stats["folded"] != len(folded) or snap["queueDepth"]:
+            raise AssertionError(f"cycle {stats}, expected {len(folded)}")
+        if len(solved) != -(-len(folded) // FOLDIN_BATCH):
+            raise AssertionError(f"{len(solved)} solve batches")
+        want_k7 = len(new_users) + len(q_users)
+        if launches != {**dict.fromkeys(launches, 0),
+                        "quantized_scan": want_k7}:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want_k7} K7 launches")
+        uf = model.factors.user_factors
+        served = {u: uf[model.users.index_of(u)].cpu().numpy()
+                  for u in folded}
+        # each checked user's pairs, read as the worker reads them
+        source = LocalEventSource(storage, "foldin")
+        multi = sorted(u for u in folded if len(truth[u]) > 128)
+        rest = sorted(set(folded) - set(multi))
+        checked = multi + [rest[j] for j in rng.choice(
+            len(rest), min(FOLDIN_SAMPLE, len(rest)), replace=False)]
+        pairs = {}
+        for uid in checked:
+            known = [(model.items.index_of(it), val) for it, val in
+                     user_pairs(source.history(uid), worker.value_fn)
+                     if it in model.items]
+            pairs[uid] = (np.asarray([k for k, _ in known], np.int32),
+                          np.asarray([x for _, x in known], np.float32))
+            got = {model.items.id_of(k): x for k, x in known}
+            want = {it: x for it, x in truth[uid].items()
+                    if it in model.items}
+            if got != want:
+                raise AssertionError(f"{uid}: pairs differ from the tail")
+        for uid, (idx, val) in pairs.items():
+            alone = als.als_fold_in(itf, np.zeros(len(idx), np.int32), idx,
+                                    val, 1, params)[0].cpu().numpy()
+            if not np.array_equal(alone, served[uid]):
+                raise AssertionError(f"{uid}: served row is not its solo "
+                                     "fold bit for bit")
+        # the other mode, on the card: each recorded batch twice, and the
+        # same users alone
+        implicit = replace(params, implicit=True)
+        other = {"batches": len(solved), "solo_users": 0}
+        for (u, i, v, n), _, _ in solved:
+            first_run = als.als_fold_in(itf, u, i, v, n, implicit)
+            if not torch.equal(first_run,
+                               als.als_fold_in(itf, u, i, v, n, implicit)):
+                raise AssertionError("implicit fold-in: two runs differ")
+            counts = np.bincount(u, minlength=n)
+            pick = [j for j in range(n) if counts[j] > 128][:32] + list(
+                rng.choice(n, 8, replace=False))
+            for j in pick:
+                m = u == j
+                alone = als.als_fold_in(itf, np.zeros(int(m.sum()),
+                                                      np.int32),
+                                        i[m], v[m], 1, implicit)[0]
+                if not torch.equal(alone, first_run[j]):
+                    raise AssertionError(f"implicit: batch row {j} is not "
+                                         "its solo fold bit for bit")
+                other["solo_users"] += 1
+        # a second worker over a fresh cursor gives the same rows
+        again = {}
+
+        class Keep:
+            def apply(self, rows, staleness_s=None):
+                again.update(rows)
+                return {"applied": len(rows)}
+
+        t0 = time.perf_counter()
+        second = FoldInWorker(storage, replace(
+            config, state_path=str(Path(tmp) / "cursor-2.bin")), Keep(),
+            device=dev)
+        second.run_once()
+        second_s = time.perf_counter() - t0
+        if set(again) != folded or any(
+                not np.array_equal(np.asarray(again[u], np.float32),
+                                   served[u]) for u in folded):
+            raise AssertionError("a second worker's rows differ")
+        storage.close()
+
+    # against f64 on the CPU
+    itf64 = itf.double().cpu().numpy()
+    f64 = f64_check(itf64, pairs, served, params, params.width)
+    if f64["worst_err_over_tol"] > 1.0:
+        raise AssertionError(f"fold-in vs f64: {f64}")
+    # the new users' answers against the exact top-k on the table they
+    # were answered from (the folded rows, before the item upsert)
+    uidx = np.array([queried.users.index_of(x) for x in new_users])
+    _, exact = als.recommend_topk(queried.factors, uidx, 10)
+    got_idx = np.array([model.items.encode(_ranking(a)[0])
+                        for a in answers])
+    recall = rt.recall_at_k(got_idx, exact.cpu().numpy())
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"fold-in recall@10 {recall} < {RECALL_FLOOR}")
+    # the item upsert: re-encoded rows, retrievable, K7 = its plain version
+    idx, didx = model._retrieval_cache[1]
+    pos = np.array([model.items.index_of(x) for x in up_items])
+    fresh = rt.quantize_table(new_rows, RETRIEVAL["dtype"])
+    if not (np.array_equal(idx.table.data[pos], fresh.data)
+            and np.array_equal(idx.table.scales[pos], fresh.scales)):
+        raise AssertionError("upserted items' quantized rows are stale")
+    _, best = als.recommend_topk(model.factors, np.array(
+        [model.users.index_of(x) for x in q_users]), 1)
+    for uid, own, want_item, body in zip(q_users, up_items,
+                                         best[:, 0].cpu().numpy(),
+                                         item_answers):
+        want_id = model.items.id_of(int(want_item))
+        if want_id != own or _ranking(body)[0][0] != want_id:
+            raise AssertionError(f"{uid}: best item {want_id} not served "
+                                 f"first ({_ranking(body)[0][:3]})")
+    u = uf[torch.as_tensor(uidx[:16], device=dev)]
+    _, top_c = torch.topk(u @ didx.centroids.T,
+                          min(didx.params.nprobe, didx.n_clusters))
+    args = (didx.table, didx.scales, didx.gidx, top_c.to(torch.int32), u)
+    got = qscan.quantized_scan(*args)
+    want = qscan.quantized_scan_reference(*args)
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)) or bool(
+            ((got[fin] - want[fin]).abs() > RTOL * want[fin].abs()
+             + ATOL_OF_MAX * want[fin].abs().max()).any()):
+        raise AssertionError("K7 on the re-encoded table disagrees with "
+                             "its plain version")
+
+    # -- numbers ----------------------------------------------------------
+    parts = []
+    for (u, i, v, n), rows, _ in solved:
+        by_part, rows2 = foldin_parts(itf, u, i, v, n, params)
+        if not torch.equal(rows2, rows):
+            raise AssertionError("the timed pieces differ from als_fold_in")
+        parts.append(by_part)
+    out.update({
+        "launches": launches, "launches_queries": launches_queries,
+        "cycle": stats, "cycle_s": cycle_s,
+        "rows_folded_per_s": stats["folded"] / cycle_s,
+        "solve_ms_per_batch": [ms for _, _, ms in solved],
+        "solve_parts_ms_per_batch": parts,
+        "batch_users": [n for (_, _, _, n), _, _ in solved],
+        "batch_events": [len(v) for (_, _, v, _), _, _ in solved],
+        "apply_ms_per_batch": [ms for ms, _, _ in applied],
+        "staleness_s_per_batch": [s for _, s, _ in applied],
+        "spans": {k: spans[k] for k in ("tail", "solve", "apply")
+                  if k in spans},
+        "checked_users": len(pairs), "checked_multi_slot": len(multi),
+        "implicit": other, "second_worker_s": second_s,
+        "f64": f64, "recall_at_10": recall, "index_build_s": index_s,
+        "item_upsert_ms": item_upsert_ms,
+        "model_bytes": len(blob), "persist_s": persist_s,
+        "deploy_load_s": deploy_load_s, "folder_load_s": folder_load_s,
+        "crc32c_s": crc_s, "hazards": hazards(itf, solved[0][0], params),
+    })
+    emit("foldin", **out)
+    return out
+
 
 # -- phase 5: the segment flush kernel (K2) at the users half of ML-20M ------
 
@@ -2663,6 +3264,7 @@ def main() -> int:
     users, items = make_factors()
     scan = timed("scan_kernel", phase_scan_kernel, users, items, dev)
     serve = timed("serve", phase_serve, users, items, dev)
+    foldin = timed("foldin", phase_foldin, users, items, dev)
     del users, items
     ratings = synth_ratings()
     flush = timed("segment_flush_kernel", phase_flush_kernel, ratings, dev)
@@ -2696,6 +3298,7 @@ def main() -> int:
             "quantized_scan", src + "quantized_scan.cu",
             "pio_tpu/ops/retrieval.py:550",
             serve["launches"]["quantized_scan"], head,
+            launches_foldin=foldin["launches"]["quantized_scan"],
             empty_launch_ms=head["empty_launch_ms"],
             shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
                                         "k")},

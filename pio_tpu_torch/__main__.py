@@ -20,10 +20,20 @@ Verbs ported so far:
            --engine-instance-id) of the engine in --engine-dir over
            REST, on the CUDA device unless --device cpu. Storage comes
            from the PIO_STORAGE_* environment, as for `pio deploy`.
+           --server-key (or PIO_SERVER_KEY) guards /model/upsert_users.
+  foldin   the streaming fold-in worker (docs/freshness.md): tail the
+           engine's events in the store, solve refreshed user rows
+           against the deployed model's item factors (on the CUDA
+           device unless --device cpu) and hot-swap them into the
+           deploy server at --serving-url. --once runs one cycle and
+           prints its stats as JSON; otherwise it loops, with its health
+           surface on --ip/--port.
 
-Counterparts of ``cmd_train`` and ``cmd_deploy`` in ``pio_tpu.tools.cli``.
-Not ported yet: train's --from-eval and mesh options; deploy's fleet,
-canary, TLS, feedback, batching and warm-query options.
+Counterparts of ``cmd_train``, ``cmd_deploy`` and ``cmd_foldin`` in
+``pio_tpu.tools.cli``. Not ported yet: train's --from-eval and mesh
+options; deploy's fleet, canary, TLS, feedback, batching and warm-query
+options; foldin's --router-url (the fleet), --event-server-url,
+--access-key and --tail-wait (the event server's tail route).
 """
 
 from __future__ import annotations
@@ -135,6 +145,7 @@ def cmd_deploy(args) -> int:
     config = ServingConfig(
         ip=args.ip, port=args.port, engine_id=engine_id,
         engine_version=engine_version, engine_variant=engine_variant,
+        server_key=args.server_key or os.environ.get("PIO_SERVER_KEY", ""),
     )
     http, qs = create_query_server(
         engine, ep, storage, config, ctx=ctx,
@@ -150,6 +161,93 @@ def cmd_deploy(args) -> int:
     finally:
         qs.close()
     print("Server stopped.")
+    return 0
+
+
+def cmd_foldin(args) -> int:
+    """Training-read semantics and solver params come from the SAME
+    engine.json train and deploy read, so they cannot drift from the
+    model being refreshed."""
+    import threading
+
+    from pio_tpu_torch.freshness import (
+        FoldInConfig,
+        FoldInWorker,
+        ServingHttpApplier,
+        create_foldin_server,
+    )
+    from pio_tpu_torch.ops import als
+
+    variant = _load_variant(args.engine_dir)
+    engine, ep = _engine_from_variant(variant, args.engine_dir)
+    engine_id, engine_version, engine_variant = _engine_ids(
+        variant, args.engine_dir)
+    _, ds = ep.datasource
+    _, ap = (ep.algorithms or [(None, None)])[0]
+    rank = getattr(ap, "rank", None)
+    if rank is None:
+        print("[ERROR] fold-in needs a factor-model engine (algorithm "
+              "params with rank/lambda_/alpha/implicit_prefs); got "
+              f"{type(ap).__name__}", file=sys.stderr)
+        return 1
+    app_name = getattr(ds, "app_name", "")
+    if not app_name:
+        print("[ERROR] engine.json datasource params carry no appName",
+              file=sys.stderr)
+        return 1
+    state_path = args.state_path or os.path.join(
+        os.path.expanduser(os.environ.get("PIO_TPU_HOME", "~/.pio_tpu")),
+        "foldin", f"{engine_id}-{engine_variant}.cursor")
+    key = args.server_key or os.environ.get("PIO_SERVER_KEY", "")
+    config = FoldInConfig(
+        app_name=app_name,
+        channel_name=getattr(ds, "channel_name", None),
+        engine_id=engine_id, engine_version=engine_version,
+        engine_variant=engine_variant,
+        event_names=tuple(getattr(ds, "event_names", ("rate", "buy"))),
+        value_event=getattr(ds, "rating_event", "rate"),
+        default_value=getattr(ds, "implicit_value", 4.0),
+        als_params=als.ALSParams(
+            rank=rank,
+            reg=getattr(ap, "lambda_", 0.1),
+            alpha=getattr(ap, "alpha", 1.0),
+            implicit=getattr(ap, "implicit_prefs", False),
+        ),
+        state_path=state_path,
+        replay=args.replay,
+        poll_interval_s=args.interval,
+        max_batch_users=args.max_batch_users,
+        staleness_budget_s=args.staleness_budget,
+        ip=args.ip, port=args.port,
+        # the key that authenticates the applies also guards the
+        # folder's own /debug trace routes
+        server_key=key,
+    )
+    applier = ServingHttpApplier(args.serving_url, key)
+    worker = FoldInWorker(get_storage(), config, applier,
+                          device=args.device)
+    if args.once:
+        try:
+            stats = worker.run_once()
+        except Exception as e:  # noqa: BLE001 - --once reports, not loops
+            print(json.dumps({"error": f"{type(e).__name__}: {e}",
+                              **worker.snapshot()}))
+            return 1
+        print(json.dumps({**stats, **worker.snapshot()}), flush=True)
+        return 0
+    http = create_foldin_server(worker)
+    http.start()
+    worker.start()
+    print(f"fold-in worker for engine {engine_id} -> {args.serving_url} "
+          f"(health on http://{args.ip}:{http.port}, cursor {state_path}, "
+          f"{worker.device})", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    worker.stop()
+    http.stop()
+    print("fold-in worker stopped.")
     return 0
 
 
@@ -184,7 +282,43 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="serving device (default cuda; cpu must be asked "
                         "for)")
+    x.add_argument("--server-key", default="",
+                   help="guards /model/upsert_users (or PIO_SERVER_KEY)")
     x.set_defaults(fn=cmd_deploy)
+    x = sub.add_parser(
+        "foldin",
+        help="streaming fold-in worker: tail the event stream, solve "
+             "refreshed user rows against the deployed item factors, "
+             "hot-swap them into serving (docs/freshness.md)")
+    x.add_argument("--engine-dir", default=".")
+    x.add_argument("--serving-url", default="http://127.0.0.1:8000",
+                   help="single-host deploy server to apply rows to")
+    x.add_argument("--server-key", default="",
+                   help="serving server key (or PIO_SERVER_KEY)")
+    x.add_argument("--state-path", default="",
+                   help="durable cursor file (default $PIO_TPU_HOME/foldin/"
+                        "<engine>-<variant>.cursor)")
+    x.add_argument("--replay", action="store_true",
+                   help="a FRESH cursor replays the whole event log "
+                        "(re-fold every historical user) instead of "
+                        "starting at now")
+    x.add_argument("--interval", type=float, default=0.5,
+                   help="tail poll interval (seconds)")
+    x.add_argument("--max-batch-users", type=int, default=1024,
+                   help="fold batch cap per cycle")
+    x.add_argument("--staleness-budget", type=float, default=60.0,
+                   help="the folder's /readyz flips once event->servable "
+                        "staleness exceeds this many seconds")
+    x.add_argument("--once", action="store_true",
+                   help="run exactly one tail->solve->apply cycle, print "
+                        "its stats as JSON, and exit (cron-style fold-in)")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8100,
+                   help="health port (/healthz /readyz /metrics.json)")
+    x.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="solve device (default cuda; cpu must be asked "
+                        "for)")
+    x.set_defaults(fn=cmd_foldin)
     return p
 
 

@@ -4,7 +4,8 @@ scoring functions of the factor model.
 Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
 ``_device_slot_layout``, ``_chunk_blocks``, ``_normal_equations``,
 ``_cg_solve``, ``_solve_factors``, ``als_train``, ``als_train_validated``,
-``als_build_layouts``; ``predict_pairs``, ``recommend_topk``, ``rmse``).
+``als_build_layouts``, ``fold_in_params``, ``als_fold_in``;
+``predict_pairs``, ``recommend_topk``, ``rmse``).
 The algorithm is the reference's:
 
  * ratings sit in fixed-width slots sorted by row (``_device_slot_layout``,
@@ -21,7 +22,9 @@ The algorithm is the reference's:
    table within the reference's budget; a larger table takes
    ``src[i_c]``, as in the reference), all in ``ops/kernels/gather_rows``;
  * the blocks are summed into each row's system, A (n,k,k) and b (n,k),
-   by ``accum``: ``"carry"``/``"stacked"`` with ``index_add_``,
+   by ``accum``: ``"carry"``/``"stacked"`` with ``index_add_`` on the
+   CPU and, on CUDA, a round of ordered adds per slot of a row
+   (``_add_blocks``: no atomics, so the sums repeat bit for bit),
    ``"hybrid"`` with the segment-flush kernel (K2), or ``"stream"`` with
    the overlapped flush (K3); ``packed_a=True`` has K3 return A
    lane-packed, (n,k²). ``"pallas"`` skips the blocks: the fused kernel
@@ -46,7 +49,7 @@ different numbers; tests pass ``init=``).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -321,8 +324,9 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
     """Accumulate per-row normal equations A (n_self,k,k), b (n_self,k)
     (without the shared YᵀY and reg terms, which the solve adds).
 
-    "carry" adds each chunk's blocks into A with ``index_add_``;
-    "stacked" builds a group of chunks' blocks, then adds the group;
+    "carry" adds each chunk's blocks into A (``_add_blocks``: each row's
+    slots in slot order); "stacked" builds a group of chunks' blocks,
+    then adds the group the same way;
     "hybrid" builds the same groups and flushes each with the segment
     flush kernel, which writes each finished row once and folds a row
     that runs across tiles and groups in slot order; "stream" does the
@@ -385,20 +389,51 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
             a_blk, b_blk = _chunk_blocks(src, idx[c0:c1], val[c0:c1],
                                          lens[c0:c1], implicit, alpha,
                                          gather=gather)
-            r = rows[c0:c1].long()
-            A.index_add_(0, r, a_blk)
-            b.index_add_(0, r, b_blk)
+            _add_blocks(A, b, rows[c0:c1], a_blk, b_blk, n_self)
     elif accum == "stacked":
         for lo, hi in _group_bounds(S, k, chunk_slots, group_slots):
             a_blks, b_blks = _group_blocks(src, idx, val, lens, lo, hi,
                                            chunk_slots, implicit, alpha,
                                            gather)
-            r = rows[lo:hi].long()
-            A.index_add_(0, r, a_blks)
-            b.index_add_(0, r, b_blks)
+            _add_blocks(A, b, rows[lo:hi], a_blks, b_blks, n_self)
     else:
         raise ValueError(f"unknown accum mode {accum!r}")
     return A[:n_self], b[:n_self]
+
+
+def _add_blocks(A, b, rows, a_blk, b_blk, n_self: int) -> None:
+    """A[rows[s]] += a_blk[s], b likewise, for the slots of one chunk or
+    group, each row's blocks summed in slot order.
+
+    On the CPU ``index_add_`` adds the slots one after another, which is
+    that order. On CUDA it adds with atomics, in an order that changes
+    from run to run, so there the slots go in rounds instead: round j adds
+    the j-th slot of every row, one add per row and no atomics. A row's
+    slots are contiguous and ``rows`` does not decrease, so every row sums
+    ((b0 + b1) + b2)... whatever the other rows of the chunk are. Sentinel
+    slots (row n_self) are dropped."""
+    r = rows.long()
+    if not _accelerator_backend(A.device):
+        A.index_add_(0, r, a_blk)
+        b.index_add_(0, r, b_blk)
+        return
+    t = torch.arange(r.shape[0], device=r.device)
+    first = torch.ones_like(r, dtype=torch.bool)
+    first[1:] = r[1:] != r[:-1]
+    pos = t - torch.cummax(torch.where(first, t, 0), 0).values
+    real = r < n_self
+    # slots by round, in slot order within a round; the sentinel's run,
+    # which can be a whole chunk long, sorts past every round
+    key = torch.where(real, pos, r.shape[0])
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key[real]).tolist()
+    lo = 0
+    for n in counts:
+        sel = order[lo:lo + n]
+        lo += n
+        rj = r[sel]
+        A[rj] = A[rj] + a_blk[sel]
+        b[rj] = b[rj] + b_blk[sel]
 
 
 def _cg_body(mv, dinv, b, x0, n_iter: int):
@@ -725,6 +760,117 @@ def _init_or(init: ALSModel | None, n_users: int, n_items: int,
     g.manual_seed(params.seed)
     return (init_factors(n_users, params.rank, g),
             init_factors(n_items, params.rank, g))
+
+
+# ---------------------------------------------------------------------------
+# streaming fold-in: refresh user rows against FIXED item factors
+# ---------------------------------------------------------------------------
+
+# The fold-in builds its blocks in chunks of this many slots whatever the
+# batch, so a slot's block always comes from a batched matmul of the same
+# shape (a library may pick another kernel, and another order of the
+# 128-wide sums, for another batch count). The reference's chunk is
+# min(chunk_slots, nnz // width + 1); the blocks are the same numbers. On
+# an H100 the blocks came out the same at every chunk size that rule
+# gives (chip_smoke.py, the foldin phase's hazards): the fixed chunk keeps
+# the contract from resting on that observation.
+FOLD_IN_CHUNK_SLOTS = 1024
+
+
+def _solve_rows_invariant(A, b):
+    """Exact per-row solve whose bits do not depend on the batch: one
+    unbatched Cholesky and triangular solve per row, so a row's solution
+    is the same whether it is solved alone or among any batch mates (a
+    batched factorization may take another routine for another batch
+    size). Raises where a system is not positive definite, as the
+    trainer's exact solve does."""
+    out, infos = [], []
+    for a_row, b_row in zip(A, b):
+        chol, info = torch.linalg.cholesky_ex(a_row)
+        out.append(torch.cholesky_solve(b_row[:, None], chol)[:, 0])
+        infos.append(info)
+    if infos and bool(torch.stack(infos).ne(0).any()):
+        raise torch.linalg.LinAlgError(
+            "fold-in: a user's system is not positive definite")
+    return (torch.stack(out) if out
+            else b.new_zeros((0, b.shape[1])))
+
+
+def _fold_in_systems(u, i, v, item_factors, n_users: int,
+                     params: ALSParams):
+    """The reference's ``_fold_in_jit`` up to its solve: one users
+    half-sweep of ``_normal_equations`` with the shared YᵀY (implicit)
+    and reg terms added -> A (n_users,k,k), b (n_users,k)."""
+    nnz = u.shape[0]
+    cs = FOLD_IN_CHUNK_SLOTS
+    su = _slots_for(nnz, n_users, params.width, cs)
+    by_user = _device_slot_layout(u, i, v, n_users, params.width, su)
+    A, b = _normal_equations(
+        by_user, item_factors, n_users, params.implicit, params.alpha, cs,
+        bf16_gather=params.bf16_gather, accum=params.accum,
+        group_slots=params.group_slots, gather=params.gather,
+        packed=params.packed_a,
+    )
+    if params.implicit:
+        A += _shared_yty(item_factors, None)[None, :, :]
+    A.diagonal(dim1=1, dim2=2).add_(params.reg)
+    return A, b
+
+
+def fold_in_params(params: ALSParams) -> ALSParams:
+    """The bit-conservative variant of ``params`` a fold-in solve runs
+    under: f32 gather and the plain accumulation and gather paths, so a
+    refreshed row is a pure function of (events, item factors), the same
+    in every batch composition and on every restart. Iteration-schedule
+    fields are irrelevant (fold-in is one half-sweep) and are zeroed."""
+    return replace(
+        params, bf16_gather=False, accum="carry", gather="xla",
+        packed_a=False, iterations=1, cg_warm_iters=-1, seed=0, chunk=0,
+    )
+
+
+def als_fold_in(item_factors, user_idx, item_idx, values, n_users: int,
+                params: ALSParams) -> torch.Tensor:
+    """Solve one ridge system per user against FIXED item factors (the
+    online half of ALS): one users half-sweep of ``_normal_equations``
+    and the exact solve, nothing else. Returns (n_users, k) f32 rows on
+    the item factors' device (a numpy table is taken as the CPU's).
+
+    ``user_idx`` holds local dense ids in [0, n_users); ``item_idx``
+    indexes ``item_factors`` rows. Users with no events get the zero row
+    (b = 0 under the exact solve), which callers treat as "don't apply".
+
+    Batch-composition invariance, the freshness subsystem's contract: a
+    user's row is bit-identical whether the user is folded alone or in
+    any batch, on the CPU and on CUDA. The blocks come from batched
+    matmuls of one fixed shape (``FOLD_IN_CHUNK_SLOTS``), each row sums
+    its slots in slot order (``_add_blocks``) and ``_solve_rows_invariant``
+    solves each row alone. The user space and the event count are padded
+    to powers of two, as in the reference; the padding events carry the
+    sentinel user and are dropped by the slot layout."""
+    itf = item_factors if torch.is_tensor(item_factors) else \
+        torch.from_numpy(np.ascontiguousarray(item_factors, np.float32))
+    itf = itf.to(torch.float32)
+    dev, k = itf.device, itf.shape[1]
+    nnz = len(values)
+    if nnz == 0 or n_users <= 0:
+        return torch.zeros((max(n_users, 0), k), dtype=torch.float32,
+                           device=dev)
+    _require_f32_matmul(dev)
+    u = np.ascontiguousarray(user_idx, dtype=np.int32)
+    i = np.ascontiguousarray(item_idx, dtype=np.int32)
+    v = np.ascontiguousarray(values, dtype=np.float32)
+    n_bucket = pow2_bucket(n_users)
+    pad = pow2_bucket(nnz) - nnz
+    if pad:
+        u = np.concatenate([u, np.full(pad, n_bucket, np.int32)])
+        i = np.concatenate([i, np.zeros(pad, np.int32)])
+        v = np.concatenate([v, np.zeros(pad, np.float32)])
+    u, i, v = (torch.from_numpy(x).to(dev) for x in (u, i, v))
+    A, b = _fold_in_systems(u, i, v, itf, n_bucket, fold_in_params(params))
+    # the bucket's padding rows would solve to zero: only the real users
+    # are solved
+    return _solve_rows_invariant(A[:n_users], b[:n_users])
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,27 @@
-"""Resilience: the deterministic fault-injection (chaos) harness.
+"""Resilience: the deterministic fault-injection (chaos) harness and the
+call policies the fold-in worker runs under.
 
-Counterpart of ``pio_tpu.resilience``, of which the port has only
-``chaos`` so far (a verbatim copy: the spec grammar, the ``PIO_TPU_CHAOS``
-environment variable and the ``train.step.<n>`` / ``train.checkpoint`` /
-``train.persist`` points of the training lifecycle). The retry and
-circuit-breaker policies, ``ResilientDAO``, tenant quotas and the spill
-queue are not ported yet.
+Counterpart of ``pio_tpu.resilience``, of which the port has ``chaos``
+(a verbatim copy: the spec grammar, the ``PIO_TPU_CHAOS`` environment
+variable and the ``train.step.<n>`` / ``train.checkpoint`` /
+``train.persist`` / ``foldin.solve`` / ``foldin.apply`` points) and
+``policies`` (a verbatim copy: retry, circuit breaker, deadline). The
+``ResilientDAO``, health checks, tenant quotas and the spill queue are
+not ported yet.
 """
 
 from pio_tpu_torch.resilience import chaos
+from pio_tpu_torch.resilience.policies import (
+    CircuitBreaker,
+    CircuitOpenError,
+    Deadline,
+    DeadlineExceeded,
+)
 
-__all__ = ["chaos"]
+__all__ = [
+    "CircuitBreaker",
+    "CircuitOpenError",
+    "Deadline",
+    "DeadlineExceeded",
+    "chaos",
+]

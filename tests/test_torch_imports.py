@@ -61,7 +61,19 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.workflow.spans",
                 "pio_tpu_torch.workflow.step_checkpoint",
                 "pio_tpu_torch.resilience.chaos",
-                "pio_tpu_torch.data.columnar"):
+                "pio_tpu_torch.data.columnar",
+                "pio_tpu_torch.resilience.policies",
+                "pio_tpu_torch.obs", "pio_tpu_torch.obs.context",
+                "pio_tpu_torch.obs.recorder", "pio_tpu_torch.obs.http",
+                "pio_tpu_torch.utils.tracing",
+                "pio_tpu_torch.utils.httpclient",
+                "pio_tpu_torch.rollout.state",
+                "pio_tpu_torch.serving_fleet.fleet",
+                "pio_tpu_torch.freshness", "pio_tpu_torch.freshness.cursor",
+                "pio_tpu_torch.freshness.tail",
+                "pio_tpu_torch.freshness.solver",
+                "pio_tpu_torch.freshness.apply",
+                "pio_tpu_torch.freshness.folder"):
         assert mod in res["modules"]
 
 
