@@ -56,6 +56,21 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   store: the sqlite read plus the columnar fold, the row path it
   replaced (``find`` + ``to_interactions``, held equal element for
   element), the layout build, the sweeps and the persist;
+- evaluate: on the same store (the events are written once), ``python
+  -m pio_tpu_torch eval --sweep`` of 4 ALS candidates (lambda x alpha)
+  trained as one stacked group on 3 seeded k-folds, map@10 with ndcg,
+  precision, recall and AUC beside it, its time by part and its peak
+  memory; fold 0 again outside the verb, each candidate's factors and
+  map@10 held to a sequential ``als_train`` and the fold's stored sums,
+  256 test users' batched metrics held to the scalar oracles; the grid
+  on 2 time folds, then again killed by a chaos fault at fold 1 and
+  resumed (``--resume-eval``) to the uninterrupted result bit for bit;
+  ``eval <Evaluation> <ParamsGenerator>`` (class mode,
+  2 candidates x 3 folds, the serve phase's retrieval block: K2 in the
+  trainings, K7 in every ``batch_predict``); ``train --from-eval`` and
+  ``deploy --from-eval`` of the winner, answering over HTTP; and
+  ``batchpredict`` of 4,096 queries (K7 a batch), held to the deploy's
+  answers;
 - attention_kernel: the flash-attention kernel (K8) against its plain
   version at the shapes the repository runs, each case with the kernel
   it took (f32 inputs: 3xTF32 ``wgmma``; bf16: ``wgmma``): the
@@ -79,7 +94,10 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   subprocess (exit 75) then ``--auto-resume``: the resumed models equal
   the uninterrupted one bit for bit, K8 runs in every training forward,
   and the resumed instance is deployed and answers with K8; the time of
-  a checkpoint save and of the heartbeat.
+  a checkpoint save and of the heartbeat;
+- evaluate_sequence: on the same events, ``eval --sweep`` of the
+  sequence template (2 learning rates, 2 rolling folds) through the
+  sequential fallback, K8 in every training forward and scoring batch.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -2377,101 +2395,99 @@ def split_train_verb(storage, engine, ep, dev: torch.device,
     return out
 
 
-def phase_train_entry(dev: torch.device) -> dict:
+def phase_train_entry(store, dev: torch.device) -> dict:
+    """Writes the seeded events into ``store`` (shared with the
+    ``evaluate`` phase), trains them through the train verb, deploys
+    the instance and times the verb's parts."""
     from pio_tpu_torch.__main__ import (
         _engine_from_variant,
         _load_variant,
         main as cli_main,
     )
-    from pio_tpu_torch.data.storage import Storage, set_storage
+    from pio_tpu_torch.data.storage import set_storage
     from pio_tpu_torch.ops import als
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
 
-    with tempfile.TemporaryDirectory(prefix="pio_chip_train_") as tmp:
-        env = sqlite_env(tmp)
-        storage = Storage(env=env)
+    tmp, storage = store.tmp, store.storage
+    t0 = time.perf_counter()
+    n_events, n_pairs = write_events(storage, "ChipSmoke")
+    write_s = time.perf_counter() - t0
+    engine_dir = Path(tmp) / "engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": "chip-smoke-train", "engineFactory": FACTORY,
+        "datasource": {"params": {"app_name": "ChipSmoke"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "num_iterations": ITERS, "lambda_": 0.05,
+            "alpha": 10.0, "implicit_prefs": True}}],
+    }))
+    variant = _load_variant(str(engine_dir))
+    engine, ep = _engine_from_variant(variant, str(engine_dir))
+    want_launches = expected_flush_launches(
+        n_pairs, N_USERS, N_ITEMS,
+        engine.algorithm_classes["als"](ep.algorithms[0][1])
+        ._als_params())
+    set_storage(storage)
+    out = io.StringIO()
+    try:
+        # -- the main path: counts from 0, read right after ------------
+        reset_counts()
         t0 = time.perf_counter()
-        n_events, n_pairs = write_events(storage, "ChipSmoke")
-        write_s = time.perf_counter() - t0
-        engine_dir = Path(tmp) / "engine"
-        engine_dir.mkdir()
-        (engine_dir / "engine.json").write_text(json.dumps({
-            "id": "chip-smoke-train", "engineFactory": FACTORY,
-            "datasource": {"params": {"app_name": "ChipSmoke"}},
-            "algorithms": [{"name": "als", "params": {
-                "rank": RANK, "num_iterations": ITERS, "lambda_": 0.05,
-                "alpha": 10.0, "implicit_prefs": True}}],
-        }))
-        variant = _load_variant(str(engine_dir))
-        engine, ep = _engine_from_variant(variant, str(engine_dir))
-        want_launches = expected_flush_launches(
-            n_pairs, N_USERS, N_ITEMS,
-            engine.algorithm_classes["als"](ep.algorithms[0][1])
-            ._als_params())
-        set_storage(storage)
-        out = io.StringIO()
-        try:
-            # -- the main path: counts from 0, read right after ------------
-            reset_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                rc = cli_main(["train", "--engine-dir", str(engine_dir)])
-            train_s = time.perf_counter() - t0
-            train_launches = read_counts()
-            # -----------------------------------------------------------------
-        finally:
-            set_storage(None)
-        printed = out.getvalue().strip()
-        print(printed, flush=True)
-        if rc != 0 or train_launches != {**dict.fromkeys(train_launches, 0),
-                                         "segment_flush": want_launches}:
-            raise AssertionError(f"train: rc {rc}, launches {train_launches}"
-                                 f", the layout predicts {want_launches}")
-        iid = printed.rsplit(" ", 1)[-1]
-        latest = storage.get_metadata_engine_instances().get_latest_completed(
-            "chip-smoke-train", "1", "default")
-        if latest is None or latest.id != iid:
-            raise AssertionError(f"train printed {iid}, latest completed is "
-                                 f"{latest and latest.id}")
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["train", "--engine-dir", str(engine_dir)])
+        train_s = time.perf_counter() - t0
+        train_launches = read_counts()
+        # -----------------------------------------------------------------
+    finally:
+        set_storage(None)
+    printed = out.getvalue().strip()
+    print(printed, flush=True)
+    if rc != 0 or train_launches != {**dict.fromkeys(train_launches, 0),
+                                     "segment_flush": want_launches}:
+        raise AssertionError(f"train: rc {rc}, launches {train_launches}"
+                             f", the layout predicts {want_launches}")
+    iid = printed.rsplit(" ", 1)[-1]
+    latest = storage.get_metadata_engine_instances().get_latest_completed(
+        "chip-smoke-train", "1", "default")
+    if latest is None or latest.id != iid:
+        raise AssertionError(f"train printed {iid}, latest completed is "
+                             f"{latest and latest.id}")
 
-        http, qs = create_query_server(
-            engine, ep, storage,
-            ServingConfig(ip="127.0.0.1", port=0,
-                          engine_id="chip-smoke-train"),
-            ctx=create_workflow_context(storage, device=dev))
-        http.start()
-        try:
-            model = qs.models[0]
-            picked = np.random.default_rng(SEED + 4).choice(
-                len(model.users), 8, replace=False)
-            latencies = []
-            for r in picked:
-                user = model.users.ids()[r]
-                status, body, dt = _post(http.port, "/queries.json",
-                                         {"user": user, "num": 10})
-                assert status == 200, body
-                latencies.append(dt)
-                scores, idx = als.recommend_topk(model.factors, [r], 10)
-                want = {"itemScores": [
-                    {"item": it, "score": float(sc)} for it, sc in zip(
-                        model.items.decode(idx[0].cpu().numpy()),
-                        scores[0].cpu().numpy())]}
-                _check_same(body, want, f"trained {user}")
-            uf = model.factors.user_factors
-            if uf.shape != (N_USERS, RANK) or model.factors.item_factors \
-                    .shape != (N_ITEMS, RANK):
-                raise AssertionError(f"trained model {tuple(uf.shape)}")
-            if not bool(torch.isfinite(uf).all()):
-                raise AssertionError("trained factors are not finite")
-            served_iid = qs.instance.id
-        finally:
-            http.stop()
-            qs.close()
-        try:
-            split = split_train_verb(storage, engine, ep, dev, want_launches)
-        finally:
-            storage.close()
+    http, qs = create_query_server(
+        engine, ep, storage,
+        ServingConfig(ip="127.0.0.1", port=0,
+                      engine_id="chip-smoke-train"),
+        ctx=create_workflow_context(storage, device=dev))
+    http.start()
+    try:
+        model = qs.models[0]
+        picked = np.random.default_rng(SEED + 4).choice(
+            len(model.users), 8, replace=False)
+        latencies = []
+        for r in picked:
+            user = model.users.ids()[r]
+            status, body, dt = _post(http.port, "/queries.json",
+                                     {"user": user, "num": 10})
+            assert status == 200, body
+            latencies.append(dt)
+            scores, idx = als.recommend_topk(model.factors, [r], 10)
+            want = {"itemScores": [
+                {"item": it, "score": float(sc)} for it, sc in zip(
+                    model.items.decode(idx[0].cpu().numpy()),
+                    scores[0].cpu().numpy())]}
+            _check_same(body, want, f"trained {user}")
+        uf = model.factors.user_factors
+        if uf.shape != (N_USERS, RANK) or model.factors.item_factors \
+                .shape != (N_ITEMS, RANK):
+            raise AssertionError(f"trained model {tuple(uf.shape)}")
+        if not bool(torch.isfinite(uf).all()):
+            raise AssertionError("trained factors are not finite")
+        served_iid = qs.instance.id
+    finally:
+        http.stop()
+        qs.close()
+    split = split_train_verb(storage, engine, ep, dev, want_launches)
     if served_iid != iid:
         raise AssertionError("deploy did not load the trained instance")
     result = {
@@ -3237,6 +3253,546 @@ def phase_train_resume(store, dev: torch.device) -> dict:
     return result
 
 
+# -- phase 16: evaluation and tuning --------------------------------------------
+
+# the ALS sweep on train_entry's events: one shape group of 4 candidates
+# (the batched path), map@10 first, every other metric beside it
+EVAL_GRID = '{"lambda_": [0.01, 0.05], "alpha": [1.0, 10.0]}'
+EVAL_OTHERS = "ndcg@10,precision@10,recall@10,auc"
+EVAL_FOLDS, EVAL_TIME_FOLDS, EVAL_SEED = 3, 2, 42
+# the serve phase's retrieval block, its cluster count and probe stated
+EVAL_RETRIEVAL = {**RETRIEVAL, "n_clusters": 256, "nprobe": 32}
+EVAL_ORACLE_USERS = 256     # fold-0 test users held to the scalar oracles
+# candidate c of the stacked trainer against the sequential trainer (the
+# CPU test's tolerances): factors within 1e-5 relative, map@10 within the
+# reference's own stacked-vs-sequential abs 0.02; batched metrics (f32)
+# against the float64 oracles within 1e-5
+STACKED_RTOL, EVAL_SCORE_ABS, ORACLE_ABS = 1e-5, 0.02, 1e-5
+# class mode scores a seeded sample of each fold's test queries: the
+# template's batch_predict answers a fold in one call, whose two-stage
+# retrieval at ~10^5 users would hold (B, rerank, k) = 131,072 x 1,024 x
+# 64 f32 (34 GB); without the seen-item blackLists (the zipf head user has
+# seen most of the catalog, and the batch's top-k depth is its largest
+# blackList)
+CLASS_SAMPLE = 4_096
+BATCHPREDICT_QUERIES, BATCHPREDICT_BATCH = 4_096, 256
+FROM_EVAL_QUERIES, BATCHPREDICT_CHECK = 8, 64
+# the sequence template's sweep: examples/sequence/engine.json's widths
+# with K8 in the training forward, through the sequential fallback
+SEQ_SWEEP_GRID = '{"learning_rate": [0.001, 0.002]}'
+SEQ_SWEEP_FOLDS = 2
+SEQ_SWEEP_ALGO = {k: v for k, v in SEQ_ALGO.items() if k != "app_name"} | {
+    "attention": "flash"}
+
+EVAL_CLASSES = '''"""Class-mode evaluation of the recommendation template (user code)."""
+from dataclasses import dataclass
+
+import numpy as np
+
+from pio_tpu_torch.controller import (
+    EngineParams, EngineParamsGenerator, Evaluation, FastEvalEngine,
+    FirstServing, IdentityPreparator)
+from pio_tpu_torch.models.recommendation import (
+    ALSAlgorithm, ALSAlgorithmParams, DataSourceParams,
+    RecommendationDataSource)
+from pio_tpu_torch.tuning.metrics import MAPAtK, NDCGAtK
+
+
+@dataclass(frozen=True)
+class SampledParams(DataSourceParams):
+    sample: int = 0
+    sample_seed: int = 0
+
+
+class SampledDataSource(RecommendationDataSource):
+    """The template's index-mod-k folds, each scored on a seeded sample
+    of its test queries."""
+
+    params_class = SampledParams
+
+    def read_eval(self, ctx):
+        out = []
+        for f, (train, info, qa) in enumerate(super().read_eval(ctx)):
+            keep = np.random.default_rng(self.params.sample_seed + f).choice(
+                len(qa), min(self.params.sample, len(qa)), replace=False)
+            out.append((train, info, [qa[j] for j in sorted(keep)]))
+        return out
+
+
+class ChipEval(Evaluation):
+    engine = FastEvalEngine(SampledDataSource, IdentityPreparator,
+                            {{"als": ALSAlgorithm}}, FirstServing)
+    metric = MAPAtK(10)
+    metrics = [NDCGAtK(10)]
+
+
+class ChipGrid(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(
+            datasource=("", SampledParams(
+                app_name="{app}", eval_k={folds}, eval_exclude_seen=False,
+                sample={sample})),
+            algorithms=[("als", ALSAlgorithmParams(
+                rank={rank}, num_iterations={iters}, lambda_=lam,
+                alpha=10.0, implicit_prefs=True, retrieval={retrieval!r}))])
+        for lam in (0.01, 0.05)
+    ]
+'''
+
+
+def _cli(argv: list, storage) -> tuple[int, str, float]:
+    """``python -m pio_tpu_torch <argv>`` in process on ``storage``:
+    (exit code, what it printed, seconds)."""
+    from pio_tpu_torch.__main__ import main as cli_main
+    from pio_tpu_torch.data.storage import set_storage
+
+    set_storage(storage)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+    finally:
+        set_storage(None)
+    printed = out.getvalue().strip()
+    print(printed, flush=True)
+    return rc, printed, time.perf_counter() - t0
+
+
+def _eval_scores(storage, eval_id: str) -> dict:
+    inst = storage.get_metadata_evaluation_instances().get(eval_id)
+    if inst is None or inst.status != "EVALCOMPLETED":
+        raise AssertionError(f"evaluation {eval_id}: "
+                             f"{inst and inst.status}")
+    res = json.loads(inst.evaluator_results_json)
+    scores = [[s["score"], *s["otherScores"]] for s in res["allScores"]]
+    if not all(isinstance(x, float) and np.isfinite(x)
+               for row in scores for x in row):
+        raise AssertionError(f"evaluation {eval_id}: scores {scores}")
+    return {"headers": [res["metricHeader"], *res["otherMetricHeaders"]],
+            "scores": scores, "best_index": res["bestIndex"],
+            "best_score": res["bestScore"]}
+
+
+def sweep_fold0_check(storage, engine, ep, dev: torch.device, eval_id: str,
+                      args) -> dict:
+    """Fold 0 of the batched sweep again, outside the verb: the stacked
+    trainer's candidate c against a sequential ``als_train(
+    sweep_safe_params(...))`` with c's (reg, alpha) from the same seeded
+    init (factors and map@10), the fold's stored map@10 sums against this
+    run's, and a sample of test users' batched metrics against the scalar
+    oracles."""
+    from pio_tpu_torch.__main__ import _sweep_candidates
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.tuning import metrics as tm
+    from pio_tpu_torch.tuning.records import load_sweep_state
+    from pio_tpu_torch.tuning.splits import folds_for
+    from pio_tpu_torch.tuning.sweep import (
+        _score_stacked,
+        _stacked_topk,
+        stacked_base_params,
+    )
+    from pio_tpu_torch.workflow.context import create_workflow_context
+
+    cands = _sweep_candidates(engine, ep, args)
+    params = [c.algorithms[0][1] for c in cands]
+    ctx = create_workflow_context(storage, device=dev)
+    ds = engine._doers(cands[0])[0]
+    data = ds.read_training(ctx)
+    fold = folds_for(data, "kfold", EVAL_FOLDS, seed=EVAL_SEED)[0]
+    t = fold.train
+    base = stacked_base_params(params[0])
+    regs = np.array([p.lambda_ for p in params], np.float32)
+    alphas = np.array([p.alpha for p in params], np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    st = als.als_train_stacked(t.user_idx, t.item_idx, t.values, t.n_users,
+                               t.n_items, base, regs, alphas, device=dev)
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the stacked trainer launched {launches}")
+    m10 = tm.MAPAtK(10)
+    stacked_map = _score_stacked(st, fold, [m10], 512)
+    stored = load_sweep_state(storage, eval_id).completed["fold0"][
+        "candidates"]
+    out = {"test_users": fold.n_test_users, "train_ratings": len(t),
+           "stacked_s": stacked_s, "candidates": []}
+    for c, p in enumerate(params):
+        t0 = time.perf_counter()
+        seq = als.als_train(
+            t.user_idx, t.item_idx, t.values, t.n_users, t.n_items,
+            als.sweep_safe_params(replace(base, reg=p.lambda_,
+                                          alpha=p.alpha), dev),
+            device=dev)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        rel = max(float((got - want).abs().max() / want.abs().max())
+                  for got, want in ((st.user_factors[c], seq.user_factors),
+                                    (st.item_factors[c],
+                                     seq.item_factors)))
+        single = als.StackedALSModel(seq.user_factors[None],
+                                     seq.item_factors[None])
+        (s_seq, n_seq), = _score_stacked(single, fold, [m10], 512)[0]
+        s_st, n_st = stacked_map[c][0]
+        row = {"lambda_": p.lambda_, "alpha": p.alpha, "sequential_s": seq_s,
+               "factors_max_rel_diff": rel,
+               "map10_stacked": s_st / n_st, "map10_sequential": s_seq / n_seq,
+               "map10_stored": stored[c]["MAP@10"]}
+        out["candidates"].append(row)
+        if rel > STACKED_RTOL or n_st != n_seq or abs(
+                s_st / n_st - s_seq / n_seq) > EVAL_SCORE_ABS:
+            raise AssertionError(f"fold 0, candidate {c}: {row}")
+        if stored[c]["MAP@10"] != [s_st, n_st]:
+            raise AssertionError(f"fold 0, candidate {c}: the sweep stored "
+                                 f"{stored[c]['MAP@10']}, this run gives "
+                                 f"{[s_st, n_st]}")
+        del seq, single
+    # what a candidate costs trained alone through K2 (accum "auto" on
+    # the card), beside the stacked group's share
+    t0 = time.perf_counter()
+    als.als_train(t.user_idx, t.item_idx, t.values, t.n_users, t.n_items,
+                  replace(base, reg=params[0].lambda_,
+                          alpha=params[0].alpha), device=dev)
+    torch.cuda.synchronize()
+    out["hybrid_one_candidate_s"] = time.perf_counter() - t0
+    # a sample of the fold's test users: batched metrics vs the oracles
+    sel = np.sort(np.random.default_rng(SEED + 6).choice(
+        fold.n_test_users, EVAL_ORACLE_USERS, replace=False))
+    actual = [fold.actual_idx[j] for j in sel]
+    seen = tm.pad_actuals([fold.seen_idx[j] for j in sel])
+    actual_p = tm.pad_actuals(actual)
+    scores, top = _stacked_topk(st.user_factors, st.item_factors,
+                                fold.test_user_idx[sel], seen, 16)
+    worst = {}
+    for name, metric, oracle in (
+            ("map@10", m10, tm.map_at_k_scalar),
+            ("ndcg@10", tm.NDCGAtK(10), tm.ndcg_at_k_scalar),
+            ("precision@10", tm.PrecisionAtK(10), tm.precision_at_k_scalar),
+            ("recall@10", tm.RecallAtK(10), tm.recall_at_k_scalar)):
+        got = metric.score_ranked(top, actual_p[None])
+        ranked = top.cpu().numpy()
+        err = 0.0
+        for c in range(len(params)):
+            for j, a in enumerate(actual):
+                want = oracle(list(ranked[c, j]), list(a), 10)
+                err = max(err, abs(float(got[c, j]) - want))
+        worst[name] = err
+    n_items = int(st.item_factors.shape[1])
+    pos = np.zeros((len(sel), n_items), bool)
+    valid = np.ones((len(sel), n_items), bool)
+    for j, jj in enumerate(sel):
+        pos[j, fold.actual_idx[jj]] = True
+        valid[j, fold.seen_idx[jj]] = False
+        valid[j, fold.actual_idx[jj]] = True
+    best = int(np.argmax([r["map10_stacked"] for r in out["candidates"]]))
+    got = tm.AUC().score_full(scores[best], pos, valid)
+    row_scores = scores[best].cpu().numpy().tolist()
+    worst["auc"] = max(abs(float(got[j]) - tm.auc_scalar(
+        row_scores[j], list(np.flatnonzero(pos[j])),
+        list(np.flatnonzero(valid[j])))) for j in range(len(sel)))
+    out["oracle_users"] = len(sel)
+    out["oracle_max_abs_diff"] = worst
+    if max(worst.values()) > ORACLE_ABS:
+        raise AssertionError(f"batched metrics vs the oracles: {worst}")
+    return out
+
+
+def sweep_resume_drill(storage, engine_dir: Path, tmp: Path,
+                       uninterrupted: dict) -> dict:
+    """The time-split sweep killed at ``eval.fold.1`` (a chaos fault,
+    after fold 0 is stored), then ``--resume-eval``: the resumed result
+    must be the uninterrupted run's, every score bit for bit."""
+    from pio_tpu_torch.resilience import chaos
+    from pio_tpu_torch.tuning.records import load_sweep_state
+
+    argv = ["eval", "--sweep", "--engine-dir", str(engine_dir), "--grid",
+            EVAL_GRID, "--metric", "map@10", "--other-metrics", EVAL_OTHERS,
+            "--folds", str(EVAL_TIME_FOLDS), "--split", "time", "--seed",
+            str(EVAL_SEED), "--output", str(tmp / "best_resumed.json")]
+    dao = storage.get_metadata_evaluation_instances()
+    before = {i.id for i in dao.get_all()}
+    t0 = time.perf_counter()
+    try:
+        with chaos.inject("eval.fold.1", error=1.0):
+            _cli(argv, storage)
+        raise AssertionError("the chaos fault at eval.fold.1 did not fire")
+    except chaos.ChaosError:
+        pass
+    killed_s = time.perf_counter() - t0
+    [failed] = [i for i in dao.get_all() if i.id not in before]
+    done = sorted(load_sweep_state(storage, failed.id).completed)
+    if failed.status != "EVALFAILED" or done != ["fold0"]:
+        raise AssertionError(f"killed sweep: {failed.status}, {done}")
+    rc, printed, resumed_s = _cli([*argv, "--resume-eval", failed.id],
+                                  storage)
+    got = _eval_scores(storage, failed.id)
+    want = {k: uninterrupted[k] for k in got}
+    if rc != 0 or got != want:
+        raise AssertionError(f"resumed sweep {got} differs from the "
+                             f"uninterrupted {want}")
+    return {"eval_id": failed.id, "killed_s": killed_s,
+            "resumed_s": resumed_s, "identical": True}
+
+
+def phase_evaluate(store, dev: torch.device, entry: dict) -> dict:
+    """Evaluation and tuning on train_entry's events (the ML-20M
+    catalog, rank 64, 10 sweeps, implicit): ``eval --sweep`` with 4
+    candidates as one stacked group on 3 seeded k-folds (fold 0 checked
+    again outside the verb), the same grid on 2 time folds (killed at
+    fold 1 and resumed as well), ``eval
+    <Evaluation> <ParamsGenerator>`` (K2 in its 6 trainings, K7 in its 6
+    ``batch_predict`` calls), ``train --from-eval`` and ``deploy
+    --from-eval`` of the winner, and ``batchpredict`` of 4,096 queries
+    (K7) checked against the deploy."""
+    from types import SimpleNamespace
+
+    from pio_tpu_torch.__main__ import _engine_from_variant, _load_variant
+    from pio_tpu_torch.models.recommendation import ALSAlgorithm
+    from pio_tpu_torch.tuning.records import load_best_params
+
+    tmp, storage = store.tmp, store.storage
+    engine_dir = tmp / "engine_eval"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": "chip-smoke-eval", "engineFactory": FACTORY,
+        "datasource": {"params": {"app_name": "ChipSmoke"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "num_iterations": ITERS, "lambda_": 0.05,
+            "alpha": 10.0, "implicit_prefs": True,
+            "retrieval": EVAL_RETRIEVAL}}],
+    }))
+    variant = _load_variant(str(engine_dir))
+    engine, ep = _engine_from_variant(variant, str(engine_dir))
+    records = _Records()
+    tuning_log = logging.getLogger("pio_tpu_torch.tuning")
+    tuning_log.addHandler(records)
+    tuning_log.setLevel(logging.INFO)
+    result = {}
+    try:
+        # -- 1. the batched sweep: counts from 0, read right after -------
+        sweeps = {}
+        for split, folds in (("kfold", EVAL_FOLDS),
+                             ("time", EVAL_TIME_FOLDS)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            rc, printed, wall_s = _cli([
+                "eval", "--sweep", "--engine-dir", str(engine_dir),
+                "--grid", EVAL_GRID, "--metric", "map@10",
+                "--other-metrics", EVAL_OTHERS, "--folds", str(folds),
+                "--split", split, "--seed", str(EVAL_SEED),
+                "--output", str(tmp / f"best_{split}.json")], storage)
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            if rc != 0:
+                raise AssertionError(f"eval --sweep --split {split}: rc {rc}")
+            eval_id = printed.split("Evaluation instance: ")[1].split()[0]
+            [(_, timings)] = records.take("sweep %s timings")
+            timings = json.loads(timings)
+            if timings["mode"] != "batched" or any(launches.values()):
+                raise AssertionError(f"sweep {split}: mode "
+                                     f"{timings['mode']}, launches "
+                                     f"{launches}")
+            sweeps[split] = {"eval_id": eval_id, "wall_s": wall_s,
+                             "peak_bytes": peak, "timings": timings,
+                             "launches": launches,
+                             **_eval_scores(storage, eval_id)}
+        result["sweep"] = sweeps
+        result["time_resume"] = sweep_resume_drill(
+            storage, engine_dir, tmp, sweeps["time"])
+        kfold_id = sweeps["kfold"]["eval_id"]
+        result["fold0_check"] = sweep_fold0_check(
+            storage, engine, ep, dev, kfold_id,
+            SimpleNamespace(params_generator="", grid=EVAL_GRID,
+                            engine_dir=str(engine_dir)))
+        torch.cuda.empty_cache()
+
+        # -- 2. class mode ----------------------------------------------
+        (engine_dir / "chip_eval_classes.py").write_text(
+            EVAL_CLASSES.format(app="ChipSmoke", folds=EVAL_FOLDS,
+                                sample=CLASS_SAMPLE, rank=RANK,
+                                iters=ITERS, retrieval=EVAL_RETRIEVAL))
+        n = entry["ratings"]
+        p = ALSAlgorithm(ep.algorithms[0][1])._als_params()
+        want_k2 = 2 * sum(expected_flush_launches(
+            n - (n - f + EVAL_FOLDS - 1) // EVAL_FOLDS, N_USERS, N_ITEMS, p)
+            for f in range(EVAL_FOLDS))
+        want_k7 = 2 * EVAL_FOLDS
+        reset_counts()
+        rc, printed, wall_s = _cli([
+            "eval", "chip_eval_classes.ChipEval",
+            "chip_eval_classes.ChipGrid", "--engine-dir", str(engine_dir),
+            "--output", str(tmp / "best_class.json")], storage)
+        launches = read_counts()
+        class_id = printed.split("Instance: ")[1].split()[0]
+        if rc != 0 or launches != {**dict.fromkeys(launches, 0),
+                                   "segment_flush": want_k2,
+                                   "quantized_scan": want_k7}:
+            raise AssertionError(f"class mode: rc {rc}, launches "
+                                 f"{launches}, want K2 {want_k2}, K7 "
+                                 f"{want_k7}")
+        result["class_mode"] = {
+            "eval_id": class_id, "wall_s": wall_s, "launches": launches,
+            "segment_flush_launches_expected": want_k2,
+            "quantized_scan_launches_expected": want_k7,
+            "queries_per_fold": CLASS_SAMPLE,
+            **_eval_scores(storage, class_id)}
+
+        # -- 3. train and deploy the winner --------------------------------
+        best = load_best_params(storage, kfold_id)
+        reset_counts()
+        rc, printed, train_s = _cli([
+            "train", "--engine-dir", str(engine_dir), "--from-eval",
+            kfold_id], storage)
+        launches = read_counts()
+        iid = printed.rsplit(" ", 1)[-1]
+        inst = storage.get_metadata_engine_instances().get(iid)
+        winner = engine.engine_params_from_variant(
+            {"algorithms": best["variant"]["algorithms"]}).algorithms
+        want_k2 = expected_flush_launches(n, N_USERS, N_ITEMS,
+                                          ALSAlgorithm(winner[0][1])
+                                          ._als_params())
+        if (rc != 0 or inst.status != "COMPLETED"
+                or inst.batch != f"from-eval:{kfold_id}"
+                or inst.algorithms_params != f"{winner}"
+                or launches != {**dict.fromkeys(launches, 0),
+                                "segment_flush": want_k2}):
+            raise AssertionError(f"train --from-eval: rc {rc}, {inst}, "
+                                 f"launches {launches}")
+        rng = np.random.default_rng(SEED + 7)
+        users = rng.choice(N_USERS, BATCHPREDICT_QUERIES, replace=False)
+        queries = [{"user": f"u{u}", "num": 10} for u in users]
+        check = sorted(rng.choice(BATCHPREDICT_QUERIES, BATCHPREDICT_CHECK,
+                                  replace=False).tolist())
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", "deploy",
+             "--engine-dir", str(engine_dir), "--port", "0", "--ip",
+             "127.0.0.1", "--from-eval", kfold_id],
+            cwd=REPO_ROOT, env={**os.environ, **store.env},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            first = proc.stdout.readline()
+            line = proc.stdout.readline()
+            if kfold_id not in first or f"{iid} deployed" not in line:
+                raise AssertionError(
+                    f"deploy --from-eval: {first!r} {line!r} "
+                    + (proc.stderr.read() if proc.poll() is not None
+                       else ""))
+            port = int(line.split("127.0.0.1:")[1].split()[0])
+            deploy_ms, deployed = [], {}
+            for j in range(FROM_EVAL_QUERIES):
+                status, body, dt = _post(port, "/queries.json", queries[j])
+                if status != 200 or len(body["itemScores"]) != 10:
+                    raise AssertionError(f"deploy --from-eval: {body}")
+                deploy_ms.append(1e3 * dt)
+            for j in check:
+                status, deployed[j], _ = _post(port, "/queries.json",
+                                               queries[j])
+                assert status == 200, deployed[j]
+        finally:
+            proc.terminate()
+            try:
+                proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+        result["from_eval"] = {"eval_id": kfold_id, "instance": iid,
+                               "train_s": train_s, "launches": launches,
+                               "segment_flush_launches_expected": want_k2,
+                               "deploy_query_ms": deploy_ms}
+
+        # -- 4. batchpredict of the winner's instance ----------------------
+        inp = tmp / "queries.jsonl"
+        outp = tmp / "predictions.jsonl"
+        inp.write_text("".join(json.dumps(q) + "\n" for q in queries))
+        want_k7 = -(-BATCHPREDICT_QUERIES // BATCHPREDICT_BATCH)
+        reset_counts()
+        rc, _, wall_s = _cli([
+            "batchpredict", "--engine-dir", str(engine_dir), "--input",
+            str(inp), "--output", str(outp), "--batch-size",
+            str(BATCHPREDICT_BATCH)], storage)
+        launches = read_counts()
+        lines = [json.loads(x) for x in outp.read_text().splitlines()]
+        if rc != 0 or launches != {**dict.fromkeys(launches, 0),
+                                   "quantized_scan": want_k7}:
+            raise AssertionError(f"batchpredict: rc {rc}, launches "
+                                 f"{launches}, want K7 {want_k7}")
+        if [x["query"] for x in lines] != queries or any(
+                len(x["prediction"]["itemScores"]) != 10 for x in lines):
+            raise AssertionError("batchpredict: lines out of order or short")
+        # the deploy answers a query alone, batchpredict in batches of
+        # 256: scores within the scan's tolerance, ids equal but where
+        # near-tied
+        for j in check:
+            _check_same(lines[j]["prediction"], deployed[j],
+                        f"batchpredict line {j} against the deploy")
+        same_ids = sum(_ranking(lines[j]["prediction"])[0]
+                       == _ranking(deployed[j])[0] for j in check)
+        result["batchpredict"] = {
+            "queries": len(lines), "wall_s": wall_s,
+            "queries_per_s": len(lines) / wall_s, "launches": launches,
+            "quantized_scan_launches_expected": want_k7,
+            "checked_against_deploy": len(check),
+            "ids_equal_to_deploy": same_ids}
+    finally:
+        tuning_log.removeHandler(records)
+    emit("evaluate", **result)
+    return result
+
+
+def phase_evaluate_sequence(store, dev: torch.device) -> dict:
+    """``eval --sweep`` of the sequence template on sequence_entry's
+    events: its grid is not ALS-shaped, so it runs candidate by candidate
+    through the rolling read_eval (2 folds), K8 in every training forward
+    and in each fold's scoring batch."""
+    tmp, storage = store.tmp, store.storage
+    engine_dir = tmp / "engine_seq_eval"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": "chip-smoke-seq-eval", "engineFactory": SEQ_FACTORY,
+        "datasource": {"params": {"app_name": SEQ_ALGO["app_name"],
+                                  "event_names": ["view", "buy"],
+                                  "max_len": SEQ_ALGO["max_len"]}},
+        "algorithms": [{"name": "sasrec", "params": SEQ_SWEEP_ALGO}],
+    }))
+    n_cand = len(json.loads(SEQ_SWEEP_GRID)["learning_rate"])
+    layers = SEQ_SWEEP_ALGO["num_layers"]
+    # a forward per training step, one scoring batch per fold
+    want_k8 = n_cand * SEQ_SWEEP_FOLDS * layers * (SEQ_SWEEP_ALGO["steps"]
+                                                   + 1)
+    records = _Records()
+    tuning_log = logging.getLogger("pio_tpu_torch.tuning")
+    tuning_log.addHandler(records)
+    tuning_log.setLevel(logging.INFO)
+    try:
+        reset_counts()
+        rc, printed, wall_s = _cli([
+            "eval", "--sweep", "--engine-dir", str(engine_dir), "--grid",
+            SEQ_SWEEP_GRID, "--metric", "map@10", "--folds",
+            str(SEQ_SWEEP_FOLDS), "--output", str(tmp / "best_seq.json")],
+            storage)
+        launches = read_counts()
+        [(_, timings)] = records.take("sweep %s timings")
+    finally:
+        tuning_log.removeHandler(records)
+    timings = json.loads(timings)
+    if rc != 0 or timings["mode"] != "sequential" or launches != {
+            **dict.fromkeys(launches, 0), "flash_attention": want_k8}:
+        raise AssertionError(f"sequence sweep: rc {rc}, mode "
+                             f"{timings['mode']}, launches {launches}, "
+                             f"want K8 {want_k8}")
+    eval_id = printed.split("Evaluation instance: ")[1].split()[0]
+    result = {"eval_id": eval_id, "wall_s": wall_s, "launches": launches,
+              "flash_attention_launches_expected": want_k8,
+              "seconds_per_candidate": [c["s"]
+                                        for c in timings["candidates"]],
+              **_eval_scores(storage, eval_id)}
+    emit("evaluate_sequence", **result)
+    return result
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
                   case: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3275,12 +3831,17 @@ def main() -> int:
     tfused = timed("train_fused", phase_train_fused, ratings, dev)
     validated = timed("train_validated", phase_train_validated, ratings, dev)
     del ratings
-    entry = timed("train_entry", phase_train_entry, dev)
+    # the 10^6 seeded events are written once, for both phases
+    with sqlite_store("pio_chip_train_") as store:
+        entry = timed("train_entry", phase_train_entry, store, dev)
+        evaluate = timed("evaluate", phase_evaluate, store, dev, entry)
     attn = timed("attention_kernel", phase_attention_kernel, dev)
     timed("sequence_train", phase_sequence_train, dev)
     with sqlite_store("pio_chip_seq_") as store:
         seq_entry = timed("sequence_entry", phase_sequence_entry, store, dev)
         resume = timed("train_resume", phase_train_resume, store, dev)
+        seq_eval = timed("evaluate_sequence", phase_evaluate_sequence,
+                         store, dev)
     emit("wall", seconds=wall, total_s=sum(wall.values()))
 
     cases = scan["cases"]
@@ -3299,6 +3860,10 @@ def main() -> int:
             "pio_tpu/ops/retrieval.py:550",
             serve["launches"]["quantized_scan"], head,
             launches_foldin=foldin["launches"]["quantized_scan"],
+            launches_evaluate_class_mode=evaluate["class_mode"]["launches"][
+                "quantized_scan"],
+            launches_evaluate_batchpredict=evaluate["batchpredict"][
+                "launches"]["quantized_scan"],
             empty_launch_ms=head["empty_launch_ms"],
             shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
                                         "k")},
@@ -3316,6 +3881,12 @@ def main() -> int:
                 "segment_flush_launches_expected"],
             launches_train_entry_sweeps=entry["split"][
                 "sweeps_launches"]["segment_flush"],
+            launches_evaluate_class_mode=evaluate["class_mode"]["launches"][
+                "segment_flush"],
+            launches_evaluate_class_mode_expected=evaluate["class_mode"][
+                "segment_flush_launches_expected"],
+            launches_evaluate_train_from_eval=evaluate["from_eval"][
+                "launches"]["segment_flush"],
             shape={k: flush[k] for k in ("S", "S_real", "n_self", "k")}),
         _kernel_entry(
             # the main path of this and the next two: als_train in the
@@ -3378,6 +3949,8 @@ def main() -> int:
                 name: run["launches"]["flash_attention"]
                 for name, run in resume["runs"].items()},
             launches_train_resume_deploy=resume["serve_launches"][
+                "flash_attention"],
+            launches_evaluate_sequence_sweep=seq_eval["launches"][
                 "flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,12 +15,32 @@ Verbs ported so far:
            its step checkpoints (under --checkpoint-root, else
            $PIO_TPU_CKPT_ROOT, else $PIO_TPU_HOME/checkpoints);
            --stop-after-read and --stop-after-prepare stop early.
-           PIO_TPU_CHAOS injects faults (resilience/chaos.py).
+           --from-eval ID|latest trains with the winning algorithm
+           params a sweep persisted, the instance batch-tagged
+           from-eval:<id>. PIO_TPU_CHAOS injects faults
+           (resilience/chaos.py).
   deploy   serve the latest COMPLETED engine instance (or
            --engine-instance-id) of the engine in --engine-dir over
            REST, on the CUDA device unless --device cpu. Storage comes
            from the PIO_STORAGE_* environment, as for `pio deploy`.
            --server-key (or PIO_SERVER_KEY) guards /model/upsert_users.
+           --from-eval ID|latest serves with a sweep's winning algorithm
+           params.
+  eval     evaluate on the engine's evaluation folds (docs/evaluation.md),
+           on the CUDA device unless --device cpu: either
+           `eval <Evaluation> <ParamsGenerator>` (class mode: every
+           EngineParams of the generator through Engine.eval and the
+           Evaluation's metrics, the best written to --output), or
+           `eval --sweep --grid JSON|--params-generator CLS` (the
+           batched sweep: deterministic k-fold or time splits,
+           shape-compatible ALS candidates trained as one stacked
+           program, per-fold results stored durably and resumable with
+           --resume-eval, the winner stored for --from-eval; other
+           engines run candidate by candidate through their read_eval).
+  batchpredict  JSON-lines queries in (--input), {query, prediction}
+           JSON-lines out (--output), through the serving composition of
+           the latest COMPLETED instance (or --engine-instance-id), in
+           --batch-size device batches; no HTTP server.
   foldin   the streaming fold-in worker (docs/freshness.md): tail the
            engine's events in the store, solve refreshed user rows
            against the deployed model's item factors (on the CUDA
@@ -29,11 +49,12 @@ Verbs ported so far:
            prints its stats as JSON; otherwise it loops, with its health
            surface on --ip/--port.
 
-Counterparts of ``cmd_train``, ``cmd_deploy`` and ``cmd_foldin`` in
-``pio_tpu.tools.cli``. Not ported yet: train's --from-eval and mesh
-options; deploy's fleet, canary, TLS, feedback, batching and warm-query
-options; foldin's --router-url (the fleet), --event-server-url,
---access-key and --tail-wait (the event server's tail route).
+Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_eval``,
+``cmd_batchpredict`` and ``cmd_foldin`` in ``pio_tpu.tools.cli``. Not
+ported yet: the mesh options (--no-mesh: the port holds one device);
+deploy's fleet, canary, TLS, feedback, batching and warm-query options;
+foldin's --router-url (the fleet), --event-server-url, --access-key and
+--tail-wait (the event server's tail route).
 """
 
 from __future__ import annotations
@@ -104,12 +125,21 @@ def cmd_train(args) -> int:
     engine_id, engine_version, engine_variant = _engine_ids(
         variant, args.engine_dir)
     storage = get_storage()
+    batch = args.batch or ""
+    if args.from_eval:
+        ep, eval_id = _apply_from_eval(engine, ep, storage, args.from_eval)
+        # the batch marker says production runs the sweep's winner:
+        # APPENDED to an operator-supplied batch label, never displacing
+        # it (the reference's doctor matches by substring)
+        batch = f"{batch} from-eval:{eval_id}".strip()
+        print(f"Training with best params from evaluation {eval_id}",
+              flush=True)
     ctx = create_workflow_context(storage, device=args.device)
     try:
         instance_id = run_train(
             engine, ep, storage, engine_id=engine_id,
             engine_version=engine_version, engine_variant=engine_variant,
-            engine_factory=variant["engineFactory"], batch=args.batch or "",
+            engine_factory=variant["engineFactory"], batch=batch,
             ctx=ctx,
             stop_after_read=args.stop_after_read,
             stop_after_prepare=args.stop_after_prepare,
@@ -141,6 +171,10 @@ def cmd_deploy(args) -> int:
     engine_id, engine_version, engine_variant = _engine_ids(
         variant, args.engine_dir)
     storage = get_storage()
+    if args.from_eval:
+        ep, eval_id = _apply_from_eval(engine, ep, storage, args.from_eval)
+        print(f"Deploying with best params from evaluation {eval_id}",
+              flush=True)
     ctx = create_workflow_context(storage, device=args.device)
     config = ServingConfig(
         ip=args.ip, port=args.port, engine_id=engine_id,
@@ -161,6 +195,209 @@ def cmd_deploy(args) -> int:
     finally:
         qs.close()
     print("Server stopped.")
+    return 0
+
+
+def _apply_from_eval(engine, ep, storage, from_eval: str):
+    """Merge a sweep's winning ALGORITHM params into engine.json's
+    EngineParams (datasource/preparator/serving stay the operator's —
+    the sweep tuned the model, not the read). -> (merged ep, eval id)."""
+    import dataclasses
+
+    from pio_tpu_torch.tuning.records import resolve_from_eval
+
+    eval_id, payload = resolve_from_eval(storage, from_eval)
+    tuned = engine.engine_params_from_variant(
+        {"algorithms": payload["variant"]["algorithms"]})
+    return dataclasses.replace(ep, algorithms=tuned.algorithms), eval_id
+
+
+def cmd_eval(args) -> int:
+    if args.sweep:
+        return _eval_sweep(args)
+    if not args.evaluation_class or not args.params_generator_class:
+        print("[ERROR] eval takes either --sweep (grid mode) or "
+              "<EvaluationClass> <ParamsGeneratorClass>", file=sys.stderr)
+        return 1
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.evaluate import run_evaluation_class
+
+    evaluation = _load_factory(args.evaluation_class, args.engine_dir)
+    generator = _load_factory(args.params_generator_class, args.engine_dir)
+    storage = get_storage()
+    instance_id, result = run_evaluation_class(
+        evaluation, generator, storage,
+        output_path=args.output or None,
+        ctx=create_workflow_context(storage, device=args.device),
+        workers=args.workers,
+    )
+    print(f"Evaluation completed. Instance: {instance_id}")
+    print(f"Best score: [{result.best_score.score}]")
+    print(f"Best params: {result.best_engine_params.to_json()}",
+          flush=True)
+    return 0
+
+
+def _sweep_candidates(engine, base_ep, args) -> list:
+    """The candidate grid: either an EngineParamsGenerator class (full
+    EngineParams control) or a --grid JSON over the FIRST algorithm's
+    params — {"lambda_": [0.01, 0.1], "rank": [8, 16]} expands to the
+    cartesian product, each candidate overriding engine.json's params."""
+    import dataclasses
+    import itertools
+
+    if args.params_generator:
+        gen = _load_factory(args.params_generator, args.engine_dir)
+        return gen.params_list()
+    if not args.grid:
+        raise ValueError(
+            "--sweep needs --grid '{\"param\": [values...]}' (or "
+            "@file.json) or --params-generator pkg.Class")
+    spec = args.grid
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            grid = json.load(f)
+    else:
+        grid = json.loads(spec)
+    if not isinstance(grid, dict) or not grid:
+        raise ValueError("--grid must be a non-empty JSON object of "
+                         "param name -> list of values")
+    base_algos = base_ep.algorithms or [("", None)]
+    algo_name, algo_params = base_algos[0]
+    keys = sorted(grid)           # deterministic candidate order
+    values = []
+    for k in keys:
+        v = grid[k]
+        values.append(v if isinstance(v, list) else [v])
+    candidates = []
+    for combo in itertools.product(*values):
+        overrides = dict(zip(keys, combo))
+        if dataclasses.is_dataclass(algo_params):
+            try:
+                p = dataclasses.replace(algo_params, **overrides)
+            except TypeError:
+                valid = sorted(
+                    f.name for f in dataclasses.fields(algo_params))
+                bad = sorted(set(overrides) - set(valid))
+                raise ValueError(
+                    f"--grid key(s) {bad} are not params of "
+                    f"{type(algo_params).__name__} (valid: "
+                    f"{', '.join(valid)})") from None
+        else:
+            p = {**(algo_params or {}), **overrides}
+        # vary ONLY the first algorithm; a multi-algo engine keeps its
+        # trailing algorithms in every candidate (and in the persisted
+        # winner --from-eval deploys)
+        candidates.append(dataclasses.replace(
+            base_ep, algorithms=[(algo_name, p), *base_algos[1:]]))
+    return candidates
+
+
+def _eval_sweep(args) -> int:
+    """`eval --sweep` — the batched hyperparameter sweep: grid/generator
+    candidates over deterministic k-fold or event-time splits,
+    shape-compatible candidates trained as ONE stacked program,
+    per-fold results checkpointed durably (resume with --resume-eval),
+    winner persisted as `<eval-iid>:best_params` for `train/deploy
+    --from-eval`."""
+    from pio_tpu_torch.obs import make_recorder
+    from pio_tpu_torch.tuning import SweepConfig, parse_metric
+    from pio_tpu_torch.utils.tracing import Tracer
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.evaluate import run_sweep_evaluation
+
+    engine_dir = args.engine_dir or "."
+    variant = _load_variant(engine_dir)
+    engine, ep = _engine_from_variant(variant, engine_dir)
+    engine_id, engine_version, engine_variant = _engine_ids(
+        variant, engine_dir)
+    try:
+        candidates = _sweep_candidates(engine, ep, args)
+        metric = parse_metric(args.metric)
+        others = [parse_metric(s)
+                  for s in (args.other_metrics or "").split(",")
+                  if s.strip()]
+    except (ValueError, OSError) as e:
+        # OSError: --grid @file.json that does not exist/read — the
+        # same one-line error every other argument mistake gets
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    config = SweepConfig(
+        metric=metric, other_metrics=others,
+        split=args.split, folds=args.folds, seed=args.seed,
+    )
+    storage = get_storage()
+    ctx = create_workflow_context(storage, device=args.device)
+    recorder = make_recorder("eval")
+    tracer = Tracer(recorder=recorder)
+    http = status = None
+    if args.metrics_port is not None:
+        from pio_tpu_torch.tuning.server import EvalStatus, create_eval_server
+
+        status = EvalStatus(tracer, recorder)
+        http = create_eval_server(
+            status, ip=args.ip, port=args.metrics_port,
+            server_key=args.server_key
+            or os.environ.get("PIO_SERVER_KEY", ""))
+        http.start()
+        print(f"sweep metrics on http://{args.ip}:{http.port} "
+              "(/healthz, /metrics, /debug/spans.json)", flush=True)
+    try:
+        instance_id, result = run_sweep_evaluation(
+            engine, candidates, storage, config,
+            engine_id=engine_id, engine_version=engine_version,
+            engine_variant=engine_variant,
+            batch=args.batch or "",
+            output_path=args.output or None,
+            resume_eval_id=args.resume_eval or None,
+            ctx=ctx, tracer=tracer,
+            status=status,
+        )
+    finally:
+        if http is not None:
+            http.stop()
+    print(f"Sweep completed. Evaluation instance: {instance_id} "
+          f"({len(candidates)} candidate(s), {args.split} x "
+          f"{args.folds})")
+    print(f"Best {result.metric_header}: [{result.best_score.score}] "
+          f"(candidate #{result.best_idx})")
+    print(f"Best params: {result.best_engine_params.to_json()}")
+    print(f"Deploy the winner: python -m pio_tpu_torch train --from-eval "
+          f"{instance_id} && python -m pio_tpu_torch deploy --from-eval "
+          f"{instance_id}", flush=True)
+    return 0
+
+
+def cmd_batchpredict(args) -> int:
+    """Offline bulk scoring through the full serving composition
+    (workflow/batchpredict.py); no HTTP server involved."""
+    import contextlib
+
+    from pio_tpu_torch.workflow.batchpredict import run_batch_predict
+    from pio_tpu_torch.workflow.context import create_workflow_context
+
+    variant = _load_variant(args.engine_dir)
+    engine, ep = _engine_from_variant(variant, args.engine_dir)
+    engine_id, engine_version, engine_variant = _engine_ids(
+        variant, args.engine_dir)
+    storage = get_storage()
+    ctx = create_workflow_context(storage, device=args.device)
+    with contextlib.ExitStack() as stack:
+        inp = (sys.stdin if args.input == "-"
+               else stack.enter_context(open(args.input)))
+        out = (sys.stdout if args.output == "-"
+               else stack.enter_context(open(args.output, "w")))
+        report = run_batch_predict(
+            engine, ep, storage, inp, out,
+            engine_id=engine_id, engine_version=engine_version,
+            engine_variant=engine_variant,
+            instance_id=args.engine_instance_id,
+            batch_size=args.batch_size, ctx=ctx,
+        )
+    print(f"Batch predict done: {report.n_queries} queries"
+          + (f", {report.n_errors} failed (malformed or engine-rejected; "
+             "see the output's error records)" if report.n_errors else ""),
+          file=sys.stderr)
     return 0
 
 
@@ -273,6 +510,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="root for per-instance step-checkpoint dirs "
                         "(default $PIO_TPU_CKPT_ROOT or "
                         "$PIO_TPU_HOME/checkpoints)")
+    x.add_argument("--from-eval", default="", metavar="EVAL_ID|latest",
+                   help="train with the winning algorithm params an "
+                        "`eval --sweep` persisted (the "
+                        "<eval-iid>:best_params record); the instance "
+                        "is batch-tagged from-eval:<id>")
     x.set_defaults(fn=cmd_train)
     x = sub.add_parser("deploy", help="serve an engine instance over REST")
     x.add_argument("--engine-dir", default=".")
@@ -284,7 +526,83 @@ def build_parser() -> argparse.ArgumentParser:
                         "for)")
     x.add_argument("--server-key", default="",
                    help="guards /model/upsert_users (or PIO_SERVER_KEY)")
+    x.add_argument("--from-eval", default="", metavar="EVAL_ID|latest",
+                   help="serve with the winning algorithm params an "
+                        "`eval --sweep` persisted")
     x.set_defaults(fn=cmd_deploy)
+    x = sub.add_parser("eval", help="evaluate and tune an engine")
+    x.add_argument("evaluation_class", nargs="?", default="")
+    x.add_argument("params_generator_class", nargs="?", default="")
+    x.add_argument("--engine-dir", default=None,
+                   help="directory holding the user-code engine.py the "
+                        "classes live in (joins sys.path); with --sweep "
+                        "also where engine.json lives")
+    x.add_argument("--output", default="best.json")
+    x.add_argument("--workers", type=int, default=1,
+                   help="params-grid parallelism (reference runs .par)")
+    x.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="evaluation device (default cuda; cpu must be "
+                        "asked for)")
+    x.add_argument("--sweep", action="store_true",
+                   help="batched hyperparameter sweep over engine.json's "
+                        "engine: shape-compatible candidates train as "
+                        "ONE stacked program; per-fold results persist "
+                        "durably and the winner lands in "
+                        "<eval-iid>:best_params for `train/deploy "
+                        "--from-eval`")
+    x.add_argument("--grid", default="",
+                   help="with --sweep: JSON object (or @file.json) of "
+                        "algorithm-param name -> list of values; the "
+                        "cartesian product is the candidate grid, e.g. "
+                        "'{\"lambda_\": [0.01, 0.1], \"rank\": [8, 16]}'")
+    x.add_argument("--params-generator", default="",
+                   help="with --sweep: EngineParamsGenerator class path "
+                        "instead of --grid (full EngineParams control)")
+    x.add_argument("--metric", default="map@10",
+                   help="primary metric: map@K, ndcg@K, precision@K, "
+                        "recall@K, or auc (batched path only)")
+    x.add_argument("--other-metrics", default="",
+                   help="comma-separated supplementary metric columns")
+    x.add_argument("--split", choices=["kfold", "time"], default="kfold",
+                   help="kfold: seeded balanced folds over deduped "
+                        "interactions; time: event-time rolling splits "
+                        "(train on the past, test on the next window)")
+    x.add_argument("--folds", type=int, default=3)
+    x.add_argument("--seed", type=int, default=42,
+                   help="kfold assignment seed (bit-reproducible)")
+    x.add_argument("--resume-eval", default="", metavar="EVAL_ID",
+                   help="resume a killed/failed sweep: completed folds "
+                        "are read from the durable record, only the "
+                        "remaining units run (result identical to an "
+                        "uninterrupted sweep)")
+    x.add_argument("--batch", default="",
+                   help="batch label recorded on the EvaluationInstance")
+    x.add_argument("--metrics-port", type=int, default=None,
+                   help="with --sweep: serve /healthz /metrics "
+                        "/debug/spans.json during the sweep (0 = "
+                        "ephemeral port)")
+    x.add_argument("--ip", default="127.0.0.1",
+                   help="bind address for --metrics-port")
+    x.add_argument("--server-key", default="",
+                   help="guards the sweep's /debug trace routes")
+    x.set_defaults(fn=cmd_eval)
+    x = sub.add_parser(
+        "batchpredict",
+        help="offline bulk scoring: JSON-lines queries in, "
+             "{query, prediction} JSON-lines out")
+    x.add_argument("--engine-dir", default=".")
+    x.add_argument("--input", required=True,
+                   help="queries file, one JSON object per line "
+                        "('-' = stdin)")
+    x.add_argument("--output", required=True,
+                   help="predictions file ('-' = stdout)")
+    x.add_argument("--engine-instance-id")
+    x.add_argument("--batch-size", type=int, default=256,
+                   help="queries per device batch")
+    x.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="prediction device (default cuda; cpu must be "
+                        "asked for)")
+    x.set_defaults(fn=cmd_batchpredict)
     x = sub.add_parser(
         "foldin",
         help="streaming fold-in worker: tail the event stream, solve "

@@ -12,8 +12,9 @@ With ``validation_fraction > 0`` a seeded share of the interactions is
 held out and ``als_train_validated`` returns the best sweep's factors,
 with the heldout curve in ``RecommendationModel.validation``.
 
-Not ported yet, each raising ``NotImplementedError`` or absent:
-evaluation folds (``read_eval``) and the sharded multi-device trainer
+``read_eval`` gives the reference's index-mod-k folds
+(``e2/crossvalidation.split_interactions``) for ``pio eval``'s class
+mode. Not ported yet: the sharded multi-device trainer
 (``als_train_sharded``; the port's context holds one device).
 """
 
@@ -37,8 +38,6 @@ from pio_tpu_torch.data.bimap import EntityIdIndex
 from pio_tpu_torch.data.eventstore import Interactions
 from pio_tpu_torch.ops import als
 from pio_tpu_torch.ops import retrieval as rt
-
-_EVAL_LATER = "evaluation folds (read_eval) are ported in a later slice"
 
 
 @dataclass(frozen=True)
@@ -80,7 +79,14 @@ class RecommendationDataSource(DataSource):
         return self._read(ctx)
 
     def read_eval(self, ctx):
-        raise NotImplementedError(_EVAL_LATER)
+        """Index-mod-k folds (reference e2 CrossValidation.splitData)."""
+        from pio_tpu_torch.e2.crossvalidation import split_interactions
+
+        data = self._read(ctx)
+        return split_interactions(
+            data, self.params.eval_k, num=self.params.eval_num,
+            exclude_seen=self.params.eval_exclude_seen,
+        )
 
 
 def _rank_candidates(cand: list, scores, num: int) -> dict:

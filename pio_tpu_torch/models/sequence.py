@@ -20,9 +20,11 @@ saves a step checkpoint every ``checkpoint_every`` steps
 every step runs the ``train.step.<n>`` chaos point, the preemption check
 and the heartbeat (``workflow/spans.py``).
 
-Not ported yet, each raising or absent: the mesh path (data x sequence
-parallelism with ``ring``/``ulysses`` attention), the mixture-of-experts
-FFN (``moe_experts > 0``) and evaluation folds (``read_eval``).
+``read_eval`` gives the reference's rolling next-item folds, which
+``eval --sweep`` scores through its sequential path. Not ported yet, each
+raising or absent: the mesh path (data x sequence parallelism with
+``ring``/``ulysses`` attention) and the mixture-of-experts FFN
+(``moe_experts > 0``).
 """
 
 from __future__ import annotations
@@ -69,7 +71,6 @@ LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
 log = logging.getLogger("pio_tpu_torch.models.sequence")
 
 _MOE_LATER = "moe_experts > 0 (the MoE FFN) is ported in a later slice"
-_EVAL_LATER = "evaluation folds (read_eval) are ported in a later slice"
 
 
 @dataclass(frozen=True)
@@ -364,6 +365,10 @@ class SequenceDataSourceParams(Params):
     app_name: str = ""
     event_names: tuple[str, ...] = ("view", "buy")
     max_len: int = 64
+    # >0 -> read_eval produces k ROLLING next-item folds: fold f holds
+    # out each user's (f+1)-th-from-last item and trains on the strict
+    # prefix — the time-respecting split for sequence models, and what
+    # lets `eval --sweep` tune this engine through the sequential fallback
     eval_k: int = 0
     eval_num: int = 10              # ranking depth of each fold query
 
@@ -374,18 +379,53 @@ class SequenceDataSource(DataSource):
     def __init__(self, params: SequenceDataSourceParams):
         self.params = params
 
-    def read_training(self, ctx) -> SequenceData:
-        events = ctx.event_store.find(
+    def _events(self, ctx):
+        return ctx.event_store.find(
             app_name=self.params.app_name,
             entity_type="user",
             target_entity_type="item",
             event_names=list(self.params.event_names),
         )
-        seqs, users, items = build_sequences(events, self.params.max_len)
+
+    def read_training(self, ctx) -> SequenceData:
+        seqs, users, items = build_sequences(self._events(ctx),
+                                             self.params.max_len)
         return SequenceData(seqs, users, items)
 
     def read_eval(self, ctx):
-        raise NotImplementedError(_EVAL_LATER)
+        """k rolling next-item folds of (train, info, [(query, actual)]):
+        fold f trains each user on their history minus the last f+1
+        items and is scored on predicting the held-out item — strictly
+        past-only, like the tuning subsystem's time split. The items
+        index spans every fold (the same ``user_histories`` grouping
+        read_training uses), so vocab and embedding shapes stay the same
+        across the sweep's candidates."""
+        k = self.params.eval_k
+        max_len = self.params.max_len
+        hists, items = user_histories(self._events(ctx))
+        folds = []
+        for f in range(k):
+            cut = f + 1
+            users, rows, qa = [], [], []
+            for uid, ids in hists.items():
+                # >= 2 training items must remain (next-item training
+                # needs a target inside the train split)
+                if len(ids) < cut + 2:
+                    continue
+                train_ids = ids[:-cut]
+                seq = [items.index_of(i) + 1
+                       for i in train_ids][-max_len:]
+                rows.append(np.pad(seq, (max_len - len(seq), 0)))
+                users.append(uid)
+                qa.append(({"user": uid, "num": self.params.eval_num},
+                           [ids[-cut]]))
+            if not rows:
+                continue
+            train = SequenceData(
+                np.stack(rows).astype(np.int32),
+                EntityIdIndex(users), items)
+            folds.append((train, {"fold": f, "holdout": cut}, qa))
+        return folds
 
 
 @dataclass

@@ -4,7 +4,8 @@ scoring functions of the factor model.
 Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
 ``_device_slot_layout``, ``_chunk_blocks``, ``_normal_equations``,
 ``_cg_solve``, ``_solve_factors``, ``als_train``, ``als_train_validated``,
-``als_build_layouts``, ``fold_in_params``, ``als_fold_in``;
+``als_build_layouts``, ``sweep_safe_params``, ``als_train_stacked``,
+``fold_in_params``, ``als_fold_in``;
 ``predict_pairs``, ``recommend_topk``, ``rmse``).
 The algorithm is the reference's:
 
@@ -262,11 +263,22 @@ def _gather(src, i_c, gather: str):
     return src[i_c]
 
 
-def _chunk_blocks(src, i_c, v_c, l_c, implicit: bool, alpha: float,
+def _slot_alpha(alpha, lo: int, hi: int):
+    """The confidence weight of slots [lo, hi): a float shared by every
+    slot, or a per-slot (S,) tensor (the stacked sweep's candidates)
+    sliced to the range and shaped to broadcast over the slot width."""
+    if torch.is_tensor(alpha):
+        return alpha[lo:hi, None]
+    return alpha
+
+
+def _chunk_blocks(src, i_c, v_c, l_c, implicit: bool, alpha,
                   out=None, gather: str = "xla"):
     """One slot chunk -> per-slot normal-equation blocks a_blk (C,k,k),
     b_blk (C,k), by batched matmuls in f32. ``out=(a, b)`` writes the
-    blocks into those buffers."""
+    blocks into those buffers. ``alpha`` is a float or a (C, 1) tensor
+    of per-slot weights (``_slot_alpha``): the product alpha * v is the
+    same f32 multiplication either way."""
     W = i_c.shape[1]
     mask = (torch.arange(W, device=i_c.device)[None, :]
             < l_c[:, None]).to(torch.float32)
@@ -300,7 +312,7 @@ def _group_bounds(S: int, k: int, chunk_slots: int, group_slots: int):
 
 
 def _group_blocks(src, idx, val, lens, lo: int, hi: int, chunk_slots: int,
-                  implicit: bool, alpha: float, gather: str = "xla"):
+                  implicit: bool, alpha, gather: str = "xla"):
     """The blocks of slots [lo, hi), built chunk by chunk into one buffer
     (the reference's lax.scan with the blocks as outputs)."""
     k = src.shape[1]
@@ -311,13 +323,14 @@ def _group_blocks(src, idx, val, lens, lo: int, hi: int, chunk_slots: int,
     for c0 in range(lo, hi, chunk_slots):
         c1 = min(hi, c0 + chunk_slots)
         _chunk_blocks(src, idx[c0:c1], val[c0:c1], lens[c0:c1], implicit,
-                      alpha, out=(a_blks[c0 - lo:c1 - lo],
+                      _slot_alpha(alpha, c0, c1),
+                      out=(a_blks[c0 - lo:c1 - lo],
                                   b_blks[c0 - lo:c1 - lo]), gather=gather)
     return a_blks, b_blks
 
 
 def _normal_equations(layout, other_factors, n_self, implicit: bool,
-                      alpha: float, chunk_slots: int,
+                      alpha, chunk_slots: int,
                       bf16_gather: bool = False, accum: str = "auto",
                       group_slots: int = 73728, gather: str = "auto",
                       packed: bool = False):
@@ -338,7 +351,10 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
     packed=True asks for A lane-packed, (n_self, k²): hybrid is promoted
     to stream, the only flush that writes it, and the other paths return
     (n,k,k) all the same (callers tell the form by A.ndim, see
-    _solve_factors)."""
+    _solve_factors).
+
+    ``alpha`` is a float, or a per-slot (S,) tensor on the carry and
+    stacked paths (the stacked sweep, ``als_train_stacked``)."""
     rows, idx, val, lens = layout
     k = other_factors.shape[1]
     S = idx.shape[0]
@@ -387,7 +403,8 @@ def _normal_equations(layout, other_factors, n_self, implicit: bool,
         for c0 in range(0, S, chunk_slots):
             c1 = c0 + chunk_slots
             a_blk, b_blk = _chunk_blocks(src, idx[c0:c1], val[c0:c1],
-                                         lens[c0:c1], implicit, alpha,
+                                         lens[c0:c1], implicit,
+                                         _slot_alpha(alpha, c0, c1),
                                          gather=gather)
             _add_blocks(A, b, rows[c0:c1], a_blk, b_blk, n_self)
     elif accum == "stacked":
@@ -519,6 +536,14 @@ def _solve_factors(layout, other_factors, n_self, reg, implicit, alpha,
         bf16_gather=bf16_gather, accum=accum, group_slots=group_slots,
         gather=gather, packed=packed,
     )
+    return _solve_system(A, b, reg, implicit, other_factors, yty, x0,
+                         cg_iters)
+
+
+def _solve_system(A, b, reg, implicit, other_factors, yty, x0,
+                  cg_iters: int):
+    """Add the shared YᵀY (implicit) and reg terms to A in place and
+    solve: CG from x0 (cg_iters > 0) or the exact Cholesky."""
     if A.ndim == 2:
         # the streaming flush wrote lane-packed (n, k²) rows
         return _solve_packed(A, b, reg, implicit, other_factors, yty, x0,
@@ -760,6 +785,146 @@ def _init_or(init: ALSModel | None, n_users: int, n_items: int,
     g.manual_seed(params.seed)
     return (init_factors(n_users, params.rank, g),
             init_factors(n_items, params.rank, g))
+
+
+# ---------------------------------------------------------------------------
+# stacked multi-candidate path — the hyperparameter sweep's batched train:
+# one layout build trains EVERY candidate that shares the static shape
+# config (rank, iterations, implicit, CG schedule); candidates differ only
+# in (reg, alpha)
+# ---------------------------------------------------------------------------
+
+def sweep_safe_params(params: ALSParams, device=None) -> ALSParams:
+    """The static config the stacked trainer actually runs, as the
+    reference's: the plain accumulation paths (carry on the CPU, stacked
+    on CUDA) with the plain gather. The kernels (hybrid/stream/packed/
+    fused) are written for one candidate's block shapes; the stacked
+    program trades them for candidate-level batching."""
+    accum = ("stacked" if _accelerator_backend(resolve_device(device))
+             else "carry")
+    return replace(params, accum=accum, gather="xla", packed_a=False)
+
+
+@dataclass
+class StackedALSModel:
+    """C candidates' factors: user_factors (C, n_users, k), item_factors
+    (C, n_items, k)."""
+
+    user_factors: torch.Tensor
+    item_factors: torch.Tensor
+
+    def __len__(self) -> int:
+        return int(self.user_factors.shape[0])
+
+    def candidate(self, c: int) -> ALSModel:
+        return ALSModel(self.user_factors[c], self.item_factors[c])
+
+
+def _stack_layout(layout, n_self: int, n_other: int, n_cand: int):
+    """One half's slot layout repeated for C candidates with the
+    candidate axis folded into the rows: candidate c's row r is row
+    c*n_self + r and its opposing ids index the stacked (C*n_other, k)
+    factors at c*n_other + o. Unused slots keep the sentinel, now
+    C*n_self. Every candidate's slots stay whole chunks (S is a
+    chunk multiple), so a chunk's blocks are the batched matmul of the
+    same shape and data as in a single candidate's training."""
+    rows, idx, val, lens = layout
+    S = rows.shape[0]
+    c = torch.arange(n_cand, device=rows.device).repeat_interleave(S)
+    rows_c = rows.repeat(n_cand)
+    rows_c = torch.where(rows_c < n_self, rows_c + c * n_self,
+                         n_cand * n_self).to(torch.int32)
+    idx_c = (idx.repeat(n_cand, 1) + (c * n_other)[:, None]
+             ).to(torch.int32)
+    return rows_c, idx_c, val.repeat(n_cand, 1), lens.repeat(n_cand)
+
+
+def _solve_stacked(layout, other, n_self: int, regs, alphas_slot,
+                   params: ALSParams, cs: int, x0, cg_iters: int):
+    """One half-sweep of every candidate: the normal equations of all
+    C*n_self rows in one accumulation (blocks built with each slot's own
+    alpha), then each candidate's rows solved alone with its own reg and
+    YᵀY, on the same shapes a single-candidate solve has."""
+    n_cand = len(regs)
+    A, b = _normal_equations(
+        layout, other, n_cand * n_self, params.implicit, alphas_slot, cs,
+        bf16_gather=params.bf16_gather, accum=params.accum,
+        group_slots=params.group_slots, gather=params.gather)
+    n_other = other.shape[0] // n_cand
+    out = []
+    for c in range(n_cand):
+        rs = slice(c * n_self, (c + 1) * n_self)
+        out.append(_solve_system(
+            A[rs], b[rs], float(regs[c]), params.implicit,
+            other[c * n_other:(c + 1) * n_other], None, x0[rs], cg_iters))
+    return torch.cat(out)
+
+
+def als_train_stacked(user_idx, item_idx, values, n_users: int,
+                      n_items: int, params: ALSParams, regs, alphas,
+                      device=None,
+                      init: ALSModel | None = None) -> StackedALSModel:
+    """Train C candidates sharing ``params``' static config as one
+    program, differing per candidate only in (reg, alpha).
+
+    The candidate count is rounded up to a power of two (the padding
+    repeats the last candidate) and the padding is trimmed before
+    returning, as in the reference. The layout is built once, and every
+    candidate starts from the same seeded init (or ``init``). The
+    candidate axis is folded into the row axis (``_stack_layout``): the
+    plain accumulation (``sweep_safe_params``: carry on the CPU, the
+    ordered rounds of stacked on CUDA) and the solves then run over
+    C*n rows, so candidate c's factors are those of a sequential
+    ``als_train(sweep_safe_params(params with c's reg and alpha))``
+    from the same init: each row's blocks, their sums in slot order and
+    the solve are the same operations on the same shapes. The
+    reference's ``mesh=`` (candidates sharded over devices) is not
+    ported: the port holds one device."""
+    dev = resolve_device(device)
+    _require_f32_matmul(dev)
+    params = sweep_safe_params(params, dev)
+    regs = np.ascontiguousarray(regs, dtype=np.float32)
+    alphas = np.ascontiguousarray(alphas, dtype=np.float32)
+    if regs.shape != alphas.shape or regs.ndim != 1 or not len(regs):
+        raise ValueError(
+            f"regs/alphas must be equal-length 1-d vectors, got "
+            f"{regs.shape} / {alphas.shape}")
+    n_cand = len(regs)
+    bucket = pow2_bucket(n_cand)
+    if bucket != n_cand:
+        regs = np.concatenate(
+            [regs, np.full(bucket - n_cand, regs[-1], np.float32)])
+        alphas = np.concatenate(
+            [alphas, np.full(bucket - n_cand, alphas[-1], np.float32)])
+    u, i, v = _prep_coo(user_idx, item_idx, values, n_users, n_items,
+                        params, dev)
+    by_user, by_item, cs = _build_layouts(u, i, v, n_users, n_items, params)
+    st_user = _stack_layout(by_user, n_users, n_items, bucket)
+    st_item = _stack_layout(by_item, n_items, n_users, bucket)
+    del by_user, by_item
+    alphas_t = torch.as_tensor(alphas, device=dev)
+    a_user = alphas_t.repeat_interleave(st_user[0].shape[0] // bucket)
+    a_item = alphas_t.repeat_interleave(st_item[0].shape[0] // bucket)
+    user0, item0 = _init_or(init, n_users, n_items, params, dev)
+    carry = (user0.repeat(bucket, 1), item0.repeat(bucket, 1))
+    cg_u = params.resolved_cg_iters(n_users)
+    cg_i = params.resolved_cg_iters(n_items)
+
+    def sweep_with(cg_u_n: int, cg_i_n: int):
+        def sweep(carry):
+            users, items = carry
+            users = _solve_stacked(st_user, items, n_users, regs, a_user,
+                                   params, cs, users, cg_u_n)
+            items = _solve_stacked(st_item, users, n_items, regs, a_item,
+                                   params, cs, items, cg_i_n)
+            return users, items
+        return sweep
+
+    users, items = _run_schedule(sweep_with, params, cg_u, cg_i, carry)
+    k = params.rank
+    return StackedALSModel(
+        users.view(bucket, n_users, k)[:n_cand],
+        items.view(bucket, n_items, k)[:n_cand])
 
 
 # ---------------------------------------------------------------------------

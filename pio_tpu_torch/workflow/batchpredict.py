@@ -1,0 +1,127 @@
+"""Offline bulk scoring: queries in, predictions out, no HTTP server.
+
+PredictionIO grew `pio batchpredict` in 0.13 (after the incubator
+version this framework re-implements) because deploy-server round trips
+are the wrong shape for backfills; users migrating from the reference
+expect it, and large batched predicts amortize the per-query device
+dispatch. Copy of ``pio_tpu.workflow.batchpredict``.
+
+Runs each input line through the engine's full serving composition
+(supplement -> [algo.batch_predict ...] -> serve) via
+QueryServer.query_batch — the same code path as /batch/queries.json —
+against the latest COMPLETED engine instance's restored model (no
+retrain, like deploy). Input: one JSON query per line. Output: one JSON
+object per line, `{"query": ..., "prediction": ...}` (the 0.13 wire
+shape). Order is preserved; a malformed line becomes
+`{"query": <raw>, "error": ...}` without aborting the run.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import IO, Iterator
+
+from pio_tpu_torch.controller.engine import Engine, EngineParams
+from pio_tpu_torch.data.storage import Storage
+from pio_tpu_torch.workflow.context import WorkflowContext
+from pio_tpu_torch.workflow.serve import QueryServer, ServingConfig
+
+
+@dataclass
+class BatchPredictReport:
+    n_queries: int = 0
+    n_errors: int = 0
+
+
+def run_batch_predict(
+    engine: Engine,
+    engine_params: EngineParams,
+    storage: Storage,
+    inp: IO[str],
+    out: IO[str],
+    engine_id: str = "default",
+    engine_version: str = "1",
+    engine_variant: str = "default",
+    instance_id: str | None = None,
+    batch_size: int = 256,
+    ctx: WorkflowContext | None = None,
+) -> BatchPredictReport:
+    """Stream `inp` (JSON-lines queries) to `out` (JSON-lines
+    predictions) in `batch_size` device batches. Returns counts."""
+    config = ServingConfig(
+        engine_id=engine_id, engine_version=engine_version,
+        engine_variant=engine_variant,
+    )
+    qs = QueryServer(engine, engine_params, storage, config,
+                     ctx=ctx, instance_id=instance_id)
+    report = BatchPredictReport()
+    try:
+        for chunk in _chunks(inp, batch_size):
+            # parse first, predict the good ones as ONE device batch,
+            # then emit every record in INPUT order (error lines
+            # interleaved where their query appeared)
+            parsed: list[tuple[str, dict | None, str | None]] = []
+            for raw in chunk:
+                try:
+                    q = json.loads(raw)
+                    if not isinstance(q, dict):
+                        raise ValueError("query must be a JSON object")
+                    parsed.append((raw, q, None))
+                except ValueError as e:
+                    parsed.append((raw, None, str(e)))
+            good = [q for _, q, err in parsed if err is None]
+            # record=False: a backfill must not pollute the serving
+            # latency histograms or arm the hedge clock
+            preds = iter(_predict_isolating(qs, good))
+            for raw, q, err in parsed:
+                if err is not None:
+                    report.n_errors += 1
+                    out.write(json.dumps(
+                        {"query": raw.rstrip("\n"), "error": err}) + "\n")
+                    continue
+                p, perr = next(preds)
+                if perr is not None:
+                    report.n_errors += 1
+                    out.write(json.dumps({"query": q, "error": perr}) + "\n")
+                else:
+                    report.n_queries += 1
+                    out.write(json.dumps(
+                        {"query": q, "prediction": p}) + "\n")
+    finally:
+        qs.close()
+    return report
+
+
+def _predict_isolating(qs: QueryServer, queries: list[dict]
+                       ) -> list[tuple[object, str | None]]:
+    """query_batch with the same per-query fault isolation the
+    micro-batcher has (serve.py _do_execute): one engine-rejected query
+    (bad key, unknown field) must fail ALONE as an error record, not
+    abort the batch — let alone the whole backfill. Fast path: one
+    batched device dispatch; on failure, each query retries singly."""
+    if not queries:
+        return []
+    try:
+        return [(p, None) for p in qs.query_batch(queries, record=False)]
+    except Exception:  # noqa: BLE001 - isolate and re-run one by one
+        out: list[tuple[object, str | None]] = []
+        for q in queries:
+            try:
+                out.append((qs.query(q, record=False), None))
+            except Exception as e:  # noqa: BLE001
+                out.append((None, f"{type(e).__name__}: {e}"))
+        return out
+
+
+def _chunks(inp: IO[str], n: int) -> Iterator[list[str]]:
+    buf: list[str] = []
+    for line in inp:
+        if not line.strip():
+            continue
+        buf.append(line)
+        if len(buf) >= n:
+            yield buf
+            buf = []
+    if buf:
+        yield buf

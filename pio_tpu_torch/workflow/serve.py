@@ -174,7 +174,9 @@ class QueryServer:
             self._total_s += dt
             self._last_s = dt
 
-    def query(self, q: dict) -> Any:
+    def query(self, q: dict, record: bool = True) -> Any:
+        """``record=False`` keeps the call out of the latency bookkeeping
+        (a batch backfill's queries)."""
         t0 = time.monotonic()
         models, algorithms, serving = self._snapshot()
         supplemented = serving.supplement(q)
@@ -182,10 +184,11 @@ class QueryServer:
             a.predict(m, supplemented) for a, m in zip(algorithms, models)
         ]
         prediction = serving.serve(q, predictions)
-        self._record(t0)
+        if record:
+            self._record(t0)
         return prediction
 
-    def query_batch(self, queries: list[dict]) -> list:
+    def query_batch(self, queries: list[dict], record: bool = True) -> list:
         """Serve several queries as one batch_predict per algorithm (the
         bulk path behind /batch/queries.json)."""
         t0 = time.monotonic()
@@ -199,7 +202,8 @@ class QueryServer:
             serving.serve(q, [algo_out[i] for algo_out in per_algo])
             for i, q in enumerate(queries)
         ]
-        self._record(t0)
+        if record:
+            self._record(t0)
         return predictions
 
     # -- streaming fold-in (freshness/) -------------------------------------

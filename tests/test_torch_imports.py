@@ -73,7 +73,19 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.freshness.tail",
                 "pio_tpu_torch.freshness.solver",
                 "pio_tpu_torch.freshness.apply",
-                "pio_tpu_torch.freshness.folder"):
+                "pio_tpu_torch.freshness.folder",
+                "pio_tpu_torch.controller.evaluation",
+                "pio_tpu_torch.controller.fasteval",
+                "pio_tpu_torch.e2", "pio_tpu_torch.e2.crossvalidation",
+                "pio_tpu_torch.e2.metrics",
+                "pio_tpu_torch.tuning", "pio_tpu_torch.tuning.metrics",
+                "pio_tpu_torch.tuning.splits",
+                "pio_tpu_torch.tuning.records",
+                "pio_tpu_torch.tuning.sweep",
+                "pio_tpu_torch.tuning.server",
+                "pio_tpu_torch.workflow.evaluate",
+                "pio_tpu_torch.workflow.batchpredict",
+                "pio_tpu_torch.workflow.fake"):
         assert mod in res["modules"]
 
 

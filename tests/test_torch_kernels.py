@@ -1156,3 +1156,86 @@ def test_resumed_sequence_run_equals_uninterrupted_on_card(tmp_path):
     for k, v in whole.items():
         assert params[k].device.type == "cuda"
         assert torch.equal(params[k], v), k
+
+
+# -- the stacked sweep (tuning/) on the card ----------------------------------
+
+def _sweep_data(seed=0, n_users=300, n_items=200, nnz=6000):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n_users, nnz).astype(np.int32),
+            rng.integers(0, n_items, nnz).astype(np.int32),
+            rng.uniform(1, 5, nnz).astype(np.float32), n_users, n_items)
+
+
+# candidate c of the stacked trainer against the sequential trainer: the
+# same blocks, slot-ordered sums and per-candidate solves on the same
+# shapes (CPU: bit for bit); a batched library call may still choose
+# another routine for another batch count
+STACKED_RTOL = 1e-5
+
+
+def test_stacked_training_repeats_bit_for_bit_on_card():
+    """``als_train_stacked`` on the card (``accum="stacked"``: the ordered
+    rounds, no atomics) gives the same bits run to run, and launches no
+    kernel of the repository."""
+    dev = _cuda()
+    u, i, v, n_users, n_items = _sweep_data()
+    p = als.ALSParams(rank=16, iterations=3, chunk=1024, implicit=True,
+                      auto_cg_rows=64)
+    regs = np.array([0.01, 0.1, 1.0], np.float32)
+    alphas = np.array([1.0, 4.0, 10.0], np.float32)
+    before = sf.launches.value
+    a = als.als_train_stacked(u, i, v, n_users, n_items, p, regs, alphas,
+                              device=dev)
+    b = als.als_train_stacked(u, i, v, n_users, n_items, p, regs, alphas,
+                              device=dev)
+    torch.cuda.synchronize()
+    assert sf.launches.value == before
+    assert torch.equal(a.user_factors, b.user_factors)
+    assert torch.equal(a.item_factors, b.item_factors)
+    assert bool(torch.isfinite(a.user_factors).all())
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_stacked_candidate_matches_sequential_on_card(implicit):
+    from dataclasses import replace
+
+    dev = _cuda()
+    u, i, v, n_users, n_items = _sweep_data(seed=1)
+    p = als.ALSParams(rank=16, iterations=3, chunk=1024, implicit=implicit,
+                      auto_cg_rows=64)
+    regs = np.array([0.01, 0.1, 1.0, 5.0], np.float32)
+    alphas = np.array([1.0, 4.0, 10.0, 2.0], np.float32)
+    st = als.als_train_stacked(u, i, v, n_users, n_items, p, regs, alphas,
+                               device=dev)
+    for c in range(len(regs)):
+        seq = als.als_train(
+            u, i, v, n_users, n_items,
+            als.sweep_safe_params(replace(p, reg=float(regs[c]),
+                                          alpha=float(alphas[c])), dev),
+            device=dev)
+        for got, want in ((st.user_factors[c], seq.user_factors),
+                          (st.item_factors[c], seq.item_factors)):
+            torch.testing.assert_close(got, want, rtol=STACKED_RTOL, atol=0)
+
+
+def test_stacked_topk_on_card_equals_cpu():
+    """The sweep's stacked scoring and top-k on the card give the CPU's
+    ids, with seen items masked (all tied at MASKED_SCORE) reaching the
+    top-k and exact ties among small-integer scores."""
+    from pio_tpu_torch.tuning.sweep import _stacked_topk
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    uf = torch.from_numpy(rng.integers(-2, 3, (4, 50, 8)).astype(np.float32))
+    itf = torch.from_numpy(rng.integers(-2, 3, (4, 300, 8)).astype(
+        np.float32))
+    uidx = rng.choice(50, 32, replace=False).astype(np.int32)
+    seen = np.full((32, 512), -1, np.int32)
+    for j in range(32):
+        s = rng.choice(300, int(rng.integers(0, 300)), replace=False)
+        seen[j, :len(s)] = s
+    want_s, want_i = _stacked_topk(uf, itf, uidx, seen, 64)
+    got_s, got_i = _stacked_topk(uf.to(dev), itf.to(dev), uidx, seen, 64)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_s.cpu(), want_s)

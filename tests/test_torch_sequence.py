@@ -341,9 +341,19 @@ def test_parts_not_ported_raise(change, error):
 
 
 def test_not_ported_reads_and_no_cuda_raise(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        port.SequenceDataSource(port.SequenceDataSourceParams()).read_eval(
-            None)
+    """The rolling evaluation folds are ported (held to the reference in
+    test_torch_evaluation.py): fold f holds out each user's (f+1)-th
+    item from the end. Training without CUDA still raises."""
+    import types
+
+    ctx = types.SimpleNamespace(event_store=types.SimpleNamespace(
+        find=lambda **kw: _cyclic_events(n_users=4, steps=5)))
+    folds = port.SequenceDataSource(port.SequenceDataSourceParams(
+        eval_k=2, max_len=8)).read_eval(ctx)
+    assert [info for _, info, _ in folds] == [{"fold": 0, "holdout": 1},
+                                              {"fold": 1, "holdout": 2}]
+    assert folds[0][2][0] == ({"user": "u0", "num": 10}, ["i4"])
+    assert folds[1][2][0] == ({"user": "u0", "num": 10}, ["i3"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     seqs, users, items = port.build_sequences(_cyclic_events(), 8)
     p = port.SequenceParams(max_len=8, embed_dim=16, num_heads=2,

@@ -136,17 +136,28 @@ def test_retrieval_index_cached_by_item_table(factors):
 
 
 def test_training_waits_for_its_slice():
-    """Training is ported; evaluation folds wait for a later slice and
-    raise rather than train another way. Validated training is ported
-    and, as the reference's, refuses fewer than 10 interactions."""
+    """Training and evaluation folds are ported: read_eval gives eval_k
+    index-mod-k folds of the training read (none at eval_k 0; the fold
+    contents are held to the reference in test_torch_evaluation.py).
+    Validated training, as the reference's, refuses fewer than 10
+    interactions."""
     import types
 
     from pio_tpu_torch.data.eventstore import to_interactions
     from pio_tpu_torch.data.event import Event
 
+    data = to_interactions([Event("rate", "user", f"u{j % 3}", "item",
+                                  f"i{j}", {"rating": 3.0})
+                            for j in range(12)])
+    ctx = types.SimpleNamespace(event_store=types.SimpleNamespace(
+        interactions=lambda **kw: data))
     ds = port_rec.RecommendationDataSource(port_rec.DataSourceParams())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ds.read_eval(None)
+    assert ds.read_eval(ctx) == []
+    ds = port_rec.RecommendationDataSource(
+        port_rec.DataSourceParams(eval_k=3))
+    folds = ds.read_eval(ctx)
+    assert [info.fold for _, info, _ in folds] == [0, 1, 2]
+    assert sum(len(train) for train, _, _ in folds) == 2 * len(data)
     data = to_interactions([Event("rate", "user", f"u{j}", "item", "i0",
                                   {"rating": 3.0}) for j in range(9)])
     algo = port_rec.ALSAlgorithm(port_rec.ALSAlgorithmParams(
