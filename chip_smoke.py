@@ -14,16 +14,22 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   pio_tpu_torch deploy`` calls) with two-stage clustered retrieval and
   ``"impl": "pallas"`` (the K7 scan kernel), over loopback HTTP;
 - foldin: on the same seeded factors in a fresh sqlite store, served
-  behind a server key: a tail of rate/buy events of 4,096 users (a
+  behind a server key: a tail of rate/buy events of 2,048 users (a
   quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
-  ``python -m pio_tpu_torch foldin`` runs) in four batches of 1,024 and
+  ``python -m pio_tpu_torch foldin`` runs) in four batches of 512 and
   applied through ``/model/upsert_users`` over loopback HTTP; every
   multi-slot user's served row (and a sample of the rest) equal bit for
   bit to the user folded alone, in both modes, and to a second worker's,
   and within the stated bound of an f64 solve; new users' queries
   through K7 held to the recall floor; an item upsert re-encoding K7's
   table, held against a fresh encoding and the plain scan; the sqlite
-  history read, the fold's parts and the model loads timed;
+  history read, the fold's parts and the model loads timed; then the
+  HTTP arm: ``python -m pio_tpu_torch foldin --event-server-url ...
+  --tail-wait 10`` as a process tailing an ``eventserver`` process on
+  the same store, one event for each of 256 users posted through the
+  SDK, every served row equal bit for bit to a ``LocalEventSource``
+  worker's fold of the same events, the staleness from the 201 and the
+  long-poll's wake timed, K7 answering those users;
 - train: ``als_train`` on ``bench.py``'s synthetic ratings (zipf 1.2,
   seed 0, 20,000,263 ratings, implicit, reg 0.05, alpha 10) with
   ``accum`` auto, which on the card is the segment-flush kernel (K2) on
@@ -49,16 +55,25 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   those of a run stopped at the best sweep; then one
   ``als_build_layouts`` and two trainings on it, the build's share of
   the time;
-- train_entry: seeded rate/buy events for every user and item in sqlite,
+- ingest: ``app new`` and an ``eventserver`` process (async transport)
+  over a sqlite store, 10^6 seeded rate/buy events (every user and item
+  in one at least) posted through ``sdk.EventClient`` in binary frames
+  of 10,000 by 4 threads; every slot 201, every event stored, the first
+  100,000 read back as a direct ``insert_batch`` of them reads, a JSON
+  batch and an ``/events.json`` event stored as their binary twins, a
+  corrupt frame refused with nothing stored; the wire, the server's
+  decode, CRC32C on both sides and the sqlite insert timed;
+- train_entry: on the ingest phase's store,
   ``python -m pio_tpu_torch train`` (its ``main``, in process, so the
   launch counters can be read), then the trained instance deployed and
   queried over HTTP; then the verb's parts timed one by one on the same
   store: the sqlite read plus the columnar fold, the row path it
-  replaced (``find`` + ``to_interactions``, held equal element for
-  element), the layout build, the sweeps and the persist;
+  replaced (``find`` + ``to_interactions``) on the first 200,000 events,
+  held equal element for element to the columnar read of the same
+  window, the layout build, the sweeps and the persist;
 - evaluate: on the same store (the events are written once), ``python
   -m pio_tpu_torch eval --sweep`` of 4 ALS candidates (lambda x alpha)
-  trained as one stacked group on 3 seeded k-folds, map@10 with ndcg,
+  trained as one stacked group on 2 seeded k-folds, map@10 with ndcg,
   precision, recall and AUC beside it, its time by part and its peak
   memory; fold 0 again outside the verb, each candidate's factors and
   map@10 held to a sequential ``als_train`` and the fold's stored sums,
@@ -66,11 +81,19 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   on 2 time folds, then again killed by a chaos fault at fold 1 and
   resumed (``--resume-eval``) to the uninterrupted result bit for bit;
   ``eval <Evaluation> <ParamsGenerator>`` (class mode,
-  2 candidates x 3 folds, the serve phase's retrieval block: K2 in the
+  2 candidates x 2 folds, the serve phase's retrieval block: K2 in the
   trainings, K7 in every ``batch_predict``); ``train --from-eval`` and
   ``deploy --from-eval`` of the winner, answering over HTTP; and
   ``batchpredict`` of 4,096 queries (K7 a batch), held to the deploy's
   answers;
+- quickstart: the README Quickstart through the port's verbs on a
+  fresh sqlite store: ``app new``, ``import`` of
+  ``examples/quickstart/events.jsonl.gz`` (100,000 events), an
+  ``eventserver`` process taking one ``POST /events.json`` and one
+  segment.io webhook, ``train`` with the committed engine.json's params
+  (K2 in every flush), the instance deployed answering 8 queries through
+  ``sdk.EngineClient`` held to the exact top-k, ``export`` and
+  ``import`` into a fresh app, whose columnar read equals the first;
 - attention_kernel: the flash-attention kernel (K8) against its plain
   version at the shapes the repository runs, each case with the kernel
   it took (f32 inputs: 3xTF32 ``wgmma``; bf16: ``wgmma``): the
@@ -318,15 +341,20 @@ def gpu_ms(fn, reps: int = TIMING_REPS, inner: int = TIMING_INNER) -> float:
 
 # -- phase 1: the card --------------------------------------------------------
 
-def phase_device() -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available; this script "
-                         "runs on an NVIDIA GPU only")
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script "
+                         "runs on an NVIDIA GPU only")
+    card = card_line()
     print(card, flush=True)
     # plain versions and the exact tier in full f32, stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -734,9 +762,9 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
 # -- phase 4b: streaming fold-in on the serve phase's model ---------------
 
 SERVER_KEY = "chip-smoke-key"
-FOLDIN_USERS = 4_096       # users in the tail, a quarter of them new
+FOLDIN_USERS = 2_048       # users in the tail, a quarter of them new
 FOLDIN_NEW_SHARE = 0.25
-FOLDIN_BATCH = 1_024       # max_batch_users: four batches
+FOLDIN_BATCH = 512         # max_batch_users: four batches
 FOLDIN_MAX_LEN = 512       # history cap: up to four 128-wide slots
 FOLDIN_REG, FOLDIN_ALPHA = 0.05, 10.0   # bench.py's reg and alpha
 FOLDIN_SAMPLE = 64         # single-slot users checked beside every multi
@@ -953,6 +981,160 @@ def f64_check(itf64: np.ndarray, pairs: dict, rows: dict, p,
                          "to the f64 row's norm"}
 
 
+FOLDIN_HTTP_USERS = 256    # users with one new event each, over the SDK
+FOLDIN_TAIL_WAIT = 10      # the worker's --tail-wait (long-poll seconds)
+
+
+def foldin_http_arm(env: dict, tmp: Path, engine_dir: Path, storage, qs,
+                    port: int, config, exclude: set,
+                    dev: torch.device) -> dict:
+    """The fold-in worker as a process, ``python -m pio_tpu_torch foldin
+    --event-server-url ... --access-key ... --tail-wait 10``, tailing an
+    event server process on the same store and applying to the running
+    deploy; once it holds its model, one new rate event for each of
+    FOLDIN_HTTP_USERS users (none in the tail) is posted through the SDK.
+    Every served row equals, bit for bit, the row a ``LocalEventSource``
+    worker folds from the same events. Times the staleness from the 201
+    to the last row served and the wake of a long-poll parked before the
+    post; counts K7's launches answering those users. Returns the
+    numbers and the users."""
+    import threading
+
+    from pio_tpu_torch import sdk
+    from pio_tpu_torch.data.columnar import _micros
+    from pio_tpu_torch.freshness import FoldInWorker
+    from pio_tpu_torch.freshness.cursor import CursorStore, FoldCursor
+    from pio_tpu_torch.freshness.tail import HttpEventSource
+    from pio_tpu_torch.utils.time import utcnow
+
+    rc, printed, _ = _cli(["accesskey", "new", "foldin"], storage)
+    assert rc == 0, printed
+    key = printed.rsplit("Access key: ", 1)[1].split()[0]
+    rng = np.random.default_rng(SEED + 13)
+    users = [u for u in (f"u{j}" for j in rng.choice(
+        N_USERS, 4 * FOLDIN_HTTP_USERS, replace=False))
+        if u not in exclude][:FOLDIN_HTTP_USERS]
+    events = [{"event": "rate", "entityType": "user", "entityId": u,
+               "targetEntityType": "item", "targetEntityId": f"i{it}",
+               "properties": {"rating": float(s)}}
+              for u, it, s in zip(users, rng.integers(0, N_ITEMS, len(users)),
+                                  rng.integers(1, 6, len(users)))]
+
+    def rows_of(model) -> np.ndarray:
+        idx = torch.as_tensor([model.users.index_of(u) for u in users],
+                              device=dev)
+        return model.factors.user_factors[idx].cpu().numpy()
+
+    before = rows_of(qs.models[0])
+    out: dict = {"users": len(users)}
+    with event_server(env) as es_url, \
+            open(tmp / "foldin-http.err", "w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", "foldin", "--engine-dir",
+             str(engine_dir), "--serving-url", f"http://127.0.0.1:{port}",
+             "--server-key", SERVER_KEY, "--event-server-url", es_url,
+             "--access-key", key, "--tail-wait", str(FOLDIN_TAIL_WAIT),
+             "--state-path", str(tmp / "cursor-http.bin"), "--ip",
+             "127.0.0.1", "--port", "0"],
+            cwd=REPO_ROOT, env={**os.environ, **env},
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            t0 = time.perf_counter()
+            line = proc.stdout.readline()
+            if "health on http://127.0.0.1:" not in line:
+                err.seek(0)
+                raise AssertionError(f"foldin: {line!r} {err.read()}")
+            health = ("http://127.0.0.1:"
+                      + line.split("health on http://127.0.0.1:")[1]
+                      .split(",")[0] + "/")
+            while True:
+                with urllib.request.urlopen(health, timeout=60) as r:
+                    if json.loads(r.read())["modelInstanceId"]:
+                        break
+                if time.perf_counter() - t0 > SUBPROCESS_TIMEOUT_S:
+                    raise AssertionError("foldin: the model never loaded")
+                time.sleep(0.05)
+            out["worker_ready_s"] = time.perf_counter() - t0
+            time.sleep(0.002)
+            since = _micros(utcnow())
+            time.sleep(0.002)
+            woke: dict = {}
+            source = HttpEventSource(es_url, key, wait_s=FOLDIN_TAIL_WAIT)
+
+            def park():
+                window = source.window(FoldCursor(time_us=since))
+                woke["t"] = time.perf_counter()
+                woke["rows"] = window.n_rows
+
+            parked = threading.Thread(target=park)
+            parked.start()
+            time.sleep(0.5)
+            # -- the main path: counts from 0, read right after ------------
+            reset_counts()
+            client = sdk.EventClient(key, es_url)
+            t_post = time.perf_counter()
+            statuses = [r["status"] for r in
+                        client.create_events_batch(events)]
+            t_201 = time.perf_counter()
+            if statuses != [201] * len(events):
+                raise AssertionError(f"foldin posts: {statuses}")
+            while True:
+                served = rows_of(qs.models[0])
+                if all(not np.array_equal(a, b)
+                       for a, b in zip(served, before)):
+                    break
+                if time.perf_counter() - t_201 > 120:
+                    raise AssertionError("fold-in over HTTP: rows never "
+                                         "served")
+                time.sleep(0.005)
+            t_served = time.perf_counter()
+            parked.join(timeout=60)
+            for u in users:
+                status, body, _ = _post(port, "/queries.json",
+                                        {"user": u, "num": 10})
+                assert status == 200, body
+            launches = read_counts()
+            # ---------------------------------------------------------------
+            with urllib.request.urlopen(health, timeout=60) as r:
+                snap = json.loads(r.read())
+        finally:
+            stop_process(proc)
+    if launches != {**dict.fromkeys(launches, 0),
+                    "quantized_scan": len(users)}:
+        raise AssertionError(f"fold-in over HTTP: launches {launches}")
+    if woke.get("rows") != len(users):
+        raise AssertionError(f"the parked long-poll saw {woke}")
+    # the same events folded by a worker that reads the store
+    path = tmp / "cursor-local.bin"
+    CursorStore(str(path)).save(FoldCursor(time_us=since))
+    got: dict = {}
+
+    class Keep:
+        def apply(self, rows, staleness_s=None):
+            got.update(rows)
+            return {"applied": len(rows)}
+
+    local = FoldInWorker(storage, replace(config, state_path=str(path),
+                                          replay=False), Keep(), device=dev)
+    local_stats = local.run_once()
+    if set(got) != set(users) or any(
+            not np.array_equal(np.asarray(got[u], np.float32), served[j])
+            for j, u in enumerate(users)):
+        raise AssertionError("rows folded over the event server differ "
+                             "from the LocalEventSource worker's")
+    out.update({
+        "rows_equal_local": True, "launches": launches,
+        "post_ms": 1e3 * (t_201 - t_post),
+        "staleness_s": t_served - t_201,
+        "long_poll_wake_ms": 1e3 * (woke["t"] - t_201),
+        "worker_snapshot": {k: snap[k] for k in (
+            "foldedTotal", "appliedBatches", "lastFoldStalenessSeconds",
+            "failures", "lastError")},
+        "local_cycle": local_stats,
+    })
+    return out, users
+
+
 def phase_foldin(users: np.ndarray, items: np.ndarray,
                  dev: torch.device) -> dict:
     """Streaming fold-in at the serve phase's width: the seeded factors
@@ -1163,6 +1345,9 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
             model = qs.models[0]
             snap = worker.snapshot()
             spans = worker.tracer.snapshot()
+            http_arm, http_users = foldin_http_arm(
+                env, Path(tmp), engine_dir, storage, qs, port, config,
+                set(truth), dev)
         finally:
             http.stop()
             qs.close()
@@ -1241,7 +1426,8 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
             device=dev)
         second.run_once()
         second_s = time.perf_counter() - t0
-        if set(again) != folded or any(
+        # (with the HTTP arm's users, whose rows were held above)
+        if set(again) != folded | set(http_users) or any(
                 not np.array_equal(np.asarray(again[u], np.float32),
                                    served[u]) for u in folded):
             raise AssertionError("a second worker's rows differ")
@@ -1316,8 +1502,9 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
         "model_bytes": len(blob), "persist_s": persist_s,
         "deploy_load_s": deploy_load_s, "folder_load_s": folder_load_s,
         "crc32c_s": crc_s, "hazards": hazards(itf, solved[0][0], params),
+        "http_arm": http_arm,
     })
-    emit("foldin", **out)
+    emit("foldin", card=card_line(), **out)
     return out
 
 
@@ -2272,21 +2459,22 @@ def phase_train_fused(ratings, dev: torch.device) -> dict:
     return result
 
 
-# -- phase 11: the train entry point, then deploy -----------------------------
+# -- phase 11: ingest over the event server, the train entry point, deploy ---
 
-def write_events(storage, app_name: str) -> tuple[int, int]:
+INGEST_FRAME = 10_000      # events a binary frame (the route's ceiling)
+INGEST_CLIENTS = 4         # SDK client threads posting frames at once
+INGEST_PREFIX = 100_000    # the prefix held to a direct insert_batch
+INGEST_CRC_SAMPLE = 10     # frames whose server-side CRC32C is timed again
+INGEST_TWINS = 50          # the JSON batch held to its binary twin
+METRICS_KEY = "chip-smoke-metrics"
+
+
+def seeded_events() -> types.SimpleNamespace:
     """Seeded rate (80 %, rating 1..5) and buy events: every user and
-    every item in at least one, the rest zipf-1.2 as bench.py draws.
-    Returns the events written and the (user, item) pairs among them
-    (the ratings training keeps: the later event of a pair wins)."""
-    from datetime import datetime, timedelta, timezone
-
-    from pio_tpu_torch.data.dao import App
-    from pio_tpu_torch.data.event import Event
-
-    app_id = storage.get_metadata_apps().insert(App(0, app_name))
-    events = storage.get_events()
-    events.init(app_id)
+    every item in at least one, the rest zipf-1.2 as bench.py draws,
+    event j at 2024-01-01 plus j seconds. ``pairs`` counts the (user,
+    item) pairs among them (the ratings training keeps: the later event
+    of a pair wins)."""
     rng = np.random.default_rng(SEED + 3)
     u = (rng.zipf(1.2, N_EVENTS) % N_USERS).astype(np.int64)
     i = (rng.zipf(1.2, N_EVENTS) % N_ITEMS).astype(np.int64)
@@ -2294,24 +2482,329 @@ def write_events(storage, app_name: str) -> tuple[int, int]:
     i[:N_ITEMS] = np.arange(N_ITEMS)
     rate = rng.random(N_EVENTS) < 0.8
     stars = rng.integers(1, 6, N_EVENTS)
+    times = np.datetime_as_string(
+        np.datetime64("2024-01-01T00:00:00", "s")
+        + np.arange(N_EVENTS).astype("timedelta64[s]"), unit="ms")
+    return types.SimpleNamespace(
+        u=u, i=i, rate=rate, stars=stars, times=times, n=N_EVENTS,
+        pairs=int(np.unique(u * N_ITEMS + i).size))
+
+
+def api_events(ev, lo: int, hi: int) -> list:
+    """Events lo..hi as the event server's API dicts."""
+    return [{"event": "rate" if ev.rate[j] else "buy", "entityType": "user",
+             "entityId": f"u{ev.u[j]}", "targetEntityType": "item",
+             "targetEntityId": f"i{ev.i[j]}",
+             "properties": ({"rating": float(ev.stars[j])} if ev.rate[j]
+                            else {}),
+             "eventTime": f"{ev.times[j]}Z"} for j in range(lo, hi)]
+
+
+def stored_events(ev, lo: int, hi: int) -> list:
+    """The same events as ``Event`` records, for a direct insert."""
+    from datetime import datetime, timedelta, timezone
+
+    from pio_tpu_torch.data.event import Event
+
     t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
-    step = 50_000
-    for lo in range(0, N_EVENTS, step):
-        events.insert_batch([
-            Event("rate" if rate[j] else "buy", "user", f"u{u[j]}", "item",
-                  f"i{i[j]}",
-                  {"rating": float(stars[j])} if rate[j] else {},
-                  t0 + timedelta(seconds=j))
-            for j in range(lo, min(N_EVENTS, lo + step))], app_id)
-    return N_EVENTS, int(np.unique(u * N_ITEMS + i).size)
+    return [Event("rate" if ev.rate[j] else "buy", "user", f"u{ev.u[j]}",
+                  "item", f"i{ev.i[j]}",
+                  {"rating": float(ev.stars[j])} if ev.rate[j] else {},
+                  t0 + timedelta(seconds=int(j)))
+            for j in range(lo, hi)]
+
+
+@contextlib.contextmanager
+def event_server(env: dict):
+    """``python -m pio_tpu_torch eventserver`` (async transport) on a
+    free port over the store ``env`` names; yields its base URL."""
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", "eventserver", "--ip",
+             "127.0.0.1", "--port", "0", "--metrics-key", METRICS_KEY],
+            cwd=REPO_ROOT, env={**os.environ, **env},
+            stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            line = proc.stdout.readline()
+            if "Event Server on http://127.0.0.1:" not in line:
+                err.seek(0)
+                raise AssertionError(f"eventserver: {line!r} {err.read()}")
+            yield line.split()[-1]
+        finally:
+            stop_process(proc)
+
+
+def stop_process(proc) -> None:
+    proc.terminate()
+    try:
+        proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+
+
+def new_app(storage, name: str) -> tuple[int, str]:
+    """``app new NAME``: (app id, its access key)."""
+    rc, printed, _ = _cli(["app", "new", name], storage)
+    if rc != 0:
+        raise AssertionError(f"app new {name}: rc {rc}")
+    app_id = int(printed.split("(id ")[1].split(")")[0])
+    return app_id, printed.rsplit("Access key: ", 1)[1].split()[0]
+
+
+def wire_counters(url: str) -> dict:
+    """The event server's per-codec ingest counters, from /metrics."""
+    with urllib.request.urlopen(
+            f"{url}/metrics?accessKey={METRICS_KEY}", timeout=60) as r:
+        text = r.read().decode()
+    out: dict = {}
+    for line in text.splitlines():
+        if line.startswith("pio_ingest_wire_") and "{" in line:
+            name = line.split("{")[0][len("pio_ingest_wire_"):-len("_total")]
+            codec = line.split('codec="')[1].split('"')[0]
+            out.setdefault(codec, {})[name] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def post_raw(url: str, path: str, body: bytes, ctype: str) -> int:
+    req = urllib.request.Request(f"{url}{path}", data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def wire_twins(storage, url: str) -> dict:
+    """One JSON batch of INGEST_TWINS events and one ``/events.json``
+    event, each beside its binary twin in another channel of a second
+    app: the stored ``Event`` fields are equal but for the minted id
+    and creation time. Then a corrupt frame: 400, nothing stored."""
+    from pio_tpu_torch import sdk
+    from pio_tpu_torch.data.columnar import (
+        COLUMNAR_CONTENT_TYPE,
+        encode_api_batch,
+    )
+
+    app_id, _ = new_app(storage, "ChipSmokeWire")
+    channels = {}
+    for name in ("bin", "json"):
+        rc, printed, _ = _cli(["app", "channel-new", "ChipSmokeWire", name],
+                              storage)
+        assert rc == 0, printed
+        channels[name] = int(printed.split("(id ")[1].split(")")[0])
+    rc, printed, _ = _cli(["accesskey", "new", "ChipSmokeWire"], storage)
+    assert rc == 0, printed
+    key = printed.rsplit("Access key: ", 1)[1].split()[0]
+    ev = seeded_events()
+    batch = api_events(ev, 0, INGEST_TWINS)
+    one = api_events(ev, INGEST_TWINS, INGEST_TWINS + 1)[0]
+    binary = sdk.EventClient(key, url, channel="bin")
+    as_json = sdk.EventClient(key, url, channel="json", wire="json")
+    statuses = [r["status"] for r in binary.create_events_batch(batch)
+                + binary.create_events_batch([one])
+                + as_json.create_events_batch(batch)]
+    as_json.create_event(one["event"], one["entityType"], one["entityId"],
+                         one["targetEntityType"], one["targetEntityId"],
+                         one["properties"], one["eventTime"])
+    if statuses != [201] * len(statuses):
+        raise AssertionError(f"wire twins: statuses {statuses}")
+
+    def read(channel: str) -> list:
+        rows = [e.to_api_dict() for e in storage.get_events().find(
+            app_id, channel_id=channels[channel], limit=-1)]
+        for r in rows:
+            del r["eventId"], r["creationTime"]
+        return sorted(rows, key=lambda r: json.dumps(r, sort_keys=True))
+
+    got = read("bin")
+    if len(got) != INGEST_TWINS + 1 or got != read("json"):
+        raise AssertionError("JSON and binary twins stored differently")
+    frame = bytearray(encode_api_batch(api_events(ev, 0, 100)))
+    frame[len(frame) // 2] ^= 0x01
+    status = post_raw(url, f"/batch/events.json?accessKey={key}",
+                      bytes(frame), COLUMNAR_CONTENT_TYPE)
+    left = len(list(storage.get_events().find(app_id, limit=-1)))
+    if status != 400 or left:
+        raise AssertionError(f"corrupt frame: {status}, {left} stored")
+    return {"twins_equal": True, "twin_events": len(got),
+            "corrupt_frame_status": status, "corrupt_frame_stored": left}
+
+
+def post_frames(url: str, key: str, ev, spans: list) -> dict:
+    """Frames (lo, hi) posted by INGEST_CLIENTS SDK clients at once, each
+    frame's events built and encoded in the posting thread; returns the
+    wall time, the statuses and each thread's CPU seconds."""
+    import threading
+
+    from pio_tpu_torch import sdk
+
+    todo = list(spans)
+    lock = threading.Lock()
+    statuses: dict = {}
+    cpu = []
+    errors = []
+
+    def run():
+        client = sdk.EventClient(key, url, timeout=600)
+        t_cpu = 0.0
+        while True:
+            with lock:
+                if not todo:
+                    break
+                lo, hi = todo.pop(0)
+            t = time.thread_time()
+            try:
+                out = client.create_events_batch(api_events(ev, lo, hi))
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+                return
+            t_cpu += time.thread_time() - t
+            for r in out:
+                statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+        cpu.append(t_cpu)
+
+    threads = [threading.Thread(target=run) for _ in range(INGEST_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return {"wall_s": wall, "statuses": statuses, "client_cpu_s": sum(cpu)}
+
+
+def phase_ingest(store) -> dict:
+    """``train_entry``'s store written the way a deployment writes it:
+    ``app new`` and an event server process (``python -m pio_tpu_torch
+    eventserver``, async transport) on a free port, the seeded 10^6
+    events posted through ``sdk.EventClient.create_events_batch`` in
+    binary frames of INGEST_FRAME by INGEST_CLIENTS threads. Checks that
+    every slot answers 201, that the store holds every event, that the
+    columnar read of the first INGEST_PREFIX events equals a direct
+    ``insert_batch`` of them into a second store, the JSON and binary
+    twins, and a corrupt frame's 400. Times the wire, the server's
+    decode, CRC32C on both sides and the sqlite insert."""
+    import sqlite3
+    import threading
+
+    from pio_tpu_torch.data.columnar import encode_api_batch
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.storage import Storage
+    from pio_tpu_torch.utils import durable
+
+    storage = store.storage
+    app_id, key = new_app(storage, "ChipSmoke")
+    ev = seeded_events()
+    spans = [(lo, min(ev.n, lo + INGEST_FRAME))
+             for lo in range(0, ev.n, INGEST_FRAME)]
+    n_prefix = INGEST_PREFIX // INGEST_FRAME
+    crc = {"s": 0.0, "bytes": 0}
+    crc_lock = threading.Lock()
+    plain_crc = durable.crc32c
+
+    def timed_crc(data) -> int:
+        t = time.thread_time()
+        out = plain_crc(data)
+        dt = time.thread_time() - t
+        with crc_lock:
+            crc["s"] += dt
+            crc["bytes"] += len(data)
+        return out
+
+    out: dict = {"events": ev.n, "ratings": ev.pairs, "frame": INGEST_FRAME,
+                 "clients": INGEST_CLIENTS}
+    with event_server(store.env) as url:
+        durable.crc32c = timed_crc
+        try:
+            first = post_frames(url, key, ev, spans[:n_prefix])
+            # the prefix, read back, against a direct insert of it
+            with tempfile.TemporaryDirectory(prefix="pio_chip_direct_") as d:
+                direct = Storage(env=sqlite_env(d))
+                try:
+                    did = direct.get_metadata_apps().insert(App(0, "direct"))
+                    direct.get_events().init(did)
+                    t0 = time.perf_counter()
+                    for lo in range(0, INGEST_PREFIX, 50_000):
+                        direct.get_events().insert_batch(stored_events(
+                            ev, lo, min(INGEST_PREFIX, lo + 50_000)), did)
+                    out["direct_insert_prefix_s"] = time.perf_counter() - t0
+                    want = direct.get_events().columnarize(did)
+                finally:
+                    direct.close()
+            got = storage.get_events().columnarize(app_id)
+            if (got.users != want.users or got.items != want.items
+                    or any(not np.array_equal(getattr(got, f),
+                                              getattr(want, f))
+                           for f in ("user_idx", "item_idx", "values",
+                                     "times_us"))):
+                raise AssertionError("the prefix posted through the event "
+                                     "server reads back unlike a direct "
+                                     "insert_batch")
+            out["prefix_coo_equal"] = True
+            rest = post_frames(url, key, ev, spans[n_prefix:])
+        finally:
+            durable.crc32c = plain_crc
+        wire = wire_counters(url)
+        out.update(wire_twins(storage, url))
+    statuses = dict(first["statuses"])
+    for s, n in rest["statuses"].items():
+        statuses[s] = statuses.get(s, 0) + n
+    if statuses != {201: ev.n}:
+        raise AssertionError(f"ingest statuses {statuses}")
+    con = sqlite3.connect(store.env["PIO_STORAGE_SOURCES_SQL_PATH"])
+    try:
+        [(n_stored,)] = con.execute(
+            "SELECT COUNT(*) FROM events WHERE app_id = ?", (app_id,))
+    finally:
+        con.close()
+    if n_stored != ev.n:
+        raise AssertionError(f"{n_stored} events stored, {ev.n} posted")
+    # the server checks the same frames' CRC32C with the same function on
+    # the same host: a sample of them timed again, scaled by the bytes
+    sample_s, sample_bytes = 0.0, 0
+    for lo, hi in spans[::len(spans) // INGEST_CRC_SAMPLE][:INGEST_CRC_SAMPLE]:
+        payload = encode_api_batch(api_events(ev, lo, hi))[
+            durable._HEADER.size:]
+        t = time.thread_time()
+        plain_crc(payload)
+        sample_s += time.thread_time() - t
+        sample_bytes += len(payload)
+    binary = wire["binary"]
+    wall = first["wall_s"] + rest["wall_s"]
+    insert_s = out["direct_insert_prefix_s"] * ev.n / INGEST_PREFIX
+    out.update({
+        "stored": n_stored, "statuses": {str(k): v for k, v in
+                                         statuses.items()},
+        "wall_s": wall, "events_per_s": ev.n / wall,
+        "client_cpu_s": first["client_cpu_s"] + rest["client_cpu_s"],
+        "client_crc_s": crc["s"], "frame_bytes": crc["bytes"],
+        "server_decode_s": binary["decode_seconds"],
+        "server_crc_s_est": sample_s * crc["bytes"] / sample_bytes,
+        "sqlite_insert_s_est": insert_s,
+        "http_and_rest_s_est": wall - binary["decode_seconds"] - insert_s,
+        "wire_binary": binary,
+    })
+    emit("ingest", card=card_line(), **out)
+    return out
+
+
+ROW_ORACLE_EVENTS = 200_000  # the first events, read both ways and held equal
 
 
 def split_train_verb(storage, engine, ep, dev: torch.device,
                      want_launches: int) -> dict:
     """The train verb's parts, each timed alone on the same store: the
     sqlite read plus the columnar fold (what the verb reads through),
-    the row path it replaced (``find`` + ``to_interactions``, held equal
-    element for element), the layout build, the sweeps and the persist."""
+    the row path it replaced (``find`` + ``to_interactions``) on the
+    first ROW_ORACLE_EVENTS events, held equal element for element to
+    the columnar read of the same window, the layout build, the sweeps
+    and the persist."""
+    from datetime import datetime, timedelta, timezone
+
     from pio_tpu_torch.data.columnar import columnar_interactions
     from pio_tpu_torch.data.dao import Model
     from pio_tpu_torch.data.eventstore import (
@@ -2342,8 +2835,17 @@ def split_train_verb(storage, engine, ep, dev: torch.device,
     t0 = time.perf_counter()
     inter = store.interactions(ds.app_name, ds.channel_name, **where, **fold)
     out["read_columnar_s"] = time.perf_counter() - t0
+    # the oracle on a window: seeded event j is stamped 2024-01-01 + j s
+    until = (datetime(2024, 1, 1, tzinfo=timezone.utc)
+             + timedelta(seconds=ROW_ORACLE_EVENTS))
     t0 = time.perf_counter()
-    events = list(store.find(ds.app_name, ds.channel_name, **where))
+    window = store.interactions(ds.app_name, ds.channel_name,
+                                until_time=until, **where, **fold)
+    out["window_read_columnar_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = list(store.find(ds.app_name, ds.channel_name,
+                             until_time=until, **where))
+    out["row_oracle_events"] = len(events)
     out["row_sqlite_read_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows = to_interactions(events, value_fn=make_value_fn(
@@ -2352,13 +2854,15 @@ def split_train_verb(storage, engine, ep, dev: torch.device,
     out["row_fold_s"] = time.perf_counter() - t0
     out["read_row_s"] = out["row_sqlite_read_s"] + out["row_fold_s"]
     del events
-    if (inter.users.ids() != rows.users.ids()
-            or inter.items.ids() != rows.items.ids()
-            or any(not np.array_equal(getattr(inter, f), getattr(rows, f))
-                   or getattr(inter, f).dtype != getattr(rows, f).dtype
+    if (out["row_oracle_events"] != ROW_ORACLE_EVENTS
+            or window.users.ids() != rows.users.ids()
+            or window.items.ids() != rows.items.ids()
+            or any(not np.array_equal(getattr(window, f), getattr(rows, f))
+                   or getattr(window, f).dtype != getattr(rows, f).dtype
                    for f in ("user_idx", "item_idx", "values"))):
         raise AssertionError("the columnar read differs from find + fold")
     out["reads_equal"] = True
+    del window
     del rows
 
     algo = engine.algorithm_classes["als"](ep.algorithms[0][1])
@@ -2395,10 +2899,10 @@ def split_train_verb(storage, engine, ep, dev: torch.device,
     return out
 
 
-def phase_train_entry(store, dev: torch.device) -> dict:
-    """Writes the seeded events into ``store`` (shared with the
-    ``evaluate`` phase), trains them through the train verb, deploys
-    the instance and times the verb's parts."""
+def phase_train_entry(store, dev: torch.device, ingest: dict) -> dict:
+    """Trains the events ``ingest`` wrote into ``store`` (shared with the
+    ``evaluate`` phase) through the train verb, deploys the instance and
+    times the verb's parts."""
     from pio_tpu_torch.__main__ import (
         _engine_from_variant,
         _load_variant,
@@ -2410,9 +2914,7 @@ def phase_train_entry(store, dev: torch.device) -> dict:
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
 
     tmp, storage = store.tmp, store.storage
-    t0 = time.perf_counter()
-    n_events, n_pairs = write_events(storage, "ChipSmoke")
-    write_s = time.perf_counter() - t0
+    n_events, n_pairs = ingest["events"], ingest["ratings"]
     engine_dir = Path(tmp) / "engine"
     engine_dir.mkdir()
     (engine_dir / "engine.json").write_text(json.dumps({
@@ -2491,13 +2993,154 @@ def phase_train_entry(store, dev: torch.device) -> dict:
     if served_iid != iid:
         raise AssertionError("deploy did not load the trained instance")
     result = {
-        "events": n_events, "ratings": n_pairs, "write_s": write_s,
+        "events": n_events, "ratings": n_pairs,
         "train_s": train_s, "instance": iid, "launches": train_launches,
         "segment_flush_launches_expected": want_launches,
         "query_ms": [1e3 * t for t in latencies], "split": split,
     }
     emit("train_entry", **result)
     return result
+
+# -- phase 11b: the README quickstart through the port's verbs ----------------
+
+QUICKSTART_QUERIES = 8
+
+
+def columns_equal(a, b) -> bool:
+    """Two columnar reads hold the same rows, tables and properties."""
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("event_code", "entity_code", "target_code",
+                          "time_us", "tz_min"))
+            and (a.event_names, a.entity_ids, a.target_ids)
+            == (b.event_names, b.entity_ids, b.target_ids)
+            and [a.props(j) for j in range(len(a))]
+            == [b.props(j) for j in range(len(b))])
+
+
+def phase_quickstart(dev: torch.device) -> dict:
+    """The README quickstart on a fresh sqlite store: ``app new
+    quickstart``, ``import`` of ``examples/quickstart/events.jsonl.gz``
+    (100,000 events, read in place), an event server process taking one
+    ``POST /events.json`` and one segment.io webhook, ``train`` with the
+    committed engine.json's params (K2 in every flush), the instance
+    deployed (what ``deploy`` serves) answering QUICKSTART_QUERIES
+    queries through ``sdk.EngineClient``, held to the exact top-k, then
+    ``export`` and ``import`` into a fresh app, whose columnar read
+    equals the first."""
+    from pio_tpu_torch import sdk
+    from pio_tpu_torch.__main__ import _engine_from_variant, _load_variant
+    from pio_tpu_torch.data.eventstore import EventStore
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    src = REPO_ROOT / "examples" / "quickstart"
+    secs: dict = {}
+    out: dict = {}
+    with sqlite_store("pio_chip_quickstart_") as store:
+        storage = store.storage
+        t0 = time.perf_counter()
+        app_id, key = new_app(storage, "quickstart")
+        secs["app_new"] = time.perf_counter() - t0
+        rc, printed, secs["import"] = _cli(
+            ["import", "--appid", str(app_id), "--input",
+             str(src / "events.jsonl.gz")], storage)
+        if rc != 0 or "Imported 100000 events (0 failed)" not in printed:
+            raise AssertionError(f"import: rc {rc}: {printed}")
+        with event_server(store.env) as url:
+            t0 = time.perf_counter()
+            sdk.EventClient(key, url).create_event(
+                "rate", "user", "u_quickstart", "item", "i_1", {"rating": 5})
+            secs["post_event"] = time.perf_counter() - t0
+            hook = json.dumps({
+                "version": "2", "type": "track", "userId": "u_quickstart",
+                "event": "signup", "properties": {"plan": "pro"},
+                "timestamp": "2024-06-01T00:00:00.000Z"}).encode()
+            t0 = time.perf_counter()
+            status = post_raw(url, f"/webhooks/segmentio.json?accessKey={key}",
+                              hook, "application/json")
+            secs["webhook"] = time.perf_counter() - t0
+            if status != 201:
+                raise AssertionError(f"segment.io webhook: {status}")
+
+        engine_dir = store.tmp / "engine"
+        engine_dir.mkdir()
+        variant = json.loads((src / "engine.json").read_text())
+        variant["engineFactory"] = FACTORY
+        (engine_dir / "engine.json").write_text(json.dumps(variant))
+        variant = _load_variant(str(engine_dir))
+        engine, ep = _engine_from_variant(variant, str(engine_dir))
+        ds = ep.datasource[1]
+        inter = EventStore(storage).interactions(
+            ds.app_name, entity_type="user", target_entity_type="item",
+            event_names=list(ds.event_names), value_key="rating",
+            default_value=ds.implicit_value, value_event=ds.rating_event,
+            dedup="last")
+        want_k2 = expected_flush_launches(
+            len(inter.values), inter.n_users, inter.n_items,
+            engine.algorithm_classes["als"](ep.algorithms[0][1])
+            ._als_params())
+        # -- the main path: counts from 0, read right after ----------------
+        reset_counts()
+        rc, printed, secs["train"] = _cli(
+            ["train", "--engine-dir", str(engine_dir)], storage)
+        launches = read_counts()
+        # -----------------------------------------------------------------
+        if rc != 0 or launches != {**dict.fromkeys(launches, 0),
+                                   "segment_flush": want_k2}:
+            raise AssertionError(f"quickstart train: rc {rc}, launches "
+                                 f"{launches}, want {want_k2} of K2")
+
+        t0 = time.perf_counter()
+        http, qs = create_query_server(
+            engine, ep, storage,
+            ServingConfig(ip="127.0.0.1", port=0, engine_id=variant["id"]),
+            ctx=create_workflow_context(storage, device=dev))
+        http.start()
+        secs["deploy_load"] = time.perf_counter() - t0
+        try:
+            client = sdk.EngineClient(f"http://127.0.0.1:{http.port}")
+            model = qs.models[0]
+            picked = np.random.default_rng(SEED + 12).choice(
+                len(model.users), QUICKSTART_QUERIES, replace=False)
+            query_ms = []
+            for r in picked:
+                t0 = time.perf_counter()
+                body = client.send_query({"user": model.users.ids()[r],
+                                          "num": 10})
+                query_ms.append(1e3 * (time.perf_counter() - t0))
+                scores, idx = als.recommend_topk(model.factors, [r], 10)
+                _check_same(body, {"itemScores": [
+                    {"item": it, "score": float(sc)} for it, sc in zip(
+                        model.items.decode(idx[0].cpu().numpy()),
+                        scores[0].cpu().numpy())]},
+                    f"quickstart {model.users.ids()[r]}")
+        finally:
+            http.stop()
+            qs.close()
+
+        path = store.tmp / "export.jsonl"
+        rc, printed, secs["export"] = _cli(
+            ["export", "--appid", str(app_id), "--output", str(path)],
+            storage)
+        if rc != 0 or f"Exported 100002 events to {path}" not in printed:
+            raise AssertionError(f"export: rc {rc}: {printed}")
+        again, _ = new_app(storage, "quickstart_again")
+        rc, printed, secs["reimport"] = _cli(
+            ["import", "--appid", str(again), "--input", str(path)], storage)
+        if rc != 0 or "Imported 100002 events (0 failed)" not in printed:
+            raise AssertionError(f"re-import: rc {rc}: {printed}")
+        dao = storage.get_events()
+        if not columns_equal(dao.find_columnar(app_id),
+                             dao.find_columnar(again)):
+            raise AssertionError("the re-imported app reads back unlike "
+                                 "the first")
+        out.update({"launches": launches, "segment_flush_expected": want_k2,
+                    "ratings": len(inter.values), "users": inter.n_users,
+                    "items": inter.n_items, "verb_s": secs,
+                    "query_ms": query_ms, "round_trip_equal": True})
+    emit("quickstart", card=card_line(), **out)
+    return out
 
 # -- phase 12: the flash-attention kernel (K8) ---------------------------------
 
@@ -3259,7 +3902,7 @@ def phase_train_resume(store, dev: torch.device) -> dict:
 # (the batched path), map@10 first, every other metric beside it
 EVAL_GRID = '{"lambda_": [0.01, 0.05], "alpha": [1.0, 10.0]}'
 EVAL_OTHERS = "ndcg@10,precision@10,recall@10,auc"
-EVAL_FOLDS, EVAL_TIME_FOLDS, EVAL_SEED = 3, 2, 42
+EVAL_FOLDS, EVAL_TIME_FOLDS, EVAL_SEED = 2, 2, 42
 # the serve phase's retrieval block, its cluster count and probe stated
 EVAL_RETRIEVAL = {**RETRIEVAL, "n_clusters": 256, "nprobe": 32}
 EVAL_ORACLE_USERS = 256     # fold-0 test users held to the scalar oracles
@@ -3539,7 +4182,7 @@ def sweep_resume_drill(storage, engine_dir: Path, tmp: Path,
 def phase_evaluate(store, dev: torch.device, entry: dict) -> dict:
     """Evaluation and tuning on train_entry's events (the ML-20M
     catalog, rank 64, 10 sweeps, implicit): ``eval --sweep`` with 4
-    candidates as one stacked group on 3 seeded k-folds (fold 0 checked
+    candidates as one stacked group on 2 seeded k-folds (fold 0 checked
     again outside the verb), the same grid on 2 time folds (killed at
     fold 1 and resumed as well), ``eval
     <Evaluation> <ParamsGenerator>`` (K2 in its 6 trainings, K7 in its 6
@@ -3833,8 +4476,10 @@ def main() -> int:
     del ratings
     # the 10^6 seeded events are written once, for both phases
     with sqlite_store("pio_chip_train_") as store:
-        entry = timed("train_entry", phase_train_entry, store, dev)
+        ingest = timed("ingest", phase_ingest, store)
+        entry = timed("train_entry", phase_train_entry, store, dev, ingest)
         evaluate = timed("evaluate", phase_evaluate, store, dev, entry)
+    quickstart = timed("quickstart", phase_quickstart, dev)
     attn = timed("attention_kernel", phase_attention_kernel, dev)
     timed("sequence_train", phase_sequence_train, dev)
     with sqlite_store("pio_chip_seq_") as store:
@@ -3860,6 +4505,8 @@ def main() -> int:
             "pio_tpu/ops/retrieval.py:550",
             serve["launches"]["quantized_scan"], head,
             launches_foldin=foldin["launches"]["quantized_scan"],
+            launches_foldin_http=foldin["http_arm"]["launches"][
+                "quantized_scan"],
             launches_evaluate_class_mode=evaluate["class_mode"]["launches"][
                 "quantized_scan"],
             launches_evaluate_batchpredict=evaluate["batchpredict"][

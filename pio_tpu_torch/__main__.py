@@ -42,19 +42,36 @@ Verbs ported so far:
            the latest COMPLETED instance (or --engine-instance-id), in
            --batch-size device batches; no HTTP server.
   foldin   the streaming fold-in worker (docs/freshness.md): tail the
-           engine's events in the store, solve refreshed user rows
+           engine's events (in the store, or over an event server's
+           GET /tail/events.json long-poll with --event-server-url,
+           --access-key and --tail-wait), solve refreshed user rows
            against the deployed model's item factors (on the CUDA
            device unless --device cpu) and hot-swap them into the
            deploy server at --serving-url. --once runs one cycle and
            prints its stats as JSON; otherwise it loops, with its health
            surface on --ip/--port.
+  app      new | list | show | delete | trim | cleanup | data-delete |
+           channel-new | channel-delete: the apps, their event data and
+           channels in the PIO_STORAGE_* store.
+  accesskey  new | list | delete: an app's access keys (with an
+           optional event whitelist).
+  eventserver  the REST ingest API (POST /events.json, the JSON and
+           binary columnar /batch/events.json, the tail long-poll,
+           webhooks, /stats.json, /metrics) on the async transport
+           unless --server-backend threaded, with the spill queue, the
+           per-app ingest quota and TLS options.
+  import / export  JSON-lines (optionally .gz) or Parquet files into and
+           out of an app's events.
 
-Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_eval``,
-``cmd_batchpredict`` and ``cmd_foldin`` in ``pio_tpu.tools.cli``. Not
-ported yet: the mesh options (--no-mesh: the port holds one device);
-deploy's fleet, canary, TLS, feedback, batching and warm-query options;
-foldin's --router-url (the fleet), --event-server-url, --access-key and
---tail-wait (the event server's tail route).
+The ingest verbs touch no tensor and take no --device. Counterparts of
+``cmd_train``, ``cmd_deploy``, ``cmd_eval``, ``cmd_batchpredict``,
+``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``, ``cmd_eventserver``,
+``cmd_import`` and ``cmd_export`` in ``pio_tpu.tools.cli``, with the same
+flags, output lines and exit codes; eventserver also takes --backend for
+--server-backend and the spill and quota settings of
+``EventServerConfig``. Not ported yet: the mesh options (--no-mesh: the
+port holds one device); deploy's fleet, canary, TLS, feedback, batching
+and warm-query options; foldin's --router-url (the fleet).
 """
 
 from __future__ import annotations
@@ -65,7 +82,14 @@ import json
 import os
 import sys
 
+from pio_tpu_torch.data.dao import AccessKey, Channel
 from pio_tpu_torch.data.storage import get_storage
+from pio_tpu_torch.tools import appops
+
+
+def _fail(msg: str) -> int:
+    print(f"[ERROR] {msg}", file=sys.stderr)
+    return 1
 
 
 def _load_variant(engine_dir: str) -> dict:
@@ -117,9 +141,7 @@ def cmd_train(args) -> int:
     from pio_tpu_torch.workflow.train import run_train
 
     if args.resume and args.auto_resume:
-        print("[ERROR] --resume and --auto-resume are mutually exclusive",
-              file=sys.stderr)
-        return 1
+        return _fail("--resume and --auto-resume are mutually exclusive")
     variant = _load_variant(args.engine_dir)
     engine, ep = _engine_from_variant(variant, args.engine_dir)
     engine_id, engine_version, engine_variant = _engine_ids(
@@ -216,9 +238,8 @@ def cmd_eval(args) -> int:
     if args.sweep:
         return _eval_sweep(args)
     if not args.evaluation_class or not args.params_generator_class:
-        print("[ERROR] eval takes either --sweep (grid mode) or "
-              "<EvaluationClass> <ParamsGeneratorClass>", file=sys.stderr)
-        return 1
+        return _fail("eval takes either --sweep (grid mode) or "
+                     "<EvaluationClass> <ParamsGeneratorClass>")
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.evaluate import run_evaluation_class
 
@@ -320,8 +341,7 @@ def _eval_sweep(args) -> int:
     except (ValueError, OSError) as e:
         # OSError: --grid @file.json that does not exist/read — the
         # same one-line error every other argument mistake gets
-        print(f"[ERROR] {e}", file=sys.stderr)
-        return 1
+        return _fail(str(e))
     config = SweepConfig(
         metric=metric, other_metrics=others,
         split=args.split, folds=args.folds, seed=args.seed,
@@ -413,6 +433,7 @@ def cmd_foldin(args) -> int:
         ServingHttpApplier,
         create_foldin_server,
     )
+    from pio_tpu_torch.freshness.tail import HttpEventSource
     from pio_tpu_torch.ops import als
 
     variant = _load_variant(args.engine_dir)
@@ -423,15 +444,12 @@ def cmd_foldin(args) -> int:
     _, ap = (ep.algorithms or [(None, None)])[0]
     rank = getattr(ap, "rank", None)
     if rank is None:
-        print("[ERROR] fold-in needs a factor-model engine (algorithm "
-              "params with rank/lambda_/alpha/implicit_prefs); got "
-              f"{type(ap).__name__}", file=sys.stderr)
-        return 1
+        return _fail("fold-in needs a factor-model engine (algorithm params "
+                     "with rank/lambda_/alpha/implicit_prefs); got "
+                     f"{type(ap).__name__}")
     app_name = getattr(ds, "app_name", "")
     if not app_name:
-        print("[ERROR] engine.json datasource params carry no appName",
-              file=sys.stderr)
-        return 1
+        return _fail("engine.json datasource params carry no appName")
     state_path = args.state_path or os.path.join(
         os.path.expanduser(os.environ.get("PIO_TPU_HOME", "~/.pio_tpu")),
         "foldin", f"{engine_id}-{engine_variant}.cursor")
@@ -461,7 +479,15 @@ def cmd_foldin(args) -> int:
         server_key=key,
     )
     applier = ServingHttpApplier(args.serving_url, key)
-    worker = FoldInWorker(get_storage(), config, applier,
+    source = None
+    if args.event_server_url:
+        source = HttpEventSource(
+            args.event_server_url, args.access_key,
+            channel_name=config.channel_name,
+            event_names=config.event_names,
+            wait_s=args.tail_wait,
+        )
+    worker = FoldInWorker(get_storage(), config, applier, source=source,
                           device=args.device)
     if args.once:
         try:
@@ -486,6 +512,243 @@ def cmd_foldin(args) -> int:
     http.stop()
     print("fold-in worker stopped.")
     return 0
+
+
+def cmd_app(args) -> int:
+    storage = get_storage()
+    apps = storage.get_metadata_apps()
+    keys = storage.get_metadata_access_keys()
+    channels = storage.get_metadata_channels()
+    sub = args.subcommand
+    if sub == "new":
+        created = appops.create_app(
+            storage, args.name, args.description,
+            app_id=args.id or 0, access_key=args.access_key or "",
+        )
+        if created is None:
+            return _fail(f"App {args.name} already exists.")
+        app_id, key = created
+        print(f"App '{args.name}' created (id {app_id}).")
+        print(f"Access key: {key}")
+        return 0
+    if sub == "list":
+        for a in sorted(apps.get_all(), key=lambda a: a.id):
+            ks = keys.get_by_appid(a.id)
+            print(f"{a.id:>6}  {a.name:<24} keys={len(ks)}")
+        return 0
+    if sub == "show":
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        print(f"App: {a.name} (id {a.id})")
+        print(f"Description: {a.description or ''}")
+        for k in keys.get_by_appid(a.id):
+            events = ",".join(k.events) or "(all)"
+            print(f"  key {k.key} events={events}")
+        for c in channels.get_by_appid(a.id):
+            print(f"  channel {c.id}: {c.name}")
+        return 0
+    if sub == "delete":
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        appops.delete_app(storage, a)
+        print(f"App '{args.name}' deleted.")
+        return 0
+    if sub == "data-delete":
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        channel_id = None
+        if args.channel:
+            ch = next((c for c in channels.get_by_appid(a.id)
+                       if c.name == args.channel), None)
+            if ch is None:
+                return _fail(f"Channel {args.channel} does not exist.")
+            channel_id = ch.id
+        appops.delete_app_data(storage, a, channel_id)
+        print(f"Data of app '{args.name}' deleted.")
+        return 0
+    if sub == "trim":
+        from pio_tpu_torch.utils.time import parse_time
+
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        dst = apps.get_by_name(args.dst)
+        if dst is None:
+            return _fail(f"Destination app {args.dst} does not exist "
+                         "(create it with `pio app new` first).")
+        try:
+            counts = appops.trim_copy(
+                storage, a, dst,
+                start_time=parse_time(args.start) if args.start else None,
+                until_time=parse_time(args.until) if args.until else None,
+                channel_name=args.channel or None,
+            )
+        except ValueError as e:
+            return _fail(str(e))
+        total = sum(counts.values())
+        detail = ", ".join(f"{k}: {v}" for k, v in counts.items())
+        print(f"Copied {total} events from '{a.name}' to '{dst.name}' "
+              f"({detail}).")
+        return 0
+    if sub == "cleanup":
+        from pio_tpu_torch.utils.time import parse_time
+
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        try:
+            counts = appops.cleanup_events(
+                storage, a,
+                until_time=parse_time(args.until),  # --until is required
+                channel_name=args.channel or None,
+            )
+        except ValueError as e:
+            return _fail(str(e))
+        total = sum(counts.values())
+        detail = ", ".join(f"{k}: {v}" for k, v in counts.items())
+        print(f"Deleted {total} events from '{a.name}' ({detail}).")
+        return 0
+    if sub == "channel-new":
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        if not Channel.is_valid_name(args.channel):
+            return _fail(
+                f"Channel name {args.channel} is invalid "
+                "(1-16 alphanumeric/dash characters)."
+            )
+        cid = channels.insert(Channel(0, args.channel, a.id))
+        if cid is None:
+            return _fail(f"Channel {args.channel} could not be created.")
+        storage.get_events().init(a.id, cid)
+        print(f"Channel '{args.channel}' (id {cid}) created for app "
+              f"'{args.name}'.")
+        return 0
+    if sub == "channel-delete":
+        a = apps.get_by_name(args.name)
+        if a is None:
+            return _fail(f"App {args.name} does not exist.")
+        ch = next((c for c in channels.get_by_appid(a.id)
+                   if c.name == args.channel), None)
+        if ch is None:
+            return _fail(f"Channel {args.channel} does not exist.")
+        storage.get_events().remove(a.id, ch.id)
+        channels.delete(ch.id)
+        print(f"Channel '{args.channel}' deleted.")
+        return 0
+    return _fail(f"unknown app subcommand {sub}")
+
+
+def cmd_accesskey(args) -> int:
+    storage = get_storage()
+    keys = storage.get_metadata_access_keys()
+    if args.subcommand == "new":
+        a = storage.get_metadata_apps().get_by_name(args.app_name)
+        if a is None:
+            return _fail(f"App {args.app_name} does not exist.")
+        key = keys.insert(
+            AccessKey("", a.id, tuple(args.event or ()))
+        )
+        print(f"Access key: {key}")
+        return 0
+    if args.subcommand == "list":
+        app_filter = None
+        if args.app_name:
+            a = storage.get_metadata_apps().get_by_name(args.app_name)
+            if a is None:
+                return _fail(f"App {args.app_name} does not exist.")
+            app_filter = a.id
+        for k in keys.get_all():
+            if app_filter is not None and k.appid != app_filter:
+                continue
+            events = ",".join(k.events) or "(all)"
+            print(f"{k.key} app={k.appid} events={events}")
+        return 0
+    if args.subcommand == "delete":
+        keys.delete(args.key)
+        print(f"Access key {args.key} deleted.")
+        return 0
+    return _fail(f"unknown accesskey subcommand {args.subcommand}")
+
+
+def cmd_eventserver(args) -> int:
+    from pio_tpu_torch.server.eventserver import EventServerConfig, create_event_server
+
+    srv = create_event_server(
+        get_storage(),
+        EventServerConfig(ip=args.ip, port=args.port, stats=args.stats,
+                          metrics_key=args.metrics_key or "",
+                          certfile=args.cert, keyfile=args.key,
+                          backend=args.server_backend,
+                          spill_capacity=args.spill_capacity,
+                          spill_high_water=args.spill_high_water,
+                          spill_low_water=args.spill_low_water,
+                          ingest_quota_qps=args.ingest_quota_qps,
+                          ingest_quota_burst=args.ingest_quota_burst),
+    )
+    srv.start()  # bind first: with --port 0 the real port is only known now
+    scheme = "https" if srv.tls else "http"
+    print(f"Event Server on {scheme}://{args.ip}:{srv.port}")
+    try:
+        srv.wait()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+def _io_format(explicit: str | None, path: str) -> str:
+    if explicit:
+        return explicit
+    return "parquet" if path.endswith(".parquet") else "json"
+
+
+def cmd_export(args) -> int:
+    from pio_tpu_torch.tools.export_import import export_events, export_events_parquet
+
+    storage = get_storage()
+    a = storage.get_metadata_apps().get(args.appid)
+    if a is None:
+        return _fail(f"App id {args.appid} does not exist.")
+    channel_id = None
+    if args.channel:
+        ch = next((c for c in storage.get_metadata_channels()
+                   .get_by_appid(a.id) if c.name == args.channel), None)
+        if ch is None:
+            return _fail(f"Channel {args.channel} does not exist.")
+        channel_id = ch.id
+    if _io_format(getattr(args, "format", None), args.output) == "parquet":
+        n = export_events_parquet(
+            storage, args.appid, args.output, channel_id=channel_id
+        )
+    else:
+        with _open_text(args.output, "wt") as f:
+            n = export_events(storage, args.appid, f, channel_id=channel_id)
+    print(f"Exported {n} events to {args.output}")
+    return 0
+
+
+def _open_text(path: str, mode: str):
+    """open() with transparent .gz (committed datasets ship gzipped)."""
+    if path.endswith(".gz"):
+        import gzip
+
+        return gzip.open(path, mode, encoding="utf-8")
+    return open(path, mode.rstrip("t"), encoding="utf-8")
+
+
+def cmd_import(args) -> int:
+    from pio_tpu_torch.tools.export_import import import_events, import_events_parquet
+
+    if _io_format(getattr(args, "format", None), args.input) == "parquet":
+        ok, failed = import_events_parquet(get_storage(), args.appid, args.input)
+    else:
+        with _open_text(args.input, "rt") as f:
+            ok, failed = import_events(get_storage(), args.appid, f)
+    print(f"Imported {ok} events ({failed} failed).")
+    return 0 if failed == 0 else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -611,6 +874,12 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--engine-dir", default=".")
     x.add_argument("--serving-url", default="http://127.0.0.1:8000",
                    help="single-host deploy server to apply rows to")
+    x.add_argument("--event-server-url", default="",
+                   help="tail a remote event server's GET /tail/events.json"
+                        " (default: read the event store directly)")
+    x.add_argument("--access-key", default="",
+                   help="event-server app access key "
+                        "(with --event-server-url)")
     x.add_argument("--server-key", default="",
                    help="serving server key (or PIO_SERVER_KEY)")
     x.add_argument("--state-path", default="",
@@ -622,6 +891,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "starting at now")
     x.add_argument("--interval", type=float, default=0.5,
                    help="tail poll interval (seconds)")
+    x.add_argument("--tail-wait", type=float, default=10.0,
+                   help="with --event-server-url: long-poll push "
+                        "subscription — an idle tail blocks server-side "
+                        "this many seconds for new events before "
+                        "answering (0 = plain polling; pre-long-poll "
+                        "servers degrade to polling automatically)")
     x.add_argument("--max-batch-users", type=int, default=1024,
                    help="fold batch cap per cycle")
     x.add_argument("--staleness-budget", type=float, default=60.0,
@@ -637,6 +912,103 @@ def build_parser() -> argparse.ArgumentParser:
                    help="solve device (default cuda; cpu must be asked "
                         "for)")
     x.set_defaults(fn=cmd_foldin)
+    pa = sub.add_parser("app")
+    pas = pa.add_subparsers(dest="subcommand", required=True)
+    x = pas.add_parser("new")
+    x.add_argument("name")
+    x.add_argument("--id", type=int, default=0)
+    x.add_argument("--description")
+    x.add_argument("--access-key", default="")
+    pas.add_parser("list")
+    x = pas.add_parser("show")
+    x.add_argument("name")
+    x = pas.add_parser("delete")
+    x.add_argument("name")
+    x = pas.add_parser(
+        "trim", help="copy a time window of events into an EMPTY "
+        "destination app (reference experimental trim-app)")
+    x.add_argument("name")
+    x.add_argument("dst")
+    x.add_argument("--start", default="", help="ISO-8601 inclusive start")
+    x.add_argument("--until", default="", help="ISO-8601 exclusive end")
+    x.add_argument("--channel", default="",
+                   help="copy only this named channel (all namespaces — "
+                        "default + every channel — are copied otherwise)")
+    x.set_defaults(fn=cmd_app, subcommand="trim")
+
+    x = pas.add_parser(
+        "cleanup", help="delete events OLDER than --until in place "
+        "(reference experimental cleanup-app)")
+    x.add_argument("name")
+    x.add_argument("--until", required=True,
+                   help="ISO-8601 exclusive cutoff: events before it go")
+    x.add_argument("--channel", default="",
+                   help="clean only this channel (all namespaces otherwise)")
+    x.set_defaults(fn=cmd_app, subcommand="cleanup")
+
+    x = pas.add_parser("data-delete")
+    x.add_argument("name")
+    x.add_argument("--channel")
+    x = pas.add_parser("channel-new")
+    x.add_argument("name")
+    x.add_argument("channel")
+    x = pas.add_parser("channel-delete")
+    x.add_argument("name")
+    x.add_argument("channel")
+    pa.set_defaults(fn=cmd_app)
+
+    pk = sub.add_parser("accesskey")
+    pks = pk.add_subparsers(dest="subcommand", required=True)
+    x = pks.add_parser("new")
+    x.add_argument("app_name")
+    x.add_argument("--event", action="append")
+    x = pks.add_parser("list")
+    x.add_argument("app_name", nargs="?")
+    x = pks.add_parser("delete")
+    x.add_argument("key")
+    pk.set_defaults(fn=cmd_accesskey)
+    x = sub.add_parser("eventserver")
+    x.add_argument("--ip", default="0.0.0.0")
+    x.add_argument("--port", type=int, default=7070)
+    x.add_argument("--stats", action="store_true")
+    x.add_argument("--metrics-key",
+                   help="with --stats: enable GET /metrics (Prometheus "
+                        "ingest counters, cross-app) guarded by this key")
+    x.add_argument("--cert", help="TLS certificate (PEM) -> serve HTTPS")
+    x.add_argument("--key", help="TLS private key (PEM)")
+    x.add_argument("--server-backend", "--backend",
+                   choices=["async", "threaded"], default="async")
+    x.add_argument("--spill-capacity", type=int, default=10000,
+                   help="events parked in memory while the event store "
+                        "is down, drained once it recovers (0 = off: "
+                        "503 + Retry-After)")
+    x.add_argument("--spill-high-water", type=int, default=0,
+                   help="answer 429 + Retry-After past this many spilled "
+                        "events (0 = spill until full)")
+    x.add_argument("--spill-low-water", type=int, default=0,
+                   help="resume spilling once the drain is back under "
+                        "this mark (default high-water / 2)")
+    x.add_argument("--ingest-quota-qps", type=float, default=0.0,
+                   help="per-app token-bucket ingest quota in POSTs/s "
+                        "(0 = off)")
+    x.add_argument("--ingest-quota-burst", type=float, default=0.0,
+                   help="per-app quota burst (0 = max(qps, 1))")
+    x.set_defaults(fn=cmd_eventserver)
+
+    x = sub.add_parser("export")
+    x.add_argument("--appid", type=int, required=True)
+    x.add_argument("--output", required=True)
+    x.add_argument("--channel")
+    x.add_argument("--format", choices=["json", "parquet"],
+                   help="default: by --output extension (.parquet), else json")
+    x.set_defaults(fn=cmd_export)
+
+    x = sub.add_parser("import")
+    x.add_argument("--appid", type=int, required=True)
+    x.add_argument("--input", required=True)
+    x.add_argument("--format", choices=["json", "parquet"],
+                   help="default: by --input extension (.parquet), else json")
+    x.set_defaults(fn=cmd_import)
     return p
 
 

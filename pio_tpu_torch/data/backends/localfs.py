@@ -1,0 +1,57 @@
+"""Local-filesystem model blob store.
+
+Plays the role of reference data/.../storage/localfs/LocalFSModels.scala (and
+hdfs/HDFSModels.scala): MODELDATA repository storing model blobs as files.
+Checkpoint directories from orbax also live under the same root; this DAO
+covers the opaque-blob path used by pickled local models.
+
+Durability: ``insert`` goes through ``utils.durable.durable_write`` (tmp
+file + fsync + atomic rename + CRC32C header) — the reference's bare
+FileOutputStream left a truncated ``pio_model_*.bin`` behind any crash
+mid-write, and ``get`` happily returned it. ``get`` now verifies the
+frame and raises ``ModelIntegrityError`` on a torn or bit-rotted file;
+pre-durability files (no frame header) pass through unverified.
+"""
+
+from __future__ import annotations
+
+import os
+
+from pio_tpu_torch.data import dao as d
+from pio_tpu_torch.data.storage import Backend
+from pio_tpu_torch.utils.durable import ModelIntegrityError, durable_read, durable_write
+
+__all__ = ["LocalFSBackend", "ModelIntegrityError"]
+
+
+class LocalFSBackend(Backend):
+    def __init__(self, config):
+        super().__init__(config)
+        self.path = config.properties.get("PATH", ".pio_models")
+        os.makedirs(self.path, exist_ok=True)
+
+    def models(self):
+        return _FSModels(self.path)
+
+
+class _FSModels(d.ModelsDAO):
+    def __init__(self, root: str):
+        self.root = root
+
+    def _path(self, model_id: str) -> str:
+        safe = model_id.replace("/", "_")
+        return os.path.join(self.root, f"pio_model_{safe}.bin")
+
+    def insert(self, m: d.Model):
+        durable_write(self._path(m.id), m.models)
+
+    def get(self, model_id):
+        p = self._path(model_id)
+        if not os.path.exists(p):
+            return None
+        return d.Model(model_id, durable_read(p))
+
+    def delete(self, model_id):
+        p = self._path(model_id)
+        if os.path.exists(p):
+            os.remove(p)

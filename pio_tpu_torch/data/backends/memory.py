@@ -1,0 +1,338 @@
+"""In-memory storage backend — the test/dev backend.
+
+Implements every DAO; thread-safe via a single RLock (the event server
+handles requests on a thread pool). Plays the role the reference's
+StorageClientConfig.test=true mode plays (Storage.scala:59,77).
+"""
+
+from __future__ import annotations
+
+import threading
+from datetime import datetime
+from typing import Iterator, Sequence
+
+from pio_tpu_torch.data import dao as d
+from pio_tpu_torch.data.backends.common import apply_limit, match_event, new_event_id
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.data.storage import Backend, StorageError
+
+
+class _Tables:
+    def __init__(self):
+        self.apps: dict[int, d.App] = {}
+        self.access_keys: dict[str, d.AccessKey] = {}
+        self.channels: dict[int, d.Channel] = {}
+        self.engine_instances: dict[str, d.EngineInstance] = {}
+        self.engine_manifests: dict[tuple[str, str], d.EngineManifest] = {}
+        self.evaluation_instances: dict[str, d.EvaluationInstance] = {}
+        self.models: dict[str, d.Model] = {}
+        # (app_id, channel_id) -> {event_id: Event}
+        self.events: dict[tuple[int, int | None], dict[str, Event]] = {}
+        self.next_app_id = 1
+        self.next_channel_id = 1
+        self.next_instance_id = 1
+        self.lock = threading.RLock()
+
+
+class MemoryBackend(Backend):
+    def __init__(self, config):
+        super().__init__(config)
+        self._t = _Tables()
+
+    def apps(self):
+        return _MemApps(self._t)
+
+    def access_keys(self):
+        return _MemAccessKeys(self._t)
+
+    def channels(self):
+        return _MemChannels(self._t)
+
+    def engine_instances(self):
+        return _MemEngineInstances(self._t)
+
+    def engine_manifests(self):
+        return _MemEngineManifests(self._t)
+
+    def evaluation_instances(self):
+        return _MemEvaluationInstances(self._t)
+
+    def models(self):
+        return _MemModels(self._t)
+
+    def events(self):
+        return _MemEvents(self._t)
+
+
+class _MemApps(d.AppsDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, app: d.App):
+        with self.t.lock:
+            app_id = app.id if app.id > 0 else self.t.next_app_id
+            if app_id in self.t.apps or any(
+                a.name == app.name for a in self.t.apps.values()
+            ):
+                return None
+            self.t.next_app_id = max(self.t.next_app_id, app_id + 1)
+            self.t.apps[app_id] = d.App(app_id, app.name, app.description)
+            return app_id
+
+    def get(self, app_id):
+        return self.t.apps.get(app_id)
+
+    def get_by_name(self, name):
+        for a in self.t.apps.values():
+            if a.name == name:
+                return a
+        return None
+
+    def get_all(self):
+        return list(self.t.apps.values())
+
+    def update(self, app):
+        with self.t.lock:
+            self.t.apps[app.id] = app
+
+    def delete(self, app_id):
+        with self.t.lock:
+            self.t.apps.pop(app_id, None)
+
+
+class _MemAccessKeys(d.AccessKeysDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, k: d.AccessKey):
+        with self.t.lock:
+            key = k.key or self.generate_key()
+            if key in self.t.access_keys:
+                return None
+            self.t.access_keys[key] = d.AccessKey(key, k.appid, tuple(k.events))
+            return key
+
+    def get(self, key):
+        return self.t.access_keys.get(key)
+
+    def get_all(self):
+        return list(self.t.access_keys.values())
+
+    def get_by_appid(self, appid):
+        return [k for k in self.t.access_keys.values() if k.appid == appid]
+
+    def update(self, k):
+        with self.t.lock:
+            self.t.access_keys[k.key] = k
+
+    def delete(self, key):
+        with self.t.lock:
+            self.t.access_keys.pop(key, None)
+
+
+class _MemChannels(d.ChannelsDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, channel: d.Channel):
+        if not d.Channel.is_valid_name(channel.name):
+            return None
+        with self.t.lock:
+            cid = channel.id if channel.id > 0 else self.t.next_channel_id
+            if cid in self.t.channels:
+                return None
+            self.t.next_channel_id = max(self.t.next_channel_id, cid + 1)
+            self.t.channels[cid] = d.Channel(cid, channel.name, channel.appid)
+            return cid
+
+    def get(self, channel_id):
+        return self.t.channels.get(channel_id)
+
+    def get_by_appid(self, appid):
+        return [c for c in self.t.channels.values() if c.appid == appid]
+
+    def delete(self, channel_id):
+        with self.t.lock:
+            self.t.channels.pop(channel_id, None)
+
+
+class _MemEngineInstances(d.EngineInstancesDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, i: d.EngineInstance):
+        with self.t.lock:
+            iid = i.id or str(self.t.next_instance_id)
+            self.t.next_instance_id += 1
+            from dataclasses import replace
+
+            self.t.engine_instances[iid] = replace(i, id=iid)
+            return iid
+
+    def get(self, instance_id):
+        return self.t.engine_instances.get(instance_id)
+
+    def get_all(self):
+        return list(self.t.engine_instances.values())
+
+    def update(self, i):
+        with self.t.lock:
+            self.t.engine_instances[i.id] = i
+
+    def delete(self, instance_id):
+        with self.t.lock:
+            self.t.engine_instances.pop(instance_id, None)
+
+
+class _MemEngineManifests(d.EngineManifestsDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, m: d.EngineManifest):
+        with self.t.lock:
+            self.t.engine_manifests[(m.id, m.version)] = m
+
+    def get(self, manifest_id, version):
+        return self.t.engine_manifests.get((manifest_id, version))
+
+    def get_all(self):
+        return list(self.t.engine_manifests.values())
+
+    def update(self, m, upsert=False):
+        self.insert(m)
+
+    def delete(self, manifest_id, version):
+        with self.t.lock:
+            self.t.engine_manifests.pop((manifest_id, version), None)
+
+
+class _MemEvaluationInstances(d.EvaluationInstancesDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, i: d.EvaluationInstance):
+        with self.t.lock:
+            iid = i.id or str(self.t.next_instance_id)
+            self.t.next_instance_id += 1
+            from dataclasses import replace
+
+            self.t.evaluation_instances[iid] = replace(i, id=iid)
+            return iid
+
+    def get(self, instance_id):
+        return self.t.evaluation_instances.get(instance_id)
+
+    def get_all(self):
+        return list(self.t.evaluation_instances.values())
+
+    def update(self, i):
+        with self.t.lock:
+            self.t.evaluation_instances[i.id] = i
+
+    def delete(self, instance_id):
+        with self.t.lock:
+            self.t.evaluation_instances.pop(instance_id, None)
+
+
+class _MemModels(d.ModelsDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def insert(self, m: d.Model):
+        with self.t.lock:
+            self.t.models[m.id] = m
+
+    def get(self, model_id):
+        return self.t.models.get(model_id)
+
+    def delete(self, model_id):
+        with self.t.lock:
+            self.t.models.pop(model_id, None)
+
+
+class _MemEvents(d.EventsDAO):
+    def __init__(self, t: _Tables):
+        self.t = t
+
+    def _ns(self, app_id: int, channel_id: int | None) -> dict[str, Event]:
+        key = (app_id, channel_id)
+        if key not in self.t.events:
+            raise StorageError(
+                f"events namespace not initialized for app {app_id} "
+                f"channel {channel_id} (call init first)"
+            )
+        return self.t.events[key]
+
+    def init(self, app_id, channel_id=None):
+        with self.t.lock:
+            self.t.events.setdefault((app_id, channel_id), {})
+            return True
+
+    def remove(self, app_id, channel_id=None):
+        with self.t.lock:
+            return self.t.events.pop((app_id, channel_id), None) is not None
+
+    def close(self):
+        pass
+
+    def insert(self, event: Event, app_id, channel_id=None):
+        with self.t.lock:
+            ns = self._ns(app_id, channel_id)
+            eid = event.event_id or new_event_id()
+            # skip the with_id copy when the id is already set (the event
+            # server mints ids at the edge, so this is the common case)
+            ns[eid] = event if event.event_id == eid else event.with_id(eid)
+            return eid
+
+    def insert_batch(self, events, app_id, channel_id=None):
+        """Bulk append: one lock hold for the whole batch (the default
+        loop re-acquires per event — and through the ResilientDAO proxy
+        pays a retry/breaker/deadline stack per event too)."""
+        with self.t.lock:
+            ns = self._ns(app_id, channel_id)
+            out = []
+            for event in events:
+                eid = event.event_id or new_event_id()
+                ns[eid] = (event if event.event_id == eid
+                           else event.with_id(eid))
+                out.append(eid)
+            return out
+
+    def get(self, event_id, app_id, channel_id=None):
+        with self.t.lock:
+            return self._ns(app_id, channel_id).get(event_id)
+
+    def delete(self, event_id, app_id, channel_id=None):
+        with self.t.lock:
+            return self._ns(app_id, channel_id).pop(event_id, None) is not None
+
+    def find(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        start_time: datetime | None = None,
+        until_time: datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+        limit: int | None = None,
+        reversed: bool = False,
+    ) -> Iterator[Event]:
+        with self.t.lock:
+            evs = [
+                e
+                for e in self._ns(app_id, channel_id).values()
+                if match_event(
+                    e,
+                    start_time,
+                    until_time,
+                    entity_type,
+                    entity_id,
+                    event_names,
+                    target_entity_type,
+                    target_entity_id,
+                )
+            ]
+        return iter(apply_limit(evs, limit, reversed))

@@ -14,9 +14,9 @@ When no env configuration exists we default everything to a sqlite source at
 ``$PIO_TPU_HOME/pio.db`` (reference fails instead; a zero-config default is
 deliberate dev UX).
 
-Copy of ``pio_tpu.data.storage`` with two trims: DAOs are returned bare
-(the JAX package fronts each with ``resilience.ResilientDAO`` retry and
-circuit breakers), and only the sqlite backend is registered.
+Copy of ``pio_tpu.data.storage`` registering the memory, sqlite (and its
+``jdbc`` alias) and localfs backends only: the native event log, remote,
+sharded, replicated, PostgreSQL and MySQL backends are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from pio_tpu_torch.data import dao as daomod
+from pio_tpu_torch.resilience import CircuitBreaker, ResilientDAO
 
 
 class StorageError(RuntimeError):
@@ -86,8 +87,10 @@ class Backend:
 
 # type name -> "module:ClassName" (lazy import so optional deps stay optional)
 _BACKEND_REGISTRY: dict[str, str] = {
+    "memory": "pio_tpu_torch.data.backends.memory:MemoryBackend",
     "sqlite": "pio_tpu_torch.data.backends.sqlite:SqliteBackend",
     "jdbc": "pio_tpu_torch.data.backends.sqlite:SqliteBackend",  # operational alias
+    "localfs": "pio_tpu_torch.data.backends.localfs:LocalFSBackend",
 }
 
 
@@ -183,11 +186,24 @@ class Storage:
     ``get_storage``); construct directly with an env dict for tests.
     """
 
-    def __init__(self, env: dict[str, str] | None = None, test: bool = False):
+    def __init__(self, env: dict[str, str] | None = None, test: bool = False,
+                 resilience: bool | None = None):
         self.sources, self.repositories = parse_env(env)
         self.test = test
         self._clients: dict[str, Backend] = {}
         self._lock = threading.Lock()
+        # resilience wrapping (retry + circuit breaker + deadline + chaos
+        # point per DAO call). Default ON; PIO_TPU_RESILIENCE=off (or the
+        # explicit arg) disables for raw-backend benchmarking.
+        if resilience is None:
+            resilience = os.environ.get(
+                "PIO_TPU_RESILIENCE", "on").lower() not in (
+                    "off", "0", "false", "no")
+        self.resilience_enabled = resilience
+        # one breaker per storage SOURCE (not per DAO): every repository
+        # bound to a source shares its failure history, mirroring how a
+        # dead backend takes out all of its DAOs at once
+        self.breakers: dict[str, CircuitBreaker] = {}
 
     def _client(self, source_name: str) -> Backend:
         with self._lock:
@@ -216,8 +232,26 @@ class Storage:
     def _repo_client(self, repo: str) -> Backend:
         return self._client(self._repo_source(repo))
 
+    def breaker_for(self, source_name: str) -> CircuitBreaker:
+        """The circuit breaker fronting one storage source (created on
+        first use; `pio doctor` and /readyz read `self.breakers`)."""
+        with self._lock:
+            br = self.breakers.get(source_name)
+            if br is None:
+                br = CircuitBreaker(f"storage.{source_name}")
+                self.breakers[source_name] = br
+            return br
+
     def _dao(self, repo: str, getter: Callable[[Backend], Any]):
-        return getter(self._repo_client(repo))
+        """Resolve a DAO and, unless resilience is disabled, front it
+        with retry + the source's breaker + deadline/chaos hooks."""
+        src = self._repo_source(repo)
+        dao = getter(self._client(src))
+        if not self.resilience_enabled:
+            return dao
+        return ResilientDAO(
+            dao, breaker=self.breaker_for(src), point=f"storage.{src}"
+        )
 
     # -- reference Storage.scala:360-391 ------------------------------------
     def get_metadata_apps(self) -> daomod.AppsDAO:
@@ -242,7 +276,8 @@ class Storage:
         return self._dao("MODELDATA", lambda b: b.models())
 
     def get_events(self) -> daomod.EventsDAO:
-        """The L/PEvents DAO."""
+        """The L/PEvents DAO (one API — columnarization for training lives in
+        pio_tpu_torch.data.eventstore)."""
         return self._dao("EVENTDATA", lambda b: b.events())
 
     def verify_all(self) -> list[str]:

@@ -7,8 +7,9 @@ DASE serving split): heavy factorization stays offline, and a cheap
 per-user ridge solve against the FIXED item factors runs online:
 
   tail   (tail.py)    — follow the event stream over the columnar batch
-                        path (``find_columnar``) and detect users with
-                        new interactions;
+                        path (``find_columnar`` locally, the event
+                        server's ``GET /tail/events.json`` remotely) and
+                        detect users with new interactions;
   cursor (cursor.py)  — a durable resume point (utils/durable.py
                         framing + atomic write) so a restarted folder
                         continues where it stopped, with no replay loss;
@@ -35,9 +36,9 @@ is a pure function of the user's full history and the item factors)
 rather than loses. docs/freshness.md has the architecture, the
 staleness contract, and the runbook.
 
-Counterpart of ``pio_tpu.freshness``. Not ported yet: ``HttpEventSource``
-(the event server's tail route), ``RouterFleetApplier`` (the fleet
-router) and the folder's ``async`` health transport.
+Counterpart of ``pio_tpu.freshness``. Not ported yet:
+``RouterFleetApplier`` (the fleet router) and the folder's ``async``
+health transport.
 """
 
 from pio_tpu_torch.freshness.apply import (
@@ -54,6 +55,7 @@ from pio_tpu_torch.freshness.folder import (
 )
 from pio_tpu_torch.freshness.solver import FoldInSolver, user_pairs
 from pio_tpu_torch.freshness.tail import (
+    HttpEventSource,
     LocalEventSource,
     TailWindow,
     tail_window,
@@ -66,6 +68,7 @@ __all__ = [
     "FoldInConfig",
     "FoldInSolver",
     "FoldInWorker",
+    "HttpEventSource",
     "LocalEventSource",
     "LocalServingApplier",
     "ServingHttpApplier",

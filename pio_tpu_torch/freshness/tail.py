@@ -2,10 +2,9 @@
 
 A tail poll answers one question cheaply: WHICH users gained
 interactions since the cursor? It rides ``find_columnar`` (the
-struct-of-arrays read — no per-event Python objects) and feeds the
-window computation in :func:`tail_window`. The reference's
-``HttpEventSource`` (the event server's ``GET /tail/events.json``) waits
-for the port's event server.
+struct-of-arrays read — no per-event Python objects) locally, or the
+event server's ``GET /tail/events.json`` columnar route remotely, and
+feeds the window computation in :func:`tail_window`.
 
 The tail orders by EVENT TIME (the only time axis the storage query API
 exposes). Server-stamped events — the normal ingest path, where
@@ -141,3 +140,97 @@ class LocalEventSource:
             target_entity_type=self.target_entity_type,
             limit=-1,
         ))
+
+
+class HttpEventSource:
+    """Tail + history over the event server's REST API (the
+    cross-process folder shape): ``GET /tail/events.json`` for the
+    columnar window, ``GET /events.json?entityId=…`` for histories.
+
+    ``wait_s`` (default 10) turns the tail poll into a LONG-POLL push
+    subscription: an idle window blocks server-side until an ingest
+    lands, so event→fold latency is one store round trip instead of one
+    poll interval. A pre-long-poll event server ignores the parameter
+    and answers immediately — the folder's poll-interval loop then IS
+    the fallback, unchanged. ``wait_s=0`` restores plain polling."""
+
+    def __init__(self, url: str, access_key: str,
+                 channel_name: str | None = None,
+                 entity_type: str = "user",
+                 target_entity_type: str = "item",
+                 event_names: Sequence[str] = ("rate", "buy"),
+                 timeout: float = 10.0, tail_limit: int = 20000,
+                 wait_s: float = 10.0):
+        from pio_tpu_torch.utils.httpclient import JsonHttpClient
+
+        self.wait_s = max(0.0, wait_s)
+        # the transport timeout must outlive the server-side wait, or
+        # every idle long-poll would surface as a client timeout
+        self.client = JsonHttpClient(
+            url, timeout=max(timeout, self.wait_s + 5.0))
+        self.access_key = access_key
+        self.channel_name = channel_name
+        self.entity_type = entity_type
+        self.target_entity_type = target_entity_type
+        self.event_names = list(event_names)
+        self.tail_limit = tail_limit
+
+    def _params(self, **extra) -> dict:
+        p = {"accessKey": self.access_key}
+        if self.channel_name is not None:
+            p["channel"] = self.channel_name
+        p.update(extra)
+        return p
+
+    def window(self, cursor: FoldCursor) -> TailWindow:
+        # negotiate the binary columnar tail (one CRC32C-framed batch,
+        # decoded by pointer-cast — no per-event JSON on either end); a
+        # pre-binary event server ignores the Accept header and answers
+        # the JSON shape, which lands in the same tail_window fold
+        from pio_tpu_torch.data.columnar import (
+            COLUMNAR_CONTENT_TYPE, decode_columnar_events,
+        )
+
+        params = self._params(
+            sinceUs=str(cursor.time_us),
+            limit=str(self.tail_limit),
+            entityType=self.entity_type,
+            targetEntityType=self.target_entity_type,
+            events=",".join(self.event_names),
+        )
+        if self.wait_s > 0:
+            params["waitS"] = str(self.wait_s)
+        out = self.client.request(
+            "GET", "/tail/events.json", params=params,
+            accept=COLUMNAR_CONTENT_TYPE)
+        if isinstance(out, bytes):
+            cols = decode_columnar_events(out)
+            ids = np.asarray(cols.entity_ids, dtype=object)[
+                np.asarray(cols.entity_code)]
+            return tail_window(ids, np.asarray(cols.time_us, np.int64),
+                               cursor)
+        return tail_window(out.get("entityIds", []),
+                           np.asarray(out.get("timesUs", []), np.int64),
+                           cursor)
+
+    def history(self, user_id) -> list[Event]:
+        from pio_tpu_torch.utils.httpclient import HttpClientError
+
+        events: list[Event] = []
+        for name in self.event_names:
+            try:
+                rows = self.client.request(
+                    "GET", "/events.json",
+                    params=self._params(
+                        entityType=self.entity_type,
+                        entityId=user_id,
+                        targetEntityType=self.target_entity_type,
+                        event=name, limit="-1",
+                    ))
+            except HttpClientError as e:
+                if e.status == 404:    # the route 404s an empty result
+                    continue
+                raise
+            events.extend(Event.from_api_dict(d) for d in rows)
+        events.sort(key=lambda e: e.event_time)
+        return events

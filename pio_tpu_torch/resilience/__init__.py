@@ -1,27 +1,52 @@
-"""Resilience: the deterministic fault-injection (chaos) harness and the
-call policies the fold-in worker runs under.
+"""Resilience subsystem: retry/backoff, deadlines, circuit breaking,
+load shedding, degraded-mode spill, and deterministic chaos injection.
 
-Counterpart of ``pio_tpu.resilience``, of which the port has ``chaos``
-(a verbatim copy: the spec grammar, the ``PIO_TPU_CHAOS`` environment
-variable and the ``train.step.<n>`` / ``train.checkpoint`` /
-``train.persist`` / ``foldin.solve`` / ``foldin.apply`` points) and
-``policies`` (a verbatim copy: retry, circuit breaker, deadline). The
-``ResilientDAO``, health checks, tenant quotas and the spill queue are
-not ported yet.
+Composition map (who uses what):
+
+  * ``data/storage.py``       wraps every repository DAO in a
+    ``ResilientDAO`` (retry + per-source ``CircuitBreaker`` + deadline
+    check + chaos point ``storage.<SOURCE>.<method>``).
+  * ``server/http.py``        sheds load in the async transport via
+    ``LoadShedder`` (503 + Retry-After above the queue watermark) and
+    retries binds through ``RetryPolicy``.
+  * ``workflow/serve.py``     opens a per-request ``Deadline`` budget,
+    keeps the last-good model when ``/reload`` fails, and exposes
+    ``/healthz`` + ``/readyz``.
+  * ``server/eventserver.py`` spills to a bounded ``SpillQueue`` with
+    background drain when the event store's breaker trips.
+  * ``tools/cli.py``          ``pio doctor`` aggregates every surface's
+    ``/readyz`` (breaker states, queue depths, spill backlog).
+
+Policy semantics are documented in docs/resilience.md; the chaos spec
+grammar lives in ``resilience/chaos.py``.
 """
 
-from pio_tpu_torch.resilience import chaos
+from pio_tpu_torch.resilience.guard import STORAGE_RETRY, ResilientDAO
 from pio_tpu_torch.resilience.policies import (
     CircuitBreaker,
     CircuitOpenError,
     Deadline,
     DeadlineExceeded,
+    LoadShedder,
+    RetryPolicy,
+    is_transient,
 )
+from pio_tpu_torch.resilience.quota import TenantAdmission, TenantQuota, TokenBucket
+from pio_tpu_torch.resilience.spill import SpillQueue, SpillSaturated
 
 __all__ = [
+    "STORAGE_RETRY",
     "CircuitBreaker",
     "CircuitOpenError",
     "Deadline",
     "DeadlineExceeded",
-    "chaos",
+    "LoadShedder",
+    "ResilientDAO",
+    "RetryPolicy",
+    "SpillQueue",
+    "SpillSaturated",
+    "TenantAdmission",
+    "TenantQuota",
+    "TokenBucket",
+    "is_transient",
 ]

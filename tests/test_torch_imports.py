@@ -85,7 +85,23 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.tuning.server",
                 "pio_tpu_torch.workflow.evaluate",
                 "pio_tpu_torch.workflow.batchpredict",
-                "pio_tpu_torch.workflow.fake"):
+                "pio_tpu_torch.workflow.fake",
+                "pio_tpu_torch.server.http",
+                "pio_tpu_torch.server.eventserver",
+                "pio_tpu_torch.server.stats", "pio_tpu_torch.server.plugins",
+                "pio_tpu_torch.server.security",
+                "pio_tpu_torch.server.webhooks",
+                "pio_tpu_torch.server.webhooks.segmentio",
+                "pio_tpu_torch.server.webhooks.mailchimp",
+                "pio_tpu_torch.server.webhooks.example",
+                "pio_tpu_torch.resilience.guard",
+                "pio_tpu_torch.resilience.spill",
+                "pio_tpu_torch.resilience.quota",
+                "pio_tpu_torch.resilience.health",
+                "pio_tpu_torch.data.backends.memory",
+                "pio_tpu_torch.data.backends.localfs",
+                "pio_tpu_torch.sdk", "pio_tpu_torch.tools.appops",
+                "pio_tpu_torch.tools.export_import"):
         assert mod in res["modules"]
 
 

@@ -255,10 +255,10 @@ def test_run_train_transitions_equal_the_reference(tmp_path, monkeypatch,
     results = {}
     for pkg in ("port", "ref"):
         env = _env(tmp_path / f"{pkg}.db")
-        # the reference's storage without its retrying DAO proxy, so a
-        # broken store fails as the port's does
-        storage = (Storage(env=env) if pkg == "port"
-                   else RefStorage(env=env, resilience=False))
+        # both stores without their retrying DAO proxy, so a broken
+        # store fails at once and the DAO class can be patched
+        storage = (Storage if pkg == "port" else RefStorage)(
+            env=env, resilience=False)
         dao_cls = type(storage.get_metadata_engine_instances())
         original = dao_cls.update
 
