@@ -14,9 +14,9 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   pio_tpu_torch deploy`` calls) with two-stage clustered retrieval and
   ``"impl": "pallas"`` (the K7 scan kernel), over loopback HTTP;
 - foldin: on the same seeded factors in a fresh sqlite store, served
-  behind a server key: a tail of rate/buy events of 2,048 users (a
+  behind a server key: a tail of rate/buy events of 4,096 users (a
   quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
-  ``python -m pio_tpu_torch foldin`` runs) in four batches of 512 and
+  ``python -m pio_tpu_torch foldin`` runs) in four batches of 1,024 and
   applied through ``/model/upsert_users`` over loopback HTTP; every
   multi-slot user's served row (and a sample of the rest) equal bit for
   bit to the user folded alone, in both modes, and to a second worker's,
@@ -68,12 +68,11 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   launch counters can be read), then the trained instance deployed and
   queried over HTTP; then the verb's parts timed one by one on the same
   store: the sqlite read plus the columnar fold, the row path it
-  replaced (``find`` + ``to_interactions``) on the first 200,000 events,
-  held equal element for element to the columnar read of the same
-  window, the layout build, the sweeps and the persist;
+  replaced (``find`` + ``to_interactions``, held equal element for
+  element), the layout build, the sweeps and the persist;
 - evaluate: on the same store (the events are written once), ``python
   -m pio_tpu_torch eval --sweep`` of 4 ALS candidates (lambda x alpha)
-  trained as one stacked group on 2 seeded k-folds, map@10 with ndcg,
+  trained as one stacked group on 3 seeded k-folds, map@10 with ndcg,
   precision, recall and AUC beside it, its time by part and its peak
   memory; fold 0 again outside the verb, each candidate's factors and
   map@10 held to a sequential ``als_train`` and the fold's stored sums,
@@ -81,7 +80,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   on 2 time folds, then again killed by a chaos fault at fold 1 and
   resumed (``--resume-eval``) to the uninterrupted result bit for bit;
   ``eval <Evaluation> <ParamsGenerator>`` (class mode,
-  2 candidates x 2 folds, the serve phase's retrieval block: K2 in the
+  2 candidates x 3 folds, the serve phase's retrieval block: K2 in the
   trainings, K7 in every ``batch_predict``); ``train --from-eval`` and
   ``deploy --from-eval`` of the winner, answering over HTTP; and
   ``batchpredict`` of 4,096 queries (K7 a batch), held to the deploy's
@@ -306,6 +305,53 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: c.value for name, c in counters().items()}
+
+
+@contextlib.contextmanager
+def guarded_calls():
+    """Counts the storage DAO calls that pass the resilience guard: each
+    enters ``chaos.maybe_inject`` at its ``storage.<source>`` point."""
+    from pio_tpu_torch.resilience import chaos
+
+    plain = chaos.maybe_inject
+    seen = {"calls": 0}
+
+    def counted(point: str) -> None:
+        if point.startswith("storage."):
+            seen["calls"] += 1
+        plain(point)
+
+    chaos.maybe_inject = counted
+    try:
+        yield seen
+    finally:
+        chaos.maybe_inject = plain
+
+
+GUARD_PROBE_CALLS = 20_000  # metadata reads timed with and without the guard
+
+
+def guard_cost(storage, calls: int) -> dict:
+    """What the resilience guard adds to ``calls`` DAO calls: one app
+    read through the guarded DAO and through the DAO it wraps,
+    GUARD_PROBE_CALLS times each (the least of three rounds), the
+    difference a call times ``calls``."""
+    apps = storage.get_metadata_apps()
+    raw = apps._dao
+    app_id = apps.get_all()[0].id
+    best = {}
+    for name, dao in (("guarded", apps), ("raw", raw)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(GUARD_PROBE_CALLS):
+                dao.get(app_id)
+            times.append(time.perf_counter() - t0)
+        best[name] = 1e6 * min(times) / GUARD_PROBE_CALLS
+    extra_us = best["guarded"] - best["raw"]
+    return {"dao_calls": calls, "guarded_us_a_call": best["guarded"],
+            "raw_us_a_call": best["raw"], "guard_us_a_call": extra_us,
+            "guard_ms": calls * extra_us / 1e3}
 
 
 def sqlite_env(tmp) -> dict:
@@ -762,9 +808,9 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
 # -- phase 4b: streaming fold-in on the serve phase's model ---------------
 
 SERVER_KEY = "chip-smoke-key"
-FOLDIN_USERS = 2_048       # users in the tail, a quarter of them new
+FOLDIN_USERS = 4_096       # users in the tail, a quarter of them new
 FOLDIN_NEW_SHARE = 0.25
-FOLDIN_BATCH = 512         # max_batch_users: four batches
+FOLDIN_BATCH = 1_024       # max_batch_users: four batches
 FOLDIN_MAX_LEN = 512       # history cap: up to four 128-wide slots
 FOLDIN_REG, FOLDIN_ALPHA = 0.05, 10.0   # bench.py's reg and alpha
 FOLDIN_SAMPLE = 64         # single-slot users checked beside every multi
@@ -1297,7 +1343,8 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
             try:
                 reset_counts()
                 t0 = time.perf_counter()
-                stats = worker.run_once()
+                with guarded_calls() as cycle_dao:
+                    stats = worker.run_once()
                 cycle_s = time.perf_counter() - t0
                 new_users = [f"new{j}" for j in range(FOLDIN_QUERIES)]
                 answers = []
@@ -1431,6 +1478,7 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
                 not np.array_equal(np.asarray(again[u], np.float32),
                                    served[u]) for u in folded):
             raise AssertionError("a second worker's rows differ")
+        cycle_guard = guard_cost(storage, cycle_dao["calls"])
         storage.close()
 
     # against f64 on the CPU
@@ -1487,6 +1535,7 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
         "launches": launches, "launches_queries": launches_queries,
         "cycle": stats, "cycle_s": cycle_s,
         "rows_folded_per_s": stats["folded"] / cycle_s,
+        "guard": cycle_guard,
         "solve_ms_per_batch": [ms for _, _, ms in solved],
         "solve_parts_ms_per_batch": parts,
         "batch_users": [n for (_, _, _, n), _, _ in solved],
@@ -2515,15 +2564,18 @@ def stored_events(ev, lo: int, hi: int) -> list:
 
 
 @contextlib.contextmanager
-def event_server(env: dict):
+def event_server(env: dict, started: list | None = None):
     """``python -m pio_tpu_torch eventserver`` (async transport) on a
-    free port over the store ``env`` names; yields its base URL."""
+    free port over the store ``env`` names; yields its base URL and
+    appends its process to ``started`` when one is given."""
     with tempfile.TemporaryFile("w+") as err:
         proc = subprocess.Popen(
             [sys.executable, "-m", "pio_tpu_torch", "eventserver", "--ip",
              "127.0.0.1", "--port", "0", "--metrics-key", METRICS_KEY],
             cwd=REPO_ROOT, env={**os.environ, **env},
             stdout=subprocess.PIPE, stderr=err, text=True)
+        if started is not None:
+            started.append(proc)
         try:
             line = proc.stdout.readline()
             if "Event Server on http://127.0.0.1:" not in line:
@@ -2541,6 +2593,12 @@ def stop_process(proc) -> None:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
+
+
+def process_cpu_s(pid: int) -> float:
+    """User plus system CPU seconds of process ``pid``, all its threads."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
 
 
 def new_app(storage, name: str) -> tuple[int, str]:
@@ -2686,8 +2744,11 @@ def phase_ingest(store) -> dict:
     every slot answers 201, that the store holds every event, that the
     columnar read of the first INGEST_PREFIX events equals a direct
     ``insert_batch`` of them into a second store, the JSON and binary
-    twins, and a corrupt frame's 400. Times the wire, the server's
-    decode, CRC32C on both sides and the sqlite insert."""
+    twins, and a corrupt frame's 400. Times the wire; on the server's
+    own clock (its /metrics counters) its decode and the time its batch
+    route and its sqlite insert were busy; the server process's CPU
+    seconds; CRC32C on the client as it runs, and the server's CRC32C
+    share of its decode by timing the same frames again here."""
     import sqlite3
     import threading
 
@@ -2717,10 +2778,13 @@ def phase_ingest(store) -> dict:
 
     out: dict = {"events": ev.n, "ratings": ev.pairs, "frame": INGEST_FRAME,
                  "clients": INGEST_CLIENTS}
-    with event_server(store.env) as url:
+    server: list = []
+    with event_server(store.env, server) as url:
         durable.crc32c = timed_crc
         try:
+            cpu0 = process_cpu_s(server[0].pid)
             first = post_frames(url, key, ev, spans[:n_prefix])
+            cpu1 = process_cpu_s(server[0].pid)
             # the prefix, read back, against a direct insert of it
             with tempfile.TemporaryDirectory(prefix="pio_chip_direct_") as d:
                 direct = Storage(env=sqlite_env(d))
@@ -2745,7 +2809,9 @@ def phase_ingest(store) -> dict:
                                      "server reads back unlike a direct "
                                      "insert_batch")
             out["prefix_coo_equal"] = True
+            cpu2 = process_cpu_s(server[0].pid)
             rest = post_frames(url, key, ev, spans[n_prefix:])
+            cpu3 = process_cpu_s(server[0].pid)
         finally:
             durable.crc32c = plain_crc
         wire = wire_counters(url)
@@ -2764,7 +2830,8 @@ def phase_ingest(store) -> dict:
     if n_stored != ev.n:
         raise AssertionError(f"{n_stored} events stored, {ev.n} posted")
     # the server checks the same frames' CRC32C with the same function on
-    # the same host: a sample of them timed again, scaled by the bytes
+    # the same host: a sample of them timed again, scaled by the bytes,
+    # an estimate of the CRC32C's share in the server's decode seconds
     sample_s, sample_bytes = 0.0, 0
     for lo, hi in spans[::len(spans) // INGEST_CRC_SAMPLE][:INGEST_CRC_SAMPLE]:
         payload = encode_api_batch(api_events(ev, lo, hi))[
@@ -2774,37 +2841,41 @@ def phase_ingest(store) -> dict:
         sample_s += time.thread_time() - t
         sample_bytes += len(payload)
     binary = wire["binary"]
+    if binary["events"] != ev.n:
+        raise AssertionError(f"the server counted {binary['events']} "
+                             f"binary events, {ev.n} posted")
     wall = first["wall_s"] + rest["wall_s"]
-    insert_s = out["direct_insert_prefix_s"] * ev.n / INGEST_PREFIX
+    server_cpu = (cpu1 - cpu0) + (cpu3 - cpu2)
     out.update({
         "stored": n_stored, "statuses": {str(k): v for k, v in
                                          statuses.items()},
         "wall_s": wall, "events_per_s": ev.n / wall,
         "client_cpu_s": first["client_cpu_s"] + rest["client_cpu_s"],
         "client_crc_s": crc["s"], "frame_bytes": crc["bytes"],
+        # on the server's clock: the decode summed over the frames, and
+        # the wall seconds during which the batch route, and the store's
+        # insert_batch, held at least one frame (the 4 clients' frames
+        # overlap in the route)
         "server_decode_s": binary["decode_seconds"],
+        "server_route_busy_s": binary["handle_busy_seconds"],
+        "server_insert_busy_s": binary["insert_busy_seconds"],
+        "wall_outside_route_s": wall - binary["handle_busy_seconds"],
+        "server_cpu_s": server_cpu, "server_cpu_per_wall": server_cpu / wall,
         "server_crc_s_est": sample_s * crc["bytes"] / sample_bytes,
-        "sqlite_insert_s_est": insert_s,
-        "http_and_rest_s_est": wall - binary["decode_seconds"] - insert_s,
+        "direct_insert_s_scaled": (out["direct_insert_prefix_s"] * ev.n
+                                   / INGEST_PREFIX),
         "wire_binary": binary,
     })
     emit("ingest", card=card_line(), **out)
     return out
 
 
-ROW_ORACLE_EVENTS = 200_000  # the first events, read both ways and held equal
-
-
 def split_train_verb(storage, engine, ep, dev: torch.device,
                      want_launches: int) -> dict:
     """The train verb's parts, each timed alone on the same store: the
     sqlite read plus the columnar fold (what the verb reads through),
-    the row path it replaced (``find`` + ``to_interactions``) on the
-    first ROW_ORACLE_EVENTS events, held equal element for element to
-    the columnar read of the same window, the layout build, the sweeps
-    and the persist."""
-    from datetime import datetime, timedelta, timezone
-
+    the row path it replaced (``find`` + ``to_interactions``, held equal
+    element for element), the layout build, the sweeps and the persist."""
     from pio_tpu_torch.data.columnar import columnar_interactions
     from pio_tpu_torch.data.dao import Model
     from pio_tpu_torch.data.eventstore import (
@@ -2835,17 +2906,8 @@ def split_train_verb(storage, engine, ep, dev: torch.device,
     t0 = time.perf_counter()
     inter = store.interactions(ds.app_name, ds.channel_name, **where, **fold)
     out["read_columnar_s"] = time.perf_counter() - t0
-    # the oracle on a window: seeded event j is stamped 2024-01-01 + j s
-    until = (datetime(2024, 1, 1, tzinfo=timezone.utc)
-             + timedelta(seconds=ROW_ORACLE_EVENTS))
     t0 = time.perf_counter()
-    window = store.interactions(ds.app_name, ds.channel_name,
-                                until_time=until, **where, **fold)
-    out["window_read_columnar_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    events = list(store.find(ds.app_name, ds.channel_name,
-                             until_time=until, **where))
-    out["row_oracle_events"] = len(events)
+    events = list(store.find(ds.app_name, ds.channel_name, **where))
     out["row_sqlite_read_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows = to_interactions(events, value_fn=make_value_fn(
@@ -2854,15 +2916,13 @@ def split_train_verb(storage, engine, ep, dev: torch.device,
     out["row_fold_s"] = time.perf_counter() - t0
     out["read_row_s"] = out["row_sqlite_read_s"] + out["row_fold_s"]
     del events
-    if (out["row_oracle_events"] != ROW_ORACLE_EVENTS
-            or window.users.ids() != rows.users.ids()
-            or window.items.ids() != rows.items.ids()
-            or any(not np.array_equal(getattr(window, f), getattr(rows, f))
-                   or getattr(window, f).dtype != getattr(rows, f).dtype
+    if (inter.users.ids() != rows.users.ids()
+            or inter.items.ids() != rows.items.ids()
+            or any(not np.array_equal(getattr(inter, f), getattr(rows, f))
+                   or getattr(inter, f).dtype != getattr(rows, f).dtype
                    for f in ("user_idx", "item_idx", "values"))):
         raise AssertionError("the columnar read differs from find + fold")
     out["reads_equal"] = True
-    del window
     del rows
 
     algo = engine.algorithm_classes["als"](ep.algorithms[0][1])
@@ -2936,7 +2996,7 @@ def phase_train_entry(store, dev: torch.device, ingest: dict) -> dict:
         # -- the main path: counts from 0, read right after ------------
         reset_counts()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), guarded_calls() as dao:
             rc = cli_main(["train", "--engine-dir", str(engine_dir)])
         train_s = time.perf_counter() - t0
         train_launches = read_counts()
@@ -2995,6 +3055,7 @@ def phase_train_entry(store, dev: torch.device, ingest: dict) -> dict:
     result = {
         "events": n_events, "ratings": n_pairs,
         "train_s": train_s, "instance": iid, "launches": train_launches,
+        "guard": guard_cost(storage, dao["calls"]),
         "segment_flush_launches_expected": want_launches,
         "query_ms": [1e3 * t for t in latencies], "split": split,
     }
@@ -3902,7 +3963,7 @@ def phase_train_resume(store, dev: torch.device) -> dict:
 # (the batched path), map@10 first, every other metric beside it
 EVAL_GRID = '{"lambda_": [0.01, 0.05], "alpha": [1.0, 10.0]}'
 EVAL_OTHERS = "ndcg@10,precision@10,recall@10,auc"
-EVAL_FOLDS, EVAL_TIME_FOLDS, EVAL_SEED = 2, 2, 42
+EVAL_FOLDS, EVAL_TIME_FOLDS, EVAL_SEED = 3, 2, 42
 # the serve phase's retrieval block, its cluster count and probe stated
 EVAL_RETRIEVAL = {**RETRIEVAL, "n_clusters": 256, "nprobe": 32}
 EVAL_ORACLE_USERS = 256     # fold-0 test users held to the scalar oracles
@@ -4182,7 +4243,7 @@ def sweep_resume_drill(storage, engine_dir: Path, tmp: Path,
 def phase_evaluate(store, dev: torch.device, entry: dict) -> dict:
     """Evaluation and tuning on train_entry's events (the ML-20M
     catalog, rank 64, 10 sweeps, implicit): ``eval --sweep`` with 4
-    candidates as one stacked group on 2 seeded k-folds (fold 0 checked
+    candidates as one stacked group on 3 seeded k-folds (fold 0 checked
     again outside the verb), the same grid on 2 time folds (killed at
     fold 1 and resumed as well), ``eval
     <Evaluation> <ParamsGenerator>`` (K2 in its 6 trainings, K7 in its 6

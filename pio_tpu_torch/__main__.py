@@ -58,8 +58,9 @@ Verbs ported so far:
   eventserver  the REST ingest API (POST /events.json, the JSON and
            binary columnar /batch/events.json, the tail long-poll,
            webhooks, /stats.json, /metrics) on the async transport
-           unless --server-backend threaded, with the spill queue, the
-           per-app ingest quota and TLS options.
+           unless --server-backend threaded, with TLS options; the
+           spill queue and the per-app quota at EventServerConfig's
+           defaults.
   import / export  JSON-lines (optionally .gz) or Parquet files into and
            out of an app's events.
 
@@ -67,9 +68,7 @@ The ingest verbs touch no tensor and take no --device. Counterparts of
 ``cmd_train``, ``cmd_deploy``, ``cmd_eval``, ``cmd_batchpredict``,
 ``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``, ``cmd_eventserver``,
 ``cmd_import`` and ``cmd_export`` in ``pio_tpu.tools.cli``, with the same
-flags, output lines and exit codes; eventserver also takes --backend for
---server-backend and the spill and quota settings of
-``EventServerConfig``. Not ported yet: the mesh options (--no-mesh: the
+flags, output lines and exit codes. Not ported yet: the mesh options (--no-mesh: the
 port holds one device); deploy's fleet, canary, TLS, feedback, batching
 and warm-query options; foldin's --router-url (the fleet).
 """
@@ -682,12 +681,7 @@ def cmd_eventserver(args) -> int:
         EventServerConfig(ip=args.ip, port=args.port, stats=args.stats,
                           metrics_key=args.metrics_key or "",
                           certfile=args.cert, keyfile=args.key,
-                          backend=args.server_backend,
-                          spill_capacity=args.spill_capacity,
-                          spill_high_water=args.spill_high_water,
-                          spill_low_water=args.spill_low_water,
-                          ingest_quota_qps=args.ingest_quota_qps,
-                          ingest_quota_burst=args.ingest_quota_burst),
+                          backend=args.server_backend),
     )
     srv.start()  # bind first: with --port 0 the real port is only known now
     scheme = "https" if srv.tls else "http"
@@ -976,23 +970,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "ingest counters, cross-app) guarded by this key")
     x.add_argument("--cert", help="TLS certificate (PEM) -> serve HTTPS")
     x.add_argument("--key", help="TLS private key (PEM)")
-    x.add_argument("--server-backend", "--backend",
-                   choices=["async", "threaded"], default="async")
-    x.add_argument("--spill-capacity", type=int, default=10000,
-                   help="events parked in memory while the event store "
-                        "is down, drained once it recovers (0 = off: "
-                        "503 + Retry-After)")
-    x.add_argument("--spill-high-water", type=int, default=0,
-                   help="answer 429 + Retry-After past this many spilled "
-                        "events (0 = spill until full)")
-    x.add_argument("--spill-low-water", type=int, default=0,
-                   help="resume spilling once the drain is back under "
-                        "this mark (default high-water / 2)")
-    x.add_argument("--ingest-quota-qps", type=float, default=0.0,
-                   help="per-app token-bucket ingest quota in POSTs/s "
-                        "(0 = off)")
-    x.add_argument("--ingest-quota-burst", type=float, default=0.0,
-                   help="per-app quota burst (0 = max(qps, 1))")
+    x.add_argument("--server-backend", choices=["async", "threaded"],
+                   default="async")
     x.set_defaults(fn=cmd_eventserver)
 
     x = sub.add_parser("export")

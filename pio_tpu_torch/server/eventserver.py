@@ -20,12 +20,17 @@ The native ingest branch (``_native_fast_path``, an events DAO's
 ``insert_api_batch``) stays, but no port backend has that method until
 the native event log is ported, so the Python path answers every
 request; ``BatchTooLarge``, which that branch catches, is defined here
-in place of the native module's.
+in place of the native module's. The per-codec wire counters gain
+``insert_busy_seconds`` and ``handle_busy_seconds``: the time during
+which at least one batch was in the store's ``insert_batch``, and in
+the batch route, so that an ingest run splits its time on the server's
+clock however many batches the server handles at once.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import threading
 import time
@@ -310,12 +315,38 @@ def build_event_app(
     # JSON -> binary migration must be visible on the Prometheus plane,
     # so the batch route records events/bytes/decode-seconds under a
     # `codec` label. Lifetime-monotonic, exported by GET /metrics.
+    # The two busy counters are wall seconds during which at least one
+    # batch was in the store's insert_batch (insert) or in the route
+    # (handle), however many handler threads overlap.
     wire_lock = threading.Lock()
     wire_stats: dict[str, dict[str, float]] = {
-        codec: {"batches": 0, "events": 0, "bytes": 0, "decode_seconds": 0.0}
+        codec: {"batches": 0, "events": 0, "bytes": 0, "decode_seconds": 0.0,
+                "insert_busy_seconds": 0.0, "handle_busy_seconds": 0.0}
         for codec in ("json", "binary")
     }
     app.wire_stats = wire_stats  # exposed for tests/ops
+    busy_inside: dict[tuple[str, str], list] = {
+        (codec, stage): [0, 0.0]  # [batches inside, since when]
+        for codec in wire_stats for stage in ("insert", "handle")
+    }
+
+    @contextlib.contextmanager
+    def busy(codec: str, stage: str):
+        """Adds the wall time during which any batch is inside to the
+        codec's ``<stage>_busy_seconds``."""
+        inside = busy_inside[(codec, stage)]
+        with wire_lock:
+            if inside[0] == 0:
+                inside[1] = time.monotonic()
+            inside[0] += 1
+        try:
+            yield
+        finally:
+            with wire_lock:
+                inside[0] -= 1
+                if inside[0] == 0:
+                    wire_stats[codec][f"{stage}_busy_seconds"] += (
+                        time.monotonic() - inside[1])
 
     def record_wire(codec: str, results: list, nbytes: int,
                     decode_s: float) -> None:
@@ -330,6 +361,7 @@ def build_event_app(
 
     def insert_decoded(ak: AccessKey, channel_id: int | None,
                        decoded: Sequence[Event | EventValidationError],
+                       codec: str,
                        dicts: Sequence | None = None) -> list[dict]:
         """The Python batch-ingest pipeline behind BOTH wire codecs: the
         decode pass (columnar.decode_api_batch for JSON bodies,
@@ -448,8 +480,9 @@ def build_event_app(
 
         if to_insert:
             try:
-                events_dao.insert_batch(
-                    [e for _, e in to_insert], ak.appid, channel_id)
+                with busy(codec, "insert"):
+                    events_dao.insert_batch(
+                        [e for _, e in to_insert], ak.appid, channel_id)
             except Exception:  # noqa: BLE001 - degrade per event
                 for i, event in to_insert:
                     insert_fallback(i, event)
@@ -767,6 +800,11 @@ def build_event_app(
             through the native C fast path when available.
         """
         ctype = req.header("content-type").split(";")[0].strip().lower()
+        with busy("binary" if ctype == COLUMNAR_CONTENT_TYPE else "json",
+                  "handle"):
+            return batch_route(req, ak, channel_id, ctype)
+
+    def batch_route(req: Request, ak, channel_id, ctype: str):
         if ctype == COLUMNAR_CONTENT_TYPE:
             from pio_tpu_torch.data.columnar import wire_batch_row_count
 
@@ -786,7 +824,7 @@ def build_event_app(
             decode_s = time.monotonic() - t0
             if len(decoded) > MAX_EVENTS_PER_BINARY_BATCH:
                 return 400, over_limit  # backstop: peek declined to read
-            results = insert_decoded(ak, channel_id, decoded)
+            results = insert_decoded(ak, channel_id, decoded, "binary")
             record_wire("binary", results, len(req.body), decode_s)
             return 200, results
         fast = _native_fast_path()
@@ -839,7 +877,7 @@ def build_event_app(
             }
         decoded = decode_api_batch(body)
         decode_s = time.monotonic() - t0
-        results = insert_decoded(ak, channel_id, decoded, dicts=body)
+        results = insert_decoded(ak, channel_id, decoded, "json", dicts=body)
         record_wire("json", results, len(req.body), decode_s)
         return 200, results
 
@@ -956,7 +994,8 @@ def build_event_app(
         # shows up as rate moving between the codec labels
         with wire_lock:
             wire_snap = {c: dict(v) for c, v in wire_stats.items()}
-        for metric in ("events", "bytes", "batches", "decode_seconds"):
+        for metric in ("events", "bytes", "batches", "decode_seconds",
+                       "insert_busy_seconds", "handle_busy_seconds"):
             rows = [
                 ({"surface": "eventserver", "codec": c}, v[metric])
                 for c, v in sorted(wire_snap.items())

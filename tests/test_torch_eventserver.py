@@ -431,3 +431,60 @@ def test_metrics_key_unset_answers_404_in_both():
         finally:
             c.close()
         assert got["status"] == 404, pkg
+
+
+@pytest.mark.parametrize("backend", ["threaded", "async"])
+def test_port_wire_counters_split_a_batch_on_the_server_clock(backend):
+    """The port's per-codec counters add the time the store's insert and
+    the batch route were busy: with one request at a time each codec's
+    route time holds its decode and insert seconds (tolerance: exact
+    order of the sums), and /metrics exports both counters."""
+    c = Client(PKGS["port"], backend, metrics_key="MK")
+    try:
+        c.binary([rate(j) for j in range(20)], accessKey="KEY")
+        c.call("POST", "/batch/events.json", body=[rate(30), rate(31)],
+               accessKey="KEY")
+        wire = {k: dict(v) for k, v in c.srv.app.wire_stats.items()}
+        text = c.call("GET", "/metrics", accessKey="MK")["body"]
+    finally:
+        c.close()
+    for codec, events in (("binary", 20), ("json", 2)):
+        w = wire[codec]
+        assert w["events"] == events and w["insert_busy_seconds"] > 0
+        assert w["handle_busy_seconds"] >= (w["decode_seconds"]
+                                            + w["insert_busy_seconds"])
+    families = [f"pio_ingest_wire_{m}_busy_seconds_total"
+                for m in ("insert", "handle")]
+    lines = [ln for ln in metric_lines(text, *families)
+             if not ln.startswith("#")]
+    assert len(lines) == 4
+
+
+def test_port_busy_counters_count_overlapping_batches_once(monkeypatch):
+    """Batches that overlap in the store count their shared time once:
+    with the store's insert_batch held open until four batches are
+    inside, the insert busy time stays under the sum of the four."""
+    c = Client(PKGS["port"], "async")
+    dao_class = c.storage.get_events().__class__  # the memory events DAO
+    plain = dao_class.insert_batch
+    inside = threading.Barrier(4)
+
+    def held(self, *a, **k):
+        inside.wait(timeout=10)
+        time.sleep(0.2)
+        return plain(self, *a, **k)
+
+    monkeypatch.setattr(dao_class, "insert_batch", held)
+    try:
+        threads = [threading.Thread(target=c.binary, args=([rate(j)],),
+                                    kwargs={"accessKey": "KEY"})
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        w = dict(c.srv.app.wire_stats["binary"])
+    finally:
+        c.close()
+    assert w["events"] == 4
+    assert 0.2 <= w["insert_busy_seconds"] < 0.4
