@@ -63,11 +63,16 @@ Verbs ported so far:
            defaults.
   import / export  JSON-lines (optionally .gz) or Parquet files into and
            out of an app's events.
+  storageserver  this host's PIO_STORAGE_* store over HTTP (/rpc,
+           /rpc/columnar) for `remote`, `sharded` and `replicated`
+           clients on other hosts, loopback unless --ip (then
+           --server-key is required), with TLS options.
 
-The ingest verbs touch no tensor and take no --device. Counterparts of
-``cmd_train``, ``cmd_deploy``, ``cmd_eval``, ``cmd_batchpredict``,
-``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``, ``cmd_eventserver``,
-``cmd_import`` and ``cmd_export`` in ``pio_tpu.tools.cli``, with the same
+The ingest and storage verbs touch no tensor and take no --device.
+Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_eval``,
+``cmd_batchpredict``, ``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``,
+``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
+``cmd_storageserver`` in ``pio_tpu.tools.cli``, with the same
 flags, output lines and exit codes. Not ported yet: the mesh options (--no-mesh: the
 port holds one device); deploy's fleet, canary, TLS, feedback, batching
 and warm-query options; foldin's --router-url (the fleet).
@@ -693,6 +698,30 @@ def cmd_eventserver(args) -> int:
     return 0
 
 
+def cmd_storageserver(args) -> int:
+    """Serve this host's configured storage to other hosts (the networked
+    shared store; reference analogue: pointing every host's PIO_STORAGE_*
+    at one Postgres/HBase — here one host owns the store and the rest mount
+    it with the `remote` backend)."""
+    from pio_tpu_torch.server.storageserver import (
+        StorageServerConfig, create_storage_server,
+    )
+
+    srv = create_storage_server(
+        get_storage(),
+        StorageServerConfig(ip=args.ip, port=args.port,
+                            server_key=args.server_key or "",
+                            certfile=args.cert, keyfile=args.key),
+    )
+    scheme = "https" if srv.tls else "http"
+    print(f"Storage Server on {scheme}://{args.ip}:{srv.port}")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def _io_format(explicit: str | None, path: str) -> str:
     if explicit:
         return explicit
@@ -973,6 +1002,16 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--server-backend", choices=["async", "threaded"],
                    default="async")
     x.set_defaults(fn=cmd_eventserver)
+
+    x = sub.add_parser("storageserver")
+    # loopback default: a non-loopback bind requires --server-key (the RPC
+    # surface includes access keys and model blobs)
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=7072)
+    x.add_argument("--server-key", help="shared secret required on every call")
+    x.add_argument("--cert", help="TLS certificate (PEM) -> serve HTTPS")
+    x.add_argument("--key", help="TLS private key (PEM)")
+    x.set_defaults(fn=cmd_storageserver)
 
     x = sub.add_parser("export")
     x.add_argument("--appid", type=int, required=True)

@@ -1,0 +1,223 @@
+"""JSON wire format for the storage RPC protocol (remote backend <->
+storage server).
+
+Every metadata record, event, and query argument has an explicit
+to/from-wire conversion: datetimes travel as ISO-8601 strings, model blobs
+as base64, events in the public API dict shape
+(EventJson4sSupport-compatible, data/event.py:56-121). The reference's
+equivalent is the JDBC/HBase codec layer (jdbc/JDBCUtils.scala,
+hbase/HBEventsUtil.scala:144-270) — here the codec is shared by both ends
+of an HTTP connection instead of a database driver.
+
+Copy of ``pio_tpu.data.backends.wire``, imports rewritten to the port; it
+trims nothing. Both packages' servers and clients speak it to each other.
+"""
+
+from __future__ import annotations
+
+import base64
+
+from pio_tpu_torch.data import dao as d
+from pio_tpu_torch.data.datamap import DataMap, PropertyMap
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.utils.time import format_time, parse_time
+
+
+def _dt(v):
+    return format_time(v) if v is not None else None
+
+
+def _undt(v):
+    return parse_time(v) if v else None
+
+
+# -- metadata records -------------------------------------------------------
+
+def app_to_wire(a: d.App) -> dict:
+    return {"id": a.id, "name": a.name, "description": a.description}
+
+
+def app_from_wire(w: dict) -> d.App:
+    return d.App(w["id"], w["name"], w.get("description"))
+
+
+def access_key_to_wire(k: d.AccessKey) -> dict:
+    return {"key": k.key, "appid": k.appid, "events": list(k.events)}
+
+
+def access_key_from_wire(w: dict) -> d.AccessKey:
+    return d.AccessKey(w["key"], w["appid"], tuple(w.get("events", ())))
+
+
+def channel_to_wire(c: d.Channel) -> dict:
+    return {"id": c.id, "name": c.name, "appid": c.appid}
+
+
+def channel_from_wire(w: dict) -> d.Channel:
+    return d.Channel(w["id"], w["name"], w["appid"])
+
+
+def engine_instance_to_wire(i: d.EngineInstance) -> dict:
+    return {
+        "id": i.id, "status": i.status,
+        "startTime": _dt(i.start_time), "endTime": _dt(i.end_time),
+        "engineId": i.engine_id, "engineVersion": i.engine_version,
+        "engineVariant": i.engine_variant, "engineFactory": i.engine_factory,
+        "batch": i.batch, "env": dict(i.env),
+        "sparkConf": dict(i.spark_conf),
+        "dataSourceParams": i.datasource_params,
+        "preparatorParams": i.preparator_params,
+        "algorithmsParams": i.algorithms_params,
+        "servingParams": i.serving_params,
+        "progress": dict(i.progress),
+    }
+
+
+def engine_instance_from_wire(w: dict) -> d.EngineInstance:
+    return d.EngineInstance(
+        id=w["id"], status=w["status"],
+        start_time=_undt(w.get("startTime")), end_time=_undt(w.get("endTime")),
+        engine_id=w["engineId"], engine_version=w["engineVersion"],
+        engine_variant=w["engineVariant"], engine_factory=w["engineFactory"],
+        batch=w.get("batch", ""), env=dict(w.get("env", {})),
+        spark_conf=dict(w.get("sparkConf", {})),
+        datasource_params=w.get("dataSourceParams", ""),
+        preparator_params=w.get("preparatorParams", ""),
+        algorithms_params=w.get("algorithmsParams", ""),
+        serving_params=w.get("servingParams", ""),
+        progress=dict(w.get("progress", {})),
+    )
+
+
+def engine_manifest_to_wire(m: d.EngineManifest) -> dict:
+    return {
+        "id": m.id, "version": m.version, "name": m.name,
+        "description": m.description, "files": list(m.files),
+        "engineFactory": m.engine_factory,
+    }
+
+
+def engine_manifest_from_wire(w: dict) -> d.EngineManifest:
+    return d.EngineManifest(
+        id=w["id"], version=w["version"], name=w["name"],
+        description=w.get("description"), files=tuple(w.get("files", ())),
+        engine_factory=w.get("engineFactory", ""),
+    )
+
+
+def evaluation_instance_to_wire(i: d.EvaluationInstance) -> dict:
+    return {
+        "id": i.id, "status": i.status,
+        "startTime": _dt(i.start_time), "endTime": _dt(i.end_time),
+        "evaluationClass": i.evaluation_class,
+        "engineParamsGeneratorClass": i.engine_params_generator_class,
+        "batch": i.batch, "env": dict(i.env),
+        "evaluatorResults": i.evaluator_results,
+        "evaluatorResultsHTML": i.evaluator_results_html,
+        "evaluatorResultsJSON": i.evaluator_results_json,
+    }
+
+
+def evaluation_instance_from_wire(w: dict) -> d.EvaluationInstance:
+    return d.EvaluationInstance(
+        id=w["id"], status=w["status"],
+        start_time=_undt(w.get("startTime")), end_time=_undt(w.get("endTime")),
+        evaluation_class=w.get("evaluationClass", ""),
+        engine_params_generator_class=w.get("engineParamsGeneratorClass", ""),
+        batch=w.get("batch", ""), env=dict(w.get("env", {})),
+        evaluator_results=w.get("evaluatorResults", ""),
+        evaluator_results_html=w.get("evaluatorResultsHTML", ""),
+        evaluator_results_json=w.get("evaluatorResultsJSON", ""),
+    )
+
+
+def model_to_wire(m: d.Model) -> dict:
+    return {"id": m.id, "models": base64.b64encode(m.models).decode("ascii")}
+
+
+def model_from_wire(w: dict) -> d.Model:
+    return d.Model(w["id"], base64.b64decode(w["models"]))
+
+
+# -- events -----------------------------------------------------------------
+
+def event_to_wire(e: Event) -> dict:
+    return e.to_api_dict(with_id=True)
+
+
+def event_from_wire(w: dict) -> Event:
+    return Event.from_api_dict(w)
+
+
+def property_map_to_wire(p: PropertyMap) -> dict:
+    return {
+        "fields": dict(p.fields),
+        "firstUpdated": _dt(p.first_updated),
+        "lastUpdated": _dt(p.last_updated),
+    }
+
+
+def property_map_from_wire(w: dict) -> PropertyMap:
+    return PropertyMap(
+        dict(w.get("fields", {})),
+        first_updated=_undt(w.get("firstUpdated")),
+        last_updated=_undt(w.get("lastUpdated")),
+    )
+
+
+def find_kwargs_to_wire(
+    start_time=None, until_time=None, entity_type=None, entity_id=None,
+    event_names=None, target_entity_type=..., target_entity_id=...,
+    limit=None, reversed=False, exclude_ids=None,
+) -> dict:
+    """Encode EventsDAO.find keyword args. The `...` don't-care sentinel for
+    target entity filters (the reference's Option[Option[String]]) is
+    encoded by OMITTING the key; an explicit null means "must be absent".
+    `exclude_ids` is a wire-protocol-only extension (not part of the DAO
+    surface): the keyset-pagination cursor's boundary-tie exclusion set —
+    the remote client pages unbounded reads with start_time = the last
+    page's final event_time plus the ids already seen AT that time, so
+    paging is exact regardless of how a backend orders equal-time ties
+    (ids are unique), and each page is an indexed start_time scan, not
+    an O(offset) re-read."""
+    w: dict = {}
+    if start_time is not None:
+        w["startTime"] = format_time(start_time)
+    if until_time is not None:
+        w["untilTime"] = format_time(until_time)
+    if entity_type is not None:
+        w["entityType"] = entity_type
+    if entity_id is not None:
+        w["entityId"] = entity_id
+    if event_names is not None:
+        w["eventNames"] = list(event_names)
+    if target_entity_type is not ...:
+        w["targetEntityType"] = target_entity_type
+    if target_entity_id is not ...:
+        w["targetEntityId"] = target_entity_id
+    if limit is not None:
+        w["limit"] = limit
+    if exclude_ids:
+        w["excludeIds"] = list(exclude_ids)
+    if reversed:
+        w["reversed"] = True
+    return w
+
+
+def find_kwargs_from_wire(w: dict) -> dict:
+    kw: dict = {
+        "start_time": _undt(w.get("startTime")),
+        "until_time": _undt(w.get("untilTime")),
+        "entity_type": w.get("entityType"),
+        "entity_id": w.get("entityId"),
+        "event_names": w.get("eventNames"),
+        "limit": w.get("limit"),
+        "reversed": bool(w.get("reversed", False)),
+    }
+    kw["target_entity_type"] = (
+        w["targetEntityType"] if "targetEntityType" in w else ...
+    )
+    kw["target_entity_id"] = (
+        w["targetEntityId"] if "targetEntityId" in w else ...
+    )
+    return kw

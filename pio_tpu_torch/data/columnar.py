@@ -43,10 +43,7 @@ win extends to the local path, the sharded scatter-gather path, and the
 train data-source stage — numpy columns go straight to the trainer
 without ever materializing per-event Python objects.
 
-Copy of ``pio_tpu.data.columnar``, imports rewritten to the port. The
-reference's fold returns the ``Columns`` of its native event-log module,
-which loads a native library; the port has no native log backend, so
-``Columns`` is a plain dataclass here with the same fields.
+Copy of ``pio_tpu.data.columnar``, imports rewritten to the port.
 """
 
 from __future__ import annotations
@@ -69,19 +66,6 @@ from pio_tpu_torch.utils.durable import (
     unframe,
 )
 from pio_tpu_torch.utils.time import parse_time, utcnow
-
-
-@dataclass
-class Columns:
-    """COO interaction columns: the output of the training fold."""
-
-    user_idx: np.ndarray    # uint32 codes into `users`
-    item_idx: np.ndarray
-    values: np.ndarray      # float32
-    times_us: np.ndarray    # int64 event-time microseconds
-    users: list[str]        # code -> entity_id
-    items: list[str]        # code -> target_entity_id
-
 
 _EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
 _US = timedelta(microseconds=1)
@@ -236,7 +220,7 @@ def columnar_interactions(
     dedup: str = "last",
     value_event: str | None = None,
 ):
-    """Columns -> ``Columns`` (COO user/item/value + id tables).
+    """Columns -> native ``Columns`` (COO user/item/value + id tables).
 
     Bit-identical to ``to_interactions`` over the same event ordering:
     stable time sort, drop rows without a target entity, value semantics
@@ -247,6 +231,8 @@ def columnar_interactions(
     dedup run in numpy; Python touches a row only to read its value
     property.
     """
+    from pio_tpu_torch.native.eventlog import Columns
+
     n = len(cols)
     order = np.argsort(cols.time_us, kind="stable") if n else np.zeros(0, np.int64)
     keep = order[cols.target_code[order] >= 0]

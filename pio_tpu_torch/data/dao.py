@@ -391,12 +391,13 @@ class EventsDAO(abc.ABC):
         dedup: str = "last",
         value_event: str | None = None,
     ):
-        """Training read -> COO interaction columns (``data.columnar.
-        Columns``): ``find_columnar`` + the vectorized fold — bit-identical
-        to the find+fold row path but without per-event Python objects.
-        The reference's native event-log backend overrides this with its
-        one-sweep C++ columnarizer; the port has no such backend, so every
-        DAO takes this default."""
+        """Training read -> COO interaction columns (native.eventlog
+        ``Columns``). Default: ``find_columnar`` + the vectorized fold —
+        bit-identical to the find+fold row path but without per-event
+        Python objects.  The eventlog backend overrides with its one-sweep
+        C++ columnarizer, remote/sharded with the server-side RPC; this
+        default is what extends the columnar path to every LOCAL backend
+        (memory/SQL) and the storage server's generic case."""
         from pio_tpu_torch.data.columnar import columnar_interactions
 
         cols = self.find_columnar(

@@ -111,12 +111,13 @@ class EventStore:
     ) -> Interactions:
         """Training read straight to COO interactions.
 
-        Every EventsDAO carries a `columnarize` (dao.py): the vectorized
-        columnar fold (data/columnar.py), over the SQL backend's
-        four-column row read — per-event Python objects never
-        materialize on this path. The find + to_interactions row fold
-        below remains only for duck-typed third-party DAOs (and as the
-        parity oracle in tests).
+        Every EventsDAO carries a `columnarize` now (dao.py): one C++
+        sweep on the native log backend, the server-side RPC on
+        remote/sharded, and the vectorized columnar fold
+        (data/columnar.py) on the local memory/SQL backends — per-event
+        Python objects never materialize on this path. The find +
+        to_interactions row fold below remains only for duck-typed
+        third-party DAOs (and as the parity oracle in tests).
         `value_key` reads a numeric property (None = always
         default_value); `value_event` restricts that read to one event
         name (others take default_value) — the reference recommendation
@@ -250,8 +251,9 @@ def columnarize_via_find(dao, app_id: int, channel_id: int | None = None,
                          dedup: str = "last",
                          value_event: str | None = None) -> Interactions:
     """Generic columnarize over a bare EventsDAO (by app_id, not app
-    name): find + fold. The reference's storage server and sharded
-    backend fall back to it; in the port it is the row-path oracle of
+    name): find + fold. The shared fallback for DAOs without a native
+    columnarize — used by the storage server's RPC handler and the
+    sharded backend's cross-type path — and the row-path oracle of
     ``EventsDAO.columnarize``."""
     events = dao.find(
         app_id, channel_id,
@@ -267,9 +269,9 @@ def columnarize_via_find(dao, app_id: int, channel_id: int | None = None,
 
 
 def interactions_to_columns(inter: Interactions):
-    """Interactions -> data.columnar.Columns (times_us empty: the
+    """Interactions -> native.eventlog.Columns (times_us empty: the
     fold dedups before times could be aligned)."""
-    from pio_tpu_torch.data.columnar import Columns
+    from pio_tpu_torch.native.eventlog import Columns
 
     return Columns(
         user_idx=inter.user_idx.astype(np.uint32),

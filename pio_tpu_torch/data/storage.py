@@ -14,9 +14,9 @@ When no env configuration exists we default everything to a sqlite source at
 ``$PIO_TPU_HOME/pio.db`` (reference fails instead; a zero-config default is
 deliberate dev UX).
 
-Copy of ``pio_tpu.data.storage`` registering the memory, sqlite (and its
-``jdbc`` alias) and localfs backends only: the native event log, remote,
-sharded, replicated, PostgreSQL and MySQL backends are not ported yet.
+Copy of ``pio_tpu.data.storage`` without the PostgreSQL and MySQL backends
+(``postgres``, ``postgresql``, ``mysql``), which are not ported yet: asking
+for one raises the registry's "No storage backend registered" error.
 """
 
 from __future__ import annotations
@@ -91,6 +91,17 @@ _BACKEND_REGISTRY: dict[str, str] = {
     "sqlite": "pio_tpu_torch.data.backends.sqlite:SqliteBackend",
     "jdbc": "pio_tpu_torch.data.backends.sqlite:SqliteBackend",  # operational alias
     "localfs": "pio_tpu_torch.data.backends.localfs:LocalFSBackend",
+    # native C++ append-only log (the HBase-analog event store)
+    "eventlog": "pio_tpu_torch.data.backends.eventlog:EventLogBackend",
+    "hbase": "pio_tpu_torch.data.backends.eventlog:EventLogBackend",  # operational alias
+    # networked client for the storage server (multi-host shared store)
+    "remote": "pio_tpu_torch.data.backends.remote:RemoteBackend",
+    # entity-hash-sharded composite over N storage servers (the
+    # reference's HBase region-distribution role, HBEventsUtil.scala:74)
+    "sharded": "pio_tpu_torch.data.backends.sharded:ShardedBackend",
+    # R-way replicated event store: quorum writes + hinted handoff +
+    # anti-entropy scrub (the reference's HBase replication role)
+    "replicated": "pio_tpu_torch.data.backends.replicated:ReplicatedBackend",
 }
 
 

@@ -1,0 +1,1719 @@
+// Native append-only event log: the port's high-throughput event store
+// (a copy of the repository's native/eventlog.cpp, same record layout).
+//
+// Role in the framework (see SURVEY.md §2): the reference's event store is
+// HBase with rowkey = MD5(entity)+time+uuid scanned via TableInputFormat
+// (reference data/.../storage/hbase/HBEventsUtil.scala:74-412,
+// HBPEvents.scala). Here the same job — durable ingest + fast filtered bulk
+// reads for training — is a single-writer append-only log per
+// (app, channel) namespace:
+//
+//   file = "PIOEVLG1" header, then records of [u32 len][u32 crc32][payload].
+//   payload layout (little-endian, packed by the Python wrapper):
+//     i64 event_time_ms, i16 event_tz_min,
+//     i64 creation_time_ms, i16 creation_tz_min,
+//     u64 hash(event), u64 hash(entity_type), u64 hash(entity_id),
+//     u64 hash(target_entity_type) | 0, u64 hash(target_entity_id) | 0,
+//     u64 hash(event_id), u8 flags (bit0 has_target, bit1 has_prid),
+//     then length-prefixed strings (u16 len + bytes):
+//       event, entity_type, entity_id, target_entity_type, target_entity_id,
+//       event_id, pr_id, tags_json,
+//     then u32 props_len + properties JSON.
+//
+// Scans mmap the file and prefilter on the 64-bit FNV-1a hashes; the Python
+// layer re-verifies matches exactly after decoding, so hash collisions can
+// only cost a wasted decode, never a wrong result. `el_columnarize` is the
+// training fast path: one pass that filters, resolves entity-id strings to
+// dense codes via an open-addressing string dict, extracts a numeric value
+// from the properties JSON, and dedups — replacing the reference's
+// HBase-scan RDD + per-event JVM decode with a single C++ sweep whose output
+// arrays go straight to the trainer.
+//
+// Crash safety: a torn tail write is detected on open (length walk) and at
+// read time (crc), and the log is logically truncated to the last whole
+// record. Deletes are tombstones kept by the Python layer and passed into
+// scans for exclusion (the log itself is immutable).
+
+#include <cctype>
+#include <chrono>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <random>
+#include <string>
+#include <type_traits>
+#include <vector>
+
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
+
+namespace {
+
+constexpr char kMagic[8] = {'P', 'I', 'O', 'E', 'V', 'L', 'G', '1'};
+constexpr uint64_t kHeaderSize = 8;
+
+// ---------------------------------------------------------------------------
+// crc32 (IEEE, table-driven) — matches Python's zlib.crc32
+// ---------------------------------------------------------------------------
+
+uint32_t crc_table[256];
+bool crc_init_done = []() {
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; k++) c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+    crc_table[i] = c;
+  }
+  return true;
+}();
+
+uint32_t crc32_of(const uint8_t* p, size_t n) {
+  uint32_t c = 0xFFFFFFFFu;
+  for (size_t i = 0; i < n; i++) c = crc_table[(c ^ p[i]) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+// 64-bit FNV-1a — mirrored in the Python wrapper (pio_tpu_torch/native/eventlog.py)
+uint64_t fnv1a(const uint8_t* s, size_t n) {
+  uint64_t h = 1469598103934665603ull;
+  for (size_t i = 0; i < n; i++) {
+    h ^= s[i];
+    h *= 1099511628211ull;
+  }
+  return h;
+}
+
+template <typename T>
+T load_le(const uint8_t* p) {
+  T v;
+  memcpy(&v, p, sizeof(T));
+  return v;  // little-endian hosts only (x86-64 / aarch64)
+}
+
+struct Log {
+  int fd = -1;
+  uint64_t end = kHeaderSize;  // logical end: after last whole record
+  std::string path;
+};
+
+// Decoded view of one record's envelope (string fields point into the map).
+struct RecView {
+  int64_t time_ms;
+  int16_t tz_min;
+  int64_t ctime_ms;
+  int16_t ctz_min;
+  uint64_t h_event, h_etype, h_eid, h_tetype, h_teid, h_eventid;
+  uint8_t flags;
+  const uint8_t *event, *etype, *eid, *tetype, *teid, *event_id, *pr_id, *tags;
+  uint16_t l_event, l_etype, l_eid, l_tetype, l_teid, l_event_id, l_pr_id,
+      l_tags;
+  const uint8_t* props;
+  uint32_t l_props;
+};
+
+constexpr size_t kFixedPart = 8 + 2 + 8 + 2 + 6 * 8 + 1;  // 69 bytes
+
+bool parse_record(const uint8_t* p, uint32_t len, RecView* out) {
+  if (len < kFixedPart) return false;
+  const uint8_t* q = p;
+  out->time_ms = load_le<int64_t>(q); q += 8;
+  out->tz_min = load_le<int16_t>(q); q += 2;
+  out->ctime_ms = load_le<int64_t>(q); q += 8;
+  out->ctz_min = load_le<int16_t>(q); q += 2;
+  out->h_event = load_le<uint64_t>(q); q += 8;
+  out->h_etype = load_le<uint64_t>(q); q += 8;
+  out->h_eid = load_le<uint64_t>(q); q += 8;
+  out->h_tetype = load_le<uint64_t>(q); q += 8;
+  out->h_teid = load_le<uint64_t>(q); q += 8;
+  out->h_eventid = load_le<uint64_t>(q); q += 8;
+  out->flags = *q++;
+  const uint8_t* lim = p + len;
+  const uint8_t** strs[8] = {&out->event,   &out->etype, &out->eid,
+                             &out->tetype,  &out->teid,  &out->event_id,
+                             &out->pr_id,   &out->tags};
+  uint16_t* lens[8] = {&out->l_event,   &out->l_etype, &out->l_eid,
+                       &out->l_tetype,  &out->l_teid,  &out->l_event_id,
+                       &out->l_pr_id,   &out->l_tags};
+  for (int i = 0; i < 8; i++) {
+    if (q + 2 > lim) return false;
+    uint16_t l = load_le<uint16_t>(q); q += 2;
+    if (q + l > lim) return false;
+    *strs[i] = q;
+    *lens[i] = l;
+    q += l;
+  }
+  if (q + 4 > lim) return false;
+  out->l_props = load_le<uint32_t>(q); q += 4;
+  if (q + out->l_props > lim) return false;
+  out->props = q;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// scan filter
+// ---------------------------------------------------------------------------
+
+enum FilterFlags : uint32_t {
+  F_START = 1u << 0,
+  F_UNTIL = 1u << 1,
+  F_ETYPE = 1u << 2,
+  F_EID = 1u << 3,
+  F_EVENTS = 1u << 4,
+  F_TETYPE_EQ = 1u << 5,
+  F_TETYPE_ABSENT = 1u << 6,
+  F_TEID_EQ = 1u << 7,
+  F_TEID_ABSENT = 1u << 8,
+  F_EVENTID = 1u << 9,
+};
+
+struct Filter {
+  uint32_t flags = 0;
+  int64_t start_ms = 0, until_ms = 0;
+  uint64_t h_etype = 0, h_eid = 0, h_tetype = 0, h_teid = 0;
+  const uint64_t* h_events = nullptr;
+  uint32_t n_events = 0;
+  uint64_t h_eventid = 0;
+};
+
+bool matches(const RecView& r, const Filter& f) {
+  if ((f.flags & F_START) && r.time_ms < f.start_ms) return false;
+  if ((f.flags & F_UNTIL) && r.time_ms >= f.until_ms) return false;
+  if ((f.flags & F_ETYPE) && r.h_etype != f.h_etype) return false;
+  if ((f.flags & F_EID) && r.h_eid != f.h_eid) return false;
+  if (f.flags & F_EVENTS) {
+    bool hit = false;
+    for (uint32_t i = 0; i < f.n_events && !hit; i++)
+      hit = r.h_event == f.h_events[i];
+    if (!hit) return false;
+  }
+  bool has_target = r.flags & 1;
+  if ((f.flags & F_TETYPE_ABSENT) && has_target) return false;
+  if ((f.flags & F_TETYPE_EQ) && (!has_target || r.h_tetype != f.h_tetype))
+    return false;
+  if ((f.flags & F_TEID_ABSENT) && has_target) return false;
+  if ((f.flags & F_TEID_EQ) && (!has_target || r.h_teid != f.h_teid))
+    return false;
+  if ((f.flags & F_EVENTID) && r.h_eventid != f.h_eventid) return false;
+  return true;
+}
+
+// Tombstone set: exact event-id strings (len-prefixed blob from Python).
+struct Tombstones {
+  std::vector<std::pair<const uint8_t*, uint16_t>> ids;
+  bool contains(const uint8_t* s, uint16_t n) const {
+    for (auto& [p, l] : ids)
+      if (l == n && memcmp(p, s, n) == 0) return true;
+    return false;
+  }
+};
+
+Tombstones parse_tombstones(const uint8_t* blob, uint32_t blob_len) {
+  Tombstones t;
+  const uint8_t* q = blob;
+  const uint8_t* lim = blob + blob_len;
+  while (q + 2 <= lim) {
+    uint16_t l = load_le<uint16_t>(q);
+    q += 2;
+    if (q + l > lim) break;
+    t.ids.emplace_back(q, l);
+    q += l;
+  }
+  return t;
+}
+
+// Iterate whole records in [header, end); cb returns false to stop early.
+template <typename F>
+void for_each_record(const uint8_t* base, uint64_t end, F&& cb) {
+  uint64_t pos = kHeaderSize;
+  while (pos + 8 <= end) {
+    uint32_t len = load_le<uint32_t>(base + pos);
+    uint32_t crc = load_le<uint32_t>(base + pos + 4);
+    if (pos + 8 + len > end) break;
+    const uint8_t* payload = base + pos + 8;
+    if (crc32_of(payload, len) == crc) {
+      RecView r;
+      if (parse_record(payload, len, &r)) {
+        if (!cb(r, pos)) return;
+      }
+    }
+    pos += 8 + len;
+  }
+}
+
+struct MapView {
+  const uint8_t* base = nullptr;
+  size_t len = 0;
+  ~MapView() {
+    if (base) munmap(const_cast<uint8_t*>(base), len);
+  }
+};
+
+bool map_log(Log* lg, MapView* mv) {
+  if (lg->end <= kHeaderSize) {
+    mv->base = nullptr;
+    return true;  // empty log
+  }
+  void* m = mmap(nullptr, lg->end, PROT_READ, MAP_SHARED, lg->fd, 0);
+  if (m == MAP_FAILED) return false;
+  mv->base = static_cast<const uint8_t*>(m);
+  mv->len = lg->end;
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// string -> dense code dict (open addressing, exact compare)
+// ---------------------------------------------------------------------------
+
+struct StringDict {
+  struct Slot {
+    uint64_t hash = 0;
+    uint64_t off = 0;  // into arena
+    uint32_t len = 0;
+    int32_t code = -1;
+  };
+  std::vector<Slot> slots;
+  std::string arena;
+  std::vector<std::pair<uint64_t, uint32_t>> by_code;  // (arena off, len)
+  size_t count = 0;
+
+  StringDict() : slots(1024) {}
+
+  void grow() {
+    std::vector<Slot> old;
+    old.swap(slots);
+    slots.assign(old.size() * 2, Slot{});
+    for (auto& s : old)
+      if (s.code >= 0) place(s);
+  }
+
+  void place(const Slot& s) {
+    size_t mask = slots.size() - 1;
+    size_t i = s.hash & mask;
+    while (slots[i].code >= 0) i = (i + 1) & mask;
+    slots[i] = s;
+  }
+
+  int32_t intern(const uint8_t* s, uint32_t n) {
+    uint64_t h = fnv1a(s, n);
+    size_t mask = slots.size() - 1;
+    size_t i = h & mask;
+    while (slots[i].code >= 0) {
+      if (slots[i].hash == h && slots[i].len == n &&
+          memcmp(arena.data() + slots[i].off, s, n) == 0)
+        return slots[i].code;
+      i = (i + 1) & mask;
+    }
+    Slot ns;
+    ns.hash = h;
+    ns.off = arena.size();
+    ns.len = n;
+    ns.code = static_cast<int32_t>(count++);
+    arena.append(reinterpret_cast<const char*>(s), n);
+    by_code.emplace_back(ns.off, n);
+    slots[i] = ns;
+    if (count * 10 > slots.size() * 7) grow();
+    return ns.code;
+  }
+
+  // Serialize string table as concat of (u32 len + bytes) in code order.
+  uint8_t* table(uint64_t* out_len) const {
+    uint64_t total = 0;
+    for (auto& [off, len] : by_code) total += 4 + len;
+    auto* out = static_cast<uint8_t*>(malloc(total ? total : 1));
+    uint8_t* q = out;
+    for (auto& [off, len] : by_code) {
+      memcpy(q, &len, 4);
+      q += 4;
+      memcpy(q, arena.data() + off, len);
+      q += len;
+    }
+    *out_len = total;
+    return out;
+  }
+};
+
+// Extract a numeric value for key at the TOP level of a JSON object.
+// Walks the object tracking depth and string escapes — nested objects can't
+// shadow, and quoted occurrences inside values are skipped. Accepts numbers
+// and numeric strings ("4.5"); booleans map to 1/0. Returns false if absent.
+bool json_top_level_number(const uint8_t* js, uint32_t n, const char* key,
+                           size_t key_len, double* out) {
+  uint32_t i = 0;
+  while (i < n && js[i] != '{') i++;
+  if (i >= n) return false;
+  i++;
+  int depth = 1;
+  while (i < n && depth > 0) {
+    uint8_t c = js[i];
+    if (c == '"') {
+      // string start: key candidate iff depth==1 and followed by ':'
+      uint32_t start = ++i;
+      while (i < n) {
+        if (js[i] == '\\') i += 2;
+        else if (js[i] == '"') break;
+        else i++;
+      }
+      if (i >= n) return false;
+      uint32_t slen = i - start;
+      i++;  // past closing quote
+      uint32_t j = i;
+      while (j < n && (js[j] == ' ' || js[j] == '\t' || js[j] == '\n')) j++;
+      bool is_key = j < n && js[j] == ':';
+      if (is_key && depth == 1 && slen == key_len &&
+          memcmp(js + start, key, key_len) == 0) {
+        j++;
+        while (j < n && (js[j] == ' ' || js[j] == '\t' || js[j] == '\n')) j++;
+        if (j >= n) return false;
+        if (js[j] == '"') j++;  // numeric string
+        if (js[j] == 't') { *out = 1.0; return true; }
+        if (js[j] == 'f') { *out = 0.0; return true; }
+        char buf[64];
+        uint32_t k = 0;
+        while (j < n && k < 63 &&
+               (isdigit(js[j]) || js[j] == '-' || js[j] == '+' ||
+                js[j] == '.' || js[j] == 'e' || js[j] == 'E'))
+          buf[k++] = js[j++];
+        if (k == 0) return false;
+        buf[k] = 0;
+        char* endp = nullptr;
+        double v = strtod(buf, &endp);
+        if (endp == buf) return false;
+        *out = v;
+        return true;
+      }
+      if (is_key) i = j + 1;
+    } else if (c == '{' || c == '[') {
+      depth++;
+      i++;
+    } else if (c == '}' || c == ']') {
+      depth--;
+      i++;
+    } else {
+      i++;
+    }
+  }
+  return false;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C API
+// ---------------------------------------------------------------------------
+
+
+// el_append is defined in the extern "C" block below; the ingest path
+// (anonymous namespace) needs it early.
+extern "C" int64_t el_append(void* h, const uint8_t* payload, uint32_t len);
+
+namespace {
+// ---------------------------------------------------------------------------
+// ingest fast path: JSON event parsing + validation + packing, all in C++
+// (the per-event cost of the Python pipeline is spread over json.loads,
+// dataclass construction, datetime parsing, uuid4 and copy-on-insert — this path goes straight from the HTTP body bytes to
+// framed log records)
+// ---------------------------------------------------------------------------
+
+struct JStr {
+  const uint8_t* p = nullptr;  // raw span INSIDE the quotes (escapes intact)
+  uint32_t n = 0;
+  bool esc = false;
+};
+
+struct JVal {
+  enum Kind { kNull, kBool, kNum, kStr, kObj, kArr } kind = kNull;
+  JStr str;                    // valid when kind == kStr
+  const uint8_t* raw = nullptr;  // full value span (any kind)
+  uint32_t raw_n = 0;
+};
+
+// Decode a JSON string span (escapes included) to UTF-8.
+bool json_unescape(const JStr& s, std::string* out) {
+  out->clear();
+  if (!s.esc) {
+    out->assign(reinterpret_cast<const char*>(s.p), s.n);
+    return true;
+  }
+  out->reserve(s.n);
+  const uint8_t* p = s.p;
+  const uint8_t* end = s.p + s.n;
+  auto hex4 = [&](const uint8_t* q, uint32_t* v) {
+    *v = 0;
+    for (int k = 0; k < 4; k++) {
+      uint8_t c = q[k];
+      uint32_t d;
+      if (c >= '0' && c <= '9') d = c - '0';
+      else if (c >= 'a' && c <= 'f') d = c - 'a' + 10;
+      else if (c >= 'A' && c <= 'F') d = c - 'A' + 10;
+      else return false;
+      *v = (*v << 4) | d;
+    }
+    return true;
+  };
+  auto put_utf8 = [&](uint32_t cp) {
+    if (cp < 0x80) {
+      out->push_back(static_cast<char>(cp));
+    } else if (cp < 0x800) {
+      out->push_back(static_cast<char>(0xC0 | (cp >> 6)));
+      out->push_back(static_cast<char>(0x80 | (cp & 0x3F)));
+    } else if (cp < 0x10000) {
+      out->push_back(static_cast<char>(0xE0 | (cp >> 12)));
+      out->push_back(static_cast<char>(0x80 | ((cp >> 6) & 0x3F)));
+      out->push_back(static_cast<char>(0x80 | (cp & 0x3F)));
+    } else {
+      out->push_back(static_cast<char>(0xF0 | (cp >> 18)));
+      out->push_back(static_cast<char>(0x80 | ((cp >> 12) & 0x3F)));
+      out->push_back(static_cast<char>(0x80 | ((cp >> 6) & 0x3F)));
+      out->push_back(static_cast<char>(0x80 | (cp & 0x3F)));
+    }
+  };
+  while (p < end) {
+    if (*p != '\\') {
+      out->push_back(static_cast<char>(*p++));
+      continue;
+    }
+    if (p + 1 >= end) return false;
+    uint8_t c = p[1];
+    p += 2;
+    switch (c) {
+      case '"': out->push_back('"'); break;
+      case '\\': out->push_back('\\'); break;
+      case '/': out->push_back('/'); break;
+      case 'b': out->push_back('\b'); break;
+      case 'f': out->push_back('\f'); break;
+      case 'n': out->push_back('\n'); break;
+      case 'r': out->push_back('\r'); break;
+      case 't': out->push_back('\t'); break;
+      case 'u': {
+        if (p + 4 > end) return false;
+        uint32_t cp;
+        if (!hex4(p, &cp)) return false;
+        p += 4;
+        if (cp >= 0xD800 && cp <= 0xDBFF && p + 6 <= end && p[0] == '\\' &&
+            p[1] == 'u') {
+          uint32_t lo;
+          if (!hex4(p + 2, &lo)) return false;
+          if (lo >= 0xDC00 && lo <= 0xDFFF) {
+            cp = 0x10000 + ((cp - 0xD800) << 10) + (lo - 0xDC00);
+            p += 6;
+          }
+        }
+        put_utf8(cp);
+        break;
+      }
+      default: return false;
+    }
+  }
+  return true;
+}
+
+// Minimal recursive-descent JSON parser producing spans.
+struct JParser {
+  const uint8_t* p;
+  const uint8_t* end;
+
+  explicit JParser(const uint8_t* data, uint32_t n) : p(data), end(data + n) {}
+
+  void ws() {
+    while (p < end && (*p == ' ' || *p == '\t' || *p == '\n' || *p == '\r'))
+      p++;
+  }
+
+  bool string_span(JStr* out) {  // at opening quote; validates strictly
+    if (p >= end || *p != '"') return false;
+    p++;
+    out->p = p;
+    out->esc = false;
+    while (p < end) {
+      uint8_t c = *p;
+      if (c == '\\') {
+        out->esc = true;
+        if (p + 1 >= end) return false;
+        uint8_t e = p[1];
+        if (e == 'u') {
+          if (p + 6 > end) return false;
+          for (int k = 2; k < 6; k++)
+            if (!isxdigit(p[k])) return false;
+          p += 6;
+        } else if (e == '"' || e == '\\' || e == '/' || e == 'b' ||
+                   e == 'f' || e == 'n' || e == 'r' || e == 't') {
+          p += 2;
+        } else {
+          return false;  // invalid escape = malformed JSON (json.loads parity)
+        }
+        continue;
+      }
+      if (c == '"') {
+        out->n = static_cast<uint32_t>(p - out->p);
+        p++;
+        return true;
+      }
+      if (c < 0x20) return false;  // raw control chars are invalid in JSON
+      p++;
+    }
+    return false;
+  }
+
+  bool value(JVal* out) {
+    ws();
+    if (p >= end) return false;
+    out->raw = p;
+    bool ok;
+    switch (*p) {
+      case '"':
+        out->kind = JVal::kStr;
+        ok = string_span(&out->str);
+        break;
+      case '{': {
+        out->kind = JVal::kObj;
+        ok = skip_object();
+        break;
+      }
+      case '[': {
+        out->kind = JVal::kArr;
+        ok = skip_array();
+        break;
+      }
+      case 't':
+        out->kind = JVal::kBool;
+        ok = lit("true");
+        break;
+      case 'f':
+        out->kind = JVal::kBool;
+        ok = lit("false");
+        break;
+      case 'n':
+        out->kind = JVal::kNull;
+        ok = lit("null");
+        break;
+      default:
+        out->kind = JVal::kNum;
+        ok = number();
+        break;
+    }
+    if (ok) out->raw_n = static_cast<uint32_t>(p - out->raw);
+    return ok;
+  }
+
+  bool lit(const char* s) {
+    size_t n = strlen(s);
+    if (p + n > end || memcmp(p, s, n) != 0) return false;
+    p += n;
+    return true;
+  }
+
+  bool number() {
+    // strict JSON grammar: -?(0|[1-9][0-9]*)(\.[0-9]+)?([eE][+-]?[0-9]+)?
+    // (liberal scanning would let e.g. leading-zero numbers into stored
+    // property spans that json.loads then rejects at read time)
+    if (p < end && *p == '-') p++;
+    if (p >= end || !isdigit(*p)) return false;
+    if (*p == '0') {
+      p++;
+    } else {
+      while (p < end && isdigit(*p)) p++;
+    }
+    if (p < end && *p == '.') {
+      p++;
+      if (p >= end || !isdigit(*p)) return false;
+      while (p < end && isdigit(*p)) p++;
+    }
+    if (p < end && (*p == 'e' || *p == 'E')) {
+      p++;
+      if (p < end && (*p == '+' || *p == '-')) p++;
+      if (p >= end || !isdigit(*p)) return false;
+      while (p < end && isdigit(*p)) p++;
+    }
+    return true;
+  }
+
+  bool skip_object() {  // at '{'
+    p++;
+    ws();
+    if (p < end && *p == '}') {
+      p++;
+      return true;
+    }
+    while (p < end) {
+      ws();
+      JStr key;
+      if (!string_span(&key)) return false;
+      ws();
+      if (p >= end || *p != ':') return false;
+      p++;
+      JVal v;
+      if (!value(&v)) return false;
+      ws();
+      if (p < end && *p == ',') {
+        p++;
+        continue;
+      }
+      if (p < end && *p == '}') {
+        p++;
+        return true;
+      }
+      return false;
+    }
+    return false;
+  }
+
+  bool skip_array() {  // at '['
+    p++;
+    ws();
+    if (p < end && *p == ']') {
+      p++;
+      return true;
+    }
+    while (p < end) {
+      JVal v;
+      if (!value(&v)) return false;
+      ws();
+      if (p < end && *p == ',') {
+        p++;
+        continue;
+      }
+      if (p < end && *p == ']') {
+        p++;
+        return true;
+      }
+      return false;
+    }
+    return false;
+  }
+
+  // Iterate an object's top-level members: cb(key, value) -> bool keep_going.
+  template <typename F>
+  bool object_members(F&& cb) {  // at '{'
+    ws();
+    if (p >= end || *p != '{') return false;
+    p++;
+    ws();
+    if (p < end && *p == '}') {
+      p++;
+      return true;
+    }
+    while (p < end) {
+      ws();
+      JStr key;
+      if (!string_span(&key)) return false;
+      ws();
+      if (p >= end || *p != ':') return false;
+      p++;
+      JVal v;
+      if (!value(&v)) return false;
+      if (!cb(key, v)) return false;
+      ws();
+      if (p < end && *p == ',') {
+        p++;
+        continue;
+      }
+      if (p < end && *p == '}') {
+        p++;
+        return true;
+      }
+      return false;
+    }
+    return false;
+  }
+};
+
+// strict UTF-8 validation (json.loads decodes the body first; the fast
+// path must reject what it would reject, or invalid bytes get stored)
+bool valid_utf8(const uint8_t* p, uint32_t n) {
+  const uint8_t* end = p + n;
+  while (p < end) {
+    uint8_t c = *p;
+    if (c < 0x80) {
+      p++;
+    } else if ((c >> 5) == 0x6) {
+      if (p + 2 > end || (p[1] & 0xC0) != 0x80 || c < 0xC2) return false;
+      p += 2;
+    } else if ((c >> 4) == 0xE) {
+      if (p + 3 > end || (p[1] & 0xC0) != 0x80 || (p[2] & 0xC0) != 0x80)
+        return false;
+      uint32_t cp = ((c & 0x0F) << 12) | ((p[1] & 0x3F) << 6) | (p[2] & 0x3F);
+      if (cp < 0x800 || (cp >= 0xD800 && cp <= 0xDFFF)) return false;
+      p += 3;
+    } else if ((c >> 3) == 0x1E) {
+      if (p + 4 > end || (p[1] & 0xC0) != 0x80 || (p[2] & 0xC0) != 0x80 ||
+          (p[3] & 0xC0) != 0x80)
+        return false;
+      uint32_t cp = ((c & 0x07) << 18) | ((p[1] & 0x3F) << 12) |
+                    ((p[2] & 0x3F) << 6) | (p[3] & 0x3F);
+      if (cp < 0x10000 || cp > 0x10FFFF) return false;
+      p += 4;
+    } else {
+      return false;
+    }
+  }
+  return true;
+}
+
+// days from civil (Howard Hinnant) -> days since 1970-01-01
+int64_t days_from_civil(int y, int m, int d) {
+  y -= m <= 2;
+  const int64_t era = (y >= 0 ? y : y - 399) / 400;
+  const unsigned yoe = static_cast<unsigned>(y - era * 400);
+  const unsigned doy = (153u * (m + (m > 2 ? -3 : 9)) + 2) / 5 + d - 1;
+  const unsigned doe = yoe * 365 + yoe / 4 - yoe / 100 + doy;
+  return era * 146097 + static_cast<int64_t>(doe) - 719468;
+}
+
+// ISO-8601 -> (micros since epoch UTC, tz offset minutes). Accepts the
+// subset datetime.fromisoformat does for the wire format: date, optional
+// [T ]HH:MM[:SS[.frac]], optional Z / +HH:MM / +HHMM / +HH. Naive = UTC
+// (utils/time.parse_time contract).
+bool parse_iso8601(const std::string& s, int64_t* us_out, int16_t* tz_out) {
+  const char* p = s.c_str();
+  const char* end = p + s.size();
+  auto digits = [&](int n, int* out) {
+    int v = 0;
+    for (int k = 0; k < n; k++) {
+      if (p >= end || !isdigit(*p)) return false;
+      v = v * 10 + (*p - '0');
+      p++;
+    }
+    *out = v;
+    return true;
+  };
+  int Y, M, D;
+  if (!digits(4, &Y)) return false;
+  if (p < end && *p == '-') p++; else return false;
+  if (!digits(2, &M)) return false;
+  if (p < end && *p == '-') p++; else return false;
+  if (!digits(2, &D)) return false;
+  if (M < 1 || M > 12 || D < 1) return false;
+  static const int kDim[12] = {31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31};
+  int dim = kDim[M - 1];
+  if (M == 2 && ((Y % 4 == 0 && Y % 100 != 0) || Y % 400 == 0)) dim = 29;
+  if (D > dim) return false;  // fromisoformat rejects calendar-invalid dates
+  int h = 0, mi = 0, sec = 0;
+  int64_t frac_us = 0;
+  int tz_min = 0;
+  bool have_tz = false;
+  if (p < end && (*p == 'T' || *p == ' ')) {
+    p++;
+    if (!digits(2, &h)) return false;
+    if (p < end && *p == ':') p++; else return false;
+    if (!digits(2, &mi)) return false;
+    if (p < end && *p == ':') {
+      p++;
+      if (!digits(2, &sec)) return false;
+      if (p < end && (*p == '.' || *p == ',')) {
+        p++;
+        int64_t scale = 100000;
+        bool any = false;
+        while (p < end && isdigit(*p)) {
+          if (scale > 0) frac_us += (*p - '0') * scale;
+          scale /= 10;
+          p++;
+          any = true;
+        }
+        if (!any) return false;
+      }
+    }
+    if (h > 23 || mi > 59 || sec > 59) return false;  // no leap-second
+    if (p < end) {
+      if (*p == 'Z' || *p == 'z') {
+        p++;
+        have_tz = true;
+        tz_min = 0;
+      } else if (*p == '+' || *p == '-') {
+        int sign = (*p == '-') ? -1 : 1;
+        p++;
+        int th, tm = 0;
+        if (!digits(2, &th)) return false;
+        if (p < end && *p == ':') {
+          // a colon commits to minutes: '+05:' is invalid (fromisoformat
+          // parity), only +HH / +HHMM may omit them
+          p++;
+          if (!digits(2, &tm)) return false;
+        } else if (p < end && isdigit(*p)) {
+          if (!digits(2, &tm)) return false;
+        }
+        // fromisoformat parity: reject offsets a python timezone() cannot
+        // represent — one accepted bad offset would poison every read of
+        // the namespace at decode time
+        if (th > 23 || tm > 59) return false;
+        tz_min = sign * (th * 60 + tm);
+        have_tz = true;
+      }
+    }
+  }
+  if (p != end) return false;
+  (void)have_tz;  // naive input is taken as UTC: tz_min stays 0
+  int64_t days = days_from_civil(Y, M, D);
+  int64_t local_us = ((days * 24 + h) * 60 + mi) * 60 + sec;
+  local_us = local_us * 1000000 + frac_us;
+  *us_out = local_us - static_cast<int64_t>(tz_min) * 60 * 1000000;
+  *tz_out = static_cast<int16_t>(tz_min);
+  return true;
+}
+
+// 32-hex-char event id (shape-compatible with uuid4().hex)
+thread_local std::mt19937_64 g_id_rng = []() {
+  std::random_device rd;
+  uint64_t seed = (static_cast<uint64_t>(rd()) << 32) ^ rd();
+  seed ^= static_cast<uint64_t>(
+      std::chrono::steady_clock::now().time_since_epoch().count());
+  seed ^= reinterpret_cast<uint64_t>(&seed);
+  return std::mt19937_64(seed);
+}();
+
+void gen_event_id(char out[33]) {
+  static const char* hexd = "0123456789abcdef";
+  uint64_t a = g_id_rng(), b = g_id_rng();
+  for (int k = 0; k < 16; k++) out[k] = hexd[(a >> (4 * k)) & 0xF];
+  for (int k = 0; k < 16; k++) out[16 + k] = hexd[(b >> (4 * k)) & 0xF];
+  out[32] = 0;
+}
+
+bool starts_with(const std::string& s, const char* pre) {
+  size_t n = strlen(pre);
+  return s.size() >= n && memcmp(s.data(), pre, n) == 0;
+}
+
+bool reserved_prefix(const std::string& s) {
+  return starts_with(s, "$") || starts_with(s, "pio_");
+}
+
+bool special_event(const std::string& s) {
+  return s == "$set" || s == "$unset" || s == "$delete";
+}
+
+// Python-falsy JSON values (from_api_dict uses `or {}` / `if v else`):
+// null, false, 0/0.0/-0, "", [], {}
+bool json_falsy(const JVal& v) {
+  switch (v.kind) {
+    case JVal::kNull:
+      return true;
+    case JVal::kBool:
+      return v.raw_n == 5;  // "false"
+    case JVal::kStr:
+      return v.str.n == 0;
+    case JVal::kNum: {
+      std::string n(reinterpret_cast<const char*>(v.raw), v.raw_n);
+      return strtod(n.c_str(), nullptr) == 0.0;
+    }
+    case JVal::kObj:
+    case JVal::kArr: {
+      for (uint32_t k = 1; k + 1 < v.raw_n; k++) {
+        uint8_t c = v.raw[k];
+        if (c != ' ' && c != '\t' && c != '\n' && c != '\r') return false;
+      }
+      return true;
+    }
+  }
+  return false;
+}
+
+struct IngestResult {
+  uint8_t status;       // 0 = created, 1 = 400, 2 = 403 (whitelist)
+  std::string id_or_msg;
+  std::string event;
+  std::string entity_type;
+};
+
+// Append a decoded (UTF-8) string as json.dumps would emit it —
+// ensure_ascii=True, lowercase hex, surrogate pairs for astral planes.
+// Byte-for-byte parity with the Python pack path matters: the stored tags
+// bytes AND the u16 framing limit must agree across both ingest paths.
+void append_json_escaped(std::string* out, const std::string& s) {
+  static const char* kHex = "0123456789abcdef";
+  auto u_esc = [&](uint32_t v) {
+    out->push_back('\\');
+    out->push_back('u');
+    out->push_back(kHex[(v >> 12) & 0xF]);
+    out->push_back(kHex[(v >> 8) & 0xF]);
+    out->push_back(kHex[(v >> 4) & 0xF]);
+    out->push_back(kHex[v & 0xF]);
+  };
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(s.data());
+  const uint8_t* end = p + s.size();
+  out->push_back('"');
+  while (p < end) {
+    uint8_t c = *p;
+    if (c == '"') { out->append("\\\""); p++; continue; }
+    if (c == '\\') { out->append("\\\\"); p++; continue; }
+    if (c >= 0x20 && c < 0x7F) {
+      out->push_back(static_cast<char>(c));
+      p++;
+      continue;
+    }
+    if (c == 0x7F) {  // DEL: ensure_ascii escapes it
+      u_esc(c);
+      p++;
+      continue;
+    }
+    if (c < 0x20) {
+      switch (c) {
+        case '\b': out->append("\\b"); break;
+        case '\t': out->append("\\t"); break;
+        case '\n': out->append("\\n"); break;
+        case '\f': out->append("\\f"); break;
+        case '\r': out->append("\\r"); break;
+        default: u_esc(c);
+      }
+      p++;
+      continue;
+    }
+    // multi-byte UTF-8 (input validated by valid_utf8 / built by
+    // json_unescape, which may hold WTF-8 lone surrogates — Python's
+    // json round-trips those the same way)
+    uint32_t cp;
+    if ((c & 0xE0) == 0xC0 && p + 1 < end) {
+      cp = ((c & 0x1F) << 6) | (p[1] & 0x3F);
+      p += 2;
+    } else if ((c & 0xF0) == 0xE0 && p + 2 < end) {
+      cp = ((c & 0x0F) << 12) | ((p[1] & 0x3F) << 6) | (p[2] & 0x3F);
+      p += 3;
+    } else if ((c & 0xF8) == 0xF0 && p + 3 < end) {
+      cp = ((c & 0x07) << 18) | ((p[1] & 0x3F) << 12) |
+           ((p[2] & 0x3F) << 6) | (p[3] & 0x3F);
+      p += 4;
+    } else {  // unreachable on validated input; emit replacement
+      cp = 0xFFFD;
+      p++;
+    }
+    if (cp > 0xFFFF) {
+      cp -= 0x10000;
+      u_esc(0xD800 + (cp >> 10));
+      u_esc(0xDC00 + (cp & 0x3FF));
+    } else {
+      u_esc(cp);
+    }
+  }
+  out->push_back('"');
+}
+
+void pack_u16str(std::vector<uint8_t>* out, const std::string& s) {
+  // The u16 prefix caps a field at 65535 bytes. Oversize input is truncated
+  // so the frame stays parseable no matter what; ingest_one rejects oversize
+  // *event data* before it ever reaches here (parity with the Python pack
+  // path's ValueError), so truncation only applies to diagnostic messages.
+  size_t cap = s.size() > 0xFFFF ? 0xFFFF : s.size();
+  uint16_t n = static_cast<uint16_t>(cap);
+  out->push_back(n & 0xFF);
+  out->push_back(n >> 8);
+  out->insert(out->end(), s.begin(), s.begin() + cap);
+}
+
+// Parse + validate one event object; append to the log on success.
+// Mirrors Event.from_api_dict + validate_event + the server whitelist
+// (pio_tpu_torch/data/event.py, server/eventserver.py) — messages included.
+IngestResult ingest_one(Log* lg, JParser& jp,
+                        const std::vector<std::string>& allowed,
+                        int64_t now_us, int16_t now_tz) {
+  IngestResult r;
+  r.status = 1;
+  JVal root;
+  {
+    // the caller positions jp at the value start
+    if (!jp.value(&root)) {
+      r.id_or_msg = "malformed JSON event";
+      return r;
+    }
+  }
+  if (root.kind != JVal::kObj) {
+    r.id_or_msg = "event must be a JSON object";
+    return r;
+  }
+  struct Field {
+    bool present = false;
+    JVal v;
+  };
+  Field f_event, f_etype, f_eid, f_tetype, f_teid, f_props, f_etime,
+      f_ctime, f_tags, f_prid, f_eventid;
+  {
+    JParser sub(root.raw, root.raw_n);
+    bool ok = sub.object_members([&](const JStr& key, const JVal& v) {
+      std::string k;
+      if (!json_unescape(key, &k)) return false;
+      Field* slot = nullptr;
+      if (k == "event") slot = &f_event;
+      else if (k == "entityType") slot = &f_etype;
+      else if (k == "entityId") slot = &f_eid;
+      else if (k == "targetEntityType") slot = &f_tetype;
+      else if (k == "targetEntityId") slot = &f_teid;
+      else if (k == "properties") slot = &f_props;
+      else if (k == "eventTime") slot = &f_etime;
+      else if (k == "creationTime") slot = &f_ctime;
+      else if (k == "tags") slot = &f_tags;
+      else if (k == "prId") slot = &f_prid;
+      else if (k == "eventId") slot = &f_eventid;
+      if (slot) {
+        slot->present = true;
+        slot->v = v;
+      }
+      return true;
+    });
+    if (!ok) {
+      r.id_or_msg = "malformed JSON event";
+      return r;
+    }
+  }
+
+  auto req_str = [&](Field& f, const char* name, std::string* out) {
+    if (!f.present) {
+      r.id_or_msg = std::string("field ") + name + " is required";
+      return false;
+    }
+    if (f.v.kind != JVal::kStr) {
+      r.id_or_msg = std::string("field ") + name + " must be a string";
+      return false;
+    }
+    if (!json_unescape(f.v.str, out)) {
+      r.id_or_msg = "malformed JSON event";
+      return false;
+    }
+    return true;
+  };
+  std::string ev, etype, eid;
+  if (!req_str(f_event, "event", &ev)) return r;
+  if (!req_str(f_etype, "entityType", &etype)) return r;
+  if (!req_str(f_eid, "entityId", &eid)) return r;
+
+  auto opt_str = [&](Field& f, const char* name, std::string* out,
+                     bool* has) {
+    *has = false;
+    if (!f.present || f.v.kind == JVal::kNull) return true;
+    if (f.v.kind != JVal::kStr || !json_unescape(f.v.str, out)) {
+      r.id_or_msg = std::string("field ") + name + " must be a string";
+      return false;
+    }
+    *has = true;
+    return true;
+  };
+  std::string tetype, teid, prid, eventid;
+  bool has_tetype, has_teid, has_prid, has_eventid;
+  if (!opt_str(f_tetype, "targetEntityType", &tetype, &has_tetype))
+    return r;
+  if (!opt_str(f_teid, "targetEntityId", &teid, &has_teid)) return r;
+  if (!opt_str(f_prid, "prId", &prid, &has_prid)) return r;
+  if (!opt_str(f_eventid, "eventId", &eventid, &has_eventid)) return r;
+
+  // properties: keep the raw JSON span; validate kind + top-level keys
+  std::string props_json = "{}";
+  size_t n_props = 0;
+  // falsy properties values collapse to {} (from_api_dict: `... or {}`)
+  if (f_props.present && !json_falsy(f_props.v)) {
+    if (f_props.v.kind != JVal::kObj) {
+      r.id_or_msg = "properties must be a JSON object";
+      return r;
+    }
+    props_json.assign(reinterpret_cast<const char*>(f_props.v.raw),
+                      f_props.v.raw_n);
+    JParser pp(f_props.v.raw, f_props.v.raw_n);
+    bool keys_ok = true;
+    std::string bad_key;
+    pp.object_members([&](const JStr& key, const JVal&) {
+      std::string k;
+      if (!json_unescape(key, &k)) {
+        keys_ok = false;
+        return false;
+      }
+      n_props++;
+      if (reserved_prefix(k)) {  // BUILTIN_PROPERTIES is empty
+        bad_key = k;
+        keys_ok = false;
+        return false;
+      }
+      return true;
+    });
+    if (!keys_ok) {
+      if (!bad_key.empty())
+        r.id_or_msg = "The property " + bad_key +
+                      " is not allowed. 'pio_' is a reserved name prefix.";
+      else
+        r.id_or_msg = "malformed JSON event";
+      return r;
+    }
+  }
+
+  // tags: every element must be a string; stored CANONICALIZED as the
+  // exact bytes json.dumps(list(tags)) produces (the Python pack path),
+  // so the two ingest paths store identical records and hit the u16
+  // framing limit at exactly the same inputs
+  std::string tags_json;
+  // falsy tags values collapse to [] (from_api_dict: `... or []`)
+  if (f_tags.present && !json_falsy(f_tags.v)) {
+    if (f_tags.v.kind != JVal::kArr) {
+      r.id_or_msg = "tags must be a list of strings";
+      return r;
+    }
+    bool all_str = true;
+    size_t n_tags = 0;
+    std::string canon = "[";
+    JParser tp(f_tags.v.raw, f_tags.v.raw_n);
+    tp.p++;  // consume '['
+    tp.ws();
+    if (tp.p < tp.end && *tp.p != ']') {
+      while (tp.p < tp.end) {
+        JVal v;
+        if (!tp.value(&v)) {
+          all_str = false;
+          break;
+        }
+        if (v.kind != JVal::kStr) {
+          all_str = false;
+          break;
+        }
+        std::string tag;
+        if (!json_unescape(v.str, &tag)) {
+          all_str = false;
+          break;
+        }
+        if (n_tags > 0) canon += ", ";
+        append_json_escaped(&canon, tag);
+        n_tags++;
+        tp.ws();
+        if (tp.p < tp.end && *tp.p == ',') {
+          tp.p++;
+          continue;
+        }
+        break;
+      }
+    }
+    if (!all_str) {
+      r.id_or_msg = "tags must be a list of strings";
+      return r;
+    }
+    if (n_tags > 0) {
+      canon += "]";
+      tags_json = std::move(canon);
+    }
+  }
+
+  // times
+  int64_t et_us = now_us, ct_us = now_us;
+  int16_t et_tz = now_tz, ct_tz = now_tz;
+  auto time_field = [&](Field& f, const char* name, int64_t* us,
+                        int16_t* tz) {
+    if (!f.present || json_falsy(f.v))
+      return true;  // falsy values fall back to now (from_api_dict parity)
+    std::string s;
+    bool bad = f.v.kind != JVal::kStr || !json_unescape(f.v.str, &s) ||
+               !parse_iso8601(s, us, tz);
+    if (bad) {
+      std::string shown = s;
+      if (f.v.kind != JVal::kStr) {
+        shown.assign(reinterpret_cast<const char*>(f.v.raw), f.v.raw_n);
+        if (shown == "true") shown = "True";  // python str() of the value
+      }
+      r.id_or_msg = std::string("invalid ") + name + ": " + shown;
+      return false;
+    }
+    return true;
+  };
+  if (!time_field(f_etime, "eventTime", &et_us, &et_tz)) return r;
+  if (!time_field(f_ctime, "creationTime", &ct_us, &ct_tz)) return r;
+
+  // validation contract (validate_event)
+  auto fail = [&](const std::string& msg) {
+    r.id_or_msg = msg;
+    return r;
+  };
+  if (ev.empty()) return fail("event must not be empty.");
+  if (etype.empty()) return fail("entityType must not be empty string.");
+  if (eid.empty()) return fail("entityId must not be empty string.");
+  if (has_tetype && tetype.empty())
+    return fail("targetEntityType must not be empty string");
+  if (has_teid && teid.empty())
+    return fail("targetEntityId must not be empty string.");
+  if (has_tetype != has_teid)
+    return fail(
+        "targetEntityType and targetEntityId must be specified together.");
+  if (ev == "$unset" && n_props == 0)
+    return fail("properties cannot be empty for $unset event");
+  if (reserved_prefix(ev) && !special_event(ev))
+    return fail(ev + " is not a supported reserved event name.");
+  if (special_event(ev) && (has_tetype || has_teid))
+    return fail("Reserved event " + ev + " cannot have targetEntity");
+  if (reserved_prefix(etype) && etype != "pio_pr")
+    return fail("The entityType " + etype +
+                " is not allowed. 'pio_' is a reserved name prefix.");
+  if (has_tetype && reserved_prefix(tetype) && tetype != "pio_pr")
+    return fail("The targetEntityType " + tetype +
+                " is not allowed. 'pio_' is a reserved name prefix.");
+
+  // per-key event-name whitelist (server/eventserver.py check_event_allowed)
+  if (!allowed.empty()) {
+    bool ok = false;
+    for (const auto& a : allowed)
+      if (a == ev) {
+        ok = true;
+        break;
+      }
+    if (!ok) {
+      r.status = 2;
+      r.id_or_msg = ev + " events are not allowed";
+      r.event = ev;
+      return r;
+    }
+  }
+
+  // id + pack + append (layout mirrors pio_tpu_torch/native/eventlog.py
+  // pack_event; see the payload doc at the top of this file)
+  if (!has_eventid) {
+    char idbuf[33];
+    gen_event_id(idbuf);
+    eventid.assign(idbuf, 32);
+  }
+  // u16 framing caps every string field at 65535 bytes; reject before
+  // packing rather than corrupt the record. Same order and message as the
+  // Python path (_pack_str, pio_tpu_torch/native/eventlog.py) so both paths
+  // return identical 400s.
+  {
+    const std::string* fields[] = {&ev,      &etype, &eid,  &tetype,
+                                   &teid,    &eventid, &prid, &tags_json};
+    for (const std::string* s : fields) {
+      if (s->size() > 0xFFFF) {
+        r.id_or_msg = "string field too long (" +
+                      std::to_string(s->size()) + " bytes)";
+        return r;
+      }
+    }
+  }
+  std::vector<uint8_t> payload;
+  payload.reserve(96 + ev.size() + etype.size() + eid.size() +
+                  props_json.size() + tags_json.size() + 64);
+  auto put_i64 = [&](int64_t v) {
+    for (int k = 0; k < 8; k++)
+      payload.push_back(static_cast<uint8_t>((v >> (8 * k)) & 0xFF));
+  };
+  auto put_i16 = [&](int16_t v) {
+    payload.push_back(static_cast<uint8_t>(v & 0xFF));
+    payload.push_back(static_cast<uint8_t>((v >> 8) & 0xFF));
+  };
+  auto put_u64 = [&](uint64_t v) {
+    for (int k = 0; k < 8; k++)
+      payload.push_back(static_cast<uint8_t>((v >> (8 * k)) & 0xFF));
+  };
+  auto hash_of = [&](const std::string& s) {
+    return fnv1a(reinterpret_cast<const uint8_t*>(s.data()), s.size());
+  };
+  put_i64(et_us);
+  put_i16(et_tz);
+  put_i64(ct_us);
+  put_i16(ct_tz);
+  put_u64(hash_of(ev));
+  put_u64(hash_of(etype));
+  put_u64(hash_of(eid));
+  put_u64(has_tetype ? hash_of(tetype) : 0);
+  put_u64(has_teid ? hash_of(teid) : 0);
+  put_u64(hash_of(eventid));
+  payload.push_back(static_cast<uint8_t>((has_tetype ? 1 : 0) |
+                                         (has_prid ? 2 : 0)));
+  pack_u16str(&payload, ev);
+  pack_u16str(&payload, etype);
+  pack_u16str(&payload, eid);
+  pack_u16str(&payload, has_tetype ? tetype : std::string());
+  pack_u16str(&payload, has_teid ? teid : std::string());
+  pack_u16str(&payload, eventid);
+  pack_u16str(&payload, has_prid ? prid : std::string());
+  pack_u16str(&payload, tags_json);
+  uint32_t pn = static_cast<uint32_t>(props_json.size());
+  payload.push_back(pn & 0xFF);
+  payload.push_back((pn >> 8) & 0xFF);
+  payload.push_back((pn >> 16) & 0xFF);
+  payload.push_back((pn >> 24) & 0xFF);
+  payload.insert(payload.end(), props_json.begin(), props_json.end());
+
+  if (el_append(static_cast<void*>(lg), payload.data(),
+                static_cast<uint32_t>(payload.size())) < 0) {
+    r.id_or_msg = "log append failed";
+    return r;
+  }
+  r.status = 0;
+  r.id_or_msg = eventid;
+  r.event = ev;
+  r.entity_type = etype;
+  return r;
+}
+
+
+}  // namespace (ingest helpers)
+
+
+extern "C" {
+
+void* el_open(const char* path, int create) {
+  int flags = O_RDWR | (create ? O_CREAT : 0);
+  int fd = open(path, flags, 0644);
+  if (fd < 0) return nullptr;
+  auto* lg = new Log;
+  lg->fd = fd;
+  lg->path = path;
+  struct stat st;
+  if (fstat(fd, &st) != 0) {
+    close(fd);
+    delete lg;
+    return nullptr;
+  }
+  if (st.st_size == 0) {
+    if (pwrite(fd, kMagic, 8, 0) != 8) {
+      close(fd);
+      delete lg;
+      return nullptr;
+    }
+    lg->end = kHeaderSize;
+    return lg;
+  }
+  char magic[8];
+  if (st.st_size < 8 || pread(fd, magic, 8, 0) != 8 ||
+      memcmp(magic, kMagic, 8) != 0) {
+    close(fd);
+    delete lg;
+    return nullptr;
+  }
+  // length-walk to the last whole record (detects torn tail writes)
+  uint64_t pos = kHeaderSize;
+  uint64_t size = static_cast<uint64_t>(st.st_size);
+  while (pos + 8 <= size) {
+    uint8_t hdr[8];
+    if (pread(fd, hdr, 8, pos) != 8) break;
+    uint32_t len = load_le<uint32_t>(hdr);
+    if (pos + 8 + len > size) break;
+    pos += 8 + len;
+  }
+  lg->end = pos;
+  return lg;
+}
+
+void el_close(void* h) {
+  auto* lg = static_cast<Log*>(h);
+  if (!lg) return;
+  close(lg->fd);
+  delete lg;
+}
+
+int el_flush(void* h) {
+  auto* lg = static_cast<Log*>(h);
+  return fdatasync(lg->fd) == 0 ? 0 : -1;
+}
+
+// Append one payload; returns record offset, or -1.
+int64_t el_append(void* h, const uint8_t* payload, uint32_t len) {
+  auto* lg = static_cast<Log*>(h);
+  std::vector<uint8_t> frame(8 + len);
+  uint32_t crc = crc32_of(payload, len);
+  memcpy(frame.data(), &len, 4);
+  memcpy(frame.data() + 4, &crc, 4);
+  memcpy(frame.data() + 8, payload, len);
+  ssize_t w = pwrite(lg->fd, frame.data(), frame.size(), lg->end);
+  if (w != static_cast<ssize_t>(frame.size())) return -1;
+  int64_t off = static_cast<int64_t>(lg->end);
+  lg->end += frame.size();
+  return off;
+}
+
+void el_stats(void* h, uint64_t* end, uint64_t* n_records) {
+  auto* lg = static_cast<Log*>(h);
+  *end = lg->end;
+  uint64_t n = 0;
+  MapView mv;
+  if (map_log(lg, &mv) && mv.base)
+    for_each_record(mv.base, lg->end, [&](const RecView&, uint64_t) {
+      n++;
+      return true;
+    });
+  *n_records = n;
+}
+
+uint64_t el_hash(const uint8_t* s, uint32_t len) { return fnv1a(s, len); }
+
+void el_free(void* p) { free(p); }
+
+// Scan matching records; returns count, fills *out_offsets (malloc'd, free
+// with el_free) with file offsets of matches in file order. -1 on error.
+int64_t el_scan(void* h, uint32_t flags, int64_t start_ms, int64_t until_ms,
+                uint64_t h_etype, uint64_t h_eid, const uint64_t* h_events,
+                uint32_t n_events, uint64_t h_tetype, uint64_t h_teid,
+                uint64_t h_eventid, const uint8_t* tomb_blob,
+                uint32_t tomb_len, uint64_t** out_offsets) {
+  auto* lg = static_cast<Log*>(h);
+  Filter f{flags,    start_ms, until_ms, h_etype,  h_eid,
+           h_tetype, h_teid,   h_events, n_events, h_eventid};
+  Tombstones tombs = parse_tombstones(tomb_blob, tomb_len);
+  std::vector<uint64_t> offs;
+  MapView mv;
+  if (!map_log(lg, &mv)) return -1;
+  if (mv.base)
+    for_each_record(mv.base, lg->end, [&](const RecView& r, uint64_t pos) {
+      if (matches(r, f) &&
+          (tombs.ids.empty() || !tombs.contains(r.event_id, r.l_event_id)))
+        offs.push_back(pos);
+      return true;
+    });
+  auto* out = static_cast<uint64_t*>(
+      malloc(offs.empty() ? 1 : offs.size() * sizeof(uint64_t)));
+  memcpy(out, offs.data(), offs.size() * sizeof(uint64_t));
+  *out_offsets = out;
+  return static_cast<int64_t>(offs.size());
+}
+
+// Copy the payload at `offset` into a malloc'd buffer (free with el_free).
+int el_read(void* h, uint64_t offset, uint8_t** out, uint32_t* out_len) {
+  auto* lg = static_cast<Log*>(h);
+  if (offset + 8 > lg->end) return -1;
+  uint8_t hdr[8];
+  if (pread(lg->fd, hdr, 8, offset) != 8) return -1;
+  uint32_t len = load_le<uint32_t>(hdr);
+  uint32_t crc = load_le<uint32_t>(hdr + 4);
+  if (offset + 8 + len > lg->end) return -1;
+  auto* buf = static_cast<uint8_t*>(malloc(len ? len : 1));
+  if (pread(lg->fd, buf, len, offset + 8) != static_cast<ssize_t>(len) ||
+      crc32_of(buf, len) != crc) {
+    free(buf);
+    return -1;
+  }
+  *out = buf;
+  *out_len = len;
+  return 0;
+}
+
+// Training fast path: filter + dictionary-encode (entity_id, target_entity_id)
+// + numeric value from properties[value_key] (default_value when absent) +
+// dedup, in one sweep. dedup: 0 = none, 1 = last-by-event-time, 2 = sum.
+// h_value_event != 0 restricts key extraction to records with that event
+// name (others take default_value) — the recommendation template's
+// "rate events carry ratings, buy events are implicit" rule.
+// Records without a target entity are skipped (interactions need both ends).
+// Outputs are malloc'd; free each with el_free. Returns row count or -1.
+int64_t el_columnarize(
+    void* h, uint32_t flags, int64_t start_ms, int64_t until_ms,
+    uint64_t h_etype, const uint64_t* h_events, uint32_t n_events,
+    uint64_t h_tetype, const char* value_key, float default_value,
+    uint64_t h_value_event,
+    const uint8_t* tomb_blob, uint32_t tomb_len, int dedup,
+    uint32_t** user_codes, uint32_t** item_codes, float** values,
+    int64_t** times, uint8_t** user_table, uint64_t* user_table_len,
+    uint32_t* n_users, uint8_t** item_table, uint64_t* item_table_len,
+    uint32_t* n_items) {
+  auto* lg = static_cast<Log*>(h);
+  Filter f;
+  f.flags = flags;
+  f.start_ms = start_ms;
+  f.until_ms = until_ms;
+  f.h_etype = h_etype;
+  f.h_events = h_events;
+  f.n_events = n_events;
+  f.h_tetype = h_tetype;
+  Tombstones tombs = parse_tombstones(tomb_blob, tomb_len);
+  size_t klen = value_key ? strlen(value_key) : 0;
+
+  StringDict users, items;
+  std::vector<uint32_t> ucodes, icodes;
+  std::vector<float> vals;
+  std::vector<int64_t> ts;
+  // dedup table keyed by (user_code, item_code)
+  struct Cell {
+    uint64_t key;
+    int32_t row;  // into output vectors
+    int64_t best_t;
+    bool used = false;
+  };
+  std::vector<Cell> cells(dedup ? 4096 : 0);
+  size_t ncells = 0;
+
+  auto cell_find = [&](uint64_t key) -> Cell* {
+    size_t mask = cells.size() - 1;
+    size_t i = (key * 0x9E3779B97F4A7C15ull) & mask;
+    while (cells[i].used && cells[i].key != key) i = (i + 1) & mask;
+    return &cells[i];
+  };
+  auto cell_grow = [&]() {
+    std::vector<Cell> old;
+    old.swap(cells);
+    cells.assign(old.size() * 2, Cell{});
+    for (auto& c : old)
+      if (c.used) *cell_find(c.key) = c;
+  };
+
+  MapView mv;
+  if (!map_log(lg, &mv)) return -1;
+  if (mv.base)
+    for_each_record(mv.base, lg->end, [&](const RecView& r, uint64_t) {
+      if (!(r.flags & 1)) return true;  // no target entity
+      if (!matches(r, f)) return true;
+      if (!tombs.ids.empty() && tombs.contains(r.event_id, r.l_event_id))
+        return true;
+      double v = default_value;
+      if (klen && (!h_value_event || r.h_event == h_value_event))
+        json_top_level_number(r.props, r.l_props, value_key, klen, &v);
+      uint32_t uc = static_cast<uint32_t>(users.intern(r.eid, r.l_eid));
+      uint32_t ic = static_cast<uint32_t>(items.intern(r.teid, r.l_teid));
+      if (!dedup) {
+        ucodes.push_back(uc);
+        icodes.push_back(ic);
+        vals.push_back(static_cast<float>(v));
+        ts.push_back(r.time_ms);
+        return true;
+      }
+      uint64_t key = (static_cast<uint64_t>(uc) << 32) | ic;
+      Cell* c = cell_find(key);
+      if (!c->used) {
+        c->used = true;
+        c->key = key;
+        c->row = static_cast<int32_t>(ucodes.size());
+        c->best_t = r.time_ms;
+        ucodes.push_back(uc);
+        icodes.push_back(ic);
+        vals.push_back(static_cast<float>(v));
+        ts.push_back(r.time_ms);
+        if (++ncells * 10 > cells.size() * 7) cell_grow();
+      } else if (dedup == 2) {  // sum
+        vals[c->row] += static_cast<float>(v);
+        if (r.time_ms > ts[c->row]) ts[c->row] = r.time_ms;
+      } else if (r.time_ms >= c->best_t) {  // last-by-event-time
+        c->best_t = r.time_ms;
+        vals[c->row] = static_cast<float>(v);
+        ts[c->row] = r.time_ms;
+      }
+      return true;
+    });
+
+  size_t n = ucodes.size();
+  auto copy_out = [](auto& vec, auto** out) {
+    using T = typename std::remove_reference<decltype(vec)>::type::value_type;
+    *out = static_cast<T*>(malloc(vec.empty() ? 1 : vec.size() * sizeof(T)));
+    memcpy(*out, vec.data(), vec.size() * sizeof(T));
+  };
+  copy_out(ucodes, user_codes);
+  copy_out(icodes, item_codes);
+  copy_out(vals, values);
+  copy_out(ts, times);
+  *user_table = users.table(user_table_len);
+  *item_table = items.table(item_table_len);
+  *n_users = static_cast<uint32_t>(users.count);
+  *n_items = static_cast<uint32_t>(items.count);
+  return static_cast<int64_t>(n);
+}
+
+// Ingest fast path: parse a JSON body (array of events, or one object when
+// `single`), validate each event exactly as the Python pipeline does, pack
+// and append the valid ones, and return per-event results.
+//
+//   allowed: n_allowed u16-len-prefixed event names (the access key's
+//            whitelist); empty = all events allowed
+//   now_us/now_tz: server time used when eventTime/creationTime are absent
+//   max_events: batch size cap (0 = uncapped); exceeding it returns -2
+//
+// Returns the number of results packed into *out (caller frees via
+// el_free), each as: u8 status (0=created, 1=invalid, 2=not-allowed),
+// u16+bytes id-or-message, u16+bytes event name, u16+bytes entity type.
+// Returns -1 when the body itself is not well-formed JSON of the expected
+// shape, -2 when max_events is exceeded.
+int64_t el_ingest_batch(void* h, const uint8_t* json, uint32_t json_len,
+                        const uint8_t* allowed, uint32_t allowed_len,
+                        uint32_t n_allowed, int64_t now_us, int16_t now_tz,
+                        int single, uint32_t max_events, uint8_t** out,
+                        uint64_t* out_len) {
+  auto* lg = static_cast<Log*>(h);
+  if (!valid_utf8(json, json_len)) return -1;
+  std::vector<std::string> allow;
+  allow.reserve(n_allowed);
+  {
+    const uint8_t* p = allowed;
+    const uint8_t* end = allowed + allowed_len;
+    for (uint32_t k = 0; k < n_allowed; k++) {
+      if (p + 2 > end) return -1;
+      uint16_t n = static_cast<uint16_t>(p[0] | (p[1] << 8));
+      p += 2;
+      if (p + n > end) return -1;
+      allow.emplace_back(reinterpret_cast<const char*>(p), n);
+      p += n;
+    }
+  }
+
+  // well-formedness pre-pass over the WHOLE body before anything is
+  // appended: a malformed body (or an over-limit batch) must reject with
+  // zero inserts, exactly like the Python route's json.loads-then-check
+  {
+    JParser pre(json, json_len);
+    pre.ws();
+    if (single) {
+      JVal v;
+      if (!pre.value(&v)) return -1;
+    } else {
+      if (pre.p >= pre.end || *pre.p != '[') return -1;
+      pre.p++;
+      pre.ws();
+      uint32_t n = 0;
+      if (pre.p < pre.end && *pre.p == ']') {
+        pre.p++;
+      } else {
+        while (pre.p < pre.end) {
+          JVal v;
+          if (!pre.value(&v)) return -1;
+          if (max_events && ++n > max_events) return -2;
+          pre.ws();
+          if (pre.p < pre.end && *pre.p == ',') {
+            pre.p++;
+            continue;
+          }
+          if (pre.p < pre.end && *pre.p == ']') {
+            pre.p++;
+            break;
+          }
+          return -1;
+        }
+      }
+    }
+    pre.ws();
+    if (pre.p != pre.end) return -1;  // trailing garbage
+  }
+
+  std::vector<IngestResult> results;
+  JParser jp(json, json_len);
+  if (single) {
+    results.push_back(ingest_one(lg, jp, allow, now_us, now_tz));
+    if (results[0].status == 1 &&
+        results[0].id_or_msg == "malformed JSON event")
+      return -1;  // defensive: pre-pass should have caught it
+  } else {
+    jp.ws();
+    if (jp.p >= jp.end || *jp.p != '[') return -1;
+    jp.p++;
+    jp.ws();
+    bool done = (jp.p < jp.end && *jp.p == ']');
+    if (done) jp.p++;
+    while (!done) {
+      IngestResult r = ingest_one(lg, jp, allow, now_us, now_tz);
+      if (r.status == 1 && r.id_or_msg == "malformed JSON event")
+        return -1;  // cannot trust the array cursor past a parse error
+      results.push_back(std::move(r));
+      jp.ws();
+      if (jp.p < jp.end && *jp.p == ',') {
+        jp.p++;
+        continue;
+      }
+      if (jp.p < jp.end && *jp.p == ']') {
+        jp.p++;
+        done = true;
+        continue;
+      }
+      return -1;
+    }
+    jp.ws();
+    if (jp.p != jp.end) return -1;
+  }
+
+  std::vector<uint8_t> buf;
+  buf.reserve(results.size() * 48);
+  for (const auto& r : results) {
+    buf.push_back(r.status);
+    pack_u16str(&buf, r.id_or_msg);
+    pack_u16str(&buf, r.event);
+    pack_u16str(&buf, r.entity_type);
+  }
+  *out = static_cast<uint8_t*>(malloc(buf.size() ? buf.size() : 1));
+  if (!*out) return -1;
+  memcpy(*out, buf.data(), buf.size());
+  *out_len = buf.size();
+  return static_cast<int64_t>(results.size());
+}
+
+}  // extern "C"

@@ -1,0 +1,429 @@
+"""ctypes bindings + record codec for the native event log.
+
+The C++ side (``eventlog.cpp`` beside this module) owns framing, crc, filtered scans, and
+the training columnarizer; this module packs/unpacks record payloads and
+exposes a typed ``EventLog`` handle. Python re-verifies scan matches exactly
+(`match_event`), so the C hash prefilter can never produce a wrong result —
+collisions only cost a wasted decode.
+
+Times are stored as exact integer microseconds since epoch plus the original
+UTC-offset minutes, so ``Event`` round-trips losslessly (the reference keeps
+joda DateTimes with zone, hbase/HBEventsUtil.scala:144-270).
+
+Copy of ``pio_tpu.native.eventlog``, imports rewritten to the port; it trims
+nothing. The library is built and loaded at the first call that needs it,
+so importing this module needs neither g++ nor a card. Logs written by
+either package read in the other: the record layout is the reference's.
+"""
+
+from __future__ import annotations
+
+import ctypes as C
+import json
+import struct
+from dataclasses import dataclass
+from datetime import datetime, timedelta, timezone
+
+import numpy as np
+
+from pio_tpu_torch.data.datamap import DataMap
+from pio_tpu_torch.data.event import Event
+from pio_tpu_torch.native import load_library
+
+_EPOCH = datetime(1970, 1, 1, tzinfo=timezone.utc)
+_US = timedelta(microseconds=1)
+
+F_START = 1 << 0
+F_UNTIL = 1 << 1
+F_ETYPE = 1 << 2
+F_EID = 1 << 3
+F_EVENTS = 1 << 4
+F_TETYPE_EQ = 1 << 5
+F_TETYPE_ABSENT = 1 << 6
+F_TEID_EQ = 1 << 7
+F_TEID_ABSENT = 1 << 8
+F_EVENTID = 1 << 9
+
+DEDUP_NONE, DEDUP_LAST, DEDUP_SUM = 0, 1, 2
+
+
+def _lib() -> C.CDLL:
+    lib = load_library("eventlog")
+    if getattr(lib, "_el_typed", False):
+        return lib
+    u8p = C.POINTER(C.c_uint8)
+    u64p = C.POINTER(C.c_uint64)
+    lib.el_open.restype = C.c_void_p
+    lib.el_open.argtypes = [C.c_char_p, C.c_int]
+    lib.el_close.argtypes = [C.c_void_p]
+    lib.el_flush.restype = C.c_int
+    lib.el_flush.argtypes = [C.c_void_p]
+    lib.el_append.restype = C.c_int64
+    lib.el_append.argtypes = [C.c_void_p, C.c_char_p, C.c_uint32]
+    lib.el_stats.argtypes = [C.c_void_p, u64p, u64p]
+    lib.el_hash.restype = C.c_uint64
+    lib.el_hash.argtypes = [C.c_char_p, C.c_uint32]
+    lib.el_free.argtypes = [C.c_void_p]
+    lib.el_scan.restype = C.c_int64
+    lib.el_scan.argtypes = [
+        C.c_void_p, C.c_uint32, C.c_int64, C.c_int64, C.c_uint64, C.c_uint64,
+        u64p, C.c_uint32, C.c_uint64, C.c_uint64, C.c_uint64,
+        C.c_char_p, C.c_uint32, C.POINTER(C.POINTER(C.c_uint64)),
+    ]
+    lib.el_read.restype = C.c_int
+    lib.el_read.argtypes = [
+        C.c_void_p, C.c_uint64, C.POINTER(u8p), C.POINTER(C.c_uint32)
+    ]
+    lib.el_ingest_batch.restype = C.c_int64
+    lib.el_ingest_batch.argtypes = [
+        C.c_void_p, C.c_char_p, C.c_uint32, C.c_char_p, C.c_uint32,
+        C.c_uint32, C.c_int64, C.c_int16, C.c_int, C.c_uint32,
+        C.POINTER(u8p), u64p,
+    ]
+    lib.el_columnarize.restype = C.c_int64
+    lib.el_columnarize.argtypes = [
+        C.c_void_p, C.c_uint32, C.c_int64, C.c_int64, C.c_uint64,
+        u64p, C.c_uint32, C.c_uint64, C.c_char_p, C.c_float, C.c_uint64,
+        C.c_char_p, C.c_uint32, C.c_int,
+        C.POINTER(C.POINTER(C.c_uint32)), C.POINTER(C.POINTER(C.c_uint32)),
+        C.POINTER(C.POINTER(C.c_float)), C.POINTER(C.POINTER(C.c_int64)),
+        C.POINTER(u8p), u64p, C.POINTER(C.c_uint32),
+        C.POINTER(u8p), u64p, C.POINTER(C.c_uint32),
+    ]
+    lib._el_typed = True
+    return lib
+
+
+def el_hash(s: str) -> int:
+    b = s.encode("utf-8")
+    return _lib().el_hash(b, len(b))
+
+
+def _micros(dt: datetime) -> int:
+    return (dt - _EPOCH) // _US  # exact integer arithmetic
+
+
+def _tz_minutes(dt: datetime) -> int:
+    off = dt.utcoffset()
+    return 0 if off is None else int(off.total_seconds() // 60)
+
+
+def _restore_time(us: int, tz_min: int) -> datetime:
+    dt = _EPOCH + timedelta(microseconds=us)
+    return dt.astimezone(timezone(timedelta(minutes=tz_min)))
+
+
+def _pack_str(s: str | None) -> bytes:
+    b = (s or "").encode("utf-8")
+    if len(b) > 0xFFFF:
+        raise ValueError(f"string field too long ({len(b)} bytes)")
+    return struct.pack("<H", len(b)) + b
+
+
+def pack_event(e: Event) -> bytes:
+    """Event -> record payload (layout documented in eventlog.cpp)."""
+    if e.event_id is None:
+        raise ValueError("event_id must be assigned before packing")
+    h = el_hash
+    has_target = e.target_entity_type is not None
+    flags = (1 if has_target else 0) | (2 if e.pr_id is not None else 0)
+    head = struct.pack(
+        "<qhqh6QB",
+        _micros(e.event_time), _tz_minutes(e.event_time),
+        _micros(e.creation_time), _tz_minutes(e.creation_time),
+        h(e.event), h(e.entity_type), h(e.entity_id),
+        h(e.target_entity_type) if has_target else 0,
+        h(e.target_entity_id) if has_target else 0,
+        h(e.event_id), flags,
+    )
+    tags_json = json.dumps(list(e.tags)) if e.tags else ""
+    props = e.properties.to_json().encode("utf-8")
+    return (
+        head
+        + _pack_str(e.event) + _pack_str(e.entity_type) + _pack_str(e.entity_id)
+        + _pack_str(e.target_entity_type) + _pack_str(e.target_entity_id)
+        + _pack_str(e.event_id) + _pack_str(e.pr_id) + _pack_str(tags_json)
+        + struct.pack("<I", len(props)) + props
+    )
+
+
+_HEAD = struct.Struct("<qhqh6QB")
+
+
+def unpack_event(payload: bytes) -> Event:
+    (t_us, t_tz, c_us, c_tz, _he, _het, _hei, _htt, _hti, _hid,
+     flags) = _HEAD.unpack_from(payload, 0)
+    pos = _HEAD.size
+    strs = []
+    for _ in range(8):
+        (n,) = struct.unpack_from("<H", payload, pos)
+        pos += 2
+        strs.append(payload[pos:pos + n].decode("utf-8"))
+        pos += n
+    (props_len,) = struct.unpack_from("<I", payload, pos)
+    pos += 4
+    props = payload[pos:pos + props_len].decode("utf-8")
+    event, etype, eid, tetype, teid, event_id, pr_id, tags_json = strs
+    has_target = bool(flags & 1)
+    return Event(
+        event=event,
+        entity_type=etype,
+        entity_id=eid,
+        target_entity_type=tetype if has_target else None,
+        target_entity_id=teid if has_target else None,
+        properties=DataMap.from_json(props),
+        event_time=_restore_time(t_us, t_tz),
+        tags=tuple(json.loads(tags_json)) if tags_json else (),
+        pr_id=pr_id if flags & 2 else None,
+        event_id=event_id,
+        creation_time=_restore_time(c_us, c_tz),
+    )
+
+
+@dataclass
+class ScanFilter:
+    """Mirror of the C-side Filter; times are datetimes here."""
+
+    start_time: datetime | None = None
+    until_time: datetime | None = None
+    entity_type: str | None = None
+    entity_id: str | None = None
+    event_names: list[str] | None = None
+    target_entity_type: object = ...   # ... = don't care, None = absent
+    target_entity_id: object = ...
+    event_id: str | None = None
+
+    def to_c(self):
+        flags = 0
+        start = until = 0
+        if self.start_time is not None:
+            flags |= F_START
+            start = _micros(self.start_time)
+        if self.until_time is not None:
+            flags |= F_UNTIL
+            until = _micros(self.until_time)
+        h_etype = h_eid = h_tetype = h_teid = h_eventid = 0
+        if self.entity_type is not None:
+            flags |= F_ETYPE
+            h_etype = el_hash(self.entity_type)
+        if self.entity_id is not None:
+            flags |= F_EID
+            h_eid = el_hash(self.entity_id)
+        events_arr = None
+        n_events = 0
+        if self.event_names is not None:
+            flags |= F_EVENTS
+            n_events = len(self.event_names)
+            events_arr = (C.c_uint64 * max(n_events, 1))(
+                *[el_hash(s) for s in self.event_names]
+            )
+        if self.target_entity_type is None:
+            flags |= F_TETYPE_ABSENT
+        elif self.target_entity_type is not ...:
+            flags |= F_TETYPE_EQ
+            h_tetype = el_hash(self.target_entity_type)
+        if self.target_entity_id is None:
+            flags |= F_TEID_ABSENT
+        elif self.target_entity_id is not ...:
+            flags |= F_TEID_EQ
+            h_teid = el_hash(self.target_entity_id)
+        if self.event_id is not None:
+            flags |= F_EVENTID
+            h_eventid = el_hash(self.event_id)
+        return (flags, start, until, h_etype, h_eid, events_arr, n_events,
+                h_tetype, h_teid, h_eventid)
+
+
+def pack_tombstones(event_ids: list[str]) -> bytes:
+    return b"".join(_pack_str(i) for i in event_ids)
+
+
+@dataclass
+class Columns:
+    """Output of the native columnarizer (training fast path)."""
+
+    user_idx: np.ndarray    # uint32 codes into `users`
+    item_idx: np.ndarray
+    values: np.ndarray      # float32
+    times_us: np.ndarray    # int64 event-time microseconds
+    users: list[str]        # code -> entity_id
+    items: list[str]        # code -> target_entity_id
+
+
+def _decode_table(ptr, total_len: int, count: int) -> list[str]:
+    blob = C.string_at(ptr, total_len)
+    out = []
+    pos = 0
+    for _ in range(count):
+        (n,) = struct.unpack_from("<I", blob, pos)
+        pos += 4
+        out.append(blob[pos:pos + n].decode("utf-8"))
+        pos += n
+    return out
+
+
+class BatchTooLarge(Exception):
+    """Batch exceeded the server's max events per request."""
+
+
+class EventLog:
+    """One open log file (one per app/channel namespace)."""
+
+    def __init__(self, path: str, create: bool = True):
+        self._lib = _lib()
+        self._h = self._lib.el_open(path.encode(), 1 if create else 0)
+        if not self._h:
+            raise OSError(f"cannot open event log at {path}")
+        self.path = path
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.el_close(self._h)
+            self._h = None
+
+    def flush(self) -> None:
+        self._lib.el_flush(self._h)
+
+    def append(self, e: Event) -> int:
+        payload = pack_event(e)
+        off = self._lib.el_append(self._h, payload, len(payload))
+        if off < 0:
+            raise OSError(f"append failed on {self.path}")
+        return off
+
+    def ingest_batch(
+        self,
+        raw: bytes,
+        allowed_events: list[str] | None,
+        now: datetime,
+        single: bool = False,
+        max_events: int = 0,
+    ) -> list[tuple[int, str, str, str]]:
+        """Native parse+validate+append of a JSON request body.
+
+        raw: the HTTP body (JSON array of events, or one object when
+        `single`). Returns [(status, id_or_message, event, entity_type)]
+        per event — status 0 = created, 1 = invalid (400), 2 = not allowed
+        by the key's whitelist (403). Raises ValueError on a malformed
+        body and BatchTooLarge when max_events is exceeded (matching the
+        Python route semantics in server/eventserver.py)."""
+        allow_blob = b"".join(
+            struct.pack("<H", len(b)) + b
+            for b in ((s.encode("utf-8") for s in allowed_events or ()))
+        )
+        n_allowed = len(allowed_events or ())
+        out = C.POINTER(C.c_uint8)()
+        out_len = C.c_uint64()
+        n = self._lib.el_ingest_batch(
+            self._h, raw, len(raw), allow_blob, len(allow_blob), n_allowed,
+            _micros(now), _tz_minutes(now), 1 if single else 0,
+            max_events, C.byref(out), C.byref(out_len),
+        )
+        if n == -2:
+            raise BatchTooLarge()
+        if n < 0:
+            raise ValueError("request body is not well-formed JSON")
+        try:
+            buf = C.string_at(out, out_len.value)
+        finally:
+            self._lib.el_free(out)
+        results = []
+        pos = 0
+        for _ in range(n):
+            status = buf[pos]
+            pos += 1
+            fields = []
+            for _ in range(3):
+                (ln,) = struct.unpack_from("<H", buf, pos)
+                pos += 2
+                fields.append(buf[pos:pos + ln].decode("utf-8"))
+                pos += ln
+            results.append((status, *fields))
+        return results
+
+    def stats(self) -> tuple[int, int]:
+        end = C.c_uint64()
+        n = C.c_uint64()
+        self._lib.el_stats(self._h, C.byref(end), C.byref(n))
+        return end.value, n.value
+
+    def scan(self, f: ScanFilter, tombstones: bytes = b"") -> list[Event]:
+        """All matching events in file order (decoded; exact post-filter is
+        the caller's job via match_event)."""
+        (flags, start, until, h_etype, h_eid, events_arr, n_events,
+         h_tetype, h_teid, h_eventid) = f.to_c()
+        out = C.POINTER(C.c_uint64)()
+        n = self._lib.el_scan(
+            self._h, flags, start, until, h_etype, h_eid,
+            events_arr, n_events, h_tetype, h_teid, h_eventid,
+            tombstones, len(tombstones), C.byref(out),
+        )
+        if n < 0:
+            raise OSError(f"scan failed on {self.path}")
+        try:
+            offsets = [out[i] for i in range(n)]
+        finally:
+            self._lib.el_free(out)
+        events = []
+        for off in offsets:
+            buf = C.POINTER(C.c_uint8)()
+            blen = C.c_uint32()
+            if self._lib.el_read(self._h, off, C.byref(buf), C.byref(blen)) != 0:
+                continue
+            try:
+                events.append(unpack_event(C.string_at(buf, blen.value)))
+            finally:
+                self._lib.el_free(buf)
+        return events
+
+    def columnarize(
+        self,
+        f: ScanFilter,
+        value_key: str | None = "rating",
+        default_value: float = 1.0,
+        dedup: int = DEDUP_LAST,
+        tombstones: bytes = b"",
+        value_event: str | None = None,
+    ) -> Columns:
+        """One native sweep: filter + dict-encode + value extract + dedup.
+        value_event restricts value_key extraction to that event name."""
+        (flags, start, until, h_etype, _h_eid, events_arr, n_events,
+         h_tetype, _h_teid, _h_eventid) = f.to_c()
+        u8p = C.POINTER(C.c_uint8)
+        uc = C.POINTER(C.c_uint32)()
+        ic = C.POINTER(C.c_uint32)()
+        vals = C.POINTER(C.c_float)()
+        ts = C.POINTER(C.c_int64)()
+        utab, itab = u8p(), u8p()
+        ulen, ilen = C.c_uint64(), C.c_uint64()
+        nu, ni = C.c_uint32(), C.c_uint32()
+        n = self._lib.el_columnarize(
+            self._h, flags, start, until, h_etype, events_arr, n_events,
+            h_tetype,
+            value_key.encode() if value_key else None,
+            default_value,
+            el_hash(value_event) if value_event else 0,
+            tombstones, len(tombstones), dedup,
+            C.byref(uc), C.byref(ic), C.byref(vals), C.byref(ts),
+            C.byref(utab), C.byref(ulen), C.byref(nu),
+            C.byref(itab), C.byref(ilen), C.byref(ni),
+        )
+        if n < 0:
+            raise OSError(f"columnarize failed on {self.path}")
+        try:
+            cols = Columns(
+                user_idx=np.ctypeslib.as_array(uc, shape=(n,)).copy()
+                if n else np.zeros(0, np.uint32),
+                item_idx=np.ctypeslib.as_array(ic, shape=(n,)).copy()
+                if n else np.zeros(0, np.uint32),
+                values=np.ctypeslib.as_array(vals, shape=(n,)).copy()
+                if n else np.zeros(0, np.float32),
+                times_us=np.ctypeslib.as_array(ts, shape=(n,)).copy()
+                if n else np.zeros(0, np.int64),
+                users=_decode_table(utab, ulen.value, nu.value),
+                items=_decode_table(itab, ilen.value, ni.value),
+            )
+        finally:
+            for p in (uc, ic, vals, ts, utab, itab):
+                self._lib.el_free(p)
+        return cols

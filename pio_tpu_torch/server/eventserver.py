@@ -16,15 +16,11 @@ Auth: ?accessKey= or Authorization header; per-key event-name whitelist
 channels.
 
 Copy of ``pio_tpu.server.eventserver``, imports rewritten to the port.
-The native ingest branch (``_native_fast_path``, an events DAO's
-``insert_api_batch``) stays, but no port backend has that method until
-the native event log is ported, so the Python path answers every
-request; ``BatchTooLarge``, which that branch catches, is defined here
-in place of the native module's. The per-codec wire counters gain
-``insert_busy_seconds`` and ``handle_busy_seconds``: the time during
-which at least one batch was in the store's ``insert_batch``, and in
-the batch route, so that an ingest run splits its time on the server's
-clock however many batches the server handles at once.
+The per-codec wire counters gain ``insert_busy_seconds`` and
+``handle_busy_seconds``: the time during which at least one batch was in
+the store's ``insert_batch``, and in the batch route, so that an ingest
+run splits its time on the server's clock however many batches the
+server handles at once.
 """
 
 from __future__ import annotations
@@ -68,11 +64,6 @@ MAX_EVENTS_PER_BINARY_BATCH = 10_000
 # how much of the pool a slow consumer fleet can park (clients re-issue
 # on timeout — that IS the poll fallback)
 TAIL_WAIT_CAP_S = 30.0
-
-
-class BatchTooLarge(Exception):
-    """Batch exceeded the server's max events per request (raised by a
-    native ``insert_api_batch``)."""
 
 
 @dataclass
@@ -829,6 +820,8 @@ def build_event_app(
             return 200, results
         fast = _native_fast_path()
         if fast is not None:
+            from pio_tpu_torch.native.eventlog import BatchTooLarge
+
             try:
                 results = fast(
                     req.body, ak.appid, channel_id,

@@ -4,8 +4,8 @@ Counterpart of ``pio_tpu.workflow.serve`` (reference CreateServer.scala):
 
   GET  /                    -> engine status (instance info + latency stats
                                + fold-in accounting)
-  GET  /readyz             -> readiness (model loaded; fold-in shown,
-                               never gating)
+  GET  /readyz             -> readiness (model loaded, storage breakers
+                               closed; fold-in shown, never gating)
   POST /queries.json        -> supplement -> per-algo predict -> serve
   POST /batch/queries.json  -> a JSON array of queries, one batch_predict
                                per algorithm
@@ -426,17 +426,19 @@ def build_serving_app(server: QueryServer) -> HttpApp:
 
     @app.route("GET", r"/readyz")
     def readyz(req: Request):
-        """Ready once a model is loaded. Fold-in is shown and NEVER
+        """Ready once a model is loaded and no storage breaker is open
+        (resilience/health.py contract). Fold-in is shown and NEVER
         gates: a stale or absent folder means batch-stale serving
         (degraded freshness), and flipping readyz for it would turn
         that degradation into an outage."""
+        from pio_tpu_torch.resilience.health import breaker_checks
+
+        checks = breaker_checks(server.storage)
         with server._lock:
             inst = getattr(server, "instance", None)
-        checks = {
-            "model": {"ok": inst is not None,
-                      "engineInstanceId": inst.id if inst else None},
-            "freshness": {"ok": True, **server.foldin_status()},
-        }
+        checks["model"] = {"ok": inst is not None,
+                           "engineInstanceId": inst.id if inst else None}
+        checks["freshness"] = {"ok": True, **server.foldin_status()}
         ready = all(c["ok"] for c in checks.values())
         return (200 if ready else 503), {"ready": ready, "checks": checks}
 

@@ -20,7 +20,6 @@ from pio_tpu.data.dao import Channel as RefChannel
 from pio_tpu.data.event import Event as RefEvent
 from pio_tpu.data.eventstore import EventStore as RefEventStore
 from pio_tpu.data.storage import Storage as RefStorage
-from pio_tpu_torch.data import columnar
 from pio_tpu_torch.data.dao import App, Channel
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.data.eventstore import (
@@ -29,6 +28,7 @@ from pio_tpu_torch.data.eventstore import (
     interactions_to_columns,
 )
 from pio_tpu_torch.data.storage import Storage
+from pio_tpu_torch.native.eventlog import Columns
 
 APP, CHANNEL = "ColApp", "side"
 T0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
@@ -151,7 +151,7 @@ def test_columnarize_equals_find_and_fold_with_time_ties(tmp_path, dedup):
             np.testing.assert_array_equal(cols.item_idx, want.item_idx)
             np.testing.assert_array_equal(cols.values, want.values)
             back = interactions_to_columns(want)
-            assert isinstance(back, columnar.Columns)
+            assert isinstance(back, Columns)
             np.testing.assert_array_equal(back.user_idx, cols.user_idx)
             assert back.user_idx.dtype == cols.user_idx.dtype == np.uint32
     finally:

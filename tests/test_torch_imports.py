@@ -26,12 +26,13 @@ mods = [m.name for m in pkgutil.walk_packages(
     pio_tpu_torch.__path__, "pio_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
+from pio_tpu_torch import native
 from pio_tpu_torch.ops.kernels import build
 loaded = sorted(k for k, v in sys.modules.items() if v is not None and (
     k == "jax" or k.startswith(("jax.", "jaxlib", "pio_tpu."))
     or k == "pio_tpu"))
 print(json.dumps({"modules": mods, "loaded": loaded,
-                  "built": sorted(build._LIBS)}))
+                  "built": sorted(build._LIBS) + sorted(native._LIBS)}))
 """
 
 
@@ -44,7 +45,7 @@ def test_every_module_imports_without_jax_or_pio_tpu():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
-    assert res["built"] == []          # importing builds no kernel
+    assert res["built"] == []  # importing builds no kernel, no native log
     for mod in ("pio_tpu_torch.workflow.serve", "pio_tpu_torch.ops.retrieval",
                 "pio_tpu_torch.ops.kernels.quantized_scan",
                 "pio_tpu_torch.models.recommendation",
@@ -101,7 +102,14 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.data.backends.memory",
                 "pio_tpu_torch.data.backends.localfs",
                 "pio_tpu_torch.sdk", "pio_tpu_torch.tools.appops",
-                "pio_tpu_torch.tools.export_import"):
+                "pio_tpu_torch.tools.export_import",
+                "pio_tpu_torch.native", "pio_tpu_torch.native.eventlog",
+                "pio_tpu_torch.data.backends.eventlog",
+                "pio_tpu_torch.data.backends.wire",
+                "pio_tpu_torch.data.backends.remote",
+                "pio_tpu_torch.data.backends.sharded",
+                "pio_tpu_torch.data.backends.replicated",
+                "pio_tpu_torch.server.storageserver"):
         assert mod in res["modules"]
 
 
