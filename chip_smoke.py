@@ -13,6 +13,16 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   stores them, and served by ``create_query_server`` (what ``python -m
   pio_tpu_torch deploy`` calls) with two-stage clustered retrieval and
   ``"impl": "pallas"`` (the K7 scan kernel), over loopback HTTP;
+- serve_batching: the same factors persisted in a fresh sqlite store and
+  deployed by three ``python -m pio_tpu_torch deploy`` processes on the
+  async transport (the continuous batcher with a warm query, the micro
+  batcher, none), 512 queries each from 16 client threads; every
+  batched body equal byte for byte to the solo deploy's, K7 launched
+  once a device dispatch (the deploy's own counts, before and after);
+  batches of 1, 2, 16 and 64 in process equal to the solo answers on the
+  exact and the clustered route, and the padding's cost at B 1; a
+  second instance taken by ``/reload`` under load (every answer 200);
+  ``python -m pio_tpu_torch undeploy`` stopping the server;
 - foldin: on the same seeded factors in a fresh sqlite store, served
   behind a server key: a tail of rate/buy events of 4,096 users (a
   quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
@@ -310,19 +320,9 @@ def emit(phase: str, **fields) -> None:
 
 def counters() -> dict:
     """Every kernel's launch counter, by kernel name."""
-    from pio_tpu_torch.ops.kernels import flash_attention as k8
-    from pio_tpu_torch.ops.kernels import gather_rows as gr
-    from pio_tpu_torch.ops.kernels import packed_matvec as pm
-    from pio_tpu_torch.ops.kernels import quantized_scan as qscan
-    from pio_tpu_torch.ops.kernels import segment_flush as sf
+    from pio_tpu_torch.ops.kernels import launch_counters
 
-    return {"quantized_scan": qscan.launches, "segment_flush": sf.launches,
-            "segment_flush_stream": sf.launches_stream,
-            "normal_equations_fused": sf.launches_fused,
-            "gather_rows_stream": gr.launches_stream,
-            "gather_rows_resident": gr.launches_resident,
-            "packed_matvec": pm.launches,
-            "flash_attention": k8.launches}
+    return launch_counters()
 
 
 def reset_counts() -> None:
@@ -333,6 +333,21 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: c.value for name, c in counters().items()}
+
+
+def check_serving_launches(launches: dict, kernel: str, want: int,
+                           hedged: int, per_dispatch: int) -> None:
+    """Only ``kernel`` launched on a deploy's path, ``want`` times, and
+    at most ``per_dispatch`` more for each hedged duplicate dispatch (a
+    batch that outlived three times the median predict is issued again,
+    and the duplicate launches its kernels once it starts)."""
+    got = launches.get(kernel, 0)
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if others or not want <= got <= want + per_dispatch * hedged:
+        raise AssertionError(
+            f"serving launches {launches}: want {want} of {kernel}"
+            + (f" (+ up to {per_dispatch} for each of {hedged} hedged "
+               "dispatches)" if hedged else ""))
 
 
 @contextlib.contextmanager
@@ -677,8 +692,8 @@ def tie_order_ab(port: int, qs, queries: list) -> dict:
     return out
 
 
-def phase_serve(users: np.ndarray, items: np.ndarray,
-                dev: torch.device) -> dict:
+def phase_serve(users: np.ndarray, items: np.ndarray, dev: torch.device,
+                store_dir: Path) -> dict:
     from pio_tpu_torch.__main__ import (
         _engine_from_variant,
         _engine_ids,
@@ -698,98 +713,98 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     rng = np.random.default_rng(SEED + 2)
     picked = rng.choice(N_USERS, N_PLAIN_QUERIES + BATCH_QUERIES + 3,
                         replace=False)
-    with tempfile.TemporaryDirectory(prefix="pio_chip_smoke_") as tmp:
-        env = sqlite_env(tmp)
-        engine_dir = Path(tmp) / "engine"
-        engine_dir.mkdir()
-        (engine_dir / "engine.json").write_text(json.dumps({
-            "id": "chip-smoke-rec", "engineFactory": FACTORY,
-            "algorithms": [{"name": "als", "params": {
-                "rank": RANK, "retrieval": RETRIEVAL}}],
-        }))
-        # what `python -m pio_tpu_torch deploy --engine-dir` reads
-        variant = _load_variant(str(engine_dir))
-        engine, ep = _engine_from_variant(variant, str(engine_dir))
-        engine_id, version, variant_name = _engine_ids(
-            variant, str(engine_dir))
-        storage = Storage(env=env)
-        t0 = time.perf_counter()
-        model = recommendation_model_from_numpy(
-            users, items, user_ids, item_ids, device=dev)
-        iid = persist_models([model], ep, storage, engine_id, version,
-                             variant_name, engine_factory=FACTORY)
-        persist_s = time.perf_counter() - t0
-        del model
-        ctx = create_workflow_context(storage, device=dev)
-        t0 = time.perf_counter()
-        http, qs = create_query_server(
-            engine, ep, storage,
-            ServingConfig(ip="127.0.0.1", port=0, engine_id=engine_id,
-                          engine_version=version,
-                          engine_variant=variant_name),
-            ctx=ctx)
-        http.start()
-        load_s = time.perf_counter() - t0
-        try:
-            port = http.port
-            # first query: builds the retrieval index (k-means) once
-            warm_user = user_ids[picked[-1]]
-            status, warm, first_s = _post(port, "/queries.json",
-                                          {"user": warm_user, "num": 10})
-            assert status == 200, warm
-            plain_q = [{"user": user_ids[i], "num": 10}
-                       for i in picked[:N_PLAIN_QUERIES]]
-            black = [s["item"] for s in warm["itemScores"][:3]]
-            black_q = {"user": warm_user, "num": 10,
-                       "blackList": black + ["no-such-item"]}
-            white_items = [item_ids[i] for i in rng.choice(N_ITEMS, 24,
-                                                           replace=False)]
-            white_q = {"user": user_ids[picked[-2]], "num": 5,
-                       "whiteList": white_items + ["no-such-item"],
-                       "blackList": white_items[:2]}
-            ghost_q = {"user": "no-such-user", "num": 10}
-            batch_q = ([{"user": user_ids[i], "num": 10} for i in
-                        picked[N_PLAIN_QUERIES:
-                               N_PLAIN_QUERIES + BATCH_QUERIES - 2]]
-                       + [black_q, ghost_q])
+    # the store stays in store_dir: serve_batching deploys its instance
+    tmp = str(store_dir)
+    env = sqlite_env(tmp)
+    engine_dir = Path(tmp) / "engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps({
+        "id": "chip-smoke-rec", "engineFactory": FACTORY,
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "retrieval": RETRIEVAL}}],
+    }))
+    # what `python -m pio_tpu_torch deploy --engine-dir` reads
+    variant = _load_variant(str(engine_dir))
+    engine, ep = _engine_from_variant(variant, str(engine_dir))
+    engine_id, version, variant_name = _engine_ids(
+        variant, str(engine_dir))
+    storage = Storage(env=env)
+    t0 = time.perf_counter()
+    model = recommendation_model_from_numpy(
+        users, items, user_ids, item_ids, device=dev)
+    iid = persist_models([model], ep, storage, engine_id, version,
+                         variant_name, engine_factory=FACTORY)
+    persist_s = time.perf_counter() - t0
+    del model
+    ctx = create_workflow_context(storage, device=dev)
+    t0 = time.perf_counter()
+    http, qs = create_query_server(
+        engine, ep, storage,
+        ServingConfig(ip="127.0.0.1", port=0, engine_id=engine_id,
+                      engine_version=version,
+                      engine_variant=variant_name),
+        ctx=ctx)
+    http.start()
+    load_s = time.perf_counter() - t0
+    try:
+        port = http.port
+        # first query: builds the retrieval index (k-means) once
+        warm_user = user_ids[picked[-1]]
+        status, warm, first_s = _post(port, "/queries.json",
+                                      {"user": warm_user, "num": 10})
+        assert status == 200, warm
+        plain_q = [{"user": user_ids[i], "num": 10}
+                   for i in picked[:N_PLAIN_QUERIES]]
+        black = [s["item"] for s in warm["itemScores"][:3]]
+        black_q = {"user": warm_user, "num": 10,
+                   "blackList": black + ["no-such-item"]}
+        white_items = [item_ids[i] for i in rng.choice(N_ITEMS, 24,
+                                                       replace=False)]
+        white_q = {"user": user_ids[picked[-2]], "num": 5,
+                   "whiteList": white_items + ["no-such-item"],
+                   "blackList": white_items[:2]}
+        ghost_q = {"user": "no-such-user", "num": 10}
+        batch_q = ([{"user": user_ids[i], "num": 10} for i in
+                    picked[N_PLAIN_QUERIES:
+                           N_PLAIN_QUERIES + BATCH_QUERIES - 2]]
+                   + [black_q, ghost_q])
 
-            # -- the main path: counts from 0, read right after --------
-            reset_counts()
-            answers, latencies = [], []
-            for q in plain_q:
-                status, body, dt = _post(port, "/queries.json", q)
-                assert status == 200, body
-                answers.append(body)
-                latencies.append(dt)
-            singles = {}
-            for name, q in (("blackList", black_q), ("whiteList", white_q),
-                            ("unknownUser", ghost_q)):
-                status, singles[name], _ = _post(port, "/queries.json", q)
-                assert status == 200, singles[name]
-            status, batch_body, batch_s = _post(port, "/batch/queries.json",
-                                                batch_q)
-            assert status == 200, batch_body
-            launches = read_counts()
-            # ------------------------------------------------------------
+        # -- the main path: counts from 0, read right after --------
+        reset_counts()
+        hedged = qs.hedged_dispatches
+        answers, latencies = [], []
+        for q in plain_q:
+            status, body, dt = _post(port, "/queries.json", q)
+            assert status == 200, body
+            answers.append(body)
+            latencies.append(dt)
+        singles = {}
+        for name, q in (("blackList", black_q), ("whiteList", white_q),
+                        ("unknownUser", ghost_q)):
+            status, singles[name], _ = _post(port, "/queries.json", q)
+            assert status == 200, singles[name]
+        status, batch_body, batch_s = _post(port, "/batch/queries.json",
+                                            batch_q)
+        assert status == 200, batch_body
+        launches = read_counts()
+        hedged = qs.hedged_dispatches - hedged
+        # ------------------------------------------------------------
 
-            with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
-                                        timeout=60) as r:
-                server_status = json.loads(r.read())
-            model = qs.models[0]
-            inproc = profile_queries(qs, plain_q[:20])
-            tie_ab = tie_order_ab(port, qs, plain_q)
-        finally:
-            http.stop()
-            qs.close()
-            storage.close()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=60) as r:
+            server_status = json.loads(r.read())
+        model = qs.models[0]
+        inproc = profile_queries(qs, plain_q[:20])
+        tie_ab = tie_order_ab(port, qs, plain_q)
+    finally:
+        http.stop()
+        qs.close()
+        storage.close()
 
     # one launch per known-user, non-whiteList /queries.json and one per
     # /batch/queries.json dispatch
-    want_launches = len(plain_q) + 1 + 1
-    if launches != {**dict.fromkeys(launches, 0),
-                    "quantized_scan": want_launches}:
-        raise AssertionError(f"kernel launches {launches}, expected "
-                             f"{want_launches} on the main path")
+    check_serving_launches(launches, "quantized_scan", len(plain_q) + 1 + 1,
+                           hedged, 1)
     if not server_status["device"].startswith(dev.type):
         raise AssertionError(f"server runs on {server_status['device']}")
     if server_status["engineInstance"]["id"] != iid:
@@ -831,7 +846,8 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     lat_ms = sorted(1e3 * t for t in latencies)
     result = {
         "users": N_USERS, "items": N_ITEMS, "rank": RANK,
-        "retrieval": RETRIEVAL, "launches": launches,
+        "instance": iid, "retrieval": RETRIEVAL, "launches": launches,
+        "hedged_dispatches": hedged,
         "queries": len(plain_q) + 3, "batch": len(batch_q),
         "recall_at_10": recall,
         "p50_ms": statistics.median(lat_ms),
@@ -844,6 +860,398 @@ def phase_serve(users: np.ndarray, items: np.ndarray,
     if recall < RECALL_FLOOR:
         raise AssertionError(f"recall@10 {recall} < {RECALL_FLOOR}")
     return result
+
+# -- phase 3b: the deploy's admission stage and lifecycle ---------------------
+
+SB_QUERIES = 512           # /queries.json a deploy mode
+SB_CLIENTS = 16            # client threads posting them at once
+SB_RELOAD_CLIENTS = 4      # threads querying through the /reload
+SB_BATCHES = (1, 2, 16, 64)  # in-process batch sizes held to the solo answer
+SB_PROFILED_CALLS = 50     # calls a side of the padded/unpadded timing
+SB_KEY = "chip-smoke-batching-key"
+SB_MODES = ("coalesced", "micro", "solo")
+SB_BOOT_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get(port: int, path: str) -> tuple[int, object]:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post_raw(port: int, path: str, body) -> tuple[int, bytes, float]:
+    """(status, the raw body bytes, seconds) of one POST."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    return status, raw, time.perf_counter() - t0
+
+
+def deploy_proc(env: dict, engine_dir: Path, port: int, iid: str,
+                log: Path, flags: list) -> subprocess.Popen:
+    """``python -m pio_tpu_torch deploy`` of instance ``iid`` on ``port``,
+    its output (stdout and the log records) into ``log``."""
+    with open(log, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "pio_tpu_torch", "deploy", "--engine-dir",
+             str(engine_dir), "--ip", "127.0.0.1", "--port", str(port),
+             "--engine-instance-id", iid, "--server-key", SB_KEY, *flags],
+            cwd=REPO_ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            text=True)
+
+
+def wait_deployed(proc, log: Path, t0_wall: float) -> float:
+    """Seconds from ``t0_wall`` (``time.time()``) until the deploy printed
+    its bound address: the log's modification time once it holds that
+    line (the deploy writes nothing after it unless something fails)."""
+    while time.time() - t0_wall < SB_BOOT_TIMEOUT_S:
+        if "deployed on http://" in log.read_text():
+            return log.stat().st_mtime - t0_wall
+        if proc.poll() is not None:
+            raise AssertionError(f"deploy exited {proc.returncode}: "
+                                 f"{log.read_text()[-3000:]}")
+        time.sleep(0.05)
+    raise AssertionError(f"deploy not up in {SB_BOOT_TIMEOUT_S} s")
+
+
+def load(port: int, queries: list, clients: int) -> dict:
+    """Every query posted once, ``clients`` threads at a time: the raw
+    bodies in query order, their statuses and the latencies."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        out = list(pool.map(
+            lambda q: _post_raw(port, "/queries.json", q), queries))
+    wall = time.perf_counter() - t0
+    lat = sorted(1e3 * dt for _, _, dt in out)
+    return {"bodies": [raw for _, raw, _ in out],
+            "statuses": [s for s, _, _ in out],
+            "p50_ms": statistics.median(lat),
+            "p99_ms": lat[int(0.99 * (len(lat) - 1))],
+            "queries_per_s": len(queries) / wall, "wall_s": wall}
+
+
+def server_counts(port: int) -> dict:
+    """The deploy's own counters: K7's launches, the recorded predict
+    dispatches and the hedged duplicates."""
+    _, m = _get(port, "/metrics.json")
+    return {"k7": m["kernelLaunches"]["quantized_scan"],
+            "dispatches": m["spans"].get("predict", {}).get("count", 0),
+            "hedged": m["hedgedDispatches"]}
+
+
+def batch_invariance(model, retrieval: dict, users: list) -> dict:
+    """In process on the card: at each of SB_BATCHES, the answers of a
+    batch_predict of that many known users against each user's solo
+    predict, on the exact and the clustered route (0 must differ); and
+    the same with the dispatch floor at 1 row (products at the batch's
+    own rows), which shows what the padding is for."""
+    from pio_tpu_torch.models import recommendation as rec
+    from pio_tpu_torch.ops import bucketing
+
+    routes = {"exact": rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=RANK)),
+              "clustered": rec.ALSAlgorithm(rec.ALSAlgorithmParams(
+                  rank=RANK, retrieval=retrieval))}
+    out: dict = {}
+    floor = bucketing.DISPATCH_ROWS
+    for name, algo in routes.items():
+        out[name] = {}
+        for rows in (floor, 1):
+            bucketing.DISPATCH_ROWS = rows
+            try:
+                solo = [algo.predict(model, {"user": u, "num": 10})
+                        for u in users]
+                for b in SB_BATCHES:
+                    got = algo.batch_predict(
+                        model, [{"user": u, "num": 10} for u in users[:b]])
+                    differ = sum(g != s for g, s in zip(got, solo))
+                    key = str(b) if rows == floor else f"{b}_unpadded"
+                    out[name][key] = differ
+            finally:
+                bucketing.DISPATCH_ROWS = floor
+    return out
+
+
+def padding_cost_b1(model, retrieval: dict, user: str) -> dict:
+    """One solo predict's device ms under ``torch.profiler`` over
+    SB_PROFILED_CALLS calls, with the products at the dispatch rows and
+    at one row."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pio_tpu_torch.models import recommendation as rec
+    from pio_tpu_torch.ops import bucketing
+
+    floor = bucketing.DISPATCH_ROWS
+    out = {}
+    for name, params in (("exact", {}), ("clustered",
+                                         {"retrieval": retrieval})):
+        algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=RANK, **params))
+        q = {"user": user, "num": 10}
+        dev_ms = {}
+        for side, rows in (("padded", floor), ("unpadded", 1)):
+            bucketing.DISPATCH_ROWS = rows
+            try:
+                for _ in range(5):
+                    algo.predict(model, q)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(SB_PROFILED_CALLS):
+                        algo.predict(model, q)
+                torch.cuda.synchronize()
+            finally:
+                bucketing.DISPATCH_ROWS = floor
+            dev_ms[side] = device_ms_by_kernel(prof, SB_PROFILED_CALLS)[0]
+        out[name] = {"device_ms": dev_ms,
+                     "extra_device_ms": dev_ms["padded"]
+                     - dev_ms["unpadded"]}
+    return out
+
+
+def reload_under_load(port: int, users: list, want_iid: str) -> dict:
+    """POST /reload while SB_RELOAD_CLIENTS threads keep querying."""
+    import threading
+
+    stop = threading.Event()
+    seen = {"statuses": {}, "queries": 0}
+    lock = threading.Lock()
+
+    def hammer(w: int) -> None:
+        i = w
+        while not stop.is_set():
+            status, _, _ = _post_raw(port, "/queries.json",
+                                     {"user": users[i % len(users)],
+                                      "num": 10})
+            i += SB_RELOAD_CLIENTS
+            with lock:
+                seen["queries"] += 1
+                seen["statuses"][status] = seen["statuses"].get(status, 0) + 1
+
+    threads = [threading.Thread(target=hammer, args=(w,))
+               for w in range(SB_RELOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(0.2)
+        status, body, reload_s = _post(
+            port, f"/reload?accessKey={SB_KEY}", {})
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    _, st = _get(port, "/")
+    out = {"reload_status": status, "reload_s": reload_s,
+           "queries": seen["queries"],
+           "non_200": sum(n for s, n in seen["statuses"].items()
+                          if s != 200),
+           "served_after": st["engineInstance"]["id"]}
+    if status != 200 or body.get("engineInstanceId") != want_iid:
+        raise AssertionError(f"/reload: {status} {body}")
+    if out["non_200"] or out["served_after"] != want_iid:
+        raise AssertionError(f"reload under load: {out}")
+    return out
+
+
+def phase_serve_batching(users: np.ndarray, items: np.ndarray,
+                         dev: torch.device, store_dir: Path,
+                         iid: str) -> dict:
+    """The deploy verb's admission stage on the serve phase's store and
+    instance ``iid`` (its seeded model): three ``python -m pio_tpu_torch
+    deploy`` processes on the async transport (the continuous batcher
+    with a warm query, the micro batcher, none), SB_QUERIES queries each
+    from SB_CLIENTS threads, every batched body held byte for byte to the
+    solo deploy's, K7's launches to the deploy's device dispatches;
+    batches of 1, 2, 16 and 64 in process on both routes; /reload of a
+    second instance under load; ``undeploy``."""
+    from pio_tpu_torch.__main__ import _engine_from_variant, _load_variant
+    from pio_tpu_torch.convert import recommendation_model_from_numpy
+    from pio_tpu_torch.data.storage import Storage
+    from pio_tpu_torch.workflow.train import persist_models
+
+    user_ids = [f"u{i}" for i in range(N_USERS)]
+    item_ids = [f"i{i}" for i in range(N_ITEMS)]
+    rng = np.random.default_rng(SEED + 21)
+    picked = [user_ids[i] for i in rng.choice(N_USERS, SB_QUERIES + 1,
+                                              replace=False)]
+    warm_user, picked = picked[-1], picked[:-1]
+    queries = [{"user": u, "num": 10} for u in picked]
+    out: dict = {"card": card_line(), "queries": SB_QUERIES,
+                 "clients": SB_CLIENTS}
+    seconds: dict = {}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_batching_") as tmp:
+        tmp = Path(tmp)
+        env = sqlite_env(store_dir)
+        engine_dir = store_dir / "engine"
+        variant = _load_variant(str(engine_dir))
+        engine, ep = _engine_from_variant(variant, str(engine_dir))
+        storage = Storage(env=env)
+        model = recommendation_model_from_numpy(
+            users, items, user_ids, item_ids, device=dev)
+        # the deploys' home (checkpoints, default stores) stays in here
+        proc_env = {**os.environ, **env, "PIO_TPU_HOME": str(tmp / "home")}
+        flags = {"coalesced": ["--coalesce-window-ms", "2", "--warm-query",
+                               json.dumps({"user": warm_user, "num": 10})],
+                 "micro": ["--batch-window-ms", "2"], "solo": []}
+        ports = {m: free_port() for m in SB_MODES}
+        logs = {m: tmp / f"deploy_{m}.log" for m in SB_MODES}
+        procs: dict = {}
+        try:
+            t0, t0_wall = time.perf_counter(), time.time()
+            for m in SB_MODES:
+                procs[m] = deploy_proc(proc_env, engine_dir, ports[m], iid,
+                                       logs[m], flags[m])
+            # while the deploys load the first instance (pinned by id):
+            # the second is persisted (/reload then takes it as the
+            # latest), and the in-process checks run on the card
+            t1 = time.perf_counter()
+            iid2 = persist_models([model], ep, storage, variant["id"],
+                                  engine_factory=FACTORY)
+            out["persist_second_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out["batch_invariance"] = batch_invariance(
+                model, RETRIEVAL, picked[:max(SB_BATCHES)])
+            seconds["batch_invariance"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            out["padding_cost_b1"] = padding_cost_b1(model, RETRIEVAL,
+                                                     warm_user)
+            seconds["padding_cost_b1"] = time.perf_counter() - t1
+            out["boot_s"] = {m: wait_deployed(procs[m], logs[m], t0_wall)
+                             for m in SB_MODES}
+            seconds["boot"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            modes: dict = {}
+            for m in SB_MODES:
+                port = ports[m]
+                info: dict = {}
+                if m != "coalesced":
+                    # no warm query: the first query builds the retrieval
+                    # index (k-means) and, with the micro batcher, starts
+                    # the sweep in the background; /readyz drops while
+                    # the sweep runs
+                    status, _, first_s = _post_raw(
+                        port, "/queries.json", {"user": warm_user,
+                                                "num": 10})
+                    info["first_query_ms"] = 1e3 * first_s
+                if m == "micro":
+                    t1 = time.perf_counter()
+                    status, ready = _get(port, "/readyz")
+                    info["readyz_during_sweep"] = status
+                    while not ready["checks"]["buckets"]["ok"]:
+                        if time.perf_counter() - t1 > 60:
+                            raise AssertionError(f"sweep: {ready}")
+                        time.sleep(0.01)
+                        status, ready = _get(port, "/readyz")
+                status, ready = _get(port, "/readyz")
+                if status != 200:
+                    raise AssertionError(f"{m}: /readyz {status} {ready}")
+                info["sweep"] = ready["checks"].get("buckets", {}).get(
+                    "sweep")
+                # -- the main path: the deploy's counts just before ----
+                before = server_counts(port)
+                res = load(port, queries, SB_CLIENTS)
+                after = server_counts(port)
+                # ----------------------------------------------------------
+                _, batcher = _get(port, "/batcher.json")
+                counts = {k: after[k] - before[k] for k in after}
+                if set(res["statuses"]) != {200}:
+                    raise AssertionError(f"{m}: statuses {res['statuses']}")
+                # K7 once a device dispatch: each recorded predict launches
+                # it once, a hedged duplicate at most once more
+                if not (counts["dispatches"] <= counts["k7"]
+                        <= counts["dispatches"] + counts["hedged"]):
+                    raise AssertionError(f"{m}: K7 {counts['k7']} for "
+                                         f"{counts} dispatches")
+                info.update({k: v for k, v in res.items()
+                             if k not in ("bodies", "statuses")})
+                info.update({"dispatches": counts["dispatches"],
+                             "mean_batch": SB_QUERIES / counts["dispatches"],
+                             "hedged_dispatches": counts["hedged"],
+                             "k7_launches": counts["k7"],
+                             "batcher": {k: batcher.get(k) for k in (
+                                 "mode", "dispatches", "coalescedQueries",
+                                 "bypassSolo", "shed", "meanOccupancy",
+                                 "coalesceWaitMs", "windowMs")
+                                 if k in batcher}})
+                if m == "coalesced" and batcher.get("mode") != "continuous":
+                    raise AssertionError(f"{m}: /batcher.json {batcher}")
+                if m == "micro" and batcher.get("mode") != "micro":
+                    raise AssertionError(f"{m}: /batcher.json {batcher}")
+                if m == "solo" and batcher.get("enabled"):
+                    raise AssertionError(f"{m}: /batcher.json {batcher}")
+                info["bodies"] = res["bodies"]
+                modes[m] = info
+            solo_bodies = modes["solo"].pop("bodies")
+            for m in ("coalesced", "micro"):
+                modes[m]["bodies_differ"] = sum(
+                    a != b for a, b in zip(modes[m].pop("bodies"),
+                                           solo_bodies))
+            out["modes"] = modes
+            seconds["modes"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            out["reload"] = reload_under_load(ports["coalesced"], picked,
+                                              iid2)
+            seconds["reload"] = time.perf_counter() - t0
+
+            # undeploy: the verb with the server key; the server exits
+            t0 = time.perf_counter()
+            und = subprocess.run(
+                [sys.executable, "-m", "pio_tpu_torch", "undeploy",
+                 "--port", str(ports["coalesced"]), "--server-key", SB_KEY],
+                cwd=REPO_ROOT, env=proc_env, capture_output=True, text=True,
+                timeout=120)
+            out["undeploy"] = {"rc": und.returncode,
+                               "s": time.perf_counter() - t0}
+            try:
+                out["undeploy"]["server_exit"] = procs["coalesced"].wait(
+                    timeout=30)
+            except subprocess.TimeoutExpired:
+                out["undeploy"]["server_exit"] = None
+            out["undeploy"]["server_exit_s"] = time.perf_counter() - t0
+            out["seconds"] = seconds
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    stop_process(proc)
+            storage.close()
+        warm_failed = {m: [ln for ln in logs[m].read_text().splitlines()
+                           if "warm" in ln and "failed" in ln]
+                       for m in SB_MODES}
+    emit("serve_batching", **out)
+    if any(warm_failed.values()):
+        raise AssertionError(f"warm-up failed: {warm_failed}")
+    for m in ("coalesced", "micro"):
+        if out["modes"][m]["bodies_differ"]:
+            raise AssertionError(f"{m}: {out['modes'][m]['bodies_differ']} "
+                                 "bodies differ from the solo deploy's")
+        if out["modes"][m]["dispatches"] >= SB_QUERIES:
+            raise AssertionError(f"{m}: nothing was batched")
+    for route, differ in out["batch_invariance"].items():
+        if any(differ[str(b)] for b in SB_BATCHES):
+            raise AssertionError(f"{route}: batched answers differ {differ}")
+    if out["undeploy"]["rc"] != 0 or out["undeploy"]["server_exit"] != 0:
+        raise AssertionError(f"undeploy: {out['undeploy']} {und.stderr}")
+    return out
+
 
 # -- phase 4b: streaming fold-in on the serve phase's model ---------------
 
@@ -4343,6 +4751,7 @@ def phase_sequence_entry(store, dev: torch.device) -> dict:
 
         # -- the main path: counts from 0, read right after --------
         reset_counts()
+        hedged = qs.hedged_dispatches
         answers, latencies = [], []
         for q in plain_q:
             status, body, dt = _post(port, "/queries.json", q)
@@ -4355,6 +4764,7 @@ def phase_sequence_entry(store, dev: torch.device) -> dict:
         status, live_body, _ = _post(port, "/queries.json", live_q)
         assert status == 200, live_body
         launches = read_counts()
+        hedged = qs.hedged_dispatches - hedged
         # ------------------------------------------------------------
 
         # the same queries in process, on the same model
@@ -4404,16 +4814,16 @@ def phase_sequence_entry(store, dev: torch.device) -> dict:
     if score_err > SEQ_SCORE_RTOL * score_max:
         raise AssertionError(f"K8 scores {score_err} from the plain "
                              f"attention's (max {score_max})")
-    want = {**dict.fromkeys(launches, 0),
-            "flash_attention": SEQ_ALGO["num_layers"] * scored}
-    if launches != want:
-        raise AssertionError(f"serving launches {launches}, want {want}")
+    check_serving_launches(launches, "flash_attention",
+                           SEQ_ALGO["num_layers"] * scored, hedged,
+                           SEQ_ALGO["num_layers"])
     lat_ms = sorted(1e3 * t for t in latencies)
     result = {
         "users": len(model.users), "items": len(model.items),
         "events": n_events, "write_s": write_s, "train_s": train_s,
         "instance": iid, "train_launches": train_launches,
-        "launches": launches, "scored_batches": scored,
+        "launches": launches, "hedged_dispatches": hedged,
+        "scored_batches": scored,
         "queries": len(plain_q) + 1, "batch": len(batch_q),
         "p50_ms": statistics.median(lat_ms),
         "p90_ms": lat_ms[int(0.9 * (len(lat_ms) - 1))],
@@ -5307,7 +5717,11 @@ def main() -> int:
     timed("build", phase_build)
     users, items = make_factors()
     scan = timed("scan_kernel", phase_scan_kernel, users, items, dev)
-    serve = timed("serve", phase_serve, users, items, dev)
+    # serve persists the seeded model once; serve_batching deploys it
+    with tempfile.TemporaryDirectory(prefix="pio_chip_serve_") as tmp:
+        serve = timed("serve", phase_serve, users, items, dev, Path(tmp))
+        batching = timed("serve_batching", phase_serve_batching, users,
+                         items, dev, Path(tmp), serve["instance"])
     foldin = timed("foldin", phase_foldin, users, items, dev)
     del users, items
     ratings = synth_ratings()
@@ -5361,6 +5775,10 @@ def main() -> int:
                 "launches"]["quantized_scan"],
             launches_shared_store_remote=shared["remote"]["serve_launches"][
                 "quantized_scan"],
+            launches_serve_batching={
+                m: batching["modes"][m]["k7_launches"] for m in SB_MODES},
+            dispatches_serve_batching={
+                m: batching["modes"][m]["dispatches"] for m in SB_MODES},
             empty_launch_ms=head["empty_launch_ms"],
             shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
                                         "k")},

@@ -23,9 +23,16 @@ Verbs ported so far:
            --engine-instance-id) of the engine in --engine-dir over
            REST, on the CUDA device unless --device cpu. Storage comes
            from the PIO_STORAGE_* environment, as for `pio deploy`.
-           --server-key (or PIO_SERVER_KEY) guards /model/upsert_users.
-           --from-eval ID|latest serves with a sweep's winning algorithm
-           params.
+           The async transport serves unless --server-backend threaded;
+           --cert/--key serve HTTPS. --coalesce-window-ms puts the
+           continuous batcher in front of the device, --batch-window-ms
+           the micro-batcher; --warm-query JSON runs a query (and with
+           a batcher one warm batch of batch_max) before the server binds.
+           --server-key (or PIO_SERVER_KEY) guards /stop, /reload,
+           /batcher/window and /model/upsert_users. --from-eval
+           ID|latest serves with a sweep's winning algorithm params.
+  undeploy POST /stop (with --server-key) to the deploy server at
+           --ip/--port.
   eval     evaluate on the engine's evaluation folds (docs/evaluation.md),
            on the CUDA device unless --device cpu: either
            `eval <Evaluation> <ParamsGenerator>` (class mode: every
@@ -68,14 +75,15 @@ Verbs ported so far:
            clients on other hosts, loopback unless --ip (then
            --server-key is required), with TLS options.
 
-The ingest and storage verbs touch no tensor and take no --device.
-Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_eval``,
-``cmd_batchpredict``, ``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``,
-``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
+The ingest, storage and undeploy verbs touch no tensor and take no
+--device.
+Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_undeploy``,
+``cmd_eval``, ``cmd_batchpredict``, ``cmd_foldin``, ``cmd_app``,
+``cmd_accesskey``, ``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
 ``cmd_storageserver`` in ``pio_tpu.tools.cli``, with the same
 flags, output lines and exit codes. Not ported yet: the mesh options (--no-mesh: the
-port holds one device); deploy's fleet, canary, TLS, feedback, batching
-and warm-query options; foldin's --router-url (the fleet).
+port holds one device); deploy's fleet, canary and feedback options;
+undeploy's --tenant (the fleet); foldin's --router-url (the fleet).
 """
 
 from __future__ import annotations
@@ -189,6 +197,8 @@ def cmd_train(args) -> int:
 
 
 def cmd_deploy(args) -> int:
+    import threading
+
     from pio_tpu_torch.workflow.context import create_workflow_context
     from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
 
@@ -206,14 +216,28 @@ def cmd_deploy(args) -> int:
         ip=args.ip, port=args.port, engine_id=engine_id,
         engine_version=engine_version, engine_variant=engine_variant,
         server_key=args.server_key or os.environ.get("PIO_SERVER_KEY", ""),
+        warm_query=json.loads(args.warm_query) if args.warm_query else None,
+        certfile=args.cert, keyfile=args.key,
+        backend=args.server_backend,
+        batch_window_ms=args.batch_window_ms,
+        coalesce_window_ms=args.coalesce_window_ms,
     )
     http, qs = create_query_server(
         engine, ep, storage, config, ctx=ctx,
         instance_id=args.engine_instance_id,
     )
-    http.start()
+    http.start()  # bind first: with --port 0 the real port is only known now
+    scheme = "https" if http.tls else "http"
     print(f"Engine instance {qs.instance.id} deployed on "
-          f"http://{args.ip}:{http.port} ({ctx.device})", flush=True)
+          f"{scheme}://{args.ip}:{http.port} ({ctx.device})", flush=True)
+
+    def watch_stop():
+        qs._stop_requested.wait()
+        http.stop()
+
+    # pio: lint-ok[context-loss] deliberate detach: shutdown watcher
+    # waits for /stop for the process lifetime; no request context
+    threading.Thread(target=watch_stop, daemon=True).start()
     try:
         http.wait()
     except KeyboardInterrupt:
@@ -222,6 +246,22 @@ def cmd_deploy(args) -> int:
         qs.close()
     print("Server stopped.")
     return 0
+
+
+def cmd_undeploy(args) -> int:
+    """POST /stop to a running deploy server (reference Console.undeploy),
+    through utils/httpclient like every other outbound call."""
+    from pio_tpu_torch.utils.httpclient import JsonHttpClient
+
+    key = args.server_key or os.environ.get("PIO_SERVER_KEY", "")
+    try:
+        out = JsonHttpClient(f"http://{args.ip}:{args.port}",
+                             timeout=10).request(
+            "POST", "/stop", params={"accessKey": key} if key else None)
+        print(json.dumps(out) if out is not None else "")
+        return 0
+    except Exception as e:  # noqa: BLE001
+        return _fail(f"undeploy failed: {e}")
 
 
 def _apply_from_eval(engine, ep, storage, from_eval: str):
@@ -811,11 +851,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving device (default cuda; cpu must be asked "
                         "for)")
     x.add_argument("--server-key", default="",
-                   help="guards /model/upsert_users (or PIO_SERVER_KEY)")
+                   help="guards /stop, /reload, /batcher/window and "
+                        "/model/upsert_users (or PIO_SERVER_KEY)")
+    x.add_argument("--warm-query",
+                   help="a JSON query run at startup (and, with a "
+                        "batcher, one warm batch of batch_max)")
+    x.add_argument("--cert", help="TLS certificate (PEM) -> serve HTTPS")
+    x.add_argument("--key", help="TLS private key (PEM)")
+    x.add_argument("--server-backend", choices=["async", "threaded"],
+                   default="async")
+    x.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="micro-batching: > 0 coalesces concurrent queries "
+                        "within this fixed window (ms); < 0 = adaptive "
+                        "continuous batching (no added wait; batch = "
+                        "whatever queued during the previous execution); "
+                        "0 = off")
+    x.add_argument("--coalesce-window-ms", type=float, default=0.0,
+                   help="continuous batching: > 0 admits queries through "
+                        "a coalescing stage that merges concurrent "
+                        "requests into one device dispatch; ~2 ms is the "
+                        "recommended starting window. Deadline-doomed "
+                        "requests dispatch solo or shed 503. 0 = off")
     x.add_argument("--from-eval", default="", metavar="EVAL_ID|latest",
                    help="serve with the winning algorithm params an "
                         "`eval --sweep` persisted")
     x.set_defaults(fn=cmd_deploy)
+    x = sub.add_parser("undeploy", help="stop a running deploy server")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--server-key")
+    x.set_defaults(fn=cmd_undeploy)
     x = sub.add_parser("eval", help="evaluate and tune an engine")
     x.add_argument("evaluation_class", nargs="?", default="")
     x.add_argument("params_generator_class", nargs="?", default="")

@@ -22,9 +22,7 @@ grow, ``/readyz`` flips once past the staleness budget) and NEVER
 touches serving availability.
 
 The solve runs on the worker's device: CUDA unless the caller asks for
-the CPU (``device="cpu"``), as every entry point of the port. The
-folder's health server has the threaded transport only; the reference's
-``async`` backend waits for the port's async transport.
+the CPU (``device="cpu"``), as every entry point of the port.
 """
 
 from __future__ import annotations
@@ -45,7 +43,9 @@ from pio_tpu_torch.resilience import (
     CircuitBreaker, CircuitOpenError, Deadline,
 )
 from pio_tpu_torch.resilience import chaos
-from pio_tpu_torch.server.http import HttpApp, HttpServer, Request
+from pio_tpu_torch.server.http import (
+    AsyncHttpServer, HttpApp, HttpServer, Request,
+)
 from pio_tpu_torch.utils.time import format_time, utcnow
 from pio_tpu_torch.workflow.context import resolve_device
 
@@ -91,6 +91,7 @@ class FoldInConfig:
     # health server (create_foldin_server)
     ip: str = "127.0.0.1"
     port: int = 8100
+    backend: str = "threaded"
     server_key: str = ""    # guards /debug trace routes ("" = open)
 
 
@@ -456,8 +457,9 @@ def build_foldin_app(worker: FoldInWorker) -> HttpApp:
     return app
 
 
-def create_foldin_server(worker: FoldInWorker) -> HttpServer:
+def create_foldin_server(worker: FoldInWorker):
     """-> http transport for the folder's health surface (start() it;
     with port=0 the bound port is known after start)."""
     c = worker.config
-    return HttpServer(build_foldin_app(worker), host=c.ip, port=c.port)
+    server_cls = AsyncHttpServer if c.backend == "async" else HttpServer
+    return server_cls(build_foldin_app(worker), host=c.ip, port=c.port)

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.ops import topk
-from pio_tpu_torch.ops.bucketing import pow2_bucket
+from pio_tpu_torch.ops.bucketing import dispatch_rows, pow2_bucket
 from pio_tpu_torch.ops.kernels.gather_rows import (
     GATHER_VMEM_TABLE_BUDGET,
     gather_rows_resident,
@@ -1058,22 +1058,24 @@ def predict_pairs(model: ALSModel, user_idx, item_idx) -> torch.Tensor:
 def recommend_topk(model: ALSModel, user_idx, k: int):
     """Top-k items for a batch of users: one (B,k)x(k,I) matmul + topk.
 
-    k and the batch dim are bucketed to the next power of two and trimmed
-    afterwards, as the reference does, so a query answers the same
-    whether it is served alone or inside a batch of the same bucket."""
+    k is bucketed to the next power of two and trimmed afterwards, as the
+    reference does, and the matmul runs at the batch's dispatch rows
+    (``ops.bucketing.dispatch_rows``), so a query answers the same bits
+    whether it is served alone or inside a micro-batch or a coalesced
+    batch."""
     n_items = model.item_factors.shape[0]
     k = max(1, min(int(k), n_items))
     k_bucket = pow2_bucket(k, cap=n_items)
     user_idx = np.asarray(user_idx)
     b = len(user_idx)
-    b_bucket = pow2_bucket(b)
-    if b_bucket != b:
+    n = dispatch_rows(b)
+    if n != b:
         user_idx = np.concatenate(
-            [user_idx, np.zeros(b_bucket - b, user_idx.dtype)])
+            [user_idx, np.zeros(n - b, user_idx.dtype)])
     rows = model.user_factors[_index(user_idx, model.user_factors.device)]
-    scores, idx = topk.topk_lowest_index(rows @ model.item_factors.T,
-                                         k_bucket)
-    return scores[:b, :k], idx[:b, :k]
+    scores, idx = topk.topk_lowest_index(
+        (rows @ model.item_factors.T)[:b], k_bucket)
+    return scores[:, :k], idx[:, :k]
 
 
 def rmse(model: ALSModel, user_idx, item_idx, values) -> float:

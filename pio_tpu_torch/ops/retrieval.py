@@ -29,7 +29,11 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.ops import topk
-from pio_tpu_torch.ops.bucketing import pow2_bucket
+from pio_tpu_torch.ops.bucketing import (
+    dispatch_rows,
+    padded_rows,
+    pow2_bucket,
+)
 from pio_tpu_torch.ops.kernels.quantized_scan import (
     quantized_scan,
     quantized_scan_reference,
@@ -440,25 +444,33 @@ def resolved_impl(impl: str) -> str:
     return "xla" if impl == "auto" else impl
 
 
-def _clustered_topk(u, centroids, table, scales, gidx, item_factors,
+def _clustered_topk(u, b: int, centroids, table, scales, gidx, item_factors,
                     nprobe: int, rerank: int, k: int, impl: str):
-    """One two-stage query batch. u (B,k_f) f32 on the index's device;
-    returns (scores (B,k) f32, gidx (B,k) int64) with -inf/-1 where fewer
-    than k real candidates survived. Tier-2 scores come from the exact
-    einsum over the f32 rows — the quantized tier only chooses
-    candidates."""
-    b = u.shape[0]
+    """One two-stage query batch. u (n,k_f) f32 on the index's device, the
+    first ``b`` rows live and the rest zero: the library products (the
+    centroid scores, the re-rank, and the scan's plain version) run at the
+    n rows of the dispatch shape, so a live row's scores carry the same
+    bits whatever the batch (``ops.bucketing.DISPATCH_ROWS``). The scan
+    kernel scores each (row, probe) in a block of its own, so it scans the
+    ``b`` live rows alone, as do the rankings. Returns (scores (b,k) f32,
+    gidx (b,k) int64) with -inf/-1 where fewer than k real candidates
+    survived. Tier-2 scores come from the exact einsum over the f32 rows —
+    the quantized tier only chooses candidates."""
+    n = u.shape[0]
     lmax = table.shape[1]
-    cs = torch.einsum("bk,ck->bc", u, centroids)
-    _, top_c = topk.topk_lowest_index(cs, nprobe)          # (B, nprobe)
+    cs = torch.einsum("bk,ck->bc", u, centroids)[:b]
+    _, top_c = topk.topk_lowest_index(cs, nprobe)          # (b, nprobe)
     top_c = top_c.to(torch.int32)
-    scan = quantized_scan if impl == "pallas" else quantized_scan_reference
-    qs = scan(table, scales, gidx, top_c, u)                # (B, P*Lmax)
-    flat_g = gidx[top_c].reshape(b, nprobe * lmax)
-    _, cpos = topk.topk_lowest_index(qs, rerank)           # (B, rerank)
+    if impl == "pallas":
+        qs = quantized_scan(table, scales, gidx, top_c, u[:b])
+    else:
+        qs = quantized_scan_reference(table, scales, gidx,
+                                      padded_rows(top_c, n), u)[:b]
+    flat_g = gidx[top_c].reshape(b, nprobe * lmax)         # qs: (b, P*Lmax)
+    _, cpos = topk.topk_lowest_index(qs, rerank)           # (b, rerank)
     cand_g = torch.gather(flat_g, 1, cpos).to(torch.int64)
-    rows = item_factors[cand_g.clamp(min=0)]               # (B, rerank, kf)
-    exact = torch.einsum("brk,bk->br", rows, u)
+    rows = padded_rows(item_factors[cand_g.clamp(min=0)], n)  # (n, rerank, kf)
+    exact = torch.einsum("brk,bk->br", rows, u)[:b]
     exact = torch.where(cand_g >= 0, exact,
                         torch.full_like(exact, -math.inf))
     scores, pos = topk.topk_lowest_index(exact, k)
@@ -470,10 +482,11 @@ def _clustered_topk(u, centroids, table, scales, gidx, item_factors,
 def candidate_topk(didx: DeviceRetrievalIndex, item_factors, user_rows,
                    k: int):
     """Two-stage top-k for a batch of user rows against the clustered
-    index, with the reference's pow2 bucketing of the batch, k and the
-    rerank width (trimmed on the host). ``item_factors`` is the model's
-    f32 (n_items, k) tensor on the index's device, the re-rank source.
-    Returns numpy (scores, gidx); callers drop entries with gidx -1.
+    index, with the reference's pow2 bucketing of k and the rerank width
+    (trimmed on the host) and the batch padded to its dispatch rows.
+    ``item_factors`` is the model's f32 (n_items, k) tensor on the index's
+    device, the re-rank source. Returns numpy (scores, gidx); callers drop
+    entries with gidx -1.
 
     Exhaustive scans (nprobe >= n_clusters) must not reach this
     function: callers branch to the exact path first."""
@@ -489,14 +502,11 @@ def candidate_topk(didx: DeviceRetrievalIndex, item_factors, user_rows,
         max(didx.params.rerank_k, k_bucket),
         cap=min(nprobe * didx.pad_width, n_scan))
     k_bucket = min(k_bucket, rerank)
-    b_bucket = pow2_bucket(b)
-    if b_bucket != b:
-        u = torch.cat([u, u.new_zeros((b_bucket - b, u.shape[1]))])
     scores, gidx = _clustered_topk(
-        u.contiguous(), didx.centroids, didx.table, didx.scales, didx.gidx,
-        item_factors, nprobe=nprobe, rerank=rerank, k=k_bucket,
-        impl=resolved_impl(didx.params.impl))
-    return (scores[:b, :k].cpu().numpy(), gidx[:b, :k].cpu().numpy())
+        padded_rows(u, dispatch_rows(b)).contiguous(), b, didx.centroids,
+        didx.table, didx.scales, didx.gidx, item_factors, nprobe=nprobe,
+        rerank=rerank, k=k_bucket, impl=resolved_impl(didx.params.impl))
+    return (scores[:, :k].cpu().numpy(), gidx[:, :k].cpu().numpy())
 
 
 def recall_at_k(got_gidx, oracle_gidx) -> float:

@@ -18,18 +18,25 @@ state):
   * ``durable_read`` — read + unframe; raises ``ModelIntegrityError``
     with the offending path on any mismatch.
 
-CRC32C (Castagnoli) is computed by a table-based pure-Python routine —
-no external dependency, and the polynomial matches what GCS/HDFS record
-alongside objects, so checksums stay comparable if blobs ever move to
-such stores. The ``pio lint`` ``durable-write`` rule flags model/
+CRC32C (Castagnoli) is computed by a table-based routine — no external
+dependency, and the polynomial matches what GCS/HDFS record alongside
+objects, so checksums stay comparable if blobs ever move to such stores.
+Large inputs are cut into equal lanes that numpy runs through the table
+side by side, and the lanes' registers are then folded in order (the
+register update is linear over GF(2)), which takes a model blob's CRC
+from seconds to a fraction of one. The ``pio lint`` ``durable-write`` rule flags model/
 checkpoint artifact writers that bypass this module.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import os
 import struct
 import threading
+
+import numpy as np
 
 
 class ModelIntegrityError(RuntimeError):
@@ -64,11 +71,55 @@ except ImportError:  # pragma: no cover - depends on the image
     _gcrc32c = None
 
 
+_LANES_FROM = 1 << 16  # bytes; below this the byte loop is as quick
+
+
+@functools.lru_cache(maxsize=64)
+def _skip_tables(width: int) -> tuple[list[int], ...]:
+    """The linear map that runs a CRC register through ``width`` zero
+    bytes, as four 256-entry tables, one for each byte of the register."""
+    table = np.asarray(_TABLE, np.uint32)
+    r = np.left_shift(np.uint32(1), np.arange(32, dtype=np.uint32))
+    for _ in range(width):
+        r = table[r & 0xFF] ^ (r >> 8)   # r[i]: where register bit i goes
+    values = np.arange(256)
+    out = []
+    for q in range(4):
+        t = np.zeros(256, np.uint32)
+        for bit in range(8):
+            t ^= np.where((values >> bit) & 1, r[8 * q + bit], 0).astype(
+                np.uint32)
+        out.append(t.tolist())
+    return tuple(out)
+
+
+def _lanes_register(a: np.ndarray, crc: int) -> int:
+    """The register after running ``crc`` through the bytes ``a``
+    (uint8, at least _LANES_FROM of them, a whole number of lanes)."""
+    width = max(64, math.isqrt(a.size // 16))
+    lanes = a.size // width
+    cols = a[:lanes * width].reshape(lanes, width).T.copy()
+    table = np.asarray(_TABLE, np.uint32)
+    r = np.zeros(lanes, np.uint32)         # each lane from a zero register
+    for col in cols:
+        r = table[(r ^ col) & 0xFF] ^ (r >> 8)
+    s0, s1, s2, s3 = _skip_tables(width)
+    for x in r.tolist():                   # fold: skip a lane, add its own
+        crc = (s0[crc & 0xFF] ^ s1[(crc >> 8) & 0xFF]
+               ^ s2[(crc >> 16) & 0xFF] ^ s3[crc >> 24] ^ x)
+    for b in a[lanes * width:].tolist():
+        crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc
+
+
 def crc32c(data: bytes, value: int = 0) -> int:
     """CRC32C of ``data`` (optionally continuing from a prior value)."""
     if _gcrc32c is not None:
         return _gcrc32c.extend(value, data)
     crc = value ^ 0xFFFFFFFF
+    if len(data) >= _LANES_FROM:
+        return _lanes_register(np.frombuffer(data, np.uint8),
+                               crc) ^ 0xFFFFFFFF
     for b in data:
         crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF

@@ -52,6 +52,7 @@ def run_batch_predict(
     config = ServingConfig(
         engine_id=engine_id, engine_version=engine_version,
         engine_variant=engine_variant,
+        batch_window_ms=0,          # no micro-batcher: batches are explicit
     )
     qs = QueryServer(engine, engine_params, storage, config,
                      ctx=ctx, instance_id=instance_id)

@@ -4,30 +4,65 @@ Counterpart of ``pio_tpu.workflow.serve`` (reference CreateServer.scala):
 
   GET  /                    -> engine status (instance info + latency stats
                                + fold-in accounting)
-  GET  /readyz             -> readiness (model loaded, storage breakers
-                               closed; fold-in shown, never gating)
-  POST /queries.json        -> supplement -> per-algo predict -> serve
+  GET  /healthz, /readyz    -> liveness; readiness (model loaded, storage
+                               breakers closed, warm buckets, async queue
+                               under its shed watermark; fold-in shown,
+                               never gating)
+  POST /queries.json        -> supplement -> per-algo predict -> serve,
+                               through the micro or continuous batcher
+                               when one is configured
   POST /batch/queries.json  -> a JSON array of queries, one batch_predict
                                per algorithm
   POST /model/upsert_users  -> streaming fold-in apply (server-key guarded)
+  POST /reload              -> hot-swap to the latest COMPLETED instance
+                               (GET kept as a deprecated alias); a failed
+                               reload keeps serving the last-good model
+  POST /stop                -> shut down (server-key guarded)
+  GET  /metrics.json, /metrics -> stage histograms, counters, the batch
+                               occupancy histogram (Prometheus text)
+  GET  /batcher.json        -> which batcher fronts the device, its counters
+  POST /batcher/window      -> live coalesce-window retune (server-key
+                               guarded)
 
-with the same body shapes and error codes. Ported so far: model restore
-(latest COMPLETED instance or a pinned id, falling back past a corrupt
-blob), the query routes, the fold-in apply surface (``foldin_upsert``:
-user rows replaced or appended, existing item rows replaced with the
-clustered-retrieval sidecar re-encoded for exactly those rows, in one
-last-good swap) and the threaded transport. The reference's rollout arms
-(and with them the fold-in's candidate arm), hedged dispatch, plugins,
-feedback events, micro/continuous batchers, bucket warm sweep, tracing,
-/reload, /stop and the async transport are not ported yet.
+with the same body shapes and error codes. Ported: model restore (latest
+COMPLETED instance or a pinned id, falling back past a corrupt blob), the
+query routes with their stage spans, hedged predict dispatch, the
+per-request budget, the admission stage (``QueryBatcher`` and
+``serving/batcher.ContinuousBatcher``), the warm sweep, reload and stop, the
+fold-in apply surface (``foldin_upsert``: user rows replaced or
+appended, existing item rows replaced with the clustered-retrieval
+sidecar re-encoded for exactly those rows, in one last-good swap), TLS,
+and both transports (async by default). Not ported yet: the rollout
+arms (canary, shadow, promote and rollback, and with them the fold-in's
+candidate arm), plugins, feedback events and the ``/profile/*`` device
+trace routes.
+
+A query answers the same bits alone, micro-batched or coalesced: every
+library scoring product runs at one dispatch shape (``ops.bucketing.
+DISPATCH_ROWS``, ``ServingConfig.batch_max``'s default), so the
+batchers take at most that many queries a dispatch. With one shape the
+warm sweep is one batch of ``batch_max`` queries, and the reference's
+bucket registry (which remembers which power-of-two batch sizes a
+deployment served, to warm only those) would choose among identical
+batches: it is left out, and with it ``utils/compilecache``.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import logging
+import queue
 import threading
 import time
+from concurrent.futures import (
+    FIRST_COMPLETED,
+    Future,
+    ThreadPoolExecutor,
+    TimeoutError as FuturesTimeoutError,
+    wait as futures_wait,
+)
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any
 
@@ -37,14 +72,28 @@ import torch
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.data.storage import Storage
 from pio_tpu_torch.ops import retrieval as rt
+from pio_tpu_torch.ops.bucketing import DISPATCH_ROWS, pow2_bucket
+from pio_tpu_torch.resilience import (
+    CircuitOpenError,
+    Deadline,
+    DeadlineExceeded,
+)
+from pio_tpu_torch.resilience.health import (
+    breaker_checks,
+    install_health_routes,
+    shedder_check,
+)
 from pio_tpu_torch.server.http import (
+    AsyncHttpServer,
     HttpApp,
     HttpServer,
     Request,
+    json_response,
     server_key_ok,
 )
 from pio_tpu_torch.utils.durable import ModelIntegrityError
 from pio_tpu_torch.utils.time import format_time, utcnow
+from pio_tpu_torch.utils.tracing import Tracer
 from pio_tpu_torch.workflow.context import WorkflowContext, create_workflow_context
 from pio_tpu_torch.workflow.train import load_models
 
@@ -58,11 +107,65 @@ class ServingConfig:
     engine_id: str = ""
     engine_version: str = "1"
     engine_variant: str = "default"
-    server_key: str = ""          # guards /model/upsert_users
+    server_key: str = ""          # guards /stop, /reload, /model/upsert_users
+    warm_query: dict | None = None  # sample query run at startup
+    certfile: str | None = None   # TLS cert (PEM); with keyfile -> HTTPS
+    keyfile: str | None = None
+    backend: str = "async"        # HTTP transport: "async" | "threaded"
+    # dynamic micro-batching: concurrent /queries.json requests arriving
+    # within the window are executed as ONE batch_predict per algorithm.
+    # batch_window_ms > 0: fixed collection window; < 0: ADAPTIVE
+    # (continuous) batching — no artificial wait, each batch is whatever
+    # queued while the previous one executed, so batch size self-tunes to
+    # arrival-rate x device-roundtrip. 0 = off.
+    batch_window_ms: float = 0.0
+    # the most queries one batched dispatch takes; at most
+    # ops.bucketing.DISPATCH_ROWS, the rows every scoring product runs at
+    batch_max: int = 64
+    # batches concurrently in flight. 0 = AUTO from the measured dispatch
+    # RTT (_auto_pipeline_depth): 2 on a local device (double buffering —
+    # the collection window overlaps the in-flight batch), 4 over a
+    # high-RTT link where in-flight batches hide the round trip.
+    batch_pipeline: int = 0
+    # tail hedging for the predict dispatch: if a device dispatch has not
+    # returned after hedge_after x the rolling predict-stage MEDIAN, issue
+    # a duplicate dispatch and take whichever finishes first. predict is a
+    # pure function of (model, queries), so the duplicate is safe; it only
+    # costs device time on the rare stall. 0 disables. Hedging arms only
+    # after 20 recorded predict spans; warm-up calls record no spans at
+    # all (record=False skips the histograms), so warm-ups never skew the
+    # median the hedge timeout derives from.
+    hedge_after: float = 3.0
+    # per-request time budget (seconds) opened around each /queries.json
+    # dispatch and propagated (resilience.Deadline contextvar) into the
+    # storage DAO calls made on the REQUEST THREAD: retries stop
+    # sleeping and I/O stops starting once the budget is spent, and the
+    # request answers 503 instead of holding a connection past its
+    # usefulness. Work executed on other pools (micro-batched execution,
+    # hedged predict dispatch) does not inherit the contextvar — the
+    # batcher instead enforces the budget at its result wait, and predict
+    # stages are bounded by their own hedging. 0 = off.
+    request_budget_s: float = 0.0
+    # cross-request continuous batching (serving/batcher.py): > 0 puts a
+    # ContinuousBatcher in front of the device program — concurrent
+    # /queries.json requests coalesce into ONE batched dispatch whenever
+    # a pipeline slot frees OR this window (ms) elapses, whichever comes
+    # first (2 ms is the recommended default when enabling). Unlike
+    # batch_window_ms it is Deadline-aware: a query whose budget cannot
+    # survive the window dispatches solo or sheds 503 instead of
+    # parking. Takes precedence over batch_window_ms. 0 = off.
+    coalesce_window_ms: float = 0.0
+
+
+def _no_span(_name: str, **_labels):
+    """A span that records nothing (the unrecorded calls' stand-in for
+    ``Tracer.span``)."""
+    return nullcontext()
 
 
 class QueryServer:
-    """Serving runtime: engine + params + restored models."""
+    """Serving runtime: engine + params + restored models (reference
+    ServerActor state, CreateServer.scala:407-431)."""
 
     def __init__(
         self,
@@ -78,28 +181,93 @@ class QueryServer:
         self.storage = storage
         self.config = config
         self.ctx = ctx or create_workflow_context(storage)
+        batching = config.coalesce_window_ms > 0 or config.batch_window_ms != 0
+        if batching and pow2_bucket(config.batch_max) > DISPATCH_ROWS:
+            raise ValueError(
+                f"batch_max {config.batch_max} exceeds the {DISPATCH_ROWS} "
+                "rows every scoring product runs at; a larger batch would "
+                "score its queries at another shape than a solo query")
         self._lock = threading.RLock()
+        # per-stage latency histograms + distributed span records (obs/):
+        # every span under an active trace context lands in the recorder,
+        # and the HTTP edge (dispatch_safe) opens that context per request
+        from pio_tpu_torch.obs import make_recorder
+
+        self.recorder = make_recorder("serving")
+        self.tracer = Tracer(recorder=self.recorder)
         self.start_time = utcnow()
-        # query latency bookkeeping for GET / (count, total, last)
-        self._n_queries = 0
-        self._total_s = 0.0
-        self._last_s = 0.0
+        self._stop_requested = threading.Event()
+        self._predict_pool = ThreadPoolExecutor(
+            max_workers=8, thread_name_prefix="predict"
+        )
+        # separate pool for hedged device dispatches: _hedged may be
+        # CALLED from a _predict_pool worker (multi-algo path), so its
+        # inner submissions must not compete for the same workers or a
+        # full pool deadlocks on its own children
+        self._hedge_pool = ThreadPoolExecutor(
+            max_workers=8, thread_name_prefix="hedge"
+        )
+        self.hedged_dispatches = 0
+        self.last_reload_error: str | None = None
         # streaming fold-in accounting (foldin_upsert): how many user
         # and item rows were applied, and the newest batch's staleness
         self.foldin_applied_users = 0
         self.foldin_applied_items = 0
         self.foldin_last_time = None
         self.foldin_last_staleness_s: float | None = None
-        # serializes whole reloads (resolve + restore + swap) without
-        # blocking queries, which only take self._lock for a snapshot
+        # serializes whole reloads (resolve + restore + swap) end to end
+        # WITHOUT blocking queries: queries snapshot state under
+        # self._lock, which a reload only takes for the final swap.
+        # Without this, two concurrent /reloads could resolve different
+        # "latest" instances and swap in restore-completion order,
+        # leaving the older one serving.
         self._load_lock = threading.Lock()
         self._load(instance_id)
+        # admission stage in front of the device program: the continuous
+        # batcher (deadline-aware, slot-OR-window drain) takes precedence
+        # over the window-only micro-batcher; both expose the same
+        # .query()/.close() so the serving edge and the readiness
+        # "buckets" gate treat them interchangeably
+        if config.coalesce_window_ms > 0:
+            from pio_tpu_torch.serving.batcher import ContinuousBatcher
+
+            self.batcher = ContinuousBatcher(
+                self, config.coalesce_window_ms / 1e3, config.batch_max,
+                pipeline_depth=config.batch_pipeline
+                or _auto_pipeline_depth(self.ctx.device))
+        elif config.batch_window_ms != 0:
+            self.batcher = QueryBatcher(
+                self, config.batch_window_ms / 1e3, config.batch_max,
+                pipeline_depth=config.batch_pipeline
+                or _auto_pipeline_depth(self.ctx.device))
+        else:
+            self.batcher = None
+        self._buckets_warmed = False
+        self._warm_once = threading.Lock()
+        # the last completed warm sweep: {"seconds", "buckets"} (/readyz)
+        self.warm_sweep: dict | None = None
+        # /readyz gate (resilience/health.py "buckets" check): starts
+        # NOT-ready only when a warm sweep is owed at startup (batching on
+        # + a warm query to run it with); set once the sweep completes.
+        # Without a warm query the first real request triggers the
+        # background sweep — gating then would deadlock readiness on the
+        # traffic it gates, so the server reports ready and the gate only
+        # drops while that background warm is in flight.
+        self._buckets_ready = threading.Event()
+        if self.batcher is None or config.warm_query is None:
+            self._buckets_ready.set()
+        self._warm()
 
     # -- model lifecycle ----------------------------------------------------
     def _load(self, instance_id: str | None = None) -> None:
-        """Restore an instance's models and swap them in atomically: every
-        failable step runs before the swap, so a failed load leaves the
-        previous instance serving."""
+        """Restore an instance's models and swap them in ATOMICALLY: every
+        failable step (metadata lookup, model restore, doer construction)
+        runs before the swap, so a failed load leaves the previous
+        instance/models/algorithms fully intact — the last-good model
+        keeps serving through a broken /reload. Whole loads (resolve +
+        restore + swap) are serialized by _load_lock so concurrent
+        reloads cannot swap in restore-completion order; queries are NOT
+        blocked — they contend only on the final swap."""
         with self._load_lock:
             self._load_locked(instance_id)
 
@@ -125,10 +293,12 @@ class QueryServer:
         # reference prepares one set and serves with another, which drops
         # what prep binds to an algorithm, e.g. a live event store)
         _, _, algorithms, serving = self.engine._doers(self.engine_params)
-        # a corrupt blob (CRC32C mismatch) on the latest instance falls
-        # back to the previous COMPLETED one: integrity failures are
-        # permanent for that blob, and an older good model beats none.
-        # An explicit instance id does not fall back.
+        # restore OUTSIDE the lock: queries keep serving the old model
+        # while the new one loads. A corrupt blob (CRC32C mismatch) on the
+        # latest instance falls back to the previous COMPLETED one:
+        # integrity failures are permanent for that blob, and an older
+        # good model beats none. An explicit instance id does not fall
+        # back.
         models = instance = None
         last_integrity_error: ModelIntegrityError | None = None
         for candidate in candidates:
@@ -148,62 +318,275 @@ class QueryServer:
         if models is None:
             raise last_integrity_error
         with self._lock:
+            # hot-swap: retire the outgoing doers' resources — on a delay:
+            # queries that snapshotted the old algorithms may still be
+            # mid-predict
+            self._retire_algorithms(getattr(self, "algorithms", []))
             self.instance = instance
             self.models = models
             self.algorithms = algorithms
             self.serving = serving
         log.info("deployed engine instance %s", instance.id)
 
+    def reload(self) -> str:
+        """Hot-swap to the latest completed instance; returns its id. On
+        failure the exception propagates and the last-good model keeps
+        serving (the /reload route maps it to 503 + the serving id)."""
+        try:
+            self._load(None)
+        except Exception as e:
+            self.last_reload_error = f"{type(e).__name__}: {e}"
+            raise
+        self.last_reload_error = None
+        return self.instance.id
+
+    def _retire_algorithms(self, algorithms) -> None:
+        """Close retired algorithm resources on a delay (see _load_locked:
+        queries that snapshotted them may be mid-predict). Callers hold
+        self._lock."""
+        retired = [
+            close for algo in algorithms
+            if callable(close := getattr(algo, "close", None))
+        ]
+        if retired:
+            # pio: lint-ok[context-loss] deliberate detach: the delayed
+            # close must outlive the request (and its budget) that
+            # triggered the reload
+            t = threading.Timer(30.0, lambda: [c() for c in retired])
+            t.daemon = True
+            t.start()
+
     def _snapshot(self):
         with self._lock:
             return self.models, self.algorithms, self.serving
 
     def close(self) -> None:
-        """Release algorithm-held resources; the HTTP transport's stop()
-        does not know about them."""
+        """Release serving resources (predict pools, batcher thread, and
+        any algorithm-held resources). The HTTP transport's stop() does
+        not know about them."""
+        if self.batcher is not None:
+            self.batcher.close()
+        self._predict_pool.shutdown(wait=False)
+        self._hedge_pool.shutdown(wait=False)
         for algo in list(getattr(self, "algorithms", [])):
             close = getattr(algo, "close", None)
             if callable(close):
                 close()
 
-    # -- query path ---------------------------------------------------------
-    def _record(self, t0: float) -> None:
-        dt = time.monotonic() - t0
-        with self._lock:
-            self._n_queries += 1
-            self._total_s += dt
-            self._last_s = dt
+    # -- warm-up -------------------------------------------------------------
+    def _warm_bucket_set(self) -> list[int]:
+        """The batch sizes the warm sweep runs: batch_max's bucket alone.
+        Every batch of up to batch_max queries runs its library products
+        at the DISPATCH_ROWS shape, so the largest batch warms what every
+        smaller one runs, and the scan kernel's widest grid besides (the
+        reference runs the whole power-of-two ladder, one shape each)."""
+        return [pow2_bucket(self.config.batch_max)]
 
-    def query(self, q: dict, record: bool = True) -> Any:
-        """``record=False`` keeps the call out of the latency bookkeeping
-        (a batch backfill's queries)."""
+    def _warm(self) -> None:
+        if self.config.warm_query is None:
+            return
+        try:
+            # record=False: warm-up does not count toward stats
+            self.query(dict(self.config.warm_query), record=False)
+        except Exception:  # noqa: BLE001 - warmup is best-effort
+            log.warning("warm query failed", exc_info=True)
+        if self.batcher is None:
+            return
+        try:
+            # run the sweep up front so the batchers' first batches find
+            # the retrieval index built and the device allocator primed
+            self._sweep(self.config.warm_query)
+            self._buckets_warmed = True
+        except Exception:  # noqa: BLE001 - warmup is best-effort
+            log.warning("warm batch failed", exc_info=True)
+        finally:
+            # ready either way: a failed warm means traffic pays the
+            # first-batch cost, which beats a permanently not-ready
+            # instance
+            self._buckets_ready.set()
+
+    def _sweep(self, sample: dict) -> None:
+        """One unrecorded batch of ``sample`` at each warm bucket size."""
         t0 = time.monotonic()
+        buckets = self._warm_bucket_set()
+        for b in buckets:
+            self.query_batch([dict(sample)] * b, record=False)
+        self.warm_sweep = {"seconds": time.monotonic() - t0,
+                           "buckets": buckets}
+
+    def _auto_warm_buckets(self, sample: dict) -> None:
+        """Run the warm sweep in the background using a clone of the
+        first real query, so the first batch's costs never land
+        mid-traffic. Explicit ServingConfig.warm_query does this up front
+        at startup."""
+        # atomic test-and-set: concurrent batch executions must not spawn
+        # duplicate warm threads
+        if self.batcher is None:
+            return
+        with self._warm_once:
+            if self._buckets_warmed:
+                return
+            self._buckets_warmed = True
+        # pio: lint-ok[attr-no-lock] threading.Event is internally locked
+        self._buckets_ready.clear()  # /readyz drops while the sweep runs
+
+        def go():
+            try:
+                self._sweep(sample)
+            except Exception:  # noqa: BLE001 - warmup is best-effort
+                log.warning("background bucket warm failed", exc_info=True)
+            finally:
+                self._buckets_ready.set()
+
+        # pio: lint-ok[context-loss] deliberate detach: bucket warm-up
+        # is best-effort background priming, not on the triggering
+        # request's clock or trace
+        threading.Thread(
+            target=go, name="bucket-warm", daemon=True
+        ).start()
+
+    # -- query path (reference CreateServer.scala:492-615) ------------------
+    def query(self, q: dict, record: bool = True) -> Any:
+        """``record=False`` keeps the call out of the stage histograms and
+        the request count (warm-ups, a batch backfill's queries)."""
+        t0 = time.monotonic()
+        # warm-up calls (record=False) must not enter the stage
+        # histograms: their first-call spans would pollute dashboard
+        # quantiles AND the hedge-arming median (_hedge_timeout)
+        span = self.tracer.span if record else _no_span
         models, algorithms, serving = self._snapshot()
-        supplemented = serving.supplement(q)
-        predictions = [
-            a.predict(m, supplemented) for a, m in zip(algorithms, models)
-        ]
-        prediction = serving.serve(q, predictions)
+        with span("supplement"):
+            supplemented = serving.supplement(q)
+        with span("predict"):
+            if len(algorithms) > 1:
+                # concurrent per-algo predict; copy_context: predict runs
+                # ON the request path — the Deadline budget and trace
+                # must follow it onto the pool worker
+                futures = [
+                    self._predict_pool.submit(
+                        contextvars.copy_context().run,
+                        a.predict, m, supplemented)
+                    for a, m in zip(algorithms, models)
+                ]
+                predictions = [f.result() for f in futures]
+            else:
+                predictions = [algorithms[0].predict(models[0], supplemented)]
+        with span("serve"):
+            prediction = serving.serve(q, predictions)
         if record:
-            self._record(t0)
+            self._auto_warm_buckets(q)
+            self.tracer.record("query", time.monotonic() - t0)
         return prediction
+
+    def _hedge_timeout(self) -> float | None:
+        """Seconds after which a predict dispatch gets a duplicate, or
+        None when hedging is off / not yet armed (needs 20 recorded spans
+        so warm-ups never count as stalls)."""
+        if self.config.hedge_after <= 0:
+            return None
+        h = self.tracer.histogram("predict")
+        if h.count < 20:
+            return None
+        p50 = h.quantiles((0.5,))["p50"]
+        if p50 <= 0:
+            return None
+        return max(0.05, self.config.hedge_after * p50)
+
+    def _hedged(self, fn, *args):
+        """Run fn on the hedge pool; if it outlives the hedge timeout,
+        race a duplicate and return whichever finishes first. fn must be
+        pure (device predict is), so the loser is discarded harmlessly.
+
+        The hedge clock starts when the task actually STARTS on a pool
+        worker, not at submit: under >pool-width concurrent dispatches,
+        queue wait would otherwise read as a "stall" and fire spurious
+        duplicates into the already-saturated pool. If the task hasn't
+        even started within the timeout, the pool is saturated — a
+        duplicate could only queue behind the original, so hedging is
+        skipped entirely."""
+        timeout = self._hedge_timeout()
+        if timeout is None:
+            return fn(*args)
+        started = threading.Event()
+        t_start: list[float] = []
+
+        def wrapped(*a):
+            t_start.append(time.monotonic())
+            started.set()
+            return fn(*a)
+
+        # copy_context on both attempts: the hedged dispatch is the
+        # request's own predict — it must see the Deadline budget and
+        # parent its spans into the request trace
+        futs = [self._hedge_pool.submit(
+            contextvars.copy_context().run, wrapped, *args)]
+        if not started.wait(timeout):
+            # saturated pool: no worker picked the task up within the
+            # hedge window — duplicates add load without cutting latency
+            return futs[0].result()
+        try:
+            remaining = t_start[0] + timeout - time.monotonic()
+            return futs[0].result(timeout=max(0.0, remaining))
+        except FuturesTimeoutError:
+            with self._lock:
+                self.hedged_dispatches += 1
+            futs.append(self._hedge_pool.submit(
+                contextvars.copy_context().run, fn, *args))
+        # first SUCCESS wins; an attempt's exception propagates only once
+        # every attempt has failed
+        pending = set(futs)
+        first_exc: BaseException | None = None
+        while pending:
+            done, pending = futures_wait(
+                pending, timeout=60.0, return_when=FIRST_COMPLETED
+            )
+            for f in done:
+                exc = f.exception()
+                if exc is None:
+                    for loser in pending:
+                        loser.cancel()  # free not-yet-started duplicates
+                    return f.result()
+                first_exc = first_exc or exc
+        raise first_exc
 
     def query_batch(self, queries: list[dict], record: bool = True) -> list:
         """Serve several queries as one batch_predict per algorithm (the
-        bulk path behind /batch/queries.json)."""
+        micro-batching execution path; also the bulk path behind
+        /batch/queries.json)."""
         t0 = time.monotonic()
+        # see query(): warm-up spans stay out of the histograms
+        span = self.tracer.span if record else _no_span
         models, algorithms, serving = self._snapshot()
-        supplemented = [serving.supplement(q) for q in queries]
-        per_algo = [
-            a.batch_predict(m, supplemented)
-            for a, m in zip(algorithms, models)
-        ]
-        predictions = [
-            serving.serve(q, [algo_out[i] for algo_out in per_algo])
-            for i, q in enumerate(queries)
-        ]
+        with span("supplement"):
+            supplemented = [serving.supplement(q) for q in queries]
+        with span("predict"):
+            if len(algorithms) > 1:
+                futures = [
+                    self._predict_pool.submit(
+                        contextvars.copy_context().run,
+                        self._hedged, a.batch_predict, m, supplemented)
+                    for a, m in zip(algorithms, models)
+                ]
+                per_algo = [f.result() for f in futures]
+            else:
+                per_algo = [
+                    self._hedged(
+                        algorithms[0].batch_predict, models[0], supplemented)
+                ]
+        if record and queries:
+            # the batched path is the PRIMARY path when the batcher is on
+            # (query() is bypassed), so auto-warm must hook here too; the
+            # warm calls themselves pass record=False and cannot recurse
+            self._auto_warm_buckets(queries[0])
+        with span("serve"):
+            predictions = [
+                serving.serve(q, [algo_out[i] for algo_out in per_algo])
+                for i, q in enumerate(queries)
+            ]
         if record:
-            self._record(t0)
+            dt = time.monotonic() - t0
+            for _ in queries:
+                self.tracer.record("query", dt)
         return predictions
 
     # -- streaming fold-in (freshness/) -------------------------------------
@@ -243,7 +626,7 @@ class QueryServer:
                 _fold_item_rows_into(new_model, items)
         with self._lock:
             # the model may have moved while we built the new one: a
-            # reload (new instance — applying stale rows onto it would
+            # /reload (new instance — applying stale rows onto it would
             # mix factor spaces) or a CONCURRENT fold-in apply (swapping
             # over it would silently drop the other batch's rows, which
             # the folder then never refolds — its cursor advanced).
@@ -270,7 +653,8 @@ class QueryServer:
         return out
 
     def foldin_status(self) -> dict:
-        """Bounded-staleness accounting for GET / and /readyz."""
+        """Bounded-staleness accounting for GET /, /readyz and
+        /metrics.json."""
         with self._lock:
             return {
                 "appliedUsers": self.foldin_applied_users,
@@ -281,9 +665,21 @@ class QueryServer:
             }
 
     # -- status -------------------------------------------------------------
+    @property
+    def request_count(self) -> int:
+        return self.tracer.histogram("query").count
+
+    @property
+    def avg_serving_sec(self) -> float:
+        h = self.tracer.histogram("query")
+        return h.total / h.count if h.count else 0.0
+
+    @property
+    def last_serving_sec(self) -> float:
+        return self.tracer.histogram("query").last
+
     def status(self) -> dict:
         with self._lock:
-            n = self._n_queries
             return {
                 "status": "alive",
                 "engineInstance": {
@@ -295,11 +691,31 @@ class QueryServer:
                 },
                 "startTime": format_time(self.start_time),
                 "device": str(self.ctx.device),
-                "requestCount": n,
-                "avgServingSec": round(self._total_s / n if n else 0.0, 6),
-                "lastServingSec": round(self._last_s, 6),
+                "requestCount": self.request_count,
+                "avgServingSec": round(self.avg_serving_sec, 6),
+                "lastServingSec": round(self.last_serving_sec, 6),
                 "foldin": self.foldin_status(),
             }
+
+    def metrics(self) -> dict:
+        """Per-stage latency histograms (p50/p90/p95/p99 over the recent
+        window, all-time count/avg) — the serving observability surface —
+        and the launches of each CUDA kernel in this process
+        (``kernelLaunches``; the CPU's plain versions do not count).
+        ``exemplars`` link each span's slowest recent occurrence to a
+        trace id."""
+        from pio_tpu_torch.ops.kernels import launch_counts
+
+        out = {
+            "startTime": format_time(self.start_time),
+            "spans": self.tracer.snapshot(),
+            "hedgedDispatches": self.hedged_dispatches,
+            "kernelLaunches": launch_counts(),
+            "foldin": self.foldin_status(),
+        }
+        if self.recorder is not None:
+            out["exemplars"] = self.recorder.exemplars()
+        return out
 
 
 def _fold_rows_into(models: list, rows) -> tuple:
@@ -413,6 +829,171 @@ def _fold_item_rows_into(model, items) -> tuple:
     return new_model, len(positions), rejected
 
 
+def _depth_for_rtt(rtt_s: float) -> int:
+    """Dispatch-RTT -> pipeline depth. High-RTT (remote) devices want
+    several batches in flight to hide the link; local devices get TWO:
+    with one batch in flight any stall serializes the whole queue behind
+    it, and two is the minimal depth that overlaps the collection window
+    with the in-flight batch while bounding how deep a queue can build
+    behind a stalled batch."""
+    return 4 if rtt_s > 0.005 else 2
+
+
+_auto_depth_cache: dict[str, int] = {}
+_auto_depth_lock = threading.Lock()
+
+
+def _auto_pipeline_depth(device) -> int:
+    """Resolve ServingConfig.batch_pipeline=0: measure the dispatch
+    round trip on ``device`` once per process (cached — re-deploys and
+    multi-engine processes skip the probe) and map it via
+    _depth_for_rtt. The probe is a one-element add and, on a card, a
+    ``torch.cuda.synchronize``; a device error propagates (a broken
+    card must fail the deploy, not size its pipeline). Probe and cache
+    write run under a lock: two engines deploying concurrently must not
+    both pay the probe."""
+    device = torch.device(device)
+    key = str(device)
+    with _auto_depth_lock:
+        if key in _auto_depth_cache:
+            return _auto_depth_cache[key]
+
+        def round_trip() -> None:
+            one.add_(1)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        one = torch.zeros((), device=device)
+        # pio: lint-ok[blocking-under-lock] one-time boot probe: the lock
+        # exists to serialize exactly this measurement (docstring above);
+        # steady state returns the cache
+        round_trip()  # first call: context and allocator, not measured
+        samples = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            round_trip()
+            samples.append(time.monotonic() - t0)
+        depth = _depth_for_rtt(sorted(samples)[len(samples) // 2])
+        _auto_depth_cache[key] = depth
+        return depth
+
+
+class QueryBatcher:
+    """Dynamic micro-batching: requests enqueue, a collector thread drains
+    up to `max_batch` of them within `window_s`, and each batch executes as
+    one `query_batch` ON A POOL — so several batches stay in flight at once.
+    One batched top-k replaces N small ones and the pipelining keeps
+    throughput up even when a device dispatch is round-trip-dominated;
+    cost is up to window_s added latency, so it is off unless
+    ServingConfig.batch_window_ms is set.
+
+    window_s < 0 selects ADAPTIVE batching: the collector never waits —
+    it drains everything already queued and hands it off, so while a
+    batch executes the next one accumulates. Batch size then self-tunes
+    to arrival_rate x execution_time with ZERO added latency at low
+    load; a fixed window can only lose against it when execution is
+    RTT-dominated."""
+
+    def __init__(self, server: QueryServer, window_s: float, max_batch: int,
+                 pipeline_depth: int):
+        self.server = server
+        self.window_s = window_s
+        self.max_batch = max_batch
+        self._q: queue.Queue[tuple[dict, Future]] = queue.Queue()
+        self._closed = False
+        self._pool = ThreadPoolExecutor(
+            max_workers=pipeline_depth, thread_name_prefix="batch-exec"
+        )
+        # backpressure: ThreadPoolExecutor.submit never blocks, so without
+        # this bound the collector shreds the queue into 1-sized batches
+        # that pile up in the executor's unbounded queue — no batch ever
+        # forms and latency becomes queue wait. Acquired BEFORE draining,
+        # so requests accumulate while all pipeline slots are busy and
+        # each freed slot takes a real batch.
+        self._slots = threading.BoundedSemaphore(pipeline_depth)
+        self._thread = threading.Thread(
+            target=self._run, name="query-batcher", daemon=True
+        )
+        self._thread.start()
+
+    def query(self, q: dict) -> Any:
+        fut: Future = Future()
+        self._q.put((q, fut))
+        # batch execution runs on the batcher pool, which does not
+        # inherit the caller's Deadline contextvar — enforce the budget
+        # here, at the wait (the batch result lands harmlessly later)
+        timeout = Deadline.remaining()
+        try:
+            return fut.result(timeout=timeout)
+        except FuturesTimeoutError:
+            raise DeadlineExceeded(
+                "request budget exhausted waiting for batch execution"
+            ) from None
+
+    def _run(self):
+        while not self._closed:
+            try:
+                first = self._q.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            self._slots.acquire()  # wait for a pipeline slot FIRST
+            batch = [first]
+            if self.window_s < 0:  # adaptive: take what's there, no wait
+                while len(batch) < self.max_batch:
+                    try:
+                        batch.append(self._q.get_nowait())
+                    except queue.Empty:
+                        break
+            else:
+                deadline = time.monotonic() + self.window_s
+                while len(batch) < self.max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        batch.append(self._q.get(timeout=remaining))
+                    except queue.Empty:
+                        break
+            # hand off and go straight back to collecting the next batch
+            try:
+                self._pool.submit(self._execute, batch)
+            except RuntimeError as e:
+                self._slots.release()
+                # close() raced the collection: fail the batch's waiters
+                # rather than stranding them on never-set futures
+                for _, fut in batch:
+                    if not fut.done():
+                        fut.set_exception(e)
+                return
+
+    def _execute(self, batch: list[tuple[dict, Future]]):
+        queries = [q for q, _ in batch]
+        try:
+            self._do_execute(batch, queries)
+        finally:
+            self._slots.release()
+
+    def _do_execute(self, batch, queries):
+        try:
+            results = self.server.query_batch(queries)
+            for (_, fut), res in zip(batch, results):
+                fut.set_result(res)
+        except Exception:  # noqa: BLE001 - isolate the bad query
+            # one malformed query must not fail its batch-mates: retry
+            # each one alone so only the offender sees the error
+            for q, fut in batch:
+                if fut.done():
+                    continue
+                try:
+                    fut.set_result(self.server.query(q))
+                except Exception as e:  # noqa: BLE001
+                    fut.set_exception(e)
+
+    def close(self):
+        self._closed = True
+        self._pool.shutdown(wait=False)
+
+
 def build_serving_app(server: QueryServer) -> HttpApp:
     app = HttpApp("serving")
     config = server.config
@@ -424,29 +1005,28 @@ def build_serving_app(server: QueryServer) -> HttpApp:
     def root(req: Request):
         return 200, server.status()
 
-    @app.route("GET", r"/readyz")
-    def readyz(req: Request):
-        """Ready once a model is loaded and no storage breaker is open
-        (resilience/health.py contract). Fold-in is shown and NEVER
-        gates: a stale or absent folder means batch-stale serving
-        (degraded freshness), and flipping readyz for it would turn
-        that degradation into an outage."""
-        from pio_tpu_torch.resilience.health import breaker_checks
-
-        checks = breaker_checks(server.storage)
-        with server._lock:
-            inst = getattr(server, "instance", None)
-        checks["model"] = {"ok": inst is not None,
-                           "engineInstanceId": inst.id if inst else None}
-        checks["freshness"] = {"ok": True, **server.foldin_status()}
-        ready = all(c["ok"] for c in checks.values())
-        return (200 if ready else 503), {"ready": ready, "checks": checks}
-
-    def _answer(fn):
+    def _budgeted(fn):
+        """Run one query dispatch under the per-request Deadline budget
+        (ServingConfig.request_budget_s); exhausted budgets and tripped
+        storage breakers surface as 503 + Retry-After instead of a 500
+        or a connection held past its usefulness."""
         try:
+            if config.request_budget_s > 0:
+                with Deadline.budget(config.request_budget_s):
+                    return 200, fn()
             return 200, fn()
         except KeyError as e:
             return 400, {"message": f"query missing field {e}"}
+        except DeadlineExceeded as e:
+            return 503, json_response(
+                {"message": f"request budget exhausted: {e}"},
+                {"Retry-After": "1"},
+            )
+        except CircuitOpenError as e:
+            return 503, json_response(
+                {"message": str(e)},
+                {"Retry-After": f"{max(1, round(e.retry_after_s))}"},
+            )
 
     @app.route("POST", r"/queries\.json")
     def queries(req: Request):
@@ -456,7 +1036,9 @@ def build_serving_app(server: QueryServer) -> HttpApp:
             return 400, {"message": f"Invalid query: {e}"}
         if not isinstance(q, dict):
             return 400, {"message": "query must be a JSON object"}
-        return _answer(lambda: server.query(q))
+        if server.batcher is not None:
+            return _budgeted(lambda: server.batcher.query(q))
+        return _budgeted(lambda: server.query(q))
 
     @app.route("POST", r"/batch/queries\.json")
     def batch_queries(req: Request):
@@ -470,15 +1052,15 @@ def build_serving_app(server: QueryServer) -> HttpApp:
             return 400, {"message": "body must be a JSON array of objects"}
         if not qs:
             return 200, []
-        return _answer(lambda: server.query_batch(qs))
+        return _budgeted(lambda: server.query_batch(qs))
 
     @app.route("POST", r"/model/upsert_users")
     def upsert_users(req: Request):
         """Streaming fold-in apply surface (freshness/): body
         ``{"users": {id: [row]}, "items"?: {id: [row]},
         "stalenessSeconds"?: s}``. Item rows upsert existing items AND
-        their two-stage retrieval sidecar in the same swap. Guarded by
-        the server key — it mutates the serving model."""
+        their two-stage retrieval sidecar in the same swap. Guarded
+        like /reload — it mutates the serving model."""
         if not check_server_key(req):
             return 401, {"message": "Invalid accessKey."}
         try:
@@ -499,6 +1081,153 @@ def build_serving_app(server: QueryServer) -> HttpApp:
             return 400, {"message": str(e)}
         return 200, out
 
+    @app.route("POST", r"/reload")
+    @app.route("GET", r"/reload")  # deprecated alias: reload MUTATES
+    # serving state, so POST is the canonical route
+    def reload(req: Request):
+        if not check_server_key(req):
+            return 401, {"message": "Invalid accessKey."}
+        try:
+            instance_id = server.reload()
+        except Exception as e:  # noqa: BLE001 - degrade, don't die
+            # last-good serving: the failed load left the previous
+            # instance fully in place (see QueryServer._load), so report
+            # the failure AND what is still serving
+            with server._lock:
+                still = server.instance.id
+            return 503, json_response(
+                {"message": f"Reload failed ({type(e).__name__}: {e}); "
+                            "still serving last-good model",
+                 "engineInstanceId": still},
+                {"Retry-After": "1"},
+            )
+        return 200, {"message": "Reloaded", "engineInstanceId": instance_id}
+
+    @app.route("POST", r"/stop")
+    def stop(req: Request):
+        if not check_server_key(req):
+            return 401, {"message": "Invalid accessKey."}
+        server._stop_requested.set()
+        return 200, {"message": "Shutting down."}
+
+    @app.route("GET", r"/metrics\.json")
+    def metrics(req: Request):
+        return 200, server.metrics()
+
+    @app.route("GET", r"/metrics")
+    def metrics_prometheus(req: Request):
+        """Prometheus text exposition of the same data as /metrics.json
+        (span latency summaries + counters) for scrape-based stacks —
+        through the shared renderer with the uniform `surface` label."""
+        from pio_tpu_torch.server.http import RawResponse
+        from pio_tpu_torch.utils.httpclient import pool_counters
+        from pio_tpu_torch.utils.tracing import (
+            PROMETHEUS_CONTENT_TYPE,
+            prometheus_text,
+        )
+
+        counters = {
+            "hedged_dispatches_total": float(server.hedged_dispatches),
+            "foldin_applied_users_total":
+                float(server.foldin_applied_users),
+            "uptime_seconds":
+                (utcnow() - server.start_time).total_seconds(),
+        }
+        # outbound keep-alive pool: the serving process's storage DAO
+        # RPCs ride it
+        counters.update(pool_counters())
+        text = prometheus_text(server.tracer.snapshot(), counters,
+                               labels={"surface": "serving"})
+        batcher = server.batcher
+        if batcher is not None and hasattr(batcher, "occupancy_exposition"):
+            # continuous batching: batch-occupancy distribution (fraction
+            # of batch_max per coalesced dispatch) as a real histogram
+            # family — the occupancy-pinned-at-1.0 saturation signal
+            from pio_tpu_torch.utils.tracing import prometheus_histogram
+
+            buckets, counts, total, occ_sum = batcher.occupancy_exposition()
+            text += "\n".join(prometheus_histogram(
+                "serving_batch_occupancy", buckets, counts, total, occ_sum,
+                labels={"surface": "serving"})) + "\n"
+        return 200, RawResponse(text, PROMETHEUS_CONTENT_TYPE)
+
+    @app.route("GET", r"/batcher\.json")
+    def batcher_status(req: Request):
+        """Admission-stage visibility: which batcher fronts the device
+        program (continuous / micro / none) and its live counters —
+        dispatches, coalesced queries, occupancy, coalesce wait, solo
+        bypasses and deadline sheds."""
+        batcher = server.batcher
+        if batcher is None:
+            return 200, {"mode": None, "enabled": False}
+        if hasattr(batcher, "stats"):
+            return 200, {"enabled": True, **batcher.stats()}
+        return 200, {
+            "enabled": True, "mode": "micro",
+            "windowMs": config.batch_window_ms,
+            "maxBatch": config.batch_max,
+        }
+
+    @app.route("POST", r"/batcher/window")
+    def batcher_window(req: Request):
+        """Live coalesce-window retune (server-key guarded, like /reload):
+        widen a window whose batches run near-empty, narrow one pinned at
+        occupancy 1.0 — without a redeploy. Continuous batcher only."""
+        if not check_server_key(req):
+            return 401, {"message": "Invalid accessKey."}
+        batcher = server.batcher
+        if batcher is None or not hasattr(batcher, "set_window"):
+            return 409, {"message": "continuous batching is not enabled "
+                                    "(ServingConfig.coalesce_window_ms)"}
+        try:
+            body = req.json()
+            window_ms = float(body["windowMs"])
+        except Exception as e:  # noqa: BLE001 - malformed body
+            return 400, {"message": f"body must be {{\"windowMs\": ms}}: "
+                                    f"{e}"}
+        if not (0 < window_ms <= 1000):
+            return 400, {"message": "windowMs must be in (0, 1000]"}
+        batcher.set_window(window_ms / 1e3)
+        return 200, {"message": "window updated", **batcher.stats()}
+
+    def readiness() -> dict:
+        """model loaded + storage breakers not open + warm buckets +
+        async-transport queue under its shed watermark
+        (resilience/health.py contract)."""
+        checks = breaker_checks(server.storage)
+        with server._lock:
+            inst = getattr(server, "instance", None)
+        checks["model"] = {
+            "ok": inst is not None,
+            "engineInstanceId": inst.id if inst is not None else None,
+            "lastReloadError": server.last_reload_error,
+        }
+        # fold-in visibility, NEVER a readiness gate: a stale/absent
+        # folder means batch-stale serving (degraded freshness), and
+        # flipping serving readyz for it would turn that degradation
+        # into an outage
+        checks["freshness"] = {"ok": True, **server.foldin_status()}
+        # bucket-warm gate: NOT ready while a micro-batch warm sweep is
+        # owed or in flight. Always-true when batching is off or no warm
+        # query is configured (the sweep then rides the first real
+        # request, which readiness must not deadlock on).
+        if server.batcher is not None:
+            checks["buckets"] = {
+                "ok": server._buckets_ready.is_set(),
+                "warmed": server._buckets_warmed,
+                "sweep": server.warm_sweep,
+            }
+        checks.update(shedder_check(getattr(app, "transport", None)))
+        return checks
+
+    install_health_routes(app, readiness)
+    # distributed tracing (obs/): /debug/traces.json + /debug/spans.json,
+    # and app.recorder switches the dispatch edge into traced mode;
+    # app.tracer feeds the per-surface `request` histogram
+    from pio_tpu_torch.obs.http import install_trace_routes
+
+    app.tracer = server.tracer
+    install_trace_routes(app, server.recorder, check_server_key)
     return app
 
 
@@ -511,9 +1240,30 @@ def create_query_server(
     instance_id: str | None = None,
 ) -> tuple[HttpServer, QueryServer]:
     """The deploy verb's server: models restored onto ``ctx.device`` (CUDA
-    unless the context says otherwise) behind the threaded transport.
-    Call ``start()`` on the returned HttpServer to bind and serve."""
+    unless the context says otherwise) behind the async transport (or the
+    threaded one, ``config.backend``), HTTPS with ``certfile``/``keyfile``.
+    Call ``start()`` on the returned server to bind and serve."""
     qs = QueryServer(engine, engine_params, storage, config, ctx=ctx,
                      instance_id=instance_id)
-    return HttpServer(app=build_serving_app(qs), host=config.ip,
-                      port=config.port), qs
+    from pio_tpu_torch.server.security import server_ssl_context
+
+    app = build_serving_app(qs)
+    ssl_ctx = server_ssl_context(config.certfile, config.keyfile)
+    if config.backend == "async":
+        kwargs = {}
+        if config.coalesce_window_ms > 0:
+            # admission sized for coalescing: parked waiters are the
+            # mechanism, not the overload — admit what one full batch per
+            # pipeline slot (plus one forming) can absorb before the
+            # LoadShedder starts answering 503
+            depth = config.batch_pipeline or _auto_pipeline_depth(
+                qs.ctx.device)
+            kwargs["shed_watermark"] = max(
+                128, config.batch_max * (depth + 1))
+        http = AsyncHttpServer(
+            app, host=config.ip, port=config.port, ssl_context=ssl_ctx,
+            **kwargs)
+    else:
+        http = HttpServer(
+            app, host=config.ip, port=config.port, ssl_context=ssl_ctx)
+    return http, qs

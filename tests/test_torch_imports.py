@@ -109,7 +109,9 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.data.backends.remote",
                 "pio_tpu_torch.data.backends.sharded",
                 "pio_tpu_torch.data.backends.replicated",
-                "pio_tpu_torch.server.storageserver"):
+                "pio_tpu_torch.server.storageserver",
+                "pio_tpu_torch.serving", "pio_tpu_torch.serving.batcher",
+                "pio_tpu_torch.ops.kernels"):
         assert mod in res["modules"]
 
 

@@ -231,7 +231,9 @@ def test_server_answers_with_reference_ids(tmp_path, factors, retrieval):
                 f"http://127.0.0.1:{http.port}/", timeout=30) as r:
             status = json.loads(r.read())
         assert status["engineInstance"]["id"] == iid
-        assert status["requestCount"] == len(QUERIES) + 1
+        # every query counts, a batch's too (the reference's "query"
+        # span is recorded once a query)
+        assert status["requestCount"] == 2 * len(QUERIES)
         assert status["device"] == "cpu"
     finally:
         http.stop()
