@@ -23,10 +23,26 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   exact and the clustered route, and the padding's cost at B 1; a
   second instance taken by ``/reload`` under load (every answer 200);
   ``python -m pio_tpu_torch undeploy`` stopping the server;
+- serve_rollout: in that store, a second instance B (the factors plus
+  seeded noise) beside the serve phase's A, and one ``python -m
+  pio_tpu_torch deploy`` of A (continuous batcher, a warm query):
+  ``deploy --canary 25`` of B under 512 queries from 16 threads, each
+  user on the arm ``canary_bucket`` names and each body byte for byte
+  its arm's instance's answer alone (in-process ``QueryServer``s), each
+  arm's requests its users, K7 once a device dispatch of either arm and
+  once a shadow sample; a fold-in of 64 new users and 64 items on both
+  arms; ``promote`` and ``/reload`` keeping B; a third instance C (B's
+  item rows permuted) canaried until the divergence guard rolls it back
+  by itself, ``/reload`` keeping B; A canaried with shadow scoring on
+  every 10th query and with none, in three alternated pairs, each ended
+  by a rollback; ``deploy --canary auto`` under load, climbing every
+  stage to 100 %; a second deploy with ``--feedback`` (32
+  queries, 32 ``predict`` events) and ``/profile/start``/``stop``
+  writing a trace that names K7's kernel;
 - foldin: on the same seeded factors in a fresh sqlite store, served
-  behind a server key: a tail of rate/buy events of 4,096 users (a
+  behind a server key: a tail of rate/buy events of 2,048 users (a
   quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
-  ``python -m pio_tpu_torch foldin`` runs) in four batches of 1,024 and
+  ``python -m pio_tpu_torch foldin`` runs) in two batches of 1,024 and
   applied through ``/model/upsert_users`` over loopback HTTP; every
   multi-slot user's served row (and a sample of the rest) equal bit for
   bit to the user folded alone, in both modes, and to a second worker's,
@@ -109,7 +125,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   nothing to repair, the replicas' columnar reads equal, and a train
   verb launching K2 as predicted;
 - evaluate: on the same store (the events are written once), ``python
-  -m pio_tpu_torch eval --sweep`` of 4 ALS candidates (lambda x alpha)
+  -m pio_tpu_torch eval --sweep`` of 2 ALS candidates (lambda at alpha 10)
   trained as one stacked group on 3 seeded k-folds, map@10 with ndcg,
   precision, recall and AUC beside it, its time by part and its peak
   memory; fold 0 again outside the verb, each candidate's factors and
@@ -1253,12 +1269,591 @@ def phase_serve_batching(users: np.ndarray, items: np.ndarray,
     return out
 
 
+# -- phase 3c: the deploy's guarded rollout --------------------------------
+
+SR_QUERIES = 512           # /queries.json of distinct users a canary load
+SR_CLIENTS = 16            # client threads posting them at once
+SR_PCT = 25                # the fixed canary share
+SR_NOISE = 1e-3            # B = A + SR_NOISE x N(0, 1) on every factor
+SR_FOLDIN_USERS = 64       # new users upserted during the canary
+SR_FOLDIN_ITEMS = 64       # existing items upserted with them
+SR_CHECK_USERS = 64        # users re-queried after promote, reload, rollback
+SR_BREACH_PCT = 50         # C's canary share
+SR_BREACH_MAX_QUERIES = 2_048
+SR_RAMP = {"min_stage_seconds": 1, "min_stage_samples": 20}
+SR_RAMP_USERS = 20_000     # distinct users cycled through during the ramp
+SR_RAMP_WAIT_S = 20
+SR_RAMP_STAGES = (1, 5, 25, 100)   # the rollout's default ladder
+# shadowEvery of A's 25 % canaries, in alternated pairs in one deploy
+SR_SHADOW_ORDER = (0, 10, 10, 0, 0, 10)
+SR_FEEDBACK_QUERIES = 32
+SR_PROFILED_QUERIES = 16
+SR_APP = "chip-smoke-feedback"
+
+
+def pio_cli(env: dict, *argv) -> tuple[dict, float]:
+    """``python -m pio_tpu_torch <argv>`` as a process: its JSON answer
+    and seconds; a non-zero exit raises."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pio_tpu_torch", *argv],
+                         cwd=REPO_ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"{argv[0]}: rc {out.returncode} "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout), time.perf_counter() - t0
+
+
+def rollout_counts(port: int) -> dict:
+    """The deploy's K7 launches, each arm's recorded device dispatches
+    and hedged duplicates (``/metrics.json``), and the rollout's shadow
+    samples and per-arm requests (``/rollout/status``)."""
+    _, m = _get(port, "/metrics.json")
+    _, st = _get(port, "/rollout/status")
+    arms = st.get("arms", {})
+    shadow_span = m["spans"].get("shadow", {})
+    return {"k7": m["kernelLaunches"]["quantized_scan"],
+            # the shadow thread's seconds in shadow_predict, and the
+            # longest sample since the deploy started
+            "shadow_s": shadow_span.get("total", 0.0),
+            "shadow_max_s": shadow_span.get("max", 0.0),
+            "active": m["armDispatches"]["active"],
+            "candidate": m["armDispatches"]["candidate"],
+            "hedged": m["hedgedDispatches"],
+            "shadow": st.get("shadow", {}).get("samples", 0),
+            "requests_active": arms.get("active", {}).get("requests", 0),
+            "requests_candidate": arms.get("candidate", {}).get(
+                "requests", 0)}
+
+
+def quiet_counts(port: int, quiet_s: float) -> dict:
+    """``rollout_counts`` once they held still for ``quiet_s``: a shadow
+    sample scores on the deploy's shadow thread after its query
+    answered, and the first query after a /reload builds the retrieval
+    index (k-means), which the deploy's hedge may race with a duplicate
+    that launches K7 after the query answered."""
+    last, t_last = rollout_counts(port), time.perf_counter()
+    t0 = t_last
+    while time.perf_counter() - t_last < quiet_s:
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError(f"counts still moving: {last}")
+        time.sleep(0.1)
+        now = rollout_counts(port)
+        if now != last:
+            last, t_last = now, time.perf_counter()
+    return last
+
+
+def arm_load(port: int, queries: list, expect: dict) -> dict:
+    """SR_CLIENTS threads post ``queries`` once each; every status 200
+    and every body byte for byte ``expect[user]``. K7's launches against
+    the arms' dispatches and the shadow samples, from the deploy's own
+    counts just before and just after."""
+    before = rollout_counts(port)
+    res = load(port, queries, SR_CLIENTS)
+    after = quiet_counts(port, 0.1)
+    d = {k: after[k] - before[k] for k in after}
+    dispatches = d["active"] + d["candidate"]
+    out = {k: res[k] for k in ("p50_ms", "p99_ms", "queries_per_s",
+                               "wall_s")}
+    out.update({"dispatches": {"active": d["active"],
+                               "candidate": d["candidate"]},
+                "requests": {"active": d["requests_active"],
+                             "candidate": d["requests_candidate"]},
+                "shadow_samples": d["shadow"], "hedged": d["hedged"],
+                "shadow_busy_s": d["shadow_s"],
+                "shadow_max_s_so_far": after["shadow_max_s"],
+                "k7_launches": d["k7"],
+                "non_200": sum(s != 200 for s in res["statuses"]),
+                "bodies_differ": sum(
+                    raw != expect[q["user"]]
+                    for q, raw in zip(queries, res["bodies"]))})
+    # K7 once a device dispatch of either arm and once a shadow sample
+    # (a solo score on the other arm); a hedged duplicate at most once
+    if not (dispatches + d["shadow"] <= d["k7"]
+            <= dispatches + d["shadow"] + d["hedged"]):
+        raise AssertionError(f"K7 {d['k7']} for {d}")
+    if out["non_200"] or out["bodies_differ"]:
+        raise AssertionError(f"load: {out}")
+    return out
+
+
+def phase_serve_rollout(users: np.ndarray, items: np.ndarray,
+                        dev: torch.device, store_dir: Path,
+                        iid_a: str) -> dict:
+    """The deploy's guarded rollout on the serve phase's store, its
+    instance ``iid_a`` as A: B (A's factors plus seeded noise) and later
+    C (B's item rows permuted) persisted beside it. One ``python -m
+    pio_tpu_torch deploy`` of A with the continuous batcher and a warm
+    query; ``deploy --canary 25`` of B under SR_QUERIES queries from
+    SR_CLIENTS threads, each user on the arm ``canary_bucket`` names and
+    its body byte for byte that arm's instance alone (in-process
+    ``QueryServer``s on the card); fold-in on both arms; ``promote`` and
+    ``/reload``; C's divergence breach rolling it back by itself and
+    ``/reload`` keeping B; A canaried with shadow scoring every 10th
+    query and with none, in alternated pairs (SR_SHADOW_ORDER), each
+    ended by a rollback; the ``auto`` ramp under load, which must climb
+    every stage; a second deploy of B with ``--feedback`` and
+    ``/profile/*``."""
+    from pio_tpu_torch.__main__ import (
+        _engine_from_variant,
+        _engine_ids,
+        _load_variant,
+    )
+    from pio_tpu_torch.convert import recommendation_model_from_numpy
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.storage import Storage
+    from pio_tpu_torch.rollout import (
+        VERDICT_PROMOTED,
+        VERDICT_ROLLED_BACK,
+        canary_bucket,
+        load_record,
+    )
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import QueryServer, ServingConfig
+    from pio_tpu_torch.workflow.train import persist_models
+
+    user_ids = [f"u{i}" for i in range(N_USERS)]
+    item_ids = [f"i{i}" for i in range(N_ITEMS)]
+    rng = np.random.default_rng(SEED + 41)
+    order = rng.permutation(N_USERS)
+    picked = [user_ids[i] for i in order[:SR_QUERIES]]
+    warm_user = user_ids[order[SR_QUERIES]]
+    queries = [{"user": u, "num": 10} for u in picked]
+    check_q = queries[:SR_CHECK_USERS]
+    warm = {"user": warm_user, "num": 10}
+    out: dict = {"card": card_line(), "queries": SR_QUERIES,
+                 "clients": SR_CLIENTS, "pct": SR_PCT}
+    seconds: dict = {}
+    procs: list = []
+    storage = None
+    oracles: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="pio_chip_rollout_") as tmp:
+            tmp = Path(tmp)
+            env = sqlite_env(store_dir)
+            engine_dir = store_dir / "engine"
+            variant = _load_variant(str(engine_dir))
+            engine, ep = _engine_from_variant(variant, str(engine_dir))
+            engine_id, version, vname = _engine_ids(variant,
+                                                    str(engine_dir))
+            storage = Storage(env=env)
+            app_id = storage.get_metadata_apps().insert(App(0, SR_APP))
+            storage.get_events().init(app_id)
+            proc_env = {**os.environ, **env,
+                        "PIO_TPU_HOME": str(tmp / "home")}
+            key = f"?accessKey={SB_KEY}"
+
+            # -- B persisted; both deploys boot while the oracles load ----
+            t0 = time.perf_counter()
+            noise = np.random.default_rng(SEED + 43)
+            users_b = users + np.float32(SR_NOISE) * noise.standard_normal(
+                users.shape, np.float32)
+            items_b = items + np.float32(SR_NOISE) * noise.standard_normal(
+                items.shape, np.float32)
+            iid_b = persist_models([recommendation_model_from_numpy(
+                users_b, items_b, user_ids, item_ids, device=dev)], ep,
+                storage, engine_id, version, vname, engine_factory=FACTORY)
+            seconds["persist_b"] = time.perf_counter() - t0
+            t0, t0_wall = time.perf_counter(), time.time()
+            port, fport = free_port(), free_port()
+            logs = [tmp / "deploy.log", tmp / "deploy_feedback.log"]
+            procs.append(deploy_proc(
+                proc_env, engine_dir, port, iid_a, logs[0],
+                ["--coalesce-window-ms", "2", "--warm-query",
+                 json.dumps(warm)]))
+            procs.append(deploy_proc(
+                proc_env, engine_dir, fport, iid_b, logs[1],
+                ["--feedback", "--feedback-app", SR_APP, "--warm-query",
+                 json.dumps(warm)]))
+            ctx = create_workflow_context(storage, device=dev)
+            for name, iid in (("A", iid_a), ("B", iid_b)):
+                oracles[name] = QueryServer(
+                    engine, ep, storage, ServingConfig(
+                        engine_id=engine_id, engine_version=version,
+                        engine_variant=vname, warm_query=warm),
+                    ctx=ctx, instance_id=iid)
+
+            def answers(name: str, qs: list) -> dict:
+                return {q["user"]: json.dumps(oracles[name].query(
+                    dict(q), record=False)).encode() for q in qs}
+
+            fresh = {name: answers(name, queries) for name in oracles}
+            out["arms_differ"] = sum(fresh["A"][u] != fresh["B"][u]
+                                     for u in picked)
+            seconds["oracles"] = time.perf_counter() - t0
+            out["boot_s"] = [wait_deployed(p, lg, t0_wall)
+                             for p, lg in zip(procs, logs)]
+            seconds["boot"] = time.perf_counter() - t0
+            if out["arms_differ"] != SR_QUERIES:
+                raise AssertionError(
+                    f"A and B answer alike for "
+                    f"{SR_QUERIES - out['arms_differ']} users")
+
+            def canary(user: str, pct: int) -> bool:
+                return canary_bucket(user) < pct
+
+            def expect(pct: int, cand: dict, active: dict) -> dict:
+                return {u: (cand if canary(u, pct) else active)[u]
+                        for u in active}
+
+            # -- deploy --canary 25 of B (the latest eligible instance) ---
+            t0 = time.perf_counter()
+            res, cli_s = pio_cli(proc_env, "deploy", "--canary",
+                                 str(SR_PCT), "--ip", "127.0.0.1",
+                                 "--port", str(port), "--server-key",
+                                 SB_KEY)
+            st = res["rollout"]
+            if (st["candidateInstanceId"] != iid_b
+                    or st["stagePct"] != SR_PCT):
+                raise AssertionError(f"canary: {st}")
+            main = arm_load(port, queries,
+                            expect(SR_PCT, fresh["B"], fresh["A"]))
+            n_cand = sum(canary(u, SR_PCT) for u in picked)
+            main.update({"canary_cli_s": cli_s, "canary_users": n_cand,
+                         "guard_evaluations": main["requests"][
+                             "candidate"] // 5})
+            _, st = _get(port, "/rollout/status")
+            main["status"] = {k: st[k] for k in (
+                "stagePct", "verdict", "reason", "arms", "shadow",
+                "guards")}
+            out["canary"] = main
+            if main["requests"] != {"active": SR_QUERIES - n_cand,
+                                    "candidate": n_cand}:
+                raise AssertionError(f"requests {main['requests']} for "
+                                     f"{n_cand} canary users")
+            if st["verdict"] is not None:
+                raise AssertionError(f"canary concluded: {st['reason']}")
+            seconds["canary"] = time.perf_counter() - t0
+
+            # -- fold-in during the canary ---------------------------------
+            t0 = time.perf_counter()
+            frng = np.random.default_rng(SEED + 47)
+            new_q = [{"user": f"sr-new-{i}", "num": 10}
+                     for i in range(SR_FOLDIN_USERS)]
+            rows = {q["user"]: frng.standard_normal(RANK).astype(
+                np.float32).tolist() for q in new_q}
+            sel = frng.choice(N_ITEMS, SR_FOLDIN_ITEMS, replace=False)
+            item_rows = {item_ids[i]: (items[i] + np.float32(0.01)
+                                       * frng.standard_normal(
+                                           RANK, np.float32)).tolist()
+                         for i in sel}
+            status, body, apply_s = _post(
+                port, f"/model/upsert_users{key}",
+                {"users": rows, "items": item_rows, "stalenessSeconds": 0})
+            out["foldin"] = {"status": status, "apply_s": apply_s,
+                             **{k: body.get(k) for k in (
+                                 "applied", "new", "itemsApplied",
+                                 "candidateQueued")}}
+            if (status != 200 or body.get("candidateQueued") != 0
+                    or body.get("itemsApplied") != SR_FOLDIN_ITEMS):
+                raise AssertionError(f"upsert: {status} {body}")
+            for o in oracles.values():
+                o.foldin_upsert(rows, items=item_rows)
+            folded = {name: answers(name, new_q + check_q)
+                      for name in oracles}
+            new_cand = sum(canary(q["user"], SR_PCT) for q in new_q)
+            out["foldin"]["new_users_by_arm"] = {
+                "active": SR_FOLDIN_USERS - new_cand, "candidate": new_cand}
+            if not 0 < new_cand < SR_FOLDIN_USERS:
+                raise AssertionError("new users ride one arm only")
+            out["foldin"]["load"] = arm_load(
+                port, new_q, expect(SR_PCT, folded["B"], folded["A"]))
+            seconds["foldin"] = time.perf_counter() - t0
+
+            # -- promote, then /reload --------------------------------------
+            t0 = time.perf_counter()
+            res, cli_s = pio_cli(proc_env, "promote", "--port", str(port),
+                                 "--server-key", SB_KEY)
+            st = res["rollout"]
+            rec = load_record(storage, iid_b)
+            out["promote"] = {"cli_s": cli_s, "verdict": st["verdict"],
+                              "stagePct": st["stagePct"],
+                              "record": rec.verdict if rec else None}
+            if (st["verdict"] != VERDICT_PROMOTED or st["stagePct"] != 100
+                    or out["promote"]["record"] != VERDICT_PROMOTED):
+                raise AssertionError(f"promote: {out['promote']}")
+            out["promote"]["load"] = arm_load(
+                port, check_q, {q["user"]: folded["B"][q["user"]]
+                                for q in check_q})
+            status, body, reload_s = _post(port, f"/reload{key}", {})
+            out["promote"]["reload"] = {"status": status, "s": reload_s,
+                                        "instance": body.get(
+                                            "engineInstanceId")}
+            if status != 200 or body.get("engineInstanceId") != iid_b:
+                raise AssertionError(f"/reload after promote: {body}")
+            # the index, once; then B alone as the baseline of the split
+            _post_raw(port, "/queries.json", warm)
+            quiet_counts(port, 1.5)
+            out["promote"]["after_reload"] = arm_load(
+                port, queries, fresh["B"])
+            seconds["promote"] = time.perf_counter() - t0
+
+            # -- C: a diverging candidate rolls back by itself -------------
+            t0 = time.perf_counter()
+            perm = np.random.default_rng(SEED + 53).permutation(N_ITEMS)
+            iid_c = persist_models([recommendation_model_from_numpy(
+                users_b, items_b[perm], user_ids, item_ids, device=dev)],
+                ep, storage, engine_id, version, vname,
+                engine_factory=FACTORY)
+            seconds["persist_c"] = time.perf_counter() - t0
+            status, body, _ = _post(
+                port, f"/rollout/deploy{key}",
+                {"instanceId": iid_c, "pct": SR_BREACH_PCT,
+                 "shadowEvery": 1, "checkEvery": 1})
+            if status != 200:
+                raise AssertionError(f"C's canary: {status} {body}")
+            pool = [u for u in user_ids[:SR_BREACH_MAX_QUERIES * 4]
+                    if canary(u, SR_BREACH_PCT)][:SR_BREACH_MAX_QUERIES]
+            sent, statuses = 0, []
+            while sent < len(pool):
+                res = load(port, [{"user": u, "num": 10}
+                                  for u in pool[sent:sent + SR_CLIENTS]],
+                           SR_CLIENTS)
+                statuses += res["statuses"]
+                sent += SR_CLIENTS
+                _, st = _get(port, "/rollout/status")
+                if st["verdict"] is not None:
+                    break
+            rec = load_record(storage, iid_c)
+            out["breach"] = {"queries": sent,
+                             "non_200": sum(s != 200 for s in statuses),
+                             "verdict": st["verdict"],
+                             "reason": st["reason"],
+                             "shadow": st["shadow"], "arms": st["arms"],
+                             "record": rec.verdict if rec else None}
+            if (st["verdict"] != VERDICT_ROLLED_BACK
+                    or "divergence" not in st["reason"]
+                    or out["breach"]["record"] != VERDICT_ROLLED_BACK
+                    or out["breach"]["non_200"]):
+                raise AssertionError(f"breach: {out['breach']}")
+            status, body, reload_s = _post(port, f"/reload{key}", {})
+            out["breach"]["reload"] = {"status": status, "s": reload_s,
+                                       "instance": body.get(
+                                           "engineInstanceId")}
+            if status != 200 or body.get("engineInstanceId") != iid_b:
+                raise AssertionError(f"/reload after the breach: {body}")
+            _post_raw(port, "/queries.json", warm)
+            quiet_counts(port, 1.5)
+            out["breach"]["after_reload"] = arm_load(
+                port, check_q, fresh["B"])
+            seconds["breach"] = time.perf_counter() - t0
+
+            # -- A canaried again at 25 % with shadow scoring every 10th
+            # query and with none, in alternated pairs, each canary ended
+            # by a rollback (the last by the verb) ------------------------
+            t0 = time.perf_counter()
+            runs = []
+            for n, every in enumerate(SR_SHADOW_ORDER):
+                status, body, _ = _post(
+                    port, f"/rollout/deploy{key}",
+                    {"instanceId": iid_a, "pct": SR_PCT,
+                     "shadowEvery": every})
+                if status != 200:
+                    raise AssertionError(f"A's canary: {status} {body}")
+                run = arm_load(port, queries,
+                               expect(SR_PCT, fresh["A"], fresh["B"]))
+                if n == len(SR_SHADOW_ORDER) - 1:
+                    res, cli_s = pio_cli(proc_env, "rollback", "--port",
+                                         str(port), "--server-key", SB_KEY,
+                                         "--reason", "smoke")
+                    st = res["rollout"]
+                    run["rollback_cli_s"] = cli_s
+                else:
+                    status, body, _ = _post(port, f"/rollout/rollback{key}",
+                                            {"reason": "smoke"})
+                    st = body["rollout"]
+                run.update({"shadow_every": every, "verdict": st["verdict"],
+                            "reason": st["reason"]})
+                runs.append(run)
+                if (st["verdict"] != VERDICT_ROLLED_BACK
+                        or st["reason"] != "smoke"):
+                    raise AssertionError(f"rollback: {st}")
+                if (run["shadow_samples"] == 0) != (every == 0):
+                    raise AssertionError(f"shadow samples: {run}")
+            out["shadow_cost"] = shadow_cost(runs)
+            out["after_rollback"] = arm_load(port, check_q, fresh["B"])
+            seconds["shadow_cost"] = time.perf_counter() - t0
+
+            # -- the auto ramp under load ------------------------------------
+            t0 = time.perf_counter()
+            out["auto_ramp"] = auto_ramp(proc_env, port, iid_a, user_ids)
+            seconds["auto_ramp"] = time.perf_counter() - t0
+
+            # -- the second deploy: feedback events, /profile/* ----------
+            t0 = time.perf_counter()
+            fb = queries[:SR_FEEDBACK_QUERIES]
+            res = load(fport, fb, SR_CLIENTS)
+            events: list = []
+            t1 = time.perf_counter()
+            while time.perf_counter() - t1 < 30:
+                events = list(storage.get_events().find(
+                    app_id, entity_type="pio_pr", limit=-1))
+                if len(events) >= SR_FEEDBACK_QUERIES:
+                    break
+                time.sleep(0.05)
+            out["feedback"] = {
+                "queries": len(fb), "events": len(events),
+                "event_wait_s": time.perf_counter() - t1,
+                "predict_events": sum(e.event == "predict"
+                                      for e in events),
+                "non_200": sum(s != 200 for s in res["statuses"])}
+            if (out["feedback"]["predict_events"] != SR_FEEDBACK_QUERIES
+                    or len(events) != SR_FEEDBACK_QUERIES
+                    or out["feedback"]["non_200"]):
+                raise AssertionError(f"feedback: {out['feedback']}")
+            logdir = tmp / "profile"
+            status, body, start_s = _post(
+                fport, f"/profile/start{key}&logdir={logdir}", {})
+            again, _, _ = _post(fport, f"/profile/start{key}", {})
+            profiled = load(fport, queries[:SR_PROFILED_QUERIES], SR_CLIENTS)
+            stop_status, _, stop_s = _post(fport, f"/profile/stop{key}", {})
+            traces = sorted(logdir.glob("*.pt.trace.json"))
+            text = traces[0].read_text() if traces else ""
+            out["profile"] = {"start": status, "second_start": again,
+                              "stop": stop_status, "start_s": start_s,
+                              "queries_s": profiled["wall_s"],
+                              "stop_s": stop_s, "trace_bytes": len(text),
+                              "names_k7": "quantized_scan_kernel" in text}
+            if (status, again, stop_status) != (200, 409, 200) or \
+                    not out["profile"]["names_k7"]:
+                raise AssertionError(f"profile: {out['profile']}")
+            seconds["feedback_profile"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for p in (port, fport):
+                _post(p, f"/stop{key}", {})
+            exits = []
+            for proc in procs:
+                try:
+                    exits.append(proc.wait(timeout=30))
+                except subprocess.TimeoutExpired:
+                    exits.append(None)
+            seconds["stop"] = time.perf_counter() - t0
+            logs_text = [lg.read_text() for lg in logs]
+            out["deploy_exits"] = exits
+            out["shadow_failures"] = sum(
+                t.count("shadow scoring failed") for t in logs_text)
+            if out["shadow_failures"] or exits != [0, 0]:
+                raise AssertionError(
+                    f"deploys: exits {exits}, shadow failures "
+                    f"{out['shadow_failures']}")
+    except BaseException as e:
+        out["failed"] = f"{type(e).__name__}: {e}"[:2000]
+        raise
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                stop_process(proc)
+        for o in oracles.values():
+            o.close()
+        if storage is not None:
+            storage.close()
+        out["seconds"] = {**seconds,
+                          "phase": time.perf_counter() - t_phase}
+        emit("serve_rollout", **out)
+    return out
+
+
+def shadow_cost(runs: list) -> dict:
+    """A's canary loads by their ``shadowEvery``: each load, and for each
+    setting the median and the range of queries/s, p50 and p99, the
+    shadow samples and the shadow thread's busy seconds; and the loss of
+    queries/s with shadow scoring on (one minus the ratio of medians)."""
+    keys = ("queries_per_s", "p50_ms", "p99_ms", "shadow_samples",
+            "shadow_busy_s")
+    by: dict = {}
+    for run in runs:
+        by.setdefault(run["shadow_every"], []).append(run)
+    out: dict = {"order": [r["shadow_every"] for r in runs],
+                 "runs": [{k: r[k] for k in ("shadow_every", *keys,
+                                             "shadow_max_s_so_far",
+                                             "dispatches", "hedged")}
+                          for r in runs]}
+    for every, rs in sorted(by.items()):
+        out[f"shadow_every_{every}"] = {
+            k: {"median": float(np.median([r[k] for r in rs])),
+                "min": min(r[k] for r in rs), "max": max(r[k] for r in rs)}
+            for k in keys}
+    on, off = (out[f"shadow_every_{e}"]["queries_per_s"]["median"]
+               for e in (10, 0))
+    out["queries_per_s_loss"] = 1.0 - on / off
+    return out
+
+
+def auto_ramp(env: dict, port: int, iid: str, user_ids: list) -> dict:
+    """``deploy --canary auto`` of ``iid`` while SR_CLIENTS threads query
+    distinct seeded users: the stages it passes through within
+    SR_RAMP_WAIT_S, which must be every stage of SR_RAMP_STAGES with no
+    verdict, then ``rollback``."""
+    import threading
+
+    pool = [user_ids[i] for i in np.random.default_rng(SEED + 59)
+            .permutation(len(user_ids))[:SR_RAMP_USERS]]
+    stop = threading.Event()
+    sent = {"n": 0, "non_200": 0}
+    lock = threading.Lock()
+
+    def hammer(w: int) -> None:
+        i = w
+        while not stop.is_set():
+            status, _, _ = _post_raw(port, "/queries.json",
+                                     {"user": pool[i % len(pool)],
+                                      "num": 10})
+            i += SR_CLIENTS
+            with lock:
+                sent["n"] += 1
+                sent["non_200"] += status != 200
+
+    threads = [threading.Thread(target=hammer, args=(w,))
+               for w in range(SR_CLIENTS)]
+    for t in threads:
+        t.start()
+    stages: list = []
+    try:
+        res, cli_s = pio_cli(
+            env, "deploy", "--canary", "auto", "--engine-instance-id", iid,
+            "--canary-min-stage-seconds", str(SR_RAMP["min_stage_seconds"]),
+            "--canary-min-stage-samples", str(SR_RAMP["min_stage_samples"]),
+            "--port", str(port), "--server-key", SB_KEY)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < SR_RAMP_WAIT_S:
+            _, st = _get(port, "/rollout/status")
+            if not stages or stages[-1]["pct"] != st["stagePct"]:
+                stages.append({"pct": st["stagePct"],
+                               "at_s": time.perf_counter() - t0})
+            if st["verdict"] is not None or st["stagePct"] == 100:
+                break
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    _, before = _get(port, "/rollout/status")
+    res, rb_s = pio_cli(env, "rollback", "--port", str(port),
+                        "--server-key", SB_KEY, "--reason", "smoke ramp")
+    out = {"cli_s": cli_s, "stages": stages, "queries": sent["n"],
+           "non_200": sent["non_200"],
+           "verdict_before_rollback": before["verdict"],
+           "reason_before_rollback": before["reason"],
+           "guards": before["guards"], "rollback_cli_s": rb_s,
+           "verdict": res["rollout"]["verdict"]}
+    # a healthy candidate climbs every stage of the ladder with no verdict
+    if (sent["non_200"] or res["rollout"]["verdict"] is None
+            or [s["pct"] for s in stages] != list(SR_RAMP_STAGES)
+            or before["verdict"] is not None):
+        raise AssertionError(f"auto ramp: {out}")
+    return out
+
+
 # -- phase 4b: streaming fold-in on the serve phase's model ---------------
 
 SERVER_KEY = "chip-smoke-key"
-FOLDIN_USERS = 4_096       # users in the tail, a quarter of them new
+# users in the tail, a quarter of them new: cut from 4,096 when the script
+# took 1,126.3 s of its 1,200 with serve_rollout (PERF.md section 4)
+FOLDIN_USERS = 2_048
 FOLDIN_NEW_SHARE = 0.25
-FOLDIN_BATCH = 1_024       # max_batch_users: four batches
+FOLDIN_BATCH = 1_024       # max_batch_users: two batches
 FOLDIN_MAX_LEN = 512       # history cap: up to four 128-wide slots
 FOLDIN_REG, FOLDIN_ALPHA = 0.05, 10.0   # bench.py's reg and alpha
 FOLDIN_SAMPLE = 64         # single-slot users checked beside every multi
@@ -1636,7 +2231,7 @@ def phase_foldin(users: np.ndarray, items: np.ndarray,
     behind a server key with clustered int8 retrieval (K7); a tail of
     interaction events; ``FoldInWorker`` with ``ServingHttpApplier`` over
     loopback HTTP (the worker ``python -m pio_tpu_torch foldin`` runs),
-    replaying the log in four batches; the served rows held bit for bit
+    replaying the log in two batches; the served rows held bit for bit
     to each user's solo fold, to a second worker's, and to f64; queries
     of new users through K7; an item upsert re-encoding K7's table."""
     import sqlite3
@@ -3955,9 +4550,13 @@ def shared_remote(sqlite, dev: torch.device, entry: dict, tmp: Path) -> dict:
                 ctx=create_workflow_context(remote, device=dev))
         http.start()
         out["deploy_load_s"] = time.perf_counter() - t0
-        out["model_load_s"] = [t for t, _ in loads]
-        out["model_bytes"] = len(loads[0][1].models)
-        del loads
+        # the deploy reads each candidate instance's rollout record (none
+        # here) before it loads the model blob
+        blobs = [(t, m) for t, m in loads if m is not None]
+        out["model_load_s"] = [t for t, _ in blobs]
+        out["rollout_record_reads"] = len(loads) - len(blobs)
+        out["model_bytes"] = len(blobs[0][1].models)
+        del loads, blobs
         try:
             if qs.instance.id != iid:
                 raise AssertionError("the deploy did not load the remote "
@@ -5153,9 +5752,10 @@ def phase_train_resume(store, dev: torch.device) -> dict:
 
 # -- phase 16: evaluation and tuning --------------------------------------------
 
-# the ALS sweep on train_entry's events: one shape group of 4 candidates
-# (the batched path), map@10 first, every other metric beside it
-EVAL_GRID = '{"lambda_": [0.01, 0.05], "alpha": [1.0, 10.0]}'
+# the ALS sweep on train_entry's events: one shape group of 2 candidates
+# (the batched path), map@10 first, every other metric beside it; the
+# grid's alpha 1.0 was cut, as the foldin users above
+EVAL_GRID = '{"lambda_": [0.01, 0.05], "alpha": [10.0]}'
 EVAL_OTHERS = "ndcg@10,precision@10,recall@10,auc"
 EVAL_FOLDS, EVAL_TIME_FOLDS, EVAL_SEED = 3, 2, 42
 # the serve phase's retrieval block, its cluster count and probe stated
@@ -5436,7 +6036,7 @@ def sweep_resume_drill(storage, engine_dir: Path, tmp: Path,
 
 def phase_evaluate(store, dev: torch.device, entry: dict) -> dict:
     """Evaluation and tuning on train_entry's events (the ML-20M
-    catalog, rank 64, 10 sweeps, implicit): ``eval --sweep`` with 4
+    catalog, rank 64, 10 sweeps, implicit): ``eval --sweep`` with 2
     candidates as one stacked group on 3 seeded k-folds (fold 0 checked
     again outside the verb), the same grid on 2 time folds (killed at
     fold 1 and resumed as well), ``eval
@@ -5717,11 +6317,14 @@ def main() -> int:
     timed("build", phase_build)
     users, items = make_factors()
     scan = timed("scan_kernel", phase_scan_kernel, users, items, dev)
-    # serve persists the seeded model once; serve_batching deploys it
+    # serve persists the seeded model once; serve_batching deploys it and
+    # serve_rollout canaries others against it
     with tempfile.TemporaryDirectory(prefix="pio_chip_serve_") as tmp:
         serve = timed("serve", phase_serve, users, items, dev, Path(tmp))
         batching = timed("serve_batching", phase_serve_batching, users,
                          items, dev, Path(tmp), serve["instance"])
+        rollout = timed("serve_rollout", phase_serve_rollout, users, items,
+                        dev, Path(tmp), serve["instance"])
     foldin = timed("foldin", phase_foldin, users, items, dev)
     del users, items
     ratings = synth_ratings()
@@ -5779,6 +6382,12 @@ def main() -> int:
                 m: batching["modes"][m]["k7_launches"] for m in SB_MODES},
             dispatches_serve_batching={
                 m: batching["modes"][m]["dispatches"] for m in SB_MODES},
+            # the fixed canary's load: one a device dispatch of either
+            # arm, one a shadow sample
+            launches_serve_rollout=rollout["canary"]["k7_launches"],
+            dispatches_serve_rollout=rollout["canary"]["dispatches"],
+            shadow_samples_serve_rollout=rollout["canary"][
+                "shadow_samples"],
             empty_launch_ms=head["empty_launch_ms"],
             shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
                                         "k")},

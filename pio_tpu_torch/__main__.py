@@ -29,8 +29,22 @@ Verbs ported so far:
            the micro-batcher; --warm-query JSON runs a query (and with
            a batcher one warm batch of batch_max) before the server binds.
            --server-key (or PIO_SERVER_KEY) guards /stop, /reload,
-           /batcher/window and /model/upsert_users. --from-eval
-           ID|latest serves with a sweep's winning algorithm params.
+           /batcher/window, /model/upsert_users, /rollout/* and
+           /profile/*. --from-eval ID|latest serves with a sweep's
+           winning algorithm params. --feedback records every answer as
+           a pio_pr `predict` event in --feedback-app. With --canary
+           PCT|auto, deploy is a client verb instead: it tells the
+           RUNNING deploy server at --ip/--port to stage the latest
+           eligible instance (or --engine-instance-id) as a guarded
+           canary at PCT percent of the users, or to ramp 1 -> 5 -> 25
+           -> 100 while the live guards stay green (auto, with
+           --canary-min-stage-seconds and --canary-min-stage-samples).
+  promote  conclude a green canary on the deploy server at --ip/--port:
+           the candidate serves 100% and the PROMOTED verdict persists.
+  rollback [--reason]: revert 100% of the traffic to the last-good
+           instance and persist ROLLED_BACK (no reload auto-advances
+           onto it again); also concludes a canary record a crashed
+           server left IN_FLIGHT.
   undeploy POST /stop (with --server-key) to the deploy server at
            --ip/--port.
   eval     evaluate on the engine's evaluation folds (docs/evaluation.md),
@@ -75,15 +89,16 @@ Verbs ported so far:
            clients on other hosts, loopback unless --ip (then
            --server-key is required), with TLS options.
 
-The ingest, storage and undeploy verbs touch no tensor and take no
---device.
-Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_undeploy``,
-``cmd_eval``, ``cmd_batchpredict``, ``cmd_foldin``, ``cmd_app``,
-``cmd_accesskey``, ``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
-``cmd_storageserver`` in ``pio_tpu.tools.cli``, with the same
-flags, output lines and exit codes. Not ported yet: the mesh options (--no-mesh: the
-port holds one device); deploy's fleet, canary and feedback options;
-undeploy's --tenant (the fleet); foldin's --router-url (the fleet).
+The ingest, storage, rollout and undeploy verbs touch no tensor and
+take no --device.
+Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_promote``,
+``cmd_rollback``, ``cmd_undeploy``, ``cmd_eval``, ``cmd_batchpredict``,
+``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``, ``cmd_eventserver``,
+``cmd_import``, ``cmd_export`` and ``cmd_storageserver`` in
+``pio_tpu.tools.cli``, with the same flags, output lines and exit codes.
+Not ported yet: the mesh options (--no-mesh: the port holds one device);
+deploy's fleet options; undeploy's --tenant (the fleet); foldin's
+--router-url (the fleet).
 """
 
 from __future__ import annotations
@@ -197,6 +212,16 @@ def cmd_train(args) -> int:
 
 
 def cmd_deploy(args) -> int:
+    if args.canary:
+        # canary mode is a CLIENT verb: it tells the ALREADY-RUNNING
+        # deploy server to stage a candidate, rather than booting one
+        # (and so imports nothing of the serving stack or torch)
+        if args.from_eval:
+            return _fail("--from-eval does not combine with --canary: "
+                         "the canary stages an already-TRAINED "
+                         "instance — run `train --from-eval` "
+                         "first, then canary that instance")
+        return _deploy_canary_cmd(args)
     import threading
 
     from pio_tpu_torch.workflow.context import create_workflow_context
@@ -215,6 +240,8 @@ def cmd_deploy(args) -> int:
     config = ServingConfig(
         ip=args.ip, port=args.port, engine_id=engine_id,
         engine_version=engine_version, engine_variant=engine_variant,
+        feedback=args.feedback,
+        feedback_app_name=args.feedback_app or "",
         server_key=args.server_key or os.environ.get("PIO_SERVER_KEY", ""),
         warm_query=json.loads(args.warm_query) if args.warm_query else None,
         certfile=args.cert, keyfile=args.key,
@@ -246,6 +273,66 @@ def cmd_deploy(args) -> int:
         qs.close()
     print("Server stopped.")
     return 0
+
+
+def _rollout_call(args, method: str, path: str, body=None) -> int:
+    """Shared client for the rollout verbs: a call to the running deploy
+    server's /rollout surface, its JSON answer printed."""
+    from pio_tpu_torch.utils.httpclient import HttpClientError, JsonHttpClient
+
+    ip = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+    url = f"http://{ip}:{args.port}"
+    key = args.server_key or os.environ.get("PIO_SERVER_KEY", "")
+    client = JsonHttpClient(url, timeout=getattr(args, "timeout", 30.0))
+    try:
+        out = client.request(method, path, body,
+                             params={"accessKey": key} if key else None)
+    except HttpClientError as e:
+        if e.status == 0:
+            return _fail(f"no serving process at {url}: {e.message}")
+        return _fail(f"{path} answered HTTP {e.status}: {e.message}")
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _deploy_canary_cmd(args) -> int:
+    """`deploy --canary <pct|auto>` — begin a guarded rollout of the
+    latest eligible COMPLETED instance (or --engine-instance-id) on the
+    running server. `auto` ramps 1% -> 5% -> 25% -> 100% while guards
+    stay green; a fixed pct holds there until `promote` / `rollback`."""
+    spec = args.canary.strip().lower()
+    body: dict = {}
+    if spec == "auto":
+        body["auto"] = True
+    else:
+        try:
+            body["pct"] = int(spec)
+        except ValueError:
+            return _fail(f"--canary takes a percentage or 'auto', "
+                         f"got {args.canary!r}")
+    if args.engine_instance_id:
+        body["instanceId"] = args.engine_instance_id
+    if args.canary_min_stage_seconds is not None:
+        body["minStageSeconds"] = args.canary_min_stage_seconds
+    if args.canary_min_stage_samples is not None:
+        body["minStageSamples"] = args.canary_min_stage_samples
+    return _rollout_call(args, "POST", "/rollout/deploy", body)
+
+
+def cmd_promote(args) -> int:
+    """`promote` — conclude a green canary: the candidate becomes the
+    active instance at 100% and the PROMOTED verdict is persisted (it
+    survives restarts)."""
+    return _rollout_call(args, "POST", "/rollout/promote", {})
+
+
+def cmd_rollback(args) -> int:
+    """`rollback` — one-command instant rollback: 100% of traffic
+    reverts to the last-good instance atomically and the ROLLED_BACK
+    verdict is persisted, so no reload ever auto-advances onto the
+    rejected instance again."""
+    return _rollout_call(args, "POST", "/rollout/rollback",
+                         {"reason": args.reason or "operator rollback"})
 
 
 def cmd_undeploy(args) -> int:
@@ -850,9 +937,12 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="serving device (default cuda; cpu must be asked "
                         "for)")
+    x.add_argument("--feedback", action="store_true")
+    x.add_argument("--feedback-app")
     x.add_argument("--server-key", default="",
-                   help="guards /stop, /reload, /batcher/window and "
-                        "/model/upsert_users (or PIO_SERVER_KEY)")
+                   help="guards /stop, /reload, /batcher/window, "
+                        "/model/upsert_users, /rollout/* and /profile/* "
+                        "(or PIO_SERVER_KEY)")
     x.add_argument("--warm-query",
                    help="a JSON query run at startup (and, with a "
                         "batcher, one warm batch of batch_max)")
@@ -872,10 +962,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "requests into one device dispatch; ~2 ms is the "
                         "recommended starting window. Deadline-doomed "
                         "requests dispatch solo or shed 503. 0 = off")
+    x.add_argument("--canary", default="", metavar="PCT|auto",
+                   help="guarded rollout: tell the RUNNING deploy server "
+                        "at --ip/--port to stage the latest eligible "
+                        "instance (or --engine-instance-id) as a canary "
+                        "at PCT percent of traffic, or 'auto' to ramp "
+                        "1->5->25->100 while live guards stay green. "
+                        "Conclude with `promote` / `rollback`")
+    x.add_argument("--canary-min-stage-seconds", type=float, default=None,
+                   help="with --canary auto: minimum seconds per stage")
+    x.add_argument("--canary-min-stage-samples", type=int, default=None,
+                   help="with --canary auto: minimum candidate-arm "
+                        "requests per stage")
     x.add_argument("--from-eval", default="", metavar="EVAL_ID|latest",
                    help="serve with the winning algorithm params an "
                         "`eval --sweep` persisted")
     x.set_defaults(fn=cmd_deploy)
+    for verb, fn, descr in (
+        ("promote", cmd_promote,
+         "conclude a green canary: candidate becomes the active "
+         "instance at 100% (verdict persisted; survives restart)"),
+        ("rollback", cmd_rollback,
+         "instant rollback: revert 100% of traffic to the last-good "
+         "instance and persist ROLLED_BACK (reloads never auto-advance "
+         "onto it again)"),
+    ):
+        x = sub.add_parser(verb, help=descr)
+        x.add_argument("--ip", default="127.0.0.1")
+        x.add_argument("--port", type=int, default=8000,
+                       help="deploy server port")
+        x.add_argument("--server-key")
+        if verb == "rollback":
+            x.add_argument("--reason", default="",
+                           help="recorded on the rollout verdict")
+        x.set_defaults(fn=fn)
     x = sub.add_parser("undeploy", help="stop a running deploy server")
     x.add_argument("--ip", default="127.0.0.1")
     x.add_argument("--port", type=int, default=8000)

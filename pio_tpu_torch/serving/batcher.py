@@ -23,11 +23,10 @@ expires while queued are failed at drain time instead of wasting a batch
 slot. No request ever waits past its Deadline in here (regression-tested
 in tests/test_batching.py).
 
-blackList/whiteList and retrieval semantics are the batch route's, so
-coalesced answers are bit-identical to the solo path (the parity suite
-pins this). Unlike the JAX package's copy, the batch is dispatched
-without an ``observe_batch_errors`` flag: this server keeps no rollout
-arms, whose stats that flag guards against counting twice."""
+Rollout arm split, blackList/whiteList, and retrieval semantics are the
+batch route's: `query_batch` sub-batches per arm with per-ARM per-QUERY
+stats, so coalesced answers are bit-identical to the solo path (the
+parity suite pins this)."""
 
 from __future__ import annotations
 
@@ -228,7 +227,11 @@ class ContinuousBatcher:
     def _do_execute(self, batch: list[_Pending]):
         queries = [item.q for item in batch]
         try:
-            results = self.server.query_batch(queries)
+            # observe_batch_errors=False: on a batch failure the solo
+            # retry below records each query's rollout stats exactly once
+            # (the double-count audit — see query_batch's docstring)
+            results = self.server.query_batch(
+                queries, observe_batch_errors=False)
             for item, res in zip(batch, results):
                 item.fut.set_result(res)
         except Exception:  # noqa: BLE001 - isolate the bad query

@@ -10,14 +10,19 @@ This module provides:
  * `Tracer` — named span histograms (`with tracer.span("predict"): ...`),
    one histogram per pipeline stage, thread-safe, cheap enough for the
    serve hot path (a monotonic clock read + a ring-buffer store);
- * the Prometheus text exposition of the span histograms and counters.
-
-The reference's device profiling (start/stop wrappers around
-``jax.profiler`` and ``annotate``) is not copied: the port has no JAX.
+ * the Prometheus text exposition of the span histograms and counters;
+ * `start_device_profile` / `stop_device_profile` — a device trace of a
+   running process (the deploy's ``/profile/*``). The reference's wrap
+   ``jax.profiler`` and write an xprof profile; these run
+   ``torch.profiler`` over CPU and CUDA activity and write a Chrome
+   trace (``*.pt.trace.json``, for Perfetto or ``chrome://tracing``), not
+   an xprof one. The reference's ``device_profile`` context manager and
+   ``annotate`` are not copied.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from contextlib import contextmanager
@@ -160,6 +165,105 @@ class Tracer:
         with self._lock:
             names = list(self._spans)
         return {n: self._spans[n].snapshot() for n in names}
+
+
+# ---------------------------------------------------------------------------
+# device profiling (torch.profiler)
+# ---------------------------------------------------------------------------
+
+class _ProfileSession:
+    """One ``torch.profiler`` trace, owned by a thread of its own: the
+    profiler must be started and stopped on one thread (stopping it on
+    another crashes the process), while ``/profile/start`` and
+    ``/profile/stop`` arrive on whichever request threads the transport
+    picks."""
+
+    def __init__(self, logdir: str):
+        self.logdir = logdir
+        self._started = threading.Event()
+        self._stop = threading.Event()
+        self._done = threading.Event()
+        self._error: BaseException | None = None
+
+    def start(self) -> None:
+        # pio: lint-ok[context-loss] deliberate detach: the profiler's
+        # owner thread outlives the /profile/start request
+        threading.Thread(target=self._run, name="device-profile",
+                         daemon=True).start()
+        self._started.wait()
+        if self._error is not None:
+            raise self._error
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._done.wait()
+        if self._error is not None:
+            raise self._error
+
+    def _run(self) -> None:
+        import torch
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            # CPU ops of every thread (the request and batch threads), not
+            # only of this one; CUDA activity is the whole process's
+            prof = profile(activities=activities,
+                           experimental_config=_ExperimentalConfig(
+                               profile_all_threads=True))
+            prof.start()
+        except BaseException as e:  # noqa: BLE001 - re-raised by start()
+            self._error = e
+            self._started.set()
+            self._done.set()
+            return
+        self._started.set()
+        self._stop.wait()
+        try:
+            prof.stop()
+            os.makedirs(self.logdir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                self.logdir, f"pio_tpu_torch.{os.getpid()}."
+                             f"{time.time_ns()}.pt.trace.json"))
+        except BaseException as e:  # noqa: BLE001 - re-raised by stop()
+            self._error = e
+        finally:
+            self._done.set()
+
+
+_profile_lock = threading.Lock()
+_profile: _ProfileSession | None = None
+
+
+def start_device_profile(logdir: str) -> bool:
+    """Start a ``torch.profiler`` trace of CPU and CUDA activity, written
+    into ``logdir`` as a Chrome trace when it stops. Returns False if a
+    trace is already running."""
+    global _profile
+    with _profile_lock:
+        if _profile is not None:
+            return False
+        session = _ProfileSession(logdir)
+        session.start()
+        _profile = session
+        return True
+
+
+def stop_device_profile() -> str | None:
+    """Stop the running trace and write it; returns its logdir (None if
+    none is running)."""
+    global _profile
+    with _profile_lock:
+        if _profile is None:
+            return None
+        session, _profile = _profile, None
+        # pio: lint-ok[blocking-under-lock] the lock serializes exactly
+        # this start/stop pair; the wait is the trace's export
+        session.stop()
+        return session.logdir
 
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"

@@ -6,18 +6,29 @@ Counterpart of ``pio_tpu.workflow.serve`` (reference CreateServer.scala):
                                + fold-in accounting)
   GET  /healthz, /readyz    -> liveness; readiness (model loaded, storage
                                breakers closed, warm buckets, async queue
-                               under its shed watermark; fold-in shown,
-                               never gating)
-  POST /queries.json        -> supplement -> per-algo predict -> serve,
-                               through the micro or continuous batcher
-                               when one is configured
+                               under its shed watermark; fold-in and the
+                               rollout shown, never gating)
+  POST /queries.json        -> supplement -> per-algo predict -> serve
+                               (+ the rollout's arm, output plugins, the
+                               optional feedback event), through the micro
+                               or continuous batcher when one is configured
   POST /batch/queries.json  -> a JSON array of queries, one batch_predict
-                               per algorithm
+                               per algorithm (and arm)
   POST /model/upsert_users  -> streaming fold-in apply (server-key guarded)
-  POST /reload              -> hot-swap to the latest COMPLETED instance
-                               (GET kept as a deprecated alias); a failed
-                               reload keeps serving the last-good model
+                               on both rollout arms
+  POST /reload              -> hot-swap to the latest eligible COMPLETED
+                               instance (GET kept as a deprecated alias); a
+                               failed reload keeps serving the last-good
+                               model
+  POST /rollout/deploy, /rollout/promote, /rollout/rollback
+                            -> guarded canary (server-key guarded;
+                               ``rollout/``); GET /rollout/status
   POST /stop                -> shut down (server-key guarded)
+  POST /profile/start, /profile/stop
+                            -> a torch.profiler device trace of the process
+                               (server-key guarded)
+  GET  /plugins.json        -> plugin listing; /plugins/<name>/* -> plugin
+                               REST
   GET  /metrics.json, /metrics -> stage histograms, counters, the batch
                                occupancy histogram (Prometheus text)
   GET  /batcher.json        -> which batcher fronts the device, its counters
@@ -25,26 +36,30 @@ Counterpart of ``pio_tpu.workflow.serve`` (reference CreateServer.scala):
                                guarded)
 
 with the same body shapes and error codes. Ported: model restore (latest
-COMPLETED instance or a pinned id, falling back past a corrupt blob), the
-query routes with their stage spans, hedged predict dispatch, the
-per-request budget, the admission stage (``QueryBatcher`` and
-``serving/batcher.ContinuousBatcher``), the warm sweep, reload and stop, the
-fold-in apply surface (``foldin_upsert``: user rows replaced or
-appended, existing item rows replaced with the clustered-retrieval
-sidecar re-encoded for exactly those rows, in one last-good swap), TLS,
-and both transports (async by default). Not ported yet: the rollout
-arms (canary, shadow, promote and rollback, and with them the fold-in's
-candidate arm), plugins, feedback events and the ``/profile/*`` device
-trace routes.
+eligible COMPLETED instance or a pinned id, falling back past a corrupt
+blob), the query routes with their stage spans, hedged predict dispatch,
+the per-request budget, the admission stage (``QueryBatcher`` and
+``serving/batcher.ContinuousBatcher``), the warm sweep, reload and stop,
+the guarded rollout's two arms (the candidate restored and served with
+one set of algorithm instances, as the active arm is: the reference
+restores with one set and serves with another), shadow scoring for its
+divergence guard, output plugins and feedback events, the fold-in apply
+surface (``foldin_upsert``: user rows replaced or appended, existing
+item rows replaced with the clustered-retrieval sidecar re-encoded for
+exactly those rows, in one last-good swap, on each arm), TLS, and both
+transports (async by default). A candidate arm runs the deploy's warm
+query before it takes traffic, as the active arm did at startup, so its
+retrieval index is built before the latency guard times it.
 
 A query answers the same bits alone, micro-batched or coalesced: every
 library scoring product runs at one dispatch shape (``ops.bucketing.
 DISPATCH_ROWS``, ``ServingConfig.batch_max``'s default), so the
-batchers take at most that many queries a dispatch. With one shape the
-warm sweep is one batch of ``batch_max`` queries, and the reference's
-bucket registry (which remembers which power-of-two batch sizes a
-deployment served, to warm only those) would choose among identical
-batches: it is left out, and with it ``utils/compilecache``.
+batchers take at most that many queries a dispatch, and a batch split
+by rollout arm scores each arm's rows at that shape too. With one shape
+the warm sweep is one batch of ``batch_max`` queries, and the
+reference's bucket registry (which remembers which power-of-two batch
+sizes a deployment served, to warm only those) would choose among
+identical batches: it is left out, and with it ``utils/compilecache``.
 """
 
 from __future__ import annotations
@@ -70,6 +85,7 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.controller.engine import Engine, EngineParams
+from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.data.storage import Storage
 from pio_tpu_torch.ops import retrieval as rt
 from pio_tpu_torch.ops.bucketing import DISPATCH_ROWS, pow2_bucket
@@ -83,6 +99,12 @@ from pio_tpu_torch.resilience.health import (
     install_health_routes,
     shedder_check,
 )
+from pio_tpu_torch.rollout import (
+    ARM_ACTIVE,
+    ARM_CANDIDATE,
+    install_rollout_routes,
+    is_auto_advance_eligible,
+)
 from pio_tpu_torch.server.http import (
     AsyncHttpServer,
     HttpApp,
@@ -91,6 +113,7 @@ from pio_tpu_torch.server.http import (
     json_response,
     server_key_ok,
 )
+from pio_tpu_torch.server.plugins import PluginContext
 from pio_tpu_torch.utils.durable import ModelIntegrityError
 from pio_tpu_torch.utils.time import format_time, utcnow
 from pio_tpu_torch.utils.tracing import Tracer
@@ -107,7 +130,10 @@ class ServingConfig:
     engine_id: str = ""
     engine_version: str = "1"
     engine_variant: str = "default"
-    server_key: str = ""          # guards /stop, /reload, /model/upsert_users
+    feedback: bool = False
+    feedback_app_name: str = ""   # app receiving pio_pr predict events
+    # guards /stop, /reload, /model/upsert_users, /rollout/*, /profile/*
+    server_key: str = ""
     warm_query: dict | None = None  # sample query run at startup
     certfile: str | None = None   # TLS cert (PEM); with keyfile -> HTTPS
     keyfile: str | None = None
@@ -163,6 +189,19 @@ def _no_span(_name: str, **_labels):
     return nullcontext()
 
 
+@dataclass
+class _CandidateArm:
+    """The second model slot a guarded rollout serves its canary from
+    (``rollout/``): a fully-restored instance living BEHIND the same swap
+    lock as the active one, so promote is one pointer move and rollback
+    is one pointer drop — never a reload."""
+
+    instance: Any
+    models: list
+    algorithms: list
+    serving: Any
+
+
 class QueryServer:
     """Serving runtime: engine + params + restored models (reference
     ServerActor state, CreateServer.scala:407-431)."""
@@ -174,6 +213,7 @@ class QueryServer:
         storage: Storage,
         config: ServingConfig,
         ctx: WorkflowContext | None = None,
+        plugin_context: PluginContext | None = None,
         instance_id: str | None = None,
     ):
         self.engine = engine
@@ -181,6 +221,7 @@ class QueryServer:
         self.storage = storage
         self.config = config
         self.ctx = ctx or create_workflow_context(storage)
+        self.plugins = plugin_context or PluginContext()
         batching = config.coalesce_window_ms > 0 or config.batch_window_ms != 0
         if batching and pow2_bucket(config.batch_max) > DISPATCH_ROWS:
             raise ValueError(
@@ -215,6 +256,20 @@ class QueryServer:
         self.foldin_applied_items = 0
         self.foldin_last_time = None
         self.foldin_last_staleness_s: float | None = None
+        # guarded rollout (rollout/): the candidate arm and the
+        # controller splitting traffic onto it. Both live behind the
+        # existing locks — queries snapshot whichever arm serves them
+        # exactly like they snapshot the active model.
+        self.rollout = None                       # RolloutController
+        self.candidate: _CandidateArm | None = None
+        # recorded device dispatches of each arm (/metrics.json
+        # armDispatches): a solo query is one, a batch one per arm
+        self.arm_dispatches = {ARM_ACTIVE: 0, ARM_CANDIDATE: 0}
+        # fold-in rows that could not land on the candidate arm yet
+        # (arm mid-swap, rank mismatch): queued and retried on the next
+        # apply so freshness never silently diverges the experiment
+        self._candidate_foldin_pending: dict = {}
+        self._candidate_item_pending: dict = {}
         # serializes whole reloads (resolve + restore + swap) end to end
         # WITHOUT blocking queries: queries snapshot state under
         # self._lock, which a reload only takes for the final swap.
@@ -278,11 +333,20 @@ class QueryServer:
             candidates = instances.get_completed(
                 c.engine_id, c.engine_version, c.engine_variant
             )
+            # rollout verdicts gate AUTO-advancement: an instance the
+            # guards ROLLED_BACK (or whose canary is still in flight)
+            # is skipped, so no reload/restart quietly re-serves a
+            # rejected model. Operators can still pin one explicitly.
+            candidates = [
+                cand for cand in candidates
+                if is_auto_advance_eligible(self.storage, cand.id)
+            ]
             if not candidates:
                 raise ValueError(
-                    f"No COMPLETED engine instance for engine "
-                    f"{c.engine_id} {c.engine_version} {c.engine_variant}. "
-                    "Run train first."
+                    f"No COMPLETED engine instance eligible for engine "
+                    f"{c.engine_id} {c.engine_version} "
+                    f"{c.engine_variant} (rolled-back canaries are "
+                    "skipped). Run train first."
                 )
         else:
             instance = instances.get(instance_id)
@@ -329,7 +393,8 @@ class QueryServer:
         log.info("deployed engine instance %s", instance.id)
 
     def reload(self) -> str:
-        """Hot-swap to the latest completed instance; returns its id. On
+        """Hot-swap to the latest eligible completed instance (rolled-back
+        and in-flight canaries are skipped); returns its id. On
         failure the exception propagates and the last-good model keeps
         serving (the /reload route maps it to 503 + the serving id)."""
         try:
@@ -340,10 +405,99 @@ class QueryServer:
         self.last_reload_error = None
         return self.instance.id
 
+    # -- guarded rollout arms (rollout/) -------------------------------------
+    def rollout_active_instance_id(self) -> str:
+        with self._lock:
+            return self.instance.id
+
+    def load_candidate(self, instance_id: str) -> None:
+        """Restore `instance_id` into the CANDIDATE slot alongside the
+        active model, with the algorithm instances that will serve it.
+        Every failable step runs before the slot is set (same atomicity
+        contract as _load); no last-good fallback — a canary candidate
+        is THAT instance or nothing. The deploy's warm query runs on the
+        arm first, unrecorded, as it ran on the active arm at startup:
+        the first query of a clustered model builds its retrieval index,
+        which the latency guard must not time."""
+        with self._load_lock:
+            instance = self.storage.get_metadata_engine_instances().get(
+                instance_id)
+            if instance is None:
+                raise ValueError(f"Engine instance {instance_id} not found")
+            if instance.status != "COMPLETED":
+                raise ValueError(
+                    f"candidate instance {instance_id} is "
+                    f"{instance.status}, not COMPLETED")
+            _, _, algorithms, serving = self.engine._doers(self.engine_params)
+            models = load_models(
+                self.storage, self.engine, self.engine_params,
+                instance.id, ctx=self.ctx, algorithms=algorithms,
+            )
+            if self.config.warm_query is not None:
+                try:
+                    _predict_on(models, algorithms, serving,
+                                dict(self.config.warm_query))
+                except Exception:  # noqa: BLE001 - warmup is best-effort
+                    log.warning("candidate warm query failed",
+                                exc_info=True)
+            with self._lock:
+                self._retire_algorithms(
+                    self.candidate.algorithms if self.candidate else [])
+                self.candidate = _CandidateArm(
+                    instance=instance, models=models,
+                    algorithms=algorithms, serving=serving)
+                self._candidate_foldin_pending = {}
+                self._candidate_item_pending = {}
+        log.info("candidate arm loaded: instance %s", instance_id)
+
+    def drop_candidate(self) -> None:
+        """Discard the candidate arm (rollback). The active arm is
+        untouched — in-flight queries that snapshotted the candidate
+        finish on their snapshot; new ones never see it."""
+        with self._lock:
+            cand, self.candidate = self.candidate, None
+            self._candidate_foldin_pending = {}
+            self._candidate_item_pending = {}
+            if cand is not None:
+                self._retire_algorithms(cand.algorithms)
+
+    def promote_candidate(self) -> None:
+        """The candidate becomes the active instance (100%): one
+        pointer swap under the lock, the exact shape _load uses. The
+        outgoing active arm's resources retire on the usual delay.
+        Queued candidate fold-ins flush under ``_load_lock`` (an upsert
+        landing between an unlocked flush and the swap would be
+        silently discarded); anything STILL pending at the swap — rank
+        mismatch, or an apply racing the swap itself — is logged, and
+        the next fold-in cycle re-solves those users."""
+        with self._load_lock:
+            self._flush_candidate_foldin()
+            with self._lock:
+                cand = self.candidate
+                if cand is None:
+                    raise ValueError("no candidate arm to promote")
+                dropped = (len(self._candidate_foldin_pending)
+                           + len(self._candidate_item_pending))
+                if dropped:
+                    log.warning(
+                        "%d queued candidate fold-in row(s) could not "
+                        "apply at promote and are dropped (next fold-in "
+                        "cycle re-solves those users)", dropped)
+                self._retire_algorithms(self.algorithms)
+                self.instance = cand.instance
+                self.models = cand.models
+                self.algorithms = cand.algorithms
+                self.serving = cand.serving
+                self.candidate = None
+                self._candidate_foldin_pending = {}
+                self._candidate_item_pending = {}
+        log.info("candidate promoted: instance %s now active",
+                 self.instance.id)
+
     def _retire_algorithms(self, algorithms) -> None:
-        """Close retired algorithm resources on a delay (see _load_locked:
-        queries that snapshotted them may be mid-predict). Callers hold
-        self._lock."""
+        """Close an arm's algorithm resources on a delay (see
+        _load_locked: queries that snapshotted them may be mid-predict).
+        Callers hold self._lock."""
         retired = [
             close for algo in algorithms
             if callable(close := getattr(algo, "close", None))
@@ -356,19 +510,40 @@ class QueryServer:
             t.daemon = True
             t.start()
 
-    def _snapshot(self):
+    def _arm_snapshot(self, arm: str):
+        """-> (models, algorithms, serving, instance_id) for the arm a
+        query rides. A candidate request that races a just-finished
+        rollback falls through to the active arm — a dropped arm is
+        never served."""
         with self._lock:
-            return self.models, self.algorithms, self.serving
+            if arm == ARM_CANDIDATE and self.candidate is not None:
+                c = self.candidate
+                return c.models, c.algorithms, c.serving, c.instance.id
+            return (self.models, self.algorithms, self.serving,
+                    self.instance.id)
+
+    def shadow_predict(self, q: dict, arm: str) -> Any:
+        """Score `q` on one arm without stats, feedback, or plugins —
+        the rollout controller's divergence sampler. Its seconds go to
+        the "shadow" span: the shadow thread's busy time."""
+        models, algorithms, serving, _ = self._arm_snapshot(arm)
+        with self.tracer.span("shadow", arm=arm):
+            return _predict_on(models, algorithms, serving, q)
 
     def close(self) -> None:
-        """Release serving resources (predict pools, batcher thread, and
-        any algorithm-held resources). The HTTP transport's stop() does
-        not know about them."""
+        """Release serving resources (predict pools, batcher thread, the
+        rollout controller, and both arms' algorithm-held resources).
+        The HTTP transport's stop() does not know about them."""
         if self.batcher is not None:
             self.batcher.close()
         self._predict_pool.shutdown(wait=False)
         self._hedge_pool.shutdown(wait=False)
-        for algo in list(getattr(self, "algorithms", [])):
+        if self.rollout is not None:
+            self.rollout.close()
+        arms = list(getattr(self, "algorithms", []))
+        if self.candidate is not None:
+            arms += self.candidate.algorithms
+        for algo in arms:
             close = getattr(algo, "close", None)
             if callable(close):
                 close()
@@ -447,36 +622,55 @@ class QueryServer:
 
     # -- query path (reference CreateServer.scala:492-615) ------------------
     def query(self, q: dict, record: bool = True) -> Any:
-        """``record=False`` keeps the call out of the stage histograms and
-        the request count (warm-ups, a batch backfill's queries)."""
+        """``record=False`` keeps the call out of the stage histograms, the
+        request count, the rollout's stats, feedback (warm-ups, a batch
+        backfill's queries); such calls always ride the active arm."""
         t0 = time.monotonic()
+        # guarded rollout: the controller picks the arm (sticky crc32c
+        # user split); warm-ups (record=False) always ride active
+        rollout = self.rollout if record else None
+        arm = rollout.arm_for(q) if rollout is not None else ARM_ACTIVE
         # warm-up calls (record=False) must not enter the stage
         # histograms: their first-call spans would pollute dashboard
         # quantiles AND the hedge-arming median (_hedge_timeout)
         span = self.tracer.span if record else _no_span
-        models, algorithms, serving = self._snapshot()
-        with span("supplement"):
-            supplemented = serving.supplement(q)
-        with span("predict"):
-            if len(algorithms) > 1:
-                # concurrent per-algo predict; copy_context: predict runs
-                # ON the request path — the Deadline budget and trace
-                # must follow it onto the pool worker
-                futures = [
-                    self._predict_pool.submit(
-                        contextvars.copy_context().run,
-                        a.predict, m, supplemented)
-                    for a, m in zip(algorithms, models)
-                ]
-                predictions = [f.result() for f in futures]
-            else:
-                predictions = [algorithms[0].predict(models[0], supplemented)]
-        with span("serve"):
-            prediction = serving.serve(q, predictions)
+        models, algorithms, serving, instance_id = self._arm_snapshot(arm)
+        try:
+            with span("supplement", arm=arm):
+                supplemented = serving.supplement(q)
+            with span("predict", arm=arm):
+                if record:
+                    self._count_dispatch(arm)
+                if len(algorithms) > 1:
+                    # concurrent per-algo predict; copy_context: predict
+                    # runs ON the request path — the Deadline budget and
+                    # trace must follow it onto the pool worker
+                    futures = [
+                        self._predict_pool.submit(
+                            contextvars.copy_context().run,
+                            a.predict, m, supplemented)
+                        for a, m in zip(algorithms, models)
+                    ]
+                    predictions = [f.result() for f in futures]
+                else:
+                    predictions = [
+                        algorithms[0].predict(models[0], supplemented)]
+            with span("serve", arm=arm):
+                prediction = serving.serve(q, predictions)
+        except Exception:
+            if rollout is not None:
+                rollout.observe(arm, q, None, time.monotonic() - t0,
+                                error=True)
+            raise
+        if rollout is not None:
+            rollout.observe(arm, q, prediction, time.monotonic() - t0)
         if record:
             self._auto_warm_buckets(q)
-            self.tracer.record("query", time.monotonic() - t0)
-        return prediction
+        return self._postprocess(q, prediction, instance_id, record, t0)
+
+    def _count_dispatch(self, arm: str) -> None:
+        with self._lock:
+            self.arm_dispatches[arm] += 1
 
     def _hedge_timeout(self) -> float | None:
         """Seconds after which a predict dispatch gets a duplicate, or
@@ -549,45 +743,196 @@ class QueryServer:
                 first_exc = first_exc or exc
         raise first_exc
 
-    def query_batch(self, queries: list[dict], record: bool = True) -> list:
+    def query_batch(self, queries: list[dict], record: bool = True,
+                    observe_batch_errors: bool = True) -> list:
         """Serve several queries as one batch_predict per algorithm (the
         micro-batching execution path; also the bulk path behind
-        /batch/queries.json)."""
+        /batch/queries.json). With a rollout in flight the batch is
+        partitioned by arm — each sub-batch executes against its own
+        arm's models (its rows padded to the dispatch shape like any
+        batch's, so each answer keeps its solo bits), results reassemble
+        in request order.
+
+        Nothing of a batch is recorded (rollout stats, feedback events,
+        the query histogram) until every arm has answered and every
+        answer has passed the output blockers, which may raise to reject
+        a request: a sub-batch or a blocker that fails leaves the batch
+        unrecorded, so the solo retries of the batchers
+        (QueryBatcher/ContinuousBatcher) count each member once. The
+        reference observes the first arm's answers before the second arm
+        runs, and writes feedback before the blockers, and its retries
+        then count them again. observe_batch_errors=False is for those
+        callers: the failed arm's members are not counted as errors
+        either (their retries record them); with True (the bulk route,
+        which does not retry) the failed arm's members count as errors
+        and the arms answered before it as served. `query(record=False)`
+        takes rollout=None (no stats at all), and `_hedged` duplicates
+        run the bare predict fn — neither re-records a request's stats."""
         t0 = time.monotonic()
+        rollout = self.rollout if record else None
+        arms = ([rollout.arm_for(q) for q in queries] if rollout is not None
+                else [ARM_ACTIVE] * len(queries))
+        served = []
+        for arm in (ARM_ACTIVE, ARM_CANDIDATE):
+            idx = [i for i, a in enumerate(arms) if a == arm]
+            if not idx:
+                continue
+            sub = [queries[i] for i in idx]
+            try:
+                predictions, instance_id, dt = self._query_batch_arm(
+                    sub, arm, record, rollout, observe_batch_errors)
+            except Exception:
+                if rollout is not None and observe_batch_errors:
+                    _observe_served(rollout, served)
+                raise
+            served.append((arm, idx, sub, predictions, instance_id, dt))
+        out: list = [None] * len(queries)
+        events: list = []
+        try:
+            for _, idx, sub, predictions, instance_id, _ in served:
+                for i, q, p in zip(idx, sub, predictions):
+                    out[i] = self._output(q, p, instance_id, record, events)
+        except Exception:
+            if rollout is not None and observe_batch_errors:
+                _observe_served(rollout, served)
+            raise
+        if rollout is not None:
+            _observe_served(rollout, served)
+        self._answered(events, len(queries), record, t0)
+        return out
+
+    def _query_batch_arm(self, queries: list[dict], arm: str, record: bool,
+                         rollout, observe_batch_errors: bool) -> tuple:
+        """One arm's sub-batch -> (predictions, instance id, the seconds
+        each query is charged). Each query is charged the wall time of the dispatch that
+        answered it, the arm's own sub-batch, as a solo query is charged
+        its own: the arms execute sequentially, so whole-batch time would
+        bill one arm's dispatch to the other; and every sub-batch runs at
+        the dispatch rows, so a dispatch's cost barely follows its size,
+        and its wall over its size (the reference's) makes the smaller
+        arm's queries look slower (ROADMAP C13)."""
         # see query(): warm-up spans stay out of the histograms
         span = self.tracer.span if record else _no_span
-        models, algorithms, serving = self._snapshot()
-        with span("supplement"):
-            supplemented = [serving.supplement(q) for q in queries]
-        with span("predict"):
-            if len(algorithms) > 1:
-                futures = [
-                    self._predict_pool.submit(
-                        contextvars.copy_context().run,
-                        self._hedged, a.batch_predict, m, supplemented)
-                    for a, m in zip(algorithms, models)
+        arm_t0 = time.monotonic()
+        models, algorithms, serving, instance_id = self._arm_snapshot(arm)
+        try:
+            with span("supplement", arm=arm):
+                supplemented = [serving.supplement(q) for q in queries]
+            with span("predict", arm=arm):
+                if record:
+                    self._count_dispatch(arm)
+                if len(algorithms) > 1:
+                    futures = [
+                        self._predict_pool.submit(
+                            contextvars.copy_context().run,
+                            self._hedged, a.batch_predict, m, supplemented)
+                        for a, m in zip(algorithms, models)
+                    ]
+                    per_algo = [f.result() for f in futures]
+                else:
+                    per_algo = [
+                        self._hedged(algorithms[0].batch_predict, models[0],
+                                     supplemented)
+                    ]
+            if record and queries:
+                # the batched path is the PRIMARY path when the batcher is
+                # on (query() is bypassed), so auto-warm must hook here
+                # too; the warm calls pass record=False and cannot recurse
+                self._auto_warm_buckets(queries[0])
+            with span("serve", arm=arm):
+                predictions = [
+                    serving.serve(q, [algo_out[i] for algo_out in per_algo])
+                    for i, q in enumerate(queries)
                 ]
-                per_algo = [f.result() for f in futures]
-            else:
-                per_algo = [
-                    self._hedged(
-                        algorithms[0].batch_predict, models[0], supplemented)
-                ]
-        if record and queries:
-            # the batched path is the PRIMARY path when the batcher is on
-            # (query() is bypassed), so auto-warm must hook here too; the
-            # warm calls themselves pass record=False and cannot recurse
-            self._auto_warm_buckets(queries[0])
-        with span("serve"):
-            predictions = [
-                serving.serve(q, [algo_out[i] for algo_out in per_algo])
-                for i, q in enumerate(queries)
-            ]
+        except Exception:
+            if rollout is not None and observe_batch_errors:
+                dt = time.monotonic() - arm_t0
+                for q in queries:
+                    rollout.observe(arm, q, None, dt, error=True)
+            raise
+        return predictions, instance_id, time.monotonic() - arm_t0
+
+    def _postprocess(self, q, prediction, instance_id, record, t0):
+        events: list = []
+        prediction = self._output(q, prediction, instance_id, record, events)
+        self._answered(events, 1, record, t0)
+        return prediction
+
+    def _output(self, q, prediction, instance_id, record, events: list):
+        """The feedback ``prId`` and the output blockers, which may raise
+        to reject the request. The feedback event is appended to
+        ``events``, not written: a rejected request writes none."""
+        if record and self.config.feedback:
+            prediction, event = self._feedback_event(q, prediction,
+                                                     instance_id)
+            events.append(event)
+        for blocker in self.plugins.output_blockers:
+            prediction = blocker.process(
+                q, prediction, {"engineInstanceId": instance_id}
+            )
+        return prediction
+
+    def _answered(self, events: list, n: int, record: bool, t0) -> None:
+        """Write the feedback events of ``n`` answered queries and record
+        each in the query histogram."""
+        if events:
+            self._send_feedback(events)
         if record:
             dt = time.monotonic() - t0
-            for _ in queries:
+            for _ in range(n):
                 self.tracer.record("query", dt)
-        return predictions
+
+    def _feedback_event(self, query: dict, prediction: Any,
+                        instance_id: str) -> tuple:
+        """The prediction as a pio_pr 'predict' event (reference
+        CreateServer.scala:536-598) -> (prediction, event): a prediction
+        that carries a ``prId`` answers with the event's id in its
+        place."""
+        import secrets
+
+        pr_id = None
+        if isinstance(prediction, dict):
+            pr_id = prediction.get("prId") or None
+        new_pr_id = pr_id or secrets.token_urlsafe(48)[:64]
+        event = Event(
+            event="predict",
+            entity_type="pio_pr",
+            entity_id=new_pr_id,
+            properties={
+                "engineInstanceId": instance_id,
+                "query": query,
+                "prediction": prediction,
+            },
+            pr_id=query.get("prId") if isinstance(query, dict) else None,
+        )
+        if isinstance(prediction, dict) and "prId" in prediction:
+            prediction = dict(prediction, prId=new_pr_id)
+        return prediction, event
+
+    def _send_feedback(self, events: list) -> None:
+        """Insert the events in process on a detached thread, never on
+        the request's budget."""
+
+        def send():
+            for event in events:
+                try:
+                    app = self.storage.get_metadata_apps().get_by_name(
+                        self.config.feedback_app_name
+                    )
+                    if app is None:
+                        log.error(
+                            "feedback app %r not found",
+                            self.config.feedback_app_name,
+                        )
+                        return
+                    self.storage.get_events().insert(event, app.id)
+                except Exception:  # noqa: BLE001 - must not fail serving
+                    log.error("feedback event failed", exc_info=True)
+
+        # pio: lint-ok[context-loss] deliberate detach: the feedback
+        # insert must not be cancelled by the request's exhausted
+        # budget, and it runs after the response is already decided
+        threading.Thread(target=send, daemon=True).start()
 
     # -- streaming fold-in (freshness/) -------------------------------------
     def foldin_upsert(self, rows, staleness_s: float | None = None,
@@ -609,7 +954,11 @@ class QueryServer:
         them, so an upserted item is retrievable through the candidate
         tier immediately after this call returns, not after a lazy
         rebuild. Unknown item ids are REJECTED (appending an item needs
-        a dense index that only a retrain assigns)."""
+        a dense index that only a retrain assigns).
+
+        With a rollout in flight the rows land on BOTH arms (or queue
+        for the candidate), so streaming freshness never silently
+        diverges the experiment."""
         rows = rows or {}
         items = items or {}
         if not rows and not items:
@@ -650,7 +999,76 @@ class QueryServer:
         if items:
             out["itemsApplied"] = items_applied
             out["itemsRejected"] = items_rejected
+        # second arm: the ACTIVE apply above is the durable one (the
+        # folder's cursor advances on it); the candidate apply is
+        # best-effort-with-queue — a failure parks the rows in
+        # _candidate_foldin_pending and retries on the next apply (and
+        # at promote), never blocking freshness on the experiment
+        with self._lock:
+            has_candidate = self.candidate is not None
+        if has_candidate:
+            out["candidateQueued"] = self._apply_foldin_to_candidate(
+                rows, items)
         return out
+
+    def _apply_foldin_to_candidate(self, rows, items=None) -> int:
+        """Apply `rows`/`items` (plus anything previously queued) to the
+        candidate arm. Returns the queue depth left behind (0 = fully
+        applied). Never raises: the active apply already succeeded and
+        the folder must not re-solve the window for a canary hiccup."""
+        with self._lock:
+            cand = self.candidate
+            if cand is None:
+                self._candidate_foldin_pending = {}
+                self._candidate_item_pending = {}
+                return 0
+            pending = dict(self._candidate_foldin_pending)
+            pending.update(rows)
+            pending_items = dict(self._candidate_item_pending)
+            pending_items.update(items or {})
+            models = list(cand.models)
+        try:
+            mi, model, new_model, _ = _fold_rows_into(models, pending)
+            if pending_items:
+                new_model, _, _ = _fold_item_rows_into(
+                    new_model, pending_items)
+        except ValueError as e:
+            with self._lock:
+                self._candidate_foldin_pending = pending
+                self._candidate_item_pending = pending_items
+            log.warning("fold-in rows queued for candidate arm (%d "
+                        "users, %d items): %s", len(pending),
+                        len(pending_items), e)
+            return len(pending) + len(pending_items)
+        with self._lock:
+            cand = self.candidate
+            if cand is None:
+                self._candidate_foldin_pending = {}
+                self._candidate_item_pending = {}
+                return 0
+            if cand.models[mi] is not model:
+                # the arm moved mid-build (promote/drop/another apply):
+                # queue and let the next apply land on the new arm
+                self._candidate_foldin_pending = pending
+                self._candidate_item_pending = pending_items
+                return len(pending) + len(pending_items)
+            cand_models = list(cand.models)
+            cand_models[mi] = new_model
+            self.candidate = _CandidateArm(
+                instance=cand.instance, models=cand_models,
+                algorithms=cand.algorithms, serving=cand.serving)
+            self._candidate_foldin_pending = {}
+            self._candidate_item_pending = {}
+        return 0
+
+    def _flush_candidate_foldin(self) -> None:
+        """Drain queued candidate fold-ins (called before promote so
+        the promoted arm is as fresh as the active one was)."""
+        with self._lock:
+            pending = dict(self._candidate_foldin_pending)
+            pending_items = dict(self._candidate_item_pending)
+        if pending or pending_items:
+            self._apply_foldin_to_candidate(pending, pending_items)
 
     def foldin_status(self) -> dict:
         """Bounded-staleness accounting for GET /, /readyz and
@@ -662,6 +1080,8 @@ class QueryServer:
                 "lastAppliedTime": (format_time(self.foldin_last_time)
                                     if self.foldin_last_time else None),
                 "stalenessSeconds": self.foldin_last_staleness_s,
+                "candidateQueued": (len(self._candidate_foldin_pending)
+                                    + len(self._candidate_item_pending)),
             }
 
     # -- status -------------------------------------------------------------
@@ -700,22 +1120,46 @@ class QueryServer:
     def metrics(self) -> dict:
         """Per-stage latency histograms (p50/p90/p95/p99 over the recent
         window, all-time count/avg) — the serving observability surface —
-        and the launches of each CUDA kernel in this process
-        (``kernelLaunches``; the CPU's plain versions do not count).
+        the recorded device dispatches of each rollout arm
+        (``armDispatches``) and the launches of each CUDA kernel in this
+        process (``kernelLaunches``; the CPU's plain versions do not
+        count).
         ``exemplars`` link each span's slowest recent occurrence to a
         trace id."""
         from pio_tpu_torch.ops.kernels import launch_counts
 
+        with self._lock:
+            arm_dispatches = dict(self.arm_dispatches)
         out = {
             "startTime": format_time(self.start_time),
             "spans": self.tracer.snapshot(),
             "hedgedDispatches": self.hedged_dispatches,
+            "armDispatches": arm_dispatches,
             "kernelLaunches": launch_counts(),
             "foldin": self.foldin_status(),
         }
         if self.recorder is not None:
             out["exemplars"] = self.recorder.exemplars()
         return out
+
+
+def _observe_served(rollout, served: list) -> None:
+    """Record the queries of each answered sub-batch (``query_batch``'s
+    ``served``) in the rollout's stats, at its arm's seconds a query."""
+    for arm, _, sub, predictions, _, dt in served:
+        for q, p in zip(sub, predictions):
+            rollout.observe(arm, q, p, dt)
+
+
+def _predict_on(models, algorithms, serving, q: dict) -> Any:
+    """One query through an arm's supplement, predict and serve, with no
+    span, stats, feedback or plugins (shadow scoring, a candidate's warm
+    query)."""
+    supplemented = serving.supplement(dict(q))
+    predictions = [
+        a.predict(m, supplemented) for a, m in zip(algorithms, models)
+    ]
+    return serving.serve(q, predictions)
 
 
 def _fold_rows_into(models: list, rows) -> tuple:
@@ -975,7 +1419,11 @@ class QueryBatcher:
 
     def _do_execute(self, batch, queries):
         try:
-            results = self.server.query_batch(queries)
+            # observe_batch_errors=False: the per-query retry below
+            # records each member's rollout stats exactly once on a
+            # batch failure (see query_batch's docstring)
+            results = self.server.query_batch(
+                queries, observe_batch_errors=False)
             for (_, fut), res in zip(batch, results):
                 fut.set_result(res)
         except Exception:  # noqa: BLE001 - isolate the bad query
@@ -1190,6 +1638,30 @@ def build_serving_app(server: QueryServer) -> HttpApp:
         batcher.set_window(window_ms / 1e3)
         return 200, {"message": "window updated", **batcher.stats()}
 
+    @app.route("POST", r"/profile/start")
+    def profile_start(req: Request):
+        """Capture a device trace (torch.profiler: CPU and CUDA activity)
+        while serving. Guarded like /stop."""
+        if not check_server_key(req):
+            return 401, {"message": "Invalid accessKey."}
+        from pio_tpu_torch.utils.tracing import start_device_profile
+
+        logdir = req.params.get("logdir", "/tmp/pio_tpu_profile")
+        if not start_device_profile(logdir):
+            return 409, {"message": "profile already running"}
+        return 200, {"message": "profiling", "logdir": logdir}
+
+    @app.route("POST", r"/profile/stop")
+    def profile_stop(req: Request):
+        if not check_server_key(req):
+            return 401, {"message": "Invalid accessKey."}
+        from pio_tpu_torch.utils.tracing import stop_device_profile
+
+        logdir = stop_device_profile()
+        if logdir is None:
+            return 409, {"message": "no profile running"}
+        return 200, {"message": "profile written", "logdir": logdir}
+
     def readiness() -> dict:
         """model loaded + storage breakers not open + warm buckets +
         async-transport queue under its shed watermark
@@ -1217,6 +1689,18 @@ def build_serving_app(server: QueryServer) -> HttpApp:
                 "warmed": server._buckets_warmed,
                 "sweep": server.warm_sweep,
             }
+        # rollout visibility, never a readiness gate: a breached canary
+        # auto-rolls-back to the active arm — the server stays ready
+        # throughout (that atomic revert is the whole point)
+        rollout = server.rollout
+        if rollout is not None:
+            st = rollout.status()
+            checks["rollout"] = {
+                "ok": True,
+                "stagePct": st["stagePct"],
+                "verdict": st["verdict"],
+                "candidateInstanceId": st["candidateInstanceId"],
+            }
         checks.update(shedder_check(getattr(app, "transport", None)))
         return checks
 
@@ -1228,6 +1712,27 @@ def build_serving_app(server: QueryServer) -> HttpApp:
 
     app.tracer = server.tracer
     install_trace_routes(app, server.recorder, check_server_key)
+    # guarded rollout verbs (rollout/): /rollout/deploy, /rollout/promote,
+    # /rollout/rollback (server-key guarded) + /rollout/status
+    install_rollout_routes(app, server, server.storage, check_server_key)
+
+    @app.route("GET", r"/plugins\.json")
+    def plugins_list(req: Request):
+        return 200, {
+            "plugins": {
+                p.plugin_name: {"type": p.plugin_type}
+                for p in server.plugins.plugins
+            }
+        }
+
+    @app.route("GET", r"/plugins/([^/]+)(/.*)?")
+    def plugin_rest(req: Request):
+        name = req.path_args[0]
+        plugin = server.plugins.get(name)
+        if plugin is None:
+            return 404, {"message": f"plugin {name} not found"}
+        return 200, plugin.handle_rest(req.path_args[1] or "/", req.params)
+
     return app
 
 
@@ -1237,14 +1742,16 @@ def create_query_server(
     storage: Storage,
     config: ServingConfig,
     ctx: WorkflowContext | None = None,
+    plugin_context: PluginContext | None = None,
     instance_id: str | None = None,
 ) -> tuple[HttpServer, QueryServer]:
     """The deploy verb's server: models restored onto ``ctx.device`` (CUDA
     unless the context says otherwise) behind the async transport (or the
-    threaded one, ``config.backend``), HTTPS with ``certfile``/``keyfile``.
-    Call ``start()`` on the returned server to bind and serve."""
+    threaded one, ``config.backend``), HTTPS with ``certfile``/``keyfile``,
+    the output plugins of ``plugin_context``. Call ``start()`` on the
+    returned server to bind and serve."""
     qs = QueryServer(engine, engine_params, storage, config, ctx=ctx,
-                     instance_id=instance_id)
+                     plugin_context=plugin_context, instance_id=instance_id)
     from pio_tpu_torch.server.security import server_ssl_context
 
     app = build_serving_app(qs)

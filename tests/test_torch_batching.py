@@ -94,7 +94,7 @@ class FakeServer:
             self.solo_calls.append(dict(q))
         return {"user": q["user"], "via": "solo"}
 
-    def query_batch(self, queries, record=True):
+    def query_batch(self, queries, record=True, observe_batch_errors=True):
         with self.lock:
             self.batch_calls.append([dict(q) for q in queries])
         if self.batch_delay_s:
@@ -105,9 +105,13 @@ class FakeServer:
 
 
 def _concurrently(fn, n):
+    """``fn(i)`` for i < n on n threads that start it together: a thread
+    still being created must not arrive after the others' batch left."""
     out = [None] * n
+    start = threading.Barrier(n)
 
     def one(i):
+        start.wait(timeout=60)
         out[i] = fn(i)
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]

@@ -68,7 +68,10 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.obs.recorder", "pio_tpu_torch.obs.http",
                 "pio_tpu_torch.utils.tracing",
                 "pio_tpu_torch.utils.httpclient",
-                "pio_tpu_torch.rollout.state",
+                "pio_tpu_torch.rollout", "pio_tpu_torch.rollout.state",
+                "pio_tpu_torch.rollout.split",
+                "pio_tpu_torch.rollout.guards",
+                "pio_tpu_torch.rollout.controller",
                 "pio_tpu_torch.serving_fleet.fleet",
                 "pio_tpu_torch.freshness", "pio_tpu_torch.freshness.cursor",
                 "pio_tpu_torch.freshness.tail",
