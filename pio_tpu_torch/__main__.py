@@ -39,14 +39,26 @@ Verbs ported so far:
            canary at PCT percent of the users, or to ramp 1 -> 5 -> 25
            -> 100 while the live guards stay green (auto, with
            --canary-min-stage-seconds and --canary-min-stage-samples).
-  promote  conclude a green canary on the deploy server at --ip/--port:
-           the candidate serves 100% and the PROMOTED verdict persists.
+           With --shards N [--replicas R] deploy boots the sharded
+           fleet instead (serving_fleet/): the persisted model
+           partitioned into N shard blobs, N x R shard servers (each
+           holding its partition on the device) and the merging router
+           on --ip/--port, with --shard-memory-budget-mb and
+           --coalesce-window-ms (one batched RPC a shard group); TLS,
+           --feedback, --warm-query and --batch-window-ms are refused
+           there. The canary verbs work against the router too.
+  promote  conclude a green canary on the deploy server (or fleet
+           router) at --ip/--port: the candidate serves 100% and the
+           PROMOTED verdict persists.
   rollback [--reason]: revert 100% of the traffic to the last-good
            instance and persist ROLLED_BACK (no reload auto-advances
            onto it again); also concludes a canary record a crashed
            server left IN_FLIGHT.
   undeploy POST /stop (with --server-key) to the deploy server at
            --ip/--port.
+  reshard  --shards N: grow or shrink the RUNNING fleet behind the
+           router at --ip/--port to N shard groups with no downtime
+           (--endpoint for new groups, --status, --abort, --no-wait).
   eval     evaluate on the engine's evaluation folds (docs/evaluation.md),
            on the CUDA device unless --device cpu: either
            `eval <Evaluation> <ParamsGenerator>` (class mode: every
@@ -68,7 +80,8 @@ Verbs ported so far:
            --access-key and --tail-wait), solve refreshed user rows
            against the deployed model's item factors (on the CUDA
            device unless --device cpu) and hot-swap them into the
-           deploy server at --serving-url. --once runs one cycle and
+           deploy server at --serving-url (or the fleet through its
+           router at --router-url). --once runs one cycle and
            prints its stats as JSON; otherwise it loops, with its health
            surface on --ip/--port.
   app      new | list | show | delete | trim | cleanup | data-delete |
@@ -89,16 +102,17 @@ Verbs ported so far:
            clients on other hosts, loopback unless --ip (then
            --server-key is required), with TLS options.
 
-The ingest, storage, rollout and undeploy verbs touch no tensor and
-take no --device.
+The ingest, storage, rollout, reshard and undeploy verbs touch no
+tensor and take no --device.
 Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_promote``,
-``cmd_rollback``, ``cmd_undeploy``, ``cmd_eval``, ``cmd_batchpredict``,
-``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``, ``cmd_eventserver``,
-``cmd_import``, ``cmd_export`` and ``cmd_storageserver`` in
+``cmd_rollback``, ``cmd_reshard``, ``cmd_undeploy``, ``cmd_eval``,
+``cmd_batchpredict``, ``cmd_foldin``, ``cmd_app``, ``cmd_accesskey``,
+``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
+``cmd_storageserver`` in
 ``pio_tpu.tools.cli``, with the same flags, output lines and exit codes.
 Not ported yet: the mesh options (--no-mesh: the port holds one device);
-deploy's fleet options; undeploy's --tenant (the fleet); foldin's
---router-url (the fleet).
+the multi-tenant fleet pool: deploy's --fleet, --fleet-join and
+--tenant-quota-* and undeploy's --tenant.
 """
 
 from __future__ import annotations
@@ -233,9 +247,21 @@ def cmd_deploy(args) -> int:
         variant, args.engine_dir)
     storage = get_storage()
     if args.from_eval:
+        if args.shards > 0:
+            return _fail("--from-eval is not supported with --shards "
+                         "yet: fleet shards serve already-partitioned "
+                         "model blobs; train the winner "
+                         "(`train --from-eval`) and fleet-deploy "
+                         "that instance")
         ep, eval_id = _apply_from_eval(engine, ep, storage, args.from_eval)
         print(f"Deploying with best params from evaluation {eval_id}",
               flush=True)
+    if args.shards > 0:
+        # fleet path: partition the persisted model at deploy time, boot
+        # N x R shard servers + the router front-end (serving_fleet/)
+        return _deploy_fleet_cmd(args, storage, engine_id, engine_version,
+                                 engine_variant,
+                                 retrieval=_retrieval_block(ep))
     ctx = create_workflow_context(storage, device=args.device)
     config = ServingConfig(
         ip=args.ip, port=args.port, engine_id=engine_id,
@@ -272,6 +298,99 @@ def cmd_deploy(args) -> int:
     finally:
         qs.close()
     print("Server stopped.")
+    return 0
+
+
+def _retrieval_block(ep) -> dict | None:
+    """The engine's two-stage retrieval block (ops/retrieval.py). Fleet
+    shards score partitions themselves rather than through the algorithm
+    instance, so `deploy --shards` must lift the block out of the
+    algorithm params and hand it to the shard servers explicitly —
+    otherwise an engine.json that asks for clustered retrieval would
+    silently serve exact in fleet mode."""
+    for _name, p in (ep.algorithms or []):
+        block = p.get("retrieval") if isinstance(p, dict) \
+            else getattr(p, "retrieval", None)
+        if block:
+            return block
+    return None
+
+
+def _deploy_fleet_cmd(args, storage, engine_id: str, engine_version: str,
+                      engine_variant: str,
+                      retrieval: dict | None = None) -> int:
+    """`deploy --shards N [--replicas R]`: sharded, replicated serving
+    (docs/serving.md "Sharded fleet"), the shards and the router's
+    whiteList ranking on the CUDA device unless --device cpu. The router
+    binds --ip/--port; shard servers take ephemeral ports (printed, and
+    always discoverable via the router's /fleet.json)."""
+    import threading
+
+    from pio_tpu_torch.serving_fleet.fleet import deploy_fleet
+    from pio_tpu_torch.serving_fleet.router import RouterConfig
+
+    # fail loudly on single-host-only options rather than silently
+    # ignoring them — --cert/--key especially: an operator asking for
+    # TLS must never get plaintext without an error
+    if args.cert or args.key:
+        return _fail("TLS termination is not supported in fleet mode yet "
+                     "(--shards with --cert/--key); front the router with "
+                     "a TLS-terminating proxy instead")
+    unsupported = [flag for flag, on in (
+        ("--feedback", args.feedback),
+        ("--warm-query", bool(args.warm_query)),
+        ("--batch-window-ms", args.batch_window_ms > 0),
+    ) if on]
+    if unsupported:
+        return _fail(f"{', '.join(unsupported)} not supported in fleet "
+                     "mode (--shards); they configure the single-host "
+                     "QueryServer")
+    if args.replicas < 1:
+        return _fail("--replicas must be >= 1")
+
+    # shard endpoints must be dialable by the router, so a wildcard bind
+    # resolves to loopback for the in-process fleet shape
+    ip = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+    handle = deploy_fleet(
+        storage,
+        engine_id=engine_id, engine_version=engine_version,
+        engine_variant=engine_variant,
+        n_shards=args.shards, n_replicas=args.replicas,
+        ip=ip,
+        router_port=args.port,
+        instance_id=args.engine_instance_id,
+        server_key=args.server_key or os.environ.get("PIO_SERVER_KEY", ""),
+        memory_budget_bytes=args.shard_memory_budget_mb * 1024 * 1024,
+        shard_backend=args.server_backend,
+        retrieval=retrieval,
+        # continuous batching: coalesce concurrent fan-outs per shard
+        # group into one batched binary frame (docs/serving.md)
+        router_config=(RouterConfig(
+            coalesce_window_ms=args.coalesce_window_ms)
+            if args.coalesce_window_ms > 0 else None),
+        device=args.device,
+    )
+    mode = (retrieval or {}).get("mode", "exact")
+    print(f"Fleet router for instance {handle.plan.instance_id} on "
+          f"http://{ip}:{handle.router_http.port} "
+          f"({args.shards} shards x {args.replicas} replicas, "
+          f"retrieval: {mode}, {handle.router.device})", flush=True)
+    for s, urls in enumerate(handle.endpoints):
+        print(f"  shard {s}: {' '.join(urls)}", flush=True)
+
+    def watch_stop():
+        handle.router._stop_requested.wait()
+        handle.router_http.stop()
+
+    # pio: lint-ok[context-loss] deliberate detach: shutdown watcher
+    # waits for /stop for the process lifetime; no request context
+    threading.Thread(target=watch_stop, daemon=True).start()
+    try:
+        handle.wait()
+    except KeyboardInterrupt:
+        pass
+    handle.close()
+    print("Fleet stopped.")
     return 0
 
 
@@ -333,6 +452,78 @@ def cmd_rollback(args) -> int:
     rejected instance again."""
     return _rollout_call(args, "POST", "/rollout/rollback",
                          {"reason": args.reason or "operator rollback"})
+
+
+def cmd_reshard(args) -> int:
+    """`reshard --shards N'` — live elastic resharding: grow or shrink
+    the RUNNING fleet to N' shard groups with zero downtime
+    (docs/serving.md "Elastic resharding"). The router streams moved
+    partitions to their new owners, double-routes affected partitions
+    during the move, and flips the durable plan atomically; `--status`
+    follows an in-flight migration, `--abort` restores the old plan
+    bit-identical."""
+    import time
+
+    from pio_tpu_torch.utils.httpclient import HttpClientError, JsonHttpClient
+
+    ip = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+    url = f"http://{ip}:{args.port}"
+    key = args.server_key or os.environ.get("PIO_SERVER_KEY", "")
+    params = {"accessKey": key} if key else None
+    client = JsonHttpClient(url, timeout=args.timeout)
+
+    def call(method, path, body=None):
+        return client.request(method, path, body, params=params)
+
+    try:
+        if args.status:
+            print(json.dumps(call("GET", "/reshard/status"), indent=2))
+            return 0
+        if args.abort:
+            out = call("POST", "/reshard/abort")
+            print(json.dumps(out, indent=2))
+            return 0 if out.get("verdict") == "ABORTED" else 1
+        if args.shards is None or args.shards < 1:
+            return _fail("reshard needs --shards N' (or --status / "
+                         "--abort)")
+        body: dict = {"nShards": args.shards}
+        if args.endpoint:
+            # each --endpoint is ONE new shard group; commas separate
+            # its replicas: --endpoint http://h1:9107,http://h2:9107
+            body["endpoints"] = [
+                [u.strip() for u in e.split(",") if u.strip()]
+                for e in args.endpoint]
+        out = call("POST", "/reshard/begin", body)
+        if out.get("noop"):
+            print(out.get("message", "nothing to do"))
+            return 0
+        print(f"resharding {out.get('nShardsOld')} -> "
+              f"{out.get('nShardsNew')} shard(s): "
+              f"{out.get('partitionsMoving')} partition(s) to move "
+              f"(plan v{out.get('planVersionOld')} -> "
+              f"v{out.get('planVersionNew')})", flush=True)
+        if args.no_wait:
+            print("migration running; follow with `reshard --status`")
+            return 0
+        last = -1
+        while True:
+            st = call("GET", "/reshard/status")
+            staged = st.get("partitionsStaged", 0)
+            if staged != last:
+                print(f"  staged {staged}/"
+                      f"{st.get('partitionsMoving', 0)} partition(s)",
+                      flush=True)
+                last = staged
+            if not st.get("inFlight"):
+                verdict = st.get("verdict")
+                print(f"reshard {verdict}: "
+                      f"{st.get('reason') or 'no reason recorded'}")
+                return 0 if verdict == "COMMITTED" else 1
+            time.sleep(0.2)
+    except HttpClientError as e:
+        if e.status == 0:
+            return _fail(f"no fleet router at {url}: {e.message}")
+        return _fail(f"HTTP {e.status}: {e.message}")
 
 
 def cmd_undeploy(args) -> int:
@@ -561,6 +752,7 @@ def cmd_foldin(args) -> int:
     from pio_tpu_torch.freshness import (
         FoldInConfig,
         FoldInWorker,
+        RouterFleetApplier,
         ServingHttpApplier,
         create_foldin_server,
     )
@@ -609,7 +801,12 @@ def cmd_foldin(args) -> int:
         # folder's own /debug trace routes
         server_key=key,
     )
-    applier = ServingHttpApplier(args.serving_url, key)
+    if args.router_url:
+        applier = RouterFleetApplier(args.router_url, key)
+        target = args.router_url
+    else:
+        applier = ServingHttpApplier(args.serving_url, key)
+        target = args.serving_url
     source = None
     if args.event_server_url:
         source = HttpEventSource(
@@ -632,7 +829,7 @@ def cmd_foldin(args) -> int:
     http = create_foldin_server(worker)
     http.start()
     worker.start()
-    print(f"fold-in worker for engine {engine_id} -> {args.serving_url} "
+    print(f"fold-in worker for engine {engine_id} -> {target} "
           f"(health on http://{args.ip}:{http.port}, cursor {state_path}, "
           f"{worker.device})", flush=True)
     try:
@@ -962,6 +1159,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "requests into one device dispatch; ~2 ms is the "
                         "recommended starting window. Deadline-doomed "
                         "requests dispatch solo or shed 503. 0 = off")
+    x.add_argument("--shards", type=int, default=0,
+                   help="> 0 deploys a SHARDED fleet: partition the "
+                        "model's factor tables across this many shard "
+                        "servers behind a top-k-merging router "
+                        "(docs/serving.md); 0 = single-host serve")
+    x.add_argument("--replicas", type=int, default=2,
+                   help="replicas per shard (fleet mode; >= 2 gives warm "
+                        "failover)")
+    x.add_argument("--shard-memory-budget-mb", type=int, default=0,
+                   help="hard cap (MB) each shard may hold; a partition "
+                        "over budget fails deploy instead of lying about "
+                        "capacity. 0 = unlimited")
     x.add_argument("--canary", default="", metavar="PCT|auto",
                    help="guarded rollout: tell the RUNNING deploy server "
                         "at --ip/--port to stage the latest eligible "
@@ -990,12 +1199,43 @@ def build_parser() -> argparse.ArgumentParser:
         x = sub.add_parser(verb, help=descr)
         x.add_argument("--ip", default="127.0.0.1")
         x.add_argument("--port", type=int, default=8000,
-                       help="deploy server port")
+                       help="serving server or fleet router port")
         x.add_argument("--server-key")
         if verb == "rollback":
             x.add_argument("--reason", default="",
                            help="recorded on the rollout verdict")
         x.set_defaults(fn=fn)
+    x = sub.add_parser(
+        "reshard",
+        help="live elastic resharding: grow/shrink the RUNNING fleet "
+             "to --shards N' with zero downtime (streams moved "
+             "partitions, double-routes during the move, flips the "
+             "plan atomically; docs/serving.md)")
+    x.add_argument("--shards", type=int, default=None, metavar="N",
+                   help="target shard-group count (1..32 virtual "
+                        "partitions bound the range)")
+    x.add_argument("--endpoint", action="append", default=None,
+                   metavar="URL[,URL...]",
+                   help="one NEW shard group per flag (repeatable), "
+                        "commas separating its replica URLs — required "
+                        "when growing past the groups the router "
+                        "already knows")
+    x.add_argument("--status", action="store_true",
+                   help="report the in-flight (or last) migration and "
+                        "exit")
+    x.add_argument("--abort", action="store_true",
+                   help="abort the in-flight migration: the old plan "
+                        "was never touched, serving reverts "
+                        "bit-identical")
+    x.add_argument("--no-wait", action="store_true",
+                   help="start the migration and return immediately "
+                        "instead of following progress")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000,
+                   help="fleet router port")
+    x.add_argument("--server-key")
+    x.add_argument("--timeout", type=float, default=30.0)
+    x.set_defaults(fn=cmd_reshard)
     x = sub.add_parser("undeploy", help="stop a running deploy server")
     x.add_argument("--ip", default="127.0.0.1")
     x.add_argument("--port", type=int, default=8000)
@@ -1082,6 +1322,9 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--engine-dir", default=".")
     x.add_argument("--serving-url", default="http://127.0.0.1:8000",
                    help="single-host deploy server to apply rows to")
+    x.add_argument("--router-url", default="",
+                   help="fleet router base URL — apply rows through the "
+                        "sharded fleet instead of --serving-url")
     x.add_argument("--event-server-url", default="",
                    help="tail a remote event server's GET /tail/events.json"
                         " (default: read the event store directly)")

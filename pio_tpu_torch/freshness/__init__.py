@@ -21,7 +21,8 @@ per-user ridge solve against the FIXED item factors runs online:
                         batch;
   apply  (apply.py)   — hot-swap the refreshed user rows into serving:
                         the single-host QueryServer (in-process or
-                        ``POST /model/upsert_users``);
+                        ``POST /model/upsert_users``) or the fleet
+                        router (``POST /fleet/upsert_users``);
   folder (folder.py)  — the worker loop wiring it together, with
                         ``foldin.solve`` / ``foldin.apply`` chaos
                         points, an apply circuit breaker, a per-cycle
@@ -36,14 +37,13 @@ is a pure function of the user's full history and the item factors)
 rather than loses. docs/freshness.md has the architecture, the
 staleness contract, and the runbook.
 
-Counterpart of ``pio_tpu.freshness``. Not ported yet:
-``RouterFleetApplier`` (the fleet router) and the folder's ``async``
-health transport.
+Counterpart of ``pio_tpu.freshness``.
 """
 
 from pio_tpu_torch.freshness.apply import (
     FoldInApplyError,
     LocalServingApplier,
+    RouterFleetApplier,
     ServingHttpApplier,
 )
 from pio_tpu_torch.freshness.cursor import CursorStore, FoldCursor
@@ -71,6 +71,7 @@ __all__ = [
     "HttpEventSource",
     "LocalEventSource",
     "LocalServingApplier",
+    "RouterFleetApplier",
     "ServingHttpApplier",
     "TailWindow",
     "build_foldin_app",

@@ -56,7 +56,9 @@ import numpy as np
 import torch
 
 from pio_tpu_torch.ops import topk
-from pio_tpu_torch.ops.bucketing import dispatch_rows, pow2_bucket
+from pio_tpu_torch.ops.bucketing import (
+    MIN_SCORING_COLUMNS, dispatch_rows, padded_rows, pow2_bucket,
+)
 from pio_tpu_torch.ops.kernels.gather_rows import (
     GATHER_VMEM_TABLE_BUDGET,
     gather_rows_resident,
@@ -1062,7 +1064,8 @@ def recommend_topk(model: ALSModel, user_idx, k: int):
     reference does, and the matmul runs at the batch's dispatch rows
     (``ops.bucketing.dispatch_rows``), so a query answers the same bits
     whether it is served alone or inside a micro-batch or a coalesced
-    batch."""
+    batch. The columns run at ``MIN_SCORING_COLUMNS`` at the least, so a
+    shard's slice of the items scores each item as the whole table does."""
     n_items = model.item_factors.shape[0]
     k = max(1, min(int(k), n_items))
     k_bucket = pow2_bucket(k, cap=n_items)
@@ -1073,8 +1076,9 @@ def recommend_topk(model: ALSModel, user_idx, k: int):
         user_idx = np.concatenate(
             [user_idx, np.zeros(n - b, user_idx.dtype)])
     rows = model.user_factors[_index(user_idx, model.user_factors.device)]
+    items = padded_rows(model.item_factors, MIN_SCORING_COLUMNS)
     scores, idx = topk.topk_lowest_index(
-        (rows @ model.item_factors.T)[:b], k_bucket)
+        (rows @ items.T)[:b, :n_items], k_bucket)
     return scores[:, :k], idx[:, :k]
 
 

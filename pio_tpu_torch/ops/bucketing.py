@@ -25,6 +25,17 @@ def pow2_bucket(n: int, cap: int | None = None) -> int:
 DISPATCH_ROWS = 64
 
 
+#: the fewest columns (items) the exact route's scoring product runs at: a
+#: narrower table is padded with zero rows up to it and the padding's
+#: scores dropped. A narrow product takes another cuBLAS kernel, which sums
+#: in another order: on an H100 a (64, 64) x (64, N) f32 product gave every
+#: column the bits of the whole 26,744-item table's at each N probed from
+#: 333 up, and other bits at N 100 and below. A shard scores its slice of
+#: the catalog, so without the floor a small slice would not answer the
+#: single host's bits.
+MIN_SCORING_COLUMNS = 1024
+
+
 def dispatch_rows(b: int) -> int:
     """Rows a scoring product of ``b`` live rows runs at: DISPATCH_ROWS, or
     the batch's power-of-two bucket above it (a bulk batch)."""

@@ -370,6 +370,26 @@ def build_index(item_factors, params: RetrievalParams) -> RetrievalIndex:
                           cent, assign)
 
 
+def sidecar_nbytes_estimate(n_items: int, k: int,
+                            params: RetrievalParams) -> int:
+    """Upper-bound estimate of a clustered retrieval sidecar's bytes
+    BEFORE building it — what the shard memory-budget check charges in
+    addition to the f32 partition (the budget must reject a load that
+    would only blow up after the expensive k-means). Counts the host
+    table + clustering plus the padded (C, Lmax) device layout at a 2x
+    padding allowance (the device layout pads clusters to a shared
+    pow2 width; a pathologically imbalanced clustering can exceed the
+    allowance, which is why the shard re-checks the REALIZED bytes
+    after the build, before any swap)."""
+    if params.mode != "clustered" or n_items <= 0:
+        return 0
+    isize = 2 if params.dtype == "bf16" else 1
+    c = params.resolved_n_clusters(n_items)
+    host = n_items * k * isize + n_items * 8 + c * k * 4
+    device = 2 * n_items * (k * isize + 4 + 4)   # table + scales + gidx
+    return int(host + device + c * k * 4)
+
+
 @dataclass
 class DeviceRetrievalIndex:
     """The on-device scan layout: clusters padded to a shared pow2

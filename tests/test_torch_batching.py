@@ -12,7 +12,12 @@
     within ``RTOL``/``ATOL`` of them (ROADMAP C3: the reference's own
     scores move with the batch on jax CPU);
   * ``/batcher.json``, the guarded ``/batcher/window`` and the occupancy
-    histogram on ``/metrics``.
+    histogram on ``/metrics``;
+  * a 2-shard fleet behind the router's coalescer: batched shard frames
+    answering bit for bit the single-host deploy (exact) or the same
+    fleet a query at a time (clustered), a shard group killed mid-fan
+    (no 5xx, only the queries that need it degraded), and a shard that
+    refuses batched frames downgraded for good, logged once.
 """
 
 import json
@@ -27,6 +32,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from test_torch_fleet import answer as fleet_answer
+from test_torch_fleet import oracle as fleet_oracle
+from test_torch_fleet import time_limit, trained  # noqa: F401
 from test_torch_retrieval import mixture_rows
 
 from pio_tpu.data.bimap import EntityIdIndex as RefIdIndex
@@ -42,8 +50,12 @@ from pio_tpu.workflow.serve import ServingConfig as RefServingConfig
 from pio_tpu_torch.convert import recommendation_model_from_numpy
 from pio_tpu_torch.data.storage import Storage
 from pio_tpu_torch.models import recommendation as port_rec
-from pio_tpu_torch.resilience import Deadline, DeadlineExceeded
+from pio_tpu_torch.resilience import Deadline, DeadlineExceeded, chaos
 from pio_tpu_torch.serving.batcher import ContinuousBatcher
+from pio_tpu_torch.serving_fleet import rpcwire
+from pio_tpu_torch.serving_fleet.fleet import deploy_fleet
+from pio_tpu_torch.serving_fleet.plan import shard_of
+from pio_tpu_torch.serving_fleet.router import RouterConfig
 from pio_tpu_torch.utils.tracing import Tracer
 from pio_tpu_torch.workflow.context import create_workflow_context
 from pio_tpu_torch.workflow.serve import (
@@ -405,3 +417,156 @@ def test_batch_max_above_the_dispatch_rows_is_refused(deployment):
         QueryServer(engine, ep, storage,
                     ServingConfig(engine_id="rec", coalesce_window_ms=2.0,
                                   batch_max=128), ctx=ctx)
+
+
+# -- 2-shard fleet: the router's coalescer ------------------------------------
+
+def _fleet_coalescing(storage, window_ms=60.0, **kw):
+    return deploy_fleet(
+        storage, engine_id="rec", n_shards=2, n_replicas=1, device="cpu",
+        router_config=RouterConfig(coalesce_window_ms=window_ms,
+                                   probe_interval_s=0.2), **kw)
+
+
+def _warm_binary(port, n=3):
+    """A few sequential queries, so every replica's binary wire is
+    confirmed: only then does the router send batched frames."""
+    for u in range(n):
+        status, _ = call(port, "POST", "/queries.json",
+                         {"user": f"u{u}", "num": 3})
+        assert status == 200
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_fleet_coalesced_answers_equal_solo_bit_for_bit(deployment):
+    """Concurrent queries through the coalescing router ride batched
+    shard frames and answer bit for bit what the port's single-host
+    deploy answers (exact) or the same fleet answers a query at a time
+    (clustered: each shard's clusters are its own); ids are the JAX
+    QueryServer's in exact mode."""
+    storage, engine, ep, ctx, solo, ref = deployment
+    retrieval = ep.algorithms[0][1].retrieval
+    oracle_fleet = None
+    if retrieval is not None:
+        oracle_fleet = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                                    n_replicas=1, retrieval=retrieval,
+                                    device="cpu")
+    handle = _fleet_coalescing(storage, retrieval=retrieval)
+    try:
+        port = handle.router_http.port
+        _warm_binary(port)
+
+        def want(q):
+            if oracle_fleet is None:
+                return json.loads(json.dumps(
+                    solo.query(dict(q), record=False)))
+            return call(oracle_fleet.router_http.port, "POST",
+                        "/queries.json", dict(q))[1]
+
+        wants = [want(q) for q in MIXED_QUERIES]
+        for _round in range(2):
+            out = _concurrently(lambda i: call(
+                port, "POST", "/queries.json", MIXED_QUERIES[i]),
+                len(MIXED_QUERIES))
+            for q, w, (status, body) in zip(MIXED_QUERIES, wants, out):
+                assert status == 200, (q, body)
+                assert body == w, q
+                if oracle_fleet is None:
+                    assert _ids(body) == _ids(
+                        ref.query(dict(q), record=False)), q
+        status, batch = call(port, "POST", "/batch/queries.json",
+                             [dict(q) for q in MIXED_QUERIES])
+        assert status == 200 and batch == wants
+        _, fs = call(port, "GET", "/fleet.json")
+        bt = fs["batching"]
+        assert bt["enabled"]
+        assert bt["coalescedCalls"] >= 1
+        assert bt["coalescedQueries"] >= 2 * bt["coalescedCalls"]
+        assert all(rep["batchWire"] for g in fs["shards"].values()
+                   for rep in g["replicas"])
+    finally:
+        handle.close()
+        if oracle_fleet is not None:
+            oracle_fleet.close()
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_fleet_chaos_kill_shard_mid_coalesced_fan(trained):
+    """One shard group down mid-fan on the coalesced plane: no 5xx, the
+    queries that need it degrade (flagged), a whiteList query owned by
+    the live shard alone stays exact."""
+    storage, *_ = trained
+    handle = _fleet_coalescing(storage)
+    try:
+        port = handle.router_http.port
+        _warm_binary(port)
+        live, dead = 0, 1
+        users = [f"u{u}" for u in range(20) if shard_of(f"u{u}", 2) == live]
+        items = [f"i{i}" for i in range(12) if shard_of(f"i{i}", 2) == live]
+        assert users and len(items) >= 2
+        plain = [{"user": users[0], "num": 3},
+                 {"user": users[1 % len(users)], "num": 4}]
+        isolated = [{"user": users[0], "num": 2, "whiteList": items[:3]}]
+        queries = plain + isolated
+        with chaos.inject(f"fleet.shard{dead}", error=1.0, seed=7):
+            out = _concurrently(lambda i: call(
+                port, "POST", "/queries.json", queries[i]), len(queries))
+        assert all(status < 500 for status, _ in out), out
+        for status, body in out[:len(plain)]:
+            assert status == 200 and body.get("degraded") is True
+        for status, body in out[len(plain):]:
+            assert status == 200 and "degraded" not in body, body
+        status, body = call(port, "POST", "/queries.json",
+                            {"user": users[0], "num": 3})
+        assert status == 200 and not body.get("degraded")
+    finally:
+        handle.close()
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_fleet_pre_batch_replica_sticky_fallback_logged_once(
+        trained, monkeypatch, caplog):
+    """A shard that 400s the batched frame is downgraded to solo frames
+    for good (logged once); the coalescer re-runs each query solo, and
+    every answer stays the single-host deploy's."""
+    import logging
+
+    storage, engine, ep, ctx, iid = trained
+    qs = fleet_oracle(storage, engine, ep, ctx, iid)
+    handle = _fleet_coalescing(storage)
+    try:
+        port = handle.router_http.port
+        _warm_binary(port)
+        orig = rpcwire.decode_scoring_request
+
+        def pre_batch_decode(data, op):
+            rows, ks, arm, batched = orig(data, op)
+            if batched:
+                raise rpcwire.RpcWireError(
+                    "unexpected batch header (pre-batch build)")
+            return rows, ks, arm, batched
+
+        monkeypatch.setattr(rpcwire, "decode_scoring_request",
+                            pre_batch_decode)
+        queries = MIXED_QUERIES[:4]
+        with caplog.at_level(logging.WARNING,
+                             logger="pio_tpu_torch.fleet.router"):
+            for _round in range(3):
+                out = _concurrently(lambda i: call(
+                    port, "POST", "/queries.json", queries[i]),
+                    len(queries))
+                for q, (status, body) in zip(queries, out):
+                    assert status == 200, (q, body)
+                    assert body == fleet_answer(qs, q), q
+        downgrades = [r for r in caplog.records
+                      if "sticky solo-frame downgrade" in r.message]
+        assert 1 <= len(downgrades) <= 2
+        _, fs = call(port, "GET", "/fleet.json")
+        assert fs["batching"]["fallbackCalls"] >= 1
+        assert all(rep["batchWire"] is False
+                   for g in fs["shards"].values()
+                   for rep in g["replicas"]
+                   if rep["batchWire"] is not None)
+    finally:
+        handle.close()
+        qs.close()

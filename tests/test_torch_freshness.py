@@ -13,6 +13,10 @@ against the JAX package.
     ``/readyz`` (never gated on fold-in), an item upsert re-encoding the
     clustered-retrieval sidecar, a user upsert keeping it;
   * the folder resolves the instance the deploy serves;
+  * the fleet: folds routed by the router to every replica of the owner
+    group bit for bit (``RouterFleetApplier``, ``foldin --router-url``),
+    rejected and misrouted rows, a dead group reported and the applier
+    raising;
   * parity with ``pio_tpu``: the same seeded factors persisted in both
     packages, the same events, one fold-in cycle in each.
 """
@@ -31,6 +35,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from test_torch_fleet import time_limit  # noqa: F401
 
 from pio_tpu.data import DataMap as RefDataMap
 from pio_tpu.data import Event as RefEvent
@@ -61,6 +67,7 @@ from pio_tpu_torch.freshness import (
     FoldInConfig,
     FoldInWorker,
     LocalServingApplier,
+    RouterFleetApplier,
     ServingHttpApplier,
     build_foldin_app,
 )
@@ -70,7 +77,12 @@ from pio_tpu_torch.ops import als
 from pio_tpu_torch.ops import retrieval as rt
 from pio_tpu_torch.resilience import CircuitOpenError, chaos
 from pio_tpu_torch.server.http import Request
-from pio_tpu_torch.serving_fleet.fleet import resolve_fleet_model
+from pio_tpu_torch.serving_fleet.fleet import (
+    deploy_fleet,
+    resolve_fleet_model,
+)
+from pio_tpu_torch.serving_fleet.plan import persist_fleet_artifacts, shard_of
+from pio_tpu_torch.serving_fleet.shard import ShardConfig, ShardServer
 from pio_tpu_torch.utils.time import utcnow
 from pio_tpu_torch.workflow.context import create_workflow_context
 from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
@@ -835,3 +847,153 @@ def test_slice_matches_the_reference(tmp_path, implicit):
         store.close()
         rqs.close()
         ref_store.close()
+
+
+# -- the fleet: RouterFleetApplier and the shards' upserts -------------------
+
+@pytest.mark.usefixtures("time_limit")
+@pytest.mark.parametrize("implicit", [False, True])
+def test_foldin_oracle_parity_fleet(storage, tmp_path, implicit):
+    """The cold oracle through the sharded fleet: the router routes the
+    fold to the owner shard group, every replica holds the oracle's row
+    bit for bit, the other group none, and the user serves through
+    /queries.json."""
+    engine, ep, ctx, iid, app_id = train(storage, implicit=implicit)
+    handle = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                          n_replicas=2, device="cpu")
+    try:
+        worker = worker_of(
+            storage, tmp_path,
+            RouterFleetApplier(f"http://127.0.0.1:{handle.router_http.port}"),
+            implicit)
+        events = ingest(storage, app_id, "newbie",
+                        [("i1", 5), ("i4", 2), ("i7", 4)])
+        stats = worker.run_once()
+        assert stats["folded"] == 1
+        with worker._lock:
+            model = worker._model
+        want = oracle_row(model, events, worker.config.als_params)
+        owner = shard_of("newbie", 2)
+        for rep in range(2):
+            _http, srv = handle.shards[owner * 2 + rep]
+            assert srv.config.shard_index == owner
+            row = srv.user_row("newbie")
+            assert row is not None, f"replica {rep} missed the fold"
+            assert (np.asarray(row, np.float32) == want).all(), rep
+        for rep in range(2):
+            _http, srv = handle.shards[(1 - owner) * 2 + rep]
+            assert srv.user_row("newbie") is None
+        st, body = call(handle.router_http.port, "POST", "/queries.json",
+                        {"user": "newbie", "num": 3})
+        assert st == 200 and len(body["itemScores"]) == 3
+        assert not body.get("degraded")
+    finally:
+        handle.close()
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_router_upsert_rejected_rows_not_counted_as_applied(storage):
+    """A shard that answers 200 but rejects the rows (a plan mismatch)
+    is no successful apply: its group is in failedGroups and the applier
+    raises, so the folder keeps the users pending."""
+    train(storage)
+    handle = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                          n_replicas=1, device="cpu")
+    try:
+        url = f"http://127.0.0.1:{handle.router_http.port}"
+        u0 = next(u for u in ("a", "b", "c", "d") if shard_of(u, 2) == 0)
+        handle.shards[0][1].config.shard_index = 1
+        st, out = call(handle.router_http.port, "POST",
+                       "/fleet/upsert_users",
+                       {"users": {u0: [0.5, 0.5, 0.5, 0.5]}})
+        assert st == 200
+        assert out["ok"] is False and out["failedGroups"] == [0]
+        assert out["groups"]["0"]["ok"] is False
+        assert out["groups"]["0"]["replicas"]["0"]["rejected"] == [u0]
+        with pytest.raises(FoldInApplyError, match="incomplete"):
+            RouterFleetApplier(url).apply({u0: [0.5, 0.5, 0.5, 0.5]})
+        assert handle.router.replicas[0][0].breaker.snapshot() \
+            .state == "closed"
+    finally:
+        handle.close()
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_shard_upsert_rejects_misrouted_rows(storage):
+    """A row another shard owns is rejected, never shadowing the owner's
+    copy."""
+    _engine, _ep, _ctx, iid, _app_id = train(storage)
+    _, model = resolve_fleet_model(storage, "rec")
+    persist_fleet_artifacts(storage, iid, model, 2, 1)
+    srv = ShardServer(storage, ShardConfig(
+        shard_index=0, n_shards=2, engine_id="rec", instance_id=iid,
+        device="cpu"))
+    mine = next(u for u in ("a", "b", "c", "d") if shard_of(u, 2) == 0)
+    theirs = next(u for u in ("a", "b", "c", "d") if shard_of(u, 2) == 1)
+    row = [1.0, 0.0, 0.0, 0.0]
+    out = srv.upsert_user_rows({mine: row, theirs: row})
+    assert out["applied"] == 1 and out["rejected"] == [theirs]
+    assert srv.user_row(mine) == row
+    assert srv.user_row(theirs) is None
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_router_upsert_reports_failed_group_and_applier_raises(storage):
+    """One shard group down: the router applies what it can, names the
+    dead group in failedGroups, and RouterFleetApplier raises."""
+    train(storage)
+    handle = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                          n_replicas=1, device="cpu")
+    try:
+        url = f"http://127.0.0.1:{handle.router_http.port}"
+        users = ["a", "b", "c", "d", "e"]
+        live_u = next(u for u in users if shard_of(u, 2) == 0)
+        dead_u = next(u for u in users if shard_of(u, 2) == 1)
+        handle.shards[1][0].stop()
+        row = [0.5, 0.5, 0.5, 0.5]
+        st, out = call(handle.router_http.port, "POST",
+                       "/fleet/upsert_users",
+                       {"users": {live_u: row, dead_u: row}})
+        assert st == 200
+        assert out["ok"] is False and out["failedGroups"] == [1]
+        assert out["groups"]["0"]["ok"] and out["groups"]["0"]["fullyApplied"]
+        assert handle.shards[0][1].user_row(live_u) == row
+        with pytest.raises(FoldInApplyError, match="incomplete"):
+            RouterFleetApplier(url).apply({dead_u: row})
+    finally:
+        handle.close()
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_foldin_verb_router_url_folds_through_the_fleet(storage, tmp_path,
+                                                        monkeypatch,
+                                                        capsys):
+    """``foldin --router-url URL --once --replay`` folds every user and
+    applies through the router: the new user's owner group holds the
+    oracle's row on every replica."""
+    engine_dir = tmp_path / "engine"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps(variant()))
+    _engine, _ep, _ctx, _iid, app_id = train(storage)
+    monkeypatch.setattr("pio_tpu_torch.__main__.get_storage",
+                        lambda: storage)
+    handle = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                          n_replicas=2, device="cpu", server_key="K")
+    try:
+        events = ingest(storage, app_id, "newbie", [("i2", 5), ("i3", 1)])
+        rc = port_main(["foldin", "--engine-dir", str(engine_dir), "--once",
+                        "--replay", "--router-url",
+                        f"http://127.0.0.1:{handle.router_http.port}",
+                        "--server-key", "K", "--device", "cpu",
+                        "--state-path", str(tmp_path / "cursor.bin")])
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0, stats
+        assert stats["folded"] == 21 and stats["queueDepth"] == 0
+        _, model = resolve_fleet_model(storage, "rec", device="cpu")
+        want = oracle_row(model, events, foldin_config(tmp_path).als_params)
+        owner = shard_of("newbie", 2)
+        for rep in range(2):
+            row = handle.shards[owner * 2 + rep][1].user_row("newbie")
+            assert (np.asarray(row, np.float32) == want).all(), rep
+    finally:
+        handle.close()

@@ -72,7 +72,14 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.rollout.split",
                 "pio_tpu_torch.rollout.guards",
                 "pio_tpu_torch.rollout.controller",
+                "pio_tpu_torch.serving_fleet",
                 "pio_tpu_torch.serving_fleet.fleet",
+                "pio_tpu_torch.serving_fleet.plan",
+                "pio_tpu_torch.serving_fleet.rpcwire",
+                "pio_tpu_torch.serving_fleet.shard",
+                "pio_tpu_torch.serving_fleet.router",
+                "pio_tpu_torch.serving_fleet.reshard",
+                "pio_tpu_torch.serving_fleet.__main__",
                 "pio_tpu_torch.freshness", "pio_tpu_torch.freshness.cursor",
                 "pio_tpu_torch.freshness.tail",
                 "pio_tpu_torch.freshness.solver",

@@ -19,7 +19,10 @@ two arms) as the JAX package's tests hold the reference's, on the CPU:
     bodies are the port's solo answers for its instance bit for bit, the
     ids are the JAX ``QueryServer``'s on the same seeded instances and
     the scores within ``RTOL``/``ATOL`` of its (ROADMAP C3), and every
-    query counts once in its arm's stats.
+    query counts once in its arm's stats;
+  * the fleet: ``deploy --canary`` and ``promote`` against the router,
+    each user's body its arm's single-host answer bit for bit, and a
+    corrupt candidate partition rolling back by itself.
 
 Models are the reference tests' (20 users x 12 items, rank 4, trained by
 the port on the CPU) or seeded factors persisted in both packages.
@@ -40,6 +43,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from test_torch_fleet import time_limit  # noqa: F401
+
 from pio_tpu.data.bimap import EntityIdIndex as RefIdIndex
 from pio_tpu.data.dao import EngineInstance as RefEngineInstance
 from pio_tpu.data.dao import Model as RefModel
@@ -51,8 +56,9 @@ from pio_tpu.workflow.checkpoint import models_to_bytes as ref_models_to_bytes
 from pio_tpu.workflow.context import create_workflow_context as ref_ctx
 from pio_tpu.workflow.serve import QueryServer as RefQueryServer
 from pio_tpu.workflow.serve import ServingConfig as RefServingConfig
+from pio_tpu_torch.__main__ import main as port_main
 from pio_tpu_torch.convert import recommendation_model_from_numpy
-from pio_tpu_torch.data.dao import App
+from pio_tpu_torch.data.dao import App, Model
 from pio_tpu_torch.data.datamap import DataMap
 from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.data.storage import Storage
@@ -79,6 +85,14 @@ from pio_tpu_torch.server.plugins import (
     EngineServerPlugin,
     PluginContext,
     PluginRejection,
+)
+from pio_tpu_torch.serving_fleet.fleet import (
+    deploy_fleet,
+    resolve_fleet_model,
+)
+from pio_tpu_torch.serving_fleet.plan import (
+    persist_fleet_artifacts,
+    shard_model_id,
 )
 from pio_tpu_torch.utils import durable
 from pio_tpu_torch.workflow.context import create_workflow_context
@@ -938,3 +952,99 @@ def test_batched_queries_are_charged_their_dispatch_wall(seeded_arms):
                 <= 3.0 * active["meanLatencySeconds"])
     finally:
         qs.close()
+
+
+# -- the fleet's rollout: the router carries the split -----------------------
+
+def _query_all(port, oracle_of):
+    """Every user through the router: 200, and the body of the
+    single-host deploy of the arm ``oracle_of(uid)`` names, bit for
+    bit."""
+    for u in range(N_USERS):
+        uid = f"u{u}"
+        code, got = call(port, "POST", "/queries.json",
+                         {"user": uid, "num": 5})
+        assert code == 200, got
+        want = oracle_of(uid).query({"user": uid, "num": 5}, record=False)
+        assert got == json.loads(json.dumps(want)), f"user {uid}"
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_fleet_canary_sticky_split_and_promote(two_instances, capsys):
+    """``deploy --canary 40`` and ``promote`` against a fleet router: the
+    router carries the single host's sticky split over the candidate
+    partitions (each user's body its arm's single-host answer), every
+    replica stages the candidate, and promote makes the candidate's plan
+    the fleet's, its verdict persisted."""
+    storage, engine, ep, ctx, iid_a, iid_b = two_instances
+    handle = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                          n_replicas=1, instance_id=iid_a, device="cpu",
+                          server_key=KEY)
+    qs_a = oracle(storage, engine, ep, ctx, iid_a)
+    qs_b = oracle(storage, engine, ep, ctx, iid_b)
+    try:
+        port = handle.router_http.port
+        pct = 40
+        assert port_main(["deploy", "--canary", str(pct), "--port",
+                          str(port), "--server-key", KEY]) == 0
+        st = json.loads(capsys.readouterr().out)["rollout"]
+        assert st["candidateInstanceId"] == iid_b
+        assert st["baselineInstanceId"] == iid_a
+        assert st["stagePct"] == pct
+        _query_all(port, lambda uid: qs_b if in_canary(uid, pct) else qs_a)
+        for http, _srv in handle.shards:
+            _, info = call(http.port, "GET", "/shard/info")
+            assert info["candidateInstanceId"] == iid_b
+        _, status = call(port, "GET", "/rollout/status")
+        assert status["arms"]["candidate"]["requests"] == sum(
+            in_canary(f"u{u}", pct) for u in range(N_USERS))
+        assert port_main(["promote", "--port", str(port),
+                          "--server-key", KEY]) == 0
+        st = json.loads(capsys.readouterr().out)["rollout"]
+        assert st["verdict"] == VERDICT_PROMOTED and st["stagePct"] == 100
+        _, fleet = call(port, "GET", "/fleet.json")
+        assert fleet["plan"]["instanceId"] == iid_b
+        _query_all(port, lambda uid: qs_b)
+        assert load_record(storage, iid_b).verdict == VERDICT_PROMOTED
+    finally:
+        handle.close()
+        qs_a.close()
+        qs_b.close()
+
+
+@pytest.mark.usefixtures("time_limit")
+def test_fleet_corrupt_candidate_blob_auto_rolls_back(two_instances):
+    """One shard group's candidate blob corrupt: the staged load fails,
+    the rollout rolls back by itself with its verdict persisted, no
+    query is answered by the bad arm, no replica keeps a candidate, and
+    a fleet /reload stays on A."""
+    storage, engine, ep, ctx, iid_a, iid_b = two_instances
+    handle = deploy_fleet(storage, engine_id="rec", n_shards=2,
+                          n_replicas=2, instance_id=iid_a, device="cpu")
+    qs_a = oracle(storage, engine, ep, ctx, iid_a)
+    try:
+        port = handle.router_http.port
+        _, model_b = resolve_fleet_model(storage, "rec", instance_id=iid_b)
+        persist_fleet_artifacts(storage, iid_b, model_b, 2, 2)
+        models = storage.get_model_data_models()
+        good = bytearray(models.get(shard_model_id(iid_b, 1)).models)
+        good[len(good) // 2] ^= 0xFF
+        models.insert(Model(shard_model_id(iid_b, 1), bytes(good)))
+
+        code, out = call(port, "POST", "/rollout/deploy", {"pct": 30})
+        assert code == 503, out
+        assert out["verdict"] == VERDICT_ROLLED_BACK
+        record = load_record(storage, iid_b)
+        assert record.verdict == VERDICT_ROLLED_BACK
+        assert "load failed" in record.reason
+        _query_all(port, lambda uid: qs_a)
+        _, fleet = call(port, "GET", "/fleet.json")
+        for group in fleet["shards"].values():
+            for rep in group["replicas"]:
+                assert rep["candidateInstanceId"] is None
+        code, out = call(port, "POST", "/reload")
+        assert code == 200
+        assert out["planInstanceId"] == iid_a
+    finally:
+        handle.close()
+        qs_a.close()
