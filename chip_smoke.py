@@ -190,13 +190,32 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   sequence template (2 learning rates, 2 rolling folds) through the
   sequential fallback, K8 in every training forward and scoring batch.
 
+- templates: the similar-product, e-commerce and classification
+  templates. ``ALSSimilarityAlgorithm`` and ``ECommAlgorithm`` trained on
+  the train phase's ratings with their committed engine.json params (rank
+  32; K2 launched as the layouts predict); their batched answers (cosine
+  top-k of query-item means, and ``batch_predict`` of plain and
+  whiteList queries) equal to the solo ones at B 1, 2, 16 and 64; the
+  DIMSUM column cosine at the full catalog (the Gram of 138,493 users x
+  26,744 items from bf16 strips into f32), 64 items' top 50 held to f64;
+  the random forest's traversal on the card equal to its host ``predict``
+  on 100,000 x 50 rows; then 10^5 seeded view/like/buy events with item
+  categories and user attributes in sqlite, and each of the four
+  committed engine.json variants (similarproduct, similarproduct-dimsum,
+  ecommerce, classification) through ``python -m pio_tpu_torch train``
+  and a deploy answering 32 queries over HTTP, each body the in-process
+  answer; on the ecommerce deploy an item marked unavailable and an item
+  the user just bought drop out of the next answer; classification's
+  ``eval`` in class mode and ``batchpredict``.
+
 The phases run one at a time, in the order above but for
 attention_kernel and sequence_train, which follow train_validated, so
 that every kernel's timing and training throughput is taken with the
-card to itself. Then sequence_entry, train_resume and evaluate_sequence
-run in a second process of this script (``--sequence-lane``: its own
-store and launch counts) beside ingest to quickstart, so the host times
-of both groups are taken under each other's load.
+card to itself. Then templates, sequence_entry, train_resume and
+evaluate_sequence run in a second process of this script
+(``--sequence-lane``: its own stores and launch counts) beside ingest
+to quickstart, so the host times of both groups are taken under each
+other's load.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -7196,6 +7215,636 @@ def phase_evaluate_sequence(store, dev: torch.device) -> dict:
     return result
 
 
+# -- phase: the similar-product, e-commerce and classification templates -------
+
+TPL_DIRS = {   # engine.json variant -> (examples/ folder, the port's factory)
+    "similarproduct": ("similarproduct", "pio_tpu_torch.models."
+                       "similarproduct.SimilarProductEngine"),
+    "similarproduct-dimsum": ("similarproduct-dimsum", "pio_tpu_torch.models."
+                              "similarproduct.SimilarProductEngine"),
+    "ecommerce": ("ecommerce", "pio_tpu_torch.models.ecommerce."
+                  "ECommerceEngine"),
+    "classification": ("classification", "pio_tpu_torch.models."
+                       "classification.ClassificationEngine"),
+}
+TPL_EVENTS = 100_000       # the quickstart's size: ecommerce reads with find
+TPL_USERS, TPL_ITEMS = 5_000, 1_000
+TPL_CATEGORIES = 10
+TPL_CLS_USERS = 2_000      # users with classification attributes ($set)
+TPL_QUERIES = 32           # /queries.json a variant
+TPL_BATCHES = (1, 2, 16, 64)   # batch sizes held to the solo answers
+TPL_WHITE = 100            # whiteList candidates of a filtered query
+TPL_K = 20                 # cosine top-k of the invariance check
+DIMSUM_SAMPLE = 64         # items whose Gram column is held to f64
+# cosines of f32 sums of up to 138,493 bf16 products against f64 sums of
+# the same bf16 values
+DIMSUM_ATOL = 1e-4
+RF_ROWS, RF_FEATURES = 100_000, 50
+RF_TRAIN_ROWS = 20_000     # the forest grows on the host from these
+TPL_CLASSES = '''"""Class-mode evaluation of the classification template."""
+from pio_tpu_torch.controller import (
+    AverageMetric, EngineParams, EngineParamsGenerator, Evaluation)
+from pio_tpu_torch.models.classification import (
+    ClassificationEngine, DataSourceParams, NaiveBayesParams)
+
+
+class Accuracy(AverageMetric):
+    def calculate_one(self, q, p, a):
+        return 1.0 if p["label"] == a else 0.0
+
+
+class ClsEval(Evaluation):
+    engine = ClassificationEngine.apply()
+    metric = Accuracy()
+
+
+class ClsGrid(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(datasource=("", DataSourceParams(
+            app_name="MyApp", attributes=("gender", "age", "education"),
+            label="plan", eval_k=3)),
+            algorithms=[("naive", NaiveBayesParams(lambda_=lam))])
+        for lam in (1.0, 0.5)]
+'''
+
+
+def template_params(variant: str) -> dict:
+    """The committed engine.json's algorithm params of a variant."""
+    folder = TPL_DIRS[variant][0]
+    conf = json.loads((REPO_ROOT / "examples" / folder / "engine.json")
+                      .read_text())
+    return conf["algorithms"][0]["params"]
+
+
+@contextlib.contextmanager
+def recorded_als_trains():
+    """What each ``ops.als.als_train`` call while the block runs was given:
+    (ratings, users, items, ALSParams), from which K2's launches follow."""
+    from pio_tpu_torch.ops import als
+
+    plain = als.als_train
+    seen: list = []
+
+    def call(user_idx, item_idx, values, n_users, n_items, params, *a,
+             **kw):
+        seen.append((len(values), n_users, n_items, params))
+        return plain(user_idx, item_idx, values, n_users, n_items, params,
+                     *a, **kw)
+
+    als.als_train = call
+    try:
+        yield seen
+    finally:
+        als.als_train = plain
+
+
+def expected_k2(trains: list) -> int:
+    return sum(expected_flush_launches(n, nu, ni, p)
+               for n, nu, ni, p in trains)
+
+
+def templates_als(ratings, storage, dev: torch.device) -> dict:
+    """ALSSimilarityAlgorithm and ECommAlgorithm trained on bench.py's
+    synthetic ML-20M ratings with their committed engine.json params, K2
+    launched as the layouts predict and no other kernel."""
+    from pio_tpu_torch.data.bimap import EntityIdIndex
+    from pio_tpu_torch.data.eventstore import Interactions
+    from pio_tpu_torch.models import ecommerce as ec
+    from pio_tpu_torch.models import similarproduct as sp
+    from pio_tpu_torch.workflow.context import create_workflow_context
+
+    users, items, vals = ratings
+    inter = Interactions(users, items, vals,
+                         EntityIdIndex(f"u{u}" for u in range(N_USERS)),
+                         EntityIdIndex(f"i{i}" for i in range(N_ITEMS)))
+    ctx = create_workflow_context(storage, device=dev)
+    out = {}
+    for variant, algo, data in (
+            ("similarproduct", sp.ALSSimilarityAlgorithm(
+                sp.ALSAlgorithmParams(**template_params("similarproduct"))),
+             sp.SimilarProductData(inter, {})),
+            ("ecommerce", ec.ECommAlgorithm(ec.ECommAlgorithmParams(
+                **template_params("ecommerce"))),
+             ec.ECommerceData(inter, {}))):
+        assert_f32_matmul()
+        with recorded_als_trains() as trains:
+            reset_counts()
+            t0 = time.perf_counter()
+            model = algo.train(ctx, data)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_counts()
+        want = expected_k2(trains)
+        if len(trains) != 1 or launches != {
+                **dict.fromkeys(launches, 0), "segment_flush": want}:
+            raise AssertionError(f"templates {variant}: {len(trains)} "
+                                 f"trainings, launches {launches}, the "
+                                 f"layouts predict {want} of K2")
+        itf = (model.item_factors if variant == "similarproduct"
+               else model.factors.item_factors)
+        if itf.shape != (N_ITEMS, trains[0][3].rank) or not bool(
+                torch.isfinite(itf).all()):
+            raise AssertionError(f"templates {variant}: item factors "
+                                 f"{tuple(itf.shape)}, not all finite")
+        out[variant] = {"algo": algo, "model": model, "train_s": secs,
+                        "ratings_per_s": NNZ * trains[0][3].iterations
+                        / secs, "launches": launches,
+                        "segment_flush_launches_expected": want}
+    return out
+
+
+def _solo_and_batched(fn_solo, fn_batch, queries: list) -> dict:
+    """Each batch of TPL_BATCHES sizes against the queries' solo answers:
+    the answers that differ, and the ms a solo answer and a batch of 64
+    took."""
+    t0 = time.perf_counter()
+    solo = [fn_solo(q) for q in queries]
+    solo_ms = 1e3 * (time.perf_counter() - t0) / len(queries)
+    differ = {}
+    for b in TPL_BATCHES:
+        t0 = time.perf_counter()
+        got = fn_batch(queries[:b])
+        if b == TPL_BATCHES[-1]:
+            batch_ms = 1e3 * (time.perf_counter() - t0)
+        differ[b] = sum(g != s for g, s in zip(got, solo[:b]))
+    return {"differ": differ, "solo_ms": solo_ms, "batch64_ms": batch_ms}
+
+
+def templates_invariance(als_out: dict) -> dict:
+    """Batched answers equal to solo ones on the ML-20M models: the
+    cosine top-k of query-item means (``group_means`` + ``cosine_topk``)
+    at B 1, 2, 16 and 64; and each template's ``batch_predict`` of plain
+    and whiteList queries (the latter through ``rank_candidates``) against
+    its ``predict``."""
+    from pio_tpu_torch.ops import similarity as sim
+
+    rng = np.random.default_rng(SEED + 41)
+    sp_out, ec_out = als_out["similarproduct"], als_out["ecommerce"]
+    itf = sp_out["model"].item_factors
+    groups = [rng.integers(0, N_ITEMS, rng.integers(1, 9))
+              for _ in range(TPL_BATCHES[-1])]
+
+    def cos_solo(g):
+        s, i = sim.cosine_topk(itf, sim.mean_vector(itf, g), TPL_K)
+        return (s[0].cpu().numpy().tobytes(), i[0].cpu().numpy().tobytes())
+
+    def cos_batch(gs):
+        s, i = sim.cosine_topk(itf, sim.group_means(itf, gs), TPL_K)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        return [(s[r].tobytes(), i[r].tobytes()) for r in range(len(gs))]
+
+    def white():
+        return [f"i{j}" for j in rng.choice(N_ITEMS, TPL_WHITE,
+                                            replace=False)]
+
+    sp_q = [{"items": [f"i{j}" for j in g], "num": 10}
+            | ({"whiteList": white()} if r % 2 else {})
+            for r, g in enumerate(groups)]
+    ec_q = [{"user": f"u{u}", "num": 10}
+            | ({"whiteList": white()} if r % 2 else {})
+            for r, u in enumerate(rng.choice(N_USERS, len(groups),
+                                             replace=False))]
+    out = {"cosine_topk": _solo_and_batched(cos_solo, cos_batch, groups)}
+    for name, o, qs in (("similarproduct", sp_out, sp_q),
+                        ("ecommerce", ec_out, ec_q)):
+        algo, model = o["algo"], o["model"]
+        out[name] = _solo_and_batched(
+            functools.partial(algo.predict, model),
+            functools.partial(algo.batch_predict, model), qs)
+    bad = {k: v["differ"] for k, v in out.items() if any(v["differ"].values())}
+    if bad:
+        raise AssertionError(f"templates: batched answers differ from solo "
+                             f"ones: {bad}")
+    return out
+
+
+def dimsum_f64_columns(ratings, sample: np.ndarray,
+                       dev: torch.device) -> torch.Tensor:
+    """(N_ITEMS, len(sample)) column cosines to the sampled items in f64,
+    before the threshold: duplicate (user, item) ratings summed, each sum
+    rounded to bf16 as the port's strips are."""
+    users, items, vals = ratings
+    ix = torch.stack([torch.from_numpy(users).long(),
+                      torch.from_numpy(items).long()]).to(dev)
+    m = torch.sparse_coo_tensor(
+        ix, torch.from_numpy(vals).double().to(dev),
+        (N_USERS, N_ITEMS)).coalesce()
+    r, c = m.indices()
+    v = m.values().to(torch.bfloat16).double()
+    norm = torch.zeros(N_ITEMS, dtype=torch.float64, device=dev)
+    norm.index_add_(0, c, v * v)
+    norm = norm.sqrt()
+    pos = torch.full((N_ITEMS,), -1, dtype=torch.long, device=dev)
+    s_t = torch.as_tensor(sample, device=dev)
+    pos[s_t] = torch.arange(len(sample), device=dev)
+    keep = pos[c] >= 0
+    dense = torch.zeros((N_USERS, len(sample)), dtype=torch.float64,
+                        device=dev)
+    dense[r[keep], pos[c[keep]]] = v[keep]
+    mt = torch.sparse_coo_tensor(torch.stack([c, r]), v,
+                                 (N_ITEMS, N_USERS)).to_sparse_csr()
+    g = mt @ dense                                      # (N_ITEMS, S)
+    inv = torch.where(norm > 0, 1.0 / norm, torch.zeros_like(norm))
+    return g * inv[:, None] * inv[s_t][None, :]
+
+
+def dimsum_against_f64(scores: np.ndarray, idx: np.ndarray, ratings,
+                       threshold: float, k: int,
+                       dev: torch.device) -> dict:
+    """DIMSUM_SAMPLE items' top k held to f64. An entry within
+    DIMSUM_ATOL of the threshold may fall on either side of it, so each
+    sorted score must lie between the f64 top k with the threshold raised
+    and lowered by DIMSUM_ATOL (within DIMSUM_ATOL); where both give the
+    same top k, the error is read against it and the ids are held to its
+    ids wherever neighbouring scores differ by more than DIMSUM_ATOL."""
+    sample = np.random.default_rng(SEED + 42).choice(N_ITEMS, DIMSUM_SAMPLE,
+                                                     replace=False)
+    raw = dimsum_f64_columns(ratings, sample, dev)
+    cols = torch.arange(DIMSUM_SAMPLE, device=dev)
+    s_t = torch.as_tensor(sample, device=dev)
+    tops = []
+    for t in (threshold + DIMSUM_ATOL, threshold - DIMSUM_ATOL):
+        g = torch.where(raw >= t, raw, torch.zeros_like(raw))
+        g[s_t, cols] = -1e9
+        vals, ids = torch.sort(g.T, dim=1, descending=True, stable=True)
+        tops.append((vals[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()))
+    (lo_s, _), (hi_s, hi_i) = tops
+    got = scores[sample].astype(np.float64)
+    outside = int(((got < lo_s - DIMSUM_ATOL)
+                   | (got > hi_s + DIMSUM_ATOL)).sum())
+    clear = bool(np.array_equal(lo_s, hi_s))
+    same = [r for r in range(DIMSUM_SAMPLE)
+            if np.array_equal(lo_s[r], hi_s[r])]
+    err = float(np.abs(got[same] - hi_s[same]).max()) if same else 0.0
+    moved = 0
+    for r in same:
+        gaps = np.abs(np.diff(hi_s[r]))
+        for j in range(k):
+            apart = ((j == 0 or gaps[j - 1] > DIMSUM_ATOL)
+                     and (j == k - 1 or gaps[j] > DIMSUM_ATOL))
+            moved += int(apart and idx[sample[r], j] != hi_i[r, j])
+    if outside or err > DIMSUM_ATOL or moved:
+        raise AssertionError(f"DIMSUM against f64: {outside} scores "
+                             f"outside the bounds, max |err| {err}, "
+                             f"{moved} ids moved")
+    return {"f64_max_abs_err": err, "f64_rows_clear_of_threshold":
+            len(same), "f64_all_clear": clear, "f64_ids_moved": moved}
+
+
+def templates_dimsum(ratings, dev: torch.device) -> dict:
+    """``column_cosine_topk`` at the full catalog (the DIMSUM engine.json's
+    threshold and k_sim): the Gram of 138,493 users x 26,744 items from
+    bf16 strips into f32, its time and rate, and DIMSUM_SAMPLE items' top
+    k held to an f64 computation of the same columns."""
+    from pio_tpu_torch.ops import similarity as sim
+
+    p = template_params("similarproduct-dimsum")
+    users, items, vals = ratings
+    plain_gram = sim._gram
+    gram: dict = {}
+
+    def timed_gram(u_b, i_b, v_b, counts, n_pad, user_batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = plain_gram(u_b, i_b, v_b, counts, n_pad, user_batch)
+        torch.cuda.synchronize()
+        gram.update(s=time.perf_counter() - t0, n_pad=n_pad,
+                    strips=len(counts), user_batch=user_batch,
+                    dtype=str(g.dtype))
+        return g
+
+    sim._gram = timed_gram
+    launches0 = read_counts()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scores, idx = sim.column_cosine_topk(
+            users, items, vals, N_USERS, N_ITEMS, k=p["k_sim"],
+            threshold=p["threshold"], device=dev)
+        secs = time.perf_counter() - t0
+    finally:
+        sim._gram = plain_gram
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if read_counts() != launches0:
+        raise AssertionError("DIMSUM launched a kernel of the port")
+    rows = np.arange(N_ITEMS)[:, None]
+    if (scores.shape != (N_ITEMS, p["k_sim"]) or not np.isfinite(
+            scores).all() or (idx < 0).any() or (idx >= N_ITEMS).any()
+            or (scores > 1 + 1e-5).any()
+            or ((idx == rows) & (scores > 0)).any()
+            or gram.get("dtype") != "torch.float32"):
+        raise AssertionError(f"DIMSUM table: shape {scores.shape}, "
+                             f"Gram {gram}")
+    t0 = time.perf_counter()
+    check = dimsum_against_f64(scores, idx, ratings, p["threshold"],
+                               p["k_sim"], dev)
+    flops = 2.0 * gram["strips"] * gram["user_batch"] * gram["n_pad"] ** 2
+    return {"s": secs, "gram_s": gram["s"], "gram": gram,
+            "gram_tflops": flops / gram["s"] / 1e12, "peak_gib": peak,
+            "f64_check_s": time.perf_counter() - t0, **check,
+            "positive_per_item": float((scores > 0).sum(1).mean())}
+
+
+def templates_forest(dev: torch.device) -> dict:
+    """The forest's traversal on the card against its host ``predict`` on
+    RF_ROWS x RF_FEATURES rows (the classification template's forest
+    params; grown on the host from RF_TRAIN_ROWS of them)."""
+    from pio_tpu_torch.ops.forest import random_forest_train
+
+    rng = np.random.default_rng(SEED + 43)
+    x = rng.normal(size=(RF_ROWS, RF_FEATURES)).astype(np.float32)
+    y = (x[:, :3].sum(axis=1) > 0).astype(np.int64) + (x[:, 3] > 0.8)
+    t0 = time.perf_counter()
+    model = random_forest_train(x[:RF_TRAIN_ROWS], y[:RF_TRAIN_ROWS],
+                                n_classes=3, num_trees=10, max_depth=5,
+                                min_leaf=10)
+    grow_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = model.predict(x)
+    host_s = time.perf_counter() - t0
+    got = model.predict_device(x, device=dev).cpu().numpy()
+    if not np.array_equal(got, host):
+        raise AssertionError(f"forest: {(got != host).sum()} of {RF_ROWS} "
+                             "device labels differ from the host's")
+    xd = torch.from_numpy(x).to(dev)
+    return {"grow_s": grow_s, "host_predict_s": host_s,
+            "device_ms": gpu_ms(lambda: model.predict_device(xd, device=dev),
+                                reps=5, inner=2),
+            "accuracy": float((host == y).mean()), "rows": RF_ROWS,
+            "features": RF_FEATURES, "differ": 0}
+
+
+def template_events(storage) -> dict:
+    """TPL_EVENTS seeded view (70 %), like (10 %) and buy events of
+    TPL_USERS users over TPL_ITEMS items (zipf 1.2), one a second; every
+    item's $set categories; TPL_CLS_USERS users' $set attributes with the
+    classification fixture's plan rule (tests/test_templates.py)."""
+    from datetime import datetime, timedelta, timezone
+
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.event import Event
+
+    app_id = storage.get_metadata_apps().insert(App(0, "MyApp"))
+    events = storage.get_events()
+    events.init(app_id)
+    rng = np.random.default_rng(SEED + 44)
+    t0 = datetime(2024, 1, 1, tzinfo=timezone.utc)
+    u = rng.zipf(1.2, TPL_EVENTS) % TPL_USERS
+    i = rng.zipf(1.2, TPL_EVENTS) % TPL_ITEMS
+    kind = rng.choice(["view", "like", "buy"], TPL_EVENTS,
+                      p=[0.7, 0.1, 0.2])
+    batch = [Event(str(kind[n]), "user", f"u{u[n]}", "item", f"i{i[n]}", {},
+                   t0 + timedelta(seconds=n)) for n in range(TPL_EVENTS)]
+    later = t0 + timedelta(seconds=TPL_EVENTS)
+    batch += [Event("$set", "item", f"i{j}", properties={
+        "categories": sorted({f"c{c}" for c in rng.integers(
+            0, TPL_CATEGORIES, 2)})}, event_time=later)
+        for j in range(TPL_ITEMS)]
+    for n in range(TPL_CLS_USERS):
+        gender = "m" if rng.random() < 0.5 else "f"
+        edu = str(rng.choice(["hs", "college"]))
+        age = float(rng.integers(20, 60))
+        plan = ("premium" if (gender == "m" and edu == "college") or age > 50
+                else "basic")
+        batch.append(Event("$set", "user", f"u{n}", properties={
+            "gender": gender, "age": age, "education": edu, "plan": plan},
+            event_time=later))
+    t = time.perf_counter()
+    for lo in range(0, len(batch), 20_000):
+        events.insert_batch(batch[lo:lo + 20_000], app_id)
+    return {"app_id": app_id, "events": len(batch),
+            "write_s": time.perf_counter() - t}
+
+
+def template_queries(variant: str, rng) -> list:
+    if variant.startswith("similarproduct"):
+        return [{"items": [f"i{j}" for j in rng.integers(0, 50, 2)],
+                 "num": 10}
+                | ({"categories": ["c1", "c2"]} if n % 3 == 1 else {})
+                | ({"whiteList": [f"i{j}" for j in range(0, 200, 3)]}
+                   if n % 3 == 2 else {})
+                for n in range(TPL_QUERIES)]
+    if variant == "ecommerce":
+        return [{"user": f"u{u}", "num": 10}
+                | ({"categories": ["c3"]} if n % 4 == 1 else {})
+                | ({"blackList": ["i0", "i1"]} if n % 4 == 2 else {})
+                for n, u in enumerate(rng.integers(0, 200, TPL_QUERIES))]
+    return [{"gender": str(rng.choice(["m", "f"])),
+             "education": str(rng.choice(["hs", "college"])),
+             "age": float(rng.integers(20, 60))}
+            for _ in range(TPL_QUERIES)]
+
+
+def _normal(x):
+    """A predict answer as it reads back from JSON."""
+    return json.loads(json.dumps(x))
+
+
+def template_verb(store, variant: str, dev: torch.device, rng) -> dict:
+    """``python -m pio_tpu_torch train`` of a committed engine.json (its
+    factory the port's), then the instance deployed (what ``deploy``
+    serves) answering TPL_QUERIES over HTTP, each body the in-process
+    ``predict``; K2 as the trainings' layouts predict; no kernel in the
+    deploy."""
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    folder, factory = TPL_DIRS[variant]
+    conf = json.loads((REPO_ROOT / "examples" / folder / "engine.json")
+                      .read_text())
+    conf["engineFactory"] = factory
+    engine_dir = store.tmp / f"engine-{variant}"
+    engine_dir.mkdir()
+    (engine_dir / "engine.json").write_text(json.dumps(conf))
+    engine, ep = _engine_from_dir(engine_dir)
+    ds_cls = type(engine._doers(ep)[0])
+    with recorded_als_trains() as trains, \
+            watched(ds_cls, "read_training") as reads:
+        reset_counts()
+        rc, printed, train_s = _cli(["train", "--engine-dir",
+                                     str(engine_dir)], store.storage)
+        launches = read_counts()
+    want = expected_k2(trains)
+    if rc != 0 or launches != {**dict.fromkeys(launches, 0),
+                               "segment_flush": want}:
+        raise AssertionError(f"{variant}: train rc {rc}, launches "
+                             f"{launches}, want {want} of K2")
+    out = {"train_s": train_s, "read_s": reads[0][0], "launches": launches,
+           "segment_flush_launches_expected": want,
+           "ratings": trains[0][0] if trains else None}
+    t0 = time.perf_counter()
+    http, qs = create_query_server(
+        engine, ep, store.storage,
+        ServingConfig(ip="127.0.0.1", port=0, engine_id=conf["id"]),
+        ctx=create_workflow_context(store.storage, device=dev))
+    http.start()
+    out["deploy_load_s"] = time.perf_counter() - t0
+    try:
+        queries = template_queries(variant, rng)
+        reset_counts()
+        ms, answered = [], 0
+        for q in queries:
+            status, body, secs = _post(http.port, "/queries.json", q)
+            ms.append(1e3 * secs)
+            if status != 200 or body != _normal(
+                    qs.algorithms[0].predict(qs.models[0], q)):
+                raise AssertionError(f"{variant} {q}: {status} {body}")
+            answered += bool(body.get("itemScores") or body.get("label"))
+        serve_launches = read_counts()
+        if any(serve_launches.values()) or answered < len(queries) // 2:
+            raise AssertionError(f"{variant}: serving launches "
+                                 f"{serve_launches}, {answered} answered")
+        out.update(query_ms=statistics.median(ms), answered=answered)
+        if variant == "ecommerce":
+            out["serve_reads"] = ecommerce_reads(qs)
+            out["rules"] = ecommerce_rules(store, http.port, qs)
+    finally:
+        http.stop()
+        qs.close()
+    if variant == "classification":
+        out.update(classification_verbs(store, engine_dir, rng))
+    return out
+
+
+def ecommerce_reads(qs) -> dict:
+    """Where an ecommerce query's time goes: the deployed algorithm's
+    serve-time store reads (the user's seen items, the unavailable items,
+    a cold user's recent views) and a whole ``predict``, median ms over
+    16 users each."""
+    algo, model = qs.algorithms[0], qs.models[0]
+    users = [f"u{u}" for u in range(16)]
+
+    def median_ms(fn) -> float:
+        times = []
+        for u in users:
+            t0 = time.perf_counter()
+            fn(u)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    return {"seen_ms": median_ms(algo._seen_items),
+            "unavailable_ms": median_ms(
+                lambda _: algo._unavailable_items()),
+            "recent_ms": median_ms(
+                lambda u: algo._recent_item_vector(model, "cold-" + u)),
+            "predict_ms": median_ms(
+                lambda u: algo.predict(model, {"user": u, "num": 10}))}
+
+
+def ecommerce_rules(store, port: int, qs) -> dict:
+    """On the running deploy: the top item marked unavailable and the
+    second one bought by the user drop out of the user's next answer."""
+    from datetime import datetime, timedelta, timezone
+
+    from pio_tpu_torch.data.event import Event
+
+    q = {"user": "u7", "num": 10}
+    _, before, _ = _post(port, "/queries.json", q)
+    top = [s["item"] for s in before["itemScores"]]
+    later = datetime(2024, 1, 2, tzinfo=timezone.utc)
+    events = store.storage.get_events()
+    app_id = store.storage.get_metadata_apps().get_by_name("MyApp").id
+    events.insert(Event("$set", "constraint", "unavailableItems", None, None,
+                        {"items": [top[0]]}, later), app_id)
+    events.insert(Event("buy", "user", "u7", "item", top[1], {},
+                        later + timedelta(seconds=1)), app_id)
+    _, after, _ = _post(port, "/queries.json", q)
+    got = [s["item"] for s in after["itemScores"]]
+    if top[0] in got or top[1] in got or len(got) != len(top) or (
+            after != _normal(qs.algorithms[0].predict(qs.models[0], q))):
+        raise AssertionError(f"ecommerce rules: before {top}, after {got}")
+    return {"unavailable": top[0], "bought": top[1], "after": got[:3]}
+
+
+def classification_verbs(store, engine_dir: Path, rng) -> dict:
+    """``eval`` in class mode (2 candidates x 3 folds, accuracy) and
+    ``batchpredict`` of the deploy's queries, on the trained instance."""
+    (engine_dir / "chip_cls_eval.py").write_text(TPL_CLASSES)
+    rc, printed, eval_s = _cli(
+        ["eval", "chip_cls_eval.ClsEval", "chip_cls_eval.ClsGrid",
+         "--engine-dir", str(engine_dir), "--output",
+         str(store.tmp / "cls_best.json")], store.storage)
+    sys.modules.pop("chip_cls_eval", None)
+    if rc != 0:
+        raise AssertionError(f"classification eval: rc {rc}: {printed}")
+    res = _eval_scores(store.storage,
+                       printed.split("Instance: ")[1].split()[0])
+    if res["best_score"] < 0.7:
+        raise AssertionError(f"classification eval: {res}")
+    queries = template_queries("classification", rng)
+    inp, outp = store.tmp / "cls_q.jsonl", store.tmp / "cls_p.jsonl"
+    inp.write_text("".join(json.dumps(q) + "\n" for q in queries))
+    rc, printed, bp_s = _cli(["batchpredict", "--engine-dir",
+                              str(engine_dir), "--input", str(inp),
+                              "--output", str(outp)], store.storage)
+    lines = [json.loads(x) for x in outp.read_text().splitlines()]
+    if rc != 0 or len(lines) != len(queries) or any(
+            "prediction" not in x or "label" not in x["prediction"]
+            for x in lines):
+        raise AssertionError(f"classification batchpredict: rc {rc}")
+    return {"eval_s": eval_s, "eval": res, "batchpredict_s": bp_s}
+
+
+def phase_templates(dev: torch.device) -> dict:
+    """The similar-product, e-commerce and classification templates:
+    both ALS templates trained at the ML-20M shape (K2), batched answers
+    held to solo ones, the DIMSUM Gram at the full catalog, the forest's
+    device traversal, then each of the four committed engine.json
+    variants through train, a deploy and /queries.json on TPL_EVENTS
+    sqlite events, classification's class-mode eval and batchpredict."""
+    secs: dict = {}
+    t = time.perf_counter()
+    ratings = synth_ratings()
+    secs["synth"] = time.perf_counter() - t
+    with sqlite_store("pio_chip_templates_") as store:
+        t = time.perf_counter()
+        als_out = templates_als(ratings, store.storage, dev)
+        secs["als"] = time.perf_counter() - t
+        emit("templates", part="als", card=card_line(), **{
+            v: {k: o[k] for k in ("train_s", "ratings_per_s", "launches",
+                                  "segment_flush_launches_expected")}
+            for v, o in als_out.items()})
+        t = time.perf_counter()
+        inv = templates_invariance(als_out)
+        secs["invariance"] = time.perf_counter() - t
+        emit("templates", part="batch_invariance", **inv)
+        k2_als = {v: o["launches"]["segment_flush"]
+                  for v, o in als_out.items()}
+        k2_als_want = {v: o["segment_flush_launches_expected"]
+                       for v, o in als_out.items()}
+        del als_out
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        dimsum = templates_dimsum(ratings, dev)
+        secs["dimsum"] = time.perf_counter() - t
+        emit("templates", part="dimsum", **dimsum)
+        del ratings
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        forest = templates_forest(dev)
+        secs["forest"] = time.perf_counter() - t
+        emit("templates", part="forest", **forest)
+        t = time.perf_counter()
+        written = template_events(store.storage)
+        secs["events"] = time.perf_counter() - t
+        rng = np.random.default_rng(SEED + 45)
+        verbs = {}
+        for variant in TPL_DIRS:
+            t = time.perf_counter()
+            verbs[variant] = template_verb(store, variant, dev, rng)
+            secs[f"verb_{variant}"] = time.perf_counter() - t
+        emit("templates", part="verbs", events=written, **verbs)
+    emit("templates", part="seconds", seconds=secs)
+    k2 = {**k2_als, **{f"verb_{v}": o["launches"]["segment_flush"]
+                       for v, o in verbs.items()
+                       if o["segment_flush_launches_expected"]}}
+    k2_want = {**k2_als_want, **{
+        f"verb_{v}": o["segment_flush_launches_expected"]
+        for v, o in verbs.items() if o["segment_flush_launches_expected"]}}
+    return {"segment_flush": k2, "segment_flush_expected": k2_want,
+            "seconds": secs}
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
                   case: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -7223,10 +7872,11 @@ SEQUENCE_LANE = "--sequence-lane"
 
 
 def sequence_lane(out: Path) -> int:
-    """The sequence template's end-to-end phases (sequence_entry,
-    train_resume, evaluate_sequence) in a process of their own, which
-    ``main`` starts beside the ALS event phases: their seconds and K8's
-    launches on their paths are written to ``out`` as JSON."""
+    """The templates phase and the sequence template's end-to-end phases
+    (sequence_entry, train_resume, evaluate_sequence) in a process of
+    their own, which ``main`` starts beside the ALS event phases: their
+    seconds and K2's and K8's launches on their paths are written to
+    ``out`` as JSON."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     # a SIGTERM from main unwinds the phases, whose cleanup stops the
@@ -7237,12 +7887,14 @@ def sequence_lane(out: Path) -> int:
     torch.cuda.set_device(dev)
     wall: dict = {}
     timed = functools.partial(run_timed, wall, time.perf_counter())
+    templates = timed("templates", phase_templates, dev)
     with sqlite_store("pio_chip_seq_") as store:
         seq_entry = timed("sequence_entry", phase_sequence_entry, store, dev)
         resume = timed("train_resume", phase_train_resume, store, dev)
         seq_eval = timed("evaluate_sequence", phase_evaluate_sequence,
                          store, dev)
-    out.write_text(json.dumps({"wall": wall, "flash_attention": {
+    out.write_text(json.dumps({"wall": wall, "templates": templates,
+                               "flash_attention": {
         "sequence_entry": seq_entry["launches"]["flash_attention"],
         "train_resume": {name: run["launches"]["flash_attention"]
                          for name, run in resume["runs"].items()},
@@ -7318,9 +7970,9 @@ def main() -> int:
     attn = timed("attention_kernel", phase_attention_kernel, dev)
     timed("sequence_train", phase_sequence_train, dev)
     # every kernel's timing and training throughput is taken above, the
-    # card to itself; the sequence template's end-to-end phases then run
-    # in a second process beside the ALS event phases below (their host
-    # times are taken under each other's load)
+    # card to itself; the templates phase and the sequence template's
+    # end-to-end phases then run in a second process beside the ALS event
+    # phases below (their host times are taken under each other's load)
     with tempfile.TemporaryDirectory(prefix="pio_chip_lane_") as tmp, \
             sequence_lane_process(Path(tmp)) as join_sequence_lane:
         # the N_EVENTS seeded events are written once, for both phases
@@ -7338,6 +7990,7 @@ def main() -> int:
         wall["sequence_lane_wait"] = time.perf_counter() - t0
     wall.update(lane["wall"])
     k8 = lane["flash_attention"]
+    tpl = lane["templates"]
     # the sequence lane's phases overlap the ALS event phases: the total
     # is the elapsed time, not the sum
     emit("wall", seconds=wall, total_s=time.perf_counter() - start)
@@ -7409,6 +8062,11 @@ def main() -> int:
                 "segment_flush_launches_expected"],
             launches_evaluate_train_from_eval=evaluate["from_eval"][
                 "launches"]["segment_flush"],
+            # the templates phase: both ALS templates at the ML-20M shape
+            # and the train verbs of the similarproduct and ecommerce
+            # engine.json variants
+            launches_templates=tpl["segment_flush"],
+            launches_templates_expected=tpl["segment_flush_expected"],
             **{f"launches_{name}": train["launches"]["segment_flush"]
                for name, train in (
                    ("eventlog", log["train"]),

@@ -5,11 +5,12 @@ Verbs ported so far:
   train    read the engine's events, train it and store a COMPLETED engine
            instance (printing its id), on the CUDA device unless --device
            cpu. The engine.json's engineFactory picks the template
-           (recommendation or sequence). The run is supervised: under
+           (recommendation, sequence, similarproduct, ecommerce or
+           classification). The run is supervised: under
            the sequence template SIGTERM or SIGINT stops it at the next
            step with a checkpoint and exit code 75 (the instance
-           INTERRUPTED); the recommendation (ALS) template does not check
-           for the signal, so its run goes on to COMPLETED (exit 0)
+           INTERRUPTED); the other templates do not check
+           for the signal, so a run goes on to COMPLETED (exit 0)
            unless a second SIGINT aborts it. --resume ID or
            --auto-resume continues an INTERRUPTED or FAILED instance from
            its step checkpoints (under --checkpoint-root, else
@@ -46,7 +47,10 @@ Verbs ported so far:
            on --ip/--port, with --shard-memory-budget-mb and
            --coalesce-window-ms (one batched RPC a shard group); TLS,
            --feedback, --warm-query and --batch-window-ms are refused
-           there. The canary verbs work against the router too.
+           there, as are engines of the other templates (their models
+           have no factor tables to partition, or serving rules the
+           shards do not run). The canary verbs work against the router
+           too.
   promote  conclude a green canary on the deploy server (or fleet
            router) at --ip/--port: the candidate serves 100% and the
            PROMOTED verdict persists.
@@ -257,6 +261,9 @@ def cmd_deploy(args) -> int:
         print(f"Deploying with best params from evaluation {eval_id}",
               flush=True)
     if args.shards > 0:
+        refused = _fleet_refusal(engine, ep)
+        if refused:
+            return _fail(refused)
         # fleet path: partition the persisted model at deploy time, boot
         # N x R shard servers + the router front-end (serving_fleet/)
         return _deploy_fleet_cmd(args, storage, engine_id, engine_version,
@@ -299,6 +306,26 @@ def cmd_deploy(args) -> int:
         qs.close()
     print("Server stopped.")
     return 0
+
+
+def _fleet_refusal(engine, ep) -> str | None:
+    """Why ``deploy --shards`` cannot serve this engine, or None. The
+    shards score the recommendation template's factor tables; a model of
+    another template either has none (similarproduct, classification:
+    the plan refuses it) or would lose its serving rules there (the
+    ecommerce template's seen, unavailable and cold-start rules live in
+    its algorithm, which the shards never run)."""
+    from pio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    classes = [engine.algorithm_classes.get(n)
+               for n, _ in (ep.algorithms or [("", None)])]
+    other = sorted({c.__name__ for c in classes
+                    if c is not None and not issubclass(c, ALSAlgorithm)})
+    if not other:
+        return None
+    return (f"--shards serves the recommendation template's ALS factor "
+            f"tables only; this engine's {', '.join(other)} serves "
+            "through deploy without --shards")
 
 
 def _retrieval_block(ep) -> dict | None:

@@ -14,6 +14,16 @@ A ``pio_tpu`` sequence model's params are a flax tree (after
 dict, leaf by leaf, so both packages can start training from, or serve,
 the same params; ``sequence_model_from_numpy`` builds the port's
 ``SequenceModel`` around them.
+
+The other templates' models (after ``host_copy``) are numpy arrays, id
+lists, category maps and, for classification, plain mappings:
+``similarproduct_model_from_numpy`` (the ALS similarity's item factors),
+``dimsum_model_from_numpy`` (the top-k table passes through),
+``ecommerce_model_from_numpy`` (through ``als_model_from_numpy``),
+``multinomial_nb_from_numpy`` and ``categorical_nb_from_numpy`` (naive
+Bayes), ``random_forest_from_numpy`` (the flattened trees) and
+``classification_schema_from_numpy`` (the query encoder the classifier
+models carry).
 """
 
 from __future__ import annotations
@@ -23,9 +33,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from pio_tpu_torch.data.bimap import EntityIdIndex
+from pio_tpu_torch.data.bimap import BiMap, EntityIdIndex
+from pio_tpu_torch.e2.vectorizer import BinaryVectorizer
 from pio_tpu_torch.ops.als import ALSModel
+from pio_tpu_torch.ops.forest import RandomForestModel
+from pio_tpu_torch.ops.naive_bayes import CategoricalNBModel, MultinomialNBModel
+from pio_tpu_torch.models.classification import ClassificationData
+from pio_tpu_torch.models.ecommerce import ECommerceModel
 from pio_tpu_torch.models.recommendation import RecommendationModel
+from pio_tpu_torch.models.similarproduct import DIMSUMModel, SimilarProductModel
 from pio_tpu_torch.models.sequence import SequenceModel, SequenceParams
 from pio_tpu_torch.workflow.context import resolve_device
 
@@ -115,3 +131,111 @@ def sequence_model_from_numpy(
                          f"{params['item_emb'].shape[0]} rows (PAD + items)")
     return SequenceModel(params, seqs, EntityIdIndex(user_ids),
                          EntityIdIndex(item_ids), config)
+
+
+def _ids_for(ids: Sequence[str], rows: int, what: str) -> EntityIdIndex:
+    if len(ids) != rows:
+        raise ValueError(f"{len(ids)} {what} ids for {rows} rows")
+    return EntityIdIndex(ids)
+
+
+def similarproduct_model_from_numpy(
+    item_factors, item_ids: Sequence[str], item_categories: dict, *,
+    device,
+) -> SimilarProductModel:
+    """(n_items, k) item factors with their ids in dense-index order and
+    the item -> categories map -> the ALS similarity's model, factors f32
+    on ``device``."""
+    itf = np.ascontiguousarray(item_factors, np.float32)
+    if itf.ndim != 2:
+        raise ValueError(f"item factors of shape {itf.shape}")
+    items = _ids_for(item_ids, itf.shape[0], "item")
+    return SimilarProductModel(
+        torch.tensor(itf, device=resolve_device(device)), items,
+        dict(item_categories))
+
+
+def dimsum_model_from_numpy(sim_scores, sim_idx, item_ids: Sequence[str],
+                            item_categories: dict) -> DIMSUMModel:
+    """The (n_items, k_sim) score and neighbour tables, passed through as
+    host arrays, with the ids and categories -> the DIMSUM model."""
+    scores = np.ascontiguousarray(sim_scores, np.float32)
+    idx = np.ascontiguousarray(sim_idx)
+    if scores.shape != idx.shape or scores.ndim != 2:
+        raise ValueError(f"tables of shapes {scores.shape}, {idx.shape}")
+    items = _ids_for(item_ids, scores.shape[0], "item")
+    return DIMSUMModel(scores, idx, items, dict(item_categories))
+
+
+def ecommerce_model_from_numpy(
+    user_factors, item_factors, user_ids: Sequence[str],
+    item_ids: Sequence[str], item_categories: dict, *, device,
+) -> ECommerceModel:
+    """Factors with their ids in dense-index order and the categories ->
+    the ecommerce model, factors f32 on ``device``."""
+    factors = als_model_from_numpy(user_factors, item_factors,
+                                   device=device)
+    users = _ids_for(user_ids, factors.user_factors.shape[0], "user")
+    items = _ids_for(item_ids, factors.item_factors.shape[0], "item")
+    return ECommerceModel(factors, users, items, dict(item_categories))
+
+
+def multinomial_nb_from_numpy(log_prior, log_theta, *,
+                              device) -> MultinomialNBModel:
+    """(L,) log-priors and (L, D) log-likelihoods -> the multinomial naive
+    Bayes model, f32 on ``device``."""
+    lp = np.ascontiguousarray(log_prior, np.float32)
+    lt = np.ascontiguousarray(log_theta, np.float32)
+    if lp.ndim != 1 or lt.ndim != 2 or lt.shape[0] != lp.shape[0]:
+        raise ValueError(f"log_prior {lp.shape}, log_theta {lt.shape}")
+    dev = resolve_device(device)
+    return MultinomialNBModel(torch.tensor(lp, device=dev),
+                              torch.tensor(lt, device=dev))
+
+
+def categorical_nb_from_numpy(labels: dict, categories: Sequence[dict],
+                              log_prior, log_likelihood,
+                              log_floor) -> CategoricalNBModel:
+    """label -> index, one value -> index map a feature position, and the
+    model's log tables -> the categorical naive Bayes model (host numpy,
+    as in both packages)."""
+    lp = np.asarray(log_prior)
+    ll = np.asarray(log_likelihood)
+    lf = np.asarray(log_floor)
+    if ll.shape[:2] != (len(labels), len(categories)) or (
+            lf.shape != ll.shape[:2]) or lp.shape != (len(labels),):
+        raise ValueError(
+            f"{len(labels)} labels, {len(categories)} positions for tables "
+            f"{lp.shape}, {ll.shape}, {lf.shape}")
+    return CategoricalNBModel(BiMap(dict(labels)),
+                              [BiMap(dict(c)) for c in categories],
+                              lp, ll, lf)
+
+
+def random_forest_from_numpy(feature, threshold, left, right, prediction,
+                             n_classes: int,
+                             max_depth: int) -> RandomForestModel:
+    """The flattened (num_trees, max_nodes) tables -> the forest."""
+    tables = (np.ascontiguousarray(feature, np.int32),
+              np.ascontiguousarray(threshold, np.float32),
+              np.ascontiguousarray(left, np.int32),
+              np.ascontiguousarray(right, np.int32),
+              np.ascontiguousarray(prediction, np.int32))
+    if len({t.shape for t in tables}) != 1 or tables[0].ndim != 2:
+        raise ValueError(f"tree tables of shapes {[t.shape for t in tables]}")
+    return RandomForestModel(*tables, n_classes=int(n_classes),
+                             max_depth=int(max_depth))
+
+
+def classification_schema_from_numpy(
+    vectorizer_index: dict, numeric_fields: Sequence[str], labels: dict,
+) -> ClassificationData:
+    """The (field, value) -> dimension map of the one-hot encoder, the
+    numeric fields and label -> index -> the data schema a classifier
+    model carries to encode queries (its rows stripped, as both packages
+    store it)."""
+    return ClassificationData(
+        x=np.zeros((0, 0), np.float32), y=np.zeros(0, np.int64),
+        vectorizer=BinaryVectorizer(BiMap(dict(vectorizer_index))),
+        numeric_fields=tuple(numeric_fields), labels=BiMap(dict(labels)),
+    )

@@ -78,6 +78,13 @@ def resolve_fleet_model(storage, engine_id: str, engine_version: str = "1",
             f"instance {instance.id} has {len(models)} models"
         )
     model = models[0]
+    if getattr(model, "factors", None) is None:
+        # the other templates' models (similarproduct, classification)
+        # have no factor tables to partition or fold into
+        raise ValueError(
+            f"fleet serving and fold-in need a factor-table model (the "
+            f"recommendation template's); instance {instance.id} holds a "
+            f"{type(model).__name__}")
     if device is not None:
         factors = model.factors
         model = dataclasses.replace(model, factors=dataclasses.replace(

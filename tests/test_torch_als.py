@@ -6,6 +6,7 @@ k products in different orders (and the reference itself drifts between
 batch 1 and batch 2+ on the CPU).
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

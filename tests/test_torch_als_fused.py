@@ -10,6 +10,7 @@ orders, so A and b agree within ``RTOL_BLOCKS`` and trained factors within
 interpret-mode kernel loops over slots one by one, so the shapes are tiny.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ it must be exact; sums of the same f32 products in another order agree to
 1e-6 of the largest magnitude, as the reference's own tests hold them.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ feeds the last one's rounding into a CG solve; top-k ids must match
 wherever the score gap exceeds it.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

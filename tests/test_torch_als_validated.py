@@ -13,6 +13,7 @@ layouts of another shape. The recommendation engine with
 carries the curve to deploy.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 
 import jax.numpy as jnp

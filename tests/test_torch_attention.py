@@ -23,6 +23,7 @@ over 64-key tiles. It must stay within FWD_ATOL of the f64 plain attention
 at the sequence template's widths; one TF32 pass does not.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

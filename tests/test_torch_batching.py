@@ -20,6 +20,7 @@
     refuses batched frames downgraded for good, logged once.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import threading
 import time

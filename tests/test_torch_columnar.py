@@ -10,6 +10,7 @@ channel and events without a target. In one database the port's
 must equal the reference's columns. No tolerance: the folds are exact.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 from datetime import datetime, timedelta, timezone
 
 import numpy as np

@@ -12,6 +12,8 @@ or return the same result. Tolerance: exact equality throughout.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import random
 from datetime import datetime, timezone
 

@@ -2,6 +2,7 @@
 route for large inputs against the JAX package's byte loop, bit for bit
 (a checksum has no tolerance)."""
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import os
 
 import numpy as np

@@ -17,6 +17,7 @@
   which can move a near-tied item across the top-k cut).
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import math
 import sys

@@ -14,6 +14,8 @@ the only values set aside where the log mints them.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import http.client
 import json
 import os

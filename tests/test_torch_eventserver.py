@@ -13,6 +13,8 @@ while the script runs, so every status is determined by the requests.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import base64
 import http.client
 import json

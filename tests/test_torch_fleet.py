@@ -28,6 +28,7 @@ trained by the port on the CPU); the seeded one has 300 users and 400
 items at rank 8, persisted in a store of each package.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import dataclasses
 import json
 import os

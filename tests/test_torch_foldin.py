@@ -17,6 +17,7 @@ the JAX package's, and its batch-composition invariance.
     python -m pytest tests/test_torch_foldin.py --noconftest -k on_card
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@ against the JAX package.
     packages, the same events, one fold-in cycle in each.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import os
 import subprocess

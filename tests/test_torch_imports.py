@@ -2,11 +2,12 @@
 
 Every module of ``pio_tpu_torch`` is imported in a fresh interpreter with
 ``jax`` blocked; afterwards no ``jax*`` and no ``pio_tpu.*`` module may be
-loaded. The package source is also searched for such imports, which
-catches ones hidden inside functions. Importing must not build a kernel
+loaded. The package source and ``chip_smoke.py`` are also searched for
+such imports, which catches ones hidden inside functions. Importing must not build a kernel
 or need a card.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import os
 import re
@@ -121,7 +122,15 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.data.backends.replicated",
                 "pio_tpu_torch.server.storageserver",
                 "pio_tpu_torch.serving", "pio_tpu_torch.serving.batcher",
-                "pio_tpu_torch.ops.kernels"):
+                "pio_tpu_torch.ops.kernels",
+                "pio_tpu_torch.ops.similarity",
+                "pio_tpu_torch.ops.naive_bayes",
+                "pio_tpu_torch.ops.forest", "pio_tpu_torch.ops.markov",
+                "pio_tpu_torch.models.filtering",
+                "pio_tpu_torch.models.similarproduct",
+                "pio_tpu_torch.models.ecommerce",
+                "pio_tpu_torch.models.classification",
+                "pio_tpu_torch.e2.vectorizer", "pio_tpu_torch.e2.engine"):
         assert mod in res["modules"]
 
 
@@ -130,6 +139,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
+    # the card's smoke run stands alone too
+    yield os.path.join(REPO, "chip_smoke.py")
 
 
 _FORBIDDEN = re.compile(

@@ -12,6 +12,8 @@ folded rows).
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import gzip
 import json
 import re

@@ -12,6 +12,7 @@ must agree with the plain version. This file imports neither JAX nor
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import numpy as np
 import pytest
 import torch

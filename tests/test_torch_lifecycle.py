@@ -13,6 +13,7 @@ bit-identical to an uninterrupted run; a wrong engine triple on
 ``--auto-resume`` completes it. Every comparison here is exact.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import os
 import signal

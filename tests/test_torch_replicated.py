@@ -16,6 +16,8 @@ equality.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import os
 import signal
 import socket

@@ -18,6 +18,7 @@ the reference's, on the CPU:
     refused; the gauges; the ``reshard`` verb.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import threading
 import time

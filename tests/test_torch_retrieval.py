@@ -8,6 +8,7 @@ the reference's ids under both ``impl`` values. Inputs are made with
 numpy from a seed and handed to both packages.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -28,6 +28,7 @@ Models are the reference tests' (20 users x 12 items, rank 4, trained by
 the port on the CPU) or seeded factors persisted in both packages.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import os
 import subprocess

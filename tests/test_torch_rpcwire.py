@@ -16,6 +16,7 @@ the JAX package's, and the pooled RPC plane end to end, on the CPU:
     with no 5xx, the pool evicting the dead sockets and re-dialling.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import logging
 import random
 import struct

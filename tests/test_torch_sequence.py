@@ -13,6 +13,7 @@ adaptation, blackList, unknown users, live history through
 ``--device cpu``, and the parts not ported yet, which raise.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import dataclasses
 import json
 import os

@@ -10,6 +10,7 @@ serve; a corrupt blob must be refused; and without CUDA the entry
 points must raise unless the CPU is asked for.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import os
 import subprocess

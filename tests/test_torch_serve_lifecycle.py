@@ -10,6 +10,7 @@ Retry-After, HTTPS from ``certfile``/``keyfile``, the dispatch-RTT
 probe, and the fold-in worker's ``/healthz`` on both transports.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import json
 import os
 import socket

@@ -16,6 +16,7 @@ cases), on the CPU:
     stop with none running.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import glob
 import json
 import os

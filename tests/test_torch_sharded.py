@@ -14,6 +14,8 @@ events its hash assigns. Tolerance: exact equality.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import contextlib
 import random
 from datetime import datetime, timedelta, timezone

@@ -18,6 +18,8 @@ and instance ids are the only values set aside.
 
 from __future__ import annotations
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
+
 import contextlib
 import dataclasses
 import json

@@ -11,6 +11,7 @@ version of the scan kernel). The same inputs on the card are in
 ``tests/test_torch_kernels.py``.
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ Events are written to one sqlite database; both packages read them into
 interactions, which must be equal exactly. ``python -m pio_tpu_torch
 train --device cpu`` then trains the recommendation engine and stores a
 COMPLETED instance whose factors match the JAX package's ``als_train``
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 from the same initial factors, and ``python -m pio_tpu_torch deploy
 --device cpu`` serves it. Without CUDA and without ``--device cpu`` the
 train verb raises.

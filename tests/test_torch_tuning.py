@@ -1,23 +1,24 @@
-"""The port's tuning package (``pio_tpu_torch.tuning``) and the stacked
-ALS trainer against the JAX package, on the CPU at small sizes.
+"""The port's tuning package (``pio_tpu_torch.tuning``) against the JAX
+package, on the CPU at small sizes: metrics, splits, stacked scoring and
+top-k, the sequential fallback and the verbs.
 
 - metrics: the torch batched functions against ``pio_tpu.tuning.metrics``'
   JAX ones and the scalar oracles on the same seeded numpy inputs, ties
   and users without actuals included;
 - splits: ``seeded_kfold`` and ``time_rolling_folds`` bit for bit;
-- stacked training: ``als_train_stacked`` candidate c against the port's
-  sequential ``als_train(sweep_safe_params(...))`` and against the
-  reference's stacked trainer from the same init; the power-of-two
-  padding trimmed;
-- stacked top-k: ids equal to the reference's where masked seen items
-  tie;
-- the whole sweep on a sqlite store against the reference's on the same
-  events (winner, scores, the ``:best_params`` record), chaos kill then
-  resume identical to an uninterrupted run, a changed plan rejected, the
-  sequential fallback's two errors word for word;
+- the batched scorer's map@10 of a stacked candidate against a sequential
+  model; ``sweep_safe_params``; stacked top-k ids equal to the
+  reference's where masked seen items tie;
+- the sequential fallback's two errors word for word, the sequence
+  template's sweep, spans, the metrics server;
 - the CLI: ``eval --sweep``, ``train --from-eval``, ``deploy
   --from-eval`` and ``batchpredict``, with ``--device cpu``; without CUDA
   and without it they raise.
+
+The stacked trainer's tests are in ``test_torch_tuning_stacked.py`` and
+``test_torch_tuning_reference.py``, the whole sweeps against the
+reference in ``test_torch_tuning_sweep.py`` (one file each so that no
+file holds a test worker for long).
 
 Tolerances: the ALS factors of the two packages agree within 2e-3 of the
 largest factor after 3 sweeps from the same init (test_torch_train.py),
@@ -28,13 +29,13 @@ equal rankings within 1e-6 of the JAX values (f32 sums in another order)
 and 1e-5 of the oracles (f32 against float64).
 """
 
+import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import urllib.request
-from datetime import datetime, timedelta, timezone
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,31 +45,20 @@ import torch
 from pio_tpu.controller.engine import EngineParams as RefEngineParams
 from pio_tpu.data.bimap import EntityIdIndex as RefIndex
 from pio_tpu.data.eventstore import Interactions as RefInteractions
-from pio_tpu.data.storage import Storage as RefStorage
-from pio_tpu.models import recommendation as ref_rec
 from pio_tpu.models import sequence as ref_seq
-from pio_tpu.ops import als as ref_als
 from pio_tpu.tuning import SweepConfig as RefSweepConfig
 from pio_tpu.tuning import metrics as ref_tm
 from pio_tpu.tuning import splits as ref_splits
 from pio_tpu.tuning import sweep as ref_sweep
-from pio_tpu.workflow.context import (
-    create_workflow_context as ref_context,
-)
-from pio_tpu.workflow.evaluate import (
-    run_sweep_evaluation as ref_run_sweep,
-)
+from pio_tpu.workflow.context import create_workflow_context as ref_context
+from pio_tpu.workflow.evaluate import run_sweep_evaluation as ref_run_sweep
 from pio_tpu_torch.__main__ import main as port_main
 from pio_tpu_torch.controller.engine import EngineParams
 from pio_tpu_torch.data.bimap import EntityIdIndex
-from pio_tpu_torch.data.dao import App
-from pio_tpu_torch.data.event import Event
 from pio_tpu_torch.data.eventstore import Interactions
-from pio_tpu_torch.data.storage import Storage
 from pio_tpu_torch.models import recommendation as port_rec
 from pio_tpu_torch.models import sequence as port_seq
 from pio_tpu_torch.ops import als as port_als
-from pio_tpu_torch.resilience import chaos
 from pio_tpu_torch.tuning import (
     SweepConfig,
     load_best_params,
@@ -81,168 +71,25 @@ from pio_tpu_torch.tuning import sweep as port_sweep
 from pio_tpu_torch.tuning.records import load_sweep_state
 from pio_tpu_torch.workflow.context import create_workflow_context
 from pio_tpu_torch.workflow.evaluate import run_sweep_evaluation
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-T0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
-APP = "tuneapp"
-FACTORY = "pio_tpu_torch.models.recommendation.RecommendationEngine"
-RTOL_TRAIN = 2e-3          # of the largest factor, 3 sweeps, same init
-SCORE_ABS = 0.02           # tests/test_tuning.py's stacked-vs-sequential
-METRIC_ABS = 1e-6          # torch vs JAX batched metric, f32
-ORACLE_ABS = 1e-5          # batched (f32) vs scalar oracle (float64)
-STACKED_RTOL = 1e-5        # stacked candidate vs sequential als_train
-F32_GATHER_RTOL = 1e-4     # of the largest factor, f32 gathers, same init
-
-
-# ---------------------------------------------------------------------------
-# fixtures
-# ---------------------------------------------------------------------------
-
-def _arrays(n_users=60, n_items=40, nnz=900, seed=0):
-    rng = np.random.default_rng(seed)
-    return (rng.integers(0, n_users, nnz).astype(np.int32),
-            rng.integers(0, n_items, nnz).astype(np.int32),
-            rng.uniform(1, 5, nnz).astype(np.float32), n_users, n_items)
-
-
-def _interactions(pkg_cls, index_cls, **kw):
-    u, i, v, n_users, n_items = _arrays(**kw)
-    return pkg_cls(
-        user_idx=u, item_idx=i, values=v,
-        users=index_cls([f"u{x}" for x in range(n_users)]),
-        items=index_cls([f"i{x}" for x in range(n_items)]))
-
-
-def _storage_env(path):
-    return {
-        "PIO_STORAGE_SOURCES_SQL_TYPE": "sqlite",
-        "PIO_STORAGE_SOURCES_SQL_PATH": str(path / "pio.db"),
-        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SQL",
-        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SQL",
-        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "SQL",
-    }
-
-
-def _seed_events(storage, app_name=APP, n_users=40, n_items=30,
-                 n_events=1000, seed=1, kinds=("rate",)):
-    """The reference tests' seeded rate events (tests/test_tuning.py),
-    one minute apart."""
-    app_id = storage.get_metadata_apps().insert(App(0, app_name))
-    ev = storage.get_events()
-    ev.init(app_id)
-    rng = np.random.default_rng(seed)
-    ev.insert_batch([
-        Event(event=kinds[j % len(kinds)], entity_type="user",
-              entity_id=f"u{rng.integers(0, n_users)}",
-              target_entity_type="item",
-              target_entity_id=f"i{rng.integers(0, n_items)}",
-              properties={"rating": float(rng.integers(1, 6))},
-              event_time=T0 + timedelta(minutes=j))
-        for j in range(n_events)
-    ], app_id)
-    return app_id
-
-
-@pytest.fixture()
-def store(tmp_path):
-    """One sqlite db with the seeded events, open in both packages."""
-    env = _storage_env(tmp_path)
-    storage = Storage(env=env)
-    _seed_events(storage)
-    ref = RefStorage(env=env)
-    yield storage, ref, env
-    storage.close()
-    ref.close()
-
-
-@pytest.fixture()
-def same_init(monkeypatch):
-    """The reference's trainers start from the port's seeded init (the
-    two packages' generators give different numbers)."""
-    def init_or(init, n_users, n_items, params):
-        if init is not None:
-            return init.user_factors, init.item_factors
-        u0, i0 = port_als._init_or(None, n_users, n_items, params,
-                                   torch.device("cpu"))
-        return jnp.asarray(u0.numpy()), jnp.asarray(i0.numpy())
-
-    monkeypatch.setattr(ref_als, "_init_or", init_or)
-
-
-def _candidates(ep_cls, rec, regs=(0.01, 1.0, 100.0), rank=8,
-                iterations=3, **ds_kw):
-    ds = rec.DataSourceParams(app_name=APP, **ds_kw)
-    return [
-        ep_cls(datasource=("", ds),
-               algorithms=[("als", rec.ALSAlgorithmParams(
-                   rank=rank, num_iterations=iterations, lambda_=reg,
-                   chunk=256))])
-        for reg in regs
-    ]
-
-
-def _config(cfg_cls, parse, split="kfold", folds=2, metric="map@5",
-            others=("ndcg@5", "auc")):
-    return cfg_cls(metric=parse(metric),
-                   other_metrics=[parse(m) for m in others],
-                   split=split, folds=folds, seed=42)
-
-
-def _port_sweep(storage, cands, split="kfold", folds=2, resume=None,
-                metric="map@5", others=("ndcg@5", "auc")):
-    return run_sweep_evaluation(
-        port_rec.RecommendationEngine.apply(), cands, storage,
-        _config(SweepConfig, parse_metric, split, folds, metric, others),
-        engine_id="tune-e",
-        ctx=create_workflow_context(storage, device="cpu"),
-        resume_eval_id=resume)
-
-
-# ---------------------------------------------------------------------------
-# metrics
-# ---------------------------------------------------------------------------
-
-_RANKED = {
-    "precision": (tm.precision_at_k_batch, ref_tm.precision_at_k_batch,
-                  tm.precision_at_k_scalar),
-    "recall": (tm.recall_at_k_batch, ref_tm.recall_at_k_batch,
-               tm.recall_at_k_scalar),
-    "map": (tm.map_at_k_batch, ref_tm.map_at_k_batch, tm.map_at_k_scalar),
-    "ndcg": (tm.ndcg_at_k_batch, ref_tm.ndcg_at_k_batch,
-             tm.ndcg_at_k_scalar),
-}
-
-
-def _fuzz_cases(seed=7, trials=60):
-    """The reference's fuzz (tests/test_tuning.py): rankings with k past
-    the catalog, users without actuals, integer scores with ties."""
-    rng = np.random.default_rng(seed)
-    for _ in range(trials):
-        n_items = int(rng.integers(3, 25))
-        k = int(rng.integers(1, n_items + 5))
-        b = int(rng.integers(1, 5))
-        topk, actuals = [], []
-        for _ in range(b):
-            n_act = int(rng.integers(0, min(8, n_items) + 1))
-            actuals.append(rng.choice(
-                n_items, size=n_act, replace=False).astype(np.int32))
-            topk.append(rng.choice(
-                n_items, size=min(k, n_items), replace=False
-            ).astype(np.int32))
-        topk_m = tm.pad_actuals(topk, pad_to=k)
-        topk_m[topk_m < 0] = -2
-        act_m = tm.pad_actuals(actuals)
-        scores = rng.integers(0, 4, size=(b, n_items)).astype(np.float32)
-        pos = np.zeros((b, n_items), bool)
-        valid = np.ones((b, n_items), bool)
-        for j in range(b):
-            pos[j, actuals[j]] = True
-            seen = rng.choice(n_items,
-                              size=int(rng.integers(0, n_items // 2 + 1)),
-                              replace=False)
-            valid[j, seen] = False
-            valid[j, actuals[j]] = True
-        yield k, topk, actuals, topk_m, act_m, scores, pos, valid
+from _torch_tuning_common import (
+    APP,
+    METRIC_ABS,
+    ORACLE_ABS,
+    REPO,
+    SCORE_ABS,
+    _RANKED,
+    _arrays,
+    _assert_folds_equal,
+    _candidates,
+    _config,
+    _engine_dir,
+    _fuzz_cases,
+    _interactions,
+    _post,
+    _seed_events,
+    _seq_candidates,
+    store,
+)
 
 
 @pytest.mark.parametrize("name", sorted(_RANKED))
@@ -327,29 +174,6 @@ def test_qpa_precision_matches_legacy_and_auc_refuses():
         tm.parse_metric("bogus@3")
 
 
-# ---------------------------------------------------------------------------
-# splits
-# ---------------------------------------------------------------------------
-
-def _assert_folds_equal(got, want):
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.info == w.info
-        for f in ("user_idx", "item_idx", "values"):
-            a, b = getattr(g.train, f), getattr(w.train, f)
-            assert a.dtype == b.dtype
-            np.testing.assert_array_equal(a, b)
-        assert g.train.users.ids() == w.train.users.ids()
-        assert g.train.items.ids() == w.train.items.ids()
-        np.testing.assert_array_equal(g.test_user_idx, w.test_user_idx)
-        assert len(g.actual_idx) == len(w.actual_idx)
-        for a, b in zip(g.actual_idx + g.seen_idx,
-                        w.actual_idx + w.seen_idx):
-            assert a.dtype == b.dtype
-            np.testing.assert_array_equal(a, b)
-        assert g.qa_pairs(num=7) == w.qa_pairs(num=7)
-
-
 @pytest.mark.parametrize("k, seed, exclude_seen", [
     (2, 42, True), (3, 42, True), (3, 7, False)])
 def test_seeded_kfold_equals_reference(k, seed, exclude_seen):
@@ -382,35 +206,6 @@ def test_time_rolling_folds_equal_reference(store, n_folds):
     _assert_folds_equal(got, want)
 
 
-# ---------------------------------------------------------------------------
-# stacked training
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("implicit, auto_cg_rows", [
-    (False, 8192), (True, 8192), (True, 16)])
-def test_stacked_candidate_equals_sequential(implicit, auto_cg_rows):
-    """Candidate c of the stacked trainer against a sequential
-    ``als_train`` with c's (reg, alpha) from the same seeded init: the
-    Cholesky sides and, with auto_cg_rows 16, warm-started CG."""
-    u, i, v, n_users, n_items = _arrays()
-    base = port_als.ALSParams(rank=8, iterations=3, chunk=256,
-                              implicit=implicit, auto_cg_rows=auto_cg_rows)
-    regs = np.array([0.01, 0.1, 1.0], np.float32)
-    alphas = np.array([1.0, 4.0, 10.0], np.float32)
-    st = port_als.als_train_stacked(u, i, v, n_users, n_items, base, regs,
-                                    alphas, device="cpu")
-    for c in range(3):
-        seq = port_als.als_train(
-            u, i, v, n_users, n_items,
-            port_als.sweep_safe_params(dataclasses.replace(
-                base, reg=float(regs[c]), alpha=float(alphas[c])), "cpu"),
-            device="cpu")
-        for got, want in ((st.user_factors[c], seq.user_factors),
-                          (st.item_factors[c], seq.item_factors)):
-            torch.testing.assert_close(got, want, rtol=STACKED_RTOL,
-                                       atol=0)
-
-
 def test_stacked_map_matches_sequential():
     """The reference's own stacked-vs-sequential check on the port: the
     batched scorer gives candidate c and a sequential model of c the
@@ -440,58 +235,6 @@ def test_stacked_map_matches_sequential():
         assert sum_b / n_b == pytest.approx(sum_s / n_s, abs=SCORE_ABS)
 
 
-@pytest.mark.parametrize("implicit", [False, True])
-def test_stacked_matches_reference_stacked(same_init, implicit):
-    """The port's stacked factors against the reference's stacked
-    factors from the same init (the reference trains its candidates
-    vmapped, the port with the candidate axis folded into the rows), in
-    f32 gathers. With the default bf16 gather the two packages'
-    sequential trainers already differ by up to 2e-3 of the largest
-    factor (a one-ulp f32 difference flips a bf16 rounding of a factor),
-    which the stacked trainers inherit; the port's stacked trainer is
-    held to its own sequential one there (above)."""
-    u, i, v, n_users, n_items = _arrays(nnz=700)
-    kw = dict(rank=8, iterations=3, chunk=256, implicit=implicit,
-              bf16_gather=False)
-    regs = np.array([0.05, 0.5, 5.0], np.float32)
-    alphas = np.array([1.0, 2.0, 8.0], np.float32)
-    got = port_als.als_train_stacked(u, i, v, n_users, n_items,
-                                     port_als.ALSParams(**kw), regs, alphas,
-                                     device="cpu")
-    want = ref_als.als_train_stacked(u, i, v, n_users, n_items,
-                                     ref_als.ALSParams(**kw), regs, alphas)
-    assert len(got) == len(want) == 3
-    for g, w in ((got.user_factors, want.user_factors),
-                 (got.item_factors, want.item_factors)):
-        w = np.asarray(w)
-        assert g.shape == w.shape
-        np.testing.assert_allclose(g.numpy(), w, rtol=0,
-                                   atol=F32_GATHER_RTOL * np.abs(w).max())
-
-
-@pytest.mark.parametrize("n_cand", [1, 3, 5])
-def test_stacked_pow2_padding_trims(n_cand):
-    """3 -> bucket 4, 5 -> bucket 8: the padding repeats the last
-    candidate and is trimmed; the last candidate is unchanged by it."""
-    u, i, v, n_users, n_items = _arrays(nnz=400)
-    p = port_als.ALSParams(rank=4, iterations=2, chunk=256)
-    regs = np.linspace(0.1, 0.5, n_cand).astype(np.float32)
-    st = port_als.als_train_stacked(u, i, v, n_users, n_items, p, regs,
-                                    np.ones(n_cand, np.float32),
-                                    device="cpu")
-    assert len(st) == n_cand
-    assert st.user_factors.shape == (n_cand, n_users, 4)
-    assert st.item_factors.shape == (n_cand, n_items, 4)
-    last = port_als.als_train_stacked(u, i, v, n_users, n_items, p,
-                                      regs[-1:], np.ones(1, np.float32),
-                                      device="cpu")
-    assert torch.equal(st.user_factors[-1], last.user_factors[0])
-    with pytest.raises(ValueError, match="equal-length"):
-        port_als.als_train_stacked(u, i, v, n_users, n_items, p, regs,
-                                   np.ones(n_cand + 1, np.float32),
-                                   device="cpu")
-
-
 def test_sweep_safe_params_as_the_reference(monkeypatch):
     p = port_als.ALSParams(accum="hybrid", gather="stream", packed_a=True)
     cpu = port_als.sweep_safe_params(p, "cpu")
@@ -506,10 +249,6 @@ def test_sweep_safe_params_as_the_reference(monkeypatch):
                                    np.ones(2, np.float32),
                                    np.ones(2, np.float32))
 
-
-# ---------------------------------------------------------------------------
-# stacked top-k
-# ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_stacked_topk_ids_equal_reference_under_ties(seed):
@@ -535,125 +274,6 @@ def test_stacked_topk_ids_equal_reference_under_ties(seed):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     assert (got_s.numpy() == tm.MASKED_SCORE).any()
-
-
-# ---------------------------------------------------------------------------
-# the whole sweep, on sqlite
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("split", ["kfold", "time"])
-def test_sweep_matches_reference(store, same_init, split):
-    """The port's sweep and the reference's on the same events, from the
-    same init: the winner, every score within abs 0.02, and the
-    ``:best_params`` record naming the winner's params."""
-    storage, ref, _ = store
-    _, want = ref_run_sweep(
-        ref_rec.RecommendationEngine.apply(),
-        _candidates(RefEngineParams, ref_rec), ref,
-        _config(RefSweepConfig, ref_tm.parse_metric, split),
-        engine_id="tune-e", ctx=ref_context(ref, use_mesh=False))
-    # the port's sweep runs second, so it is the store's latest
-    eval_id, got = _port_sweep(
-        storage, _candidates(EngineParams, port_rec), split=split)
-    assert got.best_idx == want.best_idx
-    assert got.metric_header == want.metric_header == "MAP@5"
-    assert got.other_metric_headers == want.other_metric_headers
-    for (_, g), (_, w) in zip(got.engine_params_scores,
-                              want.engine_params_scores):
-        assert g.score == pytest.approx(w.score, abs=SCORE_ABS)
-        assert g.other_scores == pytest.approx(w.other_scores,
-                                               abs=SCORE_ABS)
-    inst = storage.get_metadata_evaluation_instances().get(eval_id)
-    assert inst.status == "EVALCOMPLETED"
-    assert "bestScore" in inst.evaluator_results_json
-    payload = load_best_params(storage, eval_id)
-    assert payload["metric"] == "MAP@5"
-    assert payload["score"] == got.best_score.score
-    assert payload["variant"]["algorithms"][0]["params"]["lambda_"] == \
-        got.best_engine_params.algorithms[0][1].lambda_
-    assert set(load_sweep_state(storage, eval_id).completed) == {
-        "fold0", "fold1"}
-    assert resolve_from_eval(storage, "latest")[0] == eval_id
-
-
-def test_sweep_mixed_shapes_batch_per_group(store):
-    storage, _, _ = store
-    cands = (_candidates(EngineParams, port_rec, regs=(0.01, 0.1), rank=4)
-             + _candidates(EngineParams, port_rec, regs=(0.01, 0.1)))
-    groups, batchable = port_sweep.group_candidates(cands)
-    want_groups, want_batchable = ref_sweep.group_candidates(
-        _candidates(RefEngineParams, ref_rec, regs=(0.01, 0.1), rank=4)
-        + _candidates(RefEngineParams, ref_rec, regs=(0.01, 0.1)))
-    assert batchable and want_batchable
-    assert sorted(groups.values()) == sorted(want_groups.values())
-    _, result = _port_sweep(storage, cands)
-    assert len(result.engine_params_scores) == 4
-
-
-def test_sweep_chaos_kill_then_resume_identical(store, tmp_path):
-    """Killed at ``eval.fold.1`` -> EVALFAILED with fold 0 persisted;
-    resumed with the same plan -> only fold 1 runs and the result is
-    identical to an uninterrupted sweep on a second store of the same
-    events."""
-    storage, _, _ = store
-    cands = _candidates(EngineParams, port_rec)
-    (tmp_path / "oracle").mkdir()
-    oracle_storage = Storage(env=_storage_env(tmp_path / "oracle"))
-    try:
-        _seed_events(oracle_storage)
-        _, oracle = _port_sweep(oracle_storage, cands)
-    finally:
-        oracle_storage.close()
-
-    with pytest.raises(chaos.ChaosError):
-        with chaos.inject("eval.fold.1", error=1.0):
-            _port_sweep(storage, cands)
-    dao = storage.get_metadata_evaluation_instances()
-    failed = [i for i in dao.get_all() if i.status == "EVALFAILED"]
-    assert len(failed) == 1
-    eval_id = failed[0].id
-    assert set(load_sweep_state(storage, eval_id).completed) == {"fold0"}
-    resumed_id, result = _port_sweep(storage, cands, resume=eval_id)
-    assert resumed_id == eval_id
-    assert dao.get(eval_id).status == "EVALCOMPLETED"
-    assert result.best_idx == oracle.best_idx
-    for (_, got), (_, want) in zip(result.engine_params_scores,
-                                   oracle.engine_params_scores):
-        assert got.score == want.score
-        assert got.other_scores == want.other_scores
-
-
-def test_sweep_resume_rejects_changed_plan(store):
-    storage, _, _ = store
-    cands = _candidates(EngineParams, port_rec)
-    with pytest.raises(chaos.ChaosError):
-        with chaos.inject("eval.fold.1", error=1.0):
-            _port_sweep(storage, cands)
-    dao = storage.get_metadata_evaluation_instances()
-    eval_id = [i for i in dao.get_all() if i.status == "EVALFAILED"][0].id
-    with pytest.raises(ValueError, match="different plan"):
-        _port_sweep(storage, cands, folds=3, resume=eval_id)
-    # same cardinality, other values: fold 0's persisted scores came
-    # from the old params
-    with pytest.raises(ValueError, match="different plan"):
-        _port_sweep(storage,
-                    _candidates(EngineParams, port_rec, regs=(0.5, 2, 5)),
-                    resume=eval_id)
-    with pytest.raises(ValueError, match="different plan"):
-        _port_sweep(storage, cands, resume=eval_id,
-                    others=("ndcg@5", "auc", "precision@5"))
-    with pytest.raises(ValueError, match="not found"):
-        _port_sweep(storage, cands, resume="nope")
-
-
-def _seq_candidates(ep_cls, seq, lrs=(1e-3, 2e-3), app_name=APP):
-    ds = seq.SequenceDataSourceParams(app_name=app_name, max_len=8)
-    return [ep_cls(datasource=("", ds),
-                   algorithms=[("sasrec", seq.SequenceParams(
-                       max_len=8, embed_dim=8, num_heads=2, num_layers=1,
-                       ffn_dim=16, steps=3, batch_size=16,
-                       learning_rate=lr))])
-            for lr in lrs]
 
 
 @pytest.mark.parametrize("split, metric", [("time", "map@5"),
@@ -754,32 +374,6 @@ def test_eval_metrics_server_surface():
         assert 'span="eval.fold"' in text
     finally:
         http.stop()
-
-
-# ---------------------------------------------------------------------------
-# the command line
-# ---------------------------------------------------------------------------
-
-def _engine_dir(tmp_path, retrieval=None):
-    algo = {"rank": 8, "num_iterations": 3, "lambda_": 0.1, "chunk": 256}
-    if retrieval is not None:
-        algo["retrieval"] = retrieval
-    d = tmp_path / "engine"
-    d.mkdir(exist_ok=True)
-    (d / "engine.json").write_text(json.dumps({
-        "id": "tune-cli", "engineFactory": FACTORY,
-        "datasource": {"params": {"app_name": APP}},
-        "algorithms": [{"name": "als", "params": algo}]}))
-    return d
-
-
-def _post(port, body):
-    req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/queries.json",
-        data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"}, method="POST")
-    with urllib.request.urlopen(req, timeout=30) as r:
-        return r.status, json.loads(r.read())
 
 
 def test_cli_sweep_then_train_and_deploy_from_eval(store, tmp_path,
@@ -901,3 +495,4 @@ def test_entry_points_raise_without_cuda(store, tmp_path, monkeypatch):
              str(tmp_path / "p.jsonl")]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_main(argv)
+
