@@ -207,15 +207,37 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   answer; on the ecommerce deploy an item marked unavailable and an item
   the user just bought drop out of the next answer; classification's
   ``eval`` in class mode and ``batchpredict``.
+- templates_rest: the two-tower, regression, stock, friend-recommendation
+  and external-engine templates, on the templates phase's ratings and
+  events. ``train_two_tower`` at examples/twotower/engine.json's widths
+  (embed 64, hidden 128, out 32, batch 1,024, 2,000 steps) on the
+  ML-20M ratings, its loss falling, a run checkpointed after step 1,000
+  and resumed equal to it bit for bit, batched answers equal to solo
+  ones at B 1 to 64; the engine.json through train, a deploy, ``eval
+  --sweep`` of 2 learning rates on 2 folds and ``train``/``deploy
+  --from-eval latest``; SimRank at 16,384 nodes (5 iterations of bf16
+  products into f32) and at the SNAP ego-Facebook shape (4,039 nodes,
+  88,234 edges, a seeded power-law graph) held against f64, that graph
+  as the example's relative edge list through train, a deploy, pairwise
+  and retrieval queries; ridge and SGD at UCI YearPredictionMSD's shape
+  (515,345 x 90), ridge held against f64, and a copy of
+  examples/regression through train, a deploy, queries and ``eval`` in
+  class mode (MSE); an S&P 500-sized universe (500 tickers x 2,520 days)
+  trained and backtested walk-forward, its solves held against f64, and
+  as the example's CSV through train, a deploy and queries; the external
+  engine (examples/external-engine's stdlib server, its relative
+  ``workdir``) through train, a deploy and queries. Every body over HTTP
+  equals the in-process answer; none of these engines launches a kernel
+  of the port.
 
 The phases run one at a time, in the order above but for
 attention_kernel and sequence_train, which follow train_validated, so
 that every kernel's timing and training throughput is taken with the
-card to itself. Then templates, sequence_entry, train_resume and
-evaluate_sequence run in a second process of this script
-(``--sequence-lane``: its own stores and launch counts) beside ingest
-to quickstart, so the host times of both groups are taken under each
-other's load.
+card to itself. Then templates, templates_rest, sequence_entry,
+train_resume and evaluate_sequence run in a second process of this
+script (``--sequence-lane``: its own stores and launch counts) beside
+ingest to quickstart, so the host times of both groups are taken under
+each other's load.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -236,6 +258,7 @@ import io
 import json
 import logging
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -730,7 +753,8 @@ def device_ms_by_kernel(prof, n: int) -> tuple:
     per_kernel = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if (us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)):
             per_kernel[e.key] = us / 1e3 / n
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return (sum(per_kernel.values()) if per_kernel else None), dict(top)
@@ -3661,7 +3685,10 @@ def profile_sweep(sweep, carry) -> dict:
     per_kernel = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # an annotation's range (the optimizer's step) spans kernels that
+        # are counted on their own
+        if (us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)):
             per_kernel[e.key] = (us / 1e3, e.count)
     device_ms = sum(ms for ms, _ in per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
@@ -7785,55 +7812,50 @@ def classification_verbs(store, engine_dir: Path, rng) -> dict:
     return {"eval_s": eval_s, "eval": res, "batchpredict_s": bp_s}
 
 
-def phase_templates(dev: torch.device) -> dict:
+def phase_templates(ratings, store, dev: torch.device) -> dict:
     """The similar-product, e-commerce and classification templates:
     both ALS templates trained at the ML-20M shape (K2), batched answers
     held to solo ones, the DIMSUM Gram at the full catalog, the forest's
     device traversal, then each of the four committed engine.json
     variants through train, a deploy and /queries.json on TPL_EVENTS
-    sqlite events, classification's class-mode eval and batchpredict."""
+    events written into ``store``, classification's class-mode eval and
+    batchpredict."""
     secs: dict = {}
     t = time.perf_counter()
-    ratings = synth_ratings()
-    secs["synth"] = time.perf_counter() - t
-    with sqlite_store("pio_chip_templates_") as store:
+    als_out = templates_als(ratings, store.storage, dev)
+    secs["als"] = time.perf_counter() - t
+    emit("templates", part="als", card=card_line(), **{
+        v: {k: o[k] for k in ("train_s", "ratings_per_s", "launches",
+                              "segment_flush_launches_expected")}
+        for v, o in als_out.items()})
+    t = time.perf_counter()
+    inv = templates_invariance(als_out)
+    secs["invariance"] = time.perf_counter() - t
+    emit("templates", part="batch_invariance", **inv)
+    k2_als = {v: o["launches"]["segment_flush"] for v, o in als_out.items()}
+    k2_als_want = {v: o["segment_flush_launches_expected"]
+                   for v, o in als_out.items()}
+    del als_out
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    dimsum = templates_dimsum(ratings, dev)
+    secs["dimsum"] = time.perf_counter() - t
+    emit("templates", part="dimsum", **dimsum)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    forest = templates_forest(dev)
+    secs["forest"] = time.perf_counter() - t
+    emit("templates", part="forest", **forest)
+    t = time.perf_counter()
+    written = template_events(store.storage)
+    secs["events"] = time.perf_counter() - t
+    rng = np.random.default_rng(SEED + 45)
+    verbs = {}
+    for variant in TPL_DIRS:
         t = time.perf_counter()
-        als_out = templates_als(ratings, store.storage, dev)
-        secs["als"] = time.perf_counter() - t
-        emit("templates", part="als", card=card_line(), **{
-            v: {k: o[k] for k in ("train_s", "ratings_per_s", "launches",
-                                  "segment_flush_launches_expected")}
-            for v, o in als_out.items()})
-        t = time.perf_counter()
-        inv = templates_invariance(als_out)
-        secs["invariance"] = time.perf_counter() - t
-        emit("templates", part="batch_invariance", **inv)
-        k2_als = {v: o["launches"]["segment_flush"]
-                  for v, o in als_out.items()}
-        k2_als_want = {v: o["segment_flush_launches_expected"]
-                       for v, o in als_out.items()}
-        del als_out
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        dimsum = templates_dimsum(ratings, dev)
-        secs["dimsum"] = time.perf_counter() - t
-        emit("templates", part="dimsum", **dimsum)
-        del ratings
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        forest = templates_forest(dev)
-        secs["forest"] = time.perf_counter() - t
-        emit("templates", part="forest", **forest)
-        t = time.perf_counter()
-        written = template_events(store.storage)
-        secs["events"] = time.perf_counter() - t
-        rng = np.random.default_rng(SEED + 45)
-        verbs = {}
-        for variant in TPL_DIRS:
-            t = time.perf_counter()
-            verbs[variant] = template_verb(store, variant, dev, rng)
-            secs[f"verb_{variant}"] = time.perf_counter() - t
-        emit("templates", part="verbs", events=written, **verbs)
+        verbs[variant] = template_verb(store, variant, dev, rng)
+        secs[f"verb_{variant}"] = time.perf_counter() - t
+    emit("templates", part="verbs", events=written, **verbs)
     emit("templates", part="seconds", seconds=secs)
     k2 = {**k2_als, **{f"verb_{v}": o["launches"]["segment_flush"]
                        for v, o in verbs.items()
@@ -7843,6 +7865,684 @@ def phase_templates(dev: torch.device) -> dict:
         for v, o in verbs.items() if o["segment_flush_launches_expected"]}}
     return {"segment_flush": k2, "segment_flush_expected": k2_want,
             "seconds": secs}
+
+
+# -- phase: the two-tower, regression, stock, friend-recommendation and
+# -- external-engine templates ---------------------------------------------
+
+REST_FACTORIES = {   # examples/ folder -> the port's factory
+    "twotower": "pio_tpu_torch.models.twotower.TwoTowerEngine",
+    "regression": "pio_tpu_torch.models.regression.RegressionEngine",
+    "stock": "pio_tpu_torch.models.stock.StockEngine",
+    "friend-recommendation": ("pio_tpu_torch.models.friendrecommendation."
+                              "FriendRecommendationEngine"),
+    "external-engine": "pio_tpu_torch.controller.external.ExternalEngine",
+}
+REST_QUERIES = 32          # /queries.json an engine
+TT_RESUME_AT = 1_000       # the resumed run restarts after this step's save
+TT_LOSS_WINDOW = 100       # steps averaged at each end of the loss curve
+TT_PROFILED_STEPS = 50     # a run this long under torch.profiler
+# the verb path trains 500 steps and its sweep's candidates 200 (cut
+# from engine.json's 2,000 for time; the in-process run takes all 2,000)
+TT_VERB_STEPS = 500
+TT_SWEEP_GRID = '{"learning_rate": [0.001, 0.002], "steps": [200]}'
+TT_SWEEP_FOLDS = 2
+TT_FROM_EVAL_QUERIES = 8
+# SimRank: the dense size pio_tpu/ops/simrank.py names, and the SNAP
+# ego-Facebook graph's shape (4,039 nodes, 88,234 edges), both seeded
+# power-law graphs of ego-Facebook's mean degree
+SIMRANK_NODES = 16_384
+SIMRANK_EDGES = 357_920
+EGO_NODES, EGO_EDGES = 4_039, 88_234
+SIMRANK_K = 50             # the template's k_top
+# bf16 operands (2^-9 relative each) against the same recurrence in f64
+# over 5 iterations: 1.2e-3 at the ego-Facebook shape on the CPU (the
+# same bf16 operands summed in f32 in another order than the card's)
+SIMRANK_F64_ATOL = 3e-3
+# UCI YearPredictionMSD's shape: 515,345 songs x 90 timbre features
+MSD_ROWS, MSD_FEATURES = 515_345, 90
+# an f32 Gram of 515,345 rows and an f32 Cholesky against f64, of max
+# |w64|: 3.5e-6 on the CPU (the card sums in another order)
+RIDGE_F64_RTOL = 1e-4
+RIDGE_F64_INTERCEPT_ATOL = 1e-2
+# an S&P 500-sized universe: 500 tickers x 2,520 trading days (ten years)
+STOCK_TICKERS, STOCK_DAYS = 500, 2_520
+# per ticker, of that ticker's max |w64|: 4 x 4 normal equations of up to
+# 200 f32 rows whose features differ in scale by 10^2 (returns against
+# the bias and the RSI); 7.3e-5 on the CPU
+STOCK_F64_RTOL = 1e-3
+REG_CLASSES = '''"""Class-mode evaluation of the regression template (MSE)."""
+import os
+
+from pio_tpu_torch.controller import (
+    EngineParams, EngineParamsGenerator, Evaluation, MeanSquareError)
+from pio_tpu_torch.models.regression import (
+    DataSourceParams, RegressionEngine, RidgeParams, SGDParams)
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                    "sample.txt")
+
+
+class RegEval(Evaluation):
+    engine = RegressionEngine.apply()
+    metric = MeanSquareError()
+
+
+class RegGrid(EngineParamsGenerator):
+    engine_params_list = [
+        EngineParams(datasource=("", DataSourceParams(filepath=DATA,
+                                                      eval_k=3)),
+                     algorithms=[("ridge", RidgeParams(reg=0.1)),
+                                 ("sgd", SGDParams(num_iterations=n,
+                                                   step_size=0.1))])
+        for n in (20, 200)]
+'''
+
+
+def rest_engine_dir(store, folder: str, **algo) -> Path:
+    """examples/<folder> copied into the store's directory (a directory
+    named after it), its engine.json naming the port's factory (the
+    first algorithm's params updated with ``algo``)."""
+    d = store.tmp / folder
+    shutil.copytree(REPO_ROOT / "examples" / folder, d)
+    conf = json.loads((d / "engine.json").read_text())
+    conf["engineFactory"] = REST_FACTORIES[folder]
+    conf["algorithms"][0]["params"].update(algo)
+    (d / "engine.json").write_text(json.dumps(conf))
+    return d
+
+
+def no_launches(what: str) -> None:
+    """None of this slice's engines runs a kernel of the port."""
+    got = read_counts()
+    if any(got.values()):
+        raise AssertionError(f"{what} launched {got}")
+
+
+def rest_verb(store, d: Path, queries, dev: torch.device) -> dict:
+    """``python -m pio_tpu_torch train`` of the engine dir ``d`` (see
+    ``rest_engine_dir``; the working directory is not ``d``, so a relative
+    path field resolves against --engine-dir), then the instance deployed
+    (what ``deploy`` serves) answering ``queries`` over HTTP, each body the
+    serving composition's answer in process. No kernel of the port
+    launches. ``queries`` may be a function of the deployed model."""
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    engine, ep = _engine_from_dir(d)
+    reset_counts()
+    rc, printed, train_s = _cli(
+        ["train", "--engine-dir", str(d), "--checkpoint-root",
+         str(store.tmp / "ckpt")], store.storage)
+    no_launches(f"{d.name} train")
+    if rc != 0:
+        raise AssertionError(f"{d.name}: train rc {rc}: {printed}")
+    t0 = time.perf_counter()
+    http, qs = create_query_server(
+        engine, ep, store.storage,
+        ServingConfig(ip="127.0.0.1", port=0, engine_id=d.name),
+        ctx=create_workflow_context(store.storage, device=dev))
+    http.start()
+    out = {"instance": printed.rsplit(" ", 1)[-1], "train_s": train_s,
+           "deploy_load_s": time.perf_counter() - t0}
+    try:
+        if callable(queries):
+            queries = queries(qs.models[0])
+        reset_counts()
+        ms = []
+        for q in queries:
+            status, body, secs = _post(http.port, "/queries.json", q)
+            ms.append(1e3 * secs)
+            want = qs.serving.serve(q, [a.predict(m, q) for a, m in
+                                        zip(qs.algorithms, qs.models)])
+            if status != 200 or body != _normal(want):
+                raise AssertionError(f"{d.name} {q}: {status} {body}, in "
+                                     f"process {want}")
+        no_launches(f"{d.name} serving")
+        out.update(queries=len(queries), query_ms=statistics.median(ms))
+    finally:
+        http.stop()
+        qs.close()
+    return out
+
+
+def twotower_inter(ratings):
+    from pio_tpu_torch.data.bimap import EntityIdIndex
+    from pio_tpu_torch.data.eventstore import Interactions
+
+    users, items, vals = ratings
+    return Interactions(users, items, vals,
+                        EntityIdIndex(f"u{u}" for u in range(N_USERS)),
+                        EntityIdIndex(f"i{i}" for i in range(N_ITEMS)))
+
+
+def rest_twotower(ratings, dev: torch.device) -> dict:
+    """``train_two_tower`` at examples/twotower/engine.json's widths on the
+    ML-20M ratings, saving a step checkpoint at step 0 and TT_RESUME_AT:
+    ms a step (the saves' seconds apart), the loss at both ends, peak
+    memory, and TT_PROFILED_STEPS steps under the profiler; a run resumed
+    from the step TT_RESUME_AT checkpoint equal to it bit for bit;
+    batched answers equal to solo ones at B 1, 2, 16 and 64."""
+    from pio_tpu_torch.models import twotower as tt
+    from pio_tpu_torch.workflow.step_checkpoint import (
+        StepCheckpointConfig, StepCheckpointer)
+
+    conf = json.loads((REPO_ROOT / "examples" / "twotower" / "engine.json")
+                      .read_text())
+    p = tt.TwoTowerParams(**conf["algorithms"][0]["params"])
+    inter = twotower_inter(ratings)
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="pio_chip_tt_") as ck_dir:
+        ck = StepCheckpointer(StepCheckpointConfig(ck_dir,
+                                                   save_every=TT_RESUME_AT))
+        saves: list = []
+        plain_save = ck.save
+
+        def timed_save(*a):
+            t = time.perf_counter()
+            plain_save(*a)
+            saves.append(time.perf_counter() - t)
+
+        ck.save = timed_save
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, emb, _, losses = tt.train_two_tower(inter, p, device=dev,
+                                                    checkpoint=ck)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0 - sum(saves)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        saved = ck.latest_step()
+        t0 = time.perf_counter()
+        got, got_emb, _, resumed = tt.train_two_tower(inter, p, device=dev,
+                                                      checkpoint=ck)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    first = float(losses[:TT_LOSS_WINDOW].mean())
+    last = float(losses[-TT_LOSS_WINDOW:].mean())
+    if (len(losses) != p.steps or not np.isfinite(losses).all()
+            or not last < first or emb.shape != (N_ITEMS, p.out_dim)
+            or not bool(torch.isfinite(emb).all())):
+        raise AssertionError(f"two-tower: {len(losses)} losses, first "
+                             f"{first}, last {last}, emb {emb.shape}")
+    differ = sorted(k for k in params if not torch.equal(got[k], params[k]))
+    if (saved != TT_RESUME_AT or differ or not torch.equal(got_emb, emb)
+            or not np.array_equal(resumed, losses[TT_RESUME_AT + 1:])):
+        raise AssertionError(f"two-tower resume: saved {saved}, params "
+                             f"differ {differ}")
+    profiled = profile_sweep(lambda _: tt.train_two_tower(
+        inter, replace(p, steps=TT_PROFILED_STEPS), device=dev), None)
+    no_launches("two-tower training")
+    model = tt.TwoTowerModel(params, emb, inter.users, inter.items, p)
+    algo = tt.TwoTowerAlgorithm(p)
+    rng = np.random.default_rng(SEED + 51)
+    queries = [{"user": f"u{u}", "num": 10}
+               | ({"blackList": [f"i{j}" for j in rng.integers(0, 200, 3)]}
+                  if r % 2 else {})
+               for r, u in enumerate(rng.choice(N_USERS, TPL_BATCHES[-1],
+                                                replace=False))]
+    inv = _solo_and_batched(functools.partial(algo.predict, model),
+                            functools.partial(algo.batch_predict, model),
+                            queries)
+    if any(inv["differ"].values()):
+        raise AssertionError(f"two-tower: batched answers differ from solo "
+                             f"ones: {inv['differ']}")
+    no_launches("two-tower serving")
+    return {"steps": p.steps, "batch": p.batch_size, "train_s": train_s,
+            "ms_per_step": 1e3 * train_s / p.steps,
+            "pairs_per_s": p.steps * p.batch_size / train_s,
+            "checkpoint_saves_s": saves,
+            "loss_first": first, "loss_last": last,
+            "loss_window": TT_LOSS_WINDOW, "peak_gib": peak,
+            "resume": {"saved_step": saved, "bit_equal": True,
+                       "steps": len(resumed), "s": resume_s},
+            "profiled": {"steps": TT_PROFILED_STEPS, **profiled},
+            "batch_invariance": inv}
+
+
+def rest_twotower_verbs(store, dev: torch.device, rng) -> dict:
+    """The committed engine.json (the port's factory) on the templates
+    phase's events: train, a deploy answering REST_QUERIES, ``eval
+    --sweep`` of 2 candidates on TT_SWEEP_FOLDS folds through the
+    sequential fallback, ``train --from-eval latest`` and ``deploy
+    --from-eval latest`` (a process) answering as the winner's instance
+    does in process."""
+    from pio_tpu_torch.__main__ import _apply_from_eval
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    users = [f"u{u}" for u in rng.integers(0, 300, REST_QUERIES)]
+    queries = [{"user": u, "num": 10}
+               | ({"blackList": ["i0", "i1"]} if n % 3 == 1 else {})
+               for n, u in enumerate(users)]
+    d = rest_engine_dir(store, "twotower", steps=TT_VERB_STEPS)
+    out = rest_verb(store, d, queries, dev)
+    reset_counts()
+    rc, printed, sweep_s = _cli(
+        ["eval", "--sweep", "--engine-dir", str(d), "--grid", TT_SWEEP_GRID,
+         "--metric", "precision@10", "--other-metrics", "ndcg@10",
+         "--folds", str(TT_SWEEP_FOLDS), "--output",
+         str(store.tmp / "tt_best.json")], store.storage)
+    if rc != 0:
+        raise AssertionError(f"two-tower sweep: rc {rc}: {printed}")
+    eval_id = printed.split("Evaluation instance: ")[1].split()[0]
+    out["sweep"] = {"eval_id": eval_id, "s": sweep_s,
+                    **_eval_scores(store.storage, eval_id)}
+    rc, printed, train_s = _cli(
+        ["train", "--engine-dir", str(d), "--from-eval", "latest",
+         "--checkpoint-root", str(store.tmp / "ckpt")], store.storage)
+    no_launches("two-tower sweep and train --from-eval")
+    iid = printed.rsplit(" ", 1)[-1]
+    inst = store.storage.get_metadata_engine_instances().get(iid)
+    if rc != 0 or inst.batch != f"from-eval:{eval_id}":
+        raise AssertionError(f"two-tower train --from-eval: rc {rc}, {inst}")
+    engine, ep = _engine_from_dir(d)
+    ep, _ = _apply_from_eval(engine, ep, store.storage, "latest")
+    http, qs = create_query_server(
+        engine, ep, store.storage,
+        ServingConfig(ip="127.0.0.1", port=0, engine_id="twotower"),
+        ctx=create_workflow_context(store.storage, device=dev))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pio_tpu_torch", "deploy", "--engine-dir",
+         str(d), "--port", "0", "--ip", "127.0.0.1", "--from-eval",
+         "latest"], cwd=REPO_ROOT, env={**os.environ, **store.env,
+                                         "PIO_TPU_HOME": str(store.tmp
+                                                             / "home")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        first = proc.stdout.readline()
+        line = proc.stdout.readline()
+        if eval_id not in first or f"{iid} deployed" not in line:
+            raise AssertionError(
+                f"two-tower deploy --from-eval: {first!r} {line!r} "
+                + (proc.stderr.read() if proc.poll() is not None else ""))
+        boot_s = time.perf_counter() - t0
+        port = int(line.split("127.0.0.1:")[1].split()[0])
+        for q in queries[:TT_FROM_EVAL_QUERIES]:
+            status, body, _ = _post(port, "/queries.json", q)
+            want = _normal(qs.algorithms[0].predict(qs.models[0], q))
+            if status != 200 or body != want:
+                raise AssertionError(f"two-tower deploy --from-eval {q}: "
+                                     f"{body}, in process {want}")
+    finally:
+        qs.close()
+        proc.terminate()
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    out["from_eval"] = {"instance": iid, "train_s": train_s,
+                        "deploy_boot_s": boot_s,
+                        "queries": TT_FROM_EVAL_QUERIES}
+    return out
+
+
+def power_law_graph(n: int, n_edges: int, seed: int):
+    """``n_edges`` distinct directed edges, no self loops, among ``n``
+    nodes whose expected degrees follow a power law (Chung-Lu weights
+    i^-0.75, node ids shuffled), as (src, dst) int64 arrays."""
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, n + 1, dtype=np.float64) ** -0.75
+    p = w / w.sum()
+    perm = rng.permutation(n)
+    keys = np.zeros(0, np.int64)
+    while len(keys) < n_edges:
+        s = perm[rng.choice(n, 4 * n_edges, p=p)]
+        d = perm[rng.choice(n, 4 * n_edges, p=p)]
+        k = np.concatenate([keys, (s * n + d)[s != d]])
+        _, first = np.unique(k, return_index=True)
+        keys = k[np.sort(first)]
+    keys = keys[:n_edges]
+    return keys // n, keys % n
+
+
+def simrank_f64(src, dst, n: int, decay: float, iterations: int,
+                dev: torch.device) -> torch.Tensor:
+    """The same recurrence with every product in f64."""
+    s = torch.as_tensor(src, device=dev)
+    d = torch.as_tensor(dst, device=dev)
+    A = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    A[s, d] = 1.0
+    indeg = A.sum(dim=0)
+    W = A * torch.where(indeg > 0, 1.0 / indeg.clamp_min(1.0),
+                        torch.zeros_like(indeg))[None, :]
+    S = torch.eye(n, dtype=torch.float64, device=dev)
+    for _ in range(iterations):
+        S = decay * ((W.T @ S) @ W)
+        S.fill_diagonal_(1.0)
+    return S
+
+
+def simrank_against_f64(S: np.ndarray, src, dst, p, dev) -> dict:
+    """S (n, n) against the f64 recurrence on the same graph: the largest
+    error, and the top SIMRANK_K ids of every node equal wherever the f64
+    scores on both sides of a rank are more than SIMRANK_F64_ATOL apart."""
+    from pio_tpu_torch.ops.simrank import simrank_topk
+
+    n = S.shape[0]
+    S64 = simrank_f64(src, dst, n, p.decay, p.num_iterations, dev)
+    err = float((torch.as_tensor(S, device=dev).double() - S64).abs().max())
+    M = S64.clone()
+    M.fill_diagonal_(-float("inf"))
+    vals, ids = torch.sort(M, dim=1, descending=True, stable=True)
+    vals = vals[:, :SIMRANK_K + 1].cpu().numpy()
+    ids = ids[:, :SIMRANK_K].cpu().numpy()
+    _, got = simrank_topk(S, SIMRANK_K)
+    gaps = -np.diff(vals, axis=1)                       # (n, K)
+    apart = gaps[:, :SIMRANK_K] > SIMRANK_F64_ATOL
+    left = np.concatenate([np.ones((n, 1), bool), apart[:, :-1]], axis=1)
+    held = left & apart
+    moved = int((held & (got != ids)).sum())
+    if err > SIMRANK_F64_ATOL or moved:
+        raise AssertionError(f"SimRank against f64: max |err| {err}, "
+                             f"{moved} of {int(held.sum())} held ids moved")
+    return {"f64_max_abs_err": err, "f64_atol": SIMRANK_F64_ATOL,
+            "ids_held": int(held.sum()), "ids_moved": moved}
+
+
+def rest_simrank(store, dev: torch.device, rng) -> dict:
+    """SimRank at SIMRANK_NODES (5 iterations: seconds, TFLOP/s, peak
+    memory); at the ego-Facebook shape held against f64; then that graph
+    as an edge list in the engine dir (engine.json's relative
+    ``graph_edgelist_path``) through train, a deploy and pairwise and
+    retrieval queries."""
+    from pio_tpu_torch.models.friendrecommendation import SimRankParams
+    from pio_tpu_torch.ops.simrank import padded_nodes, simrank_device
+
+    conf = json.loads((REPO_ROOT / "examples" / "friend-recommendation"
+                       / "engine.json").read_text())
+    p = SimRankParams(**conf["algorithms"][0]["params"])
+    src, dst = power_law_graph(SIMRANK_NODES, SIMRANK_EDGES, SEED + 52)
+    reset_counts()
+    simrank_device(src, dst, SIMRANK_NODES, p.decay, 1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    S = simrank_device(src, dst, SIMRANK_NODES, p.decay, p.num_iterations,
+                       device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_pad = padded_nodes(SIMRANK_NODES)
+    diag = S.diagonal()
+    if (not bool(torch.isfinite(S).all()) or not bool((diag == 1).all())
+            or float(S.min()) < 0 or float(S.max()) > 1):
+        raise AssertionError("SimRank at 16,384 nodes: S out of [0, 1] or "
+                             "its diagonal not 1")
+    del S
+    torch.cuda.empty_cache()
+    flops = 4.0 * n_pad ** 3 * p.num_iterations
+    big = {"nodes": SIMRANK_NODES, "edges": SIMRANK_EDGES, "n_pad": n_pad,
+           "iterations": p.num_iterations, "s": secs,
+           "tflops": flops / secs / 1e12, "peak_gib": peak}
+    src, dst = power_law_graph(EGO_NODES, EGO_EDGES, SEED + 53)
+    S = simrank_device(src, dst, EGO_NODES, p.decay, p.num_iterations,
+                       device=dev)[:EGO_NODES, :EGO_NODES].cpu().numpy()
+    ego = {"nodes": EGO_NODES, "edges": EGO_EDGES,
+           **simrank_against_f64(S, src, dst, p, dev)}
+    no_launches("SimRank")
+    # the verb path on the same graph, its nodes named by their index:
+    # the committed engine.json's relative ./data/edges.txt
+    d = rest_engine_dir(store, "friend-recommendation")
+    (d / "data" / "edges.txt").write_text(
+        "".join(f"{a} {b}\n" for a, b in zip(src, dst)))
+    served = {}
+
+    def queries(model):
+        served["model"] = model
+        ids = model.nodes.ids()
+        pick = rng.choice(len(ids), REST_QUERIES * 3 // 2, replace=False)
+        half = REST_QUERIES // 2
+        return ([{"item1": ids[a], "item2": ids[b]}
+                 for a, b in zip(pick[:half], pick[half:2 * half])]
+                + [{"user": ids[a], "num": 10} for a in pick[2 * half:]])
+
+    verb = rest_verb(store, d, queries, dev)
+    # the verb's model indexes nodes in first-seen order: the same S
+    # summed in another order
+    model = served["model"]
+    ix = np.array([int(i) for i in model.nodes.ids()])
+    verb["nodes"] = len(ix)
+    verb["max_abs_diff_to_in_process"] = float(np.abs(
+        model.pair_scores - S[np.ix_(ix, ix)]).max())
+    if verb["max_abs_diff_to_in_process"] > SIMRANK_F64_ATOL:
+        raise AssertionError(f"SimRank verb: {verb}")
+    return {"dense": big, "ego_facebook": ego, "verb": verb}
+
+
+def msd_data():
+    """Seeded data of YearPredictionMSD's shape: correlated unit-scale
+    features (the Gram's condition number about 5), a year around 1998
+    linear in them plus N(0, 9^2) noise."""
+    rng = np.random.default_rng(SEED + 54)
+    mix = np.eye(MSD_FEATURES) + rng.normal(
+        0, 0.3 / np.sqrt(MSD_FEATURES), (MSD_FEATURES, MSD_FEATURES))
+    x = (rng.standard_normal((MSD_ROWS, MSD_FEATURES), np.float32)
+         @ mix.astype(np.float32))
+    w = rng.normal(0, 2, MSD_FEATURES)
+    y = (1998.0 + x @ w + rng.normal(0, 9, MSD_ROWS)).astype(np.float32)
+    return x, y
+
+
+def ridge_f64(x: np.ndarray, y: np.ndarray, reg: float):
+    """The centred ridge solve in f64 on the host, from the same f32
+    inputs."""
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    xm, ym = x64.mean(axis=0), y64.mean()
+    xc = x64 - xm
+    w = np.linalg.solve(xc.T @ xc + reg * np.eye(x.shape[1]),
+                        xc.T @ (y64 - ym))
+    return w, ym - xm @ w
+
+
+def rest_regression(store, dev: torch.device, rng) -> dict:
+    """Ridge (engine.json's reg) and SGD (its 200 iterations at step 0.1)
+    at YearPredictionMSD's shape, ridge held against an f64 host solve;
+    then a copy of examples/regression (its data/sample.txt at the
+    relative ``filepath``) through train, a deploy, queries and ``eval``
+    in class mode (MSE)."""
+    from pio_tpu_torch.models.regression import SGDParams, ridge_solve, sgd_fit
+
+    conf = json.loads((REPO_ROOT / "examples" / "regression" / "engine.json")
+                      .read_text())
+    algos = {a["name"]: a["params"] for a in conf["algorithms"]}
+    x, y = msd_data()
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    reset_counts()
+    out = {"rows": MSD_ROWS, "features": MSD_FEATURES}
+    for name in ("ridge", "sgd"):
+        for _ in range(2):      # the first call of each warms cuBLAS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "ridge":
+                w, b = ridge_solve(xt, yt, algos["ridge"]["reg"])
+            else:
+                w, b = sgd_fit(xt, yt, SGDParams(**algos["sgd"]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        mse = float(((xt @ w + b - yt).double() ** 2).mean())
+        out[name] = {"s": secs, "train_mse": mse,
+                     "weights": w.cpu().numpy(), "intercept": float(b)}
+    no_launches("regression")
+    w64, b64 = ridge_f64(x, y, algos["ridge"]["reg"])
+    werr = float(np.abs(out["ridge"]["weights"] - w64).max())
+    berr = abs(out["ridge"]["intercept"] - b64)
+    out["ridge"].update(f64_max_abs_err=werr, f64_intercept_err=berr,
+                        f64_max_abs_w=float(np.abs(w64).max()))
+    if (werr > RIDGE_F64_RTOL * np.abs(w64).max()
+            or berr > RIDGE_F64_INTERCEPT_ATOL
+            or not np.isfinite(out["sgd"]["weights"]).all()):
+        raise AssertionError(f"ridge against f64: {werr}, intercept {berr}")
+    for name in ("ridge", "sgd"):
+        del out[name]["weights"]
+    d = rest_engine_dir(store, "regression")
+    queries = [{"features": [float(v) for v in rng.normal(size=4)]}
+               for _ in range(REST_QUERIES)]
+    out["verb"] = rest_verb(store, d, queries, dev)
+    (d / "chip_reg_eval.py").write_text(REG_CLASSES)
+    rc, printed, eval_s = _cli(
+        ["eval", "chip_reg_eval.RegEval", "chip_reg_eval.RegGrid",
+         "--engine-dir", str(d), "--output", str(store.tmp / "reg.json")],
+        store.storage)
+    sys.modules.pop("chip_reg_eval", None)
+    if rc != 0:
+        raise AssertionError(f"regression eval: rc {rc}: {printed}")
+    res = _eval_scores(store.storage,
+                       printed.split("Instance: ")[1].split()[0])
+    if not res["best_score"] < float(np.var(np.loadtxt(
+            d / "data" / "sample.txt")[:, 0])):
+        raise AssertionError(f"regression eval: {res}")
+    out["verb"]["eval"] = {"s": eval_s, **res}
+    return out
+
+
+def stock_universe():
+    """STOCK_TICKERS seeded log-price walks of STOCK_DAYS days: a market
+    factor, betas around 1, idiosyncratic noise with a little
+    autocorrelation (something for the regression to find)."""
+    from datetime import date, timedelta
+
+    from pio_tpu_torch.models.stock import PriceFrame
+
+    rng = np.random.default_rng(SEED + 55)
+    m = rng.normal(0.0003, 0.01, STOCK_DAYS)
+    beta = rng.normal(1.0, 0.3, STOCK_TICKERS)
+    e = rng.normal(0, 0.015, (STOCK_DAYS, STOCK_TICKERS))
+    for t in range(1, STOCK_DAYS):
+        e[t] += 0.05 * e[t - 1]
+    lp = (np.log(rng.uniform(20, 400, STOCK_TICKERS))
+          + np.cumsum(m[:, None] * beta[None, :] + e, axis=0))
+    start = date(2015, 1, 1)
+    return PriceFrame(lp.astype(np.float32),
+                      [f"T{j:03d}" for j in range(STOCK_TICKERS)],
+                      [str(start + timedelta(days=t))
+                       for t in range(STOCK_DAYS)])
+
+
+def stock_f64(feats: torch.Tensor, targets: torch.Tensor,
+              ridge: float) -> np.ndarray:
+    """The batched per-ticker solve in f64 on the host, from the same f32
+    features and targets."""
+    f = feats.double().cpu().numpy()
+    X = np.concatenate([f, np.ones(f.shape[:2] + (1,))], axis=-1)
+    A = np.einsum("tnf,tng->nfg", X, X) + ridge * np.eye(X.shape[-1])
+    b = np.einsum("tnf,tn->nf", X, targets.double().cpu().numpy())
+    return np.linalg.solve(A, b[..., None])[..., 0]
+
+
+def stock_err(w: np.ndarray, w64: np.ndarray) -> float:
+    """The largest error of a ticker's weights over that ticker's max
+    |w64|."""
+    return float((np.abs(w - w64).max(axis=1)
+                  / np.abs(w64).max(axis=1)).max())
+
+
+def rest_stock(store, dev: torch.device, rng) -> dict:
+    """An S&P 500-sized universe at examples/stock/engine.json's params:
+    train (weights held against f64) and the walk-forward ``backtest``
+    (seconds, solves, NAV, Sharpe; its last solve held against f64); then
+    the universe as the CSV at the relative ``filepath`` through train, a
+    deploy and queries."""
+    from pio_tpu_torch.models import stock
+    from pio_tpu_torch.workflow.context import create_workflow_context
+
+    conf = json.loads((REPO_ROOT / "examples" / "stock" / "engine.json")
+                      .read_text())
+    raw = conf["algorithms"][0]["params"]
+    p = stock.RegressionStrategyParams(**{
+        **raw, "indicators": tuple(tuple(i) for i in raw["indicators"])})
+    frame = stock_universe()
+    solves: list = []
+    plain = stock.fit_ticker_regressions
+
+    def fit(feats, targets, ridge):
+        w = plain(feats, targets, ridge)
+        solves.append((feats, targets, w))
+        return w
+
+    stock.fit_ticker_regressions = fit
+    try:
+        reset_counts()
+        algo = stock.RegressionStrategyAlgorithm(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = algo.train(create_workflow_context(store.storage,
+                                                   device=dev), frame)
+        train_s = time.perf_counter() - t0
+        train_err = stock_err(model.weights, stock_f64(*solves[-1][:2],
+                                                       p.ridge))
+        solves.clear()
+        t0 = time.perf_counter()
+        res = stock.backtest(frame, p, device=dev)
+        bt_s = time.perf_counter() - t0
+    finally:
+        stock.fit_ticker_regressions = plain
+    no_launches("stock")
+    last = solves[-1]
+    bt_err = stock_err(last[2].cpu().numpy(),
+                       stock_f64(last[0], last[1], p.ridge))
+    if (max(train_err, bt_err) > STOCK_F64_RTOL
+            or not np.isfinite(res.nav).all()
+            or res.days != STOCK_DAYS - 100 - 1):
+        raise AssertionError(f"stock: f64 errors {train_err}, {bt_err}; "
+                             f"{res.days} days")
+    out = {"tickers": STOCK_TICKERS, "days": STOCK_DAYS, "train_s": train_s,
+           "f64_rel_err_train": train_err,
+           "backtest": {"s": bt_s, "solves": len(solves),
+                        "days": res.days, "nav_end": res.nav[-1],
+                        "total_return": res.total_return,
+                        "volatility": res.volatility, "sharpe": res.sharpe,
+                        "f64_rel_err_last_solve": bt_err}}
+    d = rest_engine_dir(store, "stock")
+    t0 = time.perf_counter()
+    with open(d / "data" / "prices.csv", "w") as f:
+        f.write("date,ticker,price\n")
+        prices = np.exp(frame.log_price.astype(np.float64))
+        for t, day in enumerate(frame.dates):
+            f.write("".join(f"{day},{tk},{prices[t, j]:.4f}\n"
+                            for j, tk in enumerate(frame.tickers)))
+    csv_s = time.perf_counter() - t0
+    queries = [{}] + [{"tickers": [frame.tickers[j] for j in rng.choice(
+        STOCK_TICKERS, 5, replace=False)]} for _ in range(REST_QUERIES - 1)]
+    out["verb"] = {"csv_write_s": csv_s,
+                   **rest_verb(store, d, queries, dev)}
+    return out
+
+
+def rest_external(store, dev: torch.device) -> dict:
+    """examples/external-engine (its stdlib engine_server.py, the relative
+    ``workdir``) on the templates phase's events: train, a deploy and
+    queries, each body the in-process answer."""
+    d = rest_engine_dir(store, "external-engine")
+    rng = np.random.default_rng(SEED + 56)
+    queries = [{"user": f"u{u}", "num": 10}
+               for u in rng.integers(0, 400, REST_QUERIES)]
+    return rest_verb(store, d, queries, dev)
+
+
+def phase_templates_rest(ratings, store, dev: torch.device) -> dict:
+    """The two-tower, regression, stock, friend-recommendation and
+    external-engine templates, on the templates phase's ratings and
+    store (its 10^5 events)."""
+    secs: dict = {}
+    out: dict = {}
+    rng = np.random.default_rng(SEED + 57)
+    for name, fn, args in (
+            ("twotower", rest_twotower, (ratings, dev)),
+            ("twotower_verbs", rest_twotower_verbs, (store, dev, rng)),
+            ("simrank", rest_simrank, (store, dev, rng)),
+            ("regression", rest_regression, (store, dev, rng)),
+            ("stock", rest_stock, (store, dev, rng)),
+            ("external", rest_external, (store, dev))):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        secs[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        emit("templates_rest", part=name, card=card_line(), **out[name])
+    emit("templates_rest", part="seconds", seconds=secs)
+    return {"seconds": secs}
 
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
@@ -7872,7 +8572,7 @@ SEQUENCE_LANE = "--sequence-lane"
 
 
 def sequence_lane(out: Path) -> int:
-    """The templates phase and the sequence template's end-to-end phases
+    """The two template phases and the sequence template's end-to-end phases
     (sequence_entry, train_resume, evaluate_sequence) in a process of
     their own, which ``main`` starts beside the ALS event phases: their
     seconds and K2's and K8's launches on their paths are written to
@@ -7887,7 +8587,15 @@ def sequence_lane(out: Path) -> int:
     torch.cuda.set_device(dev)
     wall: dict = {}
     timed = functools.partial(run_timed, wall, time.perf_counter())
-    templates = timed("templates", phase_templates, dev)
+    t0 = time.perf_counter()
+    ratings = synth_ratings()
+    wall["templates_synth"] = time.perf_counter() - t0
+    # both template phases train on one set of ratings and serve from one
+    # store of events (the templates phase writes them)
+    with sqlite_store("pio_chip_templates_") as store:
+        templates = timed("templates", phase_templates, ratings, store, dev)
+        timed("templates_rest", phase_templates_rest, ratings, store, dev)
+    del ratings
     with sqlite_store("pio_chip_seq_") as store:
         seq_entry = timed("sequence_entry", phase_sequence_entry, store, dev)
         resume = timed("train_resume", phase_train_resume, store, dev)

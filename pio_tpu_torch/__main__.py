@@ -5,9 +5,14 @@ Verbs ported so far:
   train    read the engine's events, train it and store a COMPLETED engine
            instance (printing its id), on the CUDA device unless --device
            cpu. The engine.json's engineFactory picks the template
-           (recommendation, sequence, similarproduct, ecommerce or
-           classification). The run is supervised: under
-           the sequence template SIGTERM or SIGINT stops it at the next
+           (recommendation, sequence, similarproduct, ecommerce,
+           classification, twotower, regression, stock,
+           friendrecommendation, or the external engine
+           pio_tpu_torch.controller.external.ExternalEngine); params
+           that name engine-dir-relative paths (their path_fields:
+           filepath, graph_edgelist_path, workdir) resolve against
+           --engine-dir. The run is supervised: under the sequence and
+           two-tower templates SIGTERM or SIGINT stops it at the next
            step with a checkpoint and exit code 75 (the instance
            INTERRUPTED); the other templates do not check
            for the signal, so a run goes on to COMPLETED (exit 0)
@@ -166,7 +171,53 @@ def _load_factory(class_path: str, engine_dir: str | None = None):
 def _engine_from_variant(variant: dict, engine_dir: str | None = None):
     factory = _load_factory(variant["engineFactory"], engine_dir)
     engine = factory.apply()
-    return engine, engine.engine_params_from_variant(variant)
+    ep = engine.engine_params_from_variant(variant)
+    if engine_dir:
+        ep = _absolutize_param_paths(ep, engine_dir)
+    return engine, ep
+
+
+def _absolutize_param_paths(ep, engine_dir: str):
+    """Engine-dir-relative paths in params become absolute at load time, so
+    `pio train --engine-dir X` behaves the same from any cwd. Any Params
+    subclass opts in by declaring `path_fields = ("field", ...)` (e.g. the
+    external-engine bridge's workdir)."""
+    import dataclasses
+
+    base = os.path.abspath(engine_dir)
+
+    def fix(p):
+        fields = getattr(p, "path_fields", ())
+        if not fields:
+            return p, False
+        updates = {
+            f: os.path.join(base, v)
+            for f in fields
+            if (v := getattr(p, f, "")) and not os.path.isabs(v)
+        }
+        return (dataclasses.replace(p, **updates), True) if updates \
+            else (p, False)
+
+    changed = False
+
+    def fix_stage(stage):
+        nonlocal changed
+        if stage is None:
+            return stage
+        name, p = stage
+        p2, did = fix(p) if p is not None else (p, False)
+        changed |= did
+        return (name, p2)
+
+    algos = [fix_stage(s) for s in (ep.algorithms or [])]
+    out = dataclasses.replace(
+        ep,
+        datasource=fix_stage(ep.datasource),
+        preparator=fix_stage(ep.preparator),
+        algorithms=algos,
+        serving=fix_stage(ep.serving),
+    )
+    return out if changed else ep
 
 
 def _engine_ids(variant: dict, engine_dir: str) -> tuple[str, str, str]:

@@ -24,6 +24,14 @@ lists, category maps and, for classification, plain mappings:
 Bayes), ``random_forest_from_numpy`` (the flattened trees) and
 ``classification_schema_from_numpy`` (the query encoder the classifier
 models carry).
+
+A ``pio_tpu`` two-tower model's params are a flax tree {"user": ...,
+"item": ...} of one ``Embed`` and two ``Dense`` each.
+``twotower_params_from_numpy`` turns it into the port's ``TwoTowers``
+state dict (torch cannot draw flax's ``init_params``, so parity tests
+start both packages from the same converted params);
+``twotower_model_from_numpy`` builds the port's ``TwoTowerModel``. The
+regression, stock and SimRank models are numpy in both packages.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from pio_tpu_torch.models.ecommerce import ECommerceModel
 from pio_tpu_torch.models.recommendation import RecommendationModel
 from pio_tpu_torch.models.similarproduct import DIMSUMModel, SimilarProductModel
 from pio_tpu_torch.models.sequence import SequenceModel, SequenceParams
+from pio_tpu_torch.models.twotower import TwoTowerModel, TwoTowerParams
 from pio_tpu_torch.workflow.context import resolve_device
 
 
@@ -239,3 +248,39 @@ def classification_schema_from_numpy(
         vectorizer=BinaryVectorizer(BiMap(dict(vectorizer_index))),
         numeric_fields=tuple(numeric_fields), labels=BiMap(dict(labels)),
     )
+
+
+def twotower_params_from_numpy(tree, *, device) -> dict[str, torch.Tensor]:
+    """The reference's two-tower params -> the port's ``TwoTowers`` state
+    dict, f32 on ``device``. Each tower's ``Embed`` table is copied as it
+    is; a ``Dense`` kernel (in, out) becomes a ``Linear`` weight (out, in),
+    its bias copied."""
+    flat = {}
+    for side in ("user", "item"):
+        node = tree[side]
+        flat[f"{side}.embedding"] = node["Embed_0"]["embedding"]
+        for i in (0, 1):
+            dense = node[f"Dense_{i}"]
+            flat[f"{side}.dense_{i}.weight"] = np.asarray(dense["kernel"]).T
+            flat[f"{side}.dense_{i}.bias"] = dense["bias"]
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.ascontiguousarray(v, np.float32), device=dev)
+            for k, v in flat.items()}
+
+
+def twotower_model_from_numpy(
+    tree, item_embeddings, user_ids: Sequence[str],
+    item_ids: Sequence[str], config: TwoTowerParams, *, device,
+) -> TwoTowerModel:
+    """The reference's params (see ``twotower_params_from_numpy``), its
+    (n_items, out_dim) item embeddings and the ids in dense-index order ->
+    the port's model, f32 on ``device``."""
+    params = twotower_params_from_numpy(tree, device=device)
+    emb = np.ascontiguousarray(item_embeddings, np.float32)
+    users = _ids_for(user_ids, params["user.embedding"].shape[0], "user")
+    items = _ids_for(item_ids, params["item.embedding"].shape[0], "item")
+    if emb.shape != (len(item_ids), config.out_dim):
+        raise ValueError(f"item embeddings of shape {emb.shape} for "
+                         f"{len(item_ids)} items of width {config.out_dim}")
+    return TwoTowerModel(params, torch.tensor(emb, device=params[
+        "user.embedding"].device), users, items, config)

@@ -89,6 +89,16 @@ def mean_vector(matrix: torch.Tensor, indices: np.ndarray) -> torch.Tensor:
     return group_means(matrix, [np.asarray(indices, np.int64)])
 
 
+def bf16_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product of bf16 ``a`` and ``b`` summed in f32 (the reference's
+    ``preferred_element_type=float32``): ``torch.mm``'s ``out_dtype`` on
+    CUDA; on the CPU, which has no such kernel, the operands widened to
+    f32 first (a bf16 x bf16 product is exact in f32)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def _gram(u_b: torch.Tensor, i_b: torch.Tensor, v_b: torch.Tensor,
           counts: np.ndarray, n_items_pad: int,
           user_batch: int) -> torch.Tensor:
@@ -107,11 +117,7 @@ def _gram(u_b: torch.Tensor, i_b: torch.Tensor, v_b: torch.Tensor,
             flat = (u_b[b, :n].long() * n_items_pad + i_b[b, :n].long())
             D.view(-1).index_put_((flat,), v_b[b, :n], accumulate=True)
         Db = D.to(torch.bfloat16)
-        if dev.type == "cuda":
-            G.add_(torch.mm(Db.T, Db, out_dtype=torch.float32))
-        else:
-            Df = Db.float()
-            G.add_(Df.T @ Df)
+        G.add_(bf16_mm_f32(Db.T, Db))
     return G
 
 

@@ -130,7 +130,13 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.models.similarproduct",
                 "pio_tpu_torch.models.ecommerce",
                 "pio_tpu_torch.models.classification",
-                "pio_tpu_torch.e2.vectorizer", "pio_tpu_torch.e2.engine"):
+                "pio_tpu_torch.e2.vectorizer", "pio_tpu_torch.e2.engine",
+                "pio_tpu_torch.ops.indicators", "pio_tpu_torch.ops.simrank",
+                "pio_tpu_torch.models.stock",
+                "pio_tpu_torch.models.regression",
+                "pio_tpu_torch.models.friendrecommendation",
+                "pio_tpu_torch.models.twotower",
+                "pio_tpu_torch.controller.external"):
         assert mod in res["modules"]
 
 
