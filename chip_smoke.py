@@ -26,7 +26,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - serve_rollout: in that store, a second instance B (the factors plus
   seeded noise) beside the serve phase's A, and one ``python -m
   pio_tpu_torch deploy`` of A (continuous batcher, a warm query):
-  ``deploy --canary 25`` of B under 512 queries from 16 threads, each
+  ``deploy --canary 25`` of B under 256 queries from 16 threads, each
   user on the arm ``canary_bucket`` names and each body byte for byte
   its arm's instance's answer alone (in-process ``QueryServer``s), each
   arm's requests its users, K7 once a device dispatch of either arm and
@@ -34,7 +34,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   arms; ``promote`` and ``/reload`` keeping B; a third instance C (B's
   item rows permuted) canaried until the divergence guard rolls it back
   by itself, ``/reload`` keeping B; A canaried with shadow scoring on
-  every 10th query and with none, in three alternated pairs, each ended
+  every 10th query and with none (one pair), each ended
   by a rollback; ``deploy --canary auto`` under load, climbing every
   stage to 100 %; a second deploy with ``--feedback`` (32
   queries, 32 ``predict`` events) and ``/profile/start``/``stop``
@@ -42,7 +42,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - serve_fleet: the same factors in a sqlite store of their own, deployed
   by ``python -m pio_tpu_torch deploy --shards 2 --replicas 2
   --coalesce-window-ms 2`` in exact mode and then clustered (C 256 on
-  each shard's slice, nprobe 32, K7), each under 512 queries of distinct
+  each shard's slice, nprobe 32, K7), each under 256 queries of distinct
   users from 16 threads through its router and through a router without
   coalescing over the same shards: exact bodies byte for byte the
   single-host deploy's, clustered recall@10 against the exact oracle and
@@ -51,9 +51,22 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   column bits at narrow and shard widths; 2 x 2 shard processes behind a
   router with a replica and then a whole group SIGKILLed and restarted
   under load (no 5xx, degraded answers flagged); ``reshard --shards 3``
-  under load (every answer the single host's); ``foldin --router-url``
+  under load (every answer the single host's) with new users folded in
+  through the router meanwhile (every acked row then served by each
+  replica of its owner under the new plan); ``foldin --router-url``
   of 64 new users; ``deploy --canary 25`` and ``promote`` against the
   router;
+- serve_tenancy: the multi-tenant pool, two tenants at that shape in a
+  sqlite store of their own (A the same factors, B serve_rollout's C):
+  ``deploy --fleet-join pool --shards 2 --replicas 2`` for A with a 50
+  qps quota and for B, ``python -m pio_tpu_torch deploy --fleet pool``
+  as a process (2 x 2 tenant-mux shard hosts, every tenant's partitions
+  on the card, serving exact as the JAX package's pool does); 512
+  queries a tenant from 8 threads each, every body byte for byte its
+  single-host answer; A flooded past its quota (429 with Retry-After)
+  while B answers 200 and exact; ``undeploy --tenant`` of B and a live
+  ``--fleet-join`` of B with no non-200 for A; each tenant's exact
+  dispatches on the card and no K7 launch, from the hosts' counts;
 - foldin: on the same seeded factors in a fresh sqlite store, served
   behind a server key: a tail of rate/buy events of 2,048 users (a
   quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
@@ -234,10 +247,10 @@ The phases run one at a time, in the order above but for
 attention_kernel and sequence_train, which follow train_validated, so
 that every kernel's timing and training throughput is taken with the
 card to itself. Then templates, templates_rest, sequence_entry,
-train_resume and evaluate_sequence run in a second process of this
-script (``--sequence-lane``: its own stores and launch counts) beside
-ingest to quickstart, so the host times of both groups are taken under
-each other's load.
+train_resume, evaluate_sequence and quickstart run in a second process
+of this script (``--sequence-lane``: its own stores and launch counts)
+beside ingest to evaluate, so the host times of both groups are taken
+under each other's load.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -1351,7 +1364,9 @@ def phase_serve_batching(users: np.ndarray, items: np.ndarray,
 
 # -- phase 3c: the deploy's guarded rollout --------------------------------
 
-SR_QUERIES = 512           # /queries.json of distinct users a canary load
+# /queries.json of distinct users a canary load: cut from 512 when the
+# multi-tenant pool's phase joined the script (PERF.md section 4)
+SR_QUERIES = 256
 SR_CLIENTS = 16            # client threads posting them at once
 SR_PCT = 25                # the fixed canary share
 SR_NOISE = 1e-3            # B = A + SR_NOISE x N(0, 1) on every factor
@@ -1364,8 +1379,10 @@ SR_RAMP = {"min_stage_seconds": 1, "min_stage_samples": 20}
 SR_RAMP_USERS = 20_000     # distinct users cycled through during the ramp
 SR_RAMP_WAIT_S = 20
 SR_RAMP_STAGES = (1, 5, 25, 100)   # the rollout's default ladder
-# shadowEvery of A's 25 % canaries, in alternated pairs in one deploy
-SR_SHADOW_ORDER = (0, 10, 10, 0, 0, 10)
+# shadowEvery of A's 25 % canaries in one deploy: one pair, cut from three
+# alternated pairs when the multi-tenant pool's phase joined the script
+# (PERF.md section 4)
+SR_SHADOW_ORDER = (0, 10)
 SR_FEEDBACK_QUERIES = 32
 SR_PROFILED_QUERIES = 16
 SR_APP = "chip-smoke-feedback"
@@ -1471,7 +1488,7 @@ def phase_serve_rollout(users: np.ndarray, items: np.ndarray,
     ``QueryServer``s on the card); fold-in on both arms; ``promote`` and
     ``/reload``; C's divergence breach rolling it back by itself and
     ``/reload`` keeping B; A canaried with shadow scoring every 10th
-    query and with none, in alternated pairs (SR_SHADOW_ORDER), each
+    query and with none (SR_SHADOW_ORDER), each
     ended by a rollback; the ``auto`` ramp under load, which must climb
     every stage; a second deploy of B with ``--feedback`` and
     ``/profile/*``."""
@@ -1721,7 +1738,7 @@ def phase_serve_rollout(users: np.ndarray, items: np.ndarray,
             seconds["breach"] = time.perf_counter() - t0
 
             # -- A canaried again at 25 % with shadow scoring every 10th
-            # query and with none, in alternated pairs, each canary ended
+            # query and with none (SR_SHADOW_ORDER), each canary ended
             # by a rollback (the last by the verb) ------------------------
             t0 = time.perf_counter()
             runs = []
@@ -1928,7 +1945,9 @@ def auto_ramp(env: dict, port: int, iid: str, user_ids: list) -> dict:
 
 # -- phase 3d: the sharded, replicated fleet ----------------------------------
 
-SF_QUERIES = 512           # /queries.json of distinct users a load
+# /queries.json of distinct users a load: cut from 512 when the
+# multi-tenant pool's phase joined the script (PERF.md section 4)
+SF_QUERIES = 256
 SF_CLIENTS = 16            # client threads posting them at once
 SF_SHARDS, SF_REPLICAS = 2, 2
 SF_ENGINE = "chip-smoke-fleet"
@@ -1937,6 +1956,8 @@ SF_APP = "chip-smoke-fleet"
 SF_RETRIEVAL = {**RETRIEVAL, "n_clusters": 256, "nprobe": 32,
                 "rerank_k": 1024}
 SF_RESHARD_CLIENTS = 4     # threads querying through the reshard
+SF_RESHARD_FOLD_USERS = 4  # new users a fold-in posted through the reshard
+SF_RESHARD_FOLD_GAP_S = 0.2  # pause between those fold-ins
 SF_DRILL_CLIENTS = 4       # threads querying through the shard kills
 SF_FOLDIN_USERS = 64       # new users folded in through the router
 SF_FOLDIN_EVENTS = 16      # rate events each
@@ -2277,14 +2298,48 @@ def join_group(env: dict, tmp: Path, iid: str) -> tuple[list, list]:
 
 
 def reshard_under_load(env: dict, port: int, join_ports: list, procs: list,
-                       users: list, want: dict) -> dict:
+                       users: list, want: dict, endpoints: list,
+                       plan_of) -> dict:
     """``python -m pio_tpu_torch reshard --shards 3`` of the fleet on
     ``port`` onto the join group on ``join_ports``, with
     SF_RESHARD_CLIENTS threads querying throughout: every answer 200 and
-    the single host's byte for byte, before, during and after."""
+    the single host's byte for byte, before, during and after. A thread
+    folds SF_RESHARD_FOLD_USERS new users at a time into the fleet
+    through its router's ``/fleet/upsert_users`` meanwhile, each user
+    once; after the cutover every acked row must be the row each replica
+    of its owner under the new plan (``plan_of()``; groups
+    ``endpoints`` and the join group) serves."""
     import threading
 
     stop = threading.Event()
+    fold_rng = np.random.default_rng(SEED + 47)
+    acked: dict = {}
+    fold_stats = {"posted": 0, "not_acked": 0, "errors": 0}
+
+    def folder() -> None:
+        n = 0
+        while not stop.is_set():
+            rows = {f"reshard-fold-{n + j}": [
+                float(x) for x in fold_rng.standard_normal(
+                    RANK).astype(np.float32)]
+                for j in range(SF_RESHARD_FOLD_USERS)}
+            n += SF_RESHARD_FOLD_USERS
+            try:
+                status, raw, _ = _post_raw(
+                    port, f"/fleet/upsert_users?accessKey={SB_KEY}",
+                    {"users": rows, "stalenessSeconds": 0.0})
+                res = json.loads(raw) if status == 200 else {}
+            except OSError:
+                status, res = 0, {}
+            with lock:
+                fold_stats["posted"] += len(rows)
+                if status != 200:
+                    fold_stats["errors"] += 1
+                elif res.get("ok"):
+                    acked.update(rows)
+                else:
+                    fold_stats["not_acked"] += len(rows)
+            time.sleep(SF_RESHARD_FOLD_GAP_S)
     stage = {"name": "before"}
     seen: list = []
     lock = threading.Lock()
@@ -2309,6 +2364,7 @@ def reshard_under_load(env: dict, port: int, join_ports: list, procs: list,
 
         threads = [threading.Thread(target=hammer, args=(w,))
                    for w in range(SF_RESHARD_CLIENTS)]
+        threads.append(threading.Thread(target=folder))
         for t in threads:
             t.start()
         try:
@@ -2341,6 +2397,20 @@ def reshard_under_load(env: dict, port: int, join_ports: list, procs: list,
                   u) for u in users[:128]]
         out["after_differ"] = sum(r[1] != want[u] or r[0] != 200
                                   for r, u in after)
+        # every fold-in acked through the reshard, on every replica of
+        # its owner under the new plan (ROADMAP C16)
+        plan = plan_of()
+        groups = [list(g) for g in endpoints] + [
+            [f"http://127.0.0.1:{p}" for p in join_ports]]
+        missing = 0
+        for uid, row in acked.items():
+            for url in groups[plan.owner_of(uid)]:
+                got = _post(_port_of(url), "/shard/user_row",
+                            {"user": uid})[1]
+                missing += not got.get("found") or got["row"] != row
+        out["fold"] = {**fold_stats, "acked_rows_checked": len(acked),
+                       "replica_rows_missing": missing,
+                       "plan_version": plan.plan_version}
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -2551,6 +2621,7 @@ def phase_serve_fleet(users: np.ndarray, items: np.ndarray,
     from pio_tpu_torch.data.storage import Storage
     from pio_tpu_torch.serving_fleet.plan import (
         load_partition,
+        load_plan,
         persist_fleet_artifacts,
     )
     from pio_tpu_torch.workflow.context import create_workflow_context
@@ -2692,7 +2763,7 @@ def phase_serve_fleet(users: np.ndarray, items: np.ndarray,
             procs["foldin"] = foldin["proc"]
             out["reshard"] = reshard_under_load(
                 proc_env, ports["exact"], join_ports, join_procs, picked,
-                want)
+                want, endpoints, lambda: load_plan(storage, iid))
             seconds["reshard"] = time.perf_counter() - t0
             out["foldin"] = finish_fleet_foldin(foldin, clustered_endpoints)
             seconds["reshard_and_foldin"] = time.perf_counter() - t0
@@ -2784,10 +2855,370 @@ def phase_serve_fleet(users: np.ndarray, items: np.ndarray,
         failures.append(f"drill: {d}")
     r = out["reshard"]
     if (r["non_200"] or r["differ_from_single_host"] or r["after_differ"]
+            or r["fold"]["replica_rows_missing"]
+            or not r["fold"]["acked_rows_checked"]
             or any(n != SF_RESHARD_CLIENTS for n in r["workers"].values())
             or r["verdict"] != "COMMITTED"
             or r["plan"] != {"nShards": SF_SHARDS + 1, "planVersion": 2}):
         failures.append(f"reshard: {r}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+# -- phase 4a: the multi-tenant pool ------------------------------------------
+
+ST_ENGINES = {"a": "chip-smoke-tenant-a", "b": "chip-smoke-tenant-b"}
+ST_POOL = "pool"
+ST_SHARDS, ST_REPLICAS = SF_SHARDS, SF_REPLICAS  # as wait_fleet counts
+ST_QUERIES = 512           # /queries.json of distinct users a tenant
+ST_CLIENTS = 8             # client threads a tenant (16 in all)
+ST_QUOTA = 50              # tenant A's --tenant-quota-qps and -burst
+ST_PACED_HEAD = 40         # A's queries sent at once, then
+ST_PACED_QPS = 45          # A's rate, under its quota
+ST_FLOOD = 300             # A's queries in the flood, unpaced
+ST_VICTIM = 160            # B's queries beside the flood
+ST_ATTACH_QPS = 20         # A's paced rate through B's detach and attach
+ST_AFTER = 128             # B's queries after its attach
+
+
+def _post_tenant(port: int, key: str, body) -> tuple:
+    """(status, raw body, seconds, Retry-After) of one /queries.json
+    naming tenant ``key`` in the X-Pio-Tenant header."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/queries.json",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-Pio-Tenant": key},
+        method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, raw, retry = r.status, r.read(), None
+    except urllib.error.HTTPError as e:
+        status, raw, retry = e.code, e.read(), e.headers.get("Retry-After")
+    return status, raw, time.perf_counter() - t0, retry
+
+
+def tenant_load(port: int, key: str, users: list, want: dict,
+                clients: int, head: int | None = None,
+                qps: float | None = None) -> dict:
+    """One query a user for tenant ``key`` from ``clients`` threads, the
+    first ``head`` at once and the rest at ``qps`` when both are given:
+    the statuses, bodies differing from ``want``, 429s without a
+    Retry-After, latencies and queries/s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+
+    def one(i: int):
+        if qps:
+            delay = t0 + max(0, i - head) / qps - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+        status, raw, dt, retry = _post_tenant(
+            port, key, {"user": users[i], "num": 10})
+        return status, raw, dt, retry, users[i]
+
+    with ThreadPoolExecutor(clients) as pool:
+        res = list(pool.map(one, range(len(users))))
+    wall = time.perf_counter() - t0
+    lat = sorted(1e3 * dt for s, _, dt, _, _ in res if s == 200) or [0.0]
+    statuses: dict = {}
+    for s, *_ in res:
+        statuses[str(s)] = statuses.get(str(s), 0) + 1
+    return {"queries": len(res), "statuses": statuses,
+            "differ": sum(raw != want[u] for s, raw, _, _, u in res
+                          if s == 200),
+            "shed_without_retry_after": sum(
+                s == 429 and not retry for s, _, _, retry, _ in res),
+            "p50_ms": statistics.median(lat),
+            "p99_ms": lat[int(0.99 * (len(lat) - 1))],
+            "queries_per_s": len(res) / wall, "wall_s": wall}
+
+
+def both_loads(loads: dict) -> dict:
+    """``tenant_load`` calls ({name: kwargs}) run at once."""
+    import threading
+
+    out: dict = {}
+
+    def run(name: str, kw: dict) -> None:
+        out[name] = tenant_load(**kw)
+
+    threads = [threading.Thread(target=run, args=item)
+               for item in loads.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def pool_counts(endpoints: list) -> dict:
+    """Each host's device and the pool process's K7 launches (its hosts
+    share the count), and every tenant's scoring dispatches by route,
+    summed over the hosts, from the hosts' ``/metrics.json``."""
+    out: dict = {"devices": set(), "k7": None, "tenants": {}}
+    for group in endpoints:
+        for url in group:
+            _, m = _get(_port_of(url), "/metrics.json")
+            out["devices"].add(m["device"])
+            out["k7"] = m["kernelLaunches"]["quantized_scan"]
+            for key, t in m["tenants"].items():
+                d = out["tenants"].setdefault(key, {"exact": 0, "scan": 0,
+                                                    "hosts": 0})
+                d["exact"] += t["scoringDispatches"]["exact"]
+                d["scan"] += t["scoringDispatches"]["scan"]
+                d["hosts"] += 1
+    out["devices"] = sorted(out["devices"])
+    return out
+
+
+def phase_serve_tenancy(users: np.ndarray, items: np.ndarray,
+                        dev: torch.device) -> dict:
+    """The multi-tenant pool on two full-width tenants in a sqlite store
+    of its own: A the serve phase's factors, B serve_rollout's C (A's
+    factors plus seeded noise, the item rows permuted), each under an
+    engine id of its own. ``deploy --fleet-join pool --shards 2
+    --replicas 2`` for A with a 50 qps quota (burst 50) and for B with
+    none (the verb in process), then ``python -m pio_tpu_torch deploy
+    --fleet pool`` as a process: 2 x 2 tenant-mux shard hosts, every
+    tenant's partitions on the card, serving exact. 512 queries a tenant
+    of distinct users from 8 threads each (A paced under its quota),
+    every body byte for byte its tenant's single-host answer (in-process
+    ``QueryServer``s); A flooded past its quota beside B (A's sheds 429
+    with Retry-After, B's answers 200 and exact); ``undeploy --tenant``
+    of B and a ``--fleet-join`` of B into the running pool while A is
+    queried (no non-200 for A), B exact again; the hosts' exact
+    dispatches per tenant on the card and no K7 launch."""
+    from pio_tpu_torch.__main__ import _engine_from_variant, _load_variant
+    from pio_tpu_torch.convert import recommendation_model_from_numpy
+    from pio_tpu_torch.data.storage import Storage
+    from pio_tpu_torch.serving_fleet.tenancy import (
+        load_fleet_plan,
+        tenant_key,
+    )
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import QueryServer, ServingConfig
+    from pio_tpu_torch.workflow.train import persist_models
+
+    user_ids = [f"u{i}" for i in range(N_USERS)]
+    item_ids = [f"i{i}" for i in range(N_ITEMS)]
+    rng = np.random.default_rng(SEED + 61)
+    picked = {t: [user_ids[i]
+                  for i in rng.choice(N_USERS, ST_QUERIES, replace=False)]
+              for t in ST_ENGINES}
+    keys = {t: tenant_key(e) for t, e in ST_ENGINES.items()}
+    out: dict = {"card": card_line(), "queries": ST_QUERIES,
+                 "clients": 2 * ST_CLIENTS, "shards": ST_SHARDS,
+                 "replicas": ST_REPLICAS, "quota_a": ST_QUOTA,
+                 "tenants": keys}
+    seconds: dict = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="pio_chip_tenancy_") as tmp:
+        tmp = Path(tmp)
+        env = sqlite_env(tmp)
+        proc_env = {**os.environ, **env, "PIO_TPU_HOME": str(tmp / "home")}
+        storage = Storage(env=env)
+        proc = None
+        oracles: dict = {}
+        try:
+            t0 = time.perf_counter()
+            noise = np.random.default_rng(SEED + 43)
+            users_b = users + np.float32(SR_NOISE) * noise.standard_normal(
+                users.shape, np.float32)
+            items_b = items + np.float32(SR_NOISE) * noise.standard_normal(
+                items.shape, np.float32)
+            perm = np.random.default_rng(SEED + 53).permutation(N_ITEMS)
+            tables = {"a": (users, items), "b": (users_b, items_b[perm])}
+            del users_b, items_b
+            dirs, engines, iids = {}, {}, {}
+            for t, engine_id in ST_ENGINES.items():
+                dirs[t] = tmp / engine_id
+                dirs[t].mkdir()
+                (dirs[t] / "engine.json").write_text(json.dumps({
+                    "id": engine_id, "engineFactory": FACTORY,
+                    "datasource": {"params": {"app_name": engine_id}},
+                    "algorithms": [{"name": "als",
+                                    "params": {"rank": RANK}}]}))
+                engines[t] = _engine_from_variant(
+                    _load_variant(str(dirs[t])), str(dirs[t]))
+                iids[t] = persist_models([recommendation_model_from_numpy(
+                    *tables[t], user_ids, item_ids, device=dev)],
+                    engines[t][1], storage, engine_id,
+                    engine_factory=FACTORY)
+            del tables
+            seconds["persist"] = time.perf_counter() - t0
+
+            # -- the verbs: A joins with its quota, B without ---------------
+            port = free_port()
+            quota = ["--tenant-quota-qps", str(ST_QUOTA),
+                     "--tenant-quota-burst", str(ST_QUOTA)]
+            for t, extra in (("a", quota), ("b", [])):
+                rc, printed, seconds[f"join_{t}"] = _cli(
+                    ["deploy", "--engine-dir", str(dirs[t]), "--fleet-join",
+                     ST_POOL, "--shards", str(ST_SHARDS), "--replicas",
+                     str(ST_REPLICAS), "--ip", "127.0.0.1", "--port",
+                     str(port), *extra], storage)
+                if rc != 0 or f"Tenant {keys[t]} joined" not in printed:
+                    raise AssertionError(f"fleet-join {t}: rc {rc} "
+                                         f"{printed}")
+            plan = load_fleet_plan(storage, ST_POOL)
+            out["plan"] = {
+                "shard_loads": plan.shard_loads(),
+                "tenants": {p.tenant: {"instance": p.instance_id,
+                                       "shards": sorted(set(p.owners)),
+                                       "bytes": p.total_bytes(),
+                                       "quota_qps": p.quota_qps}
+                            for p in plan.tenants}}
+
+            # -- the pool process boots while the oracles answer -----------
+            t0, t0_wall = time.perf_counter(), time.time()
+            log = tmp / "pool.log"
+            with open(log, "w") as f:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "pio_tpu_torch", "deploy",
+                     "--fleet", ST_POOL, "--ip", "127.0.0.1", "--port",
+                     str(port), "--server-key", SB_KEY],
+                    cwd=REPO_ROOT, env=proc_env, stdout=f,
+                    stderr=subprocess.STDOUT, text=True)
+            t1 = time.perf_counter()
+            ctx = create_workflow_context(storage, device=dev)
+            want = {}
+            for t, engine_id in ST_ENGINES.items():
+                engine, ep = engines[t]
+                oracles[t] = QueryServer(
+                    engine, ep, storage,
+                    ServingConfig(engine_id=engine_id), ctx=ctx,
+                    instance_id=iids[t])
+                want[t] = {u: json.dumps(oracles[t].query(
+                    {"user": u, "num": 10}, record=False)).encode()
+                    for u in picked[t]}
+            seconds["oracles"] = time.perf_counter() - t1
+            # its '  shard host s: URL URL' lines
+            out["boot_s"], endpoints = wait_fleet(proc, log, t0_wall)
+            wait_ready(port, proc)
+            seconds["boot"] = time.perf_counter() - t0
+            out["pool_printed"] = [
+                ln for ln in log.read_text().splitlines()
+                if ln.startswith(("Multi-tenant fleet", "  tenant"))]
+            before = pool_counts(endpoints)
+
+            # -- both tenants' loads at once, A under its quota -------------
+            t0 = time.perf_counter()
+            out["traffic"] = both_loads({
+                "a": dict(port=port, key=keys["a"], users=picked["a"],
+                          want=want["a"], clients=ST_CLIENTS,
+                          head=ST_PACED_HEAD, qps=ST_PACED_QPS),
+                "b": dict(port=port, key=keys["b"], users=picked["b"],
+                          want=want["b"], clients=ST_CLIENTS)})
+            seconds["traffic"] = time.perf_counter() - t0
+
+            # -- A floods past its quota beside B ----------------------------
+            t0 = time.perf_counter()
+            flood_users = (picked["a"] * 2)[:ST_FLOOD]
+            out["flood"] = both_loads({
+                "a": dict(port=port, key=keys["a"], users=flood_users,
+                          want=want["a"], clients=ST_CLIENTS),
+                "b": dict(port=port, key=keys["b"],
+                          users=picked["b"][:ST_VICTIM], want=want["b"],
+                          clients=ST_CLIENTS)})
+            seconds["flood"] = time.perf_counter() - t0
+
+            # -- B detached and attached again while A is queried -----------
+            import threading
+
+            time.sleep(0.4)   # A's bucket refills 20 tokens
+            t0 = time.perf_counter()
+            during: dict = {}
+            stop = threading.Event()
+
+            def paced_a() -> None:
+                i, seen = 0, []
+                t_start = time.perf_counter()
+                while not stop.is_set():
+                    u = picked["a"][i % ST_QUERIES]
+                    status, raw, _, _ = _post_tenant(
+                        port, keys["a"], {"user": u, "num": 10})
+                    seen.append((status, raw == want["a"][u]))
+                    i += 1
+                    delay = t_start + i / ST_ATTACH_QPS - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                during["a"] = {"queries": len(seen),
+                               "non_200": sum(s != 200 for s, _ in seen),
+                               "differ": sum(s == 200 and not same
+                                             for s, same in seen)}
+
+            hammer = threading.Thread(target=paced_a)
+            hammer.start()
+            try:
+                time.sleep(0.2)
+                rc, printed, seconds["undeploy_tenant"] = _cli(
+                    ["undeploy", "--tenant", keys["b"], "--fleet", ST_POOL,
+                     "--port", str(port), "--server-key", SB_KEY], storage)
+                if rc != 0 or "live detach:" not in printed:
+                    raise AssertionError(f"undeploy --tenant: {printed}")
+                during["b_after_detach"] = _post_tenant(
+                    port, keys["b"], {"user": picked["b"][0], "num": 10})[0]
+                rc, printed, seconds["rejoin_b"] = _cli(
+                    ["deploy", "--engine-dir", str(dirs["b"]),
+                     "--fleet-join", ST_POOL, "--ip", "127.0.0.1", "--port",
+                     str(port), "--server-key", SB_KEY], storage)
+                if rc != 0 or "tenant attached" not in printed:
+                    raise AssertionError(f"live fleet-join: {printed}")
+                time.sleep(0.2)
+            finally:
+                stop.set()
+                hammer.join(timeout=120)
+            during["b_after_attach"] = tenant_load(
+                port, keys["b"], picked["b"][:ST_AFTER], want["b"],
+                ST_CLIENTS)
+            out["detach_attach"] = during
+            seconds["detach_attach"] = time.perf_counter() - t0
+            after = pool_counts(endpoints)
+            out["counts"] = {"before": before, "after": after}
+            out["k7_launches"] = after["k7"] - before["k7"]
+            out["exact_dispatches"] = {
+                k: after["tenants"].get(k, {}).get("exact", 0)
+                for k in keys.values()}
+        finally:
+            if proc is not None and proc.poll() is None:
+                stop_process(proc)
+            for qs in oracles.values():
+                qs.close()
+            storage.close()
+    out["launches_in_process"] = read_counts()
+    out["seconds"] = seconds
+    emit("serve_tenancy", **out)
+    failures = []
+    tr = out["traffic"]
+    for t in ("a", "b"):
+        if tr[t]["statuses"] != {"200": ST_QUERIES} or tr[t]["differ"]:
+            failures.append(f"traffic {t}: {tr[t]}")
+    fl = out["flood"]
+    if (not fl["a"]["statuses"].get("429") or fl["a"]["differ"]
+            or fl["a"]["shed_without_retry_after"]
+            or set(fl["a"]["statuses"]) - {"200", "429"}):
+        failures.append(f"flood of A: {fl['a']}")
+    if fl["b"]["statuses"] != {"200": ST_VICTIM} or fl["b"]["differ"]:
+        failures.append(f"B beside the flood: {fl['b']}")
+    da = out["detach_attach"]
+    if (da["a"]["non_200"] or da["a"]["differ"] or not da["a"]["queries"]
+            or da["b_after_detach"] != 404
+            or da["b_after_attach"]["statuses"] != {"200": ST_AFTER}
+            or da["b_after_attach"]["differ"]):
+        failures.append(f"detach and attach: {da}")
+    after = out["counts"]["after"]
+    if after["devices"] != ["cuda"] or out["k7_launches"]:
+        failures.append(f"pool devices and K7: {out['counts']}")
+    for key in keys.values():
+        d = after["tenants"].get(key, {})
+        if (d.get("hosts") != ST_SHARDS * ST_REPLICAS or not d["exact"]
+                or d["scan"]):
+            failures.append(f"dispatches of {key}: {d}")
+    if any(out["launches_in_process"].values()):
+        failures.append(f"in-process launches: {out['launches_in_process']}")
     if failures:
         raise AssertionError("; ".join(failures))
     return out
@@ -8572,11 +9003,11 @@ SEQUENCE_LANE = "--sequence-lane"
 
 
 def sequence_lane(out: Path) -> int:
-    """The two template phases and the sequence template's end-to-end phases
-    (sequence_entry, train_resume, evaluate_sequence) in a process of
-    their own, which ``main`` starts beside the ALS event phases: their
-    seconds and K2's and K8's launches on their paths are written to
-    ``out`` as JSON."""
+    """The two template phases, the sequence template's end-to-end phases
+    (sequence_entry, train_resume, evaluate_sequence) and quickstart in a
+    process of their own, which ``main`` starts beside the ALS event
+    phases: their seconds and K2's and K8's launches on their paths are
+    written to ``out`` as JSON."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     # a SIGTERM from main unwinds the phases, whose cleanup stops the
@@ -8601,6 +9032,7 @@ def sequence_lane(out: Path) -> int:
         resume = timed("train_resume", phase_train_resume, store, dev)
         seq_eval = timed("evaluate_sequence", phase_evaluate_sequence,
                          store, dev)
+    timed("quickstart", phase_quickstart, dev)
     out.write_text(json.dumps({"wall": wall, "templates": templates,
                                "flash_attention": {
         "sequence_entry": seq_entry["launches"]["flash_attention"],
@@ -8664,6 +9096,7 @@ def main() -> int:
         rollout = timed("serve_rollout", phase_serve_rollout, users, items,
                         dev, Path(tmp), serve["instance"])
     fleet = timed("serve_fleet", phase_serve_fleet, users, items, dev)
+    tenancy = timed("serve_tenancy", phase_serve_tenancy, users, items, dev)
     foldin = timed("foldin", phase_foldin, users, items, dev)
     del users, items
     ratings = synth_ratings()
@@ -8678,9 +9111,10 @@ def main() -> int:
     attn = timed("attention_kernel", phase_attention_kernel, dev)
     timed("sequence_train", phase_sequence_train, dev)
     # every kernel's timing and training throughput is taken above, the
-    # card to itself; the templates phase and the sequence template's
-    # end-to-end phases then run in a second process beside the ALS event
-    # phases below (their host times are taken under each other's load)
+    # card to itself; the template phases, the sequence template's
+    # end-to-end phases and quickstart then run in a second process beside
+    # the ALS event phases below (their host times are taken under each
+    # other's load)
     with tempfile.TemporaryDirectory(prefix="pio_chip_lane_") as tmp, \
             sequence_lane_process(Path(tmp)) as join_sequence_lane:
         # the N_EVENTS seeded events are written once, for both phases
@@ -8692,7 +9126,6 @@ def main() -> int:
             shared = timed("shared_store", phase_shared_store, store, dev,
                            ingest, entry)
             evaluate = timed("evaluate", phase_evaluate, store, dev, entry)
-        quickstart = timed("quickstart", phase_quickstart, dev)
         t0 = time.perf_counter()
         lane = join_sequence_lane()
         wall["sequence_lane_wait"] = time.perf_counter() - t0
@@ -8747,6 +9180,10 @@ def main() -> int:
                 "scan_dispatches"],
             # K7 against its plain version on each shard's own index
             shard_cases=fleet["shard_scan"],
+            # the multi-tenant pool serves exact, as the reference's: no
+            # launch, its tenants' exact dispatches beside
+            launches_serve_tenancy=tenancy["k7_launches"],
+            exact_dispatches_serve_tenancy=tenancy["exact_dispatches"],
             empty_launch_ms=head["empty_launch_ms"],
             shape={k: head[k] for k in ("dtype", "B", "P", "C", "Lmax",
                                         "k")},

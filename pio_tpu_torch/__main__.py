@@ -55,7 +55,18 @@ Verbs ported so far:
            there, as are engines of the other templates (their models
            have no factor tables to partition, or serving rules the
            shards do not run). The canary verbs work against the router
-           too.
+           too. --fleet-join NAME packs this engine's partitions into the
+           multi-tenant pool NAME (a new pool takes its shape from
+           --shards, --replicas and --shard-memory-budget-mb), records
+           the placement with --tenant-quota-qps, --tenant-quota-burst,
+           --tenant-weight and --tenant-max-concurrency, and attaches it
+           live to a pool router answering at --ip/--port; it refuses
+           the engines --shards refuses. --fleet NAME boots that pool
+           from its recorded plan (no engine dir): tenant-mux shard
+           hosts with every tenant's partitions on the device (CUDA
+           unless --device cpu), serving exact, and the multi-tenant
+           router, which takes the tenant from X-Pio-Tenant or
+           ?tenant=.
   promote  conclude a green canary on the deploy server (or fleet
            router) at --ip/--port: the candidate serves 100% and the
            PROMOTED verdict persists.
@@ -64,7 +75,9 @@ Verbs ported so far:
            onto it again); also concludes a canary record a crashed
            server left IN_FLIGHT.
   undeploy POST /stop (with --server-key) to the deploy server at
-           --ip/--port.
+           --ip/--port. With --tenant KEY it removes that tenant from the
+           pool --fleet (default "default") and detaches it from a pool
+           router answering at --ip/--port; the rest keep serving.
   reshard  --shards N: grow or shrink the RUNNING fleet behind the
            router at --ip/--port to N shard groups with no downtime
            (--endpoint for new groups, --status, --abort, --no-wait).
@@ -119,9 +132,7 @@ Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_promote``,
 ``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
 ``cmd_storageserver`` in
 ``pio_tpu.tools.cli``, with the same flags, output lines and exit codes.
-Not ported yet: the mesh options (--no-mesh: the port holds one device);
-the multi-tenant fleet pool: deploy's --fleet, --fleet-join and
---tenant-quota-* and undeploy's --tenant.
+Not ported yet: the mesh options (--no-mesh: the port holds one device).
 """
 
 from __future__ import annotations
@@ -291,6 +302,14 @@ def cmd_deploy(args) -> int:
                          "instance — run `train --from-eval` "
                          "first, then canary that instance")
         return _deploy_canary_cmd(args)
+    if args.fleet:
+        # multi-tenant pool boot: everything comes from the recorded
+        # FleetPlan (tenants, packing, pool shape) — no engine dir
+        if args.fleet_join:
+            return _fail("--fleet boots a pool from its recorded plan; "
+                         "--fleet-join adds THIS engine to a plan — "
+                         "run them as separate commands")
+        return _deploy_fleet_pool_cmd(args)
     import threading
 
     from pio_tpu_torch.workflow.context import create_workflow_context
@@ -311,6 +330,12 @@ def cmd_deploy(args) -> int:
         ep, eval_id = _apply_from_eval(engine, ep, storage, args.from_eval)
         print(f"Deploying with best params from evaluation {eval_id}",
               flush=True)
+    if args.fleet_join:
+        refused = _fleet_refusal(engine, ep, "--fleet-join")
+        if refused:
+            return _fail(refused)
+        return _deploy_fleet_join_cmd(args, storage, engine_id,
+                                      engine_version, engine_variant)
     if args.shards > 0:
         refused = _fleet_refusal(engine, ep)
         if refused:
@@ -359,13 +384,14 @@ def cmd_deploy(args) -> int:
     return 0
 
 
-def _fleet_refusal(engine, ep) -> str | None:
-    """Why ``deploy --shards`` cannot serve this engine, or None. The
-    shards score the recommendation template's factor tables; a model of
-    another template either has none (similarproduct, classification:
-    the plan refuses it) or would lose its serving rules there (the
-    ecommerce template's seen, unavailable and cold-start rules live in
-    its algorithm, which the shards never run)."""
+def _fleet_refusal(engine, ep, flag: str = "--shards") -> str | None:
+    """Why ``deploy --shards`` (or ``--fleet-join``, ``flag``) cannot
+    serve this engine, or None. The shards score the recommendation
+    template's factor tables; a model of another template either has
+    none (similarproduct, classification: the plan refuses it) or would
+    lose its serving rules there (the ecommerce template's seen,
+    unavailable and cold-start rules live in its algorithm, which the
+    shards never run)."""
     from pio_tpu_torch.models.recommendation import ALSAlgorithm
 
     classes = [engine.algorithm_classes.get(n)
@@ -374,9 +400,9 @@ def _fleet_refusal(engine, ep) -> str | None:
                     if c is not None and not issubclass(c, ALSAlgorithm)})
     if not other:
         return None
-    return (f"--shards serves the recommendation template's ALS factor "
+    return (f"{flag} serves the recommendation template's ALS factor "
             f"tables only; this engine's {', '.join(other)} serves "
-            "through deploy without --shards")
+            f"through deploy without {flag}")
 
 
 def _retrieval_block(ep) -> dict | None:
@@ -455,6 +481,112 @@ def _deploy_fleet_cmd(args, storage, engine_id: str, engine_version: str,
           f"retrieval: {mode}, {handle.router.device})", flush=True)
     for s, urls in enumerate(handle.endpoints):
         print(f"  shard {s}: {' '.join(urls)}", flush=True)
+
+    def watch_stop():
+        handle.router._stop_requested.wait()
+        handle.router_http.stop()
+
+    # pio: lint-ok[context-loss] deliberate detach: shutdown watcher
+    # waits for /stop for the process lifetime; no request context
+    threading.Thread(target=watch_stop, daemon=True).start()
+    try:
+        handle.wait()
+    except KeyboardInterrupt:
+        pass
+    handle.close()
+    print("Fleet stopped.")
+    return 0
+
+
+def _deploy_fleet_join_cmd(args, storage, engine_id: str,
+                           engine_version: str,
+                           engine_variant: str) -> int:
+    """`deploy --fleet-join NAME`: pack THIS engine's partitions into
+    the named pool's remaining capacity (residents never move), persist
+    the placement, and — when a multi-tenant router is already running
+    at --ip/--port — fan the live attach so the tenant starts serving
+    with zero pool downtime (docs/serving.md "Multi-tenant fleet"). The
+    packing reads the model's tables on the host; no device is used."""
+    from pio_tpu_torch.serving_fleet.tenancy import (
+        FleetCapacityError, TenantSpec, join_fleet_plan,
+    )
+    from pio_tpu_torch.utils.httpclient import JsonHttpClient
+
+    spec = TenantSpec(
+        engine_id=engine_id, engine_version=engine_version,
+        engine_variant=engine_variant,
+        instance_id=args.engine_instance_id or "",
+        quota_qps=args.tenant_quota_qps,
+        quota_burst=args.tenant_quota_burst,
+        weight=args.tenant_weight,
+        max_concurrency=args.tenant_max_concurrency,
+    )
+    try:
+        plan, placement = join_fleet_plan(
+            storage, args.fleet_join, spec,
+            n_shards=args.shards if args.shards > 0 else 2,
+            n_replicas=args.replicas,
+            memory_budget_bytes=args.shard_memory_budget_mb
+            * 1024 * 1024,
+        )
+    except FleetCapacityError as e:
+        return _fail(str(e))
+    except ValueError as e:
+        return _fail(f"fleet join failed: {e}")
+    print(f"Tenant {spec.key} joined fleet {plan.name!r}: instance "
+          f"{placement.instance_id}, {placement.total_bytes()} bytes "
+          f"over shard(s) {sorted(set(placement.owners))} "
+          f"(pool loads: {plan.shard_loads()})", flush=True)
+    # best-effort live attach: a pool that is not running yet is fine —
+    # the recorded placement serves on the next `deploy --fleet`
+    ip = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+    key = args.server_key or os.environ.get("PIO_SERVER_KEY", "")
+    try:
+        out = JsonHttpClient(f"http://{ip}:{args.port}",
+                             timeout=30).request(
+            "POST", "/fleet/attach_tenant", {"tenant": spec.key},
+            params={"accessKey": key} if key else None)
+        print(f"live attach: {json.dumps(out)}", flush=True)
+    except Exception as e:  # noqa: BLE001 - attach is best-effort
+        print(f"no live router attached at http://{ip}:{args.port} "
+              f"({e}); placement is recorded — `pio deploy --fleet "
+              f"{plan.name}` serves it", flush=True)
+    return 0
+
+
+def _deploy_fleet_pool_cmd(args) -> int:
+    """`deploy --fleet NAME`: boot the whole multi-tenant pool —
+    tenant-mux shard hosts + the multi-tenant router — from the recorded
+    FleetPlan, every tenant's shards and router on the CUDA device
+    unless --device cpu."""
+    import threading
+
+    from pio_tpu_torch.serving_fleet.tenancy import deploy_multi_fleet
+
+    storage = get_storage()
+    ip = args.ip if args.ip != "0.0.0.0" else "127.0.0.1"
+    try:
+        handle = deploy_multi_fleet(
+            storage, name=args.fleet, ip=ip, router_port=args.port,
+            server_key=args.server_key
+            or os.environ.get("PIO_SERVER_KEY", ""),
+            router_backend=args.server_backend,
+            device=args.device,
+        )
+    except ValueError as e:
+        return _fail(str(e))
+    plan = handle.fleet_plan
+    print(f"Multi-tenant fleet {plan.name!r} on "
+          f"http://{ip}:{handle.router_http.port} "
+          f"({plan.n_shards} shards x {plan.n_replicas} replicas, "
+          f"{len(plan.tenants)} tenants, {handle.router.device})",
+          flush=True)
+    for t in plan.tenants:
+        print(f"  tenant {t.tenant}: instance {t.instance_id}, "
+              f"{t.total_bytes()} bytes over shard(s) "
+              f"{sorted(set(t.owners))}", flush=True)
+    for s, urls in enumerate(handle.endpoints):
+        print(f"  shard host {s}: {' '.join(urls)}", flush=True)
 
     def watch_stop():
         handle.router._stop_requested.wait()
@@ -606,10 +738,33 @@ def cmd_reshard(args) -> int:
 
 def cmd_undeploy(args) -> int:
     """POST /stop to a running deploy server (reference Console.undeploy),
-    through utils/httpclient like every other outbound call."""
+    through utils/httpclient like every other outbound call. With
+    --tenant: remove ONE tenant from a multi-tenant fleet (plan record +
+    best-effort live detach) and leave the pool serving the rest."""
     from pio_tpu_torch.utils.httpclient import JsonHttpClient
 
     key = args.server_key or os.environ.get("PIO_SERVER_KEY", "")
+    if args.tenant:
+        from pio_tpu_torch.serving_fleet.tenancy import remove_tenant
+
+        try:
+            plan = remove_tenant(get_storage(), args.fleet, args.tenant)
+        except ValueError as e:
+            return _fail(str(e))
+        print(f"Tenant {args.tenant} removed from fleet {plan.name!r} "
+              f"({len(plan.tenants)} tenant(s) remain)", flush=True)
+        try:
+            out = JsonHttpClient(f"http://{args.ip}:{args.port}",
+                                 timeout=30).request(
+                "POST", "/fleet/detach_tenant",
+                {"tenant": args.tenant},
+                params={"accessKey": key} if key else None)
+            print(f"live detach: {json.dumps(out)}", flush=True)
+        except Exception as e:  # noqa: BLE001 - detach is best-effort
+            print(f"no live router detached at "
+                  f"http://{args.ip}:{args.port} ({e}); the plan "
+                  f"record is updated", flush=True)
+        return 0
     try:
         out = JsonHttpClient(f"http://{args.ip}:{args.port}",
                              timeout=10).request(
@@ -1264,6 +1419,34 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--from-eval", default="", metavar="EVAL_ID|latest",
                    help="serve with the winning algorithm params an "
                         "`eval --sweep` persisted")
+    x.add_argument("--fleet", default="", metavar="NAME",
+                   help="boot a MULTI-TENANT pool from the named "
+                        "recorded FleetPlan (tenant-mux shard hosts + "
+                        "multi-tenant router; no engine dir needed) — "
+                        "join tenants first with --fleet-join "
+                        "(docs/serving.md \"Multi-tenant fleet\")")
+    x.add_argument("--fleet-join", default="", metavar="NAME",
+                   help="bin-pack THIS engine's partitions into the "
+                        "named fleet's remaining capacity (resident "
+                        "tenants never move), record the placement, "
+                        "and live-attach to a running router at "
+                        "--ip/--port when one answers; pool shape for "
+                        "a NEW fleet comes from --shards/--replicas/"
+                        "--shard-memory-budget-mb")
+    x.add_argument("--tenant-quota-qps", type=float, default=0.0,
+                   help="with --fleet-join: this tenant's admitted "
+                        "query rate; floods past it answer per-tenant "
+                        "429 + Retry-After while co-tenants keep their "
+                        "p99. 0 = unlimited")
+    x.add_argument("--tenant-quota-burst", type=float, default=0.0,
+                   help="with --fleet-join: token-bucket burst "
+                        "capacity; 0 = max(rate, 1)")
+    x.add_argument("--tenant-weight", type=float, default=1.0,
+                   help="with --fleet-join: weighted-fair share under "
+                        "admission pressure")
+    x.add_argument("--tenant-max-concurrency", type=int, default=0,
+                   help="with --fleet-join: cap on this tenant's "
+                        "in-flight queries; 0 = unlimited")
     x.set_defaults(fn=cmd_deploy)
     for verb, fn, descr in (
         ("promote", cmd_promote,
@@ -1318,6 +1501,13 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--ip", default="127.0.0.1")
     x.add_argument("--port", type=int, default=8000)
     x.add_argument("--server-key")
+    x.add_argument("--tenant", default="", metavar="KEY",
+                   help="remove ONE tenant (engine triple key, e.g. "
+                        "rec/1/default) from a multi-tenant fleet: "
+                        "plan record + best-effort live detach at "
+                        "--ip/--port; the pool keeps serving the rest")
+    x.add_argument("--fleet", default="default", metavar="NAME",
+                   help="with --tenant: the fleet plan to update")
     x.set_defaults(fn=cmd_undeploy)
     x = sub.add_parser("eval", help="evaluate and tune an engine")
     x.add_argument("evaluation_class", nargs="?", default="")

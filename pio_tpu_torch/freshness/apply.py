@@ -15,10 +15,11 @@ keeps the users pending and the cursor does not advance):
     lands exactly where /shard/user_row will look for it). During a
     live reshard the router ALSO dual-writes rows of moving partitions
     to their NEW owner group (docs/serving.md "Elastic resharding"), so
-    freshness never regresses across the cutover; dual-write delivery is
-    best-effort and reported under ``reshardDualFailures`` without ever
-    flipping ``ok`` — the primary (old-plan) owner remains the applier's
-    durability contract until the plan swap.
+    freshness never regresses across the cutover, and follows a routing
+    that moves under its fan; there a batch is ``ok`` only when every
+    replica of each group its rows must reach applied them (failed
+    deliveries are counted under ``reshardDualFailures``), so an acked
+    row is on every replica of its new owner.
 
 Apply is idempotent (a row upsert with the same bytes is a no-op in
 effect), so the folder may replay after a crash or partial failure

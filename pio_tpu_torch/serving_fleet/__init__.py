@@ -30,8 +30,18 @@ quantized-scan kernel (K7).
 ``fleet.py`` boots the whole thing (``python -m pio_tpu_torch deploy
 --shards N --replicas R``); ``python -m pio_tpu_torch.serving_fleet shard
 ...`` runs one shard server as its own process. See docs/serving.md
-"Sharded fleet". The JAX package's multi-tenant pool (``tenancy.py``)
-is not ported.
+"Sharded fleet".
+
+``tenancy.py`` stacks MANY engines on one pool of shard hosts: a
+deterministic first-fit-decreasing packer places every tenant's virtual
+partitions under the per-shard memory budget (``FleetPlan``, plan v2),
+tenant-mux shard hosts route by the ``X-Pio-Tenant`` header to
+per-tenant ShardServers on the device, and a multi-tenant router front
+keeps per-tenant breakers/deadlines/chaos scopes plus token-bucket +
+weighted-fair admission so one noisy tenant cannot take the plane down
+(``python -m pio_tpu_torch deploy --fleet-join NAME`` / ``--fleet
+NAME``). Pool tenants serve exact, as the JAX package's do. See
+docs/serving.md "Multi-tenant fleet".
 """
 
 from pio_tpu_torch.serving_fleet.fleet import (
@@ -60,10 +70,27 @@ from pio_tpu_torch.serving_fleet.reshard import (
 )
 from pio_tpu_torch.serving_fleet.router import FleetRouter, RouterConfig
 from pio_tpu_torch.serving_fleet.shard import ShardConfig, ShardServer
+from pio_tpu_torch.serving_fleet.tenancy import (
+    FleetCapacityError,
+    FleetPlan,
+    MultiFleetRouter,
+    TenantPlacement,
+    TenantSpec,
+    build_fleet_plan,
+    deploy_multi_fleet,
+    join_fleet_plan,
+    load_fleet_plan,
+    pack_partitions,
+    tenant_key,
+    tenant_label,
+)
 
 __all__ = [
+    "FleetCapacityError",
     "FleetHandle",
+    "FleetPlan",
     "FleetRouter",
+    "MultiFleetRouter",
     "N_PARTITIONS",
     "ReshardController",
     "ReshardRecord",
@@ -71,10 +98,17 @@ __all__ = [
     "ShardConfig",
     "ShardPlan",
     "ShardServer",
+    "TenantPlacement",
+    "TenantSpec",
+    "build_fleet_plan",
     "build_plan",
     "compute_reshard_owners",
     "deploy_fleet",
+    "deploy_multi_fleet",
+    "join_fleet_plan",
+    "load_fleet_plan",
     "load_reshard_record",
+    "pack_partitions",
     "partition_model",
     "partition_of",
     "persist_fleet_artifacts",
@@ -84,4 +118,6 @@ __all__ = [
     "resolve_fleet_model",
     "shard_of",
     "slice_partition",
+    "tenant_key",
+    "tenant_label",
 ]

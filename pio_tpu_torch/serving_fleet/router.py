@@ -368,6 +368,46 @@ class _Replica:
     batch_wire: bool | None = None
 
 
+# rounds of the fold-in fan that follow a routing a reshard moves under it
+# (FleetRouter.upsert_users); rows still moving after them are not acked
+UPSERT_ROUTING_ROUNDS = 4
+
+
+def _fold_groups(uid, owners, rs) -> tuple[int, ...]:
+    """The groups a fold-in row of ``uid`` must land on under one
+    routing: its owner, and during a reshard the new owner of its
+    partition when that partition moves."""
+    p = partition_of(uid)
+    owner = owners[p]
+    mv = rs["moving"].get(p) if rs is not None else None
+    if mv is not None and mv[1] != owner:
+        return (owner, mv[1])
+    return (owner,)
+
+
+def _fold_targets(rows: dict, owners, rs) -> tuple[dict, dict]:
+    """-> ({owner group: rows}, {new owner group: rows of moving
+    partitions}) of one fold-in batch under one routing."""
+    primary: dict[int, dict] = {}
+    dual: dict[int, dict] = {}
+    for uid, row in rows.items():
+        groups = _fold_groups(uid, owners, rs)
+        primary.setdefault(groups[0], {})[uid] = row
+        for s in groups[1:]:
+            dual.setdefault(s, {})[uid] = row
+    return primary, dual
+
+
+def _landed(some: dict, full: dict, s: int, group_rows: dict, n_ok: int,
+            n: int) -> None:
+    """Record a group's delivery: its users landed on at least one
+    replica, or on every one."""
+    if n_ok:
+        some.setdefault(s, set()).update(group_rows)
+    if n and n_ok == n:
+        full.setdefault(s, set()).update(group_rows)
+
+
 class FleetRouter:
     """Shard-plan-aware query front-end (see module docstring)."""
 
@@ -1325,10 +1365,22 @@ class FleetRouter:
         additionally dual-written to the partition's NEW owner group,
         where they land in the arriving copy (prepared arm, staged
         slice, or the pending queue — shard.upsert_user_rows) so no
-        fold-in is lost at the cutover. Dual delivery is best-effort:
-        failures are counted under ``reshardDualFailures`` and never
-        flip ``ok`` — the old-plan owner stays the durability contract
-        until the plan swap (freshness/apply.py).
+        fold-in is lost at the cutover.
+
+        The routing (plan, reshard state, replica table) is read under
+        the lock at entry and read AGAIN after the fan: a fan that began
+        before a reshard's routing was set, or before its plan swap, and
+        reached the old owner after the partition was extracted would
+        otherwise be acked on the retiring arm alone. Where the routing
+        moved, the rows go to every group the new routing names that
+        they have not landed on, until a fan ends on the routing it
+        read (``reshardCatchUp`` counts them). While a reshard shows in
+        any routing the call read, a row is acked only when EVERY
+        replica of each group it must reach applied it, dual-writes
+        included: the transfer extracts from any one replica of the old
+        owner, and each replica of the new owner serves its own copy.
+        Failed dual deliveries are also counted under
+        ``reshardDualFailures``.
 
         ``items`` (item id → row) upserts EXISTING items' factor rows
         plus their two-stage retrieval sidecar (shard.upsert_item_rows).
@@ -1343,29 +1395,23 @@ class FleetRouter:
         not)."""
         items = items or {}
         with self._lock:
-            plan = self.plan
-            rs = self.reshard_routing
-        replicas = self.replicas
-        owners = plan.effective_owners()
-        groups: dict[int, dict] = {}
-        dual: dict[int, dict] = {}
-        for uid, row in rows.items():
-            p = partition_of(uid)
-            owner = owners[p]
-            groups.setdefault(owner, {})[uid] = row
-            if rs is not None:
-                mv = rs["moving"].get(p)
-                if mv is not None and mv[1] != owner:
-                    dual.setdefault(mv[1], {})[uid] = row
+            plan, rs, replicas = (self.plan, self.reshard_routing,
+                                  self.replicas)
+        first_plan = plan
+        first_owners = plan.effective_owners()
+        primary, dual = _fold_targets(rows, first_owners, rs)
         if items:
             # every group gets the full item batch (see docstring)
             for s in range(len(replicas)):
-                groups.setdefault(s, {})
+                primary.setdefault(s, {})
         key = self.config.server_key
         results: dict[str, dict] = {}
-        failed_groups: list[int] = []
+        # group -> users applied on at least one / on every replica
+        some: dict[int, set] = {}
+        full: dict[int, set] = {}
+        bare_failed: list[int] = []   # failed groups sent items only
         items_landed: set = set()
-        for s, group_rows in sorted(groups.items()):
+        for s, group_rows in sorted(primary.items()):
             body: dict = {"users": group_rows}
             if items:
                 body["items"] = items
@@ -1378,93 +1424,133 @@ class FleetRouter:
                 chaos.maybe_inject(
                     f"{self.config.chaos_prefix}.shard{s}.upsert_users")
             except ConnectionError as e:
-                failed_groups.append(s)
+                if not group_rows:
+                    bare_failed.append(s)
                 results[str(s)] = {"ok": False, "error": str(e)}
                 continue
-            reps: dict[str, dict] = {}
-            ok_replicas = 0
-            for r, rep in enumerate(replicas[s] if s < len(replicas)
-                                    else ()):
-                Deadline.check(f"shard {s} upsert replica {r}")
-                try:
-                    # same per-replica breaker as the query path: a dead
-                    # replica stops eating a full HTTP timeout on every
-                    # apply once its breaker opens (half-open re-probes),
-                    # and its failures stay visible on /fleet.json and
-                    # `pio doctor --fleet`
-                    with rep.breaker.guard():
-                        out = rep.client.request(
-                            "POST", "/shard/upsert_users", body,
-                            params={"accessKey": key} if key else None)
-                except CircuitOpenError as e:
-                    reps[str(r)] = {"ok": False, "error": str(e)}
-                    continue
-                except HttpClientError as e:
-                    reps[str(r)] = {"ok": False, "error": e.message}
-                    continue
-                rejected = out.get("rejected") or []
-                # 200-with-rejections means the shard REFUSED rows (a
-                # plan mismatch, e.g. mid-rolling-redeploy): they are
-                # NOT servable there, so the replica cannot count
-                # toward the group being ok — group "ok" must keep
-                # implying "every row of this group landed", or the
-                # folder pops users whose rows never applied
-                reps[str(r)] = {"ok": not rejected,
-                                "applied": out.get("applied"),
-                                "rejected": rejected}
-                if items:
-                    items_rej = set(out.get("itemsRejected") or ())
-                    items_landed.update(
-                        i for i in items if i not in items_rej)
-                    reps[str(r)]["itemsApplied"] = out.get("itemsApplied")
-                if not rejected:
-                    ok_replicas += 1
-            if ok_replicas == 0:
-                failed_groups.append(s)
-            results[str(s)] = {"ok": ok_replicas > 0,
-                               "fullyApplied":
-                                   ok_replicas == len(replicas[s])
-                                   if s < len(replicas) else False,
+            reps, n_ok, n = self._deliver_rows(
+                s, body, key, replicas,
+                items_landed if items else None)
+            _landed(some, full, s, group_rows, n_ok, n)
+            if n_ok == 0 and not group_rows:
+                bare_failed.append(s)
+            results[str(s)] = {"ok": n_ok > 0,
+                               "fullyApplied": n > 0 and n_ok == n,
                                "replicas": reps}
+        reshard_seen = rs is not None
+        failures = 0
+        if rs is not None:
+            failures += self._dual_write(dual, staleness_s, key, replicas,
+                                         some, full)
+        # follow the routing until a fan ends on the routing it read
+        caught_up = 0
+        settled = False
+        for _ in range(UPSERT_ROUTING_ROUNDS):
+            with self._lock:
+                now = (self.plan, self.reshard_routing, self.replicas)
+            if now[0] is plan and now[1] is rs:
+                settled = True
+                break
+            plan, rs, replicas = now
+            reshard_seen = (reshard_seen or rs is not None
+                            or plan.effective_owners() != first_owners)
+            landed = full if reshard_seen else some
+            need: dict[int, dict] = {}
+            for uid, row in rows.items():
+                for s in _fold_groups(uid, plan.effective_owners(), rs):
+                    if uid not in landed.get(s, ()):
+                        need.setdefault(s, {})[uid] = row
+            caught_up += sum(len(g) for g in need.values())
+            failures += self._dual_write(need, staleness_s, key, replicas,
+                                         some, full)
+        failed = set(bare_failed)
+        landed = full if reshard_seen else some
+        owners = plan.effective_owners()
+        for uid in rows:
+            for s in _fold_groups(uid, owners, rs):
+                if not settled or uid not in landed.get(s, ()):
+                    failed.add(s)
+        failed_groups = sorted(failed)
         out = {"ok": not failed_groups, "groups": results,
                "failedGroups": failed_groups,
-               "engineInstanceId": plan.instance_id}
+               "engineInstanceId": first_plan.instance_id}
         if items:
             out["itemsApplied"] = len(items_landed)
             out["itemsFailed"] = sorted(
                 (str(i) for i in items if i not in items_landed))
-        if rs is not None:
-            out["reshardDualFailures"] = self._dual_write(dual, staleness_s,
-                                                          key, replicas)
+        if reshard_seen:
+            out["reshardDualFailures"] = failures
+        if caught_up:
+            out["reshardCatchUp"] = caught_up
         return out
+
+    def _deliver_rows(self, s: int, body: dict, key: str,
+                      replicas: list[list[_Replica]],
+                      items_landed: set | None = None,
+                      ) -> tuple[dict, int, int]:
+        """POST one group's fold-in body to every replica of group ``s``
+        -> (per-replica results, replicas that applied every user row,
+        replicas in the group)."""
+        group = replicas[s] if s < len(replicas) else ()
+        reps: dict[str, dict] = {}
+        n_ok = 0
+        for r, rep in enumerate(group):
+            Deadline.check(f"shard {s} upsert replica {r}")
+            try:
+                # same per-replica breaker as the query path: a dead
+                # replica stops eating a full HTTP timeout on every
+                # apply once its breaker opens (half-open re-probes),
+                # and its failures stay visible on /fleet.json and
+                # `pio doctor --fleet`
+                with rep.breaker.guard():
+                    out = rep.client.request(
+                        "POST", "/shard/upsert_users", body,
+                        params={"accessKey": key} if key else None)
+            except CircuitOpenError as e:
+                reps[str(r)] = {"ok": False, "error": str(e)}
+                continue
+            except HttpClientError as e:
+                reps[str(r)] = {"ok": False, "error": e.message}
+                continue
+            rejected = out.get("rejected") or []
+            # 200-with-rejections means the shard REFUSED rows (a
+            # plan mismatch, e.g. mid-rolling-redeploy): they are
+            # NOT servable there, so the replica cannot count
+            # toward the group being ok — group "ok" must keep
+            # implying "every row of this group landed", or the
+            # folder pops users whose rows never applied
+            reps[str(r)] = {"ok": not rejected,
+                            "applied": out.get("applied"),
+                            "rejected": rejected}
+            if items_landed is not None:
+                items_rej = set(out.get("itemsRejected") or ())
+                items_landed.update(
+                    i for i in body.get("items", ()) if i not in items_rej)
+                reps[str(r)]["itemsApplied"] = out.get("itemsApplied")
+            if not rejected:
+                n_ok += 1
+        return reps, n_ok, len(group)
 
     def _dual_write(self, dual: dict[int, dict],
                     staleness_s: float | None, key: str,
-                    replicas: list[list[_Replica]]) -> int:
-        """Best-effort second copy of moving-partition rows on their NEW
-        owner group (see upsert_users). Returns the count of failed
-        per-replica deliveries — reported, never fatal."""
+                    replicas: list[list[_Replica]],
+                    some: dict[int, set], full: dict[int, set]) -> int:
+        """Second copies of moving-partition rows on their NEW owner
+        group, and the rows a moved routing names a new group for (see
+        upsert_users), recorded in ``some``/``full``. Returns the count
+        of failed per-replica deliveries."""
         failures = 0
         for s, dual_rows in sorted(dual.items()):
             body: dict = {"users": dual_rows}
             if staleness_s is not None:
                 body["stalenessSeconds"] = staleness_s
-            group = replicas[s] if s < len(replicas) else ()
-            if not group:
-                failures += 1
-                continue
-            for r, rep in enumerate(group):
-                Deadline.check(f"shard {s} dual-write replica {r}")
-                try:
-                    with rep.breaker.guard():
-                        rep.client.request(
-                            "POST", "/shard/upsert_users", body,
-                            params={"accessKey": key} if key else None)
-                except (CircuitOpenError, HttpClientError) as e:
-                    failures += 1
-                    log.warning("reshard dual-write of %d row(s) to "
-                                "shard %d replica %d failed: %s",
-                                len(dual_rows), s, r, e)
+            reps, n_ok, n = self._deliver_rows(s, body, key, replicas)
+            _landed(some, full, s, dual_rows, n_ok, n)
+            if n_ok < n or not n:
+                failures += max(1, n - n_ok)
+                log.warning("reshard dual-write of %d row(s) to shard %d "
+                            "landed on %d of %d replica(s): %s",
+                            len(dual_rows), s, n_ok, n, reps)
         if failures:
             with self._lock:
                 self.reshard_dual_failures += failures

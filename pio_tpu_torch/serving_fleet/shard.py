@@ -619,6 +619,11 @@ class ShardServer:
                     "incoming": {int(p) for p in incoming},
                     "staged": {},
                     "pending": {},
+                    # every dual-written row of an incoming partition,
+                    # newest per user: laid over each slice staged for
+                    # it, so a restaged (retried) transfer extracted
+                    # before a row reached the old owner keeps the row
+                    "dual": {},
                     "prepared": None,
                     # rows landed while prepare builds the arm from its
                     # snapshot: applied over the arm when it is set
@@ -687,9 +692,10 @@ class ShardServer:
                     f"partition {sl.partition} is not incoming on shard "
                     f"{self.config.shard_index}")
             pending = rs["pending"].pop(sl.partition, {})
-            if pending:
+            rows = {**rs["dual"].get(sl.partition, {}), **pending}
+            if rows:
                 try:
-                    sl = _slice_with_rows(sl, pending)
+                    sl = _slice_with_rows(sl, rows)
                 except ValueError:
                     rs["pending"][sl.partition] = pending
             rs["staged"][sl.partition] = sl
@@ -828,6 +834,23 @@ class ShardServer:
             self._retired = (old_pv, old)
             self._reshard = None
             return {"activated": True, "planVersion": self.plan_version}
+
+    def release(self) -> None:
+        """Drop every arm this server holds (active, candidate, retired,
+        a reshard's prepared and staged ones) so their device tensors go
+        back to the allocator: a tenant detached from a pool host. A
+        request already holding an arm finishes on it; later ones find
+        no partition."""
+        with self._lock:
+            self.partition = None
+            self._item_factors_dev = None
+            self._user_row_of = {}
+            self._item_local_of = {}
+            self._retrieval = None
+            self.candidate = None
+            self._candidate_foldin_pending = {}
+            self._retired = None
+            self._reshard = None
 
     def abort_reshard(self) -> dict:
         """Drop the epoch: staged slices, pending dual-writes, and the
@@ -1370,6 +1393,7 @@ class ShardServer:
                 if p not in rs["incoming"]:
                     queued += len(prows)     # mis-addressed: drop count
                     continue
+                rs["dual"].setdefault(p, {}).update(prows)
                 if prep is not None:
                     prep_rows.update(prows)
                     continue

@@ -80,6 +80,7 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.serving_fleet.shard",
                 "pio_tpu_torch.serving_fleet.router",
                 "pio_tpu_torch.serving_fleet.reshard",
+                "pio_tpu_torch.serving_fleet.tenancy",
                 "pio_tpu_torch.serving_fleet.__main__",
                 "pio_tpu_torch.freshness", "pio_tpu_torch.freshness.cursor",
                 "pio_tpu_torch.freshness.tail",

@@ -422,6 +422,67 @@ def test_foldin_of_a_kept_user_mid_reshard_survives_activation(
         handle.close()
 
 
+@pytest.mark.parametrize("lands", ["before_cutover", "after_cutover"])
+def test_foldin_routed_before_the_reshard_is_acked_only_where_served(
+        trained, monkeypatch, lands):
+    """C16: a fold-in whose router read the routing before the reshard
+    set its own (the fan held at the old owner's chaos point) reaches
+    the old owner after the partition was extracted and staged, with
+    the migration held at the cutover (``before_cutover``) or committed
+    (``after_cutover``). Either it is not acked, or every replica of the
+    partition's new owner serves it after the cutover."""
+    storage, *_ = trained
+    handle = cpu_fleet(storage)
+    port = handle.router_http.port
+    old = default_owners(2)
+    moving = {p: (o, n)
+              for p, o, n in plan_diff(old, compute_reshard_owners(old, 3))}
+    uid = next(f"u{u}" for u in range(40) if partition_of(f"u{u}") in moving)
+    src, dst = moving[partition_of(uid)]
+    patched, at_fold, release_fold = _pause_at(
+        f"fleet.shard{src}.upsert_users")
+    monkeypatch.setattr(chaos, "maybe_inject", patched)
+    patched, at_cutover, release_cutover = _pause_at("reshard.cutover")
+    monkeypatch.setattr(chaos, "maybe_inject", patched)
+    new_servers, urls = _join_group(storage, shard_index=dst, n_shards=3)
+    row = [0.75, -1.25, 0.5, 2.0]
+    result: dict = {}
+    fold = threading.Thread(target=lambda: result.update(
+        handle.router.upsert_users({uid: row}, staleness_s=0.1)))
+    try:
+        fold.start()
+        assert at_fold.wait(timeout=60), "the fold never reached its fan"
+        assert handle.router.reshard_routing is None
+        s, out = call(port, "POST", "/reshard/begin",
+                      body={"nShards": 3, "endpoints": [urls]})
+        assert s == 200, out
+        assert at_cutover.wait(timeout=60), "migration never hit cutover"
+        _, st = call(port, "GET", "/reshard/status")
+        assert st["partitionsStaged"] == st["partitionsMoving"], st
+        if lands == "after_cutover":
+            release_cutover.set()
+            assert _wait_reshard_done(port)["verdict"] == VERDICT_COMMITTED
+        release_fold.set()
+        fold.join(timeout=60)
+        assert not fold.is_alive() and "ok" in result, result
+        release_cutover.set()
+        st = _wait_reshard_done(port)
+        assert st["verdict"] == VERDICT_COMMITTED, st
+        assert handle.router.plan.owner_of(uid) == dst
+        if result["ok"]:
+            for url in urls:
+                s, got = call(int(url.rsplit(":", 1)[1]), "POST",
+                              "/shard/user_row", body={"user": uid})
+                assert s == 200 and got["found"] and got["row"] == row, \
+                    (url, got, result)
+    finally:
+        release_fold.set()
+        release_cutover.set()
+        for http, _ in new_servers:
+            http.stop()
+        handle.close()
+
+
 def test_abort_midflight_restores_old_plan_bit_identical(trained,
                                                          monkeypatch):
     storage, engine, ep, ctx, iid = trained
