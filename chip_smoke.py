@@ -42,7 +42,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - serve_fleet: the same factors in a sqlite store of their own, deployed
   by ``python -m pio_tpu_torch deploy --shards 2 --replicas 2
   --coalesce-window-ms 2`` in exact mode and then clustered (C 256 on
-  each shard's slice, nprobe 32, K7), each under 256 queries of distinct
+  each shard's slice, nprobe 32, K7), each under 128 queries of distinct
   users from 16 threads through its router and through a router without
   coalescing over the same shards: exact bodies byte for byte the
   single-host deploy's, clustered recall@10 against the exact oracle and
@@ -68,9 +68,9 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   ``--fleet-join`` of B with no non-200 for A; each tenant's exact
   dispatches on the card and no K7 launch, from the hosts' counts;
 - foldin: on the same seeded factors in a fresh sqlite store, served
-  behind a server key: a tail of rate/buy events of 2,048 users (a
+  behind a server key: a tail of rate/buy events of 1,024 users (a
   quarter new, up to 512 items each) folded in by ``FoldInWorker`` (what
-  ``python -m pio_tpu_torch foldin`` runs) in two batches of 1,024 and
+  ``python -m pio_tpu_torch foldin`` runs) in two batches of 512 and
   applied through ``/model/upsert_users`` over loopback HTTP; every
   multi-slot user's served row (and a sample of the rest) equal bit for
   bit to the user folded alone, in both modes, and to a second worker's,
@@ -171,10 +171,13 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   fresh sqlite store: ``app new``, ``import`` of
   ``examples/quickstart/events.jsonl.gz`` (100,000 events), an
   ``eventserver`` process taking one ``POST /events.json`` and one
-  segment.io webhook, ``train`` with the committed engine.json's params
-  (K2 in every flush), the instance deployed answering 8 queries through
-  ``sdk.EngineClient`` held to the exact top-k, and ``export`` (the
-  re-import of the export is cut for time);
+  segment.io webhook, ``train`` of the port's counterpart of the
+  committed engine.json, ``examples/quickstart/port/engine.json`` (K2 in
+  every flush), the instance deployed answering 8 queries through
+  ``sdk.EngineClient`` held to the exact top-k, ``export`` (the
+  re-import of the export is cut for time), and the README's ``eval`` of
+  the port's ``examples/quickstart/port/eval_def.py`` grid (K2 in every
+  fold's training);
 - attention_kernel: the flash-attention kernel (K8) against its plain
   version at the shapes the repository runs, each case with the kernel
   it took (f32 inputs: 3xTF32 ``wgmma``; bf16: ``wgmma``): the
@@ -186,7 +189,10 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   the masks' corners and strided views in both types;
 - sequence_train: ``train_sequence_model`` at ``eval/neural_throughput
   .py``'s sequence cell (8,192 sequences of 128, 20,000 items, embed
-  128), with ``attention="flash"`` (K8 forward) and ``"auto"``;
+  128), with ``attention="flash"`` (K8 forward), ``"auto"``, and
+  ``"flash"`` with 4 experts a block (K8 in every forward; the first
+  step's loss, device ms by kernel beside the dense run's, the tokens
+  the experts drop a step);
 - sequence_entry: the sequence template end to end at
   ``examples/sequence/engine.json``'s widths: seeded view/buy events in
   sqlite, ``python -m pio_tpu_torch train``, ``create_query_server``
@@ -202,6 +208,23 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
 - evaluate_sequence: on the same events, ``eval --sweep`` of the
   sequence template (2 learning rates, 2 rolling folds) through the
   sequential fallback, K8 in every training forward and scoring batch.
+- sequence_moe: the template's mixture-of-experts FFN. ``moe_ffn``
+  (index form) against its one-hot plain version on the card (d 128, f
+  256, 4 experts, 16 x 127 tokens, a capacity that keeps every token and
+  one that drops half): outputs, aux loss and gradients (training with
+  experts is sequence_train's ``moe`` run, the card to itself); then
+  examples/sequence/engine.json's widths with 4 experts on seeded events
+  of its own sqlite store through ``python -m pio_tpu_torch train`` and a
+  deploy answering over HTTP, each body the in-process ``predict`` (K8),
+  and a batch of 64 against the solo answers (reported).
+- examples: the seven ``examples/*/port`` user-code engines on a sqlite
+  store of their own, seeded as tests/test_torch_examples.py seeds them
+  (scaled to 240 users x 120 items): six through ``python -m
+  pio_tpu_torch train`` (K2 as each ``als_train``'s layout predicts) and
+  a deploy answering 8 queries over HTTP, each body the in-process answer
+  and what tests/test_examples.py asserts of the reference's; the
+  evaluation example through ``eval`` in class mode, its winner scoring
+  above 0 and the candidates apart.
 
 - templates: the similar-product, e-commerce and classification
   templates. ``ALSSimilarityAlgorithm`` and ``ECommAlgorithm`` trained on
@@ -247,10 +270,10 @@ The phases run one at a time, in the order above but for
 attention_kernel and sequence_train, which follow train_validated, so
 that every kernel's timing and training throughput is taken with the
 card to itself. Then templates, templates_rest, sequence_entry,
-train_resume, evaluate_sequence and quickstart run in a second process
-of this script (``--sequence-lane``: its own stores and launch counts)
-beside ingest to evaluate, so the host times of both groups are taken
-under each other's load.
+train_resume, evaluate_sequence, sequence_moe and examples run in a
+second process of this script (``--sequence-lane``: its own stores and
+launch counts) beside ingest to evaluate and quickstart, so the host
+times of both groups are taken under each other's load.
 
 Each phase prints one JSON line. Any failure raises, so the exit code is
 not 0 and no result line is printed; without CUDA, or outside a checkout
@@ -378,6 +401,8 @@ ATTN_CASES = (
 SEQ_TRAIN_DATA = dict(n_seqs=8_192, max_len=128, n_items=20_000)
 SEQ_TRAIN = dict(max_len=128, embed_dim=128, num_heads=4, num_layers=2,
                  ffn_dim=256, batch_size=256, steps=120, seed=0)
+# the same cell with four experts in each block, attention "flash"
+SEQ_MOE_TRAIN = {**SEQ_TRAIN, "moe_experts": 4}
 # final losses of attention "flash" and "auto" (the plain attention at
 # this length): the same init and batches, attention forwards that differ
 # by f32 rounding, carried through 120 Adam steps
@@ -982,12 +1007,43 @@ SB_MODES = ("coalesced", "micro", "solo")
 SB_BOOT_TIMEOUT_S = 300
 
 
+# free_port's ports lie below the kernel's ephemeral range, so no outgoing
+# connection (nor a connect to a dead server's port, which can meet itself)
+# takes one as its local port while its server restarts; main and the
+# sequence lane draw from halves of their own
+_PORT_HALF = [0]
+_PORTS_GIVEN: set = set()
+
+
+def _port_pool() -> range:
+    try:
+        lo, hi = map(int, Path("/proc/sys/net/ipv4/ip_local_port_range")
+                     .read_text().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999
+    first, last = (10000, lo) if lo >= 12000 else (hi + 1, 65536)
+    mid = (first + last) // 2
+    return range(first, mid) if _PORT_HALF[0] == 0 else range(mid, last)
+
+
 def free_port() -> int:
+    """A port no server of this run was given and nothing holds now,
+    outside the ephemeral range."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    pool = _port_pool()
+    for port in random.Random(os.getpid()).sample(pool, len(pool)):
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("0.0.0.0", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    raise AssertionError(f"no free port in {pool}")
 
 
 def _get(port: int, path: str) -> tuple[int, object]:
@@ -1946,8 +2002,9 @@ def auto_ramp(env: dict, port: int, iid: str, user_ids: list) -> dict:
 # -- phase 3d: the sharded, replicated fleet ----------------------------------
 
 # /queries.json of distinct users a load: cut from 512 when the
-# multi-tenant pool's phase joined the script (PERF.md section 4)
-SF_QUERIES = 256
+# multi-tenant pool's phase joined the script, and from 256 when the MoE
+# and examples phases did (PERF.md section 4)
+SF_QUERIES = 128
 SF_CLIENTS = 16            # client threads posting them at once
 SF_SHARDS, SF_REPLICAS = 2, 2
 SF_ENGINE = "chip-smoke-fleet"
@@ -2006,8 +2063,10 @@ def shard_proc(env: dict, log: Path, shard_index: int, n_shards: int,
     if join:
         argv.append("--join-reshard")
     with open(log, "w") as out:
-        return subprocess.Popen(argv, cwd=REPO_ROOT, env=env, stdout=out,
+        proc = subprocess.Popen(argv, cwd=REPO_ROOT, env=env, stdout=out,
                                 stderr=subprocess.STDOUT, text=True)
+    proc.log_path = log      # wait_ready shows its end if it exits
+    return proc
 
 
 def wait_ready(port: int, proc, timeout: float = SF_BOOT_TIMEOUT_S) -> float:
@@ -2020,8 +2079,10 @@ def wait_ready(port: int, proc, timeout: float = SF_BOOT_TIMEOUT_S) -> float:
         except OSError:
             pass
         if proc is not None and proc.poll() is not None:
+            log = getattr(proc, "log_path", None)
+            tail = log.read_text()[-3000:] if log and log.exists() else ""
             raise AssertionError(f"server on {port} exited "
-                                 f"{proc.returncode}")
+                                 f"{proc.returncode}: {tail}")
         time.sleep(0.1)
     raise AssertionError(f"server on {port} not ready in {timeout} s")
 
@@ -3228,10 +3289,11 @@ def phase_serve_tenancy(users: np.ndarray, items: np.ndarray,
 
 SERVER_KEY = "chip-smoke-key"
 # users in the tail, a quarter of them new: cut from 4,096 when the script
-# took 1,126.3 s of its 1,200 with serve_rollout (PERF.md section 4)
-FOLDIN_USERS = 2_048
+# took 1,126.3 s of its 1,200 with serve_rollout, and from 2,048 when the
+# MoE and examples phases joined it (PERF.md section 4)
+FOLDIN_USERS = 1_024
 FOLDIN_NEW_SHARE = 0.25
-FOLDIN_BATCH = 1_024       # max_batch_users: two batches
+FOLDIN_BATCH = 512         # max_batch_users: two batches
 FOLDIN_MAX_LEN = 512       # history cap: up to four 128-wide slots
 FOLDIN_REG, FOLDIN_ALPHA = 0.05, 10.0   # bench.py's reg and alpha
 FOLDIN_SAMPLE = 64         # single-slot users checked beside every multi
@@ -6143,8 +6205,10 @@ def shared_replicated(prefix_env: dict, tmp: Path) -> dict:
     procs = []
     client = None
     try:
+        # replica 3 comes back on its port: one free_port gives
         for k in range(3):
-            procs.append(storage_server_proc(envs[k], tmp / f"replica{k}.log"))
+            procs.append(storage_server_proc(
+                envs[k], tmp / f"replica{k}.log", port=free_port()))
         urls = [u for _, u in procs]
 
         def replicated_env(hints: Path) -> dict:
@@ -6261,15 +6325,51 @@ def phase_shared_store(sqlite, dev: torch.device, ingest: dict,
 QUICKSTART_QUERIES = 8
 
 
+QUICKSTART_EVAL = "examples.quickstart.port.eval_def"
+
+
+def class_mode_eval(storage, out: Path, evaluation: str, generator: str,
+                    *extra) -> dict:
+    """``python -m pio_tpu_torch eval EVALUATION GENERATOR [extra]
+    --output out`` (class paths): K2 in every fold's training as the
+    layouts predict, the winner's (rank, lambda_) one of the generator's
+    candidates, the instance recorded."""
+    with recorded_als_trains() as trains:
+        # -- the main path: counts from 0, read right after --------------
+        reset_counts()
+        rc, printed, eval_s = _cli(
+            ["eval", evaluation, generator, *extra, "--output", str(out)],
+            storage)
+        launches = read_counts()
+        # -----------------------------------------------------------------
+    if rc != 0:
+        raise AssertionError(f"eval {evaluation}: rc {rc}: {printed}")
+    want = expected_k2(trains)
+    module, _, name = generator.rpartition(".")
+    grid = [(ep.algorithms[0][1].rank, ep.algorithms[0][1].lambda_)
+            for ep in getattr(sys.modules[module], name).params_list()]
+    [algo] = json.loads(out.read_text())["algorithmParamsList"]
+    best = (algo["params"]["rank"], algo["params"]["lambda_"])
+    if best not in grid or launches != {**dict.fromkeys(launches, 0),
+                                        "segment_flush": want}:
+        raise AssertionError(f"eval {evaluation}: launches {launches} "
+                             f"(want {want} of K2), best {best}")
+    eval_id = printed.split("Instance: ")[1].split()[0]
+    return {"eval_s": eval_s, "als_trains": len(trains),
+            "k2_launches": launches["segment_flush"],
+            "k2_launches_expected": want, "best": algo["params"],
+            **_eval_scores(storage, eval_id)}
+
+
 def phase_quickstart(dev: torch.device) -> dict:
     """The README quickstart on a fresh sqlite store: ``app new
     quickstart``, ``import`` of ``examples/quickstart/events.jsonl.gz``
     (100,000 events, read in place), an event server process taking one
-    ``POST /events.json`` and one segment.io webhook, ``train`` with the
-    committed engine.json's params (K2 in every flush), the instance
+    ``POST /events.json`` and one segment.io webhook, ``train`` of
+    ``examples/quickstart/port/engine.json`` (K2 in every flush), the instance
     deployed (what ``deploy`` serves) answering QUICKSTART_QUERIES
-    queries through ``sdk.EngineClient``, held to the exact top-k, then
-    ``export``."""
+    queries through ``sdk.EngineClient``, held to the exact top-k,
+    ``export``, then the port's ``eval`` of the quickstart grid."""
     from pio_tpu_torch import sdk
     from pio_tpu_torch.__main__ import _engine_from_variant, _load_variant
     from pio_tpu_torch.data.eventstore import EventStore
@@ -6306,11 +6406,10 @@ def phase_quickstart(dev: torch.device) -> dict:
             if status != 201:
                 raise AssertionError(f"segment.io webhook: {status}")
 
+        # the port's counterpart of the quickstart's engine.json
         engine_dir = store.tmp / "engine"
         engine_dir.mkdir()
-        variant = json.loads((src / "engine.json").read_text())
-        variant["engineFactory"] = FACTORY
-        (engine_dir / "engine.json").write_text(json.dumps(variant))
+        shutil.copy(src / "port" / "engine.json", engine_dir)
         variant = _load_variant(str(engine_dir))
         engine, ep = _engine_from_variant(variant, str(engine_dir))
         ds = ep.datasource[1]
@@ -6369,6 +6468,13 @@ def phase_quickstart(dev: torch.device) -> dict:
         if rc != 0 or f"Exported 100002 events to {path}" not in printed:
             raise AssertionError(f"export: rc {rc}: {printed}")
         # the re-import of the export is cut for time (PERF.md section 4)
+        # the README's step 5 on the port's counterpart of eval_def.py
+        # (importable as this script runs from the repository's root)
+        out["port_eval"] = class_mode_eval(
+            storage, store.tmp / "best.json",
+            f"{QUICKSTART_EVAL}.QuickstartEval",
+            f"{QUICKSTART_EVAL}.QuickstartParams")
+        secs["port_eval"] = out["port_eval"]["eval_s"]
         out.update({"launches": launches, "segment_flush_expected": want_k2,
                     "ratings": len(inter.values), "users": inter.n_users,
                     "items": inter.n_items, "verb_s": secs,
@@ -6556,22 +6662,67 @@ def _ids(prefix: str, n: int):
     return EntityIdIndex([f"{prefix}{j}" for j in range(n)])
 
 
-def phase_sequence_train(dev: torch.device) -> dict:
+def seq_train_data():
+    """SEQ_TRAIN_DATA's seeded sequences (zipf 1.3 item ids)."""
     from pio_tpu_torch.models import sequence as seq
 
     cell = SEQ_TRAIN_DATA
     rng = np.random.default_rng(SEED)
     seqs = (rng.zipf(1.3, (cell["n_seqs"], cell["max_len"]))
             % (cell["n_items"] - 1) + 1).astype(np.int32)
-    data = seq.SequenceData(seqs, _ids("u", cell["n_seqs"]),
+    return seq.SequenceData(seqs, _ids("u", cell["n_seqs"]),
                             _ids("i", cell["n_items"]))
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Counts the tokens every ``moe_ffn`` call of the sequence model
+    drops while the block runs: the call's routing again (no gradient),
+    a device scalar a call appended to the yielded list (no sync)."""
+    from pio_tpu_torch.models import sequence as seq
+    from pio_tpu_torch.ops import moe
+
+    plain = seq.moe_ffn
+    seen: list = []
+
+    def call(params, x, cfg, with_aux=True):
+        with torch.no_grad():
+            cap = moe._capacity(x.shape[0], cfg.n_experts,
+                                cfg.capacity_factor)
+            keep = moe.route(x, params["router"], cfg.n_experts, cap,
+                             with_aux=False)[3]
+            seen.append((~keep).sum())
+        return plain(params, x, cfg, with_aux)
+
+    seq.moe_ffn = call
+    try:
+        yield seen
+    finally:
+        seq.moe_ffn = plain
+
+
+def phase_sequence_train(dev: torch.device) -> dict:
+    """``train_sequence_model`` at SEQ_TRAIN_DATA's cell with attention
+    ``flash`` (K8), ``auto`` (the plain attention at this length) and
+    ``flash`` with four experts a block (SEQ_MOE_TRAIN): the first step's
+    loss, the run's loss, ms a step, the launches, device ms by kernel
+    over three steps; then the MoE run again counting the tokens its
+    experts drop a step."""
+    from pio_tpu_torch.models import sequence as seq
+
+    cell = SEQ_TRAIN_DATA
+    data = seq_train_data()
     tokens = SEQ_TRAIN["steps"] * SEQ_TRAIN["batch_size"] * (
         SEQ_TRAIN["max_len"] - 1)
     runs = {}
-    for attention in ("flash", "auto"):
-        p = seq.SequenceParams(**SEQ_TRAIN, attention=attention)
-        # three steps first: cuBLAS handles, the allocator, K8's build
-        seq.train_sequence_model(data, replace(p, steps=3), device=dev)
+    for name, cell_p, attention in (("flash", SEQ_TRAIN, "flash"),
+                                    ("auto", SEQ_TRAIN, "auto"),
+                                    ("moe", SEQ_MOE_TRAIN, "flash")):
+        p = seq.SequenceParams(**cell_p, attention=attention)
+        # the first step alone: its loss, and cuBLAS handles, the
+        # allocator and K8's build off the clock
+        _, _, first = seq.train_sequence_model(data, replace(p, steps=1),
+                                               device=dev)
         torch.cuda.synchronize()
         # -- the main path: counts from 0, read right after ----------------
         reset_counts()
@@ -6587,26 +6738,38 @@ def phase_sequence_train(dev: torch.device) -> dict:
             seq.train_sequence_model(data, replace(p, steps=3), device=dev)
             torch.cuda.synchronize()
         device_ms, top = device_ms_by_kernel(prof, 3)
-        runs[attention] = {"loss": loss, "train_s": wall,
-                           "tokens_per_s": tokens / wall,
-                           "ms_per_step": 1e3 * wall / p.steps,
-                           "device_ms_per_step": device_ms,
-                           "top_kernels_ms_per_step": top,
-                           "launches": launches}
+        runs[name] = {"first_loss": first, "loss": loss, "train_s": wall,
+                      "tokens_per_s": tokens / wall,
+                      "ms_per_step": 1e3 * wall / p.steps,
+                      "device_ms_per_step": device_ms,
+                      "top_kernels_ms_per_step": top,
+                      "launches": launches}
         torch.cuda.empty_cache()
-    want = {"flash": SEQ_TRAIN["num_layers"] * SEQ_TRAIN["steps"], "auto": 0}
-    for attention, run in runs.items():
+    p = seq.SequenceParams(**SEQ_MOE_TRAIN, attention="flash")
+    with counted_drops() as drops:
+        seq.train_sequence_model(data, p, device=dev)
+    per_step = torch.stack(drops).reshape(
+        p.steps, p.num_layers).sum(1).cpu().numpy()
+    runs["moe"]["dropped_per_step"] = {
+        "mean": float(per_step.mean()), "max": int(per_step.max()),
+        "first": int(per_step[0]), "last": int(per_step[-1]),
+        "of_tokens": p.batch_size * (p.max_len - 1) * p.num_layers}
+    k8 = SEQ_TRAIN["num_layers"] * SEQ_TRAIN["steps"]
+    want = {"flash": k8, "auto": 0, "moe": k8}
+    for name, run in runs.items():
         n = {**dict.fromkeys(run["launches"], 0),
-             "flash_attention": want[attention]}
-        if run["launches"] != n or not np.isfinite(run["loss"]):
-            raise AssertionError(f"{attention}: launches {run['launches']} "
-                                 f"(want {want[attention]} of K8), loss "
-                                 f"{run['loss']}")
+             "flash_attention": want[name]}
+        if (run["launches"] != n or not np.isfinite(run["loss"])
+                or not run["loss"] < run["first_loss"]):
+            raise AssertionError(f"{name}: launches {run['launches']} "
+                                 f"(want {want[name]} of K8), loss "
+                                 f"{run['loss']} after {run['first_loss']}")
     rel = abs(runs["flash"]["loss"] - runs["auto"]["loss"]) / abs(
         runs["auto"]["loss"])
     result = {**cell, **SEQ_TRAIN, "tokens": tokens, "runs": runs,
+              "moe_experts": SEQ_MOE_TRAIN["moe_experts"],
               "loss_rel_diff": rel, "loss_rtol": SEQ_LOSS_RTOL}
-    emit("sequence_train", **result)
+    emit("sequence_train", card=card_line(), **result)
     if rel > SEQ_LOSS_RTOL:
         raise AssertionError(f"flash and auto losses differ by {rel}")
     return result
@@ -7671,6 +7834,205 @@ def phase_evaluate_sequence(store, dev: torch.device) -> dict:
               **_eval_scores(storage, eval_id)}
     emit("evaluate_sequence", **result)
     return result
+
+
+# -- phase: the sequence template's mixture-of-experts FFN -------------------
+
+# the plain check: the index form against the reference's one-hot form at
+# a shape the one-hot tensors fit (T = 16 x 127 tokens, E 4: 8.3 M floats
+# a tensor), a capacity factor that keeps every token and one that drops
+MOE_CHECK = dict(n_experts=4, d_model=128, d_ff=256)
+MOE_CHECK_TOKENS = 16 * 127
+MOE_CHECK_CFS = (2.0, 0.5)
+# each one-hot sum has one nonzero term and the experts' products are the
+# same bmm in both forms: y and aux held to 1e-6 of their largest value;
+# the gradients sum a token's terms in other orders (einsum over T against
+# the slots' gather): 1e-5 of the largest
+MOE_ATOL_OF_MAX = 1e-6
+MOE_GRAD_ATOL_OF_MAX = 1e-5
+# the verbs: examples/sequence/engine.json's widths with four experts
+SEQ_MOE_ALGO = {**SEQ_ALGO, "moe_experts": 4, "app_name": "ChipSeqMoE"}
+SEQ_MOE_QUERIES = 8
+SEQ_MOE_BATCH = 64
+
+
+def moe_plain_check(dev: torch.device) -> list:
+    """``moe_ffn`` against ``moe_ffn_onehot`` on the card: outputs, aux
+    and the gradients of sum(y * w) + aux, both forms timed (forward)."""
+    from pio_tpu_torch.ops import moe
+
+    cases = []
+    g = torch.Generator().manual_seed(SEED + 70)
+    t = MOE_CHECK_TOKENS
+    x0 = torch.randn(t, MOE_CHECK["d_model"], generator=g).to(dev)
+    w = torch.randn(t, MOE_CHECK["d_model"], generator=g).to(dev)
+    for cf in MOE_CHECK_CFS:
+        cfg = moe.MoEConfig(**MOE_CHECK, capacity_factor=cf)
+        p0 = moe.init_moe_params(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        outs = {}
+        for name, fn in (("index", moe.moe_ffn),
+                         ("onehot", moe.moe_ffn_onehot)):
+            p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+            x = x0.clone().requires_grad_()
+            y, aux = fn(p, x, cfg)
+            ((y * w).sum() + aux).backward()
+            outs[name] = (y.detach(), aux.detach(), x.grad,
+                          {k: v.grad for k, v in p.items()})
+            with torch.no_grad():
+                outs[name + "_ms"] = gpu_ms(lambda: fn(p0, x0, cfg),
+                                            reps=10, inner=5)
+        (y1, a1, gx1, gp1), (y2, a2, gx2, gp2) = outs["index"], outs["onehot"]
+        cap = moe._capacity(t, cfg.n_experts, cf)
+        keep = moe.route(x0, p0["router"], cfg.n_experts, cap)[3]
+        grads = {"x": (gx1, gx2), **{k: (gp1[k], gp2[k]) for k in gp1}}
+        case = {
+            "tokens": t, **MOE_CHECK, "capacity_factor": cf,
+            "capacity": cap, "dropped": int((~keep).sum()),
+            "max_abs_err": float((y1 - y2).abs().max()),
+            "y_max_abs": float(y2.abs().max()),
+            "aux_abs_err": float((a1 - a2).abs()),
+            "dropped_rows_exact_zero": bool(
+                (y1[~keep] == 0).all() and (y2[~keep] == 0).all()),
+            "grad_rel_err": {k: float((a - b).abs().max()
+                                      / b.abs().max().clamp_min(1e-30))
+                             for k, (a, b) in grads.items()},
+            "ms": outs["index_ms"], "plain_ms": outs["onehot_ms"]}
+        cases.append(case)
+        if (case["max_abs_err"] > MOE_ATOL_OF_MAX * case["y_max_abs"]
+                or case["aux_abs_err"] > MOE_ATOL_OF_MAX * float(a2)
+                or not case["dropped_rows_exact_zero"]
+                or max(case["grad_rel_err"].values()) > MOE_GRAD_ATOL_OF_MAX):
+            raise AssertionError(f"moe_ffn against its one-hot form: {case}")
+    if not cases[0]["dropped"] == 0 < cases[1]["dropped"]:
+        raise AssertionError(f"dropped tokens {[c['dropped'] for c in cases]}"
+                             f" at capacity factors {MOE_CHECK_CFS}")
+    return cases
+
+
+def moe_verbs(dev: torch.device) -> dict:
+    """examples/sequence/engine.json's widths with four experts on seeded
+    events of the phase's own sqlite store: ``python -m pio_tpu_torch
+    train``, the instance deployed (what ``deploy`` serves) answering
+    SEQ_MOE_QUERIES queries over HTTP, each body the in-process
+    ``predict``, K8 once a layer a query; then one in-process
+    ``batch_predict`` of SEQ_MOE_BATCH users against their solo answers
+    (the training snapshot's histories), with the tokens the experts
+    dropped (reported: capacity is counted
+    over the whole padded batch, so an answer may depend on its batch
+    once an expert overflows, in both packages)."""
+    from pio_tpu_torch.ops.bucketing import pow2_bucket
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    with sqlite_store("pio_chip_seq_moe_") as store:
+        storage = store.storage
+        t0 = time.perf_counter()
+        n_events = write_sequence_events(storage, SEQ_MOE_ALGO["app_name"],
+                                         store.t_events)
+        write_s = time.perf_counter() - t0
+        engine_dir = store.tmp / "engine"
+        engine_dir.mkdir()
+        (engine_dir / "engine.json").write_text(json.dumps({
+            "id": "chip-smoke-seq-moe", "engineFactory": SEQ_FACTORY,
+            "datasource": {"params": {
+                "app_name": SEQ_MOE_ALGO["app_name"],
+                "event_names": ["view", "buy"],
+                "max_len": SEQ_MOE_ALGO["max_len"]}},
+            "algorithms": [{"name": "sasrec", "params": SEQ_MOE_ALGO}]}))
+        engine, ep = _engine_from_dir(engine_dir)
+        reset_counts()
+        rc, printed, train_s = _cli(
+            ["train", "--engine-dir", str(engine_dir), "--checkpoint-root",
+             str(store.tmp / "ckpt")], storage)
+        train_launches = read_counts()
+        # attention "auto" at max_len 64 trains with the plain attention
+        if rc != 0 or any(train_launches.values()):
+            raise AssertionError(f"MoE train: rc {rc}, launches "
+                                 f"{train_launches}")
+        http, qs = create_query_server(
+            engine, ep, storage,
+            ServingConfig(ip="127.0.0.1", port=0,
+                          engine_id="chip-smoke-seq-moe"),
+            ctx=create_workflow_context(storage, device=dev))
+        http.start()
+        try:
+            model, algo = qs.models[0], qs.algorithms[0]
+            users = model.users.ids()
+            picked = np.random.default_rng(SEED + 71).choice(
+                len(users), SEQ_MOE_QUERIES + SEQ_MOE_BATCH, replace=False)
+            queries = [{"user": users[i], "num": 10}
+                       for i in picked[:SEQ_MOE_QUERIES]]
+            status, _, first_s = _post(http.port, "/queries.json",
+                                       queries[0])
+            # -- the main path: counts from 0, read right after --------
+            reset_counts()
+            hedged = qs.hedged_dispatches
+            bodies, ms = [], []
+            for q in queries:
+                status, body, secs = _post(http.port, "/queries.json", q)
+                if status != 200:
+                    raise AssertionError(f"MoE deploy {q}: {status} {body}")
+                bodies.append(body)
+                ms.append(1e3 * secs)
+            launches = read_counts()
+            hedged = qs.hedged_dispatches - hedged
+            # ------------------------------------------------------------
+            for q, body in zip(queries, bodies):
+                if body != _normal(algo.predict(model, q)):
+                    raise AssertionError(f"MoE deploy {q}: {body} is not "
+                                         "the in-process predict")
+            # the batch against solo answers on the training snapshot's
+            # histories: the same rows with no live read a query
+            snapshot = replace(model, config=replace(model.config,
+                                                     app_name=""))
+            batch_q = [{"user": users[i], "num": 10}
+                       for i in picked[SEQ_MOE_QUERIES:]]
+            with counted_drops() as drops:
+                batch = algo.batch_predict(snapshot, batch_q)
+            batch_dropped = int(sum(drops)) if drops else 0
+            with counted_drops() as drops:
+                solo = [algo.predict(snapshot, q) for q in batch_q]
+            solo_dropped = int(sum(drops)) if drops else 0
+        finally:
+            http.stop()
+            qs.close()
+    check_serving_launches(launches, "flash_attention",
+                           SEQ_MOE_ALGO["num_layers"] * len(queries), hedged,
+                           SEQ_MOE_ALGO["num_layers"])
+    differ = sum(_ranking(b)[0] != _ranking(s)[0]
+                 for b, s in zip(batch, solo))
+    return {"events": n_events, "write_s": write_s, "train_s": train_s,
+            "train_launches": train_launches, "launches": launches,
+            "hedged_dispatches": hedged, "queries": len(queries),
+            "bodies_equal_predict": len(queries),
+            "p50_ms": statistics.median(ms), "first_query_s": first_s,
+            "batch": len(batch_q), "batch_items_differing_from_solo": differ,
+            "batch_tokens_dropped": batch_dropped,
+            "solo_tokens_dropped": solo_dropped,
+            "batch_tokens": pow2_bucket(len(batch_q)) * (
+                SEQ_MOE_ALGO["max_len"] - 1) * SEQ_MOE_ALGO["num_layers"]}
+
+
+def phase_sequence_moe(dev: torch.device) -> dict:
+    """The sequence template with its mixture-of-experts FFN: (a)
+    ``moe_ffn`` against its one-hot plain version on the card; (c) the
+    train verb, a deploy and a batch with experts. (b), training with
+    four experts a block beside the dense run, is ``sequence_train``'s
+    ``moe`` run, the card to itself."""
+    secs: dict = {}
+    out: dict = {}
+    for name, fn in (("plain_check", moe_plain_check),
+                     ("verbs", moe_verbs)):
+        t = time.perf_counter()
+        out[name] = fn(dev)
+        secs[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        emit("sequence_moe", part=name, card=card_line(), **(
+            {"cases": out[name]} if name == "plain_check" else out[name]))
+    emit("sequence_moe", part="seconds", seconds=secs)
+    return {"seconds": secs, "flash_attention": out["verbs"]["launches"][
+        "flash_attention"]}
 
 
 # -- phase: the similar-product, e-commerce and classification templates -------
@@ -8976,6 +9338,290 @@ def phase_templates_rest(ratings, store, dev: torch.device) -> dict:
     return {"seconds": secs}
 
 
+# -- phase: the examples' user-code engines on the port ----------------------
+
+EX_USERS, EX_ITEMS = 240, 120   # tests/test_examples.py's parity blocks
+EX_QUERIES = 8                  # /queries.json an engine
+EX_EXCLUDED = ("i0", "i2")      # custom-preparator's excluded items
+
+
+def example_events(storage, rng) -> dict:
+    """tests/test_examples.py's stores, scaled to EX_USERS x EX_ITEMS: the
+    parity-block ratings (users rate the items of their parity 5) in
+    CustomServingApp, CustomPreparatorApp and FilterByCategoryApp (with
+    each item's $set category); MultiAlgoApp's views of the same blocks,
+    likes of every fourth item and a dislike; MyApp's buys of the blocks
+    beside noise views (twotower-weighted); EvalApp's seeded ratings as
+    tests/test_torch_examples.py seeds them (a user rates 60 % of its own
+    parity's items 4 or 5 and 25 % of the others 1 or 2: on the blocks
+    alone every user holds out the same items in a fold, which no fold's
+    model has seen, and every candidate scores 0). Returns the events
+    written by app."""
+    from pio_tpu_torch.data.dao import App
+    from pio_tpu_torch.data.event import Event
+
+    def pairs():
+        return [(u, i) for u in range(EX_USERS) for i in range(EX_ITEMS)
+                if (u + i) % 2 == 0]
+
+    rated = [Event("rate", "user", f"u{u}", "item", f"i{i}", {"rating": 5})
+             for u, i in pairs()]
+    apps = {name: rated for name in ("CustomServingApp",
+                                     "CustomPreparatorApp")}
+    same = (np.arange(EX_USERS)[:, None] + np.arange(EX_ITEMS)) % 2 == 0
+    rates = rng.random(same.shape) < np.where(same, 0.6, 0.25)
+    stars = np.where(same, rng.integers(4, 6, same.shape),
+                     rng.integers(1, 3, same.shape))
+    apps["EvalApp"] = [
+        Event("rate", "user", f"u{u}", "item", f"i{i}",
+              {"rating": int(stars[u, i])})
+        for u, i in zip(*np.nonzero(rates))]
+    apps["FilterByCategoryApp"] = rated + [
+        Event("$set", "item", f"i{i}", properties={
+            "categories": ["electronics" if i < EX_ITEMS // 2 else "books"]})
+        for i in range(EX_ITEMS)]
+    apps["MultiAlgoApp"] = (
+        [Event("view", "user", f"u{u}", "item", f"i{i}") for u, i in pairs()]
+        + [Event("like", "user", f"u{u}", "item", f"i{i}")
+           for u, i in pairs() if i % 4 == 0]
+        + [Event("dislike", "user", "u0", "item", "i8")])
+    apps["MyApp"] = [
+        Event("buy" if (u + i) % 2 == 0 else "view", "user", f"u{u}",
+              "item", f"i{i}")
+        for u in range(EX_USERS) for i in range(EX_ITEMS)
+        if (u + i) % 2 == 0 or (u * 7 + i) % 5 == 0]
+    written = {}
+    for name, events in apps.items():
+        app_id = storage.get_metadata_apps().insert(App(0, name))
+        storage.get_events().init(app_id)
+        storage.get_events().insert_batch(events, app_id)
+        written[name] = len(events)
+    return written
+
+
+def example_dir(store, name: str, section: str = "", **params) -> Path:
+    """examples/<name>/port as it is, or copied into the store's directory
+    with its engine.json ``section`` params updated."""
+    src = REPO_ROOT / "examples" / name / "port"
+    if not section:
+        return src
+    d = store.tmp / name
+    shutil.copytree(src, d)
+    conf = json.loads((d / "engine.json").read_text())
+    conf[section]["params"].update(params)
+    (d / "engine.json").write_text(json.dumps(conf))
+    return d
+
+
+@contextlib.contextmanager
+def example_module():
+    """Each example's module is called ``engine``: none is loaded when the
+    block starts, and the verbs' additions to ``sys.path`` are undone
+    after it."""
+    path = list(sys.path)
+    sys.modules.pop("engine", None)
+    try:
+        yield
+    finally:
+        sys.path[:] = path
+        sys.modules.pop("engine", None)
+
+
+def example_verb(store, d: Path, queries, dev: torch.device,
+                 check=None) -> dict:
+    """``python -m pio_tpu_torch train --engine-dir d`` (K2 as each
+    ``als_train``'s layout predicts, nothing else), then the instance
+    deployed (what ``deploy`` serves) answering ``queries`` over HTTP,
+    each body the serving composition's answer in process, no kernel
+    launched. ``check(port, qs, bodies)`` runs on the live deploy and
+    returns what it found."""
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    engine_id = json.loads((d / "engine.json").read_text())["id"]
+    with example_module():
+        engine, ep = _engine_from_dir(d)
+        with recorded_als_trains() as trains:
+            # -- the main path: counts from 0, read right after ----------
+            reset_counts()
+            rc, printed, train_s = _cli(
+                ["train", "--engine-dir", str(d), "--checkpoint-root",
+                 str(store.tmp / "ckpt")], store.storage)
+            launches = read_counts()
+            # -----------------------------------------------------------
+        want = expected_k2(trains)
+        if rc != 0 or launches != {**dict.fromkeys(launches, 0),
+                                   "segment_flush": want}:
+            raise AssertionError(f"{engine_id}: train rc {rc}, launches "
+                                 f"{launches}, want {want} of K2")
+        http, qs = create_query_server(
+            engine, ep, store.storage,
+            ServingConfig(ip="127.0.0.1", port=0, engine_id=engine_id),
+            ctx=create_workflow_context(store.storage, device=dev))
+        http.start()
+        try:
+            reset_counts()
+            statuses, bodies, ms = [], [], []
+            for q in queries:
+                status, body, secs = _post(http.port, "/queries.json", q)
+                statuses.append(status)
+                bodies.append(body)
+                ms.append(1e3 * secs)
+                want_body = qs.serving.serve(q, [
+                    a.predict(m, q) for a, m in zip(qs.algorithms,
+                                                    qs.models)])
+                if status != 200 or body != _normal(want_body):
+                    raise AssertionError(f"{engine_id} {q}: {status} "
+                                         f"{body}, in process {want_body}")
+            no_launches(f"{engine_id} serving")
+            found = check(http.port, qs, bodies) if check else {}
+        finally:
+            http.stop()
+            qs.close()
+    return {"train_s": train_s, "als_trains": len(trains),
+            "k2_launches": launches["segment_flush"],
+            "k2_launches_expected": want, "statuses": statuses,
+            "query_ms": statistics.median(ms), **found}
+
+
+def _items(body: dict) -> list:
+    return [s["item"] for s in body["itemScores"]]
+
+
+def example_checks(store, dev: torch.device, rng) -> list:
+    """(example, engine dir, queries, check) for the six engines served:
+    each check asserts what tests/test_examples.py asserts of the
+    reference's example."""
+    from pio_tpu_torch.workflow.context import create_workflow_context
+
+    disabled = store.tmp / "disabled.txt"
+    excluded = store.tmp / "excluded.txt"
+    excluded.write_text("\n".join(EX_EXCLUDED) + "\n")
+    users = [f"u{u}" for u in rng.choice(EX_USERS, EX_QUERIES,
+                                         replace=False)]
+    plain = [{"user": u, "num": 10} for u in users]
+    by_cat = [q | c for q in plain[:EX_QUERIES // 2]
+              for c in ({}, {"categories": ["books"]})]
+    # items with likes, so both algorithms know them
+    similar = [{"items": [f"i{i}"], "num": 10} for i in rng.choice(
+        np.arange(0, EX_ITEMS, 4), EX_QUERIES, replace=False)]
+
+    def live_disable(port, qs, bodies):
+        top = bodies[0]["itemScores"][0]["item"]
+        disabled.write_text(top + "\n")
+        status, body, _ = _post(port, "/queries.json", plain[0])
+        if status != 200 or top in _items(body) or not _items(body):
+            raise AssertionError(f"custom-serving: {top} disabled, answer "
+                                 f"{body}")
+        return {"disabled": top}
+
+    def never_excluded(port, qs, bodies):
+        served = {i for b in bodies for i in _items(b)}
+        if set(EX_EXCLUDED) & (served | set(qs.models[0].items.ids())):
+            raise AssertionError(f"custom-preparator served {served}")
+        return {"model_items": len(qs.models[0].items)}
+
+    def category_only(port, qs, bodies):
+        books = [_items(b) for b in bodies[1::2]]
+        if not all(books) or any(int(i[1:]) < EX_ITEMS // 2
+                                 for b in books for i in b):
+            raise AssertionError(f"filter-by-category: {books}")
+        if qs.models[0].base.factors.item_factors.device != dev:
+            raise AssertionError("filter-by-category: factors not on "
+                                 f"{dev}")
+        return {"category_answers": len(books)}
+
+    def both_algorithms(port, qs, bodies):
+        per_algo = [[a.predict(m, q)["itemScores"]
+                     for a, m in zip(qs.algorithms, qs.models)]
+                    for q in similar]
+        if len(qs.algorithms) != 2 or not all(
+                all(p) for p in per_algo) or any(
+                q["items"][0] in _items(b) for q, b in zip(similar, bodies)):
+            raise AssertionError(f"multi-algo: {bodies}")
+        return {"algorithms": [type(a).__name__ for a in qs.algorithms]}
+
+    def even_items(port, qs, bodies):
+        # u0 rates even items 5 (odd items occasionally 1)
+        if not _items(bodies[0]) or any(int(i[1:]) % 2
+                                        for i in _items(bodies[0])):
+            raise AssertionError(f"custom-datasource u0: {bodies[0]}")
+        return {"users": len(qs.models[0].users)}
+
+    def buy_weighted(port, qs, bodies):
+        ds = sys.modules["engine"].WeightedDataSource(
+            qs.engine_params.datasource[1])
+        inter = ds.read_training(create_workflow_context(store.storage,
+                                                         device=dev))
+        events = list(store.storage.get_events().find(
+            store.storage.get_metadata_apps().get_by_name("MyApp").id,
+            limit=-1))
+        buys = sum(e.event == "buy" for e in events)
+        share = [np.mean([(int(u[1:]) + int(i[1:])) % 2 == 0
+                          for i in _items(b)]) for u, b in zip(users, bodies)]
+        if (len(inter) != 4 * buys + (len(events) - buys)
+                or not all(_items(b) for b in bodies)
+                or any(s["score"] < 0.05 for b in bodies
+                       for s in b["itemScores"])
+                or np.mean(share) <= 0.5):
+            raise AssertionError(f"twotower-weighted: {len(inter)} rows of "
+                                 f"{buys} buys, {len(events)} events; "
+                                 f"parity share {share}")
+        return {"rows": len(inter), "buys": buys,
+                "parity_share": float(np.mean(share))}
+
+    return [
+        ("custom-serving", example_dir(store, "custom-serving", "serving",
+                                       disabled_items_file=str(disabled)),
+         plain, live_disable),
+        ("custom-preparator", example_dir(
+            store, "custom-preparator", "preparator",
+            exclude_items_file=str(excluded)), plain, never_excluded),
+        ("filter-by-category", example_dir(store, "filter-by-category"),
+         by_cat, category_only),
+        ("multi-algo", example_dir(store, "multi-algo"), similar,
+         both_algorithms),
+        ("custom-datasource", example_dir(store, "custom-datasource"),
+         [{"user": f"u{u}", "num": 3} for u in range(EX_QUERIES)],
+         even_items),
+        ("twotower-weighted", example_dir(store, "twotower-weighted"),
+         plain, buy_weighted)]
+
+
+def phase_examples(dev: torch.device) -> dict:
+    """The seven ``examples/*/port`` engines through the verbs on the
+    card, on a sqlite store of their own (``example_events``): six
+    through ``train`` and a deploy answering EX_QUERIES queries
+    (``example_checks``), the evaluation example through ``eval`` in
+    class mode, its winner scoring above 0 and the candidates apart."""
+    out: dict = {}
+    secs: dict = {}
+    rng = np.random.default_rng(SEED + 72)
+    with sqlite_store("pio_chip_examples_") as store:
+        t = time.perf_counter()
+        out["events"] = example_events(store.storage, rng)
+        secs["write"] = time.perf_counter() - t
+        for name, d, queries, check in example_checks(store, dev, rng):
+            t = time.perf_counter()
+            out[name] = example_verb(store, d, queries, dev, check)
+            secs[name] = time.perf_counter() - t
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        with example_module():
+            out["evaluation"] = class_mode_eval(
+                store.storage, store.tmp / "best.json",
+                "engine.RecEvaluation", "engine.RecParamsGenerator",
+                "--engine-dir", str(example_dir(store, "evaluation")))
+        secs["evaluation"] = time.perf_counter() - t
+        scores = [row[0] for row in out["evaluation"]["scores"]]
+        if not (scores[out["evaluation"]["best_index"]] == max(scores) > 0
+                and len(set(scores)) > 1):
+            raise AssertionError(f"evaluation example: scores {scores}")
+    emit("examples", card=card_line(), seconds=secs, **out)
+    return {"seconds": secs, "segment_flush": sum(
+        r["k2_launches"] for r in out.values() if "k2_launches" in r)}
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
                   case: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -9004,15 +9650,16 @@ SEQUENCE_LANE = "--sequence-lane"
 
 def sequence_lane(out: Path) -> int:
     """The two template phases, the sequence template's end-to-end phases
-    (sequence_entry, train_resume, evaluate_sequence) and quickstart in a
-    process of their own, which ``main`` starts beside the ALS event
-    phases: their seconds and K2's and K8's launches on their paths are
-    written to ``out`` as JSON."""
+    (sequence_entry, train_resume, evaluate_sequence, sequence_moe) and
+    examples in a process of their own, which ``main`` starts beside the
+    ALS event phases and quickstart: their seconds and K2's and K8's
+    launches on their paths are written to ``out`` as JSON."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     # a SIGTERM from main unwinds the phases, whose cleanup stops the
     # processes they started
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    _PORT_HALF[0] = 1
     cuda_settings()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -9032,14 +9679,18 @@ def sequence_lane(out: Path) -> int:
         resume = timed("train_resume", phase_train_resume, store, dev)
         seq_eval = timed("evaluate_sequence", phase_evaluate_sequence,
                          store, dev)
-    timed("quickstart", phase_quickstart, dev)
+    moe = timed("sequence_moe", phase_sequence_moe, dev)
+    examples = timed("examples", phase_examples, dev)
     out.write_text(json.dumps({"wall": wall, "templates": templates,
+                               "segment_flush": {
+        "examples": examples["segment_flush"]},
                                "flash_attention": {
         "sequence_entry": seq_entry["launches"]["flash_attention"],
         "train_resume": {name: run["launches"]["flash_attention"]
                          for name, run in resume["runs"].items()},
         "train_resume_deploy": resume["serve_launches"]["flash_attention"],
-        "evaluate_sequence": seq_eval["launches"]["flash_attention"]}}))
+        "evaluate_sequence": seq_eval["launches"]["flash_attention"],
+        "sequence_moe": moe["flash_attention"]}}))
     return 0
 
 
@@ -9109,12 +9760,12 @@ def main() -> int:
     validated = timed("train_validated", phase_train_validated, ratings, dev)
     del ratings
     attn = timed("attention_kernel", phase_attention_kernel, dev)
-    timed("sequence_train", phase_sequence_train, dev)
+    seq_train = timed("sequence_train", phase_sequence_train, dev)
     # every kernel's timing and training throughput is taken above, the
     # card to itself; the template phases, the sequence template's
-    # end-to-end phases and quickstart then run in a second process beside
-    # the ALS event phases below (their host times are taken under each
-    # other's load)
+    # end-to-end phases and examples then run in a second process beside
+    # the ALS event phases and quickstart below (their host times are
+    # taken under each other's load)
     with tempfile.TemporaryDirectory(prefix="pio_chip_lane_") as tmp, \
             sequence_lane_process(Path(tmp)) as join_sequence_lane:
         # the N_EVENTS seeded events are written once, for both phases
@@ -9126,6 +9777,8 @@ def main() -> int:
             shared = timed("shared_store", phase_shared_store, store, dev,
                            ingest, entry)
             evaluate = timed("evaluate", phase_evaluate, store, dev, entry)
+        # in this process, to even out the two processes' times
+        quickstart = timed("quickstart", phase_quickstart, dev)
         t0 = time.perf_counter()
         lane = join_sequence_lane()
         wall["sequence_lane_wait"] = time.perf_counter() - t0
@@ -9212,6 +9865,11 @@ def main() -> int:
             # engine.json variants
             launches_templates=tpl["segment_flush"],
             launches_templates_expected=tpl["segment_flush_expected"],
+            # the examples' user-code engines on the port, and the
+            # quickstart's port eval (each as its layouts predict)
+            launches_examples=lane["segment_flush"]["examples"],
+            launches_quickstart_port_eval=quickstart["port_eval"][
+                "k2_launches"],
             **{f"launches_{name}": train["launches"]["segment_flush"]
                for name, train in (
                    ("eventlog", log["train"]),
@@ -9279,7 +9937,12 @@ def main() -> int:
             cases=attn["cases"], edges=attn["edges"],
             launches_train_resume=k8["train_resume"],
             launches_train_resume_deploy=k8["train_resume_deploy"],
-            launches_evaluate_sequence_sweep=k8["evaluate_sequence"]),
+            launches_evaluate_sequence_sweep=k8["evaluate_sequence"],
+            # the MoE FFN's paths: its training run, its deploy
+            launches_sequence_moe={
+                "train": seq_train["runs"]["moe"]["launches"][
+                    "flash_attention"],
+                "deploy": k8["sequence_moe"]}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

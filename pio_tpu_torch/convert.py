@@ -87,17 +87,21 @@ def recommendation_model_from_numpy(
                                EntityIdIndex(item_ids))
 
 
-# flax module names inside a Block -> the port's Block attributes
+# flax module names inside a Block -> the port's Block attributes (a MoE
+# block has no Dense_2/Dense_3: its FFN's params are its own, named as the
+# port names them, and used in products, not in Linear, so not transposed)
 _BLOCK_DENSE = (("Dense_0", "qkv"), ("Dense_1", "out"), ("Dense_2", "ffn_in"),
                 ("Dense_3", "ffn_out"))
 _BLOCK_NORM = (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2"))
+_BLOCK_MOE = ("moe_router", "moe_w_in", "moe_b_in", "moe_w_out", "moe_b_out")
 
 
 def sequence_params_from_numpy(tree, *, device) -> dict[str, torch.Tensor]:
     """The reference's ``SeqEncoder`` params -> the port's ``SeqEncoder``
     state dict, f32 on ``device``. A ``Dense`` kernel (in, out) becomes a
     ``Linear`` weight (out, in); LayerNorm scale/bias become weight/bias;
-    the two embedding tables are copied as they are."""
+    the two embedding tables and a MoE block's five params are copied as
+    they are."""
     def norm(node, name):
         return {f"{name}.weight": node["scale"], f"{name}.bias": node["bias"]}
 
@@ -106,14 +110,16 @@ def sequence_params_from_numpy(tree, *, device) -> dict[str, torch.Tensor]:
     i = 0
     while f"Block_{i}" in tree:
         block = tree[f"Block_{i}"]
-        if "moe_router" in block:
-            raise NotImplementedError(
-                "MoE blocks are ported in a later slice")
         for flax_name, name in _BLOCK_DENSE:
+            if flax_name not in block:      # Dense_2/3 of a MoE block
+                continue
             flat[f"blocks.{i}.{name}.weight"] = np.asarray(
                 block[flax_name]["kernel"]).T
             if "bias" in block[flax_name]:
                 flat[f"blocks.{i}.{name}.bias"] = block[flax_name]["bias"]
+        for name in _BLOCK_MOE:
+            if name in block:
+                flat[f"blocks.{i}.{name}"] = block[name]
         for flax_name, name in _BLOCK_NORM:
             flat.update(norm(block[flax_name], f"blocks.{i}.{name}"))
         i += 1

@@ -20,11 +20,18 @@ saves a step checkpoint every ``checkpoint_every`` steps
 every step runs the ``train.step.<n>`` chaos point, the preemption check
 and the heartbeat (``workflow/spans.py``).
 
+With ``moe_experts > 0`` each block's FFN is the mixture of experts of
+``ops/moe.py`` (top-1 routing with a capacity, ReLU experts), and the
+training loss adds ``moe_aux_weight`` times the blocks' mean load-balance
+loss, as the reference's does. Capacity is counted over every token of a
+forward, PAD rows and positions included, so once an expert overflows a
+query's answer can depend on the other queries of its batch, in both
+packages.
+
 ``read_eval`` gives the reference's rolling next-item folds, which
-``eval --sweep`` scores through its sequential path. Not ported yet, each
-raising or absent: the mesh path (data x sequence parallelism with
-``ring``/``ulysses`` attention) and the mixture-of-experts FFN
-(``moe_experts > 0``).
+``eval --sweep`` scores through its sequential path. Not ported yet,
+raising: the mesh path (data x sequence parallelism with
+``ring``/``ulysses`` attention).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from pio_tpu_torch.ops.attention import (
     flash_attention_trainable,
 )
 from pio_tpu_torch.ops.bucketing import pow2_bucket
+from pio_tpu_torch.ops.moe import MoEConfig, init_moe_, moe_ffn
 from pio_tpu_torch.workflow.context import resolve_device
 from pio_tpu_torch.workflow.spans import after_span, step_chaos_active
 from pio_tpu_torch.workflow.step_checkpoint import (
@@ -69,8 +77,6 @@ POS_HEADROOM = 16
 LN_EPS = 1e-6  # flax's LayerNorm default (torch's is 1e-5)
 
 log = logging.getLogger("pio_tpu_torch.models.sequence")
-
-_MOE_LATER = "moe_experts > 0 (the MoE FFN) is ported in a later slice"
 
 
 @dataclass(frozen=True)
@@ -106,10 +112,13 @@ class SequenceParams(Params):
 class Block(nn.Module):
     """Pre-LN transformer block: a bias-free qkv projection, attention
     through ``attn_fn``, a bias-free output projection, and a dense GELU
-    FFN with biases."""
+    FFN with biases or, with ``moe_experts > 0``, the MoE FFN of
+    ``ops/moe.py`` (its params ``moe_router``, ``moe_w_in``, ``moe_b_in``,
+    ``moe_w_out``, ``moe_b_out``, named and shaped as the reference's)."""
 
     def __init__(self, embed_dim: int, num_heads: int, head_dim: int,
-                 ffn_dim: int):
+                 ffn_dim: int, moe_experts: int = 0,
+                 moe_capacity_factor: float = 2.0):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
         hd = num_heads * head_dim
@@ -117,16 +126,37 @@ class Block(nn.Module):
         self.qkv = nn.Linear(embed_dim, 3 * hd, bias=False)
         self.out = nn.Linear(hd, embed_dim, bias=False)
         self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.ffn_in = nn.Linear(embed_dim, ffn_dim)
-        self.ffn_out = nn.Linear(ffn_dim, embed_dim)
+        self.moe = None
+        if moe_experts > 0:
+            e, f = moe_experts, ffn_dim
+            self.moe = MoEConfig(e, embed_dim, f, moe_capacity_factor)
+            self.moe_router = nn.Parameter(torch.empty(embed_dim, e))
+            self.moe_w_in = nn.Parameter(torch.empty(e, embed_dim, f))
+            self.moe_b_in = nn.Parameter(torch.empty(e, f))
+            self.moe_w_out = nn.Parameter(torch.empty(e, f, embed_dim))
+            self.moe_b_out = nn.Parameter(torch.empty(e, embed_dim))
+        else:
+            self.ffn_in = nn.Linear(embed_dim, ffn_dim)
+            self.ffn_out = nn.Linear(ffn_dim, embed_dim)
 
-    def forward(self, x, attn_fn):
-        b, s, _ = x.shape
+    def forward(self, x, attn_fn, aux: list | None = None):
+        """``aux``, when given, gets the MoE FFN's load-balance loss."""
+        b, s, e = x.shape
         h, d = self.num_heads, self.head_dim
         qkv = self.qkv(self.ln1(x)).reshape(b, s, 3, h, d)
         o = attn_fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
         x = x + self.out(o.reshape(b, s, h * d))
-        y = F.gelu(self.ffn_in(self.ln2(x)), approximate="tanh")
+        y = self.ln2(x)
+        if self.moe is not None:
+            params = {"router": self.moe_router, "w_in": self.moe_w_in,
+                      "b_in": self.moe_b_in, "w_out": self.moe_w_out,
+                      "b_out": self.moe_b_out}
+            y2, a = moe_ffn(params, y.reshape(b * s, e), self.moe,
+                            with_aux=aux is not None)
+            if aux is not None:
+                aux.append(a)
+            return x + y2.reshape(b, s, e)
+        y = F.gelu(self.ffn_in(y), approximate="tanh")
         return x + self.ffn_out(y)
 
 
@@ -135,18 +165,22 @@ class SeqEncoder(nn.Module):
     the item embedding table (SASRec-style)."""
 
     def __init__(self, vocab: int, max_len: int, embed_dim: int,
-                 num_heads: int, num_layers: int, ffn_dim: int):
+                 num_heads: int, num_layers: int, ffn_dim: int,
+                 moe_experts: int = 0, moe_capacity_factor: float = 2.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.item_emb = nn.Parameter(torch.empty(vocab, embed_dim))
         self.pos_emb = nn.Parameter(torch.empty(max_len, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, embed_dim // num_heads, ffn_dim)
+            Block(embed_dim, num_heads, embed_dim // num_heads, ffn_dim,
+                  moe_experts, moe_capacity_factor)
             for _ in range(num_layers))
         self.ln_f = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def hidden(self, ids, attn_fn, pos_offset: int = 0):
-        """(B, S) item ids -> (B, S, E) states after the final LayerNorm."""
+    def hidden(self, ids, attn_fn, pos_offset: int = 0,
+               aux: list | None = None):
+        """(B, S) item ids -> (B, S, E) states after the final LayerNorm;
+        ``aux``, when given, gets each MoE block's load-balance loss."""
         s = ids.shape[1]
         # F.embedding, not item_emb[ids]: the indexing's backward
         # (index_put_ with accumulate) sums duplicate ids in a thread-
@@ -155,11 +189,12 @@ class SeqEncoder(nn.Module):
         x = F.embedding(ids, self.item_emb) * math.sqrt(self.embed_dim)
         x = x + self.pos_emb[pos_offset:pos_offset + s][None]
         for block in self.blocks:
-            x = block(x, attn_fn)
+            x = block(x, attn_fn, aux)
         return self.ln_f(x)
 
-    def forward(self, ids, attn_fn, pos_offset: int = 0):
-        x = self.hidden(ids, attn_fn, pos_offset)
+    def forward(self, ids, attn_fn, pos_offset: int = 0,
+                aux: list | None = None):
+        x = self.hidden(ids, attn_fn, pos_offset, aux)
         return x, x @ self.item_emb.T                  # weight-tied head
 
 
@@ -168,12 +203,15 @@ def init_encoder_(encoder: SeqEncoder, seed: int) -> SeqEncoder:
     initializers (torch cannot draw flax's numbers, only its
     distributions): normal(0.02) for both embedding tables, truncated
     lecun-normal for the dense kernels, zero biases, LayerNorm ones and
-    zeros."""
+    zeros; a MoE block's params by ``ops/moe.py``'s ``init_moe_``."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in encoder.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
             if name in ("item_emb", "pos_emb"):
                 p.normal_(0.0, 0.02, generator=g)
+            elif leaf.startswith("moe_"):
+                init_moe_(leaf[len("moe_"):], p, g)
             elif p.ndim == 2:
                 # variance 1/fan_in after truncation at two std devs
                 std = math.sqrt(1.0 / p.shape[1]) / .87962566103423978
@@ -247,12 +285,12 @@ def make_encoder(n_items: int, p: SequenceParams) -> SeqEncoder:
     """The encoder for ``n_items`` items (plus PAD) under ``p``, its
     params not yet drawn. The position table has POS_HEADROOM rows beyond
     max_len, as the reference's, so either package's params fit it."""
-    if p.moe_experts > 0:
-        raise NotImplementedError(_MOE_LATER)
     return SeqEncoder(
         vocab=n_items + 1, max_len=p.max_len + POS_HEADROOM,
         embed_dim=p.embed_dim, num_heads=p.num_heads,
         num_layers=p.num_layers, ffn_dim=p.ffn_dim,
+        moe_experts=p.moe_experts,
+        moe_capacity_factor=p.moe_capacity_factor,
     )
 
 
@@ -278,13 +316,19 @@ def local_attention(p: SequenceParams):
                    causal=True)
 
 
-def _loss(encoder, attn, inp, tgt):
-    """Mean next-item cross-entropy over the non-PAD targets."""
-    _, logits = encoder(inp, attn)
+def _loss(encoder, attn, inp, tgt, p: SequenceParams):
+    """Mean next-item cross-entropy over the non-PAD targets, plus, with
+    experts, ``moe_aux_weight`` times the MoE blocks' mean load-balance
+    loss (the reference's ``_apply_with_aux``)."""
+    aux = [] if p.moe_experts > 0 else None
+    _, logits = encoder(inp, attn, aux=aux)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          tgt.reshape(-1), reduction="none")
     mask = (tgt.reshape(-1) != PAD).to(ce.dtype)
-    return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+    if aux:
+        loss = loss + p.moe_aux_weight * sum(aux) / max(1, len(aux))
+    return loss
 
 
 def train_sequence_model(data: SequenceData, p: SequenceParams, *,
@@ -337,7 +381,7 @@ def train_sequence_model(data: SequenceData, p: SequenceParams, *,
     loss = None
     for step in range(start, p.steps):
         inp, tgt = batch(step)
-        step_loss = _loss(encoder, attn, inp, tgt)
+        step_loss = _loss(encoder, attn, inp, tgt, p)
         optimizer.zero_grad(set_to_none=True)
         step_loss.backward()
         optimizer.step()
@@ -351,7 +395,7 @@ def train_sequence_model(data: SequenceData, p: SequenceParams, *,
         # checkpointed): the loss at the current params on the batch of
         # the last step taken, as the reference reports it
         with torch.no_grad():
-            loss = _loss(encoder, attn, *batch(max(start - 1, 0)))
+            loss = _loss(encoder, attn, *batch(max(start - 1, 0)), p)
     params = {k: v.detach() for k, v in encoder.state_dict().items()}
     return params, encoder, float(loss)
 

@@ -4,7 +4,8 @@ Every module of ``pio_tpu_torch`` is imported in a fresh interpreter with
 ``jax`` blocked; afterwards no ``jax*`` and no ``pio_tpu.*`` module may be
 loaded. The package source and ``chip_smoke.py`` are also searched for
 such imports, which catches ones hidden inside functions. Importing must not build a kernel
-or need a card.
+or need a card. The examples' counterparts on the port
+(``examples/*/port/*.py``) are searched the same way.
 """
 
 import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
@@ -57,6 +58,7 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.ops.kernels.packed_matvec",
                 "pio_tpu_torch.ops.kernels.flash_attention",
                 "pio_tpu_torch.ops.attention", "pio_tpu_torch.ops.topk",
+                "pio_tpu_torch.ops.moe",
                 "pio_tpu_torch.models.sequence",
                 "pio_tpu_torch.workflow.train",
                 "pio_tpu_torch.workflow.lifecycle",
@@ -148,6 +150,14 @@ def _sources():
                 yield os.path.join(root, f)
     # the card's smoke run stands alone too
     yield os.path.join(REPO, "chip_smoke.py")
+    # and so does the user code written for the port
+    examples = os.path.join(REPO, "examples")
+    for name in sorted(os.listdir(examples)):
+        port_dir = os.path.join(examples, name, "port")
+        if os.path.isdir(port_dir):
+            for f in sorted(os.listdir(port_dir)):
+                if f.endswith(".py"):
+                    yield os.path.join(port_dir, f)
 
 
 _FORBIDDEN = re.compile(

@@ -10,7 +10,11 @@ a step checkpoint; a model trained by the reference and carried across
 serves the same items. Then the port's own paths: ``max_len``
 adaptation, blackList, unknown users, live history through
 ``EventStore.find_by_entity`` on sqlite, the train and deploy verbs with
-``--device cpu``, and the parts not ported yet, which raise.
+``--device cpu``, and the parts not ported yet, which raise. The
+mixture-of-experts blocks (``moe_experts > 0``) are held to the reference
+the same way: logits, Adam steps, a resumed run, and a reference-trained
+model served at a capacity that keeps every token and at one that drops
+some.
 """
 
 import _torch_cpu  # noqa: F401  (one CPU thread: see the module)
@@ -68,6 +72,19 @@ TRAINED_LOGITS_ATOL = 3e-5
 SCORE_ATOL = 1e-5
 SMALL = dict(max_len=16, embed_dim=32, num_heads=2, num_layers=2,
              ffn_dim=64, batch_size=16)
+MOE = dict(moe_experts=4)
+# the loss after N Adam steps with experts, from the same params and
+# batches. Top-1 routing is discontinuous: after some steps a token whose
+# two largest router probabilities nearly tie can go to the other expert
+# on f32 rounding alone. On these inputs the reference's own "reference"
+# and "chunked" attentions part so at step 15 (losses 2.4e-5 relative
+# apart); the port's loss sits within 2.5e-5 of the reference's at every
+# step measured (1-20), and within 2.1e-7 where no token flips. The
+# weighted aux loss alone is ~3e-3 of the loss, so an error there shows.
+MOE_LOSS_RTOL = 1e-4
+# a capacity factor at which a batch of 5 histories (bucket 8 x 15
+# positions = 120 tokens, 8 slots an expert) drops tokens
+MOE_LOW_CF = 0.25
 # what train and prepare_model_for_deploy read of a context
 _CPU_CTX = types.SimpleNamespace(device=torch.device("cpu"),
                                  event_store=None)
@@ -326,7 +343,8 @@ def test_checkpoint_dir_saves_and_a_second_train_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("change, error", [
-    (dict(moe_experts=4), NotImplementedError),
+    # the MoE FFN is ported: it trains on the CPU
+    (dict(moe_experts=4), None),
     (dict(attention="ring"), ValueError),
     (dict(attention="ulysses"), ValueError),
     (dict(attention="linear"), ValueError),
@@ -336,9 +354,15 @@ def test_parts_not_ported_raise(change, error):
     p = port.SequenceParams(max_len=8, embed_dim=16, num_heads=2,
                             num_layers=1, ffn_dim=32, steps=2,
                             batch_size=8, **change)
+    data = port.SequenceData(seqs, users, items)
+    if error is None:
+        params, _, loss = port.train_sequence_model(data, p, device="cpu")
+        assert np.isfinite(loss)
+        assert params["blocks.0.moe_w_in"].shape == (4, 16, 32)
+        assert "blocks.0.ffn_in.weight" not in params
+        return
     with pytest.raises(error):
-        port.train_sequence_model(port.SequenceData(seqs, users, items), p,
-                                  device="cpu")
+        port.train_sequence_model(data, p, device="cpu")
 
 
 def test_not_ported_reads_and_no_cuda_raise(monkeypatch):
@@ -362,6 +386,139 @@ def test_not_ported_reads_and_no_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port.SequenceAlgorithm(p).train(
             None, port.SequenceData(seqs, users, items))
+
+
+# -- the mixture-of-experts blocks ---------------------------------------------
+
+@pytest.mark.parametrize("attention", ["reference", "chunked"])
+def test_moe_logits_from_reference_params_equal_reference(attention):
+    seqs, users, items = ref.build_sequences(_random_events(), 16)
+    p = ref.SequenceParams(**SMALL, **MOE)
+    init = _ref_init(len(items), p)
+    assert "moe_router" in init["Block_0"]
+    fns = {"reference": (ref_attn.attention_reference,
+                         port_attn.attention_reference),
+           "chunked": (ref_attn.chunked_attention,
+                       port_attn.chunked_attention)}
+    ref_fn, port_fn = fns[attention]
+    inp = seqs[:, :-1]
+    _, want = ref.make_encoder(len(items), p).apply(
+        {"params": init}, jnp.asarray(inp), partial(ref_fn, causal=True))
+    enc = port.make_encoder(len(items), _port_params(p))
+    state = sequence_params_from_numpy(init, device="cpu")
+    assert set(state) == set(enc.state_dict())
+    enc.load_state_dict(state)
+    with torch.no_grad():
+        _, got = enc(torch.from_numpy(inp).long(),
+                     partial(port_fn, causal=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGITS_ATOL)
+
+
+@pytest.mark.parametrize("attention, steps, cf", [
+    ("reference", 1, 2.0), ("reference", 20, 2.0), ("chunked", 20, 2.0),
+    ("reference", 20, 0.5)])
+def test_moe_adam_steps_give_reference_loss(attention, steps, cf):
+    """The loss (cross-entropy plus the weighted aux loss) after N steps,
+    also at a capacity that drops tokens in training."""
+    seqs, users, items = ref.build_sequences(_random_events(), 16)
+    p = ref.SequenceParams(**SMALL, **MOE, moe_capacity_factor=cf,
+                           steps=steps, attention=attention)
+    _, _, want = ref.train_sequence_model(ref.SequenceData(seqs, users,
+                                                           items), p)
+    init = sequence_params_from_numpy(_ref_init(len(items), p),
+                                      device="cpu")
+    params, _, got = port.train_sequence_model(
+        port.SequenceData(seqs, users, items), _port_params(p),
+        device="cpu", init=init)
+    assert got == pytest.approx(want, rel=MOE_LOSS_RTOL)
+    assert set(params) == set(init)
+
+
+def test_moe_resumed_run_equals_the_uninterrupted_run(tmp_path):
+    """Stopped after 7 steps (a step checkpoint every 3) and resumed in a
+    new trainer: the uninterrupted run's params, bit for bit, and its
+    loss."""
+    from pio_tpu_torch.workflow.step_checkpoint import (
+        StepCheckpointConfig,
+        StepCheckpointer,
+    )
+
+    seqs, users, items = port.build_sequences(_random_events(), 16)
+    p = port.SequenceParams(**SMALL, **MOE, steps=12)
+    data = port.SequenceData(seqs, users, items)
+
+    def ckpt():
+        return StepCheckpointer(StepCheckpointConfig(str(tmp_path / "ck"),
+                                                     save_every=3))
+
+    whole, _, whole_loss = port.train_sequence_model(data, p, device="cpu")
+    port.train_sequence_model(data, dataclasses.replace(p, steps=7),
+                              device="cpu", checkpoint=ckpt())
+    params, _, got = port.train_sequence_model(data, p, device="cpu",
+                                               checkpoint=ckpt())
+    assert got == whole_loss
+    for k, v in whole.items():
+        assert torch.equal(params[k], v), k
+
+
+def test_moe_seeded_init_draws_the_references_distributions():
+    p = port.SequenceParams(embed_dim=64, num_heads=2, num_layers=2,
+                            ffn_dim=256, **MOE)
+    enc = port.init_encoder_(port.make_encoder(4000, p), seed=3)
+    for name, std in (("moe_router", 64 ** -0.5), ("moe_w_in", 64 ** -0.5),
+                      ("moe_w_out", 256 ** -0.5)):
+        # both blocks' draws: 512 router entries, a 4 % standard error
+        w = torch.cat([getattr(b, name).detach().reshape(-1)
+                       for b in enc.blocks])
+        assert abs(float(w.std()) - std) < 0.12 * std, name
+    for block in enc.blocks:
+        assert not hasattr(block, "ffn_in")
+        # plain normal: draws past the truncated normal's two std devs
+        assert float(block.moe_w_in.detach().abs().max()) > 3 * 64 ** -0.5
+        assert not block.moe_b_in.any() and not block.moe_b_out.any()
+    assert enc.blocks[0].moe_router.shape == (64, 4)
+    assert enc.blocks[0].moe_w_out.shape == (4, 256, 64)
+    # the dense kernels keep their truncated lecun-normal
+    w = enc.blocks[0].qkv.weight.detach()
+    assert float(w.abs().max()) <= 2 * 64 ** -0.5 / .87962566103423978
+    again = port.init_encoder_(port.make_encoder(4000, p), seed=3)
+    assert torch.equal(enc.blocks[1].moe_w_out, again.blocks[1].moe_w_out)
+
+
+@pytest.fixture(scope="module")
+def carried_moe():
+    """A MoE model trained by the reference on the cyclic pattern, and
+    the same model carried across into the port."""
+    seqs, users, items = ref.build_sequences(_cyclic_events(), 16)
+    p = ref.SequenceParams(**{**SMALL, "batch_size": 32}, **MOE, steps=100)
+    params, _, _ = ref.train_sequence_model(
+        ref.SequenceData(seqs, users, items), p)
+    params = jax.device_get(params)
+    return seqs, users, items, p, params
+
+
+@pytest.mark.parametrize("cf", [2.0, MOE_LOW_CF])
+def test_moe_batch_predict_serves_reference_items(carried_moe, cf):
+    """A batch of 5 (bucket 8) through both packages' batch_predict: the
+    same items and scores, at a capacity that keeps every token and at one
+    that drops tokens (where both packages count the bucket's PAD rows)."""
+    seqs, users, items, p, params = carried_moe
+    p = dataclasses.replace(p, moe_capacity_factor=cf)
+    want_model = ref.SequenceModel(params=params, seqs=seqs, users=users,
+                                   items=items, config=p)
+    got_model = sequence_model_from_numpy(
+        params, seqs, users.ids(), items.ids(), _port_params(p),
+        device="cpu")
+    queries = [{"user": u, "num": 5} for u in users.ids()[:5]]
+    want = ref.SequenceAlgorithm(p).batch_predict(want_model, queries)
+    got = port.SequenceAlgorithm(got_model.config).batch_predict(
+        got_model, queries)
+    for g, w in zip(got, want):
+        assert g["itemScores"]
+        _assert_same_ranking(g, w)
+    if cf == 2.0:
+        assert got[0]["itemScores"][0]["item"] == "i8"
 
 
 # -- on sqlite: live history, the train and deploy verbs ---------------------
@@ -469,12 +626,23 @@ def test_train_then_deploy_on_cpu(tmp_path, monkeypatch):
     and stores the model its own trainer gives; `deploy --device cpu`, a
     real process, answers /queries.json and /batch/queries.json as the
     loaded model does in process."""
+    _train_then_deploy(tmp_path, monkeypatch)
+
+
+def test_moe_train_then_deploy_on_cpu(tmp_path, monkeypatch):
+    """The same with four experts in every block: trained by the verb
+    (a step checkpoint saved on the way), stored, deployed and served."""
+    _train_then_deploy(tmp_path, monkeypatch, **MOE, checkpoint_every=10)
+    assert sorted(os.listdir(tmp_path / "ckpt"))
+
+
+def _train_then_deploy(tmp_path, monkeypatch, **algo):
     env = _storage_env(tmp_path)
     storage = Storage(env=env)
     _write_cyclic(storage)
     engine_dir = tmp_path / "engine"
     engine_dir.mkdir()
-    (engine_dir / "engine.json").write_text(json.dumps(_variant()))
+    (engine_dir / "engine.json").write_text(json.dumps(_variant(**algo)))
     monkeypatch.setattr("pio_tpu_torch.__main__.get_storage",
                         lambda: storage)
     monkeypatch.setenv("PIO_TPU_CKPT_ROOT", str(tmp_path / "ckpt"))
@@ -485,7 +653,7 @@ def test_train_then_deploy_on_cpu(tmp_path, monkeypatch):
         inst = storage.get_metadata_engine_instances() \
             .get_latest_completed("seq", "1", "default")
         engine = port.SequenceEngine.apply()
-        ep = engine.engine_params_from_variant(_variant())
+        ep = engine.engine_params_from_variant(_variant(**algo))
         ctx = create_workflow_context(storage, device="cpu")
         [model] = load_models(storage, engine, ep, inst.id, ctx)
         data = port.SequenceDataSource(ep.datasource[1]).read_training(ctx)

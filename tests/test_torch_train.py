@@ -200,14 +200,15 @@ def test_train_then_deploy_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("variant, error", [
-    # a part not ported yet (the sequence template's MoE FFN)
+    # a part not ported yet (the sequence template's ring attention,
+    # which needs a mesh with a sequence axis)
     ({"id": "rec", "engineFactory":
       "pio_tpu_torch.models.sequence.SequenceEngine",
       "datasource": {"params": {"app_name": APP}},
       "algorithms": [{"name": "sasrec", "params": {
           "max_len": 8, "embed_dim": 8, "num_heads": 2, "num_layers": 1,
-          "ffn_dim": 8, "steps": 2, "moe_experts": 4}}]},
-     NotImplementedError),
+          "ffn_dim": 8, "steps": 2, "attention": "ring"}}]},
+     ValueError),
     ({**_variant(), "datasource": {"params": {"app_name": "NoSuchApp"}}},
      RuntimeError),
 ])
