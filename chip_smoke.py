@@ -109,6 +109,23 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   those of a run stopped at the best sweep; then one
   ``als_build_layouts`` and two trainings on it, the build's share of
   the time;
+- train_sharded: ALS across ranks (``als_train_sharded``), each rank a
+  child process of this script (``--sharded-rank``) with the PIO_TPU_*
+  variables, at the same shape. (a) two ranks sharing cuda:0 over gloo
+  with accum auto (K2 on each rank as its block's layout predicts): both
+  ranks' factors equal bit for bit, the RMSE within 0.02 of
+  ``als_train``'s, ratings/s and each rank's seconds in the collectives;
+  on the ranks' blocks, accum hybrid against carry (no kernel) a half at
+  a time from the same inputs, as train holds ``als_train`` (the users
+  half within 2e-3, the items half against f64);
+  (b) one sweep on those ranks with accum pallas (K1) and one in the
+  stream configuration (K3, K5, K6), launches as predicted; (c) world
+  size 1 over NCCL, the factors within 2e-3 of ``als_train``'s; (d) one
+  rank a card over NCCL when the host has two or more cards (else a
+  line saying it did not run); (e) ``python -m pio_tpu_torch train`` as
+  two processes with one run id on a seeded sqlite store: one COMPLETED
+  instance and one model blob, deployed and answering queries, each body
+  the in-process ``predict``;
 - ingest: ``app new`` and an ``eventserver`` process (async transport)
   over a sqlite store, 3 x 10^5 seeded rate/buy events (every user and item
   in one at least) posted through ``sdk.EventClient`` in binary frames
@@ -267,7 +284,7 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   of the port.
 
 The phases run one at a time, in the order above but for
-attention_kernel and sequence_train, which follow train_validated, so
+attention_kernel and sequence_train, which follow train_sharded, so
 that every kernel's timing and training throughput is taken with the
 card to itself. Then templates, templates_rest, sequence_entry,
 train_resume, evaluate_sequence, sequence_moe and examples run in a
@@ -4143,17 +4160,33 @@ def phase_flush_kernel(ratings, dev: torch.device) -> dict:
 
 # -- phase 6: ALS training at the ML-20M shape --------------------------------
 
-def expected_flush_launches(nnz: int, n_users: int, n_items: int,
-                            p) -> int:
-    """K2 launches of als_train: one per group of each half, both halves
-    every sweep, from the layout's slot counts and the group split."""
+def _half_slots(nnz: int, n_users: int, n_items: int, p,
+                items_nnz: int | None = None) -> tuple:
+    """(chunk slots, [(slots, rows) of the users half, of the items
+    half]) of a layout: als_train's, whose halves share one padded nnz,
+    or one rank's block of als_train_sharded, whose users and items
+    halves pad ``nnz`` and ``items_nnz`` each (the largest share over the
+    ranks, so every rank has these shapes)."""
     from pio_tpu_torch.ops import als
 
-    nnz_pad = nnz + (-nnz % p.chunk)
-    cs = min(p.chunk_slots, als._slots_for(nnz_pad, 0, p.width, 1))
-    groups = sum(len(als._group_bounds(
-        als._slots_for(nnz_pad, n, p.width, cs), p.rank, cs, p.group_slots))
-        for n in (n_users, n_items))
+    pad_u = nnz + (-nnz % p.chunk)
+    pad_i = pad_u if items_nnz is None else items_nnz + (-items_nnz
+                                                         % p.chunk)
+    cs = min(p.chunk_slots, als._slots_for(max(pad_u, pad_i), 0, p.width, 1))
+    return cs, [(als._slots_for(z, n, p.width, cs), n)
+                for z, n in ((pad_u, n_users), (pad_i, n_items))]
+
+
+def expected_flush_launches(nnz: int, n_users: int, n_items: int,
+                            p, items_nnz: int | None = None) -> int:
+    """K2 launches of als_train (or of one rank of als_train_sharded:
+    see _half_slots): one per group of each half, both halves every
+    sweep, from the layout's slot counts and the group split."""
+    from pio_tpu_torch.ops import als
+
+    cs, halves = _half_slots(nnz, n_users, n_items, p, items_nnz)
+    groups = sum(len(als._group_bounds(s, p.rank, cs, p.group_slots))
+                 for s, _ in halves)
     return groups * p.iterations
 
 
@@ -4217,15 +4250,19 @@ def _rel(g: torch.Tensor, w: torch.Tensor) -> dict:
             "rel_max": float((g - w).abs().max() / w.abs().max())}
 
 
-def items_half_f64(by_item, users, x0, cg_iters: int):
+def items_half_f64(by_item, users, x0, cg_iters: int,
+                   n_items: int = N_ITEMS):
     """The items half of a sweep in f64 from the same users (the same
-    bf16 gather): blocks, index_add_ sums, YᵀY, reg and CG all in f64."""
+    bf16 gather): blocks, index_add_ sums, YᵀY, reg and CG all in f64.
+    ``users`` is the whole user matrix (on a rank of the sharded trainer,
+    gathered, its phantom rows zero), ``by_item`` and ``x0`` this rank's
+    block of ``n_items`` rows."""
     from pio_tpu_torch.ops import als
     from pio_tpu_torch.ops.kernels import segment_flush as sf
 
     p = train_params()
     A, b = sf.normal_equations_fused_reference(
-        *by_item, users.to(torch.bfloat16).double(), N_ITEMS, p.implicit,
+        *by_item, users.to(torch.bfloat16).double(), n_items, p.implicit,
         p.alpha)
     u64 = users.double()
     A += (u64.T @ u64)[None, :, :]
@@ -4237,29 +4274,38 @@ def items_half_f64(by_item, users, x0, cg_iters: int):
 
 
 def hybrid_vs_carry(by_user, by_item, cs: int, init, cg_u: int,
-                    cg_i: int) -> dict:
+                    cg_i: int, n=(N_USERS, N_ITEMS), mesh=None) -> dict:
     """The kernel's accumulation against the plain one, one half at a
-    time from the same inputs (see USERS_RTOL_NORM)."""
+    time from the same inputs (see USERS_RTOL_NORM). With ``mesh`` (a
+    rank of the sharded trainer) the layouts, ``init`` and ``n`` are this
+    rank's blocks, each half solves them as ``als_train_sharded`` does
+    (the opposing factors gathered, YᵀY summed over the ranks), and the
+    halves are compared gathered, so every rank finds the same."""
     from pio_tpu_torch.ops import als
 
     p = train_params()
+    gather = mesh.all_gather if mesh is not None else (lambda x: x)
 
-    def half(layout, other, n, x0, cg, accum):
+    def half(layout, other, n_self, x0, cg, accum):
+        yty = (als._gram_psum(other, mesh)
+               if mesh is not None and p.implicit else None)
         return als._solve_factors(
-            layout, other, n, p.reg, p.implicit, p.alpha, cs, x0=x0,
-            cg_iters=cg, bf16_gather=p.bf16_gather, accum=accum,
-            group_slots=p.group_slots)
+            layout, gather(other), n_self, p.reg, p.implicit, p.alpha, cs,
+            x0=x0, cg_iters=cg, bf16_gather=p.bf16_gather, accum=accum,
+            group_slots=p.group_slots, yty=yty)
 
-    users = {a: half(by_user, init[1], N_USERS, init[0], cg_u, a)
+    users = {a: half(by_user, init[1], n[0], init[0], cg_u, a)
              for a in ("hybrid", "carry")}
-    out = {"users": _rel(users["hybrid"], users["carry"])}
+    out = {"users": _rel(gather(users["hybrid"]), gather(users["carry"]))}
     if (out["users"]["rel_norm"] > USERS_RTOL_NORM
             or out["users"]["rel_max"] > USERS_RTOL_MAX):
         raise AssertionError(f"users half: hybrid disagrees with carry: "
                              f"{out}")
-    items = {a: half(by_item, users["carry"], N_ITEMS, init[1], cg_i, a)
+    items = {a: gather(half(by_item, users["carry"], n[1], init[1], cg_i,
+                            a))
              for a in ("hybrid", "carry")}
-    exact = items_half_f64(by_item, users["carry"], init[1], cg_i)
+    exact = gather(items_half_f64(by_item, gather(users["carry"]), init[1],
+                                  cg_i, n[1]))
     out["items"] = _rel(items["hybrid"], items["carry"])
     out["items_hybrid_vs_f64"] = _rel(items["hybrid"], exact)
     out["items_carry_vs_f64"] = _rel(items["carry"], exact)
@@ -4445,6 +4491,462 @@ def phase_train_validated(ratings, dev: torch.device) -> dict:
     return result
 
 
+# -- phase 6c: ALS across ranks (als_train_sharded, the train verb) ----------
+
+SHARDED_RANK = "--sharded-rank"     # a child of this script: one rank
+SHARDED_WORLD = 2                   # (a), (b): ranks sharing cuda:0
+SHARDED_RTOL_MAX = 2e-3             # factors against als_train at
+                                    # world size 1
+SHARDED_RMSE_ATOL = 0.02            # tests/test_als.py:124-134
+SHARDED_TIMEOUT_S = 600             # a group of ranks, then it is killed
+SV_EVENTS = 50_000                  # (e): the store's seeded events
+SV_QUERIES = 16                     # (e): /queries.json of the deploy
+SV_APP = "chip-smoke-sharded"
+SV_RUN_ID = "chip-smoke-sharded-run"
+
+
+def _sha(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def sharded_blocks(ratings, world: int) -> dict:
+    """Each rank's block as als_train_sharded cuts it (contiguous rows,
+    no rebalancing): the block's rows a side, and the largest share of
+    the ratings a rank holds a side, which every rank pads to."""
+    ub, ib = -(-N_USERS // world), -(-N_ITEMS // world)
+    share_u = np.bincount(ratings[0] // ub, minlength=world)
+    share_i = np.bincount(ratings[1] // ib, minlength=world)
+    return {"world": world, "rows": [ub, ib],
+            "nnz_max": [int(share_u.max()), int(share_i.max())],
+            "users_share": share_u.tolist(), "items_share": share_i.tolist()}
+
+
+def sharded_rank(out: Path, mode: str) -> int:
+    """One rank of ``train_sharded``, a child process of this script with
+    its PIO_TPU_* variables set: it joins the group on its card,
+    ``create_mesh`` over every rank, and trains ``als_train_sharded`` on
+    the ratings ``out/ratings.npz`` holds (counts from 0 just before,
+    read just after; its time in the mesh's collectives, each between
+    two synchronizations), and measures how far its factors lie from
+    ``als_train``'s (``out/single_*.npy``). ``mode`` "shared" (ranks on
+    one card, gloo) also holds accum hybrid against carry a half at a
+    time on its blocks (``hybrid_vs_carry``) and runs one sweep with
+    accum pallas (K1) and one in the stream configuration (K3, K5, K6);
+    "one" (world size 1, NCCL) also runs an all_reduce; rank 0 of
+    "shared" and "cards" scores the RMSE. Its result goes to
+    ``out/<mode>-rank<r>.json``."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    from pio_tpu_torch.ops import als
+    from pio_tpu_torch.parallel import create_mesh, distributed
+    from pio_tpu_torch.parallel.mesh import Mesh
+
+    cuda_settings()
+    distributed.initialize_distributed(device="cuda")
+    mesh = create_mesh(device="cuda")
+    with np.load(out / "ratings.npz") as f:
+        ratings = (f["users"], f["items"], f["vals"])
+    p = train_params()
+    spent = {"s": 0.0, "calls": 0}
+
+    def timed(plain):
+        def call(self, x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = plain(self, x)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return got
+        return call
+
+    Mesh.psum, Mesh.all_gather = timed(Mesh.psum), timed(Mesh.all_gather)
+
+    def run(q):
+        torch.cuda.synchronize()
+        distributed.barrier("run")
+        spent.update(s=0.0, calls=0)
+        # -- the main path: counts from 0, read right after --------------
+        reset_counts()
+        t0 = time.perf_counter()
+        model = als.als_train_sharded(*ratings, N_USERS, N_ITEMS, q, mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        # -----------------------------------------------------------------
+        for f, n in ((model.user_factors, N_USERS),
+                     (model.item_factors, N_ITEMS)):
+            if f.shape != (n, RANK) or not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"{mode}: factors {tuple(f.shape)} "
+                                     "not finite")
+        return model, {"s": seconds, "launches": counts,
+                       "collective_s": spent["s"],
+                       "collective_calls": spent["calls"],
+                       "sha256": [_sha(model.user_factors),
+                                  _sha(model.item_factors)]}
+
+    # the first sweep also builds cuBLAS state and the group's first
+    # collectives
+    run(replace(p, iterations=1))
+    model, hybrid = run(p)
+    res = {"rank": mesh.rank, "world": mesh.size, "device": str(mesh.device),
+           "backend": distributed.backend(), "hybrid": hybrid}
+    want = [torch.from_numpy(np.load(out / f"single_{s}.npy")).to(
+        mesh.device) for s in ("users", "items")]
+    res["vs_als_train"] = [_rel(g, w) for g, w in zip(
+        (model.user_factors, model.item_factors), want)]
+    res["bit_equal_als_train"] = all(torch.equal(g, w) for g, w in zip(
+        (model.user_factors, model.item_factors), want))
+    del want
+    if mode == "one":
+        # the trainer calls no collective at one rank: an all_reduce
+        # over the group's NCCL communicator on the card
+        t = torch.full((1,), 3.0, device=mesh.device)
+        torch.distributed.all_reduce(t)
+        res["nccl_all_reduce"] = float(t.item())
+    if mode in ("shared", "cards") and mesh.rank == 0:
+        res["rmse"] = als.rmse(model, *ratings)
+    if mode == "shared":
+        # the accumulation: hybrid (K2) against carry (no kernel), a half
+        # at a time from the same inputs, as phase_train holds als_train
+        # (USERS_RTOL_NORM). Whole runs are not compared: over 10 sweeps
+        # the items half's conditioning moves even als_train's own hybrid
+        # and carry apart by ~2e-2 (PERF.md)
+        by_user, by_item, cs, init = als._sharded_setup(
+            *ratings, N_USERS, N_ITEMS, p, mesh)
+        ub, ib = als._block(N_USERS, mesh.size), als._block(N_ITEMS,
+                                                            mesh.size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["hybrid_vs_carry"] = hybrid_vs_carry(
+            by_user, by_item, cs, init, p.resolved_cg_iters(ub),
+            p.resolved_cg_iters(ib), n=(ub, ib), mesh=mesh)
+        torch.cuda.synchronize()
+        res["hybrid_vs_carry_s"] = time.perf_counter() - t0
+        del by_user, by_item, init
+        _, res["pallas_sweep"] = run(replace(p, iterations=1,
+                                             accum="pallas"))
+        _, res["stream_sweep"] = run(stream_params(iterations=1))
+    (out / f"{mode}-rank{mesh.rank}.json").write_text(json.dumps(res))
+    distributed.barrier("done")
+    return 0
+
+
+def sharded_group(out: Path, mode: str, world: int) -> tuple[list, float]:
+    """``world`` ranks of ``sharded_rank`` as processes, started at once
+    on one coordinator port: (each rank's result, the group's wall
+    seconds). A rank that fails, or a group that outlives
+    SHARDED_TIMEOUT_S, fails the phase; every process is stopped."""
+    port = free_port()
+    logs = [out / f"{mode}-rank{r}.log" for r in range(world)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     SHARDED_RANK, str(out), mode], cwd=REPO_ROOT,
+                    stdout=log, stderr=subprocess.STDOUT,
+                    env={**os.environ,
+                         "PIO_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                         "PIO_TPU_NUM_PROCESSES": str(world),
+                         "PIO_TPU_PROCESS_ID": str(r)}))
+        for r, proc in enumerate(procs):
+            left = SHARDED_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rc = proc.wait(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"{mode}: rank {r} still running after "
+                    f"{SHARDED_TIMEOUT_S} s: {logs[r].read_text()[-3000:]}")
+            if rc != 0:
+                raise AssertionError(f"{mode}: rank {r} exited {rc}: "
+                                     f"{logs[r].read_text()[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    return [json.loads((out / f"{mode}-rank{r}.json").read_text())
+            for r in range(world)], wall
+
+
+def _only(counts: dict, want: dict, what: str) -> list:
+    """[] when ``counts`` holds ``want`` and no other kernel, else the
+    problem."""
+    if counts != {**dict.fromkeys(counts, 0), **want}:
+        return [f"{what}: launches {counts}, the layout predicts {want} "
+                "and no other kernel"]
+    return []
+
+
+def sharded_summary(ranks: list, backend: str, blocks: dict, p,
+                    what: str) -> tuple[dict, list]:
+    """(what the ranks measured, the problems found): every rank on
+    ``backend`` with the same bits, and K2 on each as its block's layout
+    predicts (the same count on every rank: each pads to the largest
+    share)."""
+    ub, ib = blocks["rows"]
+    want = expected_flush_launches(blocks["nnz_max"][0], ub, ib, p,
+                                   items_nnz=blocks["nnz_max"][1])
+    problems = []
+    for r in ranks:
+        if r["backend"] != backend:
+            problems.append(f"{what}: rank {r['rank']} on {r['backend']}, "
+                            f"not {backend}")
+        if r["hybrid"]["sha256"] != ranks[0]["hybrid"]["sha256"]:
+            problems.append(f"{what}: rank {r['rank']}'s factors differ "
+                            "from rank 0's")
+        problems += _only(r["hybrid"]["launches"], {"segment_flush": want},
+                          f"{what} rank {r['rank']}")
+    slowest = max(r["hybrid"]["s"] for r in ranks)
+    return {"world": len(ranks), "backend": backend,
+            "devices": [r["device"] for r in ranks],
+            "ranks_bit_equal": len({tuple(r["hybrid"]["sha256"])
+                                    for r in ranks}) == 1,
+            "train_s": [r["hybrid"]["s"] for r in ranks],
+            "ratings_per_s": NNZ * ITERS / slowest,
+            "collective_s": [r["hybrid"]["collective_s"] for r in ranks],
+            "collective_calls": [r["hybrid"]["collective_calls"]
+                                 for r in ranks],
+            "collective_share": [r["hybrid"]["collective_s"] / slowest
+                                 for r in ranks],
+            "segment_flush_launches": [r["hybrid"]["launches"][
+                "segment_flush"] for r in ranks],
+            "segment_flush_launches_expected": want}, problems
+
+
+def raise_on(problems: list) -> None:
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def write_sharded_events(storage) -> int:
+    """SV_EVENTS seeded rate (80 %) and buy events of zipf-1.2 users and
+    items at the ML-20M id ranges, written to a new app in one batch."""
+    from pio_tpu_torch.data.dao import App
+
+    rng = np.random.default_rng(SEED + 7)
+    ev = types.SimpleNamespace(
+        u=rng.zipf(1.2, SV_EVENTS) % N_USERS,
+        i=rng.zipf(1.2, SV_EVENTS) % N_ITEMS,
+        rate=rng.random(SV_EVENTS) < 0.8,
+        stars=rng.integers(1, 6, SV_EVENTS))
+    app_id = storage.get_metadata_apps().insert(App(0, SV_APP))
+    events = storage.get_events()
+    events.init(app_id)
+    events.insert_batch(stored_events(ev, 0, SV_EVENTS), app_id)
+    return SV_EVENTS
+
+
+def sharded_train_verb(dev: torch.device) -> dict:
+    """(e): ``python -m pio_tpu_torch train`` as two processes with the
+    PIO_TPU_* variables and one run id on one seeded sqlite store (both
+    ranks on cuda:0, over gloo): one COMPLETED instance, one model blob,
+    and that instance deployed (what ``deploy`` serves) answering
+    SV_QUERIES queries over HTTP, each body the in-process ``predict``."""
+    import sqlite3
+
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    with sqlite_store("pio_chip_sharded_verb_") as store:
+        t0 = time.perf_counter()
+        write_sharded_events(store.storage)
+        write_s = time.perf_counter() - t0
+        engine_dir = train_engine_dir(store.tmp, "sharded", SV_APP)
+        port = free_port()
+        logs = [store.tmp / f"train-rank{r}.log" for r in range(2)]
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(2):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "pio_tpu_torch", "train",
+                         "--engine-dir", str(engine_dir)], cwd=REPO_ROOT,
+                        stdout=log, stderr=subprocess.STDOUT,
+                        env={**os.environ, **store.env,
+                             "PIO_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                             "PIO_TPU_NUM_PROCESSES": "2",
+                             "PIO_TPU_PROCESS_ID": str(r),
+                             "PIO_TPU_RUN_ID": SV_RUN_ID}))
+            for r, proc in enumerate(procs):
+                rc = proc.wait(timeout=SHARDED_TIMEOUT_S)
+                text = logs[r].read_text()
+                if rc != 0 or (f"Training on rank {r} of 2 (cuda:0, gloo)"
+                               not in text) or (
+                        f"Engine instance: {SV_RUN_ID}" not in text):
+                    raise AssertionError(f"train rank {r}: rc {rc}: "
+                                         f"{text[-3000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        train_s = time.perf_counter() - t0
+        instances = store.storage.get_metadata_engine_instances().get_all()
+        got = [(i.id, i.status) for i in instances]
+        with sqlite3.connect(store.env["PIO_STORAGE_SOURCES_SQL_PATH"]) as db:
+            blobs = [r[0] for r in db.execute("SELECT id FROM models")]
+        if got != [(SV_RUN_ID, "COMPLETED")] or blobs != [SV_RUN_ID]:
+            raise AssertionError(f"instances {got}, model blobs {blobs}: "
+                                 "want one of each")
+        engine, ep = _engine_from_dir(engine_dir)
+        http, qs = create_query_server(
+            engine, ep, store.storage,
+            ServingConfig(ip="127.0.0.1", port=0, engine_id="sharded"),
+            ctx=create_workflow_context(store.storage, device=dev))
+        http.start()
+        try:
+            model = qs.models[0]
+            users = model.users.ids()
+            picks = np.random.default_rng(SEED).choice(
+                len(users), SV_QUERIES, replace=False)
+            statuses = []
+            for j in picks:
+                q = {"user": users[j], "num": 10}
+                status, body, _ = _post(http.port, "/queries.json", q)
+                want = qs.serving.serve(q, [
+                    a.predict(m, q) for a, m in zip(qs.algorithms,
+                                                    qs.models)])
+                statuses.append(status)
+                if status != 200 or body != _normal(want):
+                    raise AssertionError(f"sharded deploy {q}: {status} "
+                                         f"{body}, in process {want}")
+            n_users, n_items = len(users), len(model.items.ids())
+        finally:
+            http.stop()
+            qs.close()
+    return {"events": SV_EVENTS, "write_s": write_s, "train_s": train_s,
+            "instances": got, "model_blobs": len(blobs),
+            "users": n_users, "items": n_items, "queries": len(statuses),
+            "bodies_equal_predict": True}
+
+
+def phase_train_sharded(ratings, dev: torch.device) -> dict:
+    """ALS across ranks at the ML-20M shape. (a) two ranks sharing
+    cuda:0 over gloo with accum auto (K2): the ranks' factors equal bit
+    for bit, the RMSE within SHARDED_RMSE_ATOL of als_train's, K2 on each
+    rank as its block's layout predicts, ratings/s and each rank's
+    seconds in the collectives, and on the ranks' blocks accum hybrid
+    held against carry (no kernel) a half at a time from the same
+    inputs, as phase_train holds als_train: the users half within
+    USERS_RTOL_NORM and USERS_RTOL_MAX (2e-3), the items half no farther
+    from f64 than carry (HALF_F64_RATIO); (b) one sweep each with accum pallas
+    (K1) and in the stream configuration (K3, K5, K6) on those ranks,
+    launches as predicted; (c) world size 1 over NCCL, the factors
+    within SHARDED_RTOL_MAX of als_train's; (d) one rank a card over
+    NCCL where the host has two or more cards (a line says when it did
+    not run, and why); (e) the train verb on two processes
+    (``sharded_train_verb``)."""
+    from pio_tpu_torch.ops import als
+
+    p = train_params()
+    assert_f32_matmul()
+    result: dict = {"nnz": NNZ, "users": N_USERS, "items": N_ITEMS,
+                    "rank": RANK, "iterations": ITERS,
+                    "cards": torch.cuda.device_count()}
+    with tempfile.TemporaryDirectory(prefix="pio_chip_sharded_") as tmp:
+        tmp = Path(tmp)
+        np.savez(tmp / "ratings.npz", users=ratings[0], items=ratings[1],
+                 vals=ratings[2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = als.als_train(*ratings, N_USERS, N_ITEMS, p, device=dev)
+        torch.cuda.synchronize()
+        result["als_train_s"] = time.perf_counter() - t0
+        result["als_train_ratings_per_s"] = NNZ * ITERS / result[
+            "als_train_s"]
+        single_rmse = result["als_train_rmse"] = als.rmse(single, *ratings)
+        for side, f in (("users", single.user_factors),
+                        ("items", single.item_factors)):
+            np.save(tmp / f"single_{side}.npy", f.cpu().numpy())
+        del single
+        torch.cuda.empty_cache()
+        emit("train_sharded_single", **result)
+
+        # (a), (b): two ranks on cuda:0
+        blocks = sharded_blocks(ratings, SHARDED_WORLD)
+        ranks, wall = sharded_group(tmp, "shared", SHARDED_WORLD)
+        shared, problems = sharded_summary(ranks, "gloo", blocks, p,
+                                           "shared")
+        r0 = ranks[0]
+        if abs(r0["rmse"] - single_rmse) > SHARDED_RMSE_ATOL:
+            problems.append(f"shared: RMSE {r0['rmse']}, als_train "
+                            f"{single_rmse}")
+        ub, ib = blocks["rows"]
+        nnz_u, nnz_i = blocks["nnz_max"]
+        want_b = {"pallas_sweep": {"normal_equations_fused": 2},
+                  "stream_sweep": expected_stream_launches(
+                      nnz_u, stream_params(iterations=1), ub, ib, nnz_i)}
+        for r in ranks:
+            for name, want in want_b.items():
+                problems += _only(r[name]["launches"], want,
+                                  f"{name} rank {r['rank']}")
+        shared.update(
+            wall_s=wall, blocks=blocks, rmse=r0["rmse"],
+            als_train_rmse=single_rmse, vs_als_train=r0["vs_als_train"],
+            hybrid_vs_carry=r0["hybrid_vs_carry"],
+            hybrid_vs_carry_s=r0["hybrid_vs_carry_s"],
+            tolerance={"users_rel_norm": USERS_RTOL_NORM,
+                       "users_rel_max": USERS_RTOL_MAX,
+                       "items_f64_ratio": HALF_F64_RATIO,
+                       "items_f64_floor": HALF_F64_FLOOR,
+                       "rmse_atol": SHARDED_RMSE_ATOL},
+            sweeps={name: {"launches": [r[name]["launches"] for r in ranks],
+                           "launches_expected": want_b[name],
+                           "s": [r[name]["s"] for r in ranks]}
+                    for name in want_b})
+        emit("train_sharded_shared", **shared)
+        raise_on(problems)
+        result["shared"] = shared
+
+        # (c): world size 1 over NCCL
+        (one,), wall = sharded_group(tmp, "one", 1)
+        checked, problems = sharded_summary(
+            [one], "nccl", sharded_blocks(ratings, 1), p, "one")
+        if max(x["rel_max"] for x in one["vs_als_train"]) > \
+                SHARDED_RTOL_MAX or one["nccl_all_reduce"] != 3.0:
+            problems.append(f"one: against als_train "
+                            f"{one['vs_als_train']}, all_reduce "
+                            f"{one['nccl_all_reduce']}")
+        result["nccl_one"] = {**checked, "wall_s": wall,
+                              "vs_als_train": one["vs_als_train"],
+                              "bit_equal_als_train":
+                                  one["bit_equal_als_train"]}
+        emit("train_sharded_nccl_one", **result["nccl_one"])
+        raise_on(problems)
+
+        # (d): one rank a card over NCCL
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            ranks, wall = sharded_group(tmp, "cards", n_cards)
+            cards, problems = sharded_summary(
+                ranks, "nccl", sharded_blocks(ratings, n_cards), p, "cards")
+            if abs(ranks[0]["rmse"] - single_rmse) > SHARDED_RMSE_ATOL:
+                problems.append(f"cards: RMSE {ranks[0]['rmse']}, "
+                                f"als_train {single_rmse}")
+            cards.update(ran=True, wall_s=wall, rmse=ranks[0]["rmse"])
+        else:
+            cards, problems = {
+                "ran": False, "cards": n_cards,
+                "why": "NCCL at world size 2 or more needs a card a rank; "
+                       "this host has one"}, []
+        emit("train_sharded_nccl_cards", **cards)
+        raise_on(problems)
+        result["nccl_cards"] = cards
+
+    # (e): the train verb on two processes
+    result["train_verb"] = sharded_train_verb(dev)
+    emit("train_sharded", **result)
+    return result
+
+
 # -- phase 7: the streaming configuration's kernels (K3, K4, K5, K6) ---------
 
 def gather_bound(m: int, n: int, k: int, esize: int) -> tuple[float, str]:
@@ -4607,25 +5109,26 @@ def stream_params(**over):
                    packed_a=True, **over)
 
 
-def expected_stream_launches(nnz: int, p) -> dict:
+def expected_stream_launches(nnz: int, p, n_users: int = N_USERS,
+                             n_items: int = N_ITEMS,
+                             items_nnz: int | None = None) -> dict:
     """K3, K5 and K6 launches of als_train in the streaming
-    configuration, from the layout: K3 one per group of each half, K5
+    configuration (or of one rank of als_train_sharded: see
+    _half_slots), from the layout: K3 one per group of each half, K5
     one per chunk of each half, K6 one per CG iteration plus one for
     the first residual, on each side that runs CG."""
     from pio_tpu_torch.ops import als
 
-    nnz_pad = nnz + (-nnz % p.chunk)
-    cs = min(p.chunk_slots, als._slots_for(nnz_pad, 0, p.width, 1))
-    chunks = sum(als._slots_for(nnz_pad, n, p.width, cs) // cs
-                 for n in (N_USERS, N_ITEMS))
-    cg_u, cg_i = p.resolved_cg_iters(N_USERS), p.resolved_cg_iters(N_ITEMS)
+    cs, halves = _half_slots(nnz, n_users, n_items, p, items_nnz)
+    chunks = sum(s // cs for s, _ in halves)
+    cg_u, cg_i = p.resolved_cg_iters(n_users), p.resolved_cg_iters(n_items)
     n_full, n_warm, w_u, w_i = als._cg_schedule(p, cg_u, cg_i)
 
     def matvecs(*cgs):
         return sum(c + 1 for c in cgs if c > 0)
 
     return {"segment_flush_stream": expected_flush_launches(
-                nnz, N_USERS, N_ITEMS, p),
+                nnz, n_users, n_items, p, items_nnz),
             "gather_rows_stream": chunks * p.iterations,
             "packed_matvec": (n_full * matvecs(cg_u, cg_i)
                               + n_warm * matvecs(w_u, w_i))}
@@ -9632,6 +10135,12 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int,
             **extra, "ok": True}
 
 
+def sharded_sweep_launches(sharded: dict, sweep: str, kernel: str) -> list:
+    """A kernel's launches on each rank of train_sharded's one sweep."""
+    return [c[kernel] for c in sharded["shared"]["sweeps"][sweep][
+        "launches"]]
+
+
 def run_timed(wall: dict, start: float, name: str, fn, *args):
     """``fn(*args)``, its seconds into ``wall[name]``."""
     t0 = time.perf_counter()
@@ -9758,6 +10267,7 @@ def main() -> int:
     fused = timed("fused_kernel", phase_fused_kernel, ratings, dev)
     tfused = timed("train_fused", phase_train_fused, ratings, dev)
     validated = timed("train_validated", phase_train_validated, ratings, dev)
+    sharded = timed("train_sharded", phase_train_sharded, ratings, dev)
     del ratings
     attn = timed("attention_kernel", phase_attention_kernel, dev)
     seq_train = timed("sequence_train", phase_sequence_train, dev)
@@ -9868,6 +10378,13 @@ def main() -> int:
             # the examples' user-code engines on the port, and the
             # quickstart's port eval (each as its layouts predict)
             launches_examples=lane["segment_flush"]["examples"],
+            # als_train_sharded: each rank of (a), world size 1 over NCCL
+            # (c), one rank a card (d, where the host has the cards)
+            launches_train_sharded={
+                "shared_ranks": sharded["shared"]["segment_flush_launches"],
+                "nccl_one": sharded["nccl_one"]["segment_flush_launches"][0],
+                "nccl_cards": sharded["nccl_cards"].get(
+                    "segment_flush_launches")},
             launches_quickstart_port_eval=quickstart["port_eval"][
                 "k2_launches"],
             **{f"launches_{name}": train["launches"]["segment_flush"]
@@ -9885,17 +10402,23 @@ def main() -> int:
             "pio_tpu/ops/als_pallas.py:369",
             stream_launches["segment_flush_stream"], flush3,
             bit_identical_to_segment_flush=flush3["bit_identical_to_k2"],
+            launches_train_sharded=sharded_sweep_launches(
+                sharded, "stream_sweep", "segment_flush_stream"),
             shape={k: flush3[k] for k in ("S", "S_real", "n_self", "k")}),
         _kernel_entry(
             "gather_rows_stream", src + "gather_rows.cu",
             "pio_tpu/ops/als_pallas.py:865",
             stream_launches["gather_rows_stream"],
             users_half["cases"]["stream"],
+            launches_train_sharded=sharded_sweep_launches(
+                sharded, "stream_sweep", "gather_rows_stream"),
             shape={k: users_half[k] for k in ("M", "N", "k", "dtype")}),
         _kernel_entry(
             "packed_matvec", src + "packed_matvec.cu",
             "pio_tpu/ops/als_pallas.py:953",
             stream_launches["packed_matvec"], stream["packed_matvec"],
+            launches_train_sharded=sharded_sweep_launches(
+                sharded, "stream_sweep", "packed_matvec"),
             shape={"n": N_USERS, "k": RANK}),
         _kernel_entry(
             # the main path: one sweep each with gather="pallas-copy" and
@@ -9914,6 +10437,8 @@ def main() -> int:
             "pio_tpu/ops/als_pallas.py:369",
             tfused["launches"]["normal_equations_fused"],
             fused["users_half"],
+            launches_train_sharded=sharded_sweep_launches(
+                sharded, "pallas_sweep", "normal_equations_fused"),
             library_is=fused["users_half"]["library_is"],
             bound_f32_fma_ms=fused["users_half"]["bound_f32_fma_ms"],
             ms_by_part=fused["users_half"]["ms_by_part"],
@@ -9949,7 +10474,27 @@ def main() -> int:
     return 0
 
 
+def train_sharded_alone() -> int:
+    """``python3 chip_smoke.py --train-sharded``: the card, the build and
+    the train_sharded phase alone (on a host of several cards (d) runs,
+    one rank a card)."""
+    device = phase_device()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    wall: dict = {}
+    timed = functools.partial(run_timed, wall, time.perf_counter())
+    timed("build", phase_build)
+    timed("train_sharded", phase_train_sharded, synth_ratings(), dev)
+    emit("wall", seconds=wall)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == SEQUENCE_LANE:
         sys.exit(sequence_lane(Path(sys.argv[2])))
+    if len(sys.argv) == 4 and sys.argv[1] == SHARDED_RANK:
+        sys.exit(sharded_rank(Path(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:] == ["--train-sharded"]:
+        sys.exit(train_sharded_alone())
     sys.exit(main())

@@ -24,7 +24,11 @@ Verbs ported so far:
            --from-eval ID|latest trains with the winning algorithm
            params a sweep persisted, the instance batch-tagged
            from-eval:<id>. PIO_TPU_CHAOS injects faults
-           (resilience/chaos.py).
+           (resilience/chaos.py). With PIO_TPU_COORDINATOR,
+           PIO_TPU_NUM_PROCESSES, PIO_TPU_PROCESS_ID and PIO_TPU_RUN_ID
+           set, one process a rank trains the ALS templates sharded
+           (rank r on cuda:r modulo the cards, or the CPU), process 0
+           writing the instance; --no-mesh trains on one device.
   deploy   serve the latest COMPLETED engine instance (or
            --engine-instance-id) of the engine in --engine-dir over
            REST, on the CUDA device unless --device cpu. Storage comes
@@ -132,7 +136,8 @@ Counterparts of ``cmd_train``, ``cmd_deploy``, ``cmd_promote``,
 ``cmd_eventserver``, ``cmd_import``, ``cmd_export`` and
 ``cmd_storageserver`` in
 ``pio_tpu.tools.cli``, with the same flags, output lines and exit codes.
-Not ported yet: the mesh options (--no-mesh: the port holds one device).
+Not ported yet: eval's, deploy's and batchpredict's --no-mesh (their
+mesh paths wait for ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -263,7 +268,13 @@ def cmd_train(args) -> int:
         batch = f"{batch} from-eval:{eval_id}".strip()
         print(f"Training with best params from evaluation {eval_id}",
               flush=True)
-    ctx = create_workflow_context(storage, device=args.device)
+    ctx = create_workflow_context(storage, device=args.device,
+                                  use_mesh=not args.no_mesh)
+    if ctx.mesh is not None and ctx.mesh.size > 1:
+        from pio_tpu_torch.parallel.distributed import backend
+
+        print(f"Training on rank {ctx.mesh.rank} of {ctx.mesh.size} "
+              f"({ctx.device}, {backend()})", flush=True)
     try:
         instance_id = run_train(
             engine, ep, storage, engine_id=engine_id,
@@ -1340,6 +1351,9 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="training device (default cuda; cpu must be asked "
                         "for)")
+    x.add_argument("--no-mesh", action="store_true",
+                   help="train on this process's device alone, even in a "
+                        "group of several processes")
     x.add_argument("--stop-after-read", action="store_true")
     x.add_argument("--stop-after-prepare", action="store_true")
     x.add_argument("--resume", default="", metavar="INSTANCE_ID",

@@ -5,7 +5,9 @@ scala-parallel-ecommercerecommendation/train-with-rate-event/src/main/
 scala/ALSAlgorithm.scala:148-341), with the same params, queries and
 results:
  * implicit ALS over view/buy events, ``ops/als.py``'s ``als_train`` on
-   the context's device (K2 on the card, ``accum="auto"``);
+   the context's device (K2 on the card, ``accum="auto"``), or
+   ``als_train_sharded`` when the context's mesh holds more than one
+   rank;
  * serve-time filtering: seen items (live read of the user's view/buy
    events), the "unavailableItems" constraint entity (TTL-cached, its last
    good set served through a storage outage), whiteList / blackList,
@@ -19,8 +21,7 @@ the dispatch rows, so a query's answer has the same bits alone or in a
 batch. The serve-time store is bound in ``prepare_model_for_deploy``, on
 the algorithm instance that then serves (the deploy serves with the
 instances it prepared). The training read goes through ``find``, a row
-read, as the reference's does. Not ported yet: the sharded multi-device
-trainer (``als_train_sharded``).
+read, as the reference's does.
 """
 
 from __future__ import annotations
@@ -148,7 +149,8 @@ class ECommAlgorithm(PAlgorithm):
         self._constraint_cache: tuple[float, set[str]] | None = None
 
     def train(self, ctx, data: ECommerceData) -> ECommerceModel:
-        """``als_train`` on ``ctx.device``."""
+        """``als_train`` on ``ctx.device``, or ``als_train_sharded``
+        when the context's mesh holds more than one rank."""
         data.sanity_check()
         inter = data.interactions
         p = self.params
@@ -157,10 +159,17 @@ class ECommAlgorithm(PAlgorithm):
             alpha=p.alpha, implicit=True,
             seed=p.seed if p.seed is not None else 3, chunk=p.chunk,
         )
-        factors = als.als_train(
-            inter.user_idx, inter.item_idx, inter.values,
-            inter.n_users, inter.n_items, ap, device=ctx.device,
-        )
+        mesh = getattr(ctx, "mesh", None)  # absent or None: one device
+        if mesh is not None and mesh.size > 1:
+            factors = als.als_train_sharded(
+                inter.user_idx, inter.item_idx, inter.values,
+                inter.n_users, inter.n_items, ap, mesh,
+            )
+        else:
+            factors = als.als_train(
+                inter.user_idx, inter.item_idx, inter.values,
+                inter.n_users, inter.n_items, ap, device=ctx.device,
+            )
         self._event_store = ctx.event_store
         return ECommerceModel(
             factors, inter.users, inter.items, data.item_categories

@@ -5,17 +5,19 @@ and result shapes (query {"user", "num", "whiteList"?, "blackList"?} ->
 {"itemScores": [...]}) and the same filtering semantics, with the factors
 held as f32 torch tensors on the context's device. Training reads rate/buy
 events into interactions and runs ``ops/als.py``'s ``als_train`` on one
-device. Two-stage clustered retrieval (the engine.json ``retrieval``
-block) runs the candidate scan of ``ops/retrieval.py``.
+device, or ``als_train_sharded`` when the context's mesh holds more than
+one rank (the train verb on several processes). Two-stage clustered
+retrieval (the engine.json ``retrieval`` block) runs the candidate scan
+of ``ops/retrieval.py``.
 
 With ``validation_fraction > 0`` a seeded share of the interactions is
 held out and ``als_train_validated`` returns the best sweep's factors,
-with the heldout curve in ``RecommendationModel.validation``.
+with the heldout curve in ``RecommendationModel.validation`` (on one
+device only: the sharded path keeps the last sweep, as the reference's).
 
 ``read_eval`` gives the reference's index-mod-k folds
 (``e2/crossvalidation.split_interactions``) for ``pio eval``'s class
-mode. Not ported yet: the sharded multi-device trainer
-(``als_train_sharded``; the port's context holds one device).
+mode.
 """
 
 from __future__ import annotations
@@ -177,10 +179,20 @@ class ALSAlgorithm(PAlgorithm):
         """ALS on ``ctx.device``. Without validation the last sweep's
         factors are the model, as in the reference; with
         ``validation_fraction > 0`` the reference's seeded split holds
-        out that share and the best sweep's factors are the model."""
+        out that share and the best sweep's factors are the model. On a
+        mesh of several ranks ``als_train_sharded`` trains on all of them
+        and keeps the last sweep's factors, validation or not, as the
+        reference does."""
         data.sanity_check()
         ap = self._als_params()
         vf = self.params.validation_fraction
+        mesh = getattr(ctx, "mesh", None)  # absent or None: one device
+        if mesh is not None and mesh.size > 1:
+            factors = als.als_train_sharded(
+                data.user_idx, data.item_idx, data.values,
+                data.n_users, data.n_items, ap, mesh,
+            )
+            return RecommendationModel(factors, data.users, data.items)
         if vf > 0.0:
             nnz = len(data.values)
             n_val = max(1, int(nnz * vf))

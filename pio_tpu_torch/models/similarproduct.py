@@ -7,7 +7,8 @@ query {"items": [...], "num": N, "categories"?, "whiteList"?,
 examples/scala-parallel-similarproduct/*; ALSAlgorithm.scala cosine loop;
 multi/LikeAlgorithm.scala:21-86). ``ALSSimilarityAlgorithm`` trains
 ``ops/als.py``'s ``als_train`` on the context's device (K2 on the card,
-``accum="auto"``) and serves the cosine top-k of ``ops/similarity.py``;
+``accum="auto"``), or ``als_train_sharded`` when the context's mesh holds
+more than one rank, and serves the cosine top-k of ``ops/similarity.py``;
 ``SimilarProductModel`` is a plain dataclass holding the f32 item factors
 as a tensor. ``DIMSUMAlgorithm`` computes the exact column cosine
 (``ops/similarity.column_cosine_topk``) on the device and serves its
@@ -16,8 +17,7 @@ top-k table on the host, as the reference does.
 A query's answer has the same bits alone or in a batch: ``batch_predict``
 averages each query's item rows with ``ops/similarity.group_means``, as
 ``predict`` does through ``mean_vector``, and ``cosine_topk`` runs its
-product at the dispatch rows. Not ported yet: the sharded multi-device
-trainer (``als_train_sharded``; the port's context holds one device).
+product at the dispatch rows.
 """
 
 from __future__ import annotations
@@ -144,7 +144,8 @@ class ALSSimilarityAlgorithm(PAlgorithm):
         self.params = params
 
     def train(self, ctx, data: SimilarProductData) -> SimilarProductModel:
-        """``als_train`` on ``ctx.device``."""
+        """``als_train`` on ``ctx.device``, or ``als_train_sharded``
+        when the context's mesh holds more than one rank."""
         data.sanity_check()
         inter = data.interactions
         p = self.params
@@ -153,10 +154,17 @@ class ALSSimilarityAlgorithm(PAlgorithm):
             alpha=p.alpha, implicit=True,
             seed=p.seed if p.seed is not None else 3, chunk=p.chunk,
         )
-        factors = als.als_train(
-            inter.user_idx, inter.item_idx, inter.values,
-            inter.n_users, inter.n_items, ap, device=ctx.device,
-        )
+        mesh = getattr(ctx, "mesh", None)  # absent or None: one device
+        if mesh is not None and mesh.size > 1:
+            factors = als.als_train_sharded(
+                inter.user_idx, inter.item_idx, inter.values,
+                inter.n_users, inter.n_items, ap, mesh,
+            )
+        else:
+            factors = als.als_train(
+                inter.user_idx, inter.item_idx, inter.values,
+                inter.n_users, inter.n_items, ap, device=ctx.device,
+            )
         return SimilarProductModel(
             factors.item_factors, inter.items, data.item_categories
         )

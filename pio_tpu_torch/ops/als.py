@@ -5,7 +5,7 @@ Counterpart of ``pio_tpu.ops.als``, function for function (``ALSParams``,
 ``_device_slot_layout``, ``_chunk_blocks``, ``_normal_equations``,
 ``_cg_solve``, ``_solve_factors``, ``als_train``, ``als_train_validated``,
 ``als_build_layouts``, ``sweep_safe_params``, ``als_train_stacked``,
-``fold_in_params``, ``als_fold_in``;
+``als_train_sharded``, ``fold_in_params``, ``als_fold_in``;
 ``predict_pairs``, ``recommend_topk``, ``rmse``).
 The algorithm is the reference's:
 
@@ -927,6 +927,144 @@ def als_train_stacked(user_idx, item_idx, values, n_users: int,
     return StackedALSModel(
         users.view(bucket, n_users, k)[:n_cand],
         items.view(bucket, n_items, k)[:n_cand])
+
+
+# ---------------------------------------------------------------------------
+# sharded multi-rank path — users/items blocked per rank, all_gather per
+# half-sweep (the MLlib-shuffle replacement)
+# ---------------------------------------------------------------------------
+
+def _block(n: int, n_dev: int) -> int:
+    return math.ceil(n / n_dev)
+
+
+def _partition(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+               block: int, n_dev: int, rank: int, chunk: int):
+    """This rank's share of the COO -> (r, c, v, nnz_max), on the COO's
+    device: the entries of rows [rank * block, (rank + 1) * block) in
+    their input order, with LOCAL row ids, padded to nnz_max (the largest
+    share over all ranks, rounded up to a chunk multiple, so every rank
+    has the same shape); padding entries carry row id = block (the
+    sentinel >= any local id)."""
+    dev_of = torch.div(rows, block, rounding_mode="floor")
+    nnz_max = int(torch.bincount(dev_of, minlength=n_dev).max())
+    nnz_max += -nnz_max % max(1, chunk)
+    ix = torch.nonzero(dev_of == rank).squeeze(1)
+    n = ix.shape[0]
+    r = rows.new_full((nnz_max,), block)
+    c = cols.new_zeros(nnz_max)
+    v = vals.new_zeros(nnz_max)
+    r[:n] = rows[ix] - rank * block
+    c[:n] = cols[ix]
+    v[:n] = vals[ix]
+    return r, c, v, nnz_max
+
+
+def _gram_psum(block: torch.Tensor, mesh) -> torch.Tensor:
+    """Yᵀ Y of the full factor matrix from the LOCAL block: a (b,k)x(k,b)
+    product on each rank (f32, TF32 refused by _require_f32_matmul: the
+    reference's Precision.HIGH) and one (k,k) all_reduce, in place of
+    every rank forming it from the gathered matrix."""
+    return mesh.psum(block.T @ block)
+
+
+def _sharded_setup(user_idx, item_idx, values, n_users: int, n_items: int,
+                   params: ALSParams, mesh, init: ALSModel | None = None):
+    """This rank's part of ``als_train_sharded`` before its first sweep:
+    (by_user, by_item, cs, (users, items)), its blocks' slot layouts on
+    ``mesh.device`` (local row ids, every rank at the same shapes) and
+    its (block, k) rows of the init, the phantom rows past n zero."""
+    n_dev = mesh.shape["data"]
+    dev = mesh.device
+    ub, ib = _block(n_users, n_dev), _block(n_items, n_dev)
+    # the whole COO on the device (no sentinel padding: chunk=0), each
+    # block cut from it there
+    rows, cols, vals = _prep_coo(user_idx, item_idx, values, n_users,
+                                 n_items, replace(params, chunk=0), dev)
+    u_r, u_c, u_v, u_nnz = _partition(rows, cols, vals, ub, n_dev,
+                                      mesh.rank, params.chunk)
+    i_r, i_c, i_v, i_nnz = _partition(cols, rows, vals, ib, n_dev,
+                                      mesh.rank, params.chunk)
+    del rows, cols, vals
+    cs = min(params.chunk_slots,
+             _slots_for(max(u_nnz, i_nnz), 0, params.width, 1))
+    su = _slots_for(u_nnz, ub, params.width, cs)
+    si = _slots_for(i_nnz, ib, params.width, cs)
+    by_user = _device_slot_layout(u_r, u_c, u_v, ub, params.width, su)
+    by_item = _device_slot_layout(i_r, i_c, i_v, ib, params.width, si)
+    del u_r, u_c, u_v, i_r, i_c, i_v
+
+    user0, item0 = _init_or(init, n_users, n_items, params, dev)
+    lo_u, lo_i = mesh.rank * ub, mesh.rank * ib
+    users = user0.new_zeros((ub, params.rank))
+    items = item0.new_zeros((ib, params.rank))
+    users[:max(0, min(ub, n_users - lo_u))] = user0[lo_u:lo_u + ub]
+    items[:max(0, min(ib, n_items - lo_i))] = item0[lo_i:lo_i + ib]
+    return by_user, by_item, cs, (users, items)
+
+
+def als_train_sharded(user_idx, item_idx, values, n_users: int,
+                      n_items: int, params: ALSParams, mesh,
+                      init: ALSModel | None = None) -> ALSModel:
+    """ALS over the ranks of ``mesh`` (``parallel.mesh.create_mesh``),
+    one block of users and one of items a rank: every rank of the group
+    calls it with the same arguments.
+
+    As in the reference, users and their ratings are partitioned into
+    contiguous blocks of ``_block(n, ranks)`` rows (likewise items),
+    sentinel-padded so every rank has the same shapes; no rebalancing,
+    so under a skewed distribution the first block holds most ratings.
+    Every rank holds the whole COO (numpy arrays or tensors), so the
+    padded sizes come from the global maximum. Each rank builds its
+    block's slot layouts on its device (``_sharded_setup``). Each
+    half-sweep it forms the shared YᵀY (implicit) from the blocks
+    (``_gram_psum``), gathers the whole opposing factor matrix (a tiled
+    all_gather; the factors are small, n x k, and the ratings never
+    move) and solves its block's normal equations with
+    ``_solve_factors``, as ``als_train`` does: the accumulation
+    (``accum``, K1-K3), the gather (K4, K5) and the packed matvec (K6)
+    run as on one device, with the same warm-CG schedule, the
+    CG-or-Cholesky choice keyed on the block's row count.
+
+    The init is drawn at the unpadded shape, the draw ``als_train`` makes
+    (or taken from ``init``), and the phantom rows past n are zero: a
+    non-zero phantom row would enter the shared YᵀY of the implicit
+    first sweep. At the end every rank gathers both factor matrices, so
+    each returns the same bits, on its own device."""
+    _require_f32_matmul(mesh.device)
+    ub = _block(n_users, mesh.shape["data"])
+    ib = _block(n_items, mesh.shape["data"])
+    by_user, by_item, cs, carry = _sharded_setup(
+        user_idx, item_idx, values, n_users, n_items, params, mesh, init)
+
+    def solve(layout, other, n_self, x0, cg_n, yty):
+        return _solve_factors(
+            layout, other, n_self, params.reg, params.implicit,
+            params.alpha, cs, x0=x0, cg_iters=cg_n,
+            bf16_gather=params.bf16_gather, accum=params.accum,
+            group_slots=params.group_slots, yty=yty, gather=params.gather,
+            packed=params.packed_a,
+        )
+
+    def sweep_with(cg_u_n: int, cg_i_n: int):
+        def sweep(carry):
+            users, items = carry  # local blocks (ub, k) / (ib, k)
+            yty_i = _gram_psum(items, mesh) if params.implicit else None
+            users = solve(by_user, mesh.all_gather(items), ub, users,
+                          cg_u_n, yty_i)
+            yty_u = _gram_psum(users, mesh) if params.implicit else None
+            items = solve(by_item, mesh.all_gather(users), ib, items,
+                          cg_i_n, yty_u)
+            return users, items
+        return sweep
+
+    # each rank solves its LOCAL block of rows, so the auto exact-vs-CG
+    # decision keys on the block's size, as in the reference
+    users, items = _run_schedule(sweep_with, params,
+                                 params.resolved_cg_iters(ub),
+                                 params.resolved_cg_iters(ib), carry)
+    return ALSModel(mesh.all_gather(users)[:n_users],
+                    mesh.all_gather(items)[:n_items])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """WorkflowContext — what every DASE stage receives.
 
 Counterpart of ``pio_tpu.workflow.context``: where the JAX package holds a
-device ``Mesh`` and a PRNG key, the port holds one ``torch.device`` and
+device ``Mesh`` and a PRNG key, the port holds this process's
+``torch.device``, the ``parallel.mesh.Mesh`` of the group's ranks, and
 hands out seeded ``torch.Generator``s.
 """
 
@@ -14,6 +15,7 @@ import torch
 
 from pio_tpu_torch.data.eventstore import EventStore
 from pio_tpu_torch.data.storage import Storage, get_storage
+from pio_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
@@ -34,6 +36,9 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
 class WorkflowContext:
     storage: Storage
     device: torch.device
+    # parallel.mesh.Mesh | None (None = one device); the templates train
+    # sharded when it holds more than one rank
+    mesh: Any = None
     seed: int = 0
     batch: str = ""
     params: dict = field(default_factory=dict)  # runtime conf (sparkConf slot)
@@ -59,8 +64,21 @@ def create_workflow_context(
     seed: int = 0,
     batch: str = "",
     params: dict | None = None,
+    mesh_config: MeshConfig | None = None,
+    use_mesh: bool = True,
 ) -> WorkflowContext:
+    """A context on ``device`` (CUDA unless the caller asks for the CPU).
+    When PIO_TPU_COORDINATOR is set, the process group is joined first
+    (``parallel/distributed.py``), and the context's device is then this
+    rank's; with ``use_mesh`` the mesh spans every rank of the group."""
+    from pio_tpu_torch.parallel.distributed import initialize_distributed
+
+    dev = resolve_device(device)
+    initialize_distributed(device=dev)  # no-op unless configured
+    mesh = create_mesh(mesh_config, device=dev) if use_mesh else None
+    if mesh is not None and mesh.size > 1:
+        dev = mesh.device
     return WorkflowContext(
-        storage=storage or get_storage(), device=resolve_device(device),
+        storage=storage or get_storage(), device=dev, mesh=mesh,
         seed=seed, batch=batch, params=dict(params or {}),
     )

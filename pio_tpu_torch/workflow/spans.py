@@ -10,6 +10,7 @@ span: it calls ``after_span(step + 1, ...)`` after each update, and
 
 from __future__ import annotations
 
+from pio_tpu_torch.parallel.distributed import any_process
 from pio_tpu_torch.resilience import chaos
 
 
@@ -38,7 +39,10 @@ def after_span(
       1. the `train.step.<hi-1>` chaos point (the kill-at-step hook);
       2. the cadence save (only save-eligible steps reach maybe_save);
       3. preemption: force-save the current step when it is off-cadence,
-         then raise TrainingPreempted (via lifecycle.check_preemption);
+         then raise TrainingPreempted (via lifecycle.check_preemption).
+         With several processes the flag is OR-reduced across them
+         first (``any_process``): a SIGTERM often lands on one process
+         only, and every process must agree to stop before any does;
       4. the heartbeat.
 
     ``params`` and ``opt_state`` are whatever the checkpointer saves (the
@@ -48,7 +52,7 @@ def after_span(
     if save_after:
         checkpoint.maybe_save(hi - 1, params, opt_state)
     if lifecycle is not None:
-        if lifecycle.preempted():
+        if any_process(lifecycle.preempted()):
             if checkpoint is not None and not save_after:
                 checkpoint.save(hi - 1, params, opt_state)
             lifecycle.check_preemption(hi - 1, force=True)  # raises

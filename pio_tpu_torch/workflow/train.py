@@ -1,12 +1,12 @@
 """Train workflow: supervised training runs, persisting models, restoring
 them.
 
-Counterpart of ``pio_tpu.workflow.train`` on one process. ``run_train``
-takes an engine instance INIT -> TRAINING -> COMPLETED, or FAILED
-(re-raising the error) or INTERRUPTED (preempted, resumable): it reads
-and trains through ``Engine.train``, frames the models and writes them to
-MODELDATA before the COMPLETED transition, so deploy's latest-completed
-lookup never finds an instance without models. The run is supervised
+Counterpart of ``pio_tpu.workflow.train``. ``run_train`` takes an engine
+instance INIT -> TRAINING -> COMPLETED, or FAILED (re-raising the error)
+or INTERRUPTED (preempted, resumable): it reads and trains through
+``Engine.train``, frames the models and writes them to MODELDATA before
+the COMPLETED transition, so deploy's latest-completed lookup never finds
+an instance without models. The run is supervised
 (workflow/lifecycle.py), as the reference's is:
 
  * every run gets a per-instance step-checkpoint directory (keyed by
@@ -23,20 +23,27 @@ lookup never finds an instance without models. The run is supervised
  * ``resume_instance_id`` / ``auto_resume`` re-enter a resumable
    instance: the (seed, step)-keyed batch stream makes the resumed run
    reproduce the uninterrupted one exactly;
- * the ``train.persist`` chaos point stands before the model write.
+ * the ``train.persist`` chaos point stands before the model write;
+ * several processes (``parallel/distributed.py``, one a rank): only
+   process 0 sweeps zombies and writes metadata and the model blob; the
+   others take the instance id from ``PIO_TPU_RUN_ID``, set alike on
+   every process, and every process reaches the ``train-persist``
+   barrier before process 0 records COMPLETED, whether its persist
+   failed or not.
 
 ``persist_models`` stores models made elsewhere (seeded factors, or a
 model carried across by ``convert.py``) as a COMPLETED instance the same
 way. ``load_models`` is the deploy-side restore.
 
-Not ported: the reference's persistent compile cache, and its multi-host
-parts (``is_primary``, ``barrier``, ``PIO_TPU_RUN_ID`` and the persist
-barrier); the port trains on one process and one card.
+Not ported: the reference's persistent compile cache (eager torch has no
+XLA cache), and step checkpoints saved from several processes (the
+sequence template saves from one; ROADMAP A5).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import traceback
 from dataclasses import replace
 from typing import Any
@@ -45,6 +52,7 @@ from pio_tpu_torch.controller.base import TrainingInterruption
 from pio_tpu_torch.controller.engine import Engine, EngineParams
 from pio_tpu_torch.data.dao import EngineInstance, Model
 from pio_tpu_torch.data.storage import Storage
+from pio_tpu_torch.parallel.distributed import barrier, is_primary
 from pio_tpu_torch.resilience import chaos
 from pio_tpu_torch.utils.time import format_time, utcnow
 from pio_tpu_torch.workflow.checkpoint import models_from_bytes, models_to_bytes
@@ -65,15 +73,15 @@ log = logging.getLogger("pio_tpu_torch.workflow")
 HEARTBEAT_EVERY_STEPS = 10
 
 
-def _insert_instance(storage: Storage, engine_params: EngineParams,
-                     engine_id: str, engine_version: str,
-                     engine_variant: str, engine_factory: str,
-                     batch: str) -> EngineInstance:
-    """A new INIT engine instance, as stored."""
-    instances = storage.get_metadata_engine_instances()
+def _fresh_instance(engine_params: EngineParams, engine_id: str,
+                    engine_version: str, engine_variant: str,
+                    engine_factory: str, batch: str,
+                    instance_id: str = "") -> EngineInstance:
+    """A new INIT engine instance (not stored); an empty id is assigned
+    at insert."""
     now = utcnow()
-    instance_id = instances.insert(EngineInstance(
-        id="",
+    return EngineInstance(
+        id=instance_id,
         status="INIT",
         start_time=now,
         end_time=now,
@@ -86,7 +94,18 @@ def _insert_instance(storage: Storage, engine_params: EngineParams,
         preparator_params=f"{engine_params.preparator}",
         algorithms_params=f"{engine_params.algorithms}",
         serving_params=f"{engine_params.serving}",
-    ))
+    )
+
+
+def _insert_instance(storage: Storage, engine_params: EngineParams,
+                     engine_id: str, engine_version: str,
+                     engine_variant: str, engine_factory: str,
+                     batch: str) -> EngineInstance:
+    """A new INIT engine instance, as stored."""
+    instances = storage.get_metadata_engine_instances()
+    instance_id = instances.insert(_fresh_instance(
+        engine_params, engine_id, engine_version, engine_variant,
+        engine_factory, batch))
     return instances.get(instance_id)
 
 
@@ -123,6 +142,7 @@ def persist_models(
 
 def _resolve_instance(
     storage: Storage,
+    primary: bool,
     resume_instance_id: str | None,
     auto_resume: bool,
     engine_id: str,
@@ -172,9 +192,20 @@ def _resolve_instance(
             return instance
         log.info("auto-resume: no resumable instance with checkpoints "
                  "found; starting fresh")
-    return _insert_instance(storage, engine_params, engine_id,
-                            engine_version, engine_variant, engine_factory,
-                            batch)
+    # several processes: every process must agree on the instance id, and
+    # only process 0 may insert — an explicit PIO_TPU_RUN_ID provides both
+    run_id = os.environ.get("PIO_TPU_RUN_ID", "")
+    fresh = _fresh_instance(engine_params, engine_id, engine_version,
+                            engine_variant, engine_factory, batch, run_id)
+    if not primary:
+        if not run_id:
+            raise ValueError(
+                "multi-host training needs PIO_TPU_RUN_ID set (identically "
+                "on every host) so non-primary processes know the "
+                "engine-instance id without writing metadata"
+            )
+        return fresh
+    return instances.get(instances.insert(fresh))
 
 
 def run_train(
@@ -206,17 +237,19 @@ def run_train(
     too, the training error is raised, chained to it."""
     ctx = ctx or create_workflow_context(storage)
     instances = storage.get_metadata_engine_instances()
-    try:
-        swept = sweep_zombies(storage)
-        if swept:
-            log.warning("startup sweep transitioned %d zombie "
-                        "instance(s) to FAILED: %s",
-                        len(swept), [i.id for i in swept])
-    except Exception:  # noqa: BLE001 - the sweep is advisory
-        log.warning("startup zombie sweep failed", exc_info=True)
+    primary = is_primary()
+    if primary:
+        try:
+            swept = sweep_zombies(storage)
+            if swept:
+                log.warning("startup sweep transitioned %d zombie "
+                            "instance(s) to FAILED: %s",
+                            len(swept), [i.id for i in swept])
+        except Exception:  # noqa: BLE001 - the sweep is advisory
+            log.warning("startup zombie sweep failed", exc_info=True)
 
     instance = _resolve_instance(
-        storage, resume_instance_id, auto_resume, engine_id,
+        storage, primary, resume_instance_id, auto_resume, engine_id,
         engine_version, engine_variant, engine_factory, batch,
         engine_params, checkpoint_root,
     )
@@ -237,11 +270,14 @@ def run_train(
         checkpoint_dir=ckpt_dir,
         heartbeat_every_steps=HEARTBEAT_EVERY_STEPS,
         preemption=handler,
+        readonly=not primary,
     )
 
     def record(status: str, **progress_extra) -> None:
         """Terminal status transition, keeping accumulated progress."""
         lifecycle.stop()  # the liveness beat must not race terminal writes
+        if not primary:
+            return
         progress = dict(lifecycle.instance.progress)
         progress.update(progress_extra)
         lifecycle.instance = replace(
@@ -258,7 +294,8 @@ def run_train(
     lifecycle.instance = replace(
         instance, status="TRAINING", progress=progress
     )
-    instances.update(lifecycle.instance)
+    if primary:
+        instances.update(lifecycle.instance)
     lifecycle.heartbeat(progress.get("step", 0), force=True)
     lifecycle.start()  # wall-clock liveness beat (see TrainLifecycle)
 
@@ -274,10 +311,23 @@ def run_train(
             # chaos point: a `train.persist` spec simulates a storage
             # fault during the final model write — the run must land
             # FAILED (resumable from its last checkpoint), never
-            # COMPLETED-without-a-blob
-            chaos.maybe_inject("train.persist")
-            blob = models_to_bytes(models)
-            storage.get_model_data_models().insert(Model(instance_id, blob))
+            # COMPLETED-without-a-blob. The barrier is reached on BOTH
+            # outcomes: a process whose persist failed must not leave its
+            # peers blocked in it forever.
+            persist_error: Exception | None = None
+            try:
+                chaos.maybe_inject("train.persist")
+                blob = models_to_bytes(models)
+                if primary:
+                    storage.get_model_data_models().insert(
+                        Model(instance_id, blob))
+            except Exception as e:  # noqa: BLE001 - re-raised after barrier
+                persist_error = e
+            # the COMPLETED transition must not outrun any process's part
+            # of the persist
+            barrier("train-persist")
+            if persist_error is not None:
+                raise persist_error
             record("COMPLETED")
             log.info("training %s COMPLETED (%d bytes of models)",
                      instance_id, len(blob))

@@ -61,6 +61,8 @@ def test_every_module_imports_without_jax_or_pio_tpu():
                 "pio_tpu_torch.ops.moe",
                 "pio_tpu_torch.models.sequence",
                 "pio_tpu_torch.workflow.train",
+                "pio_tpu_torch.parallel", "pio_tpu_torch.parallel.mesh",
+                "pio_tpu_torch.parallel.distributed",
                 "pio_tpu_torch.workflow.lifecycle",
                 "pio_tpu_torch.workflow.spans",
                 "pio_tpu_torch.workflow.step_checkpoint",
