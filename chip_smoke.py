@@ -242,6 +242,21 @@ benchmarks: the ALS recommendation engine at the MovieLens-20M shape
   and what tests/test_examples.py asserts of the reference's; the
   evaluation example through ``eval`` in class mode, its winner scoring
   above 0 and the candidates apart.
+- train_mesh: the mesh's seq and model axes, ranks as child processes of
+  this script (``--mesh-rank``) sharing the card over gloo, at
+  examples/sequence's widths (4,096 seeded sequences of 64 over 20,000
+  items, 120 steps) and examples/twotower's (1,000,000 zipf pairs of
+  100,000 users x 20,000 items, 100 steps), each run held against one
+  card's from the same seeded init: the sequence template on data 2 x
+  seq 1 with ``"flash"`` (K8 on each rank's rows, 2 launches a step a
+  rank, the ranks' params equal to the bit), on data 2 x seq 2 with ring
+  attention and on data 1 x seq 2 with ulysses (the reference's 1e-3 in
+  loss); ``moe_ffn_ep`` on 2 ranks against ``moe_ffn``; the two-tower on
+  data 2 x model 2 (item embeddings' norms); the flash run checkpointed,
+  stopped and resumed to the uninterrupted bits with rank 0 the only
+  writer; and examples/sequence-custom/port through ``run_train`` on
+  data 1 x seq 2, queried (the no-repeat window and its lifting). Each
+  rank's step time and its share inside the collectives.
 
 - templates: the similar-product, e-commerce and classification
   templates. ``ALSSimilarityAlgorithm`` and ``ECommAlgorithm`` trained on
@@ -287,8 +302,8 @@ The phases run one at a time, in the order above but for
 attention_kernel and sequence_train, which follow train_sharded, so
 that every kernel's timing and training throughput is taken with the
 card to itself. Then templates, templates_rest, sequence_entry,
-train_resume, evaluate_sequence, sequence_moe and examples run in a
-second process of this script (``--sequence-lane``: its own stores and
+train_resume, evaluate_sequence, sequence_moe, examples and train_mesh
+run in a second process of this script (``--sequence-lane``: its own stores and
 launch counts) beside ingest to evaluate and quickstart, so the host
 times of both groups are taken under each other's load.
 
@@ -7120,8 +7135,10 @@ def phase_attention_kernel(dev: torch.device) -> dict:
 
     # the masks' corners in both types: no keys at all (every row fully
     # masked: zeros), Sq != Sk under each mask (top-left causal alignment;
-    # ragged Sk 77 and 300, Sq 300 over Sk 77), and the block's strided
-    # qkv views with an explicit scale at each D the kernels take
+    # ragged Sk 77 and 300, Sq 300 over Sk 77), the block's strided qkv
+    # views with an explicit scale at each D the kernels take and at the
+    # narrower D the wrapper zero-pads to the next (16, 48, 96), and the
+    # sequence-custom deploy's own shape (B 1, S 15, H 2, D 16, padded)
     edges = {}
     for dtype in (torch.float32, torch.bfloat16):
         pre = "" if dtype == torch.float32 else "bf16_"
@@ -7142,7 +7159,7 @@ def phase_attention_kernel(dev: torch.device) -> dict:
                                      f"Sq {sq} Sk {sk}")
             edges[f"{pre}Sq{sq}_Sk{sk}_{'causal' if causal else 'full'}"] = {
                 "max_abs_err": _attn_err(got, q, k, v, causal), **path}
-        for d in (32, 64, 128):
+        for d in (16, 32, 48, 64, 96, 128):
             q, k, v = _qkv_views(3, 300, 4, d, dtype, dev, SEED + d)
             got, identical = _twice(q, k, v, True, 0.2)
             if not identical:
@@ -7150,6 +7167,13 @@ def phase_attention_kernel(dev: torch.device) -> dict:
                                      f"{d} scale 0.2")
             edges[f"{pre}strided_D{d}_scale0.2"] = {
                 "max_abs_err": _attn_err(got, q, k, v, True, 0.2), **path}
+        q, k, v = _qkv_views(1, 15, 2, 16, dtype, dev, SEED + 21)
+        got, identical = _twice(q, k, v, True)
+        if not identical:
+            raise AssertionError(f"two K8 launches differ at {dtype} "
+                                 "sequence-custom's deploy shape")
+        edges[f"{pre}custom_deploy_B1_S15_H2_D16"] = {
+            "max_abs_err": _attn_err(got, q, k, v, True), **path}
     emit("attention_kernel_edges", cases=edges,
          tolerance={"f32_atol_vs_f64": ATTN_F32_ATOL,
                     "bf16_rtol_vs_f32": ATTN_BF16_RTOL,
@@ -10125,6 +10149,636 @@ def phase_examples(dev: torch.device) -> dict:
         r["k2_launches"] for r in out.values() if "k2_launches" in r)}
 
 
+# -- phase 22: the mesh's seq and model axes across ranks (train_mesh) -------
+
+MESH_RANK = "--mesh-rank"           # a child of this script: one rank
+# examples/sequence/engine.json's widths; steps cut from 300 to 120
+MESH_SEQ = {"max_len": 64, "embed_dim": 64, "num_heads": 2, "num_layers": 2,
+            "ffn_dim": 128, "batch_size": 128, "learning_rate": 1e-3,
+            "steps": 120, "seed": 0}
+MESH_SEQ_DATA = dict(n_seqs=4_096, n_items=20_000)
+# examples/twotower/engine.json's widths; steps cut from 2,000 to 100; a
+# vocabulary the model axis divides (the reference's shardings must)
+MESH_TT = {"embed_dim": 64, "hidden_dim": 128, "out_dim": 32,
+           "batch_size": 1024, "learning_rate": 1e-3, "steps": 100,
+           "seed": 0}
+MESH_TT_DATA = dict(n_users=100_000, n_items=20_000, pairs=1_000_000)
+MESH_CKPT_EVERY = 40                # (f): saves at 0, 40, 80 ...
+MESH_CKPT_STOP = 60                 # ... a run stopped after step 59
+# sequence_moe's expert widths, a capacity that drops no token
+MESH_MOE = dict(n_experts=4, d_model=64, d_ff=128, capacity_factor=32.0)
+MESH_MOE_TOKENS = 128 * 63
+MESH_MOE_ATOL = 1e-5                # tests/test_moe.py:94
+MESH_LOSS_ATOL = 1e-3               # tests/test_sequence.py:84
+# the params after the run against one card's from the same init. The
+# sums run in other orders, and the embeddings' rare rows have gradients
+# near Adam's eps (1e-8), where a rounding moves a step's update by up to
+# the learning rate; the sequence mesh's gradients are also n_data *
+# n_seq times one card's (the reference's factor), which eps sees there
+MESH_PARAM_ATOL = 1e-2
+# (e): the two-tower's gradients of its first MESH_TT_GRAD_STEPS steps
+# (the second at params one Adam step on, dense_1's bias no longer 0),
+# summed over the data axis and gathered over the model axis, against
+# one card's, relative to each param's largest (f32 sums in other orders)
+MESH_TT_GRAD_STEPS = 2
+MESH_TT_GRAD_RTOL = 1e-4
+# its params after the run: the dense layers within MESH_TT_DENSE_ATOL;
+# the embedding tables within MESH_TT_PARAM_ATOL, their rows' distance
+# printed by how many of the run's steps saw them (a zipf tail's rows,
+# seen in a few steps, drift most)
+MESH_TT_DENSE_ATOL = 2e-3
+MESH_TT_PARAM_ATOL = 5e-2
+MESH_NORM_ATOL = 1e-3               # item embeddings' norms
+MESH_CUSTOM_EVENTS = (30, 8)        # (g): users x views, the reference's
+MESH_TIMEOUT_S = 600
+MESH_DEVICE = "cuda"                # the device every rank asks for
+
+
+def mesh_seq_data(seed: int = SEED):
+    """MESH_SEQ_DATA's sequences: 2 to 64 uniform items a user, PAD-left."""
+    from pio_tpu_torch.models import sequence as seq
+
+    rng = np.random.default_rng(seed + 11)
+    n, n_items = MESH_SEQ_DATA["n_seqs"], MESH_SEQ_DATA["n_items"]
+    lens = rng.integers(2, MESH_SEQ["max_len"] + 1, n)
+    seqs = np.zeros((n, MESH_SEQ["max_len"]), np.int32)
+    for r, k in enumerate(lens):
+        seqs[r, -k:] = rng.integers(1, n_items + 1, k)
+    return seq.SequenceData(seqs, _ids("u", n), _ids("i", n_items))
+
+
+def mesh_tt_data(seed: int = SEED):
+    """MESH_TT_DATA's (user, item) pairs, zipf-1.2 ids on both sides."""
+    from pio_tpu_torch.data.eventstore import Interactions
+
+    rng = np.random.default_rng(seed + 13)
+    nu, ni, k = (MESH_TT_DATA[x] for x in ("n_users", "n_items", "pairs"))
+    return Interactions(
+        (rng.zipf(1.2, k) % nu).astype(np.int32),
+        (rng.zipf(1.2, k) % ni).astype(np.int32),
+        np.ones(k, np.float32), _ids("u", nu), _ids("i", ni))
+
+
+def tt_first_grads(inter, dev: torch.device, mesh=None) -> dict:
+    """The two-tower's gradients of its first MESH_TT_GRAD_STEPS steps on
+    ``mesh`` (one card when None), each summed over the data axis and
+    gathered over the model axis: {"<step>/<param>": gradient}, from a
+    run of those steps with the trainer's ``sum_grads`` wrapped."""
+    from pio_tpu_torch.models import twotower as tt
+    from pio_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    p = tt.TwoTowerParams(**{**MESH_TT, "steps": MESH_TT_GRAD_STEPS})
+    plain, steps = tt.sum_grads, []
+
+    def keep(params, on, axis):
+        plain(params, on, axis)
+        steps.append([q.grad.detach().clone() for q in params])
+
+    tt.sum_grads = keep
+    try:
+        tt.train_two_tower(inter, p, device=dev, mesh=mesh)
+    finally:
+        tt.sum_grads = plain
+    names = [n for n, _ in tt.make_towers(1, 1, p).named_parameters()]
+    grads = {}
+    for step, seen in enumerate(steps):
+        for name, g in zip(names, seen):
+            dim = tt.ShardedTower.SPLIT[name.partition(".")[2]]
+            if mesh is not None and dim is not None:
+                g = mesh.all_gather(g.transpose(0, dim).contiguous(),
+                                    MODEL_AXIS).transpose(0, dim)
+            grads[f"{step}/{name}"] = g
+    return grads
+
+
+def tt_rows_seen(inter) -> dict:
+    """For each embedding table, the number of MESH_TT's steps whose
+    batch holds each row (the trainer's batch stream)."""
+    n, batch = len(inter), MESH_TT["batch_size"]
+    seen = {"user.embedding": np.zeros(inter.n_users, np.int64),
+            "item.embedding": np.zeros(inter.n_items, np.int64)}
+    for s in range(MESH_TT["steps"]):
+        idx = np.random.default_rng((MESH_TT["seed"], s)).integers(
+            0, n, size=batch)
+        seen["user.embedding"][np.unique(inter.user_idx[idx])] += 1
+        seen["item.embedding"][np.unique(inter.item_idx[idx])] += 1
+    return seen
+
+
+def _mesh_device() -> torch.device:
+    from pio_tpu_torch.parallel.distributed import rank_device
+
+    return rank_device(torch.distributed.get_rank(), MESH_DEVICE)
+
+
+def _sync() -> None:
+    torch.cuda.synchronize()
+
+
+def _timed_collectives(spent: dict) -> None:
+    """Every collective the trainers call, timed between two
+    synchronizations into ``spent`` (seconds and calls)."""
+    from pio_tpu_torch.parallel import collectives
+    from pio_tpu_torch.parallel.mesh import Mesh
+
+    def timed(plain):
+        def call(*a, **kw):
+            _sync()
+            t0 = time.perf_counter()
+            got = plain(*a, **kw)
+            _sync()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return got
+        return call
+
+    Mesh.psum, Mesh.all_gather = timed(Mesh.psum), timed(Mesh.all_gather)
+    collectives._ppermute = timed(collectives._ppermute)
+    collectives._all_to_all_blocks = timed(collectives._all_to_all_blocks)
+
+
+def _state_sha(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(out: Path, group: str) -> int:
+    """One rank of ``train_mesh``, a child process of this script with its
+    PIO_TPU_* variables set: it joins the group on its card and runs its
+    group's runs (``phase_train_mesh``'s docstring), each timed after a
+    warm run, with its seconds inside the collectives and its kernel
+    launches (counts from 0 just before the run, read just after). Rank
+    0 writes the params of each run to ``out/<run>.pt`` for the parent
+    to hold against one card; every rank its results to
+    ``out/<group>-rank<r>.json``."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    from pio_tpu_torch.models import sequence as seq
+    from pio_tpu_torch.models import twotower as tt
+    from pio_tpu_torch.ops import moe
+    from pio_tpu_torch.parallel import distributed
+    from pio_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from pio_tpu_torch.workflow import step_checkpoint
+
+    cuda_settings()
+    distributed.initialize_distributed(device=MESH_DEVICE)
+    dev = _mesh_device()
+    rank = torch.distributed.get_rank()
+    spent = {"s": 0.0, "calls": 0}
+    _timed_collectives(spent)
+    res = {"rank": rank, "device": str(dev),
+           "backend": distributed.backend()}
+
+    def run(name: str, fn, steps: int):
+        """``fn()`` -> (params, loss), timed, its collectives and launches
+        counted; rank 0 keeps the params."""
+        _sync()
+        distributed.barrier(name)
+        spent.update(s=0.0, calls=0)
+        # -- the main path: counts from 0, read right after --------------
+        reset_counts()
+        t0 = time.perf_counter()
+        params, loss = fn()
+        _sync()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        # -----------------------------------------------------------------
+        if not np.isfinite(loss) or not all(
+                bool(torch.isfinite(v).all()) for v in params.values()):
+            raise AssertionError(f"{name}: loss {loss} or params not finite")
+        res[name] = {"loss": float(loss), "s": seconds,
+                     "step_ms": 1e3 * seconds / steps,
+                     "collective_s": spent["s"],
+                     "collective_calls": spent["calls"],
+                     "collective_share": spent["s"] / seconds,
+                     "launches": counts, "sha256": _state_sha(params)}
+        if rank == 0:
+            torch.save({k: v.detach().cpu() for k, v in params.items()},
+                       out / f"{name}.pt")
+        return params
+
+    def seq_run(mesh_shape, steps=MESH_SEQ["steps"], ckpt=None, **over):
+        mesh = create_mesh(MeshConfig(*mesh_shape), device=MESH_DEVICE)
+        p = seq.SequenceParams(**{**MESH_SEQ, "steps": steps, **over})
+        params, _, loss = seq.train_sequence_model(
+            data, p, device=dev, mesh=mesh, checkpoint=ckpt)
+        return params, loss
+
+    data = mesh_seq_data()
+    if group == "two":
+        # a warm run: cuBLAS, K8, the group's first collectives
+        seq_run((2, 1, 1), steps=3, attention="flash")
+        # (a) data 2 x seq 1, flash (K8 on each rank's rows), checkpointed
+        # every MESH_CKPT_EVERY steps: the uninterrupted run of (f)
+        writes = []
+        plain_write = step_checkpoint.durable_write
+        step_checkpoint.durable_write = lambda path, blob: (
+            writes.append(path), plain_write(path, blob))[-1]
+
+        def ckpt(d):
+            return step_checkpoint.StepCheckpointer(
+                step_checkpoint.StepCheckpointConfig(
+                    str(out / d), save_every=MESH_CKPT_EVERY))
+
+        run("flash", lambda: seq_run((2, 1, 1), ckpt=ckpt("whole"),
+                                     attention="flash"), MESH_SEQ["steps"])
+        # (f): stopped after MESH_CKPT_STOP steps, then resumed
+        run("flash_cut", lambda: seq_run((2, 1, 1), steps=MESH_CKPT_STOP,
+                                         ckpt=ckpt("cut"),
+                                         attention="flash"), MESH_CKPT_STOP)
+        run("flash_resumed", lambda: seq_run((2, 1, 1), ckpt=ckpt("cut"),
+                                             attention="flash"),
+            MESH_SEQ["steps"] - MESH_CKPT_STOP)
+        step_checkpoint.durable_write = plain_write
+        res["ckpt_writes"] = len(writes)
+        res["ckpt_files"] = {d: sorted(os.listdir(out / d))
+                             for d in ("whole", "cut")}
+        # (c) data 1 x seq 2, ulysses
+        seq_run((1, 2, 1), steps=3, attention="ulysses")
+        run("ulysses", lambda: seq_run((1, 2, 1), attention="ulysses"),
+            MESH_SEQ["steps"])
+        # (d) moe_ffn_ep over the data axis
+        mesh = create_mesh(MeshConfig(data=2), device=MESH_DEVICE)
+        cfg = moe.MoEConfig(**MESH_MOE)
+        x, params = _moe_inputs(dev)
+        moe.moe_ffn_ep(params, x, cfg, mesh)      # warm
+        run("moe_ep", lambda: (lambda y, aux: (
+            {"y": y, "aux": aux[None]}, float(aux)))(
+            *moe.moe_ffn_ep(params, x, cfg, mesh)), 1)
+        # (g) sequence-custom through run_train on data 1 x seq 2
+        res["custom"] = _mesh_custom_train(out)
+    else:
+        # (b) data 2 x seq 2, ring (auto)
+        seq_run((2, 2, 1), steps=3)
+        run("ring", lambda: seq_run((2, 2, 1)), MESH_SEQ["steps"])
+        # (e) the two-tower on data 2 x model 2
+        inter = mesh_tt_data()
+        mesh = create_mesh(MeshConfig(2, 1, 2), device=MESH_DEVICE)
+
+        def tt_run(steps):
+            params, emb, _, losses = tt.train_two_tower(
+                inter, tt.TwoTowerParams(**{**MESH_TT, "steps": steps}),
+                device=dev, mesh=mesh)
+            return {**params, "item_emb": emb}, float(losses[-1])
+
+        tt_run(3)
+        run("twotower", lambda: tt_run(MESH_TT["steps"]), MESH_TT["steps"])
+        grads = tt_first_grads(inter, dev, mesh)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in grads.items()},
+                       out / "twotower_grads.pt")
+    (out / f"{group}-rank{rank}.json").write_text(json.dumps(res))
+    distributed.barrier("done")
+    return 0
+
+
+def _moe_inputs(dev: torch.device):
+    from pio_tpu_torch.ops import moe
+
+    g = torch.Generator().manual_seed(SEED + 17)
+    params = moe.init_moe_params(moe.MoEConfig(**MESH_MOE), g, dev)
+    x = torch.randn(MESH_MOE_TOKENS, MESH_MOE["d_model"], generator=g)
+    return x.to(dev), params
+
+
+def mesh_custom_dir() -> Path:
+    return REPO_ROOT / "examples" / "sequence-custom" / "port"
+
+
+def _mesh_custom_train(out: Path) -> dict:
+    """(g) in a rank: ``run_train`` of the sequence-custom example on a
+    data 1 x seq 2 context over the store the parent seeded."""
+    from pio_tpu_torch.data.storage import Storage
+    from pio_tpu_torch.parallel.mesh import MeshConfig
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.train import run_train
+
+    storage = Storage()
+    try:
+        ctx = create_workflow_context(
+            storage, device=MESH_DEVICE, mesh_config=MeshConfig(1, 2, 1))
+        with example_module():
+            engine, ep = _engine_from_dir(mesh_custom_dir())
+            _sync()
+            t0 = time.perf_counter()
+            reset_counts()
+            iid = run_train(engine, ep, storage, engine_id="sequence-custom",
+                            ctx=ctx)
+            _sync()
+            return {"instance": iid, "s": time.perf_counter() - t0,
+                    "launches": read_counts(),
+                    "mesh": [ctx.mesh.shape[a] for a in
+                             ("data", "seq", "model")]}
+    finally:
+        storage.close()
+
+
+def mesh_group(out: Path, group: str, world: int, env: dict) -> tuple:
+    """``world`` ranks of ``mesh_rank`` as processes, started at once on
+    one coordinator port: (each rank's result, the group's wall seconds).
+    A rank that fails, or a group that outlives MESH_TIMEOUT_S, fails the
+    phase; every process is stopped."""
+    port = free_port()
+    logs = [out / f"{group}-rank{r}.log" for r in range(world)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     MESH_RANK, str(out), group], cwd=REPO_ROOT,
+                    stdout=log, stderr=subprocess.STDOUT,
+                    env={**os.environ, **env,
+                         "PIO_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                         "PIO_TPU_NUM_PROCESSES": str(world),
+                         "PIO_TPU_PROCESS_ID": str(r)}))
+        for r, proc in enumerate(procs):
+            left = MESH_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                rc = proc.wait(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"{group}: rank {r} still running after "
+                    f"{MESH_TIMEOUT_S} s: {logs[r].read_text()[-3000:]}")
+            if rc != 0:
+                raise AssertionError(f"{group}: rank {r} exited {rc}: "
+                                     f"{logs[r].read_text()[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [json.loads((out / f"{group}-rank{r}.json").read_text())
+            for r in range(world)], time.perf_counter() - t0
+
+
+def _max_diff(got: dict, want: dict) -> float:
+    return max(float((got[k].to(want[k].device) - want[k]).abs().max())
+               for k in want)
+
+
+def _mesh_summary(ranks: list, name: str, steps: int) -> dict:
+    runs = [r[name] for r in ranks]
+    return {"loss": [x["loss"] for x in runs],
+            "ranks_bit_equal": len({x["sha256"] for x in runs}) == 1,
+            "s": [x["s"] for x in runs],
+            "step_ms": [x["step_ms"] for x in runs],
+            "collective_s": [x["collective_s"] for x in runs],
+            "collective_calls": [x["collective_calls"] for x in runs],
+            "collective_share": [x["collective_share"] for x in runs],
+            "launches": [x["launches"] for x in runs], "steps": steps}
+
+
+def _one_card_seq(data, dev: torch.device, **over) -> tuple:
+    from pio_tpu_torch.models import sequence as seq
+
+    p = seq.SequenceParams(**{**MESH_SEQ, **over})
+    seq.train_sequence_model(data, replace(p, steps=3), device=dev)  # warm
+    _sync()
+    t0 = time.perf_counter()
+    params, _, loss = seq.train_sequence_model(data, p, device=dev)
+    _sync()
+    return params, loss, 1e3 * (time.perf_counter() - t0) / p.steps
+
+
+def _against_one_card(out: Path, name: str, summary: dict, one: tuple,
+                      dev: torch.device, loss_atol: float,
+                      param_atol: float) -> list:
+    want, loss, step_ms = one
+    got = torch.load(out / f"{name}.pt", weights_only=True)
+    got = {k: v.to(dev) for k, v in got.items()}
+    diff = _max_diff(got, {k: want[k] for k in got if k in want})
+    summary.update(one_card_loss=loss, one_card_step_ms=step_ms,
+                   loss_diff=abs(summary["loss"][0] - loss),
+                   max_param_diff=diff,
+                   tolerance={"loss_atol": loss_atol,
+                              "param_atol": param_atol})
+    problems = []
+    if summary["loss_diff"] > loss_atol or diff > param_atol:
+        problems.append(f"{name}: loss {summary['loss'][0]} vs one card "
+                        f"{loss}, params {diff} apart")
+    if not summary["ranks_bit_equal"]:
+        problems.append(f"{name}: the ranks' params differ")
+    return problems
+
+
+def _mesh_custom_serve(store, dev: torch.device, trained: dict) -> dict:
+    """(g) in the parent: the instance the ranks trained, served as
+    ``deploy`` serves it; u0's body leaves out its last 4 items and
+    ``noRepeatWindow: 0`` lifts that. Each query scores its history
+    through K8 at D 16 (zero-padded to 32), once a layer; its launches
+    are counted from 0 just before the queries."""
+    from pio_tpu_torch.workflow.context import create_workflow_context
+    from pio_tpu_torch.workflow.serve import ServingConfig, create_query_server
+
+    d = mesh_custom_dir()
+    with example_module():
+        engine, ep = _engine_from_dir(d)
+        http, qs = create_query_server(
+            engine, ep, store.storage,
+            ServingConfig(ip="127.0.0.1", port=0,
+                          engine_id="sequence-custom"),
+            ctx=create_workflow_context(store.storage, device=dev))
+        http.start()
+        try:
+            if qs.instance.id != trained["instance"]:
+                raise AssertionError(f"sequence-custom: served "
+                                     f"{qs.instance.id}, trained "
+                                     f"{trained['instance']}")
+            bodies = []
+            hedged = qs.hedged_dispatches
+            # -- the deploy's path: counts from 0, read right after ------
+            reset_counts()
+            for q in ({"user": "u0", "num": 8},
+                      {"user": "u0", "num": 8, "noRepeatWindow": 0}):
+                status, body, _ = _post(http.port, "/queries.json", q)
+                if status != 200:
+                    raise AssertionError(f"sequence-custom {q}: {status}")
+                bodies.append(_items(body))
+            launches = read_counts()
+            # -----------------------------------------------------------
+            hedged = qs.hedged_dispatches - hedged
+            layers = ep.algorithms[0][1].num_layers
+        finally:
+            http.stop()
+            qs.close()
+    recent = {f"i{t}" for t in range(4, 8)}   # u0's last 4 views
+    if recent & set(bodies[0]) or not recent & set(bodies[1]):
+        raise AssertionError(f"sequence-custom: window 4 {bodies[0]}, "
+                             f"window 0 {bodies[1]}")
+    check_serving_launches(launches, "flash_attention", layers * 2, hedged,
+                           layers)
+    return {"window_4": bodies[0], "window_0": bodies[1],
+            "excluded": sorted(recent), "deploy_launches": launches,
+            "deploy_hedged_dispatches": hedged,
+            "deploy_flash_attention_expected": layers * 2}
+
+
+def phase_train_mesh(dev: torch.device) -> dict:
+    """The mesh's seq and model axes at examples/sequence's and
+    examples/twotower's widths, ranks as child processes of this script
+    sharing the card over gloo, each run held against one card's from the
+    same seeded init: (a) the sequence template on data 2 x seq 1 with
+    attention "flash", K8 on each rank's rows (2 launches a step a rank,
+    no other kernel), the ranks' params equal to the bit; (b) data 2 x
+    seq 2 with ring attention (four ranks); (c) data 1 x seq 2 with
+    ulysses; (d) ``moe_ffn_ep`` on 2 ranks against ``moe_ffn`` on one card
+    (MESH_MOE_ATOL); (e) the two-tower on data 2 x model 2, its item
+    embeddings' norms; (f) (a) checkpointed every MESH_CKPT_EVERY steps,
+    stopped after MESH_CKPT_STOP and resumed, equal to the uninterrupted
+    run to the bit, rank 0 the only writer; (g) the sequence-custom
+    example trained through ``run_train`` on data 1 x seq 2 and queried.
+    Each rank reports its step time and its share of it inside the
+    collectives."""
+    from pio_tpu_torch.models import twotower as tt
+    from pio_tpu_torch.ops import moe
+
+    result: dict = {"seq_params": MESH_SEQ, "seq_data": MESH_SEQ_DATA,
+                    "tt_params": MESH_TT, "tt_data": MESH_TT_DATA}
+    problems = []
+    with sqlite_store("pio_chip_mesh_") as store, \
+            tempfile.TemporaryDirectory(prefix="pio_chip_mesh_") as tmp:
+        out = Path(tmp)
+        # (g)'s events: the reference test's deterministic cycles
+        from datetime import timedelta
+
+        from pio_tpu_torch.data.event import Event
+
+        app_id, _ = new_app(store.storage, "MyApp")
+        n_users, views = MESH_CUSTOM_EVENTS
+        store.storage.get_events().insert_batch([
+            Event(event="view", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item",
+                  target_entity_id=f"i{(u % 3 + t) % 10}",
+                  event_time=store.t_events + timedelta(seconds=u * 60 + t))
+            for u in range(n_users) for t in range(views)], app_id)
+        env = {**store.env, "PIO_TPU_RUN_ID": "chip-smoke-mesh-custom",
+               "PIO_TPU_CKPT_ROOT": str(out / "ckpt_root")}
+        two, wall2 = mesh_group(out, "two", 2, env)
+        four, wall4 = mesh_group(out, "four", 4, env)
+        result["wall_s"] = {"two": wall2, "four": wall4}
+        result["backend"] = sorted({r["backend"] for r in two + four})
+
+        data = mesh_seq_data()
+        steps = MESH_SEQ["steps"]
+        # (a)
+        a = _mesh_summary(two, "flash", steps)
+        problems += _against_one_card(
+            out, "flash", a, _one_card_seq(data, dev, attention="flash"),
+            dev, MESH_LOSS_ATOL, MESH_PARAM_ATOL)
+        want_k8 = {"flash_attention": 2 * steps}
+        for r, c in enumerate(a["launches"]):
+            problems += _only(c, want_k8, f"flash rank {r}")
+        a["flash_attention_launches_expected"] = want_k8["flash_attention"]
+        result["flash"] = a
+        # (f)
+        r0 = two[0]
+        whole = [r["flash"]["sha256"] for r in two]
+        resumed = [r["flash_resumed"]["sha256"] for r in two]
+        f = {"every": MESH_CKPT_EVERY, "stopped_after": MESH_CKPT_STOP,
+             "resumed_bit_equal": whole == resumed,
+             "writes": [r["ckpt_writes"] for r in two],
+             "files": r0["ckpt_files"],
+             "resumed_s": [r["flash_resumed"]["s"] for r in two]}
+        if not f["resumed_bit_equal"] or f["writes"][1:] != [0] or \
+                f["writes"][0] == 0:
+            problems.append(f"checkpoints: {f}")
+        result["checkpoint"] = f
+        # (b), (c) against one card's "auto" (the plain attention)
+        one_auto = _one_card_seq(data, dev)
+        for name, ranks in (("ring", four), ("ulysses", two)):
+            s = _mesh_summary(ranks, name, steps)
+            problems += _against_one_card(out, name, s, one_auto, dev,
+                                          MESH_LOSS_ATOL, MESH_PARAM_ATOL)
+            for r, c in enumerate(s["launches"]):
+                problems += _only(c, {}, f"{name} rank {r}")
+            result[name] = s
+        # (d)
+        x, params = _moe_inputs(dev)
+        y1, aux1 = moe.moe_ffn(params, x, moe.MoEConfig(**MESH_MOE))
+        got = torch.load(out / "moe_ep.pt", weights_only=True)
+        d_err = float((got["y"].to(dev) - y1).abs().max())
+        result["moe_ep"] = {**_mesh_summary(two, "moe_ep", 1),
+                            "tokens": MESH_MOE_TOKENS, **MESH_MOE,
+                            "max_abs_err": d_err,
+                            "aux": float(got["aux"][0]),
+                            "aux_one_card": float(aux1),
+                            "atol": MESH_MOE_ATOL}
+        if d_err > MESH_MOE_ATOL:
+            problems.append(f"moe_ffn_ep: {d_err} from moe_ffn")
+        # (e)
+        inter = mesh_tt_data()
+        p = tt.TwoTowerParams(**MESH_TT)
+        tt.train_two_tower(inter, replace(p, steps=3), device=dev)
+        _sync()
+        t0 = time.perf_counter()
+        want, emb, _, losses = tt.train_two_tower(inter, p, device=dev)
+        _sync()
+        e = _mesh_summary(four, "twotower", MESH_TT["steps"])
+        problems += _against_one_card(
+            out, "twotower", e, ({**want, "item_emb": emb},
+                                 float(losses[-1]),
+                                 1e3 * (time.perf_counter() - t0) /
+                                 p.steps), dev, MESH_LOSS_ATOL,
+            MESH_TT_PARAM_ATOL)
+        got = torch.load(out / "twotower.pt", weights_only=True)
+        # the first steps' gradients; the dense layers; the tables' rows
+        # by the number of steps that saw them
+        want_g = tt_first_grads(inter, dev)
+        got_g = torch.load(out / "twotower_grads.pt", weights_only=True)
+        e["grads_rel_err"] = {
+            k: float((got_g[k].to(dev) - w).abs().max() / w.abs().max())
+            for k, w in want_g.items()}
+        if max(e["grads_rel_err"].values()) > MESH_TT_GRAD_RTOL:
+            problems.append(f"twotower: the first steps' gradients "
+                            f"{e['grads_rel_err']}")
+        seen = tt_rows_seen(inter)
+        e["param_diff"] = {}
+        for k in want:
+            d = (got[k].to(dev) - want[k]).abs()
+            if k not in seen:
+                e["param_diff"][k] = float(d.max())
+                if e["param_diff"][k] > MESH_TT_DENSE_ATOL:
+                    problems.append(f"twotower: {k} {e['param_diff'][k]} "
+                                    "from one card")
+                continue
+            row = d.amax(dim=1).cpu().numpy()
+            e["param_diff"][k] = {
+                f"seen_{lo}_to_{hi}": {
+                    "rows": int(((seen[k] >= lo) & (seen[k] <= hi)).sum()),
+                    "max": float(row[(seen[k] >= lo) & (seen[k] <= hi)]
+                                 .max(initial=0.0))}
+                for lo, hi in ((0, 0), (1, 4), (5, 49),
+                               (50, MESH_TT["steps"]))}
+        e["tolerance"].update(grad_rtol=MESH_TT_GRAD_RTOL,
+                              grad_steps=MESH_TT_GRAD_STEPS,
+                              dense_atol=MESH_TT_DENSE_ATOL)
+        norms = got["item_emb"].norm(dim=1)
+        e["item_norm_range"] = [float(norms.min()), float(norms.max())]
+        if float((norms - 1).abs().max()) > MESH_NORM_ATOL:
+            problems.append(f"twotower: item norms {e['item_norm_range']}")
+        for r, c in enumerate(e["launches"]):
+            problems += _only(c, {}, f"twotower rank {r}")
+        result["twotower"] = e
+        # (g)
+        trained = r0["custom"]
+        if trained["mesh"] != [1, 2, 1] or any(
+                r["custom"]["instance"] != trained["instance"] for r in two):
+            problems.append(f"sequence-custom: {[r['custom'] for r in two]}")
+        result["sequence_custom"] = {
+            "train_s": [r["custom"]["s"] for r in two],
+            "mesh": trained["mesh"],
+            **_mesh_custom_serve(store, dev, trained)}
+    emit("train_mesh", **result)
+    raise_on(problems)
+    return result
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int,
                   case: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -10159,8 +10813,8 @@ SEQUENCE_LANE = "--sequence-lane"
 
 def sequence_lane(out: Path) -> int:
     """The two template phases, the sequence template's end-to-end phases
-    (sequence_entry, train_resume, evaluate_sequence, sequence_moe) and
-    examples in a process of their own, which ``main`` starts beside the
+    (sequence_entry, train_resume, evaluate_sequence, sequence_moe),
+    examples and train_mesh in a process of their own, which ``main`` starts beside the
     ALS event phases and quickstart: their seconds and K2's and K8's
     launches on their paths are written to ``out`` as JSON."""
     if not torch.cuda.is_available():
@@ -10190,6 +10844,7 @@ def sequence_lane(out: Path) -> int:
                          store, dev)
     moe = timed("sequence_moe", phase_sequence_moe, dev)
     examples = timed("examples", phase_examples, dev)
+    mesh = timed("train_mesh", phase_train_mesh, dev)
     out.write_text(json.dumps({"wall": wall, "templates": templates,
                                "segment_flush": {
         "examples": examples["segment_flush"]},
@@ -10199,7 +10854,11 @@ def sequence_lane(out: Path) -> int:
                          for name, run in resume["runs"].items()},
         "train_resume_deploy": resume["serve_launches"]["flash_attention"],
         "evaluate_sequence": seq_eval["launches"]["flash_attention"],
-        "sequence_moe": moe["flash_attention"]}}))
+        "sequence_moe": moe["flash_attention"],
+        "train_mesh": [c["flash_attention"]
+                       for c in mesh["flash"]["launches"]],
+        "train_mesh_custom_deploy": mesh["sequence_custom"][
+            "deploy_launches"]["flash_attention"]}}))
     return 0
 
 
@@ -10467,7 +11126,22 @@ def main() -> int:
             launches_sequence_moe={
                 "train": seq_train["runs"]["moe"]["launches"][
                     "flash_attention"],
-                "deploy": k8["sequence_moe"]}),
+                "deploy": k8["sequence_moe"]},
+            # train_mesh (a): data 2 x seq 1 with "flash", each rank's
+            # rows, 2 a step a rank
+            launches_train_mesh=k8["train_mesh"],
+            shape_train_mesh={"B": MESH_SEQ["batch_size"] // 2,
+                              "S": MESH_SEQ["max_len"] - 1,
+                              "H": MESH_SEQ["num_heads"],
+                              "D": MESH_SEQ["embed_dim"]
+                              // MESH_SEQ["num_heads"],
+                              "dtype": "float32", "causal": True},
+            # train_mesh (g): the sequence-custom deploy, D 16 zero-padded
+            # to 32, one a layer a query
+            launches_train_mesh_custom_deploy=k8["train_mesh_custom_deploy"],
+            shape_train_mesh_custom_deploy={"B": 1, "S": 15, "H": 2, "D": 16,
+                                            "dtype": "float32",
+                                            "causal": True}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
@@ -10490,7 +11164,26 @@ def train_sharded_alone() -> int:
     return 0
 
 
+def train_mesh_alone() -> int:
+    """``python3 chip_smoke.py --train-mesh``: the card, the build and the
+    train_mesh phase alone."""
+    device = phase_device()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    wall: dict = {}
+    timed = functools.partial(run_timed, wall, time.perf_counter())
+    timed("build", phase_build)
+    timed("train_mesh", phase_train_mesh, dev)
+    emit("wall", seconds=wall)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == MESH_RANK:
+        sys.exit(mesh_rank(Path(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:] == ["--train-mesh"]:
+        sys.exit(train_mesh_alone())
     if len(sys.argv) == 3 and sys.argv[1] == SEQUENCE_LANE:
         sys.exit(sequence_lane(Path(sys.argv[2])))
     if len(sys.argv) == 4 and sys.argv[1] == SHARDED_RANK:

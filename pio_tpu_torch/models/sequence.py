@@ -29,9 +29,25 @@ query's answer can depend on the other queries of its batch, in both
 packages.
 
 ``read_eval`` gives the reference's rolling next-item folds, which
-``eval --sweep`` scores through its sequential path. Not ported yet,
-raising: the mesh path (data x sequence parallelism with
-``ring``/``ulysses`` attention).
+``eval --sweep`` scores through its sequential path.
+
+Over a mesh (``parallel.mesh``; the template passes its context's mesh
+when it holds more than one rank) training is the reference's dp x sp
+step: each step's batch, rounded down to a multiple of the data axis, is
+drawn alike on every rank, and each rank takes its rows (data axis) and
+its slice of the sequence (seq axis, the sequence right-padded to a
+multiple of it within POS_HEADROOM, positions offset by the slice's
+start). Under seq > 1 attention is ``ring`` (``auto``) or ``ulysses``
+(``ops/attention.py``); at seq 1 any local mode runs on each rank's rows,
+``flash`` through K8. The loss sums its numerator and count over (data,
+seq) and averages the MoE aux over both; the gradients are summed over
+both axes, so every rank takes the same Adam step. They come out
+n_data * n_seq times the single-device gradient, as the reference's do
+under ``shard_map(check_vma=False)`` (its ``psum`` inside the loss is
+transposed to another ``psum``); Adam's update all but ignores a constant
+factor. With experts, a MoE FFN's capacity counts each rank's own
+tokens. One device is a mesh of one rank (``local_mesh``), where every
+collective is the identity and the step is the one-device step.
 """
 
 from __future__ import annotations
@@ -61,9 +77,13 @@ from pio_tpu_torch.ops.attention import (
     chunked_attention,
     flash_attention,
     flash_attention_trainable,
+    ring_attention,
+    ulysses_attention,
 )
 from pio_tpu_torch.ops.bucketing import pow2_bucket
 from pio_tpu_torch.ops.moe import MoEConfig, init_moe_, moe_ffn
+from pio_tpu_torch.parallel.collectives import sum_grads
+from pio_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, local_mesh
 from pio_tpu_torch.workflow.context import resolve_device
 from pio_tpu_torch.workflow.spans import after_span, step_chaos_active
 from pio_tpu_torch.workflow.step_checkpoint import (
@@ -94,8 +114,9 @@ class SequenceParams(Params):
     # "auto" | "reference" | "chunked" | "flash" | "ring" | "ulysses" —
     # "flash" trains with K8's forward and chunked attention's backward;
     # on one device "auto" is chunked at max_len >= chunked_threshold and
-    # the plain attention below it. "ring"/"ulysses" need a mesh with a
-    # sequence axis, which the port does not have yet: they raise.
+    # the plain attention below it, and ring when the mesh shards the
+    # sequence. "ring"/"ulysses" need a mesh with a seq axis > 1;
+    # ulysses needs num_heads divisible by it.
     attention: str = "auto"
     chunked_threshold: int = 1024
     moe_experts: int = 0
@@ -294,8 +315,9 @@ def make_encoder(n_items: int, p: SequenceParams) -> SeqEncoder:
     )
 
 
-def local_attention(p: SequenceParams):
-    """The training attention ``p.attention`` names on one device."""
+def training_attention(p: SequenceParams, mesh):
+    """The training attention ``p.attention`` names over ``mesh`` (one
+    rank's for one device), validated as the reference validates it."""
     if p.attention not in ("auto", "reference", "chunked", "flash",
                            "ring", "ulysses"):
         raise ValueError(
@@ -303,10 +325,31 @@ def local_attention(p: SequenceParams):
             "'auto' | 'reference' | 'chunked' | 'flash' | 'ring' | "
             "'ulysses'"
         )
-    if p.attention in ("ring", "ulysses"):
+    # once the sequence is sharded, attention MUST be sequence-parallel
+    # (ring or ulysses): a local-only attention would silently drop
+    # cross-shard interactions
+    use_sp = mesh.shape[SEQ_AXIS] > 1
+    if use_sp and p.attention in ("reference", "chunked", "flash"):
+        raise ValueError(
+            f"attention={p.attention!r} is a local-only path and cannot "
+            "run with the sequence sharded over the mesh seq axis; use "
+            "'auto'/'ring'/'ulysses' or a seq=1 mesh"
+        )
+    if not use_sp and p.attention in ("ring", "ulysses"):
         raise ValueError(
             f"attention={p.attention!r} requires a mesh with a seq axis > 1"
         )
+    if use_sp and p.attention == "ulysses":
+        n_seq = mesh.shape[SEQ_AXIS]
+        if p.num_heads % n_seq:
+            raise ValueError(
+                f"attention='ulysses' needs num_heads ({p.num_heads}) "
+                f"divisible by the seq axis ({n_seq})"
+            )
+        return partial(ulysses_attention, mesh=mesh, axis=SEQ_AXIS,
+                       causal=True)
+    if use_sp:
+        return partial(ring_attention, mesh=mesh, axis=SEQ_AXIS, causal=True)
     if p.attention == "flash":
         return partial(flash_attention_trainable, causal=True)
     use_chunked = p.attention == "chunked" or (
@@ -316,30 +359,48 @@ def local_attention(p: SequenceParams):
                    causal=True)
 
 
-def _loss(encoder, attn, inp, tgt, p: SequenceParams):
-    """Mean next-item cross-entropy over the non-PAD targets, plus, with
-    experts, ``moe_aux_weight`` times the MoE blocks' mean load-balance
-    loss (the reference's ``_apply_with_aux``)."""
+def _loss(encoder, attn, inp, tgt, p: SequenceParams, mesh,
+          pos_offset: int):
+    """(the loss, the objective to differentiate) of one rank's block
+    over ``mesh``: the next-item cross-entropy over the non-PAD targets,
+    summed over (data, seq) and divided by the count summed alike, plus,
+    with experts, ``moe_aux_weight`` times the MoE blocks' mean
+    load-balance loss (the reference's ``_apply_with_aux``) averaged
+    over both axes. The objective gives n = n_data * n_seq times the
+    loss's gradient on every rank once the gradients are summed over
+    both axes, the reference's factor (see the module docstring); on a
+    mesh of one rank both are the one-device loss, to the bit."""
+    axes = (DATA_AXIS, SEQ_AXIS)
+    n = mesh.axis_size(axes)
     aux = [] if p.moe_experts > 0 else None
-    _, logits = encoder(inp, attn, aux=aux)
+    _, logits = encoder(inp, attn, pos_offset=pos_offset, aux=aux)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          tgt.reshape(-1), reduction="none")
     mask = (tgt.reshape(-1) != PAD).to(ce.dtype)
-    loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
-    if aux:
-        loss = loss + p.moe_aux_weight * sum(aux) / max(1, len(aux))
-    return loss
+    local = (ce * mask).sum()
+    a = (p.moe_aux_weight * sum(aux) / len(aux) if aux
+         else local.new_zeros(()))
+    # one all-reduce for the numerator, the count and the aux
+    total, count, a_sum = mesh.psum(
+        torch.stack([local.detach(), mask.sum(), a.detach()]), axes)
+    count = count.clamp_min(1.0)
+    return total / count + a_sum / n, n * local / count + a
 
 
 def train_sequence_model(data: SequenceData, p: SequenceParams, *,
                          device, init: dict | None = None,
                          checkpoint: StepCheckpointer | None = None,
-                         lifecycle=None):
-    """Single-device train loop: Adam on the masked next-item loss, one
-    batch per step drawn as the reference draws it
-    (``default_rng((seed, step))``), so both packages see the same batch
-    stream. ``init`` (a state dict, e.g. ``convert.sequence_params_from_
-    numpy`` of the reference's initial params) replaces the seeded draw.
+                         lifecycle=None, mesh=None):
+    """Train loop: Adam on the masked next-item loss, one batch per step
+    drawn as the reference draws it (``default_rng((seed, step))``), so
+    both packages see the same batch stream. ``init`` (a state dict,
+    e.g. ``convert.sequence_params_from_numpy`` of the reference's
+    initial params) replaces the seeded draw.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; None is this process alone,
+    ``local_mesh``) runs the reference's dp x sp step on this rank's
+    block (see the module docstring); every rank calls it alike and ends
+    with the same params.
 
     ``checkpoint`` (a StepCheckpointer, or None) saves every save_every
     steps and resumes from the latest saved step, so a resumed run takes
@@ -351,8 +412,9 @@ def train_sequence_model(data: SequenceData, p: SequenceParams, *,
     Returns (params state dict on ``device``, encoder, the last step's
     loss before its update; when no step is left to run, the loss at the
     restored params on the last step's batch)."""
-    attn = local_attention(p)
     dev = resolve_device(device)
+    mesh = mesh if mesh is not None else local_mesh(dev)
+    attn = training_attention(p, mesh)
     encoder = make_encoder(len(data.items), p)
     if init is None:
         init_encoder_(encoder, p.seed)
@@ -366,24 +428,47 @@ def train_sequence_model(data: SequenceData, p: SequenceParams, *,
     inp_all = np.ascontiguousarray(seqs[:, :-1], np.int64)
     tgt_all = np.ascontiguousarray(seqs[:, 1:], np.int64)
     n = inp_all.shape[0]
+    n_data, n_seq = mesh.shape[DATA_AXIS], mesh.shape[SEQ_AXIS]
+    d_idx, s_idx = mesh.axis_index(DATA_AXIS), mesh.axis_index(SEQ_AXIS)
+    # the sequence must split evenly over the seq axis
+    s_global = inp_all.shape[1]
+    if s_global % n_seq:
+        pad = n_seq - s_global % n_seq
+        if s_global + pad > p.max_len + POS_HEADROOM:
+            raise ValueError(
+                f"seq-axis padding ({pad}) overflows the position table "
+                f"({p.max_len} + {POS_HEADROOM} headroom); raise max_len "
+                f"or use a smaller seq mesh axis (n_seq={n_seq})"
+            )
+        inp_all = np.pad(inp_all, ((0, 0), (0, pad)))
+        tgt_all = np.pad(tgt_all, ((0, 0), (0, pad)))
+    # the sampled batch must split evenly over the data mesh axis
     size = min(p.batch_size, max(8, n))
+    size = max(n_data, size - size % n_data)
+    rows = size // n_data
+    s_local = inp_all.shape[1] // n_seq
+    pos_offset = s_idx * s_local
 
     def batch(step: int):
         idx = np.random.default_rng((p.seed, step)).integers(0, n,
                                                              size=size)
-        return (torch.from_numpy(inp_all[idx]).to(dev),
-                torch.from_numpy(tgt_all[idx]).to(dev))
+        idx = idx[d_idx * rows:(d_idx + 1) * rows]
+        cols = slice(pos_offset, pos_offset + s_local)
+        return (torch.from_numpy(inp_all[idx, cols]).to(dev),
+                torch.from_numpy(tgt_all[idx, cols]).to(dev))
 
     start = resume_or_init(checkpoint, encoder, optimizer)
     every = (max(1, checkpoint.config.save_every) if checkpoint is not None
              else None)
+    params = list(encoder.parameters())
     step_chaos = step_chaos_active()
     loss = None
     for step in range(start, p.steps):
-        inp, tgt = batch(step)
-        step_loss = _loss(encoder, attn, inp, tgt, p)
+        step_loss, objective = _loss(encoder, attn, *batch(step), p, mesh,
+                                     pos_offset)
         optimizer.zero_grad(set_to_none=True)
-        step_loss.backward()
+        objective.backward()
+        sum_grads(params, mesh, (DATA_AXIS, SEQ_AXIS))
         optimizer.step()
         loss = step_loss.detach()
         after_span(step + 1, p.steps, encoder, optimizer,
@@ -395,7 +480,8 @@ def train_sequence_model(data: SequenceData, p: SequenceParams, *,
         # checkpointed): the loss at the current params on the batch of
         # the last step taken, as the reference reports it
         with torch.no_grad():
-            loss = _loss(encoder, attn, *batch(max(start - 1, 0)), p)
+            loss, _ = _loss(encoder, attn, *batch(max(start - 1, 0)), p,
+                            mesh, pos_offset)
     params = {k: v.detach() for k, v in encoder.state_dict().items()}
     return params, encoder, float(loss)
 
@@ -508,6 +594,9 @@ class SequenceAlgorithm(PAlgorithm):
                 items=data.items,
             )
         device = ctx.device if ctx is not None else resolve_device(None)
+        # the context's mesh: every rank trains its block of each step
+        # (a mesh of one rank is the one-device step)
+        mesh = getattr(ctx, "mesh", None)
         lifecycle = getattr(ctx, "lifecycle", None)
         # explicit params win; otherwise run_train's per-instance dir
         ckpt_dir = self.params.checkpoint_dir or (
@@ -519,7 +608,7 @@ class SequenceAlgorithm(PAlgorithm):
         try:
             params, _, loss = train_sequence_model(
                 data, self.params, device=device, checkpoint=ckpt,
-                lifecycle=lifecycle)
+                lifecycle=lifecycle, mesh=mesh)
         finally:
             if ckpt is not None:
                 ckpt.close()

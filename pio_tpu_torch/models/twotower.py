@@ -1,4 +1,4 @@
-"""Two-tower neural retrieval template on one device.
+"""Two-tower neural retrieval template.
 
 Counterpart of ``pio_tpu.models.twotower`` (the reference's flagship
 model): the same params, data source (with ``read_eval``'s k folds),
@@ -17,8 +17,23 @@ end every item's embedding is materialised for serving.
 Serving is one user-tower forward at the batch's dispatch rows
 (``ops.bucketing.dispatch_rows``) and ``ops/similarity.cosine_topk``, so
 a query answers the same bits alone or in a batch; the blackList is
-handled by over-fetch and a host filter. Not ported yet: the reference's
-data x model (dp x tp) mesh path (the port's context holds one device).
+handled by over-fetch and a host filter.
+
+Over a mesh (``parallel.mesh``; the template passes its context's mesh
+when it holds more than one rank) training is the reference's dp x tp
+layout, written out where the reference lets GSPMD place it
+(``ShardedTowers``): each step's batch, rounded down to a multiple of the
+data axis, is split over it, and the in-batch softmax runs over the
+whole batch (each rank gathers the other ranks' embeddings); over the
+model axis the embedding tables are split by rows (a masked lookup and
+an all-reduce), ``Dense_0`` by its output columns and ``Dense_1`` by its
+input rows, its bias added once after the all-reduce. Adam's moments live with their
+shards. The gradients are summed over the data axis, so the update is
+the one-device update on the whole batch. Checkpoints hold the gathered
+state, as a one-device run's; the item embeddings for serving come from
+the gathered params. One device is a mesh of one rank (``local_mesh``):
+the lookup is ``Tower``'s, every collective the identity, and the loss
+the mean over the batch.
 """
 
 from __future__ import annotations
@@ -44,6 +59,13 @@ from pio_tpu_torch.controller.engine import Engine, EngineFactory
 from pio_tpu_torch.data.eventstore import Interactions
 from pio_tpu_torch.ops.bucketing import dispatch_rows
 from pio_tpu_torch.ops.similarity import cosine_topk
+from pio_tpu_torch.parallel.collectives import (
+    copy_to_axis,
+    gather_from_axis,
+    reduce_from_axis,
+    sum_grads,
+)
+from pio_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, local_mesh
 from pio_tpu_torch.workflow.context import resolve_device
 from pio_tpu_torch.workflow.spans import after_span, step_chaos_active
 from pio_tpu_torch.workflow.step_checkpoint import (
@@ -125,31 +147,158 @@ def init_towers_(towers: TwoTowers, seed: int) -> TwoTowers:
     return towers
 
 
-def in_batch_loss(towers: TwoTowers, u_ids, i_ids, temperature: float):
-    """The symmetric in-batch softmax (user->item and item->user) over
-    the (B, B) logits / temperature."""
-    u = towers.user(u_ids)                                    # (B, d)
-    v = towers.item(i_ids)                                    # (B, d)
-    logits = (u @ v.T) / temperature                          # (B, B)
-    labels = torch.arange(u_ids.shape[0], device=logits.device)
-    return (F.cross_entropy(logits, labels)
-            + F.cross_entropy(logits.T, labels)) / 2
+class ShardedTower(nn.Module):
+    """This rank's shard of a ``Tower`` over the model axis of ``mesh``:
+    block m (m the rank's model index) of the embedding's rows, of
+    ``dense_0``'s output columns and of ``dense_1``'s input rows;
+    ``dense_1``'s bias whole, on ``full``'s device. Its params carry a
+    ``Tower``'s names; on a model axis of one it is a ``Tower``. The axis
+    must divide the vocabulary and the hidden width, as the reference's
+    shardings must."""
+
+    def __init__(self, full: Tower, mesh):
+        super().__init__()
+        self.mesh = mesh
+        self.n_model = mesh.shape[MODEL_AXIS]
+        vocab, hidden = full.embedding.shape[0], full.dense_0.weight.shape[0]
+        for what, size in (("vocabulary", vocab), ("hidden_dim", hidden)):
+            if size % self.n_model:
+                raise ValueError(
+                    f"the {what} ({size}) must divide over the model axis "
+                    f"({self.n_model})")
+        self.rows = vocab // self.n_model
+        dev = full.embedding.device
+        self.embedding = nn.Parameter(torch.empty(
+            self.rows, full.embedding.shape[1], device=dev))
+        self.dense_0 = nn.Linear(full.dense_0.weight.shape[1],
+                                 hidden // self.n_model, device=dev)
+        self.dense_1 = nn.Linear(hidden // self.n_model,
+                                 full.dense_1.weight.shape[0], device=dev)
+        self.load_state_dict({k: self.shard(k, v)
+                              for k, v in full.state_dict().items()})
+
+    #: the dim each param is split along over the model axis
+    SPLIT = {"embedding": 0, "dense_0.weight": 0, "dense_0.bias": 0,
+             "dense_1.weight": 1, "dense_1.bias": None}
+
+    def shard(self, name: str, t) -> torch.Tensor:
+        """The whole of param ``name`` (or of a moment of it) -> this
+        rank's shard."""
+        dim, t = self.SPLIT[name], torch.as_tensor(t)
+        if dim is not None:
+            t = t.chunk(self.n_model, dim=dim)[self.mesh.axis_index(
+                MODEL_AXIS)]
+        return t.contiguous()
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard ``t`` of param ``name`` (or of a moment of
+        it) -> the whole, gathered over the model axis (a collective)."""
+        dim = self.SPLIT[name]
+        if dim is None or self.n_model == 1:
+            return t
+        return self.mesh.all_gather(t.transpose(0, dim).contiguous(),
+                                    MODEL_AXIS).transpose(0, dim).contiguous()
+
+    def forward(self, ids):  # (B,) int64
+        if self.n_model == 1:
+            return Tower.forward(self, ids)
+        # the vocab-parallel lookup (the rows of other shards count zeros
+        # here) and its sum, then the column-parallel input
+        local = ids - self.mesh.axis_index(MODEL_AXIS) * self.rows
+        inside = (local >= 0) & (local < self.rows)
+        e = F.embedding(local.clamp(0, self.rows - 1), self.embedding)
+        e = e * inside[:, None].to(e.dtype)
+        e = copy_to_axis(reduce_from_axis(e, self.mesh, MODEL_AXIS),
+                         self.mesh, MODEL_AXIS)
+        h = F.relu(self.dense_0(e))
+        z = reduce_from_axis(F.linear(h, self.dense_1.weight), self.mesh,
+                             MODEL_AXIS) + self.dense_1.bias
+        return z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-8)
+
+
+class ShardedTowers(nn.Module):
+    """Both towers' shards over ``mesh`` (``ShardedTower``), their params
+    named and ordered as ``TwoTowers``'s, so a checkpoint of the gathered
+    state is a one-device run's."""
+
+    def __init__(self, full: TwoTowers, mesh):
+        super().__init__()
+        self.user = ShardedTower(full.user, mesh)
+        self.item = ShardedTower(full.item, mesh)
+
+    def _each(self, how: str, name: str, t):
+        """``ShardedTower.shard`` or ``gather`` of ``name`` ("user.x")."""
+        side, _, leaf = name.partition(".")
+        return getattr(getattr(self, side), how)(leaf, t)
+
+    def _moments(self, how: str, opt_state: dict) -> dict:
+        """An Adam state dict with each moment sharded or gathered as
+        its param (the step counts as they are)."""
+        names = [n for n, _ in self.named_parameters()]
+        return {"param_groups": opt_state["param_groups"], "state": {
+            i: {k: self._each(how, names[int(i)], v)
+                if torch.is_tensor(v) and v.dim() > 0 else v
+                for k, v in st.items()}
+            for i, st in opt_state["state"].items()}}
+
+    def gathered(self) -> dict:
+        """The whole state dict, gathered (a collective every rank
+        calls)."""
+        return {k: self._each("gather", k, t.detach())
+                for k, t in self.state_dict().items()}
+
+    def gathered_state(self, optimizer) -> tuple[dict, dict]:
+        """(model, optimizer) state dicts of the whole, for a step
+        checkpoint: Adam's moments gathered as their params."""
+        return self.gathered(), self._moments("gather",
+                                              optimizer.state_dict())
+
+    def load_gathered_state(self, model_state: dict, opt_state: dict,
+                            optimizer) -> None:
+        """Take this rank's shards of a whole state (``gathered_state``'s,
+        or a one-device run's)."""
+        self.load_state_dict({k: self._each("shard", k, v)
+                              for k, v in model_state.items()})
+        optimizer.load_state_dict(self._moments("shard", opt_state))
+
+
+def in_batch_loss(towers: ShardedTowers, u_ids, i_ids,
+                  temperature: float, mesh, batch: int):
+    """(the loss, this rank's part of it to differentiate): the symmetric
+    in-batch softmax (user->item and item->user) over the whole batch's
+    (B, B) logits / temperature, each rank's embeddings gathered over the
+    data axis, of which this rank takes its rows of the logits and of
+    their transpose. On a data axis of one both are the one-device
+    loss."""
+    n = mesh.shape[DATA_AXIS]
+    u = gather_from_axis(towers.user(u_ids), mesh, DATA_AXIS)  # (B, d)
+    v = gather_from_axis(towers.item(i_ids), mesh, DATA_AXIS)
+    logits = (u @ v.T) / temperature                           # (B, B)
+    lo = mesh.axis_index(DATA_AXIS) * (batch // n)
+    mine = slice(lo, lo + batch // n)
+    labels = torch.arange(lo, lo + batch // n, device=logits.device)
+    part = (F.cross_entropy(logits[mine], labels)
+            + F.cross_entropy(logits[:, mine].T, labels)) / (2 * n)
+    return mesh.psum(part.detach(), DATA_AXIS), part
 
 
 def train_two_tower(inter: Interactions, p: TwoTowerParams, *, device,
                     init: dict | None = None,
                     checkpoint: StepCheckpointer | None = None,
-                    lifecycle=None):
-    """Single-device train loop on ``device``. ``init`` (a state dict,
-    e.g. ``convert.twotower_params_from_numpy`` of the reference's
+                    lifecycle=None, mesh=None):
+    """Train loop on ``device``. ``init`` (a state dict, e.g.
+    ``convert.twotower_params_from_numpy`` of the reference's
     ``init_params``) replaces the seeded draw. ``checkpoint`` saves every
     save_every steps and resumes from the latest saved step, on the same
     batch stream; ``lifecycle`` gets a heartbeat after every step, and a
     preemption request force-saves, then raises TrainingPreempted.
+    ``mesh`` (a ``parallel.mesh.Mesh``; None is this process alone,
+    ``local_mesh``) trains this rank's shard of the reference's dp x tp
+    layout (see the module docstring); every rank calls it alike.
 
-    Returns (params state dict on ``device``, the (n_items, out_dim) item
-    embeddings, the towers, the losses of the steps this call ran as a
-    host array)."""
+    Returns (the gathered params state dict on ``device``, the
+    (n_items, out_dim) item embeddings, the towers, the losses of the
+    steps this call ran as a host array)."""
     dev = resolve_device(device)
     towers = make_towers(inter.n_users, inter.n_items, p)
     if init is None:
@@ -157,12 +306,17 @@ def train_two_tower(inter: Interactions, p: TwoTowerParams, *, device,
     else:
         towers.load_state_dict({k: torch.as_tensor(v)
                                 for k, v in init.items()})
-    towers.to(dev)
-    optimizer = torch.optim.Adam(towers.parameters(), lr=p.learning_rate)
-    start = resume_or_init(checkpoint, towers, optimizer)
-
+    mesh = mesh if mesh is not None else local_mesh(dev)
     n = len(inter)
     batch = min(p.batch_size, max(8, n))
+    n_data = mesh.shape[DATA_AXIS]
+    batch = max(n_data, batch - batch % n_data)  # divisible by dp
+    rows, d_idx = batch // n_data, mesh.axis_index(DATA_AXIS)
+    model = ShardedTowers(towers.to(dev), mesh)
+    params = list(model.parameters())
+    optimizer = torch.optim.Adam(params, lr=p.learning_rate)
+    start = resume_or_init(checkpoint, model, optimizer)
+
     every = (max(1, checkpoint.config.save_every) if checkpoint is not None
              else None)
     step_chaos = step_chaos_active()
@@ -175,18 +329,22 @@ def train_two_tower(inter: Interactions, p: TwoTowerParams, *, device,
             idx = np.stack([
                 np.random.default_rng((p.seed, s)).integers(0, n, size=batch)
                 for s in range(lo, min(lo + BATCH_CHUNK, p.steps))])
+            idx = idx[:, d_idx * rows:(d_idx + 1) * rows]
             uu = torch.from_numpy(inter.user_idx[idx].astype(np.int64)).to(dev)
             ii = torch.from_numpy(inter.item_idx[idx].astype(np.int64)).to(dev)
-        loss = in_batch_loss(towers, uu[step - lo], ii[step - lo],
-                             p.temperature)
+        loss, part = in_batch_loss(model, uu[step - lo], ii[step - lo],
+                                   p.temperature, mesh, batch)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        part.backward()
+        sum_grads(params, mesh, DATA_AXIS)
         optimizer.step()
         losses.append(loss.detach())
-        after_span(step + 1, p.steps, towers, optimizer,
+        after_span(step + 1, p.steps, model, optimizer,
                    checkpoint=checkpoint, lifecycle=lifecycle,
                    save_after=every is not None and step % every == 0,
                    step_chaos=step_chaos)
+    # the whole params on every rank; the item embeddings from them
+    towers.load_state_dict(model.gathered())
     with torch.no_grad():
         item_emb = towers.item(torch.arange(inter.n_items, device=dev))
     params = {k: v.detach() for k, v in towers.state_dict().items()}
@@ -261,6 +419,9 @@ class TwoTowerAlgorithm(PAlgorithm):
     def train(self, ctx, inter: Interactions) -> TwoTowerModel:
         inter.sanity_check()
         device = ctx.device if ctx is not None else resolve_device(None)
+        # the context's mesh: every rank trains its shard of each step
+        # (a mesh of one rank is the one-device step)
+        mesh = getattr(ctx, "mesh", None)
         lifecycle = getattr(ctx, "lifecycle", None)
         # explicit params win; otherwise run_train's per-instance dir
         # (lifecycle.checkpoint_dir) makes every supervised run resumable
@@ -273,7 +434,7 @@ class TwoTowerAlgorithm(PAlgorithm):
         try:
             params, item_emb, _, losses = train_two_tower(
                 inter, self.params, device=device, checkpoint=ckpt,
-                lifecycle=lifecycle)
+                lifecycle=lifecycle, mesh=mesh)
         finally:
             if ckpt is not None:
                 ckpt.close()

@@ -23,7 +23,11 @@ products. The kernels read q, k and v through their strides: the
 transformer block hands them views of one qkv tensor, which are not
 copied. Only a view whose last dim is not contiguous, or whose strides or
 start are not a multiple of 16 bytes (as TMA reads them), is copied
-first.
+first. The kernels are instantiated at D 32, 64 and 128 (``HEAD_DIMS``);
+a narrower head (the sequence-custom example's D 16) runs at the next
+of them, q, k and v zero-padded along D and the output cut back: the
+padded columns add exact zeros to every product, and the scale stays
+1/sqrt of the real D.
 """
 
 from __future__ import annotations
@@ -152,6 +156,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    d = q.shape[-1]
+    if d < HEAD_DIMS[-1] and d not in HEAD_DIMS:
+        width = next(w for w in HEAD_DIMS if w > d)
+        pad = [torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+               for t in (q, k, v)]
+        scale = scale if scale is not None else 1.0 / math.sqrt(d)
+        return flash_attention(*pad, causal=causal, scale=scale)[..., :d]
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]

@@ -26,6 +26,14 @@ two forms give the same values and, by autograd, the same gradients, bar
 NaN/Inf propagation through the zero terms. The one-hot tensor is T*E*C
 floats: 8.5 GB a tensor at 32,512 tokens and 4 experts at cf 2.0, where
 the index form moves only the (E, C, D) slots.
+
+``moe_ffn_ep`` is the reference's expert-parallel form over an axis of a
+``parallel.mesh.Mesh``: tokens and the experts' params are split over the
+axis's ranks, the router is replicated, and two tiled all_to_alls
+(``parallel/collectives.py``) move the capacity slots to their experts'
+ranks and back. Each rank budgets ceil(cf * t_local / E) slots an expert
+from its own tokens, so it equals ``moe_ffn`` when no expert overflows.
+No trainer calls it, in either package.
 """
 
 from __future__ import annotations
@@ -37,8 +45,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pio_tpu_torch.parallel.collectives import (
+    all_to_all,
+    gather_from_axis,
+    reduce_from_axis,
+)
+
 __all__ = ["MoEConfig", "init_moe_", "init_moe_params", "moe_ffn",
-           "moe_ffn_onehot", "route"]
+           "moe_ffn_ep", "moe_ffn_onehot", "route"]
 
 
 @dataclass(frozen=True)
@@ -151,3 +165,47 @@ def moe_ffn_onehot(params: dict, x: torch.Tensor, cfg: MoEConfig):
     slots = torch.einsum("tec,td->ecd", dispatch, x)
     outs = _expert_ffn(params, slots)
     return torch.einsum("tec,ecd->td", combine, outs), aux
+
+
+EXPERT_PARAMS = ("w_in", "b_in", "w_out", "b_out")
+
+
+def moe_ffn_ep(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh,
+               axis: str = "data"):
+    """The reference's caller-facing ``moe_ffn_ep``: ``x`` (T, D) every
+    token and ``params`` the whole MoE FFN, alike on every rank of the
+    line along ``axis``; each rank takes its T/n tokens and E/n experts
+    and moves the capacity slots to their experts' ranks and back. ->
+    (y (T, D) gathered over the axis, the aux averaged over it). Raises
+    when the ranks do not divide the experts or the tokens."""
+    n = mesh.axis_size(axis)
+    if cfg.n_experts % n != 0:
+        raise ValueError(
+            f"n_experts ({cfg.n_experts}) must divide over {n} devices"
+        )
+    t = x.shape[0]
+    if t % n != 0:
+        raise ValueError(f"token count ({t}) must divide over {n} devices")
+    i, e, d = mesh.axis_index(axis), cfg.n_experts, x.shape[1]
+    e_loc, t_loc = e // n, t // n
+    p = {k: params[k][i * e_loc:(i + 1) * e_loc] for k in EXPERT_PARAMS}
+    x = x[i * t_loc:(i + 1) * t_loc]
+    # the body of the reference's shard_map: this rank's tokens routed
+    # against every expert, its slots budgeted from its own tokens
+    cap = _capacity(t_loc, e, cfg.capacity_factor)
+    expert, pos, gate, keep, aux = route(x, params["router"], e, cap)
+    slot = torch.where(keep, expert * cap + pos, e * cap)
+    slots = x.new_zeros(e * cap + 1, d).index_copy(0, slot, x)[:-1]
+    # slot block j holds experts j*e_loc..: it goes to rank j, which gets
+    # (n, e_loc, cap, D) back, by source rank
+    shuffled = all_to_all(slots.reshape(n, e_loc, cap, d), mesh, axis,
+                          split_axis=0, concat_axis=0)
+    shuffled = shuffled.transpose(0, 1).reshape(e_loc, n * cap, d)
+    outs = _expert_ffn(p, shuffled)                        # (e_loc, n*cap, D)
+    back = outs.reshape(e_loc, n, cap, d).transpose(0, 1).contiguous()
+    returned = all_to_all(back, mesh, axis, split_axis=0,
+                          concat_axis=0).reshape(e * cap, d)
+    out_pad = torch.cat([returned, returned.new_zeros(1, d)])
+    y = gate[:, None] * out_pad.index_select(0, slot)
+    return (gather_from_axis(y, mesh, axis),
+            reduce_from_axis(aux, mesh, axis) / n)

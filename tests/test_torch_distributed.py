@@ -92,10 +92,30 @@ def test_mesh_config_resolves_as_the_reference(cfg, n):
 
 
 def test_mesh_axes_beyond_data_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        mesh.create_mesh(mesh.MeshConfig(seq=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        mesh.create_mesh(mesh.MeshConfig(model=2), device="cpu")
+    """The seq and model axes resolve now (their groups are exercised
+    across ranks in tests/test_torch_mesh_collectives.py): over 8 ranks
+    each shape's rank layout is the reference's device layout,
+    reshape(data, seq, model), and a mesh that needs more ranks than the
+    one process is the reference's ValueError."""
+    import jax
+
+    for cfg in ({"data": 2, "seq": 2, "model": 2}, {"seq": 2},
+                {"data": 1, "seq": 2, "model": 4}, {"model": 4}):
+        shape = dict(zip(mesh.AXES, mesh.MeshConfig(**cfg).resolve(8)))
+        assert shape == dict(zip(mesh.AXES,
+                                 ref_mesh.MeshConfig(**cfg).resolve(8)))
+        grid = np.asarray(ref_mesh.create_mesh(
+            ref_mesh.MeshConfig(**cfg), jax.devices()[:8]).devices)
+        for r in range(8):
+            coords = mesh.rank_coords(r, shape)
+            assert grid[coords].id == r, (cfg, r, coords)
+            m = mesh.Mesh(shape, r, None)
+            assert [m.axis_index(a) for a in mesh.AXES] == list(coords)
+        assert m.axis_size(("data", "seq")) == shape["data"] * shape["seq"]
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        mesh.create_mesh(mesh.MeshConfig(data=1, seq=2), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        mesh.create_mesh(mesh.MeshConfig(data=1, model=2), device="cpu")
 
 
 @pytest.mark.parametrize("n,multiple", [(5, 4), (8, 4), (0, 3)])

@@ -530,3 +530,87 @@ def test_quickstart_eval_through_the_verb(store, ref_store, tmp_path,
     grid = sys.modules[mod].GRID
     assert (algo["params"]["rank"], algo["params"]["lambda_"]) == \
         grid[got["bestIndex"]][:2]
+
+
+def test_sequence_custom_on_a_data_by_seq_context(store, ref_store,
+                                                  tmp_path, monkeypatch):
+    """examples/sequence-custom/port: engine.json picks ulysses attention,
+    trained by ``run_train`` on a data 1 x seq 2 context (two gloo ranks,
+    ``tests/_torch_mesh_worker.py example``, process 0 persisting the
+    instance), then served in process: u0's body leaves out the last 4
+    items of its history (the user Serving's window), ``noRepeatWindow: 0``
+    lifts that (tests/test_examples.py:355-397), and every answer is the
+    reference example's, trained on a mesh of the same shape from the
+    port's seeded init."""
+    from _torch_dist import TESTS, run_ranks
+    from pio_tpu.models import sequence as ref_seq
+    from pio_tpu.parallel.mesh import MeshConfig as RefMeshConfig
+    from pio_tpu_torch.models import sequence as port_seq
+    from test_torch_mesh_sequence import _ref_init, _to_ref_tree
+
+    app_id = _app(store, "MyApp")
+    # deterministic cycles: u's history is i_(u%3), i_(u%3+1), ...
+    store.get_events().insert_batch([
+        Event("view", "user", f"u{u}", "item", f"i{(u % 3 + t) % 10}",
+              DataMap({}))
+        for u in range(30) for t in range(8)], app_id)
+    d = _port_dir("sequence-custom")
+    job = tmp_path / "job"
+    job.mkdir()
+    np.savez(job / "in.npz")
+    (job / "in.json").write_text(json.dumps({
+        "mesh": [1, 2, 1], "engine_dir": d,
+        "engine_id": "sequence-custom"}))
+    outs = run_ranks(
+        lambda r: [os.path.join(TESTS, "_torch_mesh_worker.py"), "example",
+                   str(job)], 2,
+        env_of=lambda r: sqlite_env(tmp_path / "pio.db")
+        | {"PIO_TPU_RUN_ID": "seq-custom-run",
+           "PIO_TPU_CKPT_ROOT": str(tmp_path / "ckpt")})
+    for rc, _, err in outs:
+        assert rc == 0, err[-3000:]
+    for r in range(2):
+        got = np.load(job / f"rank{r}.npz")
+        assert str(got["instance"]) == "seq-custom-run"
+        assert got["mesh"].tolist() == [1, 2, 1]
+    assert [(i.id, i.status) for i in
+            store.get_metadata_engine_instances().get_all()] == [
+        ("seq-custom-run", "COMPLETED")]
+
+    # the reference example on a data 1 x seq 2 mesh, from the port's init
+    with open(os.path.join(EXAMPLES, "sequence-custom", "engine.json")) as f:
+        variant = json.load(f)
+    with _reference_module():
+        engine, ep = ref_engine_from_variant(
+            variant, os.path.join(EXAMPLES, "sequence-custom"))
+        p = ep.algorithms[0][1]
+        assert p.attention == "ulysses"
+        data = engine._doers(ep)[0].read_training(ref_context(
+            ref_store, use_mesh=False))
+        enc = port_seq.init_encoder_(port_seq.make_encoder(
+            len(data.items), port_seq.SequenceParams(**{
+                f: getattr(p, f) for f in p.__dataclass_fields__})), p.seed)
+        init = _to_ref_tree(enc.state_dict(),
+                            _ref_init(len(data.items), p))
+        monkeypatch.setattr(ref_seq.SeqEncoder, "init",
+                            lambda self, *a, **kw: {"params": init})
+        ctx = ref_context(ref_store, mesh_config=RefMeshConfig(
+            data=1, seq=2), use_mesh=True)
+        assert ctx.mesh.devices.shape == (1, 2, 1)
+        models = engine.train(ctx, ep)
+        (_, _, algorithms, serving) = engine._doers(ep)
+
+    queries = [{"user": "u0", "num": 8},
+               {"user": "u0", "num": 8, "noRepeatWindow": 0},
+               {"user": "u1", "num": 5}, {"user": "u2", "num": 5}]
+    with deployed(d, store, "sequence-custom") as (port, qs):
+        bodies = served_as_in_process(port, qs, queries)
+    for q, body in zip(queries, bodies):
+        want = serving.serve(q, [a.predict(m, q)
+                                 for a, m in zip(algorithms, models)])
+        _same_answer(body, want, q)
+    # u0's last 4 items (t = 4..7 of the cycle (0 + t) % 10)
+    recent = {f"i{t}" for t in range(4, 8)}
+    assert not recent & set(_items(bodies[0])), bodies[0]
+    assert len(bodies[1]["itemScores"]) >= len(bodies[0]["itemScores"])
+    assert recent & set(_items(bodies[1])), bodies[1]

@@ -150,8 +150,9 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
-    # the card's smoke run stands alone too
+    # the card's smoke run and the trainers' timer stand alone too
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "port_train_ab.py")
     # and so does the user code written for the port
     examples = os.path.join(REPO, "examples")
     for name in sorted(os.listdir(examples)):

@@ -836,6 +836,22 @@ def test_flash_kernel_matches_plain_version_on_card(d, dtype, causal, b, sq,
     _k8_assert_close(got, q, k, v, causal)
 
 
+@pytest.mark.parametrize("d", [8, 16, 48, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_pads_narrower_heads_on_card(d, dtype, causal):
+    """A head width between the kernel's runs zero-padded at the next one
+    (one launch), the scale 1/sqrt of the real width."""
+    dev = _cuda()
+    q, k, v = _k8_args(2, 15, 15, 2, d, seed=d, dtype=dtype, device=dev)
+    before = k8.launches.value
+    got = k8.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert k8.launches.value == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _k8_assert_close(got, q, k, v, causal)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_reads_strided_qkv_views_on_card(dtype):
     """q, k, v as the transformer block hands them over: views of one
